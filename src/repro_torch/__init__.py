@@ -1,0 +1,7 @@
+"""repro_torch: the PyTorch and CUDA port of the serving system.
+
+A second package beside the JAX reference (``src/repro``), with the same
+layout: ``configs``, ``core``, ``kernels`` (hand-written Hopper kernels
+built from ``csrc/``), ``models``, ``serving`` and ``launch``.  It imports
+torch and nothing of the reference.
+"""
