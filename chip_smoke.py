@@ -8,20 +8,29 @@ Phases (any failure raises and the script exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs at the main path's shapes (bf16, f32, GQA n_rep > 1; for
    attention, lengths with partial last blocks and null-block table
-   entries, the null block filled with NaN so a read of it would show), and
-   time kernel, plain version, a PyTorch library call and the bound.
+   entries, the null block filled with NaN so a read of it would show, and
+   an int8 pool whose null-block scales are NaN; ``int8_matmul`` must be
+   bit-identical), and time kernel, plain version, a PyTorch library call
+   and the bound.
 3. Full-width qwen1.5-0.5b (random weights from a fixed generator): one
    mixed step and one decode step on the paged pool through the kernels,
-   through their plain versions and through the XLA-style gather path.  At
-   float32 compute the kernels' logits must agree with the plain versions'
-   within 2e-2 * max|logits|; at bf16 compute the distances are printed
-   (there two valid orders of the sums already differ by bf16 rounding
-   grown over 24 layers).
+   through their plain versions and through the XLA-style gather path,
+   with float weights over a bf16 pool and fully quantized (int8 weights,
+   int8 pool).  At float32 compute the kernels' logits must agree with the
+   plain versions' within 2e-2 * max|logits|, or within twice the distance
+   that perturbing the plain attention outputs by 2^-19 (the kernels' own
+   float32 error) makes, where that is larger: the fully quantized model
+   carries last-bit changes across int8 rounding boundaries.  At bf16
+   compute the distances are printed (there two valid orders of the sums
+   already differ by bf16 rounding grown over 24 layers).  The PyTorch
+   operators each step dispatches on the kernel path are counted.
 4. Serve 8 greedy requests (prompts of 24-400 tokens, 16 new tokens each)
    through the full-width paged, chunked ``ServingEngine`` with every
-   kernel selected; every request must finish and every kernel's launch
-   count must rise during the run.  A plain-path engine serves the same
-   requests and the share of identical tokens is reported.
+   kernel selected, once with float weights and once fully quantized;
+   every request must finish and every kernel of each path must be
+   launched in that path's run (the counts are zeroed just before it).  A
+   plain-path engine serves the float requests and the share of identical
+   tokens is reported.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -38,6 +47,8 @@ import time
 from pathlib import Path
 from unittest import mock
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -47,10 +58,13 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
                                    RuntimeSpec, SchedulerSpec)
+from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tm_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import (  # noqa: E402
     chunked_prefill_attention, chunked_prefill_attention_plain)
+from repro_torch.kernels.int8_matmul import (  # noqa: E402
+    int8_matmul, int8_matmul_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
@@ -61,8 +75,13 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
-              torch.float32: 67e12}    # float32 outside the tensor cores
+              torch.float32: 67e12,    # float32 outside the tensor cores
+              torch.int8: 1979e12}     # dense int8 tensor-core rate
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
+# relative size of the attention kernels' float32 summation-order error
+# (phase 2 measures 1e-6 - 3e-6 on outputs of order 1): the perturbation
+# whose effect on the logits is the floor of the phase 3 gate
+ATTN_PERTURB = 2.0 ** -19
 ENGINE = dict(max_batch=8, max_len=512, block_size=16, chunk=16)
 PROMPT_LENS = (24, 57, 96, 150, 203, 260, 333, 400)
 MAX_NEW = 16
@@ -71,7 +90,15 @@ KERNELS = {
     "tiled_matmul": tiled_matmul,
     "paged_decode_attention": paged_decode_attention,
     "chunked_prefill_attention": chunked_prefill_attention,
+    "int8_matmul": int8_matmul,
 }
+# the kernels each serving path must launch; a kernel's JSON ``launches``
+# is its count on the first path listed with it (the attention kernels
+# run on both)
+PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
+                          "chunked_prefill_attention"),
+                "int8": ("int8_matmul", "paged_decode_attention",
+                         "chunked_prefill_attention")}
 SOURCES = {
     "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:56"),
@@ -80,6 +107,8 @@ SOURCES = {
     "chunked_prefill_attention": (
         "src/repro_torch/csrc/chunked_prefill.cu",
         "src/repro/kernels/chunked_prefill.py:173"),
+    "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
+                    "src/repro/kernels/int8_matmul.py:55"),
 }
 
 
@@ -176,15 +205,75 @@ def check_matmul(timer, dev, g) -> dict:
     return entry
 
 
+def check_int8_matmul(timer, dev, g) -> dict:
+    """int8_matmul against its plain version (exact: the same integer sum
+    and epilogue), gated on max_abs_err == 0.  The library yardstick is
+    ``torch._int_mm`` (the integer product alone, without the scales),
+    which refuses M <= 16; that is printed, nothing is padded."""
+    print("\n== int8_matmul vs plain (int8 x int8 -> int32, x sx * sw[n])")
+    print(f"{'M':>5} {'K':>5} {'N':>5} {'out':>9} {'err':>6} {'kernel_ms':>10} "
+          f"{'plain_ms':>9} {'int_mm_ms':>10} {'bound_ms':>9}")
+    shapes = [(m, k, n, dt) for m in (8, 128)
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))
+              for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(77, 300, 199, torch.bfloat16), (5, 1000, 67, torch.float32)]
+    entry = None
+    for m, k, n, dt in shapes:
+        qx = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        qw = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+        sw = torch.rand((1, n), generator=g, device=dev) * 0.05 + 1e-3
+        run = lambda: int8_matmul(qx, sx, qw, sw, out_dtype=dt)  # noqa: E731
+        plain = lambda: int8_matmul_plain(qx, sx, qw, sw, dt)  # noqa: E731
+        err = max_err(run(), plain())
+        if err != 0:
+            raise AssertionError(f"int8_matmul {m}x{k}x{n} {dt}: err {err} "
+                                 "!= 0")
+        ms, pms = timer(run), timer(plain)
+        try:
+            torch._int_mm(qx, qw)
+            lms = timer(lambda: torch._int_mm(qx, qw))
+            lib = f"{lms:>10.4f}"
+        except RuntimeError as e:
+            lms, lib = None, "refused"
+            why = str(e).splitlines()[0][:80]
+        bms, by = bound_ms(m * k + k * n + 4 + 4 * n
+                           + m * n * torch.empty((), dtype=dt).element_size(),
+                           2 * m * k * n, torch.int8)
+        print(f"{m:>5} {k:>5} {n:>5} {str(dt)[6:]:>9} {err:>6.3g} "
+              f"{ms:>10.4f} {pms:>9.4f} {lib:>10} {bms:>9.4f}")
+        if lms is None:
+            print(f"      torch._int_mm refused M={m}: {why}")
+        if (m, k, n, dt) == (128, 1024, 2816, torch.bfloat16):
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=lms,
+                         shape="mixed-step w1: M=128 K=1024 N=2816 bf16 out")
+    return entry
+
+
 def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
                  nblk=32):
     """A pool with shuffled blocks per sequence, table entries past each
-    sequence's reach at the null block, and the null block full of NaN."""
+    sequence's reach at the null block, and the null block full of NaN (an
+    int8 pool: random values, per-row scales, NaN null-block scales).
+    Returns q, the pools, tables, start and the scales (None or a pair)."""
     nb = B * nblk + 1
-    k_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
-    v_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
-    k_pool[0] = float("nan")
-    v_pool[0] = float("nan")
+    if kv_dt == torch.int8:
+        k_pool, v_pool = (torch.randint(-127, 128, (nb, bs, kv, hd),
+                                        generator=g, device=dev,
+                                        dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(nb, bs, kv, generator=g, device=dev) * 0.03
+                       + 5e-3 for _ in range(2))
+        for sc in scales:
+            sc[0] = float("nan")
+    else:
+        k_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
+        v_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
+        k_pool[0] = float("nan")
+        v_pool[0] = float("nan")
+        scales = None
     perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
     tables = perm.reshape(B, nblk).to(torch.int32)
     for b, s in enumerate(starts):
@@ -192,7 +281,7 @@ def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
         tables[b, used:] = 0
     q = torch.randn(B, W, h, hd, generator=g, device=dev).to(q_dt)
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    return q, k_pool, v_pool, tables, start
+    return q, k_pool, v_pool, tables, start, scales
 
 
 def check_attention(timer, dev, g) -> dict:
@@ -202,7 +291,9 @@ def check_attention(timer, dev, g) -> dict:
     cases = [(torch.bfloat16, torch.bfloat16, 16, 16),
              (torch.float32, torch.bfloat16, 16, 16),
              (torch.float32, torch.float32, 16, 16),
-             (torch.bfloat16, torch.bfloat16, 16, 4)]
+             (torch.bfloat16, torch.bfloat16, 16, 4),
+             (torch.float32, torch.int8, 16, 16),
+             (torch.bfloat16, torch.int8, 16, 16)]
     entries = {}
     B, hd, bs = 8, 64, 16
     for name in ("paged_decode_attention", "chunked_prefill_attention"):
@@ -213,19 +304,23 @@ def check_attention(timer, dev, g) -> dict:
         starts = ([0, 16, 99, 254, 255, 299, 510, 511] if decode
                   else [0, 16, 48, 100, 203, 300, 400, 496])
         for q_dt, kv_dt, h, kv in cases:
-            q, kp, vp, tables, start = paged_inputs(
+            q, kp, vp, tables, start, scales = paged_inputs(
                 g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts)
+            sk = {} if scales is None else dict(k_scale=scales[0],
+                                                v_scale=scales[1])
             if decode:
                 q = q[:, 0].contiguous()
                 lens = start + 1
-                run = lambda: paged_decode_attention(q, kp, vp, tables, lens)  # noqa: E731
+                run = lambda: paged_decode_attention(  # noqa: E731
+                    q, kp, vp, tables, lens, **sk)
                 plain = lambda: paged_decode_attention_plain(  # noqa: E731
-                    q, kp, vp, tables, lens)
+                    q, kp, vp, tables, lens, **sk)
                 n_pos = [s + 1 for s in starts]
             else:
-                run = lambda: chunked_prefill_attention(q, kp, vp, tables, start)  # noqa: E731
+                run = lambda: chunked_prefill_attention(  # noqa: E731
+                    q, kp, vp, tables, start, **sk)
                 plain = lambda: chunked_prefill_attention_plain(  # noqa: E731
-                    q, kp, vp, tables, start)
+                    q, kp, vp, tables, start, **sk)
                 n_pos = [min(s + W, 512) for s in starts]
             t_max = tables.shape[1] * bs
             out, ref = run(), plain()
@@ -234,9 +329,12 @@ def check_attention(timer, dev, g) -> dict:
             # bf16 pool p is rounded to bf16, and another order of the score
             # sum can round one probability a bf16 step (2^-8) the other
             # way, which moves the output by up to 2^-8 * max|V|; bf16 out:
-            # one bf16 rounding of an output near 1-4 (2^-6)
+            # one bf16 rounding of an output near 1-4 (2^-6); f32 out over an
+            # int8 pool: the f32 walk over the dequantized pool, order only
             if q_dt == torch.bfloat16:
                 tol = 2 ** -6
+            elif kv_dt == torch.int8:
+                tol = 2e-5
             elif kv_dt == torch.bfloat16:
                 tol = 2 ** -8 * float(vp[1:].float().abs().max())
             else:
@@ -245,8 +343,14 @@ def check_attention(timer, dev, g) -> dict:
                 raise AssertionError(f"{name} q={q_dt} pool={kv_dt} h={h} "
                                      f"kv={kv}: err {err} > tol {tol}")
             # library yardstick: SDPA on a pre-gathered, head-repeated view
-            kg = kp.nan_to_num()[tables.long()].reshape(B, t_max, kv, hd)
-            vg = vp.nan_to_num()[tables.long()].reshape(B, t_max, kv, hd)
+            # (an int8 pool dequantized first; neither is timed)
+            if scales is not None:
+                kp_f = kp.float() * scales[0].nan_to_num()[..., None]
+                vp_f = vp.float() * scales[1].nan_to_num()[..., None]
+            else:
+                kp_f, vp_f = kp.nan_to_num(), vp.nan_to_num()
+            kg = kp_f[tables.long()].reshape(B, t_max, kv, hd)
+            vg = vp_f[tables.long()].reshape(B, t_max, kv, hd)
             kg = kg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
             vg = vg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
             qs = q.reshape(B, W, h, hd).transpose(1, 2)
@@ -256,9 +360,10 @@ def check_attention(timer, dev, g) -> dict:
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
                 qs, kg, vg, attn_mask=mask)
             ms, pms, lms = timer(run), timer(plain), timer(sdpa)
-            # K/V rows read once per sequence; each lane's scores and PV
-            # products over the positions it sees
-            nbytes = (2 * sum(n_pos) * kv * hd * kp.element_size()
+            # K/V rows (and an int8 pool's scales) read once per sequence;
+            # each lane's scores and PV products over the positions it sees
+            row = hd * kp.element_size() + (4 if scales is not None else 0)
+            nbytes = (2 * sum(n_pos) * kv * row
                       + 2 * q.numel() * q.element_size()
                       + tables.numel() * 4 + B * 4)
             seen = sum(min(s + lane + 1, t_max) for s in starts
@@ -268,54 +373,122 @@ def check_attention(timer, dev, g) -> dict:
             print(f"{name:>26} {str(q_dt)[6:] + '/' + str(kv_dt)[6:]:>10} "
                   f"{h:>3}/{kv:<2} {err:>10.3g} {tol:>8.3g} {ms:>10.4f} "
                   f"{pms:>9.4f} {lms:>9.4f} {bms:>9.4f}")
+            nums = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                        bound_by=by, library_ms=lms)
             if (q_dt, kv_dt, h, kv) == cases[0]:
                 entries[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=lms,
-                    shape=f"B=8 W={W} h=16 kv=16 hd=64 bs=16 bf16")
+                    nums, shape=f"B=8 W={W} h=16 kv=16 hd=64 bs=16 bf16")
+            elif (q_dt, kv_dt) == (torch.bfloat16, torch.int8):
+                entries[name]["int8_pool"] = dict(
+                    nums, shape=f"B=8 W={W} h=16 kv=16 hd=64 bs=16 bf16 q, "
+                                "int8 pool + f32 scales")
     return entries
+
+
+def unported_bounds() -> list[tuple[str, str, float, str]]:
+    """The least time of each TPU kernel not yet ported, at the shape where
+    the main path would call it (qwen1.5-0.5b widths, a 128-row mixed
+    step, bf16 activations and weights, float32 norm parameters): bytes
+    moved once over the memory rate against operations over the bf16
+    tensor rate.  Arithmetic from the shapes only; printed in phase 2."""
+    m, d, f, s_len, heads, hd = 128, 1024, 2816, 512, 16, 64
+    bf = 2
+    rows = [
+        ("kernels/ffn.py:80 ffn1", f"{m}x{d} -> {f}, + bias, act",
+         (m * d + d * f + f + m * f) * bf, 2 * m * d * f),
+        ("kernels/ffn.py:107 ffn1_gated", f"{m}x{d} -> 2 x {f}, act(x wg) * (x w1)",
+         (m * d + 2 * d * f + m * f) * bf, 4 * m * d * f),
+        ("kernels/qkv_proj.py:75 qkv_proj", f"{m}x{d} -> 3 x {d}",
+         (m * d + 3 * d * d + 3 * m * d) * bf, 6 * m * d * d),
+        ("kernels/layernorm.py:50 layernorm", f"{m}x{d}",
+         2 * m * d * bf + 2 * d * 4, 8 * m * d),
+        ("kernels/layernorm.py:72 rmsnorm", f"{m}x{d}",
+         2 * m * d * bf + d * 4, 4 * m * d),
+        # causal: each query row sees half the keys on average
+        ("kernels/flash_attention.py:85 flash_attention",
+         f"{heads} heads x {s_len} x {hd}, causal",
+         4 * heads * s_len * hd * bf, 2 * heads * s_len * s_len * hd),
+    ]
+    out = []
+    for site, shape, nbytes, ops in rows:
+        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+        out.append((site, shape, bms, by))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 3: full-width model steps, kernels vs plain path
 # ---------------------------------------------------------------------------
-def full_width_spec(kernels: bool) -> RuntimeSpec:
+def full_width_spec(kernels: bool, quant: bool = False) -> RuntimeSpec:
+    """The serving spec at full width; ``quant`` serves fully quantized
+    (int8 weights at the reference's default floor, int8 KV pool)."""
     impl = ("pallas", "pallas") if kernels else ("xla", "gather")
     return RuntimeSpec(
         arch=get_config("qwen1.5-0.5b"),
         execution=ExecutionSpec(matmul_backend=impl[0],
                                 paged_attn_impl=impl[1],
-                                compute_dtype="bf16"),
+                                compute_dtype="bf16",
+                                quant="int8" if quant else "none"),
         memory=MemorySpec(cache_layout="paged",
                           max_batch=ENGINE["max_batch"],
                           max_len=ENGINE["max_len"],
-                          block_size=ENGINE["block_size"]),
+                          block_size=ENGINE["block_size"],
+                          kv_dtype="int8" if quant else "compute"),
         scheduler=SchedulerSpec(chunk_size=ENGINE["chunk"]))
 
 
+class OpCount(TorchDispatchMode):
+    """Counts the PyTorch operators dispatched inside it (the host's work
+    per step; the hand-written kernels' ctypes launches are not among
+    them, their wrappers' output allocations are)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(perturb: float = 0.0):
     """Every kernel call of the model replaced by that kernel's plain
-    PyTorch version, on the same CUDA tensors."""
+    PyTorch version, on the same CUDA tensors; ``perturb`` scales the
+    attention outputs by (1 + perturb), a float32 error of the size the
+    attention kernels' other order of sums makes."""
+    def scaled(fn):
+        return lambda *a, **k: fn(*a, **k) * (1.0 + perturb)
     with mock.patch.object(tm_mod, "tiled_matmul", tiled_matmul_plain), \
+            mock.patch.object(i8_mod, "int8_matmul", int8_matmul_plain), \
             mock.patch.object(attn_mod, "paged_decode_attention",
-                              paged_decode_attention_plain), \
+                              scaled(paged_decode_attention_plain)), \
             mock.patch.object(attn_mod, "chunked_prefill_attention",
-                              chunked_prefill_attention_plain):
+                              scaled(chunked_prefill_attention_plain)):
         yield
 
 
 def check_model_steps(model: Model, dev, g, gate: bool) -> None:
     """One mixed step (a 16-lane chunk, some slots partial) then one decode
-    step, on fresh pools, along three paths: the kernels, the kernels'
-    plain versions, and the XLA-style path ``matmul_backend="xla"`` +
-    ``paged_attn_impl="gather"`` (whose scores are rounded to the compute
-    dtype before the softmax, as the reference's gather path does).  Max
-    and mean |difference| against the plain versions are printed; with
-    ``gate`` the kernels' max must stay within 2e-2 * max|logits|."""
+    step, on fresh pools, along four paths: the kernels, the kernels'
+    plain versions, those plain versions with the attention outputs
+    perturbed by ``ATTN_PERTURB`` (relative), and the XLA-style path
+    ``matmul_backend="xla"`` + ``paged_attn_impl="gather"`` (whose scores
+    are rounded to the compute dtype before the softmax, as the
+    reference's gather path does; under int8 weights it is another
+    function, with no activation quantization).  Max and mean
+    |difference| against the plain versions are printed.  With ``gate``
+    the kernels' max must stay within 2e-2 * max|logits|, or within twice
+    the perturbed path's max where that is larger: with int8 activations
+    (one per-tensor scale) a float32 last-bit difference moves values
+    across rounding boundaries and grows over 24 layers, so the model's
+    own sensitivity, not the kernels, sets the floor."""
     dt = str(model.compute_dtype)[6:]
-    print(f"\n== full-width qwen1.5-0.5b steps, {dt} compute: |path - "
-          "kernels' plain versions| " + ("(gated)" if gate else "(reported)"))
+    kind = "int8 weights + int8 pool" if model.quant == "int8" \
+        else "float weights + bf16 pool"
+    print(f"\n== full-width qwen1.5-0.5b steps, {kind}, {dt} compute: "
+          "|path - kernels' plain versions| "
+          + ("(gated)" if gate else "(reported)"))
     spec = full_width_spec(True)
     paging = spec.memory.paging()
     B, W = ENGINE["max_batch"], ENGINE["chunk"]
@@ -332,23 +505,35 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
                           dtype=torch.int32)
     paths = (("kernels", ("pallas", "pallas"), contextlib.nullcontext),
              ("plain versions", ("pallas", "pallas"), plain_versions),
+             ("plain, perturbed", ("pallas", "pallas"),
+              lambda: plain_versions(ATTN_PERTURB)),
              ("xla + gather", ("xla", "gather"), contextlib.nullcontext))
-    out = {}
+    out, ops = {}, []
     for path, (mm, attn), ctx in paths:
         model.matmul_backend, model.paged_attn_impl = mm, attn
         cache = model.init_cache(paging)
+        counts = (OpCount(), OpCount()) if path == "kernels" \
+            else (contextlib.nullcontext(),) * 2
         with ctx():
-            mixed = model.mixed_step(cache, toks, start, n_live, tables)
-            dec = model.decode_step(cache, dtoks, n_live.clone(), tables)
+            with counts[0]:
+                mixed = model.mixed_step(cache, toks, start, n_live, tables)
+            with counts[1]:
+                dec = model.decode_step(cache, dtoks, n_live.clone(), tables)
+        if path == "kernels":
+            ops = [c.n for c in counts]
         live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
         out[path] = (mixed[live], dec)
         del cache
     model.matmul_backend, model.paged_attn_impl = "pallas", "pallas"
+    print(f"PyTorch operators dispatched per step on the kernel path: "
+          f"mixed {ops[0]}, decode {ops[1]}")
     for i, step in enumerate(("mixed_step", "decode_step")):
         ref = out["plain versions"][i]
-        tol = LOGIT_TOL * float(ref.abs().max())
-        line = f"{step}: tol {LOGIT_TOL} x max|logits| = {tol:.4g}"
-        for path in ("kernels", "xla + gather"):
+        floor = max_err(out["plain, perturbed"][i], ref)
+        tol = max(LOGIT_TOL * float(ref.abs().max()), 2 * floor)
+        line = (f"{step}: tol max({LOGIT_TOL} x max|logits|, 2 x perturbed) "
+                f"= {tol:.4g}")
+        for path in ("kernels", "plain, perturbed", "xla + gather"):
             d = (out[path][i] - ref).abs()
             line += (f"; {path}: max {float(d.max()):.4g} "
                      f"mean {float(d.mean()):.4g}")
@@ -361,8 +546,9 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
 # ---------------------------------------------------------------------------
 # phase 4: the serving engine's main path
 # ---------------------------------------------------------------------------
-def serve(params, kernels: bool, prompts) -> tuple[dict, float, int]:
-    eng = ServingEngine(full_width_spec(kernels), device="cuda")
+def serve(params, kernels: bool, prompts, quant: bool = False
+          ) -> tuple[dict, float, int]:
+    eng = ServingEngine(full_width_spec(kernels, quant), device="cuda")
     eng.load(params)
     uids = {eng.submit(p, max_new_tokens=MAX_NEW): i
             for i, p in enumerate(prompts)}
@@ -398,53 +584,79 @@ def main() -> int:
     g.manual_seed(0)
     timer = Timer(dev)
 
-    entries = {"tiled_matmul": check_matmul(timer, dev, g)}
+    entries = {"tiled_matmul": check_matmul(timer, dev, g),
+               "int8_matmul": check_int8_matmul(timer, dev, g)}
     entries.update(check_attention(timer, dev, g))
+    print("\n== bounds of the TPU kernels not yet ported (main-path shapes)")
+    for site, shape, bms, by in unported_bounds():
+        print(f"{site:>46} {shape:>40} bound_ms {bms:.6f} ({by})")
 
     model = Model.from_spec(full_width_spec(True), device=dev).init(g)
     params = model.state_dict()
     # gated at float32 compute: at bf16 any two valid orders of the sums
     # (the XLA-style path included) already differ by bf16 rounding that
-    # grows over 24 layers, so the bf16 distances are printed beside it
-    model32 = Model(model.cfg, compute_dtype=torch.float32, device=dev)
-    model32.load_state_dict(params)
-    check_model_steps(model32, dev, g, gate=True)
-    del model32
-    check_model_steps(model, dev, g, gate=False)
+    # grows over 24 layers, so the bf16 distances are printed beside it.
+    # The fully quantized models take the same float weights, quantized as
+    # they load.
+    for quant in (False, True):
+        qkw = dict(quant="int8", kv_dtype="int8") if quant else {}
+        model32 = Model(model.cfg, compute_dtype=torch.float32, device=dev,
+                        **qkw)
+        model32.load_state_dict(params)
+        check_model_steps(model32, dev, g, gate=True)
+        del model32
+        m16 = Model.from_spec(full_width_spec(True, quant), device=dev)
+        m16.load_state_dict(params)
+        check_model_steps(m16, dev, g, gate=False)
+        del m16
 
     print("\n== serving: full-width qwen1.5-0.5b, paged + chunked, "
           f"{len(PROMPT_LENS)} greedy requests x {MAX_NEW} new tokens")
     rs = np.random.default_rng(0)
     prompts = [rs.integers(0, model.cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
-    for fn in KERNELS.values():
-        fn.launches = 0
-    streams_k, dt_k, steps_k = serve(params, True, prompts)
-    launches = {name: fn.launches for name, fn in KERNELS.items()}
-    streams_p, dt_p, steps_p = serve(params, False, prompts)
+    del model
     n_tok = len(prompts) * MAX_NEW
-    same = sum(a == b for i in streams_k
-               for a, b in zip(streams_k[i], streams_p[i]))
-    print(f"kernels: {n_tok} tokens in {dt_k:.3f} s ({n_tok / dt_k:.1f} "
-          f"tok/s), {steps_k} fused steps, launches {launches}")
-    print(f"plain:   {n_tok} tokens in {dt_p:.3f} s ({n_tok / dt_p:.1f} "
-          f"tok/s), {steps_p} fused steps")
-    print(f"identical tokens kernels vs plain: {same}/{n_tok} "
-          "(reported, not gated: bf16 near-ties may flip)")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    launches, streams = {}, {}
+    for path in ("float", "int8"):
+        for fn in KERNELS.values():
+            fn.launches = 0
+        streams[path], dt_p, steps = serve(params, True, prompts,
+                                           quant=path == "int8")
+        launches[path] = {name: fn.launches for name, fn in KERNELS.items()}
+        print(f"kernels, {path} weights: {n_tok} tokens in {dt_p:.3f} s "
+              f"({n_tok / dt_p:.1f} tok/s), {steps} fused steps, launches "
+              f"{launches[path]}")
+        for name in PATH_KERNELS[path]:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{path} serving path")
+    streams_p, dt_p, steps_p = serve(params, False, prompts)
+    print(f"plain, float weights: {n_tok} tokens in {dt_p:.3f} s "
+          f"({n_tok / dt_p:.1f} tok/s), {steps_p} fused steps")
+    for other, s_other in (("plain float", streams_p),
+                           ("kernels int8", streams["int8"])):
+        same = sum(a == b for i in s_other
+                   for a, b in zip(streams["float"][i], s_other[i]))
+        print(f"identical tokens kernels float vs {other}: {same}/{n_tok} "
+              "(reported, not gated: near-ties and quantization may flip)")
 
     table = []
     for name in KERNELS:
         src, replaces = SOURCES[name]
         e = entries[name]
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": launches[name],
-                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                      "bound_by": e["bound_by"],
-                      "library_ms": e["library_ms"], "shape": e["shape"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": next(launches[p][name] for p in PATH_KERNELS
+                                if name in PATH_KERNELS[p]),
+               "launches_by_path": {p: launches[p][name] for p in launches},
+               "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+               "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+               "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+               "shape": e["shape"]}
+        if "int8_pool" in e:
+            row["int8_pool"] = e["int8_pool"]
+        table.append(row)
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

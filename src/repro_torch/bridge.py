@@ -7,6 +7,12 @@ imports no JAX) and returns a state dict of the port's ``Model``, so both
 packages compute the same function.  The reference stacks the layers on a
 leading axis; the port keeps one module per layer, so that axis is
 unstacked into ``layers.<i>.``.
+
+A tree the reference has quantized (its ``serve_quant.quantize_params``)
+holds ``QTensor`` leaves; after the numpy conversion each is a
+``(values, scale)`` pair.  Its int8 values land under the leaf's name and
+its float32 scale under ``<name>_scale``, unstacked like the float leaves,
+so a test can hand both packages the same int8 weights.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.serve_quant import SCALE_SUFFIX
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -24,9 +31,22 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
             out.update(_flatten(val, name + "."))
+        elif isinstance(val, tuple):       # a QTensor: (int8 values, scale)
+            values, scale = val
+            out[name] = np.asarray(values)
+            out[name + SCALE_SUFFIX] = np.asarray(scale)
         else:
             out[name] = np.asarray(val)
     return out
+
+
+def _tensor(arr: np.ndarray, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """int8 values stay int8 and scales float32; float leaves take
+    ``dtype``."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(np.array(arr))
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return t if name.endswith(SCALE_SUFFIX) else t.to(dtype)
 
 
 def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
@@ -34,13 +54,14 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
                     ) -> dict[str, torch.Tensor]:
     """State dict of the port's ``Model(cfg)`` from the reference's params.
 
-    ``dtype`` is the dtype of the returned tensors (the parameter dtype);
-    ``Model.load_state_dict`` casts dense kernels to the compute dtype.
+    ``dtype`` is the dtype of the returned float tensors (the parameter
+    dtype); ``Model.load_state_dict`` casts dense kernels to the compute
+    dtype.
     """
     flat = _flatten(np_tree)
     out: dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
-        t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype)
+        t = _tensor(arr, name, dtype)
         if name.startswith("layers."):
             if t.shape[0] != cfg.num_layers:
                 raise ValueError(f"{name}: leading axis {t.shape[0]} != "

@@ -13,9 +13,10 @@ both packages:
   string names (``"bf16"``, ``"fp32"``, ...).
 
 What the port serves so far is the dense family through the paged pool
-and the chunked scheduler, with float weights and a float KV cache.
-Every other option of the reference is rejected at construction with
-the ROADMAP.md queue item that ports it.
+and the chunked scheduler, with float or int8 weights (``quant``) and a
+float or int8 KV pool (``MemorySpec.kv_dtype``).  Every other option of
+the reference is rejected at construction with the ROADMAP.md queue item
+that ports it.
 """
 from __future__ import annotations
 
@@ -26,13 +27,14 @@ import torch
 
 from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
                                       DEFAULT_PARAM_DTYPE, ArchConfig)
+from repro_torch.core.kv_quant import KV_DTYPES
 from repro_torch.core.paging import PagingConfig, blocks_for_tokens
+from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
 
 _MATMUL_BACKENDS = ("xla", "pallas")
 _PAGED_ATTN_IMPLS = ("gather", "pallas")
 _CACHE_LAYOUTS = ("dense", "paged")
 _QUANT_MODES = ("none", "int8")
-_KV_DTYPES = ("compute", "int8")
 _SCHEDULER_POLICIES = ("auto", "chunked", "bucketed")
 
 _DTYPE_ALIASES = {
@@ -76,17 +78,24 @@ class ExecutionSpec:
     """How the model computes: kernel routing and dtypes.
 
     ``matmul_backend="pallas"`` routes every dense projection through the
-    hand-written ``tiled_matmul`` CUDA kernel, ``paged_attn_impl="pallas"``
-    the paged attention through the hand-written ``paged_decode_attention``
-    / ``chunked_prefill_attention`` kernels; the Pallas names are kept so a
-    spec reads the same in the JAX reference and in the port.
+    hand-written ``tiled_matmul`` CUDA kernel (``int8_matmul`` for int8
+    weights), ``paged_attn_impl="pallas"`` the paged attention through the
+    hand-written ``paged_decode_attention`` / ``chunked_prefill_attention``
+    kernels; the Pallas names are kept so a spec reads the same in the JAX
+    reference and in the port.
+
+    ``quant="int8"`` quantizes the serving weights: eligible dense kernels
+    per column and the embedding table per row (``core.serve_quant``).
+    Leaves below ``quant_min_size`` elements (counted over all layers, as
+    the reference stacks them) stay float.
     """
 
     matmul_backend: str = "xla"      # "xla" | "pallas" (hand-written kernel)
     paged_attn_impl: str = "gather"  # "gather" | "pallas" (hand-written kernels)
     param_dtype: Any = DEFAULT_PARAM_DTYPE
     compute_dtype: Any = DEFAULT_COMPUTE_DTYPE
-    quant: str = "none"              # "none" | "int8" (not ported yet)
+    quant: str = "none"              # "none" | "int8" (serving weights)
+    quant_min_size: int = DEFAULT_QUANT_MIN_SIZE  # leaf-size quant floor
 
     def __post_init__(self) -> None:
         if self.matmul_backend not in _MATMUL_BACKENDS:
@@ -101,6 +110,10 @@ class ExecutionSpec:
             raise ValueError(
                 f"ExecutionSpec.quant={self.quant!r} is not one of "
                 f"{_QUANT_MODES}")
+        if self.quant_min_size < 0:
+            raise ValueError(
+                f"ExecutionSpec.quant_min_size={self.quant_min_size} must "
+                "be >= 0 (elements below which a param leaf stays float)")
         object.__setattr__(self, "param_dtype",
                            _normalize_dtype("param_dtype", self.param_dtype))
         object.__setattr__(self, "compute_dtype",
@@ -112,7 +125,9 @@ class ExecutionSpec:
 class MemorySpec:
     """How decode-time memory is provisioned: cache layout, pool geometry
     and the KV storage dtype (defaults as in the reference; the port serves
-    ``cache_layout="paged"`` with ``kv_dtype="compute"``)."""
+    ``cache_layout="paged"``).  ``kv_dtype="int8"`` stores the pool as
+    int8 with one float32 scale per (position, kv head)
+    (``core.kv_quant``)."""
 
     cache_layout: str = "dense"      # "dense" | "paged"
     max_batch: int = 8
@@ -132,10 +147,10 @@ class MemorySpec:
                 "MemorySpec.prefix_cache=True requires cache_layout='paged' "
                 "(prefix sharing maps physical pool blocks into multiple "
                 "block tables; the dense layout has no blocks to share)")
-        if self.kv_dtype not in _KV_DTYPES:
+        if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"MemorySpec.kv_dtype={self.kv_dtype!r} is not one of "
-                f"{_KV_DTYPES}")
+                f"{KV_DTYPES}")
         if self.max_batch <= 0 or self.max_len <= 0:
             raise ValueError(
                 f"MemorySpec needs positive max_batch/max_len, got "
@@ -244,16 +259,11 @@ class RuntimeSpec:
         self.validate()
 
     def validate(self) -> "RuntimeSpec":
-        cfg, ex, mem = self.arch, self.execution, self.memory
+        cfg, mem = self.arch, self.memory
         cfg.validate()
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               "; the port serves family 'dense'")
-        if ex.quant != "none":
-            raise _not_ported(f"ExecutionSpec.quant={ex.quant!r}", "item 6")
-        if mem.kv_dtype != "compute":
-            raise _not_ported(f"MemorySpec.kv_dtype={mem.kv_dtype!r}",
-                              "item 7")
         if self.maxima is not None:
             raise _not_ported("multi-topology serving (maxima=...)", "item 8")
         if mem.prefix_cache:

@@ -1,8 +1,10 @@
-// float <-> storage-type conversions shared by the kernels (float32 and
-// bfloat16 operands; all arithmetic is float).
+// float <-> storage-type conversions shared by the kernels (float32,
+// bfloat16 and int8 operands; all arithmetic is float).
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -10,6 +12,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>

@@ -6,6 +6,8 @@
 //   q       [B, W, H, HD]       query lanes; lane l sits at position s0 + l
 //   k/v     [NB, BS, KV, HD]    the shared block pool (block 0 = null block),
 //                               16-byte aligned (rows are read as vectors)
+//   k/vsc   [NB, BS, KV] float  int8 pools only: one scale per (position,
+//                               kv head), the int8 cache codec's
 //   tables  [B, NBLK] int32     physical block of each logical block
 //   start   [B] int32           s0 = start[b] + len_offset (len_offset = -1
 //                               turns the decode step's lengths into s0)
@@ -26,12 +28,20 @@
 // Softmax statistics (running max m, normalizer l) and the output
 // accumulator are float; p is rounded to the pool's dtype before the PV
 // product, as the reference kernels cast p to V's dtype.
+//
+// int8 pools (TKV = int8_t): each value is dequantized as it is staged in
+// shared memory, float(v) * scale[(block * BS + offset) * KV + g], the
+// reference's dequant at the tile.  There the reference computes in
+// float32 (q cast to f32, K/V dequantized to f32), so p is not rounded and
+// the output is float32 until the one cast to q's dtype.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 #include "dtype.cuh"
 
@@ -65,11 +75,13 @@ inline size_t smem_bytes(int tile, int rows, int hd, int bs) {
 template <typename TQ, typename TKV, int HD>
 __global__ void __launch_bounds__(kThreads)
     walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
-                const TKV* __restrict__ vpool, const int* __restrict__ tables,
+                const TKV* __restrict__ vpool, const float* __restrict__ kscale,
+                const float* __restrict__ vscale, const int* __restrict__ tables,
                 const int* __restrict__ start, int len_offset,
                 TQ* __restrict__ out, int W, int H, int KV, int BS, int NBLK,
                 int TILE, float scale) {
   extern __shared__ float smem[];
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int KP = HD + 1;  // padded K row: lane-per-position reads differ in bank
   const int b = blockIdx.x, g = blockIdx.y;
   const int n_rep = H / KV;
@@ -113,16 +125,20 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers are done
     for (int base = 0; base < nvec; base += kThreads * UNROLL) {
       uint4 kr[UNROLL], vr[UNROLL];
+      float ksr[UNROLL], vsr[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int i = base + u * kThreads + tid;
         if (i < nvec) {
           const int pos = t0 + i / VPR;
-          const size_t src =
-              (((size_t)table[pos / BS] * BS + pos % BS) * KV + g) * HD +
-              (i % VPR) * VEC;
+          const size_t row = ((size_t)table[pos / BS] * BS + pos % BS) * KV + g;
+          const size_t src = row * HD + (i % VPR) * VEC;
           kr[u] = *reinterpret_cast<const uint4*>(kpool + src);
           vr[u] = *reinterpret_cast<const uint4*>(vpool + src);
+          if constexpr (kQuant) {
+            ksr[u] = kscale[row];
+            vsr[u] = vscale[row];
+          }
         }
       }
 #pragma unroll
@@ -134,8 +150,13 @@ __global__ void __launch_bounds__(kThreads)
           const TKV* ve = reinterpret_cast<const TKV*>(&vr[u]);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
-            ks[p * KP + d0 + e] = to_f(ke[e]);
-            vs[p * HD + d0 + e] = to_f(ve[e]);
+            if constexpr (kQuant) {
+              ks[p * KP + d0 + e] = to_f(ke[e]) * ksr[u];
+              vs[p * HD + d0 + e] = to_f(ve[e]) * vsr[u];
+            } else {
+              ks[p * KP + d0 + e] = to_f(ke[e]);
+              vs[p * HD + d0 + e] = to_f(ve[e]);
+            }
           }
         }
       }
@@ -175,7 +196,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int p = p0 + lane; p < p1; p += 32) {
           const float e = expf(sr[p] - m_new);
           lsum += e;
-          sr[p] = round_as<TKV>(e);
+          if constexpr (kQuant) sr[p] = e;  // f32 p, as the reference's
+          else sr[p] = round_as<TKV>(e);
         }
         lsum = warp_sum(lsum);
         if (lane == 0) {
@@ -218,9 +240,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TQ, typename TKV, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
-                      const int* tables, const int* start, int len_offset,
-                      void* out, int B, int W, int H, int KV, int BS, int NBLK,
-                      float scale, cudaStream_t stream) {
+                      const float* ksc, const float* vsc, const int* tables,
+                      const int* start, int len_offset, void* out, int B,
+                      int W, int H, int KV, int BS, int NBLK, float scale,
+                      cudaStream_t stream) {
   const int tile = BS * (BS >= 64 ? 1 : 64 / BS);
   const size_t smem = smem_bytes(tile, W * (H / KV), HD, BS);
   auto kern = walk_kernel<TQ, TKV, HD>;
@@ -232,55 +255,66 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
   }
   kern<<<dim3(B, KV), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), tables, start, len_offset,
+      static_cast<const TKV*>(v), ksc, vsc, tables, start, len_offset,
       static_cast<TQ*>(out), W, H, KV, BS, NBLK, tile, scale);
   return cudaGetLastError();
 }
 
+// The operands of one launch, passed through the dtype and head_dim
+// dispatch unchanged.
+struct WalkArgs {
+  const void *q, *k, *v;
+  const float *ksc, *vsc;
+  const int *tables, *start;
+  int len_offset;
+  void* out;
+  int B, W, H, KV, BS, NBLK;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int HD>
+cudaError_t launch_args(const WalkArgs& a) {
+  return launch_hd<TQ, TKV, HD>(a.q, a.k, a.v, a.ksc, a.vsc, a.tables,
+                                a.start, a.len_offset, a.out, a.B, a.W, a.H,
+                                a.KV, a.BS, a.NBLK, a.scale, a.stream);
+}
+
 template <typename TQ, typename TKV>
-cudaError_t launch_types(int HD, const void* q, const void* k, const void* v,
-                         const int* tables, const int* start, int len_offset,
-                         void* out, int B, int W, int H, int KV, int BS,
-                         int NBLK, float scale, cudaStream_t s) {
+cudaError_t launch_types(int HD, const WalkArgs& a) {
   switch (HD) {
-    case 16:
-      return launch_hd<TQ, TKV, 16>(q, k, v, tables, start, len_offset, out, B,
-                                    W, H, KV, BS, NBLK, scale, s);
-    case 32:
-      return launch_hd<TQ, TKV, 32>(q, k, v, tables, start, len_offset, out, B,
-                                    W, H, KV, BS, NBLK, scale, s);
-    case 64:
-      return launch_hd<TQ, TKV, 64>(q, k, v, tables, start, len_offset, out, B,
-                                    W, H, KV, BS, NBLK, scale, s);
-    case 128:
-      return launch_hd<TQ, TKV, 128>(q, k, v, tables, start, len_offset, out,
-                                     B, W, H, KV, BS, NBLK, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch_args<TQ, TKV, 16>(a);
+    case 32: return launch_args<TQ, TKV, 32>(a);
+    case 64: return launch_args<TQ, TKV, 64>(a);
+    case 128: return launch_args<TQ, TKV, 128>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Taken: (q, pool) in
-// {(f32, f32), (f32, bf16), (bf16, bf16)}.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8.  Taken: (q, pool) in
+// {(f32, f32), (f32, bf16), (bf16, bf16), (f32, int8), (bf16, int8)}; an
+// int8 pool needs both scale pools, a float pool takes none.
 inline cudaError_t launch(int q_dtype, int kv_dtype, int HD, const void* q,
-                          const void* k, const void* v, const int* tables,
+                          const void* k, const void* v, const float* ksc,
+                          const float* vsc, const int* tables,
                           const int* start, int len_offset, void* out, int B,
                           int W, int H, int KV, int BS, int NBLK, float scale,
                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || W <= 0 || KV <= 0 || H % KV || BS <= 0 || NBLK <= 0)
     return cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_types<float, float>(HD, q, k, v, tables, start, len_offset,
-                                      out, B, W, H, KV, BS, NBLK, scale, s);
+  if ((kv_dtype == 2) != (ksc != nullptr && vsc != nullptr))
+    return cudaErrorInvalidValue;
+  const WalkArgs a{q,   k, v, ksc, vsc,  tables, start, len_offset,
+                   out, B, W, H,   KV,  BS,     NBLK,  scale,
+                   static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0 && kv_dtype == 0) return launch_types<float, float>(HD, a);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_types<float, __nv_bfloat16>(HD, q, k, v, tables, start,
-                                              len_offset, out, B, W, H, KV, BS,
-                                              NBLK, scale, s);
+    return launch_types<float, __nv_bfloat16>(HD, a);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_types<__nv_bfloat16, __nv_bfloat16>(
-        HD, q, k, v, tables, start, len_offset, out, B, W, H, KV, BS, NBLK,
-        scale, s);
+    return launch_types<__nv_bfloat16, __nv_bfloat16>(HD, a);
+  if (q_dtype == 0 && kv_dtype == 2) return launch_types<float, int8_t>(HD, a);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch_types<__nv_bfloat16, int8_t>(HD, a);
   return cudaErrorInvalidValue;
 }
 

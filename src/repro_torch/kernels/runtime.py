@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "librepro_torch_kernels.so"
 
 # cudaError_t / dtype codes shared with the C interface of csrc/*.cu
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

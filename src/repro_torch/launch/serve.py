@@ -8,7 +8,9 @@ demo request mix and reports tokens/s and the host-traffic accounting.
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--kernels
 pallas`` routes every dense projection through the hand-written
 ``tiled_matmul`` kernel and ``--attn pallas`` the paged attention
-through the hand-written decode and chunked-prefill kernels.  The
+through the hand-written decode and chunked-prefill kernels.  ``--quant
+int8`` serves int8 weights (through the hand-written ``int8_matmul`` under
+``--kernels pallas``) and ``--kv-dtype int8`` an int8 KV pool.  The
 reference serves reduced configs in this driver; ``--full-width`` serves
 the architecture at its published widths.
 """
@@ -39,6 +41,16 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--attn", choices=("gather", "pallas"), default="gather",
                     help="paged attention: block-table gather + PyTorch, or "
                          "the hand-written paged kernels")
+    ap.add_argument("--quant", choices=("none", "int8"), default="none",
+                    help="serving-time weight quantization (int8 weights "
+                         "through the hand-written int8_matmul under "
+                         "--kernels pallas)")
+    ap.add_argument("--quant-min-size", type=int, default=None,
+                    help="param leaves under this many elements stay float")
+    ap.add_argument("--kv-dtype", choices=("compute", "int8"),
+                    default="compute",
+                    help="KV-cache storage codec: bf16 values or "
+                         "quantize-on-write int8 (~2x cache capacity)")
     ap.add_argument("--param-dtype", default=None,
                     help="parameter dtype by name, e.g. fp32 / bf16")
     ap.add_argument("--compute-dtype", default=None,
@@ -71,13 +83,17 @@ def main(argv: list[str] | None = None) -> None:
         ex_kw["param_dtype"] = args.param_dtype
     if args.compute_dtype is not None:
         ex_kw["compute_dtype"] = args.compute_dtype
+    if args.quant_min_size is not None:
+        ex_kw["quant_min_size"] = args.quant_min_size
     spec = RuntimeSpec(
         arch=cfg,
         execution=ExecutionSpec(matmul_backend=args.kernels,
-                                paged_attn_impl=args.attn, **ex_kw),
+                                paged_attn_impl=args.attn, quant=args.quant,
+                                **ex_kw),
         memory=MemorySpec(cache_layout="paged", max_batch=args.max_batch,
                           max_len=args.max_len, block_size=args.block_size,
-                          num_blocks=args.num_blocks),
+                          num_blocks=args.num_blocks,
+                          kv_dtype=args.kv_dtype),
         scheduler=SchedulerSpec(chunk_size=args.chunk_size))
     device = resolve_device(args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)

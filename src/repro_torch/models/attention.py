@@ -1,15 +1,18 @@
 """GQA attention of the port: full-sequence, paged decode and the paged
 mixed (chunk) step.
 
-The counterpart of the reference's ``models/attention.py`` GQA half with
-the float KV codec.  The dtype flow is the reference's: scores are an
-einsum in the promoted operand dtype, softmax in float32, and the
-probabilities are cast to V's dtype before the PV product.
+The counterpart of the reference's ``models/attention.py`` GQA half.  The
+dtype flow is the reference's: scores are an einsum in the promoted
+operand dtype, softmax in float32, and the probabilities are cast to V's
+dtype before the PV product.
 
-The paged pool is updated **in place** (``index_put_``): the reference
-donates the cache to its jitted step, the port writes the new K/V rows
-straight into the pool tensors.  Writes past a slot's blocks and writes
-of dead lanes are routed to the null block explicitly.
+The paged pool is updated **in place** (``core.kv_quant.cache_put``): the
+reference donates the cache to its jitted step, the port writes the new
+K/V rows (and, with the int8 codec, their scales) straight into the pool
+tensors.  Writes past a slot's blocks and writes of dead lanes are routed
+to the null block explicitly.  With the int8 codec the gather path
+dequantizes the gathered view to x's dtype and the kernels take the
+scales.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masking
+from repro_torch.core.kv_quant import (FLOAT_CODEC, CacheCodec, cache_put,
+                                       gather_view)
 from repro_torch.core.paging import NULL_BLOCK
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -30,10 +35,17 @@ NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 class KVCache(NamedTuple):
     """The paged pool: ``[layers, pool_blocks, block_size, kv, hd]`` K and V
-    (pool row 0 is the null block)."""
+    (pool row 0 is the null block), and with the int8 codec their float32
+    scales ``[layers, pool_blocks, block_size, kv]`` (None otherwise)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i``'s views ``[pool_blocks, block_size, ...]``."""
+        return KVCache(*(None if t is None else t[i] for t in self))
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -128,67 +140,78 @@ def paged_write_slot(idx: torch.Tensor, block_tables: torch.Tensor,
     return blk.long(), safe % block_size
 
 
-def _gather_view(pool: torch.Tensor, block_tables: torch.Tensor
-                 ) -> torch.Tensor:
-    """[NB, bs, kv, hd] pool -> [B, nblk * bs, kv, hd] sequence-major view."""
-    b_, nblk = block_tables.shape
-    g = pool[block_tables.long()]
-    return g.reshape(b_, nblk * pool.shape[1], *pool.shape[2:])
+def _write(cache: KVCache, codec: CacheCodec, where: tuple,
+           k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """Encode the new K/V rows and write values (+ scales) in place."""
+    kq, ks = codec.store(k_new, cache.k.dtype)
+    vq, vs = codec.store(v_new, cache.v.dtype)
+    cache_put(cache.k, cache.k_scale, where, kq, ks)
+    cache_put(cache.v, cache.v_scale, where, vq, vs)
 
 
-def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, k_pool, v_pool,
+def _gather_attend(q, cache: KVCache, codec: CacheCodec, block_tables,
+                   live, cfg: ArchConfig) -> torch.Tensor:
+    return _gqa_attend(
+        q, gather_view(codec, cache.k, cache.k_scale, block_tables, q.dtype),
+        gather_view(codec, cache.v, cache.v_scale, block_tables, q.dtype),
+        live, cfg)
+
+
+def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                      idx: torch.Tensor, block_tables: torch.Tensor, *,
-                     impl: str, mm: str) -> torch.Tensor:
-    """One-token decode: write the new K/V rows into the pool in place,
-    attend over the slot's blocks.  ``idx`` [B] is each slot's write
-    position; ``impl`` is "gather" or "pallas" (the hand-written kernel)."""
+                     impl: str, mm: str,
+                     codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+    """One-token decode against one layer's pool ``cache``: write the new
+    K/V rows into it in place, attend over the slot's blocks.  ``idx`` [B]
+    is each slot's write position; ``impl`` is "gather" or "pallas" (the
+    hand-written kernel)."""
     b_ = x.shape[0]
-    bs = k_pool.shape[1]
+    bs = cache.k.shape[1]
     q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm)
-    blk, off = paged_write_slot(idx, block_tables, bs)
-    k_pool.index_put_((blk, off), k_new[:, 0].to(k_pool.dtype))
-    v_pool.index_put_((blk, off), v_new[:, 0].to(v_pool.dtype))
+    _write(cache, codec, paged_write_slot(idx, block_tables, bs),
+           k_new[:, 0], v_new[:, 0])
     t_max = block_tables.shape[1] * bs
     if impl == "pallas":
         lengths = (idx + 1).clamp(max=t_max).to(torch.int32)
-        o = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                                   block_tables, lengths)
+        o = paged_decode_attention(q[:, 0].contiguous(), cache.k, cache.v,
+                                   block_tables, lengths,
+                                   k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale)
         o = o.reshape(b_, 1, -1)
     elif impl == "gather":
         live = torch.arange(t_max, device=x.device)[None, :] <= idx[:, None]
-        o = _gqa_attend(q, _gather_view(k_pool, block_tables),
-                        _gather_view(v_pool, block_tables), live, cfg)
+        o = _gather_attend(q, cache, codec, block_tables, live, cfg)
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
     return apply_dense(o, p.wo, mm)
 
 
-def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, k_pool, v_pool,
+def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                     start: torch.Tensor, n_live: torch.Tensor,
-                    block_tables: torch.Tensor, *, impl: str,
-                    mm: str) -> torch.Tensor:
-    """W-lane chunk/decode attention against the pool: lane ``l`` of slot
-    ``b`` sits at position ``start[b] + l``; only its first ``n_live[b]``
-    lanes are real.  The chunk's K/V are written before the attend (dead
-    lanes into the null block)."""
+                    block_tables: torch.Tensor, *, impl: str, mm: str,
+                    codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+    """W-lane chunk/decode attention against one layer's pool ``cache``:
+    lane ``l`` of slot ``b`` sits at position ``start[b] + l``; only its
+    first ``n_live[b]`` lanes are real.  The chunk's K/V are written before
+    the attend (dead lanes into the null block)."""
     b_, w, _ = x.shape
-    bs = k_pool.shape[1]
+    bs = cache.k.shape[1]
     positions = start[:, None] + torch.arange(w, device=x.device,
                                               dtype=start.dtype)[None, :]
     q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm)
     t_max = block_tables.shape[1] * bs
     idx_w = torch.where(masking.lane_mask(w, n_live), positions, t_max)
-    blk, off = paged_write_slot(idx_w, block_tables, bs)
-    k_pool.index_put_((blk, off), k_new.to(k_pool.dtype))
-    v_pool.index_put_((blk, off), v_new.to(v_pool.dtype))
+    _write(cache, codec, paged_write_slot(idx_w, block_tables, bs),
+           k_new, v_new)
     if impl == "pallas":
-        o = chunked_prefill_attention(q.contiguous(), k_pool, v_pool,
-                                      block_tables, start.to(torch.int32))
+        o = chunked_prefill_attention(q.contiguous(), cache.k, cache.v,
+                                      block_tables, start.to(torch.int32),
+                                      k_scale=cache.k_scale,
+                                      v_scale=cache.v_scale)
         o = o.reshape(b_, w, -1)
     elif impl == "gather":
         live = masking.chunk_causal_mask(t_max, start, w)
-        o = _gqa_attend(q, _gather_view(k_pool, block_tables),
-                        _gather_view(v_pool, block_tables), live, cfg)
+        o = _gather_attend(q, cache, codec, block_tables, live, cfg)
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
     return apply_dense(o, p.wo, mm)

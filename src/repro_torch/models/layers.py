@@ -1,14 +1,19 @@
 """Shared neural layers of the port: norms, activations, RoPE, projections,
-embedding (the reference's ``models/layers.py``, float weights only).
+embedding (the reference's ``models/layers.py``).
 
 Every matmul routes through ``dense`` so the plain product and the
-hand-written kernel are interchangeable (``models.backend``).
+hand-written kernel are interchangeable (``models.backend``).  A weight
+may be an int8 ``QTensor`` (the paper's fully-quantized serving path):
+under ``"pallas"`` it goes through the hand-written ``int8_matmul``,
+otherwise it is dequantized to x's dtype for the plain product.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import QTensor
+from repro_torch.kernels.int8_matmul import quantized_dense
 from repro_torch.models import backend
 
 
@@ -48,9 +53,16 @@ def is_gated(kind: str) -> bool:
     return kind in ("swiglu", "geglu")
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
-          mm: str) -> torch.Tensor:
-    """y = x @ w (+ bias), the product routed through backend ``mm``."""
+def dense(x: torch.Tensor, w: torch.Tensor | QTensor,
+          bias: torch.Tensor | None, mm: str) -> torch.Tensor:
+    """y = x @ w (+ bias), the product routed through backend ``mm``.  An
+    int8 ``w`` takes dynamic activation quantization and ``int8_matmul``
+    under ``"pallas"``; otherwise it is dequantized in x's dtype."""
+    if isinstance(w, QTensor):
+        if mm == "pallas":
+            y = quantized_dense(x, w)
+            return y if bias is None else y + bias.to(y.dtype)
+        w = w.values.to(x.dtype) * w.scale.to(x.dtype)
     y = backend.matmul(x, w, mm)
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -61,8 +73,12 @@ def apply_dense(x: torch.Tensor, p, mm: str) -> torch.Tensor:
     """A ``Dense`` projection in x's dtype.  The reference casts the float32
     kernel to x's dtype on every call; the port stores it in the compute
     dtype once at load (the same numbers) and casts again only where x is
-    in another dtype."""
-    k = p.kernel if p.kernel.dtype == x.dtype else p.kernel.to(x.dtype)
+    in another dtype.  An int8 kernel is passed on with its scales."""
+    k = p.kernel
+    if k.dtype == torch.int8:
+        k = QTensor(k, p.kernel_scale)
+    elif k.dtype != x.dtype:
+        k = k.to(x.dtype)
     return dense(x, k, p.bias, mm)
 
 
@@ -86,13 +102,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor,
+def embed(tokens: torch.Tensor, table: torch.Tensor | QTensor,
           dtype: torch.dtype) -> torch.Tensor:
-    """Rows of the (float) table for ``tokens``, in the compute dtype."""
-    rows = table.index_select(0, tokens.reshape(-1).long())
-    return rows.reshape(*tokens.shape, table.shape[1]).to(dtype)
+    """Rows of the table for ``tokens``, in the compute dtype.  A per-row
+    int8 table gathers rows and row scales and multiplies them in the
+    compute dtype."""
+    idx = tokens.reshape(-1).long()
+    if isinstance(table, QTensor):
+        rows = table.values.index_select(0, idx).to(dtype) \
+            * table.scale.index_select(0, idx).to(dtype)
+        d = table.values.shape[1]
+    else:
+        rows, d = table.index_select(0, idx).to(dtype), table.shape[1]
+    return rows.reshape(*tokens.shape, d)
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits = x @ table^T in float32 (the tied table is read in f32)."""
+def unembed(x: torch.Tensor, table: torch.Tensor | QTensor) -> torch.Tensor:
+    """Logits = x @ table^T in float32 (the tied table is read in f32, an
+    int8 one dequantized to f32 first)."""
+    if isinstance(table, QTensor):
+        table = table.values.float() * table.scale.float()
     return torch.matmul(x.float(), table.float().t())

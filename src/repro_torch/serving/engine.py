@@ -152,7 +152,11 @@ class ServingEngine:
     def load(self, params) -> None:
         """Install weights (a state dict of the port's ``Model``, e.g. from
         ``Model.init(...).state_dict()`` or ``bridge.from_jax_params``) and
-        allocate the paged pool."""
+        allocate the paged pool through the spec's cache codec.  Under
+        ``spec.execution.quant="int8"`` float weights are quantized here
+        (the model's ``load_state_dict`` applies
+        ``core.serve_quant.quantize_params`` at ``quant_min_size``), as the
+        reference's ``load`` does."""
         self.model.load_state_dict(params)
         self.cache = self.model.init_cache(self.paging)
 

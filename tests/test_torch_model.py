@@ -256,8 +256,6 @@ def test_entry_points_need_a_device_choice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(execution=ExecutionSpec(quant="int8")), "item 6"),
-    (dict(memory=MemorySpec(cache_layout="paged", kv_dtype="int8")), "item 7"),
     (dict(maxima=object()), "item 8"),
     (dict(memory=MemorySpec(cache_layout="paged", prefix_cache=True)),
      "item 9"),
@@ -272,6 +270,35 @@ def test_spec_rejects_what_is_not_ported(kw, item):
     base.update(kw)
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         RuntimeSpec(**base)
+
+
+def test_spec_serves_the_fully_quantized_options():
+    spec = RuntimeSpec(
+        arch=CFG, execution=ExecutionSpec(matmul_backend="pallas",
+                                          paged_attn_impl="pallas",
+                                          quant="int8"),
+        memory=MemorySpec(cache_layout="paged", kv_dtype="int8"))
+    assert spec.execution.quant_min_size == 65_536   # the reference default
+    tm = Model.from_spec(spec, device="cpu")
+    assert tm.codec.quantized and tm.quant == "int8"
+    # at the default floor no leaf of the reduced model is quantized (the
+    # largest, a stacked FFN kernel, holds 2 x 64 x 128 = 16 384 elements)
+    assert all(t.dtype != torch.int8 for t in tm.state_dict().values())
+
+
+@pytest.mark.parametrize("size,ok", [(-1, False), (0, True), (1, True),
+                                     (65_536, True)])
+def test_spec_checks_quant_min_size(size, ok):
+    if not ok:
+        with pytest.raises(ValueError, match="quant_min_size=-1 must be >= 0"):
+            ExecutionSpec(quant="int8", quant_min_size=size)
+        return
+    spec = RuntimeSpec(arch=CFG, execution=ExecutionSpec(
+        quant="int8", quant_min_size=size),
+        memory=MemorySpec(cache_layout="paged"))
+    n_int8 = sum(t.dtype == torch.int8 for t in
+                 Model.from_spec(spec, device="cpu").state_dict().values())
+    assert n_int8 == (0 if size == 65_536 else 15)
 
 
 def test_spec_keeps_reference_spellings_and_checks():
