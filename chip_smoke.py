@@ -6,13 +6,22 @@ Phases (any failure raises and the script exits non-zero):
    hand-written kernels from ``src/repro_torch/csrc`` and print the build
    time.
 2. Hold each kernel against its plain PyTorch version on the card, on the
-   same inputs at the main path's shapes (bf16, f32, GQA n_rep > 1; for
-   attention, lengths with partial last blocks and null-block table
-   entries, the null block filled with NaN so a read of it would show, and
-   an int8 pool whose null-block scales are NaN; ``int8_matmul`` must be
-   bit-identical), and time kernel, plain version, a PyTorch library call
-   and the bound.
-3. Full-width qwen1.5-0.5b (random weights from a fixed generator): one
+   same inputs, and time kernel, plain version, a PyTorch library call and
+   the bound.  The serving kernels at the main path's shapes (bf16, f32,
+   GQA n_rep > 1; for attention, lengths with partial last blocks and
+   null-block table entries, the null block filled with NaN so a read of
+   it would show, and an int8 pool whose null-block scales are NaN;
+   ``int8_matmul`` must be bit-identical).  The six kernels of the kernel
+   library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
+   ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
+   qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
+   attention over 1500 frames), in bf16 and f32; ``qkv_proj`` must equal
+   three ``tiled_matmul`` launches bit for bit.
+3. The kernel library entry point ``repro_torch.kernels.ops``: every
+   function on CUDA tensors with leading batch dims, chained as one
+   qwen1.5-0.5b-wide layer, each result against the plain versions; each
+   of the six library kernels must launch (counts zeroed just before).
+4. Full-width qwen1.5-0.5b (random weights from a fixed generator): one
    mixed step and one decode step on the paged pool through the kernels,
    through their plain versions and through the XLA-style gather path,
    with float weights over a bf16 pool and fully quantized (int8 weights,
@@ -24,11 +33,12 @@ Phases (any failure raises and the script exits non-zero):
    compute the distances are printed (there two valid orders of the sums
    already differ by bf16 rounding grown over 24 layers).  The PyTorch
    operators each step dispatches on the kernel path are counted.
-4. Serve 8 greedy requests (prompts of 24-400 tokens, 16 new tokens each)
+5. Serve 8 greedy requests (prompts of 24-400 tokens, 16 new tokens each)
    through the full-width paged, chunked ``ServingEngine`` with every
-   kernel selected, once with float weights and once fully quantized;
-   every request must finish and every kernel of each path must be
-   launched in that path's run (the counts are zeroed just before it).  A
+   kernel selected, once with float weights and twice fully quantized, on
+   fresh engines; every request must finish, every kernel of each path
+   must be launched in that path's run (the counts are zeroed just before
+   it), and the two fully-quantized runs must give identical streams.  A
    plain-path engine serves the float requests and the share of identical
    tokens is reported.
 
@@ -58,13 +68,21 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
                                    RuntimeSpec, SchedulerSpec)
+from repro_torch.core.quant import quantize  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
-from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.kernels import ops, runtime  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tm_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import (  # noqa: E402
     chunked_prefill_attention, chunked_prefill_attention_plain)
+from repro_torch.kernels.ffn import (  # noqa: E402
+    ffn1, ffn1_gated, ffn1_gated_plain, ffn1_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul, int8_matmul_plain)
+from repro_torch.kernels.layernorm import (  # noqa: E402
+    layernorm, layernorm_plain, rmsnorm, rmsnorm_plain)
+from repro_torch.kernels.qkv_proj import qkv_proj, qkv_proj_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
@@ -80,7 +98,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # relative size of the attention kernels' float32 summation-order error
 # (phase 2 measures 1e-6 - 3e-6 on outputs of order 1): the perturbation
-# whose effect on the logits is the floor of the phase 3 gate
+# whose effect on the logits is the floor of the phase 4 gate
 ATTN_PERTURB = 2.0 ** -19
 ENGINE = dict(max_batch=8, max_len=512, block_size=16, chunk=16)
 PROMPT_LENS = (24, 57, 96, 150, 203, 260, 333, 400)
@@ -91,14 +109,23 @@ KERNELS = {
     "paged_decode_attention": paged_decode_attention,
     "chunked_prefill_attention": chunked_prefill_attention,
     "int8_matmul": int8_matmul,
+    "ffn1": ffn1,
+    "ffn1_gated": ffn1_gated,
+    "qkv_proj": qkv_proj,
+    "layernorm": layernorm,
+    "rmsnorm": rmsnorm,
+    "flash_attention": flash_attention,
 }
-# the kernels each serving path must launch; a kernel's JSON ``launches``
-# is its count on the first path listed with it (the attention kernels
-# run on both)
+# the kernels each path must launch: the two serving paths and the kernel
+# library entry point (``repro_torch.kernels.ops``); a kernel's JSON
+# ``launches`` is its count on the first path listed with it (the
+# attention kernels run on both serving paths)
 PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                           "chunked_prefill_attention"),
                 "int8": ("int8_matmul", "paged_decode_attention",
-                         "chunked_prefill_attention")}
+                         "chunked_prefill_attention"),
+                "ops": ("ffn1", "ffn1_gated", "qkv_proj", "layernorm",
+                        "rmsnorm", "flash_attention")}
 SOURCES = {
     "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:56"),
@@ -109,7 +136,33 @@ SOURCES = {
         "src/repro/kernels/chunked_prefill.py:173"),
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul.py:55"),
+    "ffn1": ("src/repro_torch/csrc/ffn.cu", "src/repro/kernels/ffn.py:80"),
+    "ffn1_gated": ("src/repro_torch/csrc/ffn.cu",
+                   "src/repro/kernels/ffn.py:107"),
+    "qkv_proj": ("src/repro_torch/csrc/qkv_proj.cu",
+                 "src/repro/kernels/qkv_proj.py:75"),
+    "layernorm": ("src/repro_torch/csrc/layernorm.cu",
+                  "src/repro/kernels/layernorm.py:50"),
+    "rmsnorm": ("src/repro_torch/csrc/layernorm.cu",
+                "src/repro/kernels/layernorm.py:72"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:85"),
 }
+# full widths of the kernel library's shapes, from the JAX package's
+# config files (kept here as constants; nothing of it is imported):
+# qwen1.5-0.5b (configs/qwen1_5_0_5b.py): d_model 1024, 16 heads of 64,
+#   d_ff 2816, swiglu, rmsnorm; one 128-row mixed step, one 512-token prompt
+# qwen2-72b (configs/qwen2_72b.py): d_model 8192, 64 heads of 128, 8 kv
+#   heads (K/V width 1024)
+# adaptor_bert (configs/adaptor_bert.py, the paper's BERT-base variant):
+#   d_model 768, 12 heads of 64, d_ff 3072, gelu, layernorm, sequence
+#   length 64, here at batch 8 (512 rows)
+# whisper-medium (configs/whisper_medium.py): 16 heads of 64 over the
+#   encoder's 1500 frames (cross attention)
+QWEN = dict(rows=128, d=1024, ff=2816, heads=16, hd=64, prompt=512)
+QWEN72 = dict(d=8192, kv_width=1024)
+BERT = dict(batch=8, seq=64, d=768, ff=3072, heads=12, hd=64)
+WHISPER = dict(frames=1500, heads=16, hd=64)
 
 
 class Timer:
@@ -385,39 +438,254 @@ def check_attention(timer, dev, g) -> dict:
     return entries
 
 
-def unported_bounds() -> list[tuple[str, str, float, str]]:
-    """The least time of each TPU kernel not yet ported, at the shape where
-    the main path would call it (qwen1.5-0.5b widths, a 128-row mixed
-    step, bf16 activations and weights, float32 norm parameters): bytes
-    moved once over the memory rate against operations over the bf16
-    tensor rate.  Arithmetic from the shapes only; printed in phase 2."""
-    m, d, f, s_len, heads, hd = 128, 1024, 2816, 512, 16, 64
-    bf = 2
-    rows = [
-        ("kernels/ffn.py:80 ffn1", f"{m}x{d} -> {f}, + bias, act",
-         (m * d + d * f + f + m * f) * bf, 2 * m * d * f),
-        ("kernels/ffn.py:107 ffn1_gated", f"{m}x{d} -> 2 x {f}, act(x wg) * (x w1)",
-         (m * d + 2 * d * f + m * f) * bf, 4 * m * d * f),
-        ("kernels/qkv_proj.py:75 qkv_proj", f"{m}x{d} -> 3 x {d}",
-         (m * d + 3 * d * d + 3 * m * d) * bf, 6 * m * d * d),
-        ("kernels/layernorm.py:50 layernorm", f"{m}x{d}",
-         2 * m * d * bf + 2 * d * 4, 8 * m * d),
-        ("kernels/layernorm.py:72 rmsnorm", f"{m}x{d}",
-         2 * m * d * bf + d * 4, 4 * m * d),
-        # causal: each query row sees half the keys on average
-        ("kernels/flash_attention.py:85 flash_attention",
-         f"{heads} heads x {s_len} x {hd}, causal",
-         4 * heads * s_len * hd * bf, 2 * heads * s_len * s_len * hd),
-    ]
-    out = []
-    for site, shape, nbytes, ops in rows:
-        bms, by = bound_ms(nbytes, ops, torch.bfloat16)
-        out.append((site, shape, bms, by))
-    return out
+def lib_check(timer, name: str, label: str, dt, run, plain, lib,
+              nbytes: float, flops: float, peak_dt, tol: float,
+              against: torch.Tensor | None = None) -> dict:
+    """One kernel of the library against its plain version: gated at
+    ``tol`` x max|against| (default: max|plain output|), then kernel, plain
+    version and library call (None: no single PyTorch call) timed and
+    printed beside the bound."""
+    out, ref = run(), plain()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(max_err(o, r) for o, r in zip(out, ref, strict=True))
+    scale = float(against.float().abs().max()) if against is not None \
+        else max(float(r.float().abs().max()) for r in ref)
+    if err > tol * scale:
+        raise AssertionError(f"{name} {label} {dt}: err {err} > tol "
+                             f"{tol * scale}")
+    ms, pms = timer(run), timer(plain)
+    lms = timer(lib) if lib is not None else None
+    bms, by = bound_ms(nbytes, flops, peak_dt)
+    lib_s = "none" if lms is None else f"{lms:.4f}"
+    print(f"{name:>15} {label:>36} {str(dt)[6:]:>8} {err:>10.3g} "
+          f"{tol * scale:>10.3g} {ms:>10.4f} {pms:>9.4f} {lib_s:>9} "
+          f"{bms:>9.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms, shape=f"{label} {str(dt)[6:]}")
+
+
+def check_library(timer, dev, g) -> dict:
+    """The six kernels of the library entry point against their plain
+    versions at full model widths, in bf16 and f32.  Gates: f32 at 1e-5 x
+    max|plain| (order of sums), bf16 at 2^-7 x max|plain| (one rounding of
+    the f32 result); flash attention at 2e-5 (f32) and 2^-7 (bf16, p
+    rounded against another running max) x max|V|; ``qkv_proj`` bit for
+    bit against three ``tiled_matmul`` launches.  Library yardsticks (never
+    called by the port): ``F.rms_norm`` / ``F.layer_norm`` (parameters in
+    x's dtype), ``torch.addmm`` (product and bias, no activation), one
+    ``torch.matmul`` against the concatenated weights, SDPA."""
+    fn = torch.nn.functional
+    print("\n== kernel library vs plain (kernels/ops.py's six TPU kernels)")
+    print(f"{'kernel':>15} {'shape':>36} {'dtype':>8} {'err':>10} {'tol':>10} "
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9}")
+
+    def rn(*shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    entries = {}
+    for dt in (torch.bfloat16, torch.float32):
+        es = torch.empty((), dtype=dt).element_size()
+        tol = 1e-5 if dt == torch.float32 else 2 ** -7
+        main = dt == torch.bfloat16
+
+        # rmsnorm: qwen1.5-0.5b, one 128-row mixed step, f32 gamma
+        m, d = QWEN["rows"], QWEN["d"]
+        x = rn(m, d, dt=dt)
+        gam = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        rms = getattr(fn, "rms_norm", None)
+        e = lib_check(timer, "rmsnorm", f"{m}x{d} qwen1.5-0.5b", dt,
+                      lambda: rmsnorm(x, gam), lambda: rmsnorm_plain(x, gam),
+                      None if rms is None
+                      else lambda: rms(x, (d,), gam.to(dt), 1e-6),
+                      2 * m * d * es + d * 4, 4 * m * d, torch.float32, tol)
+        if main:
+            entries["rmsnorm"] = e
+
+        # layernorm: adaptor_bert, batch 8 x 64 tokens, f32 gamma / beta
+        m, d = BERT["batch"] * BERT["seq"], BERT["d"]
+        x = rn(m, d, dt=dt)
+        gam = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        bet = 0.1 * torch.randn(d, generator=g, device=dev)
+        e = lib_check(timer, "layernorm", f"{m}x{d} adaptor_bert", dt,
+                      lambda: layernorm(x, gam, bet),
+                      lambda: layernorm_plain(x, gam, bet),
+                      lambda: fn.layer_norm(x, (d,), gam.to(dt), bet.to(dt),
+                                            1e-5),
+                      2 * m * d * es + 2 * d * 4, 8 * m * d, torch.float32,
+                      tol)
+        if main:
+            entries["layernorm"] = e
+
+        # ffn1 relu / gelu: adaptor_bert, f32 bias
+        f = BERT["ff"]
+        w1 = rn(d, f, dt=dt, scale=d ** -0.5)
+        b1 = 0.1 * torch.randn(f, generator=g, device=dev)
+        b1_lib = b1.to(dt)
+        for a in ("relu", "gelu"):
+            e = lib_check(timer, "ffn1", f"{a} {m}x{d}->{f} adaptor_bert", dt,
+                          lambda: ffn1(x, w1, b1, a),
+                          lambda: ffn1_plain(x, w1, b1, a),
+                          lambda: torch.addmm(b1_lib, x, w1),
+                          (m * d + d * f + m * f) * es + f * 4, 2 * m * d * f,
+                          dt, tol)
+            if main and a == "gelu":
+                entries["ffn1"] = e
+
+        # ffn1_gated swiglu / geglu: qwen1.5-0.5b
+        m, d, f = QWEN["rows"], QWEN["d"], QWEN["ff"]
+        x = rn(m, d, dt=dt)
+        w1, wg = (rn(d, f, dt=dt, scale=d ** -0.5) for _ in range(2))
+        w1g = torch.cat([w1, wg], dim=1)
+        for a in ("swiglu", "geglu"):
+            e = lib_check(timer, "ffn1_gated",
+                          f"{a} {m}x{d}->2x{f} qwen1.5-0.5b", dt,
+                          lambda: ffn1_gated(x, w1, wg, a),
+                          lambda: ffn1_gated_plain(x, w1, wg, a),
+                          lambda: torch.matmul(x, w1g),
+                          (m * d + 2 * d * f + m * f) * es, 4 * m * d * f,
+                          dt, tol)
+            if main and a == "swiglu":
+                entries["ffn1_gated"] = e
+        del w1, wg, w1g
+
+        # qkv_proj: MHA at qwen1.5-0.5b, GQA at qwen2-72b (168 MB of bf16
+        # weights), each bit for bit equal to three tiled_matmul launches
+        for label, d, nq, nkv in (
+                ("MHA qwen1.5-0.5b", QWEN["d"], QWEN["d"], QWEN["d"]),
+                ("GQA qwen2-72b", QWEN72["d"], QWEN72["d"],
+                 QWEN72["kv_width"])):
+            x = rn(m, d, dt=dt)
+            ws = [rn(d, n, dt=dt, scale=d ** -0.5) for n in (nq, nkv, nkv)]
+            for o, w in zip(qkv_proj(x, *ws), ws, strict=True):
+                if not torch.equal(o, tiled_matmul(x, w)):
+                    raise AssertionError(f"qkv_proj {label} {dt} is not bit "
+                                         "for bit three tiled_matmuls")
+            wqkv = torch.cat(ws, dim=1)
+            n = nq + 2 * nkv
+            e = lib_check(timer, "qkv_proj",
+                          f"{label} {m}x{d}->{nq}+2x{nkv}", dt,
+                          lambda: qkv_proj(x, *ws),
+                          lambda: qkv_proj_plain(x, *ws),
+                          lambda: torch.matmul(x, wqkv),
+                          (m * d + d * n + m * n) * es, 2 * m * d * n, dt,
+                          tol)
+            if main and label.startswith("MHA"):
+                entries["qkv_proj"] = e
+            del ws, wqkv
+
+        # flash attention: one qwen1.5-0.5b prompt (causal), adaptor_bert
+        # (non-causal), whisper-medium cross attention over 1500 frames
+        for label, b, sq, skv, h, causal in (
+                ("causal qwen1.5-0.5b prompt", 1, QWEN["prompt"],
+                 QWEN["prompt"], QWEN["heads"], True),
+                ("adaptor_bert", BERT["batch"], BERT["seq"], BERT["seq"],
+                 BERT["heads"], False),
+                ("cross whisper-medium", 1, 64, WHISPER["frames"],
+                 WHISPER["heads"], False)):
+            hd = QWEN["hd"]
+            q = rn(b, sq, h, hd, dt=dt)
+            k, v = rn(b, skv, h, hd, dt=dt), rn(b, skv, h, hd, dt=dt)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            pairs = sum(min(i + 1, skv) for i in range(sq)) if causal \
+                else sq * skv
+            e = lib_check(
+                timer, "flash_attention",
+                f"{label} [{b},{sq}|{skv},{h},{hd}]", dt,
+                lambda: flash_attention(q, k, v, causal=causal),
+                lambda: flash_attention_plain(q, k, v, causal=causal),
+                lambda: fn.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=causal),
+                (2 * b * sq + 2 * b * skv) * h * hd * es,
+                4 * b * h * hd * pairs, dt,
+                2e-5 if dt == torch.float32 else 2 ** -7, against=v)
+            if main and causal:
+                entries["flash_attention"] = e
+    return entries
 
 
 # ---------------------------------------------------------------------------
-# phase 3: full-width model steps, kernels vs plain path
+# phase 3: the kernel library entry point
+# ---------------------------------------------------------------------------
+def check_ops(dev, g) -> dict:
+    """The kernel library entry point: every function of
+    ``repro_torch.kernels.ops`` on CUDA tensors with leading batch dims,
+    chained as one layer at qwen1.5-0.5b's widths over [8, 16, 1024] bf16
+    (8 requests x 16 tokens; rmsnorm -> qkv_proj -> causal flash attention
+    -> tiled_matmul -> residual -> layernorm -> ffn1_gated / ffn1 ->
+    quantized_dense).  Each result is held against the plain versions on
+    the same inputs (2^-7 x max|plain|; attention 2^-7 x max|V|;
+    ``quantized_dense`` exact).  The counts are zeroed just before and
+    read just after; every kernel of the path must have launched."""
+    print("\n== the kernel library entry point (repro_torch.kernels.ops): "
+          f"one layer over [8, 16, {QWEN['d']}] bf16")
+    for kfn in KERNELS.values():
+        kfn.launches = 0
+    dt, tol = torch.bfloat16, 2 ** -7
+    B, S, d, f = 8, 16, QWEN["d"], QWEN["ff"]
+    H, hd = QWEN["heads"], QWEN["hd"]
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def check(name, got, want, shape, against=None, exact=False):
+        if tuple(got.shape) != shape:
+            raise AssertionError(f"ops.{name}: shape {tuple(got.shape)} != "
+                                 f"{shape}")
+        err = max_err(got, want.reshape(got.shape))
+        lim = 0.0 if exact else tol * float(
+            (want if against is None else against).float().abs().max())
+        print(f"ops.{name:<16} {str(shape):>18} err {err:.3g} (tol {lim:.3g})")
+        if err > lim:
+            raise AssertionError(f"ops.{name}: err {err} > tol {lim}")
+
+    x = rn(B, S, d)
+    gam = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    bet = 0.1 * torch.randn(d, generator=g, device=dev)
+    wq, wk, wv, wo = (rn(d, d, scale=d ** -0.5) for _ in range(4))
+    w1, wg = rn(d, f, scale=d ** -0.5), rn(d, f, scale=d ** -0.5)
+    b1 = 0.1 * torch.randn(f, generator=g, device=dev)
+    qw2 = quantize(torch.randn(f, d, generator=g, device=dev) * f ** -0.5)
+
+    h = ops.rmsnorm(x, gam)
+    check("rmsnorm", h, rmsnorm_plain(flat(x), gam), (B, S, d))
+    q, k, v = ops.qkv_proj(h, wq, wk, wv)
+    for name, t, w in (("qkv_proj q", q, wq), ("qkv_proj k", k, wk),
+                       ("qkv_proj v", v, wv)):
+        check(name, t, tiled_matmul_plain(flat(h), w), (B, S, d))
+    qa, ka, va = (t.reshape(B, S, H, hd) for t in (q, k, v))
+    a = ops.flash_attention(qa, ka, va, causal=True)
+    check("flash_attention", a, flash_attention_plain(qa, ka, va),
+          (B, S, H, hd), against=va)
+    o = ops.tiled_matmul(a.reshape(B, S, d), wo)
+    check("tiled_matmul", o, tiled_matmul_plain(flat(a.reshape(B, S, d)), wo),
+          (B, S, d))
+    r = x + o
+    n = ops.layernorm(r, gam, bet)
+    check("layernorm", n, layernorm_plain(flat(r), gam, bet), (B, S, d))
+    fg = ops.ffn1_gated(n, w1, wg, "swiglu")
+    check("ffn1_gated", fg, ffn1_gated_plain(flat(n), w1, wg, "swiglu"),
+          (B, S, f))
+    f1 = ops.ffn1(n, w1, b1, "gelu")
+    check("ffn1", f1, ffn1_plain(flat(n), w1, b1, "gelu"), (B, S, f))
+    y = ops.quantized_dense(fg, qw2)
+    qx = quantize(flat(fg), axis=None)
+    check("quantized_dense", y,
+          int8_matmul_plain(qx.values, qx.scale, qw2.values, qw2.scale, dt),
+          (B, S, d), exact=True)
+    counts = {name: kfn.launches for name, kfn in KERNELS.items()}
+    print(f"launches on the ops path: {counts}")
+    for name in PATH_KERNELS["ops"]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the ops path")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width model steps, kernels vs plain path
 # ---------------------------------------------------------------------------
 def full_width_spec(kernels: bool, quant: bool = False) -> RuntimeSpec:
     """The serving spec at full width; ``quant`` serves fully quantized
@@ -544,7 +812,7 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving engine's main path
+# phase 5: the serving engine's main path
 # ---------------------------------------------------------------------------
 def serve(params, kernels: bool, prompts, quant: bool = False
           ) -> tuple[dict, float, int]:
@@ -587,9 +855,8 @@ def main() -> int:
     entries = {"tiled_matmul": check_matmul(timer, dev, g),
                "int8_matmul": check_int8_matmul(timer, dev, g)}
     entries.update(check_attention(timer, dev, g))
-    print("\n== bounds of the TPU kernels not yet ported (main-path shapes)")
-    for site, shape, bms, by in unported_bounds():
-        print(f"{site:>46} {shape:>40} bound_ms {bms:.6f} ({by})")
+    entries.update(check_library(timer, dev, g))
+    launches = {"ops": check_ops(dev, g)}
 
     model = Model.from_spec(full_width_spec(True), device=dev).init(g)
     params = model.state_dict()
@@ -617,7 +884,7 @@ def main() -> int:
                for n in PROMPT_LENS]
     del model
     n_tok = len(prompts) * MAX_NEW
-    launches, streams = {}, {}
+    streams = {}
     for path in ("float", "int8"):
         for fn in KERNELS.values():
             fn.launches = 0
@@ -631,6 +898,16 @@ def main() -> int:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} serving path")
+    # the fully-quantized streams must repeat on a fresh engine: duplicate
+    # pool writes of dead lanes (int8 values and scales) resolve to one row
+    again, dt_p, _ = serve(params, True, prompts, quant=True)
+    same = sum(a == b for i in again
+               for a, b in zip(streams["int8"][i], again[i]))
+    print(f"kernels, int8 weights, a second fresh engine: {n_tok} tokens in "
+          f"{dt_p:.3f} s; identical tokens to the first: {same}/{n_tok}")
+    if again != streams["int8"]:
+        raise AssertionError("the fully-quantized streams differ between "
+                             f"two fresh engines ({same}/{n_tok} equal)")
     streams_p, dt_p, steps_p = serve(params, False, prompts)
     print(f"plain, float weights: {n_tok} tokens in {dt_p:.3f} s "
           f"({n_tok / dt_p:.1f} tok/s), {steps_p} fused steps")

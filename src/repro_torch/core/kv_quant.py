@@ -97,15 +97,42 @@ class CacheCodec:
 FLOAT_CODEC = CacheCodec("compute")
 
 
+def last_writer(idx: tuple[torch.Tensor, torch.Tensor], block_size: int,
+                num_blocks: int) -> torch.Tensor:
+    """For each write row (row-major over ``idx``'s shape), the last row
+    in that order with the same (block, offset) destination: the row a
+    sequential loop of the writes leaves there.  On the device, with no
+    host sync."""
+    blk, off = torch.broadcast_tensors(*idx)
+    dest = (blk * block_size + off).reshape(-1)
+    rows = torch.arange(dest.numel(), device=dest.device)
+    last = torch.full((num_blocks * block_size,), -1, dtype=torch.long,
+                      device=dest.device)
+    last.scatter_reduce_(0, dest, rows, reduce="amax")
+    return last[dest]
+
+
 def cache_put(values: torch.Tensor, scales: torch.Tensor | None, idx: tuple,
               new_vals: torch.Tensor, new_scales: torch.Tensor | None
               ) -> None:
     """Write codec-stored (values, scales) at ``idx`` in place — the one
     write primitive of the paged pool; scales are None end to end in
-    compute mode."""
-    values.index_put_(idx, new_vals)
+    compute mode.
+
+    Rows may share a destination (dead lanes and idle slots all go to the
+    null block), and ``index_put_`` picks no winner among duplicates on
+    CUDA.  So every row first takes the values and scale of its
+    destination's ``last_writer``: each destination then receives one
+    row's bytes, values and scale from the same row, whatever order the
+    device applies the writes in.  Live rows never share a destination,
+    so what they write is unchanged."""
+    lead = torch.broadcast_shapes(idx[0].shape, idx[1].shape)
+    src = last_writer(idx, values.shape[1], values.shape[0])
+    values.index_put_(idx, new_vals.flatten(0, len(lead) - 1)[src]
+                      .reshape(new_vals.shape))
     if new_scales is not None:
-        scales.index_put_(idx, new_scales)
+        scales.index_put_(idx, new_scales.flatten(0, len(lead) - 1)[src]
+                          .reshape(new_scales.shape))
 
 
 def gather_view(codec: CacheCodec, values: torch.Tensor,

@@ -32,7 +32,8 @@ import torch
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import quant as tq
-from repro_torch.core.kv_quant import CacheCodec
+from repro_torch.core import masking
+from repro_torch.core.kv_quant import CacheCodec, cache_put, last_writer
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.serve_quant import quantize_params
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
@@ -44,6 +45,7 @@ from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_plain,
                                              quantized_dense)
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.models.attention import paged_write_slot
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
 
@@ -160,6 +162,49 @@ def test_codec_encode_is_bit_identical(ref):
             wq, ws, ref.jnp.float32)))
     assert INT8.bytes_per_feature_row(64) == 68
     assert CacheCodec().bytes_per_feature_row(64) == 128
+
+
+def test_pool_write_has_one_winner_per_destination():
+    """Dead lanes, lanes past a slot's table and table entries at the null
+    block all write (block 0, some offset): many rows per destination.
+    ``cache_put`` must leave, at each destination, the values and the
+    scale of one and the same row, the last in row-major (slot, lane)
+    order, as a sequential loop does, whatever order the writes land in."""
+    B, W, bs, kv, hd = 3, 6, 4, 2, 8
+    tables = torch.tensor([[3, 1], [2, 0], [4, 5]], dtype=torch.int32)
+    start = torch.tensor([2, 3, 5])
+    n_live = torch.tensor([6, 2, 0])
+    pos = start[:, None] + torch.arange(W)[None, :]
+    idx_w = torch.where(masking.lane_mask(W, n_live), pos, 2 * bs)
+    blk, off = paged_write_slot(idx_w, tables, bs)
+    rs = np.random.RandomState(7)
+    kq, ks = INT8.store(_t(rs.randn(B, W, kv, hd).astype(np.float32)),
+                        torch.int8)
+    vals, scales = INT8.cache_tensors((6, bs, kv, hd), "cpu")
+    cache_put(vals, scales, (blk, off), kq, ks)
+
+    dest = (blk * bs + off).reshape(-1)
+    assert dest.unique().numel() < dest.numel()    # duplicates, null block
+    src = last_writer((blk, off), bs, 6)
+    want_v, want_s = np.zeros(tuple(vals.shape), np.int8), \
+        np.zeros(tuple(scales.shape), np.float32)
+    flat_q, flat_s = kq.reshape(B * W, kv, hd), ks.reshape(B * W, kv)
+    for r in range(B * W):                         # sequential, row-major
+        b_, o_ = int(blk.reshape(-1)[r]), int(off.reshape(-1)[r])
+        want_v[b_, o_], want_s[b_, o_] = flat_q[r].numpy(), flat_s[r].numpy()
+        # the winner is the last row with this destination
+        assert int(src[r]) == max(i for i in range(B * W)
+                                  if int(dest[i]) == int(dest[r]))
+    np.testing.assert_array_equal(vals.numpy(), want_v)
+    np.testing.assert_array_equal(scales.numpy(), want_s)
+    # another order of the writes (as a device may apply them) lands the
+    # same bytes: every duplicate carries its winner's row
+    again_v, again_s = INT8.cache_tensors((6, bs, kv, hd), "cpu")
+    for r in reversed(range(B * W)):
+        b_, o_ = int(blk.reshape(-1)[r]), int(off.reshape(-1)[r])
+        again_v[b_, o_] = flat_q[src[r]]
+        again_s[b_, o_] = flat_s[src[r]]
+    assert torch.equal(again_v, vals) and torch.equal(again_s, scales)
 
 
 # below the reduced model's smallest stacked kernel (2 x 64 x 64 = 8192)
