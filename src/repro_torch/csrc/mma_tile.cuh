@@ -33,6 +33,7 @@
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -152,22 +153,6 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Pack two bf16 values (lower address in the low half) into one register.
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 
 // VEC: operands are staged with 16-byte loads of 8 bf16 (needs K and every
 // n[b] to be multiples of 8 and 16-byte aligned pointers); otherwise one

@@ -12,6 +12,14 @@ wrapper and its kernel take the ``ops`` layout directly, so nothing is
 transposed in device memory (``[B*H, S, hd]`` is the case H = 1).  A CUDA
 tensor launches the hand-written kernel of ``csrc/flash_attention.cu``; a
 CPU tensor runs the plain version.
+
+The kernel gives each CTA 64 query rows of one (b, h).  Where that leaves
+the card's SMs idle, ``kv_splits`` cuts the keys into ranges of whole
+64-key tiles (``kv_ranges``); each range's CTAs write an unnormalised
+float32 accumulator and the running (max, sum) to a workspace, and a merge
+kernel combines them.  ``flash_attention_partial_plain`` (whose
+range [0, Skv) is ``flash_attention_plain``) and ``merge_partials_plain``
+are those two steps in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from repro_torch.kernels import runtime
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-MAX_HEAD_DIM = 128          # the kernel keeps hd / 32 features per lane
+MAX_HEAD_DIM = 128          # the kernel pads hd to 32, 64, 96 or 128
+TILE = 64                   # the kernel's query rows per CTA and keys per tile
 
 
 def _block(skv: int) -> int:
@@ -36,12 +45,56 @@ def _block(skv: int) -> int:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the Pallas kernel's
-    order: the running (max, sum, f32 accumulator) is updated once per kv
-    block of the reference's size, masked scores are ``NEG_INF``, p is
-    rounded to V's dtype before the PV product, and O = acc / max(l,
-    1e-30)."""
+    order: ``flash_attention_partial_plain`` over all keys, then O = acc /
+    max(l, 1e-30)."""
+    acc, _, l = flash_attention_partial_plain(q, k, v, 0, k.shape[1],
+                                              causal=causal)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype).contiguous()
+
+
+def _kv_len(sq: int, skv: int, causal: bool) -> int:
+    """The keys any query sees (top-left causal: none past Sq - 1)."""
+    return min(skv, sq) if causal else skv
+
+
+def kv_splits(B: int, H: int, Sq: int, Skv: int, causal: bool,
+              sms: int) -> int:
+    """How many key ranges the kernel's grid takes: 1 where the
+    ceil(Sq/64) * B * H CTAs already cover the ``sms`` SMs; else about one
+    wave of CTAs (``sms // ctas`` ranges), capped so that every range holds
+    at least two 64-key tiles."""
+    ctas = -(-Sq // TILE) * B * H
+    if ctas >= sms:
+        return 1
+    tiles = -(-_kv_len(Sq, Skv, causal) // TILE)
+    return max(1, min(sms // ctas, tiles // 2))
+
+
+def kv_ranges(Sq: int, Skv: int, causal: bool,
+              splits: int) -> list[tuple[int, int]]:
+    """The key ranges [lo, hi) of a split: whole 64-key tiles, as even as
+    the tile count allows, covering the keys any query sees.  The kernel
+    computes the same ranges from its grid index."""
+    kv = _kv_len(Sq, Skv, causal)
+    tiles = -(-kv // TILE)
+    return [(s * tiles // splits * TILE,
+             min(kv, (s + 1) * tiles // splits * TILE))
+            for s in range(splits)]
+
+
+def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, lo: int, hi: int, *,
+                                  causal: bool = True
+                                  ) -> tuple[torch.Tensor, ...]:
+    """The Pallas kernel's block loop over the keys [lo, hi): the running
+    (max, sum, f32 accumulator) is updated once per kv block of the
+    reference's size, masked scores are ``NEG_INF``, and p is rounded to
+    V's dtype before the PV product.  Returns the unnormalised float32
+    accumulator ``[B, Sq, H, hd]`` and the running max and sum ``[B, Sq,
+    H]``.  A row that sees no key of the range keeps m = NEG_INF and l = 0
+    (p of a masked score is 0)."""
     B, Sq, H, hd = q.shape
-    skv = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     qf = q.transpose(1, 2).float()                       # [B, H, Sq, hd]
     kf = k.transpose(1, 2).float()
@@ -50,28 +103,48 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((B, H, Sq, 1), device=q.device)
     acc = torch.zeros((B, H, Sq, hd), device=q.device)
     qpos = torch.arange(Sq, device=q.device)[:, None]
-    bkv = _block(skv)
-    for k0 in range(0, skv, bkv):
-        kb, vb = kf[:, :, k0:k0 + bkv], vt[:, :, k0:k0 + bkv]
+    bkv = _block(hi - lo)
+    for k0 in range(lo, hi, bkv):
+        kb, vb = kf[:, :, k0:min(k0 + bkv, hi)], vt[:, :, k0:min(k0 + bkv, hi)]
         s = (qf @ kb.transpose(-1, -2)) * scale
+        seen = torch.ones_like(s, dtype=torch.bool)
         if causal:
             kpos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
-            s = torch.where(kpos <= qpos, s, NEG_INF)
+            seen = (kpos <= qpos).expand_as(s)
+            s = torch.where(seen, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        p = torch.where(seen, torch.exp(s - m_new), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
         m = m_new
         acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
-    out = acc / l.clamp_min(1e-30)
-    return out.to(q.dtype).transpose(1, 2).contiguous()
+    return (acc.transpose(1, 2), m[..., 0].transpose(1, 2),
+            l[..., 0].transpose(1, 2))
+
+
+def merge_partials_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """The merge kernel in plain PyTorch: acc ``[splits, B, Sq, H, hd]``, m
+    and l ``[splits, B, Sq, H]`` -> O ``[B, Sq, H, hd]`` in ``out_dtype``,
+    with m* = max m_s, O = sum acc_s e^(m_s - m*) / max(sum l_s e^(m_s -
+    m*), 1e-30).  A range with m_s = NEG_INF weighs 0."""
+    w = torch.exp(m - m.amax(0, keepdim=True))
+    lsum = (l * w).sum(0)
+    out = (acc * w[..., None]).sum(0) / lsum.clamp_min(1e-30)[..., None]
+    return out.to(out_dtype)
 
 
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return runtime.bind("flash_attention",
-                        [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p])
+                        [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p,
+                         i, p])
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,12 +174,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if B == 0 or Sq == 0 or H == 0:
         return o
+    ctas = -(-Sq // TILE) * B * H
+    splits = kv_splits(B, H, Sq, skv, causal, _sm_count(q.device.index))
+    # splits > 1: the ranges' accumulators, then their m and l, in float32
+    ws = torch.empty(splits * B * Sq * H * (hd + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     B, H, Sq, skv, hd, 1.0 / math.sqrt(hd), int(causal),
-                    runtime.DTYPE_CODES[q.dtype], runtime.stream_handle(q))
+                    runtime.DTYPE_CODES[q.dtype],
+                    None if ws is None else ws.data_ptr(), splits,
+                    runtime.stream_handle(q))
     runtime.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.last_grid = (ctas, splits)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.last_grid = None    # (query-tile CTAs, key ranges) launched
