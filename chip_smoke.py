@@ -9,9 +9,15 @@ Phases (any failure raises and the script exits non-zero):
    same inputs, and time kernel, plain version, a PyTorch library call and
    the bound.  The serving kernels at the main path's shapes (bf16, f32,
    GQA n_rep > 1; for attention, lengths with partial last blocks and
-   null-block table entries, the null block filled with NaN so a read of
-   it would show, and an int8 pool whose null-block scales are NaN;
-   ``int8_matmul`` must be bit-identical).  The six kernels of the kernel
+   null-block table entries, the null block and the unseen tail of each
+   sequence's last block filled with NaN so a read of them would show, and
+   an int8 pool whose scales there are NaN; ``int8_matmul`` must be
+   bit-identical).  The paged attention kernels also at the head dims and
+   GQA widths of ROADMAP Queue 3 fault A (hd 96; GQA 8 x hd 128 at W 16
+   and 32), the chunk kernel over fixed key-range counts, each chunk case
+   with the grid it launched, and one chunk call under
+   ``torch.cuda.set_sync_debug_mode("error")``; the build prints the chunk
+   and flash kernels' registers and spills.  The six kernels of the kernel
    library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
    ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
    qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
@@ -19,8 +25,7 @@ Phases (any failure raises and the script exits non-zero):
    three ``tiled_matmul`` launches bit for bit.  ``flash_attention`` also
    runs a causal qwen2-72b-width prompt (64 heads of 128) and, gated but
    not timed, two ragged head dims over 1000 keys; each flash shape
-   prints its grid (CTAs, key ranges), and the build prints the flash
-   kernels' registers and spills from the ptxas report.
+   prints its grid (CTAs, key ranges).
 3. The kernel library entry point ``repro_torch.kernels.ops``: every
    function on CUDA tensors with leading batch dims, chained as one
    qwen1.5-0.5b-wide layer, each result against the plain versions; each
@@ -74,6 +79,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
                                    RuntimeSpec, SchedulerSpec)
 from repro_torch.core.quant import quantize  # noqa: E402
+from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
 from repro_torch.kernels import ops, runtime  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tm_mod  # noqa: E402
@@ -354,9 +360,10 @@ def check_int8_matmul(timer, dev, g) -> dict:
 def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
                  nblk=32):
     """A pool with shuffled blocks per sequence, table entries past each
-    sequence's reach at the null block, and the null block full of NaN (an
-    int8 pool: random values, per-row scales, NaN null-block scales).
-    Returns q, the pools, tables, start and the scales (None or a pair)."""
+    sequence's reach at the null block, and NaN in the null block and in
+    the unseen tail of each sequence's last live block (an int8 pool:
+    random values, per-row scales, NaN scales there).  Returns q, the pools,
+    tables, start and the scales (None or a pair)."""
     nb = B * nblk + 1
     if kv_dt == torch.int8:
         k_pool, v_pool = (torch.randint(-127, 128, (nb, bs, kv, hd),
@@ -364,122 +371,199 @@ def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
                                         dtype=torch.int8) for _ in range(2))
         scales = tuple(torch.rand(nb, bs, kv, generator=g, device=dev) * 0.03
                        + 5e-3 for _ in range(2))
-        for sc in scales:
-            sc[0] = float("nan")
+        poisoned = scales
     else:
         k_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
         v_pool = torch.randn(nb, bs, kv, hd, generator=g, device=dev).to(kv_dt)
-        k_pool[0] = float("nan")
-        v_pool[0] = float("nan")
         scales = None
+        poisoned = (k_pool, v_pool)
     perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
     tables = perm.reshape(B, nblk).to(torch.int32)
+    for t in poisoned:
+        t[0] = float("nan")
     for b, s in enumerate(starts):
-        used = -(-min(s + W, nblk * bs) // bs)
+        reach = min(s + W, nblk * bs)
+        used = -(-reach // bs)
         tables[b, used:] = 0
+        blk, off = int(tables[b, used - 1]), (reach - 1) % bs
+        for t in poisoned:
+            t[blk, off + 1:] = float("nan")
     q = torch.randn(B, W, h, hd, generator=g, device=dev).to(q_dt)
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
     return q, k_pool, v_pool, tables, start, scales
 
 
+def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
+              label="") -> dict:
+    """One paged attention kernel against its plain version on one input
+    (``starts``: decode lengths, or the chunk's lane-0 positions), timed
+    beside SDPA and the bound; the chunk kernel's grid printed."""
+    decode = name == "paged_decode_attention"
+    bs = 16
+    q, kp, vp, tables, start, scales = paged_inputs(
+        g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts)
+    sk = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    if decode:
+        q = q[:, 0].contiguous()
+        lens = start + 1
+        run = lambda: paged_decode_attention(  # noqa: E731
+            q, kp, vp, tables, lens, **sk)
+        plain = lambda: paged_decode_attention_plain(  # noqa: E731
+            q, kp, vp, tables, lens, **sk)
+        n_pos = [s + 1 for s in starts]
+    else:
+        run = lambda: chunked_prefill_attention(  # noqa: E731
+            q, kp, vp, tables, start, **sk)
+        plain = lambda: chunked_prefill_attention_plain(  # noqa: E731
+            q, kp, vp, tables, start, **sk)
+        n_pos = [min(s + W, 512) for s in starts]
+    t_max = tables.shape[1] * bs
+    out, ref = run(), plain()
+    grid = None if decode else chunked_prefill_attention.last_grid
+    err = max_err(out, ref)
+    # f32 out over an f32 pool: order of sums and exp only; over a bf16
+    # pool p is rounded to bf16, and another order of the score sum (or
+    # another running max: the chunk kernel's key ranges) can round a
+    # probability a bf16 step (2^-8) the other way, which moves the output
+    # by up to 2^-8 * max|V|; bf16 out: one bf16 rounding of each output,
+    # a bf16 step of its own size, 2^-7 * max(|plain|, 1) per element
+    # (tol prints the limit where the error comes closest to it, "of tol"
+    # that closest error over its limit); f32 out over an int8 pool: the
+    # f32 walk over the dequantized pool, order only
+    if q_dt == torch.bfloat16:
+        limit = 2 ** -7 * ref.float().abs().clamp_min(1)
+        frac = (out.float() - ref.float()).abs() / limit
+        worst = frac.flatten().argmax()
+        tol = float(limit.flatten()[worst])
+        frac = float(frac.flatten()[worst])
+    else:
+        tol = 2e-5 if kv_dt != torch.bfloat16 else \
+            2 ** -8 * float(vp.float().nan_to_num().abs().max())
+        frac = err / tol
+    if frac > 1:
+        raise AssertionError(f"{name} {label} q={q_dt} pool={kv_dt} h={h} "
+                             f"kv={kv} hd={hd} W={W}: err {err}, {frac} of "
+                             f"the limit {tol}")
+    pair = str(q_dt)[6:] + "/" + str(kv_dt)[6:]
+    # library yardstick: SDPA on a pre-gathered, head-repeated view (an
+    # int8 pool dequantized first; neither is timed)
+    if scales is not None:
+        kp_f = kp.float() * scales[0].nan_to_num()[..., None]
+        vp_f = vp.float() * scales[1].nan_to_num()[..., None]
+    else:
+        kp_f, vp_f = kp.nan_to_num(), vp.nan_to_num()
+    kg = kp_f[tables.long()].reshape(B, t_max, kv, hd)
+    vg = vp_f[tables.long()].reshape(B, t_max, kv, hd)
+    kg = kg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
+    vg = vg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
+    qs = q.reshape(B, W, h, hd).transpose(1, 2)
+    lim = start[:, None] + torch.arange(W, device=dev)[None, :]
+    mask = (torch.arange(t_max, device=dev)[None, None, :]
+            <= lim[:, :, None])[:, None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, kg, vg, attn_mask=mask)
+    ms, pms, lms = timer(run), timer(plain), timer(sdpa)
+    # K/V rows (and an int8 pool's scales) read once per sequence; each
+    # lane's scores and PV products over the positions it sees
+    row = hd * kp.element_size() + (4 if scales is not None else 0)
+    nbytes = (2 * sum(n_pos) * kv * row + 2 * q.numel() * q.element_size()
+              + tables.numel() * 4 + B * 4)
+    seen = sum(min(s + lane + 1, t_max) for s in starts
+               for lane in range(W)) if not decode else sum(n_pos)
+    # an int8 pool is attended in f32 (the reference's dequantized walk)
+    bms, by = bound_ms(nbytes, 4 * seen * h * hd,
+                       torch.float32 if kv_dt == torch.int8 else q_dt)
+    print(f"{name:>26} {pair:>10} {h:>3}/{kv:<2} {err:>10.3g} {tol:>8.3g} "
+          f"{ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f} {frac:>7.3f} "
+          f"{label}"
+          + (f" grid {grid[0]} CTAs x {grid[1]} key ranges" if grid else ""))
+    nums = dict(max_abs_err=err, of_tol=frac, ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, library_ms=lms,
+                shape=f"B={B} W={W} h={h} kv={kv} hd={hd} bs=16 {pair}"
+                      + (f" {label}" if label else ""))
+    if grid:
+        nums.update(ctas=grid[0], splits=grid[1])
+    return nums
+
+
+# chunk lane-0 positions: the last lane reaches start + W - 1 <= 511
+CHUNK_STARTS = {16: [0, 16, 48, 100, 203, 300, 400, 496],
+                32: [0, 16, 48, 100, 203, 300, 400, 480]}
+DECODE_LENS = [0, 16, 99, 254, 255, 299, 510, 511]
+
+
 def check_attention(timer, dev, g) -> dict:
+    """The paged attention kernels at the serving shape (bs=16, 32 blocks
+    per slot; qwen1.5-0.5b widths) in every (q, pool) dtype pair and with
+    GQA, then the head dims and GQA widths of ROADMAP Queue 3 fault A:
+    phi3-mini's hd 96 (32 heads, decode and chunk) and qwen2-72b's GQA 8 x
+    hd 128 (64 heads over 8, chunk at W 16 and 32).  The chunk kernel is
+    also timed at the serving shape over fixed key-range counts, and one
+    chunk call runs under ``torch.cuda.set_sync_debug_mode("error")``."""
     print("\n== paged attention kernels vs plain (bs=16, 32 blocks/slot)")
     print(f"{'kernel':>26} {'q/pool':>10} {'h/kv':>6} {'err':>10} {'tol':>8} "
-          f"{'kernel_ms':>10} {'plain_ms':>9} {'sdpa_ms':>9} {'bound_ms':>9}")
-    cases = [(torch.bfloat16, torch.bfloat16, 16, 16),
-             (torch.float32, torch.bfloat16, 16, 16),
-             (torch.float32, torch.float32, 16, 16),
-             (torch.bfloat16, torch.bfloat16, 16, 4),
-             (torch.float32, torch.int8, 16, 16),
-             (torch.bfloat16, torch.int8, 16, 16)]
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'sdpa_ms':>9} {'bound_ms':>9} "
+          f"{'of tol':>7}")
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    cases = [(bf, bf, 16, 16), (f32, bf, 16, 16), (f32, f32, 16, 16),
+             (bf, bf, 16, 4), (f32, i8, 16, 16), (bf, i8, 16, 16)]
     entries = {}
-    B, hd, bs = 8, 64, 16
+    B, hd = 8, 64
     for name in ("paged_decode_attention", "chunked_prefill_attention"):
         decode = name == "paged_decode_attention"
         W = 1 if decode else ENGINE["chunk"]
-        # decode: live lengths (partial last blocks, one full table);
-        # chunk: lane-0 positions (the last lane reaches start + 15)
-        starts = ([0, 16, 99, 254, 255, 299, 510, 511] if decode
-                  else [0, 16, 48, 100, 203, 300, 400, 496])
+        starts = DECODE_LENS if decode else CHUNK_STARTS[W]
         for q_dt, kv_dt, h, kv in cases:
-            q, kp, vp, tables, start, scales = paged_inputs(
-                g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts)
-            sk = {} if scales is None else dict(k_scale=scales[0],
-                                                v_scale=scales[1])
-            if decode:
-                q = q[:, 0].contiguous()
-                lens = start + 1
-                run = lambda: paged_decode_attention(  # noqa: E731
-                    q, kp, vp, tables, lens, **sk)
-                plain = lambda: paged_decode_attention_plain(  # noqa: E731
-                    q, kp, vp, tables, lens, **sk)
-                n_pos = [s + 1 for s in starts]
-            else:
-                run = lambda: chunked_prefill_attention(  # noqa: E731
-                    q, kp, vp, tables, start, **sk)
-                plain = lambda: chunked_prefill_attention_plain(  # noqa: E731
-                    q, kp, vp, tables, start, **sk)
-                n_pos = [min(s + W, 512) for s in starts]
-            t_max = tables.shape[1] * bs
-            out, ref = run(), plain()
-            err = max_err(out, ref)
-            # f32 out over an f32 pool: order of sums and exp only; over a
-            # bf16 pool p is rounded to bf16, and another order of the score
-            # sum can round one probability a bf16 step (2^-8) the other
-            # way, which moves the output by up to 2^-8 * max|V|; bf16 out:
-            # one bf16 rounding of an output near 1-4 (2^-6); f32 out over an
-            # int8 pool: the f32 walk over the dequantized pool, order only
-            if q_dt == torch.bfloat16:
-                tol = 2 ** -6
-            elif kv_dt == torch.int8:
-                tol = 2e-5
-            elif kv_dt == torch.bfloat16:
-                tol = 2 ** -8 * float(vp[1:].float().abs().max())
-            else:
-                tol = 2e-5
-            if err > tol:
-                raise AssertionError(f"{name} q={q_dt} pool={kv_dt} h={h} "
-                                     f"kv={kv}: err {err} > tol {tol}")
-            # library yardstick: SDPA on a pre-gathered, head-repeated view
-            # (an int8 pool dequantized first; neither is timed)
-            if scales is not None:
-                kp_f = kp.float() * scales[0].nan_to_num()[..., None]
-                vp_f = vp.float() * scales[1].nan_to_num()[..., None]
-            else:
-                kp_f, vp_f = kp.nan_to_num(), vp.nan_to_num()
-            kg = kp_f[tables.long()].reshape(B, t_max, kv, hd)
-            vg = vp_f[tables.long()].reshape(B, t_max, kv, hd)
-            kg = kg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
-            vg = vg.repeat_interleave(h // kv, dim=2).transpose(1, 2).to(q_dt)
-            qs = q.reshape(B, W, h, hd).transpose(1, 2)
-            lim = start[:, None] + torch.arange(W, device=dev)[None, :]
-            mask = (torch.arange(t_max, device=dev)[None, None, :]
-                    <= lim[:, :, None])[:, None]
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qs, kg, vg, attn_mask=mask)
-            ms, pms, lms = timer(run), timer(plain), timer(sdpa)
-            # K/V rows (and an int8 pool's scales) read once per sequence;
-            # each lane's scores and PV products over the positions it sees
-            row = hd * kp.element_size() + (4 if scales is not None else 0)
-            nbytes = (2 * sum(n_pos) * kv * row
-                      + 2 * q.numel() * q.element_size()
-                      + tables.numel() * 4 + B * 4)
-            seen = sum(min(s + lane + 1, t_max) for s in starts
-                       for lane in range(W)) if not decode else sum(n_pos)
-            flops = 4 * seen * h * hd
-            bms, by = bound_ms(nbytes, flops, q_dt)
-            print(f"{name:>26} {str(q_dt)[6:] + '/' + str(kv_dt)[6:]:>10} "
-                  f"{h:>3}/{kv:<2} {err:>10.3g} {tol:>8.3g} {ms:>10.4f} "
-                  f"{pms:>9.4f} {lms:>9.4f} {bms:>9.4f}")
-            nums = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                        bound_by=by, library_ms=lms)
+            nums = attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv,
+                             hd, starts)
             if (q_dt, kv_dt, h, kv) == cases[0]:
-                entries[name] = dict(
-                    nums, shape=f"B=8 W={W} h=16 kv=16 hd=64 bs=16 bf16")
-            elif (q_dt, kv_dt) == (torch.bfloat16, torch.int8):
-                entries[name]["int8_pool"] = dict(
-                    nums, shape=f"B=8 W={W} h=16 kv=16 hd=64 bs=16 bf16 q, "
-                                "int8 pool + f32 scales")
+                entries[name] = dict(nums, other_shapes=[])
+            elif (q_dt, kv_dt) == (bf, i8):
+                entries[name]["int8_pool"] = nums
+    # fault A: hd 96 (phi3-mini: 32 heads of 96, no GQA) and GQA 8 x hd 128
+    # (qwen2-72b: 64 heads over 8 kv heads) at W 16 and 32
+    print("fault A shapes (ROADMAP Queue 3):")
+    for name, W, h, kv, hdf, label in (
+            ("paged_decode_attention", 1, 32, 32, 96, "phi3-mini hd 96"),
+            ("chunked_prefill_attention", 16, 32, 32, 96, "phi3-mini hd 96"),
+            ("chunked_prefill_attention", 16, 64, 8, 128,
+             "qwen2-72b GQA 8 x hd 128 W 16"),
+            ("chunked_prefill_attention", 32, 64, 8, 128,
+             "qwen2-72b GQA 8 x hd 128 W 32")):
+        starts = DECODE_LENS if W == 1 else CHUNK_STARTS[W]
+        for kv_dt in (bf, i8):
+            nums = attn_case(timer, dev, g, name, bf, kv_dt, B, W, h, kv,
+                             hdf, starts, label=label)
+            entries[name]["other_shapes"].append(nums)
+    # the chunk kernel's time over fixed key-range counts at the serving
+    # shape (the wrapper's own plan is the row above)
+    print("chunked_prefill_attention over fixed key-range counts:")
+    # the plan's own count (its wave: the walk's resident CTAs per SM from
+    # the CUDA occupancy) against 1 and the other fixed counts
+    chunk = entries["chunked_prefill_attention"]
+    for kv_dt, plan in ((bf, chunk["splits"]),
+                        (i8, chunk["int8_pool"]["splits"])):
+        resident = cp_mod.resident_ctas(dev, bf, kv_dt, hd, 32)
+        print(f"  pool {kv_dt}: {resident} resident CTAs per SM, the plan "
+              f"takes {plan} key ranges")
+        for splits in sorted({1, 2, 4, 8, plan}):
+            with mock.patch.object(cp_mod, "kv_splits",
+                                   lambda *a, s=splits: s):
+                attn_case(timer, dev, g, "chunked_prefill_attention", bf,
+                          kv_dt, B, 16, 16, 16, hd, CHUNK_STARTS[16],
+                          label=f"splits={splits}")
+    # the wrapper never waits for the device (a split launch: workspace
+    # allocation, plan and merge included)
+    q, kp, vp, tables, start, _ = paged_inputs(g, dev, B, 16, 16, 16, hd, bf,
+                                               bf, CHUNK_STARTS[16])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunked_prefill_attention(q, kp, vp, tables, start)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("chunked_prefill_attention under set_sync_debug_mode('error'): "
+          f"no host sync (grid {chunked_prefill_attention.last_grid})")
     return entries
 
 
@@ -919,6 +1003,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({lib.parent / 'build.log'})")
     print_ptxas(lib.parent / "build.log", "flash_attention.cu")
+    print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     timer = Timer(dev)

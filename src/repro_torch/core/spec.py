@@ -264,6 +264,9 @@ class RuntimeSpec:
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               "; the port serves family 'dense'")
+        if not cfg.tie_embeddings:
+            raise _not_ported(f"{cfg.name}: untied embeddings (lm_head)",
+                              "item 7b")
         if self.maxima is not None:
             raise _not_ported("multi-topology serving (maxima=...)", "item 8")
         if mem.prefix_cache:

@@ -586,7 +586,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || hd <= 0 || hd > 128 ||
-      (long long)B * H > 65535 || (Sq + kBQ - 1) / kBQ > 65535 ||
+      (long long)B * H > 0x7fffffffLL || (Sq + kBQ - 1) / kBQ > 65535 ||
       splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
-// Paged attention walk shared by csrc/paged_attention.cu (one query lane
-// per sequence, the decode step) and csrc/chunked_prefill.cu (W query lanes
-// per sequence, the mixed step).  Decode is the W = 1 case of the chunk walk.
+// Paged attention walk of csrc/paged_attention.cu (one query lane per
+// sequence, the decode step).  It is written for W query lanes, of which
+// decode uses one; csrc/chunked_prefill.cu has a walk of its own (split-KV,
+// cp.async staging, tensor cores) and does not include this file.
 //
 // Inputs, in the pool layout as stored (no padding, no transposes):
 //   q       [B, W, H, HD]       query lanes; lane l sits at position s0 + l
@@ -13,7 +14,8 @@
 //                               turns the decode step's lengths into s0)
 // Lane l of sequence b sees positions <= min(s0 + l, NBLK * BS - 1).
 //
-// Design (see the two .cu files for what each replaces and what bounds it):
+// Design (see csrc/paged_attention.cu for what it replaces and what bounds
+// it):
 // one CTA per (sequence, KV head) takes all W * n_rep query rows of that
 // head group (n_rep = H / KV, GQA) and walks the sequence's own block table
 // itself, TILE positions (whole blocks) at a time, so every K/V row the CTA
@@ -286,6 +288,7 @@ cudaError_t launch_types(int HD, const WalkArgs& a) {
     case 16: return launch_args<TQ, TKV, 16>(a);
     case 32: return launch_args<TQ, TKV, 32>(a);
     case 64: return launch_args<TQ, TKV, 64>(a);
+    case 96: return launch_args<TQ, TKV, 96>(a);
     case 128: return launch_args<TQ, TKV, 128>(a);
     default: return cudaErrorInvalidValue;
   }

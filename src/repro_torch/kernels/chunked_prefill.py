@@ -11,6 +11,15 @@ An int8 pool comes with ``k_scale``/``v_scale`` ``[NB, bs, kv]`` float32
 (the int8 cache codec's per-row scales).  Then, as in the reference, the
 pool is dequantized to float32, q is cast to float32, p is not rounded,
 and the output is float32 until the one cast to q's dtype.
+
+The kernel gives each CTA 16 query rows of one (sequence, kv head) and
+splits each sequence's block table into key ranges of whole logical
+blocks (``kv_splits`` / ``kv_ranges``, from the shapes and the walk's
+occupancy, ``resident_ctas``, alone: never from start or the tables);
+with more than one range each CTA writes its range's unnormalised
+float32 accumulator and running (max, sum) to a workspace, and a merge
+kernel combines them.  ``chunked_prefill_partial_plain`` and
+``merge_partials_plain`` are those two steps in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -21,10 +30,14 @@ import math
 import torch
 
 from repro_torch.kernels import runtime
+# the split's merge in plain PyTorch: acc [splits, B, W, h, hd], m and l
+# [splits, B, W, h] -> [B, W, h, hd], the same arithmetic as flash's
+from repro_torch.kernels.flash_attention import merge_partials_plain  # noqa: F401
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-HEAD_DIMS = (16, 32, 64, 128)
-# (query dtype, pool dtype) pairs the kernel takes
+MAX_HEAD_DIM = 128          # the kernel takes head_dim a multiple of 16 up to it
+TILE_ROWS = 16              # query rows per CTA (one m16 tile)
+# (query dtype, pool dtype) pairs the kernels take
 DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                (torch.bfloat16, torch.bfloat16), (torch.float32, torch.int8),
                (torch.bfloat16, torch.int8))
@@ -39,49 +52,130 @@ def chunked_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                     v_scale: torch.Tensor | None = None
                                     ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, with the reference kernel's
-    numerics: float32 scores, one online-softmax update per pool block
-    (running max m, normalizer l, float32 accumulator), p rounded to the
-    pool's dtype before the PV product, output in q's dtype.  Pool rows no
-    lane of a sequence can see are zeroed before the PV product, as the
-    kernel never reads them.  An int8 pool is dequantized to float32 with
-    its scales and attended by float32 q (p then stays float32)."""
+    numerics: ``chunked_prefill_partial_plain`` over the whole table
+    (float32 scores, one online-softmax update per pool block, p rounded to
+    the pool's dtype before PV; an int8 pool dequantized and attended in
+    float32), then O = acc / max(l, 1e-30) in q's dtype.  Block 0 holds
+    position 0, which every lane sees, so every row's running max is
+    finite from the first block on."""
+    acc, _, lsum = chunked_prefill_partial_plain(
+        q, k_pool, v_pool, block_tables, start, 0, block_tables.shape[1],
+        scale, k_scale=k_scale, v_scale=v_scale)
+    return (acc / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def chunked_prefill_partial_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  start: torch.Tensor, lo_blk: int,
+                                  hi_blk: int, scale: float | None = None, *,
+                                  k_scale: torch.Tensor | None = None,
+                                  v_scale: torch.Tensor | None = None
+                                  ) -> tuple[torch.Tensor, ...]:
+    """The reference kernel's block loop over the logical blocks [lo_blk,
+    hi_blk) of each table, one online-softmax update per pool block, p
+    rounded to the pool's dtype before PV (an int8 pool: dequantized, f32
+    q, f32 p).  Returns the unnormalised float32 accumulator ``[B, W, h,
+    hd]`` and the running max and sum ``[B, W, h]``.  A row that sees no
+    position of the range keeps m = NEG_INF and l = 0 (p of a masked score
+    is 0).  Pool rows no lane of a sequence can see are zeroed before the
+    PV product, as the kernel never reads them."""
     if k_scale is not None:
         kd = k_pool.float() * k_scale[..., None]
         vd = v_pool.float() * v_scale[..., None]
-        return chunked_prefill_attention_plain(
-            q.float(), kd, vd, block_tables, start, scale).to(q.dtype)
+        return chunked_prefill_partial_plain(q.float(), kd, vd, block_tables,
+                                             start, lo_blk, hi_blk, scale)
     B, W, h, hd = q.shape
     _, bs, kv, _ = k_pool.shape
     n_rep = h // kv
-    nblk = block_tables.shape[1]
-    t_max = nblk * bs
+    n = hi_blk - lo_blk
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    idx = block_tables.long()
-    kg = k_pool[idx].reshape(B, t_max, kv, hd).float()
-    vg = v_pool[idx].reshape(B, t_max, kv, hd).float()
-    pos = torch.arange(t_max, device=q.device)
+    idx = block_tables[:, lo_blk:hi_blk].long()
+    kg = k_pool[idx].reshape(B, n * bs, kv, hd).float()
+    vg = v_pool[idx].reshape(B, n * bs, kv, hd).float()
+    pos = lo_blk * bs + torch.arange(n * bs, device=q.device)
     lim = start.long()[:, None] + torch.arange(W, device=q.device)[None, :]
-    vis = pos[None, None, :] <= lim[:, :, None]                 # [B, W, T]
-    seen = pos[None, :] <= lim[:, -1:]                         # [B, T]
+    vis = (pos[None, None, :] <= lim[:, :, None])[:, None, None]  # [B,1,1,W,T]
+    seen = pos[None, :] <= lim[:, -1:]                           # [B, T]
     vg = torch.where(seen[:, :, None, None], vg, 0.0)
     qg = q.float().reshape(B, W, kv, n_rep, hd)
     s = torch.einsum("bwgrd,btgd->bgrwt", qg, kg) * scale
-    s = torch.where(vis[:, None, None], s, NEG_INF)
+    s = torch.where(vis, s, NEG_INF)
     m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
     lsum = torch.zeros_like(m)
     acc = torch.zeros(s.shape[:-1] + (hd,), device=q.device)
-    for j in range(nblk):
-        sj = s[..., j * bs:(j + 1) * bs]
+    for j in range(n):
+        cols = slice(j * bs, (j + 1) * bs)
+        sj = s[..., cols]
         m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(sj - m_new)
+        p = torch.where(vis[..., cols], torch.exp(sj - m_new), 0.0)
         lsum = lsum * alpha + p.sum(-1, keepdim=True)
-        pr = p.to(v_pool.dtype).float()
-        acc = acc * alpha + torch.einsum("bgrwt,btgd->bgrwd", pr,
-                                         vg[:, j * bs:(j + 1) * bs])
+        acc = acc * alpha + torch.einsum(
+            "bgrwt,btgd->bgrwd", p.to(v_pool.dtype).float(), vg[:, cols])
         m = m_new
-    o = acc / lsum.clamp_min(1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, W, h, hd).to(q.dtype)
+    acc = acc.permute(0, 3, 1, 2, 4).reshape(B, W, h, hd)
+    return (acc, m[..., 0].permute(0, 3, 1, 2).reshape(B, W, h),
+            lsum[..., 0].permute(0, 3, 1, 2).reshape(B, W, h))
+
+
+def row_tiles(rows: int) -> int:
+    """CTAs per (sequence, kv head): ``rows`` = W * n_rep query rows in
+    tiles of 16."""
+    return -(-rows // TILE_ROWS)
+
+
+def kv_splits(B: int, kv: int, rows: int, nblk: int, sms: int,
+              resident: int) -> int:
+    """How many key ranges the kernel's grid takes, from the shapes alone:
+    1 where the B * kv * row_tiles(rows) CTAs already fill one wave
+    (``resident`` CTAs on each of ``sms`` SMs); else about one wave,
+    capped so that every range holds at least two pool blocks."""
+    ctas = B * kv * row_tiles(rows)
+    wave = resident * sms
+    if ctas >= wave:
+        return 1
+    return max(1, min(wave // ctas, nblk // 2))
+
+
+def kv_ranges(nblk: int, splits: int) -> list[tuple[int, int]]:
+    """The logical-block ranges [lo, hi) of a split: floor(s * nblk /
+    splits) up to floor((s + 1) * nblk / splits), the same ranges the
+    kernel computes from its grid index."""
+    return [(s * nblk // splits, (s + 1) * nblk // splits)
+            for s in range(splits)]
+
+
+@functools.cache
+def _resident(index: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
+              hd: int, nblk: int) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = runtime.bind("chunked_prefill_resident_ctas",
+                           [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            hd, nblk, runtime.DTYPE_CODES[q_dtype],
+            runtime.DTYPE_CODES[kv_dtype], ctypes.addressof(n))
+    runtime.check(err, "chunked_prefill_attention")
+    return max(1, n.value)
+
+
+def resident_ctas(device: torch.device, q_dtype: torch.dtype,
+                  kv_dtype: torch.dtype, hd: int, nblk: int) -> int:
+    """The walk's CTAs that fit on one SM of ``device`` for a (q, pool)
+    dtype pair at hd and nblk: the CUDA occupancy of the compiled kernel
+    (its shared memory, registers and threads), asked once per setting."""
+    return _resident(device.index if device.index is not None
+                     else torch.cuda.current_device(),
+                     q_dtype, kv_dtype, hd, nblk)
+
+
+def check_head_dim(hd: int) -> None:
+    """The kernel takes head_dim a multiple of 16 up to 128."""
+    if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"chunked_prefill_attention: the kernel takes head_dim a "
+            f"multiple of 16 up to {MAX_HEAD_DIM}, got {hd} (ROADMAP.md "
+            "Queue 3 fault A)")
 
 
 def check_operands(name: str, q, k_pool, v_pool, block_tables, lens,
@@ -117,40 +211,29 @@ def check_operands(name: str, q, k_pool, v_pool, block_tables, lens,
                          f"{tuple(k_pool.shape[:3])} (one per pool row)")
 
 
-def launch(name: str, kernel, q, k_pool, v_pool, block_tables, lens, scale,
-           extra_dims: tuple[int, ...], k_scale=None, v_scale=None
-           ) -> torch.Tensor:
-    """Launch one of the two paged attention kernels on CUDA tensors
-    (``kernel()`` returns the bound C entry point)."""
+def launch_checks(name: str, q, k_pool, v_pool, block_tables, lens,
+                  k_scale=None, v_scale=None, scale: float | None = None
+                  ) -> float:
+    """The checks both paged attention kernels' launches make: every
+    operand on one CUDA device and contiguous, q and the pools 16-byte
+    aligned (rows are copied as 16-byte vectors).  Returns the softmax
+    scale, 1 / sqrt(hd) unless one is given."""
     scales = [s for s in (k_scale, v_scale) if s is not None]
     runtime.require_cuda(name, q, k_pool, v_pool, block_tables, lens, *scales)
     runtime.require_contiguous(name, q=q, k_pool=k_pool, v_pool=v_pool,
                                block_tables=block_tables, lens=lens,
                                **dict(zip(("k_scale", "v_scale"), scales)))
-    hd = q.shape[-1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not one of {HEAD_DIMS}")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError(f"{name}: pools must be 16-byte aligned (rows are "
-                         "read as 16-byte vectors)")
-    _, bs, kv, _ = k_pool.shape
-    out = torch.empty_like(q)
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    err = kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             *(None if s is None else s.data_ptr() for s in (k_scale, v_scale)),
-             block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-             *extra_dims, kv, hd, bs, block_tables.shape[1],
-             runtime.DTYPE_CODES[q.dtype], runtime.DTYPE_CODES[k_pool.dtype],
-             float(scale), runtime.stream_handle(q))
-    runtime.check(err, name)
-    return out
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{name}: q and the pools must be 16-byte aligned "
+                         "(rows are copied as 16-byte vectors)")
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return runtime.bind("chunked_prefill_attention",
-                        [p] * 8 + [i] * 9 + [ctypes.c_float, p])
+                        [p] * 9 + [i] * 10 + [ctypes.c_float, p])
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -168,21 +251,49 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     k/v_scale:    [NB, bs, kv] f32  with an int8 pool only: per-row scales
     -> [B, W, h, hd] in q's dtype
 
-    The caller guarantees table entries lie in [0, NB).
+    The caller guarantees table entries lie in [0, NB) and that no live
+    lane sees a null-block entry.  The launch never waits for the device:
+    the grid comes from the shapes, and start and the tables stay on it.
     """
+    name = "chunked_prefill_attention"
     if q.dim() != 4:
-        raise ValueError("chunked_prefill_attention: q must be [B, W, h, hd]")
-    check_operands("chunked_prefill_attention", q, k_pool, v_pool,
-                   block_tables, start, k_scale, v_scale)
+        raise ValueError(f"{name}: q must be [B, W, h, hd]")
+    check_operands(name, q, k_pool, v_pool, block_tables, start, k_scale,
+                   v_scale)
     if q.device.type == "cpu":
         return chunked_prefill_attention_plain(
             q, k_pool, v_pool, block_tables, start, scale, k_scale=k_scale,
             v_scale=v_scale)
-    B, W, h, _ = q.shape
-    out = launch("chunked_prefill_attention", _kernel, q, k_pool, v_pool,
-                 block_tables, start, scale, (B, W, h), k_scale, v_scale)
+    scale = launch_checks(name, q, k_pool, v_pool, block_tables, start,
+                          k_scale, v_scale, scale)
+    B, W, h, hd = q.shape
+    check_head_dim(hd)
+    _, bs, kv, _ = k_pool.shape
+    nblk = block_tables.shape[1]
+    rows = W * (h // kv)
+    splits = kv_splits(B, kv, rows, nblk, runtime.sm_count(q.device),
+                       resident_ctas(q.device, q.dtype, k_pool.dtype, hd,
+                                     nblk))
+    out = torch.empty_like(q)
+    # splits > 1: the ranges' accumulators, then their m and l, in float32;
+    # freed on return, the caching allocator hands it out again only to
+    # work queued behind the merge on this stream
+    ws = torch.empty(splits * B * W * h * (hd + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
+    err = _kernel()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *(None if s is None else s.data_ptr() for s in (k_scale, v_scale)),
+        block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, W, h, kv, hd, bs, nblk,
+        splits, runtime.DTYPE_CODES[q.dtype],
+        runtime.DTYPE_CODES[k_pool.dtype], float(scale),
+        runtime.stream_handle(q))
+    runtime.check(err, name)
     chunked_prefill_attention.launches += 1
+    chunked_prefill_attention.last_grid = (B * kv * row_tiles(rows), splits)
     return out
 
 
 chunked_prefill_attention.launches = 0
+# (CTAs of 16 query rows, key ranges) of the last launch
+chunked_prefill_attention.last_grid = None

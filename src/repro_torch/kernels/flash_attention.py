@@ -127,11 +127,24 @@ def merge_partials_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     """The merge kernel in plain PyTorch: acc ``[splits, B, Sq, H, hd]``, m
     and l ``[splits, B, Sq, H]`` -> O ``[B, Sq, H, hd]`` in ``out_dtype``,
     with m* = max m_s, O = sum acc_s e^(m_s - m*) / max(sum l_s e^(m_s -
-    m*), 1e-30).  A range with m_s = NEG_INF weighs 0."""
-    w = torch.exp(m - m.amax(0, keepdim=True))
+    m*), 1e-30).  A range with m_s = NEG_INF weighs 0 and its accumulator
+    is not read (the chunked-prefill kernel never writes it)."""
+    live = m > NEG_INF
+    w = torch.where(live, torch.exp(m - m.amax(0, keepdim=True)), 0.0)
+    acc = torch.where(live[..., None], acc, 0.0)
     lsum = (l * w).sum(0)
     out = (acc * w[..., None]).sum(0) / lsum.clamp_min(1e-30)[..., None]
     return out.to(out_dtype)
+
+
+def check_grid(B: int, H: int, Sq: int, hd: int) -> None:
+    """The kernel's limits: hd <= 128, and a grid of B * H CTAs on x (up to
+    2^31 - 1), ceil(Sq / 64) query tiles on y (up to 65535)."""
+    if hd > MAX_HEAD_DIM or B * H > 2 ** 31 - 1 or -(-Sq // TILE) > 65535:
+        raise ValueError(f"flash_attention: the kernel takes hd <= "
+                         f"{MAX_HEAD_DIM}, B * H < 2^31 and Sq <= "
+                         f"{65535 * TILE}, got hd={hd}, B * H = {B * H}, "
+                         f"Sq = {Sq}")
 
 
 @functools.cache
@@ -140,11 +153,6 @@ def _kernel():
     return runtime.bind("flash_attention",
                         [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p,
                          i, p])
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -167,15 +175,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     runtime.require_cuda("flash_attention", q, k, v)
     runtime.require_contiguous("flash_attention", q=q, k=k, v=v)
-    if hd > MAX_HEAD_DIM or B * H > 65535:
-        raise ValueError(f"flash_attention: the kernel takes hd <= "
-                         f"{MAX_HEAD_DIM} and B * H <= 65535, got hd={hd}, "
-                         f"B * H = {B * H}")
+    check_grid(B, H, Sq, hd)
     o = torch.empty_like(q)
     if B == 0 or Sq == 0 or H == 0:
         return o
     ctas = -(-Sq // TILE) * B * H
-    splits = kv_splits(B, H, Sq, skv, causal, _sm_count(q.device.index))
+    splits = kv_splits(B, H, Sq, skv, causal, runtime.sm_count(q.device))
     # splits > 1: the ranges' accumulators, then their m and l, in float32
     ws = torch.empty(splits * B * Sq * H * (hd + 2), dtype=torch.float32,
                      device=q.device) if splits > 1 else None

@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.chunked_prefill import (
-    check_operands, chunked_prefill_attention_plain, launch)
+    check_operands, chunked_prefill_attention_plain, launch_checks)
+
+HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -66,9 +68,23 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_decode_attention_plain(
             q, k_pool, v_pool, block_tables, lengths, scale, k_scale=k_scale,
             v_scale=v_scale)
-    B, h, _ = q.shape
-    out = launch("paged_decode_attention", _kernel, q, k_pool, v_pool,
-                 block_tables, lengths, scale, (B, h), k_scale, v_scale)
+    name = "paged_decode_attention"
+    scale = launch_checks(name, q, k_pool, v_pool, block_tables, lengths,
+                          k_scale, v_scale, scale)
+    B, h, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not one of {HEAD_DIMS} "
+                         "(ROADMAP.md Queue 3 fault A)")
+    _, bs, kv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    err = _kernel()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *(None if s is None else s.data_ptr() for s in (k_scale, v_scale)),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
+        kv, hd, bs, block_tables.shape[1], runtime.DTYPE_CODES[q.dtype],
+        runtime.DTYPE_CODES[k_pool.dtype], float(scale),
+        runtime.stream_handle(q))
+    runtime.check(err, name)
     paged_decode_attention.launches += 1
     return out
 

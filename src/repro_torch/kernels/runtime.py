@@ -93,12 +93,14 @@ def build() -> Path:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        logs = []
-        for src, _, proc in procs:
+        logs, failed = [], []
+        for src, _, proc in procs:        # wait for every compiler first
             out, _ = proc.communicate()
             logs.append(f"== {src.name}\n{out}")
             if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+                failed.append(f"nvcc failed on {src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp / LIB_NAME),
              *(str(o) for _, o, _ in procs)],
@@ -146,6 +148,17 @@ def check(err: int, name: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a C pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cached; the split plans read it)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

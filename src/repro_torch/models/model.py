@@ -128,12 +128,14 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.positional not in ("rope", "none") \
-                or not cfg.tie_embeddings:
+        if cfg.family != "dense" or cfg.positional not in ("rope", "none"):
             raise ValueError(
                 f"{cfg.name}: the port's Model serves the dense family with "
-                "rope (or no) positions and tied embeddings (ROADMAP.md "
-                "Queue 1 items 11-12)")
+                "rope (or no) positions (ROADMAP.md Queue 1 items 11-12)")
+        if not cfg.tie_embeddings:
+            raise ValueError(
+                f"{cfg.name}: the port's Model serves tied embeddings only; "
+                "the untied lm_head is ROADMAP.md Queue 1 item 7b")
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")

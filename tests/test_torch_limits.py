@@ -1,0 +1,53 @@
+"""What the port refuses, and the ROADMAP item each refusal names.
+
+Untied embeddings (qwen2-72b, codeqwen1.5-7b and phi3-mini are dense but
+untied) wait for ROADMAP Queue 1 item 7b: both ``RuntimeSpec`` and
+``Model`` say so.  ``flash_attention``'s kernel puts B * H on its grid's x
+dimension, so it refuses only what the grid cannot hold (ROADMAP Queue 3
+fault D).
+"""
+import dataclasses
+
+import pytest
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.spec import MemorySpec, RuntimeSpec
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.model import Model
+
+CFG = reduced(get_config("qwen1.5-0.5b"))
+UNTIED = dataclasses.replace(CFG, tie_embeddings=False)
+
+
+def test_spec_names_item_7b_for_untied_embeddings():
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 7b"):
+        RuntimeSpec(arch=UNTIED, memory=MemorySpec(cache_layout="paged"))
+
+
+def test_model_names_item_7b_for_untied_embeddings():
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 7b"):
+        Model(UNTIED, device="cpu")
+
+
+def test_model_names_items_11_12_for_other_families():
+    with pytest.raises(ValueError, match="Queue 1 items 11-12"):
+        Model(dataclasses.replace(CFG, family="moe"), device="cpu")
+
+
+@pytest.mark.parametrize("B,H,Sq,hd", [
+    (1, 65536, 64, 64),          # B * H past 65535: the grid's x dimension
+    (4096, 64, 1, 128),          # 262144 (b, h) pairs of one query each
+    (1, 1, 65535 * 64, 16),      # the most query tiles the y dimension holds
+])
+def test_flash_grid_takes_what_its_grid_holds(B, H, Sq, hd):
+    fa.check_grid(B, H, Sq, hd)
+
+
+@pytest.mark.parametrize("B,H,Sq,hd", [
+    (1, 1, 64, 256),             # recurrentgemma's hd (fault D, still open)
+    (1, 1, 65535 * 64 + 1, 64),  # one query tile past the y dimension
+    (2 ** 16, 2 ** 15, 1, 64),   # B * H = 2^31
+])
+def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
+    with pytest.raises(ValueError, match="flash_attention: the kernel takes"):
+        fa.check_grid(B, H, Sq, hd)
