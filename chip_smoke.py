@@ -13,11 +13,12 @@ Phases (any failure raises and the script exits non-zero):
    sequence's last block filled with NaN so a read of them would show, and
    an int8 pool whose scales there are NaN; ``int8_matmul`` must be
    bit-identical).  The paged attention kernels also at the head dims and
-   GQA widths of ROADMAP Queue 3 fault A (hd 96; GQA 8 x hd 128 at W 16
-   and 32), the chunk kernel over fixed key-range counts, each chunk case
-   with the grid it launched, and one chunk call under
-   ``torch.cuda.set_sync_debug_mode("error")``; the build prints the chunk
-   and flash kernels' registers and spills.  The six kernels of the kernel
+   GQA widths of ROADMAP Queue 3 fault A (hd 96; GQA 8 x hd 128: decode,
+   and chunk at W 16 and 32), both over fixed key-range counts, each case
+   with the grid it launched, and one split call of each under
+   ``torch.cuda.set_sync_debug_mode("error")``; the build prints the
+   split walk's (both entry points') and the flash kernels' registers and
+   spills.  The six kernels of the kernel
    library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
    ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
    qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
@@ -140,10 +141,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
 SOURCES = {
     "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:56"),
-    "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
+    # the two attention entry points share the walk of split_walk.cuh
+    "paged_decode_attention": ("src/repro_torch/csrc/split_walk.cuh",
                                "src/repro/kernels/paged_attention.py:179"),
     "chunked_prefill_attention": (
-        "src/repro_torch/csrc/chunked_prefill.cu",
+        "src/repro_torch/csrc/split_walk.cuh",
         "src/repro/kernels/chunked_prefill.py:173"),
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul.py:55"),
@@ -396,8 +398,9 @@ def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
 def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
               label="") -> dict:
     """One paged attention kernel against its plain version on one input
-    (``starts``: decode lengths, or the chunk's lane-0 positions), timed
-    beside SDPA and the bound; the chunk kernel's grid printed."""
+    (``starts``: decode lengths less one, or the chunk's lane-0
+    positions), timed beside SDPA and the bound; the grid it launched
+    printed."""
     decode = name == "paged_decode_attention"
     bs = 16
     q, kp, vp, tables, start, scales = paged_inputs(
@@ -419,7 +422,7 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
         n_pos = [min(s + W, 512) for s in starts]
     t_max = tables.shape[1] * bs
     out, ref = run(), plain()
-    grid = None if decode else chunked_prefill_attention.last_grid
+    grid = KERNELS[name].last_grid
     err = max_err(out, ref)
     # f32 out over an f32 pool: order of sums and exp only; over a bf16
     # pool p is rounded to bf16, and another order of the score sum (or
@@ -496,10 +499,11 @@ def check_attention(timer, dev, g) -> dict:
     """The paged attention kernels at the serving shape (bs=16, 32 blocks
     per slot; qwen1.5-0.5b widths) in every (q, pool) dtype pair and with
     GQA, then the head dims and GQA widths of ROADMAP Queue 3 fault A:
-    phi3-mini's hd 96 (32 heads, decode and chunk) and qwen2-72b's GQA 8 x
-    hd 128 (64 heads over 8, chunk at W 16 and 32).  The chunk kernel is
-    also timed at the serving shape over fixed key-range counts, and one
-    chunk call runs under ``torch.cuda.set_sync_debug_mode("error")``."""
+    phi3-mini's hd 96 (32 heads; decode and chunk) and qwen2-72b's GQA 8 x
+    hd 128 (64 heads over 8; decode, and chunk at W 16 and 32).  Both
+    kernels are also timed at the serving shape over fixed key-range
+    counts, and one split call of each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     print("\n== paged attention kernels vs plain (bs=16, 32 blocks/slot)")
     print(f"{'kernel':>26} {'q/pool':>10} {'h/kv':>6} {'err':>10} {'tol':>8} "
           f"{'kernel_ms':>10} {'plain_ms':>9} {'sdpa_ms':>9} {'bound_ms':>9} "
@@ -509,10 +513,9 @@ def check_attention(timer, dev, g) -> dict:
              (bf, bf, 16, 4), (f32, i8, 16, 16), (bf, i8, 16, 16)]
     entries = {}
     B, hd = 8, 64
-    for name in ("paged_decode_attention", "chunked_prefill_attention"):
-        decode = name == "paged_decode_attention"
-        W = 1 if decode else ENGINE["chunk"]
-        starts = DECODE_LENS if decode else CHUNK_STARTS[W]
+    shape = {"paged_decode_attention": (1, DECODE_LENS),
+             "chunked_prefill_attention": (ENGINE["chunk"], CHUNK_STARTS[16])}
+    for name, (W, starts) in shape.items():
         for q_dt, kv_dt, h, kv in cases:
             nums = attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv,
                              hd, starts)
@@ -521,49 +524,57 @@ def check_attention(timer, dev, g) -> dict:
             elif (q_dt, kv_dt) == (bf, i8):
                 entries[name]["int8_pool"] = nums
     # fault A: hd 96 (phi3-mini: 32 heads of 96, no GQA) and GQA 8 x hd 128
-    # (qwen2-72b: 64 heads over 8 kv heads) at W 16 and 32
+    # (qwen2-72b: 64 heads over 8 kv heads): decode, chunk at W 16 and 32
     print("fault A shapes (ROADMAP Queue 3):")
+    qwen72 = "qwen2-72b GQA 8 x hd 128"
     for name, W, h, kv, hdf, label in (
             ("paged_decode_attention", 1, 32, 32, 96, "phi3-mini hd 96"),
+            ("paged_decode_attention", 1, 64, 8, 128, qwen72),
             ("chunked_prefill_attention", 16, 32, 32, 96, "phi3-mini hd 96"),
-            ("chunked_prefill_attention", 16, 64, 8, 128,
-             "qwen2-72b GQA 8 x hd 128 W 16"),
-            ("chunked_prefill_attention", 32, 64, 8, 128,
-             "qwen2-72b GQA 8 x hd 128 W 32")):
+            ("chunked_prefill_attention", 16, 64, 8, 128, f"{qwen72} W 16"),
+            ("chunked_prefill_attention", 32, 64, 8, 128, f"{qwen72} W 32")):
         starts = DECODE_LENS if W == 1 else CHUNK_STARTS[W]
         for kv_dt in (bf, i8):
             nums = attn_case(timer, dev, g, name, bf, kv_dt, B, W, h, kv,
                              hdf, starts, label=label)
             entries[name]["other_shapes"].append(nums)
-    # the chunk kernel's time over fixed key-range counts at the serving
-    # shape (the wrapper's own plan is the row above)
-    print("chunked_prefill_attention over fixed key-range counts:")
-    # the plan's own count (its wave: the walk's resident CTAs per SM from
-    # the CUDA occupancy) against 1 and the other fixed counts
-    chunk = entries["chunked_prefill_attention"]
-    for kv_dt, plan in ((bf, chunk["splits"]),
-                        (i8, chunk["int8_pool"]["splits"])):
-        resident = cp_mod.resident_ctas(dev, bf, kv_dt, hd, 32)
-        print(f"  pool {kv_dt}: {resident} resident CTAs per SM, the plan "
-              f"takes {plan} key ranges")
-        for splits in sorted({1, 2, 4, 8, plan}):
-            with mock.patch.object(cp_mod, "kv_splits",
-                                   lambda *a, s=splits: s):
-                attn_case(timer, dev, g, "chunked_prefill_attention", bf,
-                          kv_dt, B, 16, 16, 16, hd, CHUNK_STARTS[16],
-                          label=f"splits={splits}")
-    # the wrapper never waits for the device (a split launch: workspace
-    # allocation, plan and merge included)
-    q, kp, vp, tables, start, _ = paged_inputs(g, dev, B, 16, 16, 16, hd, bf,
-                                               bf, CHUNK_STARTS[16])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        chunked_prefill_attention(q, kp, vp, tables, start)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    print("chunked_prefill_attention under set_sync_debug_mode('error'): "
-          f"no host sync (grid {chunked_prefill_attention.last_grid})")
+    # both kernels at the serving shape over fixed key-range counts; the
+    # plan's own count (its wave: the walk's resident CTAs per SM from the
+    # CUDA occupancy) among them
+    print("fixed key-range counts at the serving shape:")
+    for name, (W, starts) in shape.items():
+        e = entries[name]
+        e["fixed_splits"] = []
+        for kv_dt, plan in ((bf, e["splits"]), (i8, e["int8_pool"]["splits"])):
+            resident = cp_mod.resident_ctas(dev, bf, kv_dt, hd, 32, name)
+            print(f"  {name}, pool {kv_dt}: {resident} resident CTAs per "
+                  f"SM, the plan takes {plan} key ranges")
+            for splits in sorted({1, 2, 3, 4, 8, plan}):
+                with mock.patch.object(cp_mod, "kv_splits",
+                                       lambda *a, s=splits: s):
+                    nums = attn_case(timer, dev, g, name, bf, kv_dt, B, W,
+                                     16, 16, hd, starts,
+                                     label=f"splits={splits}")
+                e["fixed_splits"].append(dict(pool=str(kv_dt)[6:],
+                                              splits=splits, ms=nums["ms"]))
+    # the wrappers never wait for the device (a split launch: workspace,
+    # plan and merge included)
+    for name, (W, starts) in shape.items():
+        q, kp, vp, tables, start, _ = paged_inputs(g, dev, B, W, 16, 16, hd,
+                                                   bf, bf, starts)
+        args = (q[:, 0].contiguous(), kp, vp, tables, start + 1) \
+            if W == 1 else (q, kp, vp, tables, start)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            KERNELS[name](*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        grid = KERNELS[name].last_grid
+        if grid[1] < 2:
+            raise AssertionError(f"{name}: the sync check took one key range")
+        print(f"{name} under set_sync_debug_mode('error'): no host sync "
+              f"(grid {grid})")
     return entries
 
 
@@ -1004,6 +1015,7 @@ def main() -> int:
           f"({lib.parent / 'build.log'})")
     print_ptxas(lib.parent / "build.log", "flash_attention.cu")
     print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
+    print_ptxas(lib.parent / "build.log", "paged_attention.cu")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     timer = Timer(dev)
@@ -1088,7 +1100,7 @@ def main() -> int:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for extra in ("int8_pool", "ctas", "splits", "other_shapes",
-                      "f32_shapes"):
+                      "f32_shapes", "fixed_splits"):
             if extra in e:
                 row[extra] = e[extra]
         table.append(row)

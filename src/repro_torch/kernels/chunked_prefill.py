@@ -12,8 +12,9 @@ An int8 pool comes with ``k_scale``/``v_scale`` ``[NB, bs, kv]`` float32
 pool is dequantized to float32, q is cast to float32, p is not rounded,
 and the output is float32 until the one cast to q's dtype.
 
-The kernel gives each CTA 16 query rows of one (sequence, kv head) and
-splits each sequence's block table into key ranges of whole logical
+The kernel (the split-KV walk of ``csrc/split_walk.cuh``, which decode
+shares at W = 1) gives each CTA 16 query rows of one (sequence, kv head)
+and splits each sequence's block table into key ranges of whole logical
 blocks (``kv_splits`` / ``kv_ranges``, from the shapes and the walk's
 occupancy, ``resident_ctas``, alone: never from start or the tables);
 with more than one range each CTA writes its range's unnormalised
@@ -146,36 +147,67 @@ def kv_ranges(nblk: int, splits: int) -> list[tuple[int, int]]:
             for s in range(splits)]
 
 
+# each entry point's occupancy query (decode compiles its own walk)
+RESIDENT_ENTRY = {"chunked_prefill_attention": "chunked_prefill_resident_ctas",
+                  "paged_decode_attention": "paged_decode_resident_ctas"}
+
+
 @functools.cache
-def _resident(index: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
-              hd: int, nblk: int) -> int:
+def _resident(index: int, kernel: str, q_dtype: torch.dtype,
+              kv_dtype: torch.dtype, hd: int, nblk: int) -> int:
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = runtime.bind("chunked_prefill_resident_ctas",
+        err = runtime.bind(RESIDENT_ENTRY[kernel],
                            [ctypes.c_int] * 4 + [ctypes.c_void_p])(
             hd, nblk, runtime.DTYPE_CODES[q_dtype],
             runtime.DTYPE_CODES[kv_dtype], ctypes.addressof(n))
-    runtime.check(err, "chunked_prefill_attention")
+    runtime.check(err, kernel)
     return max(1, n.value)
 
 
 def resident_ctas(device: torch.device, q_dtype: torch.dtype,
-                  kv_dtype: torch.dtype, hd: int, nblk: int) -> int:
+                  kv_dtype: torch.dtype, hd: int, nblk: int,
+                  kernel: str = "chunked_prefill_attention") -> int:
     """The walk's CTAs that fit on one SM of ``device`` for a (q, pool)
-    dtype pair at hd and nblk: the CUDA occupancy of the compiled kernel
-    (its shared memory, registers and threads), asked once per setting."""
+    dtype pair at hd and nblk: the CUDA occupancy of ``kernel``'s compiled
+    walk (its shared memory, registers and threads), asked once per
+    setting."""
     return _resident(device.index if device.index is not None
                      else torch.cuda.current_device(),
-                     q_dtype, kv_dtype, hd, nblk)
+                     kernel, q_dtype, kv_dtype, hd, nblk)
 
 
-def check_head_dim(hd: int) -> None:
-    """The kernel takes head_dim a multiple of 16 up to 128."""
+def check_head_dim(hd: int, name: str = "chunked_prefill_attention"
+                   ) -> None:
+    """The walk takes head_dim a multiple of 16 up to 128."""
     if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(
-            f"chunked_prefill_attention: the kernel takes head_dim a "
-            f"multiple of 16 up to {MAX_HEAD_DIM}, got {hd} (ROADMAP.md "
-            "Queue 3 fault A)")
+            f"{name}: the kernel takes head_dim a multiple of 16 up to "
+            f"{MAX_HEAD_DIM}, got {hd} (ROADMAP.md Queue 3 fault A)")
+
+
+def walk_plan(kernel: str, q: torch.Tensor, k_pool: torch.Tensor,
+              block_tables: torch.Tensor):
+    """One launch of ``kernel``'s walk for q ``[B, W, h, hd]`` on the card:
+    its grid (CTAs, key ranges) from the shapes and the walk's occupancy
+    alone, and the float32 workspace of the ranges' partials (accumulators,
+    then m and l; None with one range).  The workspace is freed on return;
+    the caching allocator hands it out again only to work queued behind the
+    merge on the stream."""
+    B, W, h, hd = q.shape
+    kv, nblk = k_pool.shape[2], block_tables.shape[1]
+    rows = W * (h // kv)
+    splits = kv_splits(B, kv, rows, nblk, runtime.sm_count(q.device),
+                       resident_ctas(q.device, q.dtype, k_pool.dtype, hd,
+                                     nblk, kernel))
+    ws = torch.empty(splits * B * W * h * (hd + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
+    return (B * kv * row_tiles(rows), splits), ws
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer for the C interface (None: null)."""
+    return None if t is None else t.data_ptr()
 
 
 def check_operands(name: str, q, k_pool, v_pool, block_tables, lens,
@@ -254,6 +286,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     The caller guarantees table entries lie in [0, NB) and that no live
     lane sees a null-block entry.  The launch never waits for the device:
     the grid comes from the shapes, and start and the tables stay on it.
+    A call that splits its keys launches the walk and the merge kernel.
     """
     name = "chunked_prefill_attention"
     if q.dim() != 4:
@@ -269,28 +302,18 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     B, W, h, hd = q.shape
     check_head_dim(hd)
     _, bs, kv, _ = k_pool.shape
-    nblk = block_tables.shape[1]
-    rows = W * (h // kv)
-    splits = kv_splits(B, kv, rows, nblk, runtime.sm_count(q.device),
-                       resident_ctas(q.device, q.dtype, k_pool.dtype, hd,
-                                     nblk))
+    grid, ws = walk_plan(name, q, k_pool, block_tables)
     out = torch.empty_like(q)
-    # splits > 1: the ranges' accumulators, then their m and l, in float32;
-    # freed on return, the caching allocator hands it out again only to
-    # work queued behind the merge on this stream
-    ws = torch.empty(splits * B * W * h * (hd + 2), dtype=torch.float32,
-                     device=q.device) if splits > 1 else None
     err = _kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        *(None if s is None else s.data_ptr() for s in (k_scale, v_scale)),
-        block_tables.data_ptr(), start.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, W, h, kv, hd, bs, nblk,
-        splits, runtime.DTYPE_CODES[q.dtype],
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
+        ptr(v_scale), block_tables.data_ptr(), start.data_ptr(),
+        out.data_ptr(), ptr(ws), B, W, h, kv, hd, bs,
+        block_tables.shape[1], grid[1], runtime.DTYPE_CODES[q.dtype],
         runtime.DTYPE_CODES[k_pool.dtype], float(scale),
         runtime.stream_handle(q))
     runtime.check(err, name)
     chunked_prefill_attention.launches += 1
-    chunked_prefill_attention.last_grid = (B * kv * row_tiles(rows), splits)
+    chunked_prefill_attention.last_grid = grid
     return out
 
 

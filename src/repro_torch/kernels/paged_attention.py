@@ -7,6 +7,13 @@ hand-written kernel of ``csrc/paged_attention.cu``; a CPU tensor runs
 ``paged_decode_attention_plain``.  The function is the one-lane case of
 ``chunked_prefill_attention`` (lane 0 at position ``lengths[b] - 1``),
 and takes an int8 pool with its ``k_scale``/``v_scale`` the same way.
+
+The kernel is that function's split-KV walk (``csrc/split_walk.cuh``) at
+W = 1: a CTA's 16 query rows hold the n_rep heads of one kv group, the
+grid is (B * kv * row tiles, key ranges) with the ranges planned from the
+shapes and this walk's occupancy alone (``chunked_prefill.walk_plan``),
+and a merge kernel combines the ranges' partials as the chunk kernel's
+does.
 """
 from __future__ import annotations
 
@@ -15,11 +22,11 @@ import functools
 
 import torch
 
+from repro_torch.kernels import chunked_prefill as cp
 from repro_torch.kernels import runtime
-from repro_torch.kernels.chunked_prefill import (
-    check_operands, chunked_prefill_attention_plain, launch_checks)
 
-HEAD_DIMS = (16, 32, 64, 96, 128)
+# the head dims the kernel takes: multiples of 16 up to 128
+HEAD_DIMS = tuple(range(16, cp.MAX_HEAD_DIM + 1, 16))
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -31,7 +38,7 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_scale: torch.Tensor | None = None
                                  ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the one-lane chunk walk."""
-    return chunked_prefill_attention_plain(
+    return cp.chunked_prefill_attention_plain(
         q[:, None], k_pool, v_pool, block_tables, lengths - 1, scale,
         k_scale=k_scale, v_scale=v_scale)[:, 0]
 
@@ -40,7 +47,7 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return runtime.bind("paged_decode_attention",
-                        [p] * 8 + [i] * 8 + [ctypes.c_float, p])
+                        [p] * 9 + [i] * 9 + [ctypes.c_float, p])
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -58,35 +65,40 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     k/v_scale:    [NB, bs, kv] f32  with an int8 pool only: per-row scales
     -> [B, h, hd] in q's dtype
 
-    The caller guarantees table entries lie in [0, NB).
+    The caller guarantees table entries lie in [0, NB).  The launch never
+    waits for the device: the grid comes from the shapes, and lengths and
+    the tables stay on it.  A call that splits its keys launches the walk
+    and the merge kernel; ``launches`` counts calls.
     """
+    name = "paged_decode_attention"
     if q.dim() != 3:
-        raise ValueError("paged_decode_attention: q must be [B, h, hd]")
-    check_operands("paged_decode_attention", q[:, None], k_pool, v_pool,
-                   block_tables, lengths, k_scale, v_scale)
+        raise ValueError(f"{name}: q must be [B, h, hd]")
+    cp.check_operands(name, q[:, None], k_pool, v_pool, block_tables,
+                      lengths, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, block_tables, lengths, scale, k_scale=k_scale,
             v_scale=v_scale)
-    name = "paged_decode_attention"
-    scale = launch_checks(name, q, k_pool, v_pool, block_tables, lengths,
-                          k_scale, v_scale, scale)
+    scale = cp.launch_checks(name, q, k_pool, v_pool, block_tables, lengths,
+                             k_scale, v_scale, scale)
     B, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not one of {HEAD_DIMS} "
-                         "(ROADMAP.md Queue 3 fault A)")
+    cp.check_head_dim(hd, name)
     _, bs, kv, _ = k_pool.shape
+    grid, ws = cp.walk_plan(name, q[:, None], k_pool, block_tables)
     out = torch.empty_like(q)
     err = _kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        *(None if s is None else s.data_ptr() for s in (k_scale, v_scale)),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
-        kv, hd, bs, block_tables.shape[1], runtime.DTYPE_CODES[q.dtype],
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), cp.ptr(k_scale),
+        cp.ptr(v_scale), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), cp.ptr(ws), B, h, kv, hd, bs,
+        block_tables.shape[1], grid[1], runtime.DTYPE_CODES[q.dtype],
         runtime.DTYPE_CODES[k_pool.dtype], float(scale),
         runtime.stream_handle(q))
     runtime.check(err, name)
     paged_decode_attention.launches += 1
+    paged_decode_attention.last_grid = grid
     return out
 
 
 paged_decode_attention.launches = 0
+# (CTAs of 16 query rows, key ranges) of the last launch
+paged_decode_attention.last_grid = None
