@@ -18,12 +18,18 @@ Phases (any failure raises and the script exits non-zero):
    with the grid it launched, and one split call of each under
    ``torch.cuda.set_sync_debug_mode("error")``; the build prints the
    split walk's (both entry points') and the flash kernels' registers and
-   spills.  The six kernels of the kernel
+   spills, and those of every instantiation of the bf16 matmul loop
+   (``mma_tile``, ``mma_reduce``), which must not spill.  ``tiled_matmul``
+   at the six bf16 serving shapes (a decode and a mixed step against each
+   weight shape), each with the grid it launched (tiles x K ranges) and
+   its dynamic shared memory, a second run bit-equal to the first, and
+   one split call under ``set_sync_debug_mode("error")``.  The six kernels of the kernel
    library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
    ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
    qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
    attention over 1500 frames), in bf16 and f32; ``qkv_proj`` must equal
-   three ``tiled_matmul`` launches bit for bit.  ``flash_attention`` also
+   three ``tiled_matmul`` launches bit for bit; the matmul rows print
+   their grid and dynamic shared memory.  ``flash_attention`` also
    runs a causal qwen2-72b-width prompt (64 heads of 128) and, gated but
    not timed, two ragged head dims over 1000 keys; each flash shape
    prints its grid (CTAs, key ranges).
@@ -48,9 +54,12 @@ Phases (any failure raises and the script exits non-zero):
    kernel selected, once with float weights and twice fully quantized, on
    fresh engines; every request must finish, every kernel of each path
    must be launched in that path's run (the counts are zeroed just before
-   it), and the two fully-quantized runs must give identical streams.  A
-   plain-path engine serves the float requests and the share of identical
-   tokens is reported.
+   it), and the two fully-quantized runs must give identical streams.
+   The float run's steps, counted from its attention launches, times
+   phase 2's per-call medians of the six ``tiled_matmul`` serving shapes
+   give an estimate of the drain's matmul device time, printed against
+   the same sum for ``torch.matmul``.  A plain-path engine serves the
+   float requests and the share of identical tokens is reported.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -61,7 +70,6 @@ import contextlib
 import json
 import math
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -99,14 +107,12 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul, tiled_matmul_plain)
+from repro_torch.launch.timing import (  # noqa: E402
+    LAYER_MATMULS, STEP_ROWS, Timer, bound_ms)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
-HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
-              torch.float32: 67e12,    # float32 outside the tensor cores
-              torch.int8: 1979e12}     # dense int8 tensor-core rate
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # relative size of the attention kernels' float32 summation-order error
 # (phase 2 measures 1e-6 - 3e-6 on outputs of order 1): the perturbation
@@ -178,58 +184,10 @@ BERT = dict(batch=8, seq=64, d=768, ff=3072, heads=12, hd=64)
 WHISPER = dict(frames=1500, heads=16, hd=64)
 
 
-class Timer:
-    """Median device time of single calls, CUDA events around the call.
-
-    Before each call the L2 cache is flushed (the serving path reads every
-    weight and pool block cold: 24 layers of weights and the pool far
-    exceed the 50 MB L2), and the stream is held busy by a spin kernel
-    long enough for the host to enqueue the whole call, so the events
-    measure the device's work and not the host's launch overhead."""
-
-    def __init__(self, device):
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        torch.cuda._sleep(10_000_000)
-        e.record()
-        e.synchronize()
-        self.ms_per_cycle = s.elapsed_time(e) / 10_000_000
-
-    def __call__(self, fn, reps: int = 15, warm: int = 3) -> float:
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        spin = int((2 * host_ms + 0.2) / self.ms_per_cycle)
-        times = []
-        for _ in range(reps):
-            self.flush.zero_()
-            torch.cuda._sleep(spin)
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
-
-
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def print_ptxas(log: Path, source: str) -> None:
-    """Registers and spills of each kernel compiled from ``source``, read
-    from the ptxas report (``-Xptxas -v``) in the build log."""
+def print_ptxas(log: Path, source: str) -> dict[str, tuple[int, int, int]]:
+    """Registers, static shared memory and spills of each kernel compiled
+    from ``source``, read from the ptxas report (``-Xptxas -v``) in the
+    build log; returns {kernel: (registers, smem bytes, spill bytes)}."""
     part = log.read_text().split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
     names = re.findall(r"Compiling entry function '(\w+)'", part)
     try:
@@ -241,16 +199,22 @@ def print_ptxas(log: Path, source: str) -> None:
     plain = dict(zip(names, (n.replace("(anonymous namespace)::", "")
                              .split("(")[0] for n in plain)))
     print(f"ptxas, {source}:")
-    name, spill = None, ""
+    report, name, spill = {}, None, (0, 0)
     for line in part.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             name = plain.get(m.group(1), m.group(1))
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", line):
-            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            spill = (int(m.group(1)), int(m.group(2)))
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            print(f"  {name:<40} {m.group(1):>4} registers, {spill}")
+            sm = re.search(r"(\d+) bytes smem", line)
+            smem = int(sm.group(1)) if sm else 0
+            print(f"  {name:<60} {m.group(1):>4} registers, {smem:>6} B "
+                  f"static smem, spill stores {spill[0]} B, loads "
+                  f"{spill[1]} B")
+            report[name] = (int(m.group(1)), smem, sum(spill))
             name = None
+    return report
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -277,19 +241,30 @@ def flash_limit(v: torch.Tensor, plain_out: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def mma_grid(e: dict) -> str:
+    """The launch of the shared bf16 / f32 loop just made (output tiles, K
+    ranges, dynamic shared memory), recorded in ``e`` and as text."""
+    tiles, splits, smem = tm_mod.launched_grid()
+    e.update(ctas=tiles, splits=splits, smem_bytes=smem)
+    return (f"grid {tiles} tiles x {splits} K ranges = {tiles * splits} "
+            f"CTAs, {smem} B dynamic smem")
+
+
 def check_matmul(timer, dev, g) -> dict:
     print("\n== tiled_matmul vs plain (C = A @ B, f32 accumulate)")
     print(f"{'M':>5} {'K':>5} {'N':>5} {'dtype':>9} {'err':>10} {'tol':>10} "
           f"{'kernel_ms':>10} {'plain_ms':>9} {'torch_ms':>9} {'bound_ms':>9}")
-    shapes = [(m, k, n, torch.bfloat16) for m in (8, 128)
-              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    shapes = [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
+              for k, n in LAYER_MATMULS]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
-    entry = None
+    serving = {}
     for m, k, n, dt in shapes:
         a = torch.randn(m, k, generator=g, device=dev).to(dt)
         b = (torch.randn(k, n, generator=g, device=dev) / math.sqrt(k)).to(dt)
         out, ref = tiled_matmul(a, b), tiled_matmul_plain(a, b)
+        e = {}
+        grid = mma_grid(e)
         err = max_err(out, ref)
         # f32: summation order only; bf16: one rounding of the f32 sum
         tol = (1e-5 if dt == torch.float32 else 2 ** -7) \
@@ -297,18 +272,64 @@ def check_matmul(timer, dev, g) -> dict:
         if err > tol:
             raise AssertionError(f"tiled_matmul {m}x{k}x{n} {dt}: err {err} "
                                  f"> tol {tol}")
+        if not torch.equal(out, tiled_matmul(a, b)):
+            raise AssertionError(f"tiled_matmul {m}x{k}x{n} {dt}: a second "
+                                 "run gave other bits")
         ms = timer(lambda: tiled_matmul(a, b))
         pms = timer(lambda: tiled_matmul_plain(a, b))
         lms = timer(lambda: torch.matmul(a, b))
         esz = a.element_size()
         bms, by = bound_ms((m * k + k * n + m * n) * esz, 2 * m * k * n, dt)
         print(f"{m:>5} {k:>5} {n:>5} {str(dt)[6:]:>9} {err:>10.3g} "
-              f"{tol:>10.3g} {ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f}")
-        if (m, k, n, dt) == (128, 1024, 2816, torch.bfloat16):
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, library_ms=lms,
-                         shape="mixed-step w1: M=128 K=1024 N=2816 bf16")
-    return entry
+              f"{tol:>10.3g} {ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f}"
+              f"   {grid}")
+        step = next((s for s, rows in STEP_ROWS.items() if rows == m), None)
+        if dt == torch.bfloat16 and (k, n) in LAYER_MATMULS and step:
+            serving[(m, k, n)] = dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shape=f"{step}-step M={m} K={k} N={n} bf16")
+    # the wrapper never waits for the device (a split launch: workspace,
+    # plan and reduce included)
+    a = torch.randn(128, 1024, generator=g, device=dev).bfloat16()
+    b = torch.randn(1024, 2816, generator=g, device=dev).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tiled_matmul(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if tm_mod.launched_grid()[1] < 2:
+        raise AssertionError("tiled_matmul: the sync check took one K range")
+    print(f"tiled_matmul under set_sync_debug_mode('error'): no host sync "
+          f"({mma_grid({})})")
+    rows = list(serving.values())
+    main = next(e for e in rows if e["shape"].startswith("mixed-step M=128 "
+                                                         "K=1024 N=2816"))
+    return dict(main, other_shapes=[e for e in rows if e is not main],
+                serving=serving)
+
+
+def drain_estimate(serving: dict, layers: int, launches: dict) -> None:
+    """Print phase 2's per-call medians of the six serving shapes summed
+    over the steps of phase 5's float drain, which are counted from its
+    attention launches (a mixed step launches the chunk kernel once per
+    layer, a decode step the decode kernel): an estimate of the drain's
+    matmul device time, for the kernel, ``torch.matmul`` and the bound."""
+    steps = {STEP_ROWS["mixed"]:
+             launches["chunked_prefill_attention"] / layers,
+             STEP_ROWS["decode"]: launches["paged_decode_attention"] / layers}
+    total = {key: layers * sum(steps[m] * LAYER_MATMULS[(k, n)] * e[key]
+                               for (m, k, n), e in serving.items())
+             for key in ("ms", "library_ms", "bound_ms")}
+    n = layers * sum(LAYER_MATMULS.values()) * sum(steps.values())
+    print(f"per drain, an estimate (phase 2's per-call medians x phase 5's "
+          f"{steps[STEP_ROWS['mixed']]:g} mixed + "
+          f"{steps[STEP_ROWS['decode']]:g} decode steps x {layers} layers "
+          f"= {n:g} launches; tiled_matmul launched "
+          f"{launches['tiled_matmul']}): kernel {total['ms']:.3f} ms, "
+          f"torch.matmul {total['library_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.3f} ms")
 
 
 def check_int8_matmul(timer, dev, g) -> dict:
@@ -667,6 +688,7 @@ def check_library(timer, dev, g) -> dict:
                           lambda: torch.addmm(b1_lib, x, w1),
                           (m * d + d * f + m * f) * es + f * 4, 2 * m * d * f,
                           dt, tol)
+            print(f"{'':>15} {mma_grid(e)}")
             if main and a == "gelu":
                 entries["ffn1"] = e
 
@@ -683,6 +705,7 @@ def check_library(timer, dev, g) -> dict:
                           lambda: torch.matmul(x, w1g),
                           (m * d + 2 * d * f + m * f) * es, 4 * m * d * f,
                           dt, tol)
+            print(f"{'':>15} {mma_grid(e)}")
             if main and a == "swiglu":
                 entries["ffn1_gated"] = e
         del w1, wg, w1g
@@ -708,8 +731,11 @@ def check_library(timer, dev, g) -> dict:
                           lambda: torch.matmul(x, wqkv),
                           (m * d + d * n + m * n) * es, 2 * m * d * n, dt,
                           tol)
+            print(f"{'':>15} {mma_grid(e)}")
             if main and label.startswith("MHA"):
                 entries["qkv_proj"] = e
+            elif main:
+                entries["qkv_proj"]["other_shapes"] = [e]
             del ws, wqkv
 
         # flash attention: one qwen1.5-0.5b prompt (causal), adaptor_bert
@@ -1016,6 +1042,15 @@ def main() -> int:
     print_ptxas(lib.parent / "build.log", "flash_attention.cu")
     print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
     print_ptxas(lib.parent / "build.log", "paged_attention.cu")
+    # the bf16 main loop (mma_tile, dynamic shared memory) and its reduce,
+    # in each of the four wrappers' instantiations: no spills
+    for src in ("tiled_matmul.cu", "ffn.cu", "qkv_proj.cu"):
+        spills = {k: v for k, v in
+                  print_ptxas(lib.parent / "build.log", src).items()
+                  if "mma_" in k and v[2]}
+        if spills:
+            raise AssertionError(f"{src}: mma_tile instantiations spill: "
+                                 f"{spills}")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     timer = Timer(dev)
@@ -1050,6 +1085,7 @@ def main() -> int:
     rs = np.random.default_rng(0)
     prompts = [rs.integers(0, model.cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
+    layers = model.cfg.num_layers
     del model
     n_tok = len(prompts) * MAX_NEW
     streams = {}
@@ -1076,6 +1112,8 @@ def main() -> int:
     if again != streams["int8"]:
         raise AssertionError("the fully-quantized streams differ between "
                              f"two fresh engines ({same}/{n_tok} equal)")
+    drain_estimate(entries["tiled_matmul"]["serving"], layers,
+                   launches["float"])
     streams_p, dt_p, steps_p = serve(params, False, prompts)
     print(f"plain, float weights: {n_tok} tokens in {dt_p:.3f} s "
           f"({n_tok / dt_p:.1f} tok/s), {steps_p} fused steps")
@@ -1099,8 +1137,8 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for extra in ("int8_pool", "ctas", "splits", "other_shapes",
-                      "f32_shapes", "fixed_splits"):
+        for extra in ("int8_pool", "ctas", "splits", "smem_bytes",
+                      "other_shapes", "f32_shapes", "fixed_splits"):
             if extra in e:
                 row[extra] = e[extra]
         table.append(row)

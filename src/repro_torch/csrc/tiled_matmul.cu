@@ -14,14 +14,16 @@
 // So the kernel is bound by weight bytes at every main-path shape.
 //
 // Design: the main loop of mma_tile.cuh with one weight operand and an
-// epilogue that rounds the f32 sum once to A's dtype.  One CTA owns one
-// BM x BN output tile and loops over K itself; each K step stages a BK-deep
-// slice of A and B in shared memory while the next slice is in flight
-// (16-byte loads of 8 bf16 where K and N are multiples of 8, one element
-// per load otherwise).  Ragged edges are masked at the loads and at the
-// store; nothing is padded in device memory.  bf16 runs on tensor cores
-// (mma.sync m16n8k16, K summed in 16-wide slices in order), f32 on FMA (K
-// summed in order 0..K-1), so neither result depends on the tiles.
+// epilogue that rounds the f32 sum once to A's dtype.  bf16 runs on tensor
+// cores: a 4-stage cp.async ring in dynamic shared memory, ldmatrix
+// fragments, mma.sync m16n8k16; BM covers M (16 or 128 rows) so the weight
+// crosses HBM once, and K is split into ranges (k_splits in
+// kernels/tiled_matmul.py, from M and K alone) whose f32 partial sums a
+// reduce pass adds in order, so the serving shapes fill the card:
+// 128 x 1024 x 2816 runs 44 tiles x 4 ranges.  f32 runs on FMA (K summed
+// in order 0..K-1, one stage through registers).  Ragged edges are masked
+// at the loads and at the store; nothing is padded in device memory, and
+// neither result depends on the tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -33,26 +35,33 @@ template <typename T>
 struct StoreC {
   T* c;
   int n;
-  __device__ void operator()(int r, int col, const float* v) const {
+  __device__ __forceinline__ void operator()(int r, int col,
+                                             const float* v) const {
     c[(size_t)r * n + col] = from_f<T>(v[0]);
   }
 };
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (A, B and C share it).
+// dtype: 0 = float32, 1 = bfloat16 (A, B and C share it).  splits: K
+// ranges (1 for float32); with splits > 1, ws holds splits * M * N floats.
+// plan (may be null) receives output tiles, K ranges and dynamic shared
+// memory bytes of the launch.
 extern "C" int tiled_matmul(const void* a, const void* b, void* c, int M,
-                            int K, int N, int dtype, void* stream) {
+                            int K, int N, int dtype, void* ws, int splits,
+                            int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && splits == 1)
     return matmul_f32<1>(static_cast<const float*>(a),
                          Weights<1, float>{{static_cast<const float*>(b)}, {N}},
-                         M, K, StoreC<float>{static_cast<float*>(c), N}, s);
+                         M, K, StoreC<float>{static_cast<float*>(c), N}, s,
+                         plan);
   if (dtype == 1)
     return matmul_bf16<1>(
         static_cast<const __nv_bfloat16*>(a),
         Weights<1, __nv_bfloat16>{{static_cast<const __nv_bfloat16*>(b)}, {N}},
-        M, K, StoreC<__nv_bfloat16>{static_cast<__nv_bfloat16*>(c), N}, s);
+        M, K, splits, static_cast<float*>(ws),
+        StoreC<__nv_bfloat16>{static_cast<__nv_bfloat16*>(c), N}, s, plan);
   return cudaErrorInvalidValue;
 }
 

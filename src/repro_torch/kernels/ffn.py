@@ -8,7 +8,9 @@ bfloat16), with float32 sums and one rounding to x's dtype.  ``b1`` is
 ``[F]`` in float32 or x's dtype.  Activations, by the reference's names:
 ``relu``, ``gelu`` / ``geglu`` (the tanh form), ``silu`` / ``swiglu``
 (``x * sigmoid(x)``).  A CUDA tensor launches the hand-written kernel of
-``csrc/ffn.cu``; a CPU tensor runs the plain version.
+``csrc/ffn.cu``; a CPU tensor runs the plain version.  In bf16 the
+kernel splits K as ``tiled_matmul`` does (``k_splits``) and applies the
+epilogue to the ordered sum of the ranges' partial sums.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels.tiled_matmul import (
+    PLAN, matmul_partials_plain, reduce_partials_plain, split_plan)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # activation name -> the C interface's code (0 relu, 1 tanh-gelu, 2 silu)
@@ -41,18 +45,26 @@ def act(y: torch.Tensor, activation: str) -> torch.Tensor:
     return F.silu(y)
 
 
+def _sum(x: torch.Tensor, w: torch.Tensor, splits: int) -> torch.Tensor:
+    return reduce_partials_plain(matmul_partials_plain(x, w, splits))
+
+
 def ffn1_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-               activation: str = "relu") -> torch.Tensor:
-    """The kernel's function in plain PyTorch."""
-    y = x.float() @ w1.float() + b1.float()
+               activation: str = "relu", splits: int = 1) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (``splits``: the K ranges'
+    partial sums added in order before the epilogue, as the kernel's
+    split)."""
+    y = _sum(x, w1, splits) + b1.float()
     return act(y, activation).to(x.dtype)
 
 
 def ffn1_gated_plain(x: torch.Tensor, w1: torch.Tensor, wg: torch.Tensor,
-                     activation: str = "swiglu") -> torch.Tensor:
-    """The kernel's function in plain PyTorch."""
-    h = x.float() @ w1.float()
-    g = x.float() @ wg.float()
+                     activation: str = "swiglu",
+                     splits: int = 1) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (``splits`` as in
+    ``ffn1_plain``)."""
+    h = _sum(x, w1, splits)
+    g = _sum(x, wg, splits)
     return (act(g, activation) * h).to(x.dtype)
 
 
@@ -71,8 +83,11 @@ def _check(name: str, x: torch.Tensor, *ws: torch.Tensor) -> None:
 @functools.cache
 def _kernels():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return (runtime.bind("ffn1", [p, p, p, p, i, i, i, i, i, i, p]),
-            runtime.bind("ffn1_gated", [p, p, p, p, i, i, i, i, i, p]))
+    plan = ctypes.POINTER(i)
+    return (runtime.bind("ffn1",
+                         [p, p, p, p, i, i, i, i, i, i, p, i, plan, p]),
+            runtime.bind("ffn1_gated",
+                         [p, p, p, p, i, i, i, i, i, p, i, plan, p]))
 
 
 def ffn1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -93,9 +108,11 @@ def ffn1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    splits, ws = split_plan(x, (N,))
     err = _kernels()[0](x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                         out.data_ptr(), M, K, N, runtime.DTYPE_CODES[x.dtype],
                         int(b1.dtype == torch.float32), code,
+                        None if ws is None else ws.data_ptr(), splits, PLAN,
                         runtime.stream_handle(x))
     runtime.check(err, "ffn1")
     ffn1.launches += 1
@@ -118,9 +135,11 @@ def ffn1_gated(x: torch.Tensor, w1: torch.Tensor, wg: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    splits, ws = split_plan(x, (N, N))
     err = _kernels()[1](x.data_ptr(), w1.data_ptr(), wg.data_ptr(),
                         out.data_ptr(), M, K, N, runtime.DTYPE_CODES[x.dtype],
-                        code, runtime.stream_handle(x))
+                        code, None if ws is None else ws.data_ptr(), splits,
+                        PLAN, runtime.stream_handle(x))
     runtime.check(err, "ffn1_gated")
     ffn1_gated.launches += 1
     return out

@@ -6,7 +6,8 @@
 (GQA), in one dtype (float32 or bfloat16), with float32 sums and the
 outputs in x's dtype.  A CUDA tensor launches the hand-written kernel of
 ``csrc/qkv_proj.cu``, whose three products equal three ``tiled_matmul``
-launches bit for bit; a CPU tensor runs the plain version.
+launches bit for bit (the K split, ``k_splits``, depends on M and K
+alone); a CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
@@ -16,23 +17,25 @@ import functools
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
+from repro_torch.kernels.tiled_matmul import (PLAN, split_plan,
+                                              tiled_matmul_plain)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def qkv_proj_plain(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-                   wv: torch.Tensor
+                   wv: torch.Tensor, splits: int = 1
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: three f32 products, each
-    rounded once to x's dtype."""
-    return tuple(tiled_matmul_plain(x, w) for w in (wq, wk, wv))
+    rounded once to x's dtype (``splits`` as in ``tiled_matmul_plain``)."""
+    return tuple(tiled_matmul_plain(x, w, splits) for w in (wq, wk, wv))
 
 
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return runtime.bind("qkv_proj", [p, p, p, p, p, p, p, i, i, i, i, i, p])
+    return runtime.bind("qkv_proj", [p, p, p, p, p, p, p, i, i, i, i, i, p,
+                                     i, ctypes.POINTER(i), p])
 
 
 def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -62,9 +65,12 @@ def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                  for n in (nq, nkv, nkv))
     if M == 0:
         return outs
+    splits, work = split_plan(x, (nq, nkv, nkv))
     err = _kernel()(x.data_ptr(), *(w.data_ptr() for w in ws),
                     *(o.data_ptr() for o in outs), M, K, nq, nkv,
-                    runtime.DTYPE_CODES[x.dtype], runtime.stream_handle(x))
+                    runtime.DTYPE_CODES[x.dtype],
+                    None if work is None else work.data_ptr(), splits, PLAN,
+                    runtime.stream_handle(x))
     runtime.check(err, "qkv_proj")
     qkv_proj.launches += 1
     return outs

@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.kernels import tiled_matmul as tm_mod
 from repro_torch.kernels.chunked_prefill import (
     chunked_prefill_attention, chunked_prefill_attention_plain)
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.qkv_proj import qkv_proj
 from repro_torch.kernels.tiled_matmul import (
     matmul, tiled_matmul, tiled_matmul_plain)
 
@@ -251,13 +253,45 @@ def test_cuda_kernels_match_plain_versions():
     dev = torch.device("cuda")
     runtime.build()
     rs = np.random.RandomState(0)
-    for (M, K, N), dt in [((77, 300, 199), torch.float32),
-                          ((8, 1024, 2816), torch.bfloat16)]:
+    # the six bf16 serving shapes (a decode and a mixed step against each
+    # weight shape), ragged shapes (K = 300 in one range; K = 2000 in 7
+    # ranges, the last one ragged; K = 1000, N = 67: element loads, 3
+    # ranges) and f32; a second run must give the same bits
+    shapes = [((m, k, n), torch.bfloat16) for m in (8, 128)
+              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+    shapes += [((77, 300, 199), torch.float32),
+               ((77, 300, 199), torch.bfloat16),
+               ((8, 2000, 136), torch.bfloat16),
+               ((5, 1000, 67), torch.bfloat16)]
+    for (M, K, N), dt in shapes:
         a = _t(rs.randn(M, K).astype(np.float32)).to(dev, dt)
-        b = _t(rs.randn(K, N).astype(np.float32)).to(dev, dt)
+        b = _t((rs.randn(K, N) / np.sqrt(K)).astype(np.float32)).to(dev, dt)
         ref = tiled_matmul_plain(a, b).float()
         tol = (1e-5 if dt == torch.float32 else 2 ** -7) * ref.abs().max()
-        assert (tiled_matmul(a, b).float() - ref).abs().max() <= tol
+        got = tiled_matmul(a, b)
+        assert tm_mod.launched_grid()[1] == (
+            tm_mod.k_splits(M, K) if dt == torch.bfloat16 else 1)
+        assert (got.float() - ref).abs().max() <= tol, (M, K, N, dt)
+        assert torch.equal(got, tiled_matmul(a, b)), (M, K, N, dt)
+    # qkv_proj bit for bit three tiled_matmuls, MHA and GQA, with a split
+    for M, D, nq, nkv in ((128, 1024, 1024, 1024), (128, 2048, 2048, 256),
+                          (8, 1024, 1024, 128)):
+        x = _t(rs.randn(M, D).astype(np.float32)).to(dev, torch.bfloat16)
+        ws = [_t((rs.randn(D, n) / np.sqrt(D)).astype(np.float32))
+              .to(dev, torch.bfloat16) for n in (nq, nkv, nkv)]
+        assert tm_mod.k_splits(M, D) > 1
+        for o, w in zip(qkv_proj(x, *ws), ws, strict=True):
+            assert torch.equal(o, tiled_matmul(x, w))
+    # a split launch makes no host sync
+    a = torch.randn(128, 1024, device=dev).bfloat16()
+    b = torch.randn(1024, 2816, device=dev).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tiled_matmul(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     for h, kv, hd in ATTN_SHAPES:
         B, W, bs, nblk = 4, 6, 8, 5
         start = np.array([0, 5, 16, 37], np.int32)
