@@ -11,19 +11,25 @@ Phases (any failure raises and the script exits non-zero):
    GQA n_rep > 1; for attention, lengths with partial last blocks and
    null-block table entries, the null block and the unseen tail of each
    sequence's last block filled with NaN so a read of them would show, and
-   an int8 pool whose scales there are NaN; ``int8_matmul`` must be
-   bit-identical).  The paged attention kernels also at the head dims and
-   GQA widths of ROADMAP Queue 3 fault A (hd 96; GQA 8 x hd 128: decode,
-   and chunk at W 16 and 32), both over fixed key-range counts, each case
-   with the grid it launched, and one split call of each under
-   ``torch.cuda.set_sync_debug_mode("error")``; the build prints the
-   split walk's (both entry points') and the flash kernels' registers and
-   spills, and those of every instantiation of the bf16 matmul loop
-   (``mma_tile``, ``mma_reduce``), which must not spill.  ``tiled_matmul``
-   at the six bf16 serving shapes (a decode and a mixed step against each
-   weight shape), each with the grid it launched (tiles x K ranges) and
-   its dynamic shared memory, a second run bit-equal to the first, and
-   one split call under ``set_sync_debug_mode("error")``.  The six kernels of the kernel
+   an int8 pool whose scales there are NaN).  ``int8_matmul`` must be
+   bit-identical at the six serving shapes (bf16 and f32 out, each with
+   the grid it launched and the bf16 ``torch.matmul`` time beside
+   ``torch._int_mm``'s), at every plan of BM, BN and K ranges there, at
+   ragged shapes and at a product whose plan splits K, which also runs
+   once under ``set_sync_debug_mode("error")``.  The paged attention
+   kernels also at the head dims and GQA widths of ROADMAP Queue 3 fault
+   A (hd 96; GQA 8 x hd 128: decode, and chunk at W 16 and 32), both
+   over fixed key-range counts, each case with the grid it launched, and
+   one split call of each under ``set_sync_debug_mode("error")``; the
+   build prints the split walk's (both entry points')
+   and the flash kernels' registers and spills, and those of every
+   instantiation of the bf16 matmul loop (``mma_tile``, ``mma_reduce``)
+   and of the int8 kernel (``int8_mma``, ``int8_reduce``), which must
+   not spill.  ``tiled_matmul`` at the six bf16 serving shapes (a decode
+   and a mixed step against each weight shape), each with the grid it
+   launched (tiles x K ranges) and its dynamic shared memory, a second
+   run bit-equal to the first, and one split call under
+   ``set_sync_debug_mode("error")``.  The six kernels of the kernel
    library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
    ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
    qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
@@ -58,8 +64,10 @@ Phases (any failure raises and the script exits non-zero):
    The float run's steps, counted from its attention launches, times
    phase 2's per-call medians of the six ``tiled_matmul`` serving shapes
    give an estimate of the drain's matmul device time, printed against
-   the same sum for ``torch.matmul``.  A plain-path engine serves the
-   float requests and the share of identical tokens is reported.
+   the same sum for ``torch.matmul``; the first fully-quantized run's
+   steps do the same for ``int8_matmul`` against the bf16
+   ``torch.matmul``.  A plain-path engine serves the float requests and
+   the share of identical tokens is reported.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -67,6 +75,7 @@ device summary.  Exits non-zero when no CUDA device is visible.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -310,41 +319,56 @@ def check_matmul(timer, dev, g) -> dict:
                 serving=serving)
 
 
-def drain_estimate(serving: dict, layers: int, launches: dict) -> None:
-    """Print phase 2's per-call medians of the six serving shapes summed
-    over the steps of phase 5's float drain, which are counted from its
-    attention launches (a mixed step launches the chunk kernel once per
-    layer, a decode step the decode kernel): an estimate of the drain's
-    matmul device time, for the kernel, ``torch.matmul`` and the bound."""
+def drain_estimate(name: str, serving: dict, layers: int, launches: dict,
+                   lib_key: str, lib_name: str) -> None:
+    """Print phase 2's per-call medians of kernel ``name``'s six serving
+    shapes summed over the steps of a phase 5 drain, which are counted
+    from its attention launches (a mixed step launches the chunk kernel
+    once per layer, a decode step the decode kernel): an estimate of the
+    drain's matmul device time, for the kernel, the library call under
+    ``lib_key`` and the bound."""
     steps = {STEP_ROWS["mixed"]:
              launches["chunked_prefill_attention"] / layers,
              STEP_ROWS["decode"]: launches["paged_decode_attention"] / layers}
     total = {key: layers * sum(steps[m] * LAYER_MATMULS[(k, n)] * e[key]
                                for (m, k, n), e in serving.items())
-             for key in ("ms", "library_ms", "bound_ms")}
+             for key in ("ms", lib_key, "bound_ms")}
     n = layers * sum(LAYER_MATMULS.values()) * sum(steps.values())
-    print(f"per drain, an estimate (phase 2's per-call medians x phase 5's "
-          f"{steps[STEP_ROWS['mixed']]:g} mixed + "
+    print(f"{name} per drain, an estimate (phase 2's per-call medians x "
+          f"phase 5's {steps[STEP_ROWS['mixed']]:g} mixed + "
           f"{steps[STEP_ROWS['decode']]:g} decode steps x {layers} layers "
-          f"= {n:g} launches; tiled_matmul launched "
-          f"{launches['tiled_matmul']}): kernel {total['ms']:.3f} ms, "
-          f"torch.matmul {total['library_ms']:.3f} ms, bound "
+          f"= {n:g} launches; {name} launched {launches[name]}): kernel "
+          f"{total['ms']:.3f} ms, {lib_name} {total[lib_key]:.3f} ms, bound "
           f"{total['bound_ms']:.3f} ms")
+
+
+def i8_grid(e: dict) -> str:
+    """The launch of ``int8_matmul`` just made (output tiles of BM x BN, K
+    ranges, dynamic shared memory), recorded in ``e`` and as text."""
+    tiles, splits, smem, bm, bn = i8_mod.launched_grid()
+    e.update(ctas=tiles, splits=splits, smem_bytes=smem, bm=bm, bn=bn)
+    return (f"grid {tiles} tiles of {bm}x{bn} x {splits} K ranges, {smem} B "
+            "dynamic smem")
 
 
 def check_int8_matmul(timer, dev, g) -> dict:
     """int8_matmul against its plain version (exact: the same integer sum
-    and epilogue), gated on max_abs_err == 0.  The library yardstick is
+    and epilogue), gated on max_abs_err == 0: the six serving shapes in
+    bf16 and f32 out, each also at every plan (BM 16 and 32, BN 32 and
+    64, 1-16 K ranges) bit-equal to its planned call, ragged shapes, and
+    a product whose plan splits K (also once under
+    ``set_sync_debug_mode("error")``).  The library yardsticks are
     ``torch._int_mm`` (the integer product alone, without the scales),
-    which refuses M <= 16; that is printed, nothing is padded."""
+    which refuses M <= 16 (printed, nothing is padded), and the bf16
+    ``torch.matmul`` at the same shape."""
     print("\n== int8_matmul vs plain (int8 x int8 -> int32, x sx * sw[n])")
     print(f"{'M':>5} {'K':>5} {'N':>5} {'out':>9} {'err':>6} {'kernel_ms':>10} "
-          f"{'plain_ms':>9} {'int_mm_ms':>10} {'bound_ms':>9}")
-    shapes = [(m, k, n, dt) for m in (8, 128)
-              for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))
-              for dt in (torch.bfloat16, torch.float32)]
-    shapes += [(77, 300, 199, torch.bfloat16), (5, 1000, 67, torch.float32)]
-    entry = None
+          f"{'plain_ms':>9} {'int_mm_ms':>10} {'bf16_mm':>9} {'bound_ms':>9}")
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = [(m, k, n, dt) for m in STEP_ROWS.values()
+              for k, n in LAYER_MATMULS for dt in (bf, f32)]
+    shapes += [(77, 300, 199, bf), (5, 1000, 67, f32), (8, 8192, 256, bf)]
+    serving = {}
     for m, k, n, dt in shapes:
         qx = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                            dtype=torch.int8)
@@ -354,30 +378,70 @@ def check_int8_matmul(timer, dev, g) -> dict:
         sw = torch.rand((1, n), generator=g, device=dev) * 0.05 + 1e-3
         run = lambda: int8_matmul(qx, sx, qw, sw, out_dtype=dt)  # noqa: E731
         plain = lambda: int8_matmul_plain(qx, sx, qw, sw, dt)  # noqa: E731
-        err = max_err(run(), plain())
+        out, e = run(), {}
+        grid = i8_grid(e)
+        err = max_err(out, plain())
         if err != 0:
             raise AssertionError(f"int8_matmul {m}x{k}x{n} {dt}: err {err} "
                                  "!= 0")
+        step = next((s for s, rows in STEP_ROWS.items() if rows == m), None)
+        serve = step is not None and (k, n) in LAYER_MATMULS
+        if serve and dt == bf:
+            slices = -(-k // i8_mod.K_SLICE)
+            for plan in itertools.product(
+                    (16, 32), (32, 64),
+                    range(1, min(slices, i8_mod.MAX_SPLITS) + 1)):
+                with mock.patch.object(i8_mod, "int8_plan",
+                                       lambda M, K, N, p=plan: p):
+                    got = int8_matmul(qx, sx, qw, sw)
+                if not torch.equal(got, out):
+                    raise AssertionError(f"int8_matmul {m}x{k}x{n}: plan "
+                                         f"{plan} gave other bits")
         ms, pms = timer(run), timer(plain)
         try:
             torch._int_mm(qx, qw)
             lms = timer(lambda: torch._int_mm(qx, qw))
             lib = f"{lms:>10.4f}"
-        except RuntimeError as e:
+        except RuntimeError as exc:
             lms, lib = None, "refused"
-            why = str(e).splitlines()[0][:80]
+            why = str(exc).splitlines()[0][:80]
+        mm16 = None
+        if serve:
+            a = torch.randn(m, k, generator=g, device=dev).to(bf)
+            w = (torch.randn(k, n, generator=g, device=dev)
+                 / math.sqrt(k)).to(bf)
+            mm16 = timer(lambda: torch.matmul(a, w))
         bms, by = bound_ms(m * k + k * n + 4 + 4 * n
                            + m * n * torch.empty((), dtype=dt).element_size(),
                            2 * m * k * n, torch.int8)
         print(f"{m:>5} {k:>5} {n:>5} {str(dt)[6:]:>9} {err:>6.3g} "
-              f"{ms:>10.4f} {pms:>9.4f} {lib:>10} {bms:>9.4f}")
+              f"{ms:>10.4f} {pms:>9.4f} {lib:>10} "
+              f"{'-' if mm16 is None else f'{mm16:.4f}':>9} {bms:>9.4f}"
+              f"   {grid}")
         if lms is None:
             print(f"      torch._int_mm refused M={m}: {why}")
-        if (m, k, n, dt) == (128, 1024, 2816, torch.bfloat16):
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, library_ms=lms,
-                         shape="mixed-step w1: M=128 K=1024 N=2816 bf16 out")
-    return entry
+        if serve and dt == bf:
+            serving[(m, k, n)] = dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms, bf16_matmul_ms=mm16,
+                shape=f"{step}-step M={m} K={k} N={n} bf16 out")
+    # the wrapper never waits for the device (a split launch: workspace,
+    # kernel and reduce; the last shape, 8 x 8192 x 256, splits K)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        int8_matmul(qx, sx, qw, sw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if i8_mod.launched_grid()[1] < 2:
+        raise AssertionError("int8_matmul: the sync check took one K range")
+    print(f"int8_matmul under set_sync_debug_mode('error'): no host sync "
+          f"({i8_grid({})})")
+    rows = list(serving.values())
+    main = next(e for e in rows if e["shape"].startswith("mixed-step M=128 "
+                                                         "K=1024 N=2816"))
+    return dict(main, other_shapes=[e for e in rows if e is not main],
+                serving=serving)
 
 
 def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
@@ -1043,13 +1107,15 @@ def main() -> int:
     print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
     print_ptxas(lib.parent / "build.log", "paged_attention.cu")
     # the bf16 main loop (mma_tile, dynamic shared memory) and its reduce,
-    # in each of the four wrappers' instantiations: no spills
-    for src in ("tiled_matmul.cu", "ffn.cu", "qkv_proj.cu"):
+    # in each of the four wrappers' instantiations, and the int8 kernel and
+    # its reduce: no spills
+    for src, kern in (("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
+                      ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_")):
         spills = {k: v for k, v in
                   print_ptxas(lib.parent / "build.log", src).items()
-                  if "mma_" in k and v[2]}
+                  if kern in k and v[2]}
         if spills:
-            raise AssertionError(f"{src}: mma_tile instantiations spill: "
+            raise AssertionError(f"{src}: {kern}* instantiations spill: "
                                  f"{spills}")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -1112,8 +1178,10 @@ def main() -> int:
     if again != streams["int8"]:
         raise AssertionError("the fully-quantized streams differ between "
                              f"two fresh engines ({same}/{n_tok} equal)")
-    drain_estimate(entries["tiled_matmul"]["serving"], layers,
-                   launches["float"])
+    drain_estimate("tiled_matmul", entries["tiled_matmul"]["serving"],
+                   layers, launches["float"], "library_ms", "torch.matmul")
+    drain_estimate("int8_matmul", entries["int8_matmul"]["serving"], layers,
+                   launches["int8"], "bf16_matmul_ms", "bf16 torch.matmul")
     streams_p, dt_p, steps_p = serve(params, False, prompts)
     print(f"plain, float weights: {n_tok} tokens in {dt_p:.3f} s "
           f"({n_tok / dt_p:.1f} tok/s), {steps_p} fused steps")
@@ -1137,8 +1205,9 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for extra in ("int8_pool", "ctas", "splits", "smem_bytes",
-                      "other_shapes", "f32_shapes", "fixed_splits"):
+        for extra in ("int8_pool", "ctas", "splits", "smem_bytes", "bm", "bn",
+                      "bf16_matmul_ms", "other_shapes", "f32_shapes",
+                      "fixed_splits"):
             if extra in e:
                 row[extra] = e[extra]
         table.append(row)

@@ -55,6 +55,7 @@
 #include <cstdint>
 
 #include "dtype.cuh"
+#include "launch.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -230,8 +231,8 @@ __global__ void __launch_bounds__(MmaShape<NB, BM, BN>::kThreads)
                 "chunks per thread");
 
   // let mma_reduce, launched after this grid, be scheduled early: it waits
-  // for this grid's completion itself (griddepcontrol.wait)
-  asm volatile("griddepcontrol.launch_dependents;");
+  // for this grid's completion itself
+  pdl_launch_dependents();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -420,7 +421,7 @@ __global__ void __launch_bounds__(256)
     mma_reduce(const float* __restrict__ ws,
                const Weights<NB, __nv_bfloat16> W, int M, int splits,
                const Epi epi) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  pdl_wait();
   // (32-bit: the host checks that M * n[0] fits)
   const int groups = W.n[0] / CPT;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -512,40 +513,21 @@ cudaError_t launch_mma(const __nv_bfloat16* a,
     plan[2] = S::kSmemBytes;
   }
   auto kern = mma_tile<NB, BM, BN, VEC, Epi>;
-  if (S::kSmemBytes > 48 * 1024) {
-    // the limit is set once per device for this instantiation (a bit per
-    // device id; ids past 63 set it on every launch)
-    static std::atomic<uint64_t> set_on{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-    if (bit == 0 || !(set_on.load(std::memory_order_relaxed) & bit)) {
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kSmemBytes);
-      if (e != cudaSuccess) return e;
-      set_on.fetch_or(bit, std::memory_order_relaxed);
-    }
-  }
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t e = allow_dynamic_smem(reinterpret_cast<const void*>(kern),
+                                     S::kSmemBytes, smem_set);
+  if (e != cudaSuccess) return e;
   kern<<<grid, S::kThreads, S::kSmemBytes, stream>>>(a, w, M, K, splits, ws,
                                                      epi);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   // the reduce as a programmatic dependent launch: its CTAs are scheduled
   // while mma_tile's last CTAs run, and wait for the grid to finish
   constexpr int CPT = VEC ? 4 : 1;
   const size_t n = (size_t)M * (w.n[0] / CPT);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((n + 255) / 256));
-  cfg.blockDim = dim3(256);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, mma_reduce<NB, CPT, Epi>,
-                            static_cast<const float*>(ws), w, M, splits, epi);
+  return launch_dependent(mma_reduce<NB, CPT, Epi>,
+                          dim3((unsigned)((n + 255) / 256)), dim3(256), stream,
+                          static_cast<const float*>(ws), w, M, splits, epi);
 }
 
 // Where a 64-column tile gives fewer CTAs than this, the tile is 32 wide:

@@ -1,28 +1,38 @@
-"""The bf16 matmul loop's rows timed against another tree, on a CUDA card.
+"""The matmul kernels' rows timed against another tree, on a CUDA card.
 
 ``python src/repro_torch/launch/matmul_probe.py --parent build/parent/src``
 times ``tiled_matmul`` at the six bf16 serving shapes (a decode step's 8
 rows and a mixed step's 128 against qwen1.5-0.5b's 1024 x 1024, 1024 x
-2816 and 2816 x 1024 weights) and the library rows of ``chip_smoke.py``:
+2816 and 2816 x 1024 weights), the library rows of ``chip_smoke.py``:
 ``ffn1`` (gelu, 512 x 768 -> 3072, adaptor_bert), ``ffn1_gated`` (swiglu,
 128 x 1024 -> 2 x 2816), ``qkv_proj`` (MHA 128 x 1024 -> 3 x 1024 and GQA
-128 x 8192 -> 8192 + 2 x 1024, qwen2-72b), with ``timing.Timer`` (median
-of single calls, L2 flushed, the stream kept busy).  Each tree runs in a
-process of its own that imports ``repro_torch`` from that tree's ``src``
-(the parent's kernels build in its own ``build/``), in the order parent,
-change, change, parent, so the two are compared on one card in turns;
-``torch.matmul`` / ``torch.addmm`` beside each row is timed in every
-process.  Each output is held against the plain version (bf16: 2^-7 x
-max|plain|); the device time of each kernel a call launches (the loop and
-its reduce apart) is read from ``torch.profiler`` over 20 calls, and the
+128 x 8192 -> 8192 + 2 x 1024, qwen2-72b), and ``int8_matmul`` at the same
+six serving shapes (bf16 out, the fully-quantized path's), with
+``timing.Timer`` (median of single calls, L2 flushed, the stream kept
+busy).  Each tree runs in a process of its own that imports
+``repro_torch`` from that tree's ``src`` (the parent's kernels build in
+its own ``build/``), in the order parent, change, change, parent, so the
+two are compared on one card in turns; the library call beside each row
+(``torch.matmul`` / ``torch.addmm``; for ``int8_matmul`` both
+``torch._int_mm``, which refuses M <= 16, and the bf16 ``torch.matmul``
+at the same shape) is timed in every process.  Each output is held
+against the plain version (bf16: 2^-7 x max|plain|; ``int8_matmul``:
+exact); the device time of each kernel a call launches (the loop and its
+reduce apart) is read from ``torch.profiler`` over 20 calls, and the
 host's cost of a call (microseconds to enqueue it, the median of 50 with
 the stream held busy, and the PyTorch operators it dispatches) is
-measured beside it.  The per-drain line is an estimate: the six serving
-shapes' medians times the steps of ``chip_smoke.py``'s float drain
-(``DRAIN_STEPS``, the counts its phase 5 measures).  The card's name and
-power limit and a table are printed, and every run is written as JSON to
-``build/matmul_probe.json``.  Run it as a script: the worker processes
-import ``timing`` from this directory.
+measured beside it.  The per-drain lines are estimates: the six serving
+shapes' medians times the steps of ``chip_smoke.py``'s drains
+(``DRAIN_STEPS``, the counts its phase 5 measures; the float and the
+fully-quantized drain take the same steps).  The card's name and power
+limit and a table are printed, and every run is written as JSON to
+``build/matmul_probe.json``.
+
+``--int8-sweep`` times, in this tree only, ``int8_matmul`` at the six
+serving shapes at every BM (16, 32), BN (32, 64) and split count 1-16
+(``int8_plan`` patched), with the host's cost of a call with and without
+a split: the measurements ``int8_plan`` is chosen from.  Run it as a
+script: the worker processes import ``timing`` from this directory.
 """
 from __future__ import annotations
 
@@ -48,10 +58,17 @@ DRAIN_STEPS = {"mixed": 31, "decode": 15}
 LAYERS = 24
 
 
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def serving_shapes():
+    return [(m, k, n) for m in STEP_ROWS.values() for k, n in LAYER_MATMULS]
+
+
 def rows():
     """(label, kernel name, shape) of each timed row."""
     out = [(f"tiled_matmul {m}x{k}x{n}", "tiled_matmul", (m, k, n))
-           for m in STEP_ROWS.values() for k, n in LAYER_MATMULS]
+           for m, k, n in serving_shapes()]
     out += [("ffn1 gelu 512x768->3072", "ffn1", (512, 768, 3072)),
             ("ffn1_gated swiglu 128x1024->2x2816", "ffn1_gated",
              (128, 1024, 2816)),
@@ -59,7 +76,33 @@ def rows():
              (128, 1024, 1024, 1024)),
             ("qkv_proj GQA 128x8192->8192+2x1024", "qkv_proj",
              (128, 8192, 8192, 1024))]
+    out += [(f"int8_matmul {m}x{k}x{n}", "int8_matmul", (m, k, n))
+            for m, k, n in serving_shapes()]
     return out
+
+
+def int8_operands(g, dev, m, k, n):
+    import torch
+
+    qx = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    qw = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    sx = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+    sw = torch.rand((1, n), generator=g, device=dev) * 0.05 + 1e-3
+    return qx, qw, sx, sw
+
+
+def int_mm_ms(timer, qx, qw):
+    """``torch._int_mm``'s time, or None where it refuses the shape (it
+    takes M > 16 only)."""
+    import torch
+
+    try:
+        torch._int_mm(qx, qw)
+    except RuntimeError:
+        return None
+    return timer(lambda: torch._int_mm(qx, qw), reps=REPS)
 
 
 def kernel_us(fn, flush) -> dict[str, float]:
@@ -110,6 +153,7 @@ def host_cost(fn, timer) -> tuple[float, int]:
 def worker() -> None:
     import torch
 
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import tiled_matmul as tm
     from repro_torch.kernels.ffn import (ffn1, ffn1_gated, ffn1_gated_plain,
                                          ffn1_plain)
@@ -129,6 +173,10 @@ def worker() -> None:
     for label, name, shape in rows():
         m, k = shape[:2]
         x = rn(m, k)
+        if name == "int8_matmul":
+            result[label] = int8_row(i8, timer, g, dev, x, *shape)
+            torch.cuda.empty_cache()
+            continue
         if name == "tiled_matmul":
             w = rn(k, shape[2], scale=k ** -0.5)
             run, plain = (lambda: tm.tiled_matmul(x, w)), \
@@ -177,12 +225,82 @@ def worker() -> None:
                              kernels_us=kernel_us(run, timer.flush))
         del out, ref
         torch.cuda.empty_cache()
-    drain = {key: LAYERS * sum(
-        DRAIN_STEPS[step] * n * result[f"tiled_matmul {m}x{k}x{nn}"][key]
-        for step, m in STEP_ROWS.items()
-        for (k, nn), n in LAYER_MATMULS.items())
-        for key in ("ms", "library_ms")}
-    result["per drain, estimate"] = drain
+    for kern, keys in (("tiled_matmul", ("ms", "library_ms")),
+                       ("int8_matmul", ("ms", "bf16_ms"))):
+        result[f"{kern} per drain, estimate"] = {key: LAYERS * sum(
+            DRAIN_STEPS[step] * n * result[f"{kern} {m}x{k}x{nn}"][key]
+            for step, m in STEP_ROWS.items()
+            for (k, nn), n in LAYER_MATMULS.items()) for key in keys}
+    print(json.dumps(result))
+
+
+def int8_row(i8, timer, g, dev, x, m, k, n) -> dict:
+    """One ``int8_matmul`` row (bf16 out): exact against the plain
+    version, its time beside ``_int_mm``'s and the bf16 ``torch.matmul``'s
+    (``x`` [m, k] bf16 against a [k, n] bf16 weight)."""
+    import torch
+
+    from timing import bound_ms
+
+    qx, qw, sx, sw = int8_operands(g, dev, m, k, n)
+    run = lambda: i8.int8_matmul(qx, sx, qw, sw)  # noqa: E731
+    out = run()
+    grid = i8.launched_grid() if hasattr(i8, "launched_grid") else None
+    err = float((out.float() - i8.int8_matmul_plain(qx, sx, qw, sw)
+                 .float()).abs().max())
+    if err != 0:
+        raise AssertionError(f"int8_matmul {m}x{k}x{n}: err {err} != 0")
+    w = (torch.randn(k, n, generator=g, device=dev) * k ** -0.5) \
+        .to(torch.bfloat16)
+    bms, _ = bound_ms(m * k + k * n + 4 + 4 * n + 2 * m * n, 2 * m * k * n,
+                      torch.int8)
+    host_us, ops = host_cost(run, timer)
+    return dict(ms=timer(run, reps=REPS), library_ms=int_mm_ms(timer, qx, qw),
+                bf16_ms=timer(lambda: torch.matmul(x, w), reps=REPS),
+                bound_ms=bms, err=err, grid=grid, host_us=host_us, ops=ops,
+                kernels_us=kernel_us(run, timer.flush))
+
+
+def planned(i8, plan):
+    """``int8_matmul`` launched at ``plan`` (BM, BN, K ranges) instead of
+    ``int8_plan``'s."""
+    from unittest import mock
+
+    return mock.patch.object(i8, "int8_plan", lambda M, K, N: plan)
+
+
+def sweep() -> None:
+    """``int8_matmul`` at the six serving shapes over BM, BN and split
+    counts (this tree), with the host's cost of one call unsplit and
+    split."""
+    import torch
+
+    from repro_torch.kernels import int8_matmul as i8
+    from timing import Timer
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    timer = Timer(dev)
+    result = {}
+    for m, k, n in serving_shapes():
+        qx, qw, sx, sw = int8_operands(g, dev, m, k, n)
+        want = i8.int8_matmul_plain(qx, sx, qw, sw)
+        run = lambda: i8.int8_matmul(qx, sx, qw, sw)  # noqa: E731
+        row = {"plan": list(i8.int8_plan(m, k, n))}
+        for bm in (16, 32):
+            for bn in (32, 64):
+                for s in SWEEP_SPLITS:
+                    with planned(i8, (bm, bn, s)):
+                        if not torch.equal(run(), want):
+                            raise AssertionError(
+                                f"int8_matmul {m}x{k}x{n} BM {bm} BN {bn} x "
+                                f"{s} ranges: not exact")
+                        row[f"{bm}x{bn} {s}"] = timer(run, reps=REPS)
+        for s in (1, 4):
+            with planned(i8, (32, 32, s)):
+                row[f"host {s}"] = host_cost(run, timer)
+        result[f"{m}x{k}x{n}"] = row
     print(json.dumps(result))
 
 
@@ -190,48 +308,40 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=False,
                     help="the other tree's src directory")
+    ap.add_argument("--int8-sweep", action="store_true",
+                    help="time int8_matmul over BM, BN and split counts "
+                    "instead")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker()
+        sweep() if args.int8_sweep else worker()
         return 0
+    if args.int8_sweep:
+        return print_sweep()
     trees = {"change": CHANGE_SRC}
     if args.parent is not None:
         trees["parent"] = args.parent.resolve()
     order = [t for t in ORDER if t in trees]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
-
-    def env(src):
-        return dict(os.environ, PYTHONPATH=str(src))
+    smi = nvidia_smi()
     # build every tree's kernels at once before any timing
     builds = [subprocess.Popen([sys.executable, "-c", "from repro_torch."
                                 "kernels import runtime; runtime.build()"],
                                env=env(src)) for src in trees.values()]
     if any([p.wait() for p in builds]):
         raise RuntimeError("a kernel build failed")
-    runs = []
-    for tree in order:
-        out = subprocess.run([sys.executable, __file__, "--worker"],
-                             env=env(trees[tree]), capture_output=True,
-                             text=True)
-        if out.returncode:
-            print(out.stdout, out.stderr, file=sys.stderr)
-            raise RuntimeError(f"the {tree} worker failed")
-        runs.append((tree, json.loads(out.stdout.strip().splitlines()[-1])))
+    runs = [(tree, run_worker(trees[tree])) for tree in order]
     labels = list(runs[0][1])
     print(f"{'row':<36} " + " ".join(f"{t:>9}" for t, _ in runs)
-          + f" {'library':>9} {'bound':>9}  grid (tiles, K ranges, smem B)")
+          + f" {'library':>9} {'bf16 mm':>9} {'bound':>9}  grid (tiles, "
+          "K ranges, smem B[, BN])")
     for label in labels:
         rs = [r[label] for _, r in runs]
-        libs = sorted(r["library_ms"] for r in rs)
-        line = f"{label:<36} " + " ".join(f"{r['ms']:>9.4f}" for r in rs) \
-            + f" {libs[len(libs) // 2]:>9.4f}"
-        if "bound_ms" in rs[0]:
-            line += f" {rs[0]['bound_ms']:>9.4f}  " + str(next(
-                r["grid"] for (t, _), r in zip(runs, rs) if t == "change"))
+        line = f"{label:<36} " + " ".join(f"{r['ms']:>9.4f}" for r in rs)
+        for key in ("library_ms", "bf16_ms", "bound_ms"):
+            line += f" {column(rs, key):>9}"
+        if "grid" in rs[0]:
+            line += "  " + str(next(r["grid"] for (t, _), r in zip(runs, rs)
+                                    if t == "change"))
         print(line)
     print("host us to enqueue one call / PyTorch operators per call:")
     for label in labels:
@@ -246,6 +356,59 @@ def main() -> int:
             print(f"  {label:<36} {change[label]['kernels_us']}")
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"device": smi, "runs": runs}, indent=1))
+    return 0
+
+
+def column(rs: list[dict], key: str) -> str:
+    """The median of one key over the runs: "-" where the row has no such
+    number, "refused" where the library call refused the shape."""
+    if key not in rs[0]:
+        return "-"
+    xs = sorted(r[key] for r in rs if r[key] is not None)
+    return f"{xs[len(xs) // 2]:.4f}" if xs else "refused"
+
+
+def nvidia_smi() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    return smi
+
+
+def env(src: Path) -> dict:
+    return dict(os.environ, PYTHONPATH=str(src))
+
+
+def run_worker(src: Path, *flags: str) -> dict:
+    """One worker process on the tree at ``src``; its JSON result."""
+    out = subprocess.run([sys.executable, __file__, "--worker", *flags],
+                         env=env(src), capture_output=True, text=True)
+    if out.returncode:
+        print(out.stdout, out.stderr, file=sys.stderr)
+        raise RuntimeError(f"the worker on {src} failed")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def print_sweep() -> int:
+    """The sweep's table: device us per call at each BN x split count."""
+    smi = nvidia_smi()
+    res = run_worker(CHANGE_SRC, "--int8-sweep")
+    print("int8_matmul device us per call (bf16 out), BM x BN, K ranges:")
+    for shape, row in res.items():
+        (h1, o1), (h4, o4) = row["host 1"], row["host 4"]
+        bm, bn, splits = row["plan"]
+        print(f"{shape}: plan BM {bm} BN {bn} x {splits} ranges; host us / "
+              f"operators per call: one range {h1:.1f} / {o1}, 4 ranges "
+              f"{h4:.1f} / {o4}")
+        for bm in (16, 32):
+            for bn in (32, 64):
+                print(f"  BM {bm} BN {bn}: " + "  ".join(
+                    f"{s}: {row[f'{bm}x{bn} {s}'] * 1e3:.2f}"
+                    for s in SWEEP_SPLITS))
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    OUT.with_name("int8_sweep.json").write_text(
+        json.dumps({"device": smi, "sweep": res}, indent=1))
     return 0
 
 

@@ -13,6 +13,11 @@ qwen1.5-0.5b quantizes every eligible leaf (``quant_min_size=1``).
 * ``int8_matmul`` and ``quantized_dense`` against the Pallas
   ``int8_matmul``: the integer sums are exact, and the float32 outputs
   agree to 1e-6 relative (the same epilogue, ``acc * (sx * sw)``).
+* The kernel's plan (``int8_plan``: BN and a split of K into ranges of
+  whole 32-deep slices) at the serving shapes and at ragged K, and the
+  split in plain PyTorch (each range's int32 partial sums, their total,
+  the epilogue) bit for bit against the Pallas ``int8_matmul`` at every
+  split count the plan can take.
 * The paged attention kernels over an int8 pool with its scales against
   both Pallas kernels: 2e-6 for float32 q (summation order only).
 * ``mixed_step``/``decode_step`` of the fully-quantized model, and the
@@ -23,7 +28,9 @@ module imports the JAX reference only inside its fixtures, so the card
 tests also run where JAX is absent:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_quant.py``.
 """
+import itertools
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -38,6 +45,7 @@ from repro_torch.core.paging import PagingConfig
 from repro_torch.core.serve_quant import quantize_params
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
                                    SchedulerSpec)
+from repro_torch.kernels import int8_matmul as i8
 from repro_torch.kernels import runtime
 from repro_torch.kernels.chunked_prefill import (
     chunked_prefill_attention, chunked_prefill_attention_plain)
@@ -323,6 +331,77 @@ def test_quantized_dense_matches_reference(ref, dtype):
     tol = 1e-6 if dtype == "float32" else 2 ** -8
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
                                atol=tol * np.abs(want).max())
+
+
+# the six serving shapes of int8_matmul (a decode step's 8 rows and a mixed
+# step's 128 against qwen1.5-0.5b's wq/wk/wv/wo, w1/wg and w2) and ragged
+# ones (K not a multiple of 32 or of 16, K < 32)
+INT8_SERVING = [(m, k, n) for m in (8, 128)
+                for k, n in ((1024, 1024), (1024, 2816), (2816, 1024))]
+INT8_RAGGED = [(77, 300, 199), (5, 1000, 67), (3, 12, 10), (300, 40, 16)]
+
+
+def _split_counts(K):
+    """Every split count the plan can take at this K."""
+    return range(1, min(-(-K // i8.K_SLICE), i8.MAX_SPLITS) + 1)
+
+
+@pytest.mark.parametrize("M,K,N", INT8_SERVING + INT8_RAGGED)
+def test_int8_plan_ranges_hold_whole_slices(M, K, N):
+    """The plan takes a BN the kernel has and a split count it can take;
+    every such count cuts [0, K) into contiguous, non-empty ranges of
+    whole 32-deep slices (only the last may end ragged, at K) whose slice
+    counts differ by at most one."""
+    bm, bn, splits = i8.int8_plan(M, K, N)
+    assert bm == (16 if M <= 16 else 32) and bn in (32, 64)
+    assert splits in _split_counts(K)
+    slices = -(-K // i8.K_SLICE)
+    for s in _split_counts(K):
+        r = i8.int8_k_ranges(K, s)
+        assert len(r) == s and r[0][0] == 0 and r[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(r, r[1:]))
+        assert all(lo % i8.K_SLICE == 0 and hi > lo for lo, hi in r)
+        n = [-(-(hi - lo) // i8.K_SLICE) for lo, hi in r]
+        assert sum(n) == slices and max(n) - min(n) <= 1
+
+
+def test_int8_plan_at_the_serving_shapes():
+    """The serving shapes take one K range (32 column tiles and up; BN 64
+    only where that still gives about a wave of CTAs); a product with few
+    column tiles and a deep K splits into ranges of at least 512."""
+    assert [i8.int8_plan(*s) for s in INT8_SERVING] == [
+        (16, 32, 1), (16, 32, 1), (16, 32, 1),
+        (32, 32, 1), (32, 64, 1), (32, 32, 1)]
+    assert i8.int8_plan(8, 8192, 256) == (16, 32, 4)
+    assert i8.int8_plan(8, 1000, 256) == (16, 32, 1)
+    assert i8.int8_plan(8, 2048, 64) == (16, 32, 4)
+
+
+INT8_SPLIT_CASES = [(8, 96, 64), (16, 256, 48), (128, 160, 96),
+                    (77, 300, 199), (5, 1000, 67), (3, 12, 10)]
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", INT8_SPLIT_CASES)
+def test_int8_split_partials_match_pallas(ref, M, K, N, out):
+    """Each range's int32 partial sums, added in order and rescaled once,
+    equal the Pallas kernel's output bit for bit at every split count:
+    integer sums are exact in any order."""
+    qx, qw, sx, sw = _int8_operands(M, K, N)
+    jnp = ref.jnp
+    want = np.asarray(ref.int8_matmul(
+        jnp.asarray(qx), jnp.asarray(sx), jnp.asarray(qw), jnp.asarray(sw),
+        bm=32, bk=64, bn=64, interpret=True,
+        out_dtype=getattr(jnp, out)), np.float32)
+    for splits in _split_counts(K):
+        parts = i8.int8_partials_plain(_t(qx), _t(qw), splits)
+        assert len(parts) == splits
+        assert all(p.dtype == torch.int32 and p.shape == (M, N)
+                   for p in parts)
+        got = i8.int8_reduce_plain(parts, torch.tensor(sx), _t(sw),
+                                   getattr(torch, out))
+        assert got.dtype == getattr(torch, out)
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_int8_wrapper_rejects_bad_operands_and_counts_no_plain_launch():
@@ -690,6 +769,97 @@ def test_cuda_int8_kernels_match_plain_versions():
                 paged_decode_attention_plain(qd, kq, vq, bt_d, st + 1,
                                              k_scale=ks, v_scale=vs),
                 atol=tol, rtol=tol)
+
+
+def _int8_on(dev, M, K, N):
+    return [_t(np.asarray(a)).to(dev) for a in _int8_operands(M, K, N)]
+
+
+def _planned(plan):
+    """``int8_matmul`` launched at ``plan`` (BM, BN, K ranges) instead of
+    ``int8_plan``'s."""
+    return mock.patch.object(i8, "int8_plan", lambda M, K, N: plan)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_is_exact_at_every_plan():
+    """The six serving shapes, bf16 and f32 out, bit-equal to the plain
+    version; and every BM, BN and split count bit-equal to one range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    runtime.build()
+    for M, K, N in INT8_SERVING:
+        qx, qw, sx, sw = _int8_on(dev, M, K, N)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(int8_matmul(qx, sx, qw, sw, out_dtype=dt),
+                               int8_matmul_plain(qx, sx, qw, sw, dt))
+            grid = i8.launched_grid()
+            assert (grid[3], grid[4], grid[1]) == i8.int8_plan(M, K, N)
+        with _planned((16, 32, 1)):
+            one = int8_matmul(qx, sx, qw, sw)
+        for plan in itertools.product((16, 32), (32, 64), _split_counts(K)):
+            with _planned(plan):
+                got = int8_matmul(qx, sx, qw, sw)
+            grid = i8.launched_grid()
+            assert (grid[3], grid[4], grid[1]) == plan
+            assert torch.equal(got, one), (M, K, N, plan)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_ragged_and_unaligned():
+    """Ragged shapes at every split count, a shape whose plan splits K,
+    and operands one byte off a 16-byte boundary (the element-load path,
+    BN 32), bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    runtime.build()
+    for M, K, N in ((77, 300, 199), (5, 1000, 67)):
+        qx, qw, sx, sw = _int8_on(dev, M, K, N)
+        for dt in (torch.float32, torch.bfloat16):
+            want = int8_matmul_plain(qx, sx, qw, sw, dt)
+            for splits in _split_counts(K):
+                for bm in (16, 32):
+                    with _planned((bm, 64, splits)):
+                        got = int8_matmul(qx, sx, qw, sw, out_dtype=dt)
+                    assert torch.equal(got, want)
+    qx, qw, sx, sw = _int8_on(dev, 8, 8192, 256)
+    assert torch.equal(int8_matmul(qx, sx, qw, sw),
+                       int8_matmul_plain(qx, sx, qw, sw))
+    assert i8.launched_grid()[1] == 4
+    for M in (8, 128):
+        qx, qw, sx, sw = _int8_on(dev, M, 1024, 1024)
+        ux = torch.empty(qx.numel() + 1, dtype=torch.int8, device=dev)[1:]
+        uw = torch.empty(qw.numel() + 1, dtype=torch.int8, device=dev)[1:]
+        ux, uw = ux.view(qx.shape), uw.view(qw.shape)
+        ux.copy_(qx)
+        uw.copy_(qw)
+        with _planned((16 if M <= 16 else 32, 64, 1)):
+            got = int8_matmul(ux, sx, uw, sw)
+        assert i8.launched_grid()[4] == 32
+        assert torch.equal(got, int8_matmul_plain(qx, sx, qw, sw))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_makes_no_host_sync():
+    """A split call (workspace, kernel, reduce) never waits for the
+    device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    runtime.build()
+    qx, qw, sx, sw = _int8_on(dev, 128, 2816, 1024)
+    with _planned((32, 64, 4)):
+        int8_matmul(qx, sx, qw, sw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = int8_matmul(qx, sx, qw, sw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert i8.launched_grid()[1] == 4
+    assert torch.equal(got, int8_matmul_plain(qx, sx, qw, sw))
 
 
 @pytest.mark.cuda
