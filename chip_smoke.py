@@ -23,15 +23,23 @@ Phases (any failure raises and the script exits non-zero):
    one split call of each under ``set_sync_debug_mode("error")``; the
    build prints the split walk's (both entry points')
    and the flash kernels' registers and spills, and those of every
-   instantiation of the bf16 matmul loop (``mma_tile``, ``mma_reduce``)
-   and of the int8 kernel (``int8_mma``, ``int8_reduce``), which must
-   not spill.  ``tiled_matmul`` at the six bf16 serving shapes (a decode
-   and a mixed step against each weight shape), each with the grid it
+   instantiation of the bf16 matmul loop (``mma_tile``, ``mma_reduce``),
+   of the int8 kernel (``int8_mma``, ``int8_reduce``) and of the norms
+   (``norm_regs``, ``norm_stream``), which must not spill.
+   ``tiled_matmul`` at the six bf16 serving shapes (a decode and a mixed
+   step against each weight shape), each with the grid it
    launched (tiles x K ranges) and its dynamic shared memory, a second
    run bit-equal to the first, and one split call under
-   ``set_sync_debug_mode("error")``.  The six kernels of the kernel
-   library (``ffn1``, ``ffn1_gated``, ``qkv_proj``, ``layernorm``,
-   ``rmsnorm``, ``flash_attention``) at the full widths of qwen1.5-0.5b,
+   ``set_sync_debug_mode("error")``.  ``rmsnorm`` and ``layernorm`` at
+   every shape of ``launch/timing.py``'s ``NORM_SHAPES`` (qwen1.5-0.5b's
+   decode and mixed steps and a 16K-token prefill, qwen2-72b's mixed step
+   and an 8K-token prefill, adaptor_bert, whisper-medium's encoder; D 65,
+   3000 and 65536; an x one element past an aligned address), in bf16
+   and f32, timed with float32 parameters and gated again with bfloat16
+   ones, each with the plan it launched, after the Timer's floor (one
+   launch of a 1-element fill).  The four other kernels of the kernel
+   library (``ffn1``, ``ffn1_gated``, ``qkv_proj``,
+   ``flash_attention``) at the full widths of qwen1.5-0.5b,
    qwen2-72b (GQA ``qkv_proj``), adaptor_bert and whisper-medium (cross
    attention over 1500 frames), in bf16 and f32; ``qkv_proj`` must equal
    three ``tiled_matmul`` launches bit for bit; the matmul rows print
@@ -53,14 +61,19 @@ Phases (any failure raises and the script exits non-zero):
    float32 error) makes, where that is larger: the fully quantized model
    carries last-bit changes across int8 rounding boundaries.  At bf16
    compute the distances are printed (there two valid orders of the sums
-   already differ by bf16 rounding grown over 24 layers).  The PyTorch
-   operators each step dispatches on the kernel path are counted.
+   already differ by bf16 rounding grown over 24 layers).  The plain
+   versions replace every kernel, the norms included.  The PyTorch
+   operators each step dispatches on the kernel path are counted, and
+   again with the model's norms computed eagerly (``apply_norm`` on its
+   ``"xla"`` branch, the route the norms took before they ran through
+   their kernel), and both are printed.
 5. Serve 8 greedy requests (prompts of 24-400 tokens, 16 new tokens each)
    through the full-width paged, chunked ``ServingEngine`` with every
    kernel selected, once with float weights and twice fully quantized, on
    fresh engines; every request must finish, every kernel of each path
    must be launched in that path's run (the counts are zeroed just before
-   it), and the two fully-quantized runs must give identical streams.
+   it), ``rmsnorm`` must launch 2L+1 = 49 times per fused step on both
+   paths, and the two fully-quantized runs must give identical streams.
    The float run's steps, counted from its attention launches, times
    phase 2's per-call medians of the six ``tiled_matmul`` serving shapes
    give an estimate of the drain's matmul device time, printed against
@@ -109,6 +122,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul, int8_matmul_plain)
+from repro_torch.kernels import layernorm as ln_mod  # noqa: E402
 from repro_torch.kernels.layernorm import (  # noqa: E402
     layernorm, layernorm_plain, rmsnorm, rmsnorm_plain)
 from repro_torch.kernels.qkv_proj import qkv_proj, qkv_proj_plain  # noqa: E402
@@ -117,8 +131,10 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul, tiled_matmul_plain)
 from repro_torch.launch.timing import (  # noqa: E402
-    LAYER_MATMULS, STEP_ROWS, Timer, bound_ms)
+    LAYER_MATMULS, NORM_SHAPES, NORM_TOL, STEP_ROWS, Timer, bound_ms,
+    norm_calls, norm_cost, norm_err, norm_operands)
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -148,9 +164,9 @@ KERNELS = {
 # ``launches`` is its count on the first path listed with it (the
 # attention kernels run on both serving paths)
 PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
-                          "chunked_prefill_attention"),
+                          "chunked_prefill_attention", "rmsnorm"),
                 "int8": ("int8_matmul", "paged_decode_attention",
-                         "chunked_prefill_attention"),
+                         "chunked_prefill_attention", "rmsnorm"),
                 "ops": ("ffn1", "ffn1_gated", "qkv_proj", "layernorm",
                         "rmsnorm", "flash_attention")}
 SOURCES = {
@@ -187,6 +203,8 @@ SOURCES = {
 #   length 64, here at batch 8 (512 rows)
 # whisper-medium (configs/whisper_medium.py): 16 heads of 64 over the
 #   encoder's 1500 frames (cross attention)
+# each norm's JSON row: a qwen1.5-0.5b mixed step, an adaptor_bert batch
+MAIN_NORM = {"rmsnorm": (128, 1024), "layernorm": (512, 768)}
 QWEN = dict(rows=128, d=1024, ff=2816, heads=16, hd=64, prompt=512)
 QWEN72 = dict(d=8192, kv_width=1024, heads=64, hd=128)
 BERT = dict(batch=8, seq=64, d=768, ff=3072, heads=12, hd=64)
@@ -689,17 +707,62 @@ def lib_check(timer, name: str, label: str, dt, run, plain, lib,
                 bound_by=by, library_ms=lms, shape=f"{label} {str(dt)[6:]}")
 
 
-def check_library(timer, dev, g) -> dict:
-    """The six kernels of the library entry point against their plain
-    versions at full model widths, in bf16 and f32.  Gates: f32 at 1e-5 x
-    max|plain| (order of sums), bf16 at 2^-7 x max|plain| (one rounding of
-    the f32 result); flash attention at ``flash_limit``; ``qkv_proj`` bit for
-    bit against three ``tiled_matmul`` launches.  Library yardsticks (never
+def check_norms(timer, dev, g) -> dict:
+    """``rmsnorm`` and ``layernorm`` against their plain versions at every
+    shape of ``NORM_SHAPES`` (serving steps and prefills of qwen1.5-0.5b,
+    qwen2-72b, adaptor_bert and whisper-medium; D 65, 3000 and 65536; an
+    x one element past an aligned address), in bf16 and f32, timed with
+    float32 parameters and gated again, untimed, with bfloat16 ones.
+    Gates: ``NORM_TOL`` x max|plain| (f32 1e-5, the order of sums; bf16
+    2^-7, one rounding of the f32 result).  Library yardsticks (never
     called by the port): ``F.rms_norm`` / ``F.layer_norm`` (parameters in
-    x's dtype), ``torch.addmm`` (product and bias, no activation), one
-    ``torch.matmul`` against the concatenated weights, SDPA."""
+    x's dtype).  The Timer's floor, one launch of a 1-element fill, is
+    printed first.  Each row prints the plan the wrapper launched."""
+    floor = timer(torch.zeros(1, device=dev).zero_)
+    print(f"\n== norms vs plain (kernels/layernorm.py's two TPU kernels); "
+          f"Timer floor (one 1-element fill): {floor:.4f} ms")
+    print(f"{'kernel':>15} {'shape':>36} {'dtype':>8} {'err':>10} {'tol':>10} "
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9}")
+    rows = {"rmsnorm": [], "layernorm": []}
+    for kernel, R, D, name, off in NORM_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, params = norm_operands(g, dev, kernel, R, D, off, dt)
+            run, plain, lib = norm_calls(ln_mod, kernel, x, params)
+            e = lib_check(timer, kernel, f"{R}x{D} {name}", dt, run, plain,
+                          lib, *norm_cost(kernel, R, D, x.element_size(), 4),
+                          torch.float32, NORM_TOL[dt])
+            e["plan"] = list(KERNELS[kernel].last_plan)
+            # the same row with bfloat16 parameters, gated only
+            run, plain, _ = norm_calls(ln_mod, kernel, x,
+                                       tuple(p.bfloat16() for p in params))
+            err, lim = norm_err(run(), plain())
+            print(f"{'':>15} plan {e['plan']}; bf16 parameters: plan "
+                  f"{list(KERNELS[kernel].last_plan)}, err {err:.3g} "
+                  f"(tol {lim:.3g})")
+            if err > lim:
+                raise AssertionError(f"{kernel} {R}x{D} {dt} bf16 "
+                                     f"parameters: err {err} > tol {lim}")
+            if dt == torch.bfloat16 and off == 0 \
+                    and (R, D) == MAIN_NORM[kernel]:
+                rows[kernel].insert(0, e)
+            else:
+                rows[kernel].append(e)
+            del x, params, run, plain
+    return {k: dict(es[0], other_shapes=es[1:], timer_floor_ms=floor)
+            for k, es in rows.items()}
+
+
+def check_library(timer, dev, g) -> dict:
+    """The other four kernels of the library entry point against their
+    plain versions at full model widths, in bf16 and f32.  Gates: f32 at
+    1e-5 x max|plain| (order of sums), bf16 at 2^-7 x max|plain| (one
+    rounding of the f32 result); flash attention at ``flash_limit``;
+    ``qkv_proj`` bit for bit against three ``tiled_matmul`` launches.
+    Library yardsticks (never called by the port): ``torch.addmm``
+    (product and bias, no activation), one ``torch.matmul`` against the
+    concatenated weights, SDPA."""
     fn = torch.nn.functional
-    print("\n== kernel library vs plain (kernels/ops.py's six TPU kernels)")
+    print("\n== kernel library vs plain (kernels/ops.py's other TPU kernels)")
     print(f"{'kernel':>15} {'shape':>36} {'dtype':>8} {'err':>10} {'tol':>10} "
           f"{'kernel_ms':>10} {'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9}")
 
@@ -712,33 +775,8 @@ def check_library(timer, dev, g) -> dict:
         tol = 1e-5 if dt == torch.float32 else 2 ** -7
         main = dt == torch.bfloat16
 
-        # rmsnorm: qwen1.5-0.5b, one 128-row mixed step, f32 gamma
-        m, d = QWEN["rows"], QWEN["d"]
-        x = rn(m, d, dt=dt)
-        gam = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
-        rms = getattr(fn, "rms_norm", None)
-        e = lib_check(timer, "rmsnorm", f"{m}x{d} qwen1.5-0.5b", dt,
-                      lambda: rmsnorm(x, gam), lambda: rmsnorm_plain(x, gam),
-                      None if rms is None
-                      else lambda: rms(x, (d,), gam.to(dt), 1e-6),
-                      2 * m * d * es + d * 4, 4 * m * d, torch.float32, tol)
-        if main:
-            entries["rmsnorm"] = e
-
-        # layernorm: adaptor_bert, batch 8 x 64 tokens, f32 gamma / beta
         m, d = BERT["batch"] * BERT["seq"], BERT["d"]
         x = rn(m, d, dt=dt)
-        gam = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
-        bet = 0.1 * torch.randn(d, generator=g, device=dev)
-        e = lib_check(timer, "layernorm", f"{m}x{d} adaptor_bert", dt,
-                      lambda: layernorm(x, gam, bet),
-                      lambda: layernorm_plain(x, gam, bet),
-                      lambda: fn.layer_norm(x, (d,), gam.to(dt), bet.to(dt),
-                                            1e-5),
-                      2 * m * d * es + 2 * d * 4, 8 * m * d, torch.float32,
-                      tol)
-        if main:
-            entries["layernorm"] = e
 
         # ffn1 relu / gelu: adaptor_bert, f32 bias
         f = BERT["ff"]
@@ -975,6 +1013,17 @@ class OpCount(TorchDispatchMode):
 
 
 @contextlib.contextmanager
+def eager_norms():
+    """The model's norms on ``apply_norm``'s plain ``"xla"`` branch, every
+    other kernel as selected."""
+    apply_norm = layers_mod.apply_norm
+    with mock.patch.object(layers_mod, "apply_norm",
+                           lambda x, p, kind, mm: apply_norm(x, p, kind,
+                                                             "xla")):
+        yield
+
+
+@contextlib.contextmanager
 def plain_versions(perturb: float = 0.0):
     """Every kernel call of the model replaced by that kernel's plain
     PyTorch version, on the same CUDA tensors; ``perturb`` scales the
@@ -984,6 +1033,8 @@ def plain_versions(perturb: float = 0.0):
         return lambda *a, **k: fn(*a, **k) * (1.0 + perturb)
     with mock.patch.object(tm_mod, "tiled_matmul", tiled_matmul_plain), \
             mock.patch.object(i8_mod, "int8_matmul", int8_matmul_plain), \
+            mock.patch.object(ln_mod, "rmsnorm", rmsnorm_plain), \
+            mock.patch.object(ln_mod, "layernorm", layernorm_plain), \
             mock.patch.object(attn_mod, "paged_decode_attention",
                               scaled(paged_decode_attention_plain)), \
             mock.patch.object(attn_mod, "chunked_prefill_attention",
@@ -993,14 +1044,16 @@ def plain_versions(perturb: float = 0.0):
 
 def check_model_steps(model: Model, dev, g, gate: bool) -> None:
     """One mixed step (a 16-lane chunk, some slots partial) then one decode
-    step, on fresh pools, along four paths: the kernels, the kernels'
+    step, on fresh pools, along five paths: the kernels, the kernels with
+    the model's norms eager (``eager_norms``), the kernels'
     plain versions, those plain versions with the attention outputs
     perturbed by ``ATTN_PERTURB`` (relative), and the XLA-style path
     ``matmul_backend="xla"`` + ``paged_attn_impl="gather"`` (whose scores
     are rounded to the compute dtype before the softmax, as the
     reference's gather path does; under int8 weights it is another
     function, with no activation quantization).  Max and mean
-    |difference| against the plain versions are printed.  With ``gate``
+    |difference| against the plain versions are printed, and the PyTorch
+    operators each step of the two kernel paths dispatches.  With ``gate``
     the kernels' max must stay within 2e-2 * max|logits|, or within twice
     the perturbed path's max where that is larger: with int8 activations
     (one per-tensor scale) a float32 last-bit difference moves values
@@ -1027,36 +1080,39 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
     dtoks = torch.randint(0, vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
     paths = (("kernels", ("pallas", "pallas"), contextlib.nullcontext),
+             ("kernels, norms eager", ("pallas", "pallas"), eager_norms),
              ("plain versions", ("pallas", "pallas"), plain_versions),
              ("plain, perturbed", ("pallas", "pallas"),
               lambda: plain_versions(ATTN_PERTURB)),
              ("xla + gather", ("xla", "gather"), contextlib.nullcontext))
-    out, ops = {}, []
+    out, ops = {}, {}
     for path, (mm, attn), ctx in paths:
         model.matmul_backend, model.paged_attn_impl = mm, attn
         cache = model.init_cache(paging)
-        counts = (OpCount(), OpCount()) if path == "kernels" \
+        counts = (OpCount(), OpCount()) if path.startswith("kernels") \
             else (contextlib.nullcontext(),) * 2
         with ctx():
             with counts[0]:
                 mixed = model.mixed_step(cache, toks, start, n_live, tables)
             with counts[1]:
                 dec = model.decode_step(cache, dtoks, n_live.clone(), tables)
-        if path == "kernels":
-            ops = [c.n for c in counts]
+        if path.startswith("kernels"):
+            ops[path] = [c.n for c in counts]
         live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
         out[path] = (mixed[live], dec)
         del cache
     model.matmul_backend, model.paged_attn_impl = "pallas", "pallas"
-    print(f"PyTorch operators dispatched per step on the kernel path: "
-          f"mixed {ops[0]}, decode {ops[1]}")
+    print("PyTorch operators dispatched per step on the kernel path: "
+          + "; ".join(f"{path}: mixed {n[0]}, decode {n[1]}"
+                      for path, n in ops.items()))
     for i, step in enumerate(("mixed_step", "decode_step")):
         ref = out["plain versions"][i]
         floor = max_err(out["plain, perturbed"][i], ref)
         tol = max(LOGIT_TOL * float(ref.abs().max()), 2 * floor)
         line = (f"{step}: tol max({LOGIT_TOL} x max|logits|, 2 x perturbed) "
                 f"= {tol:.4g}")
-        for path in ("kernels", "plain, perturbed", "xla + gather"):
+        for path in ("kernels", "kernels, norms eager", "plain, perturbed",
+                     "xla + gather"):
             d = (out[path][i] - ref).abs()
             line += (f"; {path}: max {float(d.max()):.4g} "
                      f"mean {float(d.mean()):.4g}")
@@ -1107,10 +1163,11 @@ def main() -> int:
     print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
     print_ptxas(lib.parent / "build.log", "paged_attention.cu")
     # the bf16 main loop (mma_tile, dynamic shared memory) and its reduce,
-    # in each of the four wrappers' instantiations, and the int8 kernel and
-    # its reduce: no spills
+    # in each of the four wrappers' instantiations, the int8 kernel and
+    # its reduce, and every instantiation of the norms: no spills
     for src, kern in (("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
-                      ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_")):
+                      ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_"),
+                      ("layernorm.cu", "norm_")):
         spills = {k: v for k, v in
                   print_ptxas(lib.parent / "build.log", src).items()
                   if kern in k and v[2]}
@@ -1124,6 +1181,7 @@ def main() -> int:
     entries = {"tiled_matmul": check_matmul(timer, dev, g),
                "int8_matmul": check_int8_matmul(timer, dev, g)}
     entries.update(check_attention(timer, dev, g))
+    entries.update(check_norms(timer, dev, g))
     entries.update(check_library(timer, dev, g))
     launches = {"ops": check_ops(dev, g)}
 
@@ -1168,6 +1226,13 @@ def main() -> int:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path} serving path")
+        # every fused step runs the model once: ln1 and ln2 of each layer
+        # and the final norm
+        if launches[path]["rmsnorm"] != (2 * layers + 1) * steps:
+            raise AssertionError(
+                f"rmsnorm launched {launches[path]['rmsnorm']} times in "
+                f"{steps} steps on the {path} path, not "
+                f"{(2 * layers + 1) * steps}")
     # the fully-quantized streams must repeat on a fresh engine: duplicate
     # pool writes of dead lanes (int8 values and scales) resolve to one row
     again, dt_p, _ = serve(params, True, prompts, quant=True)
@@ -1207,7 +1272,7 @@ def main() -> int:
                "shape": e["shape"]}
         for extra in ("int8_pool", "ctas", "splits", "smem_bytes", "bm", "bn",
                       "bf16_matmul_ms", "other_shapes", "f32_shapes",
-                      "fixed_splits"):
+                      "fixed_splits", "plan", "timer_floor_ms"):
             if extra in e:
                 row[extra] = e[extra]
         table.append(row)

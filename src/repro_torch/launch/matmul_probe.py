@@ -323,12 +323,7 @@ def main() -> int:
         trees["parent"] = args.parent.resolve()
     order = [t for t in ORDER if t in trees]
     smi = nvidia_smi()
-    # build every tree's kernels at once before any timing
-    builds = [subprocess.Popen([sys.executable, "-c", "from repro_torch."
-                                "kernels import runtime; runtime.build()"],
-                               env=env(src)) for src in trees.values()]
-    if any([p.wait() for p in builds]):
-        raise RuntimeError("a kernel build failed")
+    build_trees(trees)              # before any timing
     runs = [(tree, run_worker(trees[tree])) for tree in order]
     labels = list(runs[0][1])
     print(f"{'row':<36} " + " ".join(f"{t:>9}" for t, _ in runs)
@@ -380,9 +375,19 @@ def env(src: Path) -> dict:
     return dict(os.environ, PYTHONPATH=str(src))
 
 
-def run_worker(src: Path, *flags: str) -> dict:
-    """One worker process on the tree at ``src``; its JSON result."""
-    out = subprocess.run([sys.executable, __file__, "--worker", *flags],
+def build_trees(trees: dict[str, Path]) -> None:
+    """Build every tree's kernels at once, each in its own ``build/``."""
+    builds = [subprocess.Popen([sys.executable, "-c", "from repro_torch."
+                                "kernels import runtime; runtime.build()"],
+                               env=env(src)) for src in trees.values()]
+    if any([p.wait() for p in builds]):
+        raise RuntimeError("a kernel build failed")
+
+
+def run_worker(src: Path, *flags: str, script: str = __file__) -> dict:
+    """One worker process of ``script`` on the tree at ``src``; its JSON
+    result."""
+    out = subprocess.run([sys.executable, script, "--worker", *flags],
                          env=env(src), capture_output=True, text=True)
     if out.returncode:
         print(out.stdout, out.stderr, file=sys.stderr)

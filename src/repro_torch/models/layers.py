@@ -1,11 +1,12 @@
 """Shared neural layers of the port: norms, activations, RoPE, projections,
 embedding (the reference's ``models/layers.py``).
 
-Every matmul routes through ``dense`` so the plain product and the
-hand-written kernel are interchangeable (``models.backend``).  A weight
-may be an int8 ``QTensor`` (the paper's fully-quantized serving path):
-under ``"pallas"`` it goes through the hand-written ``int8_matmul``,
-otherwise it is dequantized to x's dtype for the plain product.
+Every matmul routes through ``dense`` (``models.backend``) and every norm
+through ``apply_norm``, so the plain functions and the hand-written
+kernels are interchangeable.  A weight may be an int8 ``QTensor`` (the
+paper's fully-quantized serving path): under ``"pallas"`` it goes through
+the hand-written ``int8_matmul``, otherwise it is dequantized to x's
+dtype for the plain product.
 """
 from __future__ import annotations
 
@@ -13,27 +14,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import QTensor
+from repro_torch.kernels import layernorm as ln_kernels
 from repro_torch.kernels.int8_matmul import quantized_dense
+# the norms' plain arithmetic is the kernels' plain versions
+from repro_torch.kernels.layernorm import layernorm_plain as layernorm
+from repro_torch.kernels.layernorm import rmsnorm_plain as rmsnorm
 from repro_torch.models import backend
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = x32.square().mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
-
-
-def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
-
-
-def apply_norm(x: torch.Tensor, p, kind: str) -> torch.Tensor:
+def apply_norm(x: torch.Tensor, p, kind: str, mm: str) -> torch.Tensor:
+    """The block's norm over x's last axis, routed through backend ``mm``:
+    under ``"pallas"`` the hand-written kernel over ``[rows, D]`` (its
+    plain version on CPU tensors), otherwise the plain function."""
+    if mm == "pallas":
+        x2 = x.reshape(-1, x.shape[-1])
+        y = ln_kernels.rmsnorm(x2, p.scale) if kind == "rmsnorm" \
+            else ln_kernels.layernorm(x2, p.scale, p.bias)
+        return y.view(x.shape)
     if kind == "rmsnorm":
         return rmsnorm(x, p.scale)
     return layernorm(x, p.scale, p.bias)

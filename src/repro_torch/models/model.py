@@ -232,11 +232,13 @@ class Model(nn.Module):
                             self.compute_dtype)
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.apply_norm(x, self.final_norm, self.cfg.norm)
+        x = layers.apply_norm(x, self.final_norm, self.cfg.norm,
+                              self.matmul_backend)
         return layers.unembed(x, _weight(self.embed, "table"))
 
     def _ffn_half(self, h: torch.Tensor, blk: Block) -> torch.Tensor:
-        hn = layers.apply_norm(h, blk.ln2, self.cfg.norm)
+        hn = layers.apply_norm(h, blk.ln2, self.cfg.norm,
+                               self.matmul_backend)
         return h + moe.apply_ffn(hn, blk.ffn, self.cfg.activation,
                                  self.matmul_backend)
 
@@ -249,7 +251,8 @@ class Model(nn.Module):
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
         for blk in self.layers:
-            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm)
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
+                                   self.matmul_backend)
             x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
                                        self.matmul_backend)
             x = self._ffn_half(x, blk)
@@ -264,7 +267,8 @@ class Model(nn.Module):
         place."""
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
-            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm)
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
+                                   self.matmul_backend)
             x = x + attn.gqa_decode_paged(
                 hn, blk.attn, self.cfg, cache.layer(i), cache_index,
                 block_tables, impl=self.paged_attn_impl,
@@ -283,7 +287,8 @@ class Model(nn.Module):
         slot none).  The pool is updated in place."""
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
-            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm)
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
+                                   self.matmul_backend)
             x = x + attn.gqa_mixed_paged(
                 hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
                 block_tables, impl=self.paged_attn_impl,

@@ -288,14 +288,19 @@ def test_cuda_kernels_match_plain_versions(dt):
         for g, wt, p in zip(got, ws, qkv_mod.qkv_proj_plain(xs, *ws)):
             assert torch.equal(g, tiled_matmul(xs, wt))   # bit for bit
             _near(g, p, tol)
-    for D in (65, 1024, 3000):
-        xs = _dev(2 * _rnd(9, 33, D) + 0.5, dev, dt)
-        g = _dev(1 + 0.1 * _rnd(10, D), dev, torch.float32)
-        bt = _dev(0.1 * _rnd(11, D), dev, torch.float32)
-        _near(ln_mod.layernorm(xs, g, bt), ln_mod.layernorm_plain(xs, g, bt),
-              tol)
-        _near(ln_mod.rmsnorm(xs, g.to(dt)), ln_mod.rmsnorm_plain(xs, g.to(dt)),
-              tol)
+    # the norms: every layout of norm_plan (a warp a row, warps a row,
+    # streaming; in 16-byte units or element by element), R 1 and a 16K
+    # prefill, starts one element past 16 bytes, both parameter dtypes
+    for R, D, off in ((33, 65, 0), (33, 1024, 0), (33, 3000, 0),
+                      (33, 8192, 0), (5, 65536, 0), (1, 1024, 0),
+                      (16384, 1024, 0), (33, 1024, 1), (3, 65536, 1)):
+        xs = _dev(2 * _rnd(9, R * D + off) + 0.5, dev, dt)[off:].view(R, D)
+        for pdt in (torch.float32, torch.bfloat16):
+            g = _dev(1 + 0.1 * _rnd(10, D), dev, pdt)
+            bt = _dev(0.1 * _rnd(11, D), dev, pdt)
+            _near(ln_mod.layernorm(xs, g, bt),
+                  ln_mod.layernorm_plain(xs, g, bt), tol)
+            _near(ln_mod.rmsnorm(xs, g), ln_mod.rmsnorm_plain(xs, g), tol)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, Sq, Skv, H, hd, causal in ((2, 100, 100, 3, 64, True),
                                       (1, 40, 700, 2, 80, False),
