@@ -20,7 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    kernels also at the head dims and GQA widths of ROADMAP Queue 3 fault
    A (hd 96; GQA 8 x hd 128: decode, and chunk at W 16 and 32), both
    over fixed key-range counts, each case with the grid it launched, and
-   one split call of each under ``set_sync_debug_mode("error")``; the
+   one split call of each under ``set_sync_debug_mode("error")``; both
+   with ``live_kv`` (the fleet's dead kv groups, NaN in their queries and
+   pool rows) at the fleet's shape (16 heads of 64, groups 12-15 dead on
+   every other slot) and at hd 96 and GQA 8 x hd 128, the dead groups'
+   outputs bit-exact zeros at the planned and at 1 and 3 key ranges; the
    build prints the split walk's (both entry points')
    and the flash kernels' registers and spills, and those of every
    instantiation of the bf16 matmul loop (``mma_tile``, ``mma_reduce``),
@@ -79,8 +83,24 @@ Phases (any failure raises and the script exits non-zero):
    give an estimate of the drain's matmul device time, printed against
    the same sum for ``torch.matmul``; the first fully-quantized run's
    steps do the same for ``int8_matmul`` against the bf16
-   ``torch.matmul``.  A plain-path engine serves the float requests and
-   the share of identical tokens is reported.
+   ``torch.matmul``.  Fault B's check (ROADMAP Queue 3): a drain of each
+   kernel path at ``sync_every=4`` with every fused step under
+   ``set_sync_debug_mode("error")`` must make no host sync and wait for
+   no staging buffer; the float streams must equal the sync_every=1
+   drain's (the fully-quantized ones are reported: their one activation
+   scale spans the rows of slots that finished but wait for a harvest).  A plain-path engine serves
+   the float requests and the share of identical tokens is reported.
+6. The multi-topology fleet: one engine at ``maxima_for(qwen1.5-0.5b,
+   adaptor-bert-shaped)`` (full widths: 24 layers, 16 heads of 64,
+   d_model 1024, d_ff 3072, vocab 151936; random weights) serves the
+   phase 5 request mix, requests alternating the members, through the
+   paged kernels with ``live_kv``, over a bf16 and an int8 pool, each on
+   two fresh engines: every request finishes inside its member's vocab,
+   the streams repeat, ``live_kv`` launches number 24 per fused step, and
+   the first bf16 drain holds fault B's check.  Tokens/s, the table's
+   bytes and the peak device memory are printed.  Then one mixed and one
+   decode step of the fabric at float32 compute, kernels against the
+   gather path, within 2e-2 * max|logits|.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -108,7 +128,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
-                                   RuntimeSpec, SchedulerSpec)
+                                   RuntimeSpec, SchedulerSpec, maxima_for)
 from repro_torch.core.quant import quantize  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
@@ -133,10 +153,12 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
 from repro_torch.launch.timing import (  # noqa: E402
     LAYER_MATMULS, NORM_SHAPES, NORM_TOL, STEP_ROWS, Timer, bound_ms,
     norm_calls, norm_cost, norm_err, norm_operands)
+from repro_torch.core import masking  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
 
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # relative size of the attention kernels' float32 summation-order error
@@ -168,7 +190,10 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 "int8": ("int8_matmul", "paged_decode_attention",
                          "chunked_prefill_attention", "rmsnorm"),
                 "ops": ("ffn1", "ffn1_gated", "qkv_proj", "layernorm",
-                        "rmsnorm", "flash_attention")}
+                        "rmsnorm", "flash_attention"),
+                # the multi-topology fleet: both with live_kv
+                "fleet": ("paged_decode_attention",
+                          "chunked_prefill_attention")}
 SOURCES = {
     "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:56"),
@@ -463,12 +488,14 @@ def check_int8_matmul(timer, dev, g) -> dict:
 
 
 def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
-                 nblk=32):
+                 nblk=32, live=None):
     """A pool with shuffled blocks per sequence, table entries past each
     sequence's reach at the null block, and NaN in the null block and in
     the unseen tail of each sequence's last live block (an int8 pool:
-    random values, per-row scales, NaN scales there).  Returns q, the pools,
-    tables, start and the scales (None or a pair)."""
+    random values, per-row scales, NaN scales there).  With ``live`` (the
+    live kv groups of each sequence) also NaN in the queries of the dead
+    groups and in their rows of the sequence's blocks.  Returns q, the
+    pools, tables, start and the scales (None or a pair)."""
     nb = B * nblk + 1
     if kv_dt == torch.int8:
         k_pool, v_pool = (torch.randint(-127, 128, (nb, bs, kv, hd),
@@ -494,21 +521,32 @@ def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
         for t in poisoned:
             t[blk, off + 1:] = float("nan")
     q = torch.randn(B, W, h, hd, generator=g, device=dev).to(q_dt)
+    for b, n in enumerate(live or ()):
+        q[b, :, n * (h // kv):] = float("nan")
+        for t in poisoned:
+            t[tables[b].long(), :, n:] = float("nan")
     start = torch.tensor(starts, dtype=torch.int32, device=dev)
     return q, k_pool, v_pool, tables, start, scales
 
 
 def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
-              label="") -> dict:
+              label="", live=None) -> dict:
     """One paged attention kernel against its plain version on one input
     (``starts``: decode lengths less one, or the chunk's lane-0
     positions), timed beside SDPA and the bound; the grid it launched
-    printed."""
+    printed.  ``live``: the live kv groups of each sequence (``live_kv``),
+    the dead groups' queries and pool rows NaN (``paged_inputs``); their
+    outputs must be bit-exact zeros, also at 1 and 3 fixed key ranges,
+    and the bound counts the live groups' rows alone."""
     decode = name == "paged_decode_attention"
     bs = 16
     q, kp, vp, tables, start, scales = paged_inputs(
-        g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts)
+        g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, live=live)
     sk = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    live_t = None
+    if live is not None:
+        live_t = torch.tensor(live, dtype=torch.int32, device=dev)
+        sk["live_kv"] = live_t
     if decode:
         q = q[:, 0].contiguous()
         lens = start + 1
@@ -526,7 +564,6 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
     t_max = tables.shape[1] * bs
     out, ref = run(), plain()
     grid = KERNELS[name].last_grid
-    err = max_err(out, ref)
     # f32 out over an f32 pool: order of sums and exp only; over a bf16
     # pool p is rounded to bf16, and another order of the score sum (or
     # another running max: the chunk kernel's key ranges) can round a
@@ -536,20 +573,39 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
     # (tol prints the limit where the error comes closest to it, "of tol"
     # that closest error over its limit); f32 out over an int8 pool: the
     # f32 walk over the dequantized pool, order only
-    if q_dt == torch.bfloat16:
-        limit = 2 ** -7 * ref.float().abs().clamp_min(1)
-        frac = (out.float() - ref.float()).abs() / limit
-        worst = frac.flatten().argmax()
-        tol = float(limit.flatten()[worst])
-        frac = float(frac.flatten()[worst])
-    else:
-        tol = 2e-5 if kv_dt != torch.bfloat16 else \
-            2 ** -8 * float(vp.float().nan_to_num().abs().max())
-        frac = err / tol
-    if frac > 1:
-        raise AssertionError(f"{name} {label} q={q_dt} pool={kv_dt} h={h} "
-                             f"kv={kv} hd={hd} W={W}: err {err}, {frac} of "
-                             f"the limit {tol}")
+    def gate(got: torch.Tensor, what: str) -> tuple[float, float, float]:
+        err = max_err(got, ref)
+        if q_dt == torch.bfloat16:
+            limit = 2 ** -7 * ref.float().abs().clamp_min(1)
+            frac = (got.float() - ref.float()).abs() / limit
+            worst = frac.flatten().argmax()
+            tol = float(limit.flatten()[worst])
+            frac = float(frac.flatten()[worst])
+        else:
+            tol = 2e-5 if kv_dt != torch.bfloat16 else \
+                2 ** -8 * float(vp.float().nan_to_num().abs().max())
+            frac = err / tol
+        if frac > 1:
+            raise AssertionError(f"{name} {label}{what} q={q_dt} "
+                                 f"pool={kv_dt} h={h} kv={kv} hd={hd} "
+                                 f"W={W}: err {err}, {frac} of the limit "
+                                 f"{tol}")
+        return err, frac, tol
+
+    if live is not None:
+        dead = cp_mod.apply_live_kv(torch.ones_like(ref), live_t, kv) == 0
+        for splits in (None, 1, 3):
+            with mock.patch.object(cp_mod, "kv_splits",
+                                   (lambda *a, s=splits: s) if splits
+                                   else cp_mod.kv_splits):
+                got = run()
+            if not torch.equal(got[dead], torch.zeros_like(got[dead])) \
+                    or torch.signbit(got[dead]).any():
+                raise AssertionError(f"{name} {label}: a dead kv group is "
+                                     f"not exact zeros (splits {splits})")
+            if splits:   # the live groups held to the same limit
+                gate(got, f" ({splits} key ranges)")
+    err, frac, tol = gate(out, "")
     pair = str(q_dt)[6:] + "/" + str(kv_dt)[6:]
     # library yardstick: SDPA on a pre-gathered, head-repeated view (an
     # int8 pool dequantized first; neither is timed)
@@ -568,16 +624,24 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
             <= lim[:, :, None])[:, None]
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qs, kg, vg, attn_mask=mask)
+    if live is not None:
+        # the dead groups' heads masked to zeros by torch.where
+        alive = ~dead.reshape(B, W, h, hd).transpose(1, 2)
+        sdpa_all = sdpa
+        sdpa = lambda: torch.where(alive, sdpa_all(), 0.0)  # noqa: E731
     ms, pms, lms = timer(run), timer(plain), timer(sdpa)
     # K/V rows (and an int8 pool's scales) read once per sequence; each
-    # lane's scores and PV products over the positions it sees
+    # lane's scores and PV products over the positions it sees; with
+    # live_kv only the live groups' rows and heads (and live_kv itself)
     row = hd * kp.element_size() + (4 if scales is not None else 0)
-    nbytes = (2 * sum(n_pos) * kv * row + 2 * q.numel() * q.element_size()
-              + tables.numel() * 4 + B * 4)
-    seen = sum(min(s + lane + 1, t_max) for s in starts
-               for lane in range(W)) if not decode else sum(n_pos)
+    groups = live if live is not None else [kv] * B
+    nbytes = (2 * sum(n * gb for n, gb in zip(n_pos, groups)) * row
+              + 2 * q.numel() * q.element_size() + tables.numel() * 4
+              + B * 4 + (B * 4 if live is not None else 0))
+    seen = [sum(min(s + lane + 1, t_max) for lane in range(W)) for s in starts]
     # an int8 pool is attended in f32 (the reference's dequantized walk)
-    bms, by = bound_ms(nbytes, 4 * seen * h * hd,
+    bms, by = bound_ms(nbytes, 4 * sum(n * gb * (h // kv) for n, gb in
+                                       zip(seen, groups)) * hd,
                        torch.float32 if kv_dt == torch.int8 else q_dt)
     print(f"{name:>26} {pair:>10} {h:>3}/{kv:<2} {err:>10.3g} {tol:>8.3g} "
           f"{ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f} {frac:>7.3f} "
@@ -586,7 +650,8 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
     nums = dict(max_abs_err=err, of_tol=frac, ms=ms, plain_ms=pms,
                 bound_ms=bms, bound_by=by, library_ms=lms,
                 shape=f"B={B} W={W} h={h} kv={kv} hd={hd} bs=16 {pair}"
-                      + (f" {label}" if label else ""))
+                      + (f" {label}" if label else "")
+                      + (f" live_kv={live}" if live is not None else ""))
     if grid:
         nums.update(ctas=grid[0], splits=grid[1])
     return nums
@@ -641,6 +706,25 @@ def check_attention(timer, dev, g) -> dict:
             nums = attn_case(timer, dev, g, name, bf, kv_dt, B, W, h, kv,
                              hdf, starts, label=label)
             entries[name]["other_shapes"].append(nums)
+    # live_kv (the fleet's dead kv groups): at the fleet's shape (16 heads
+    # of 64, one per kv group as the fabric packs them; groups 12-15 dead
+    # on every other slot, as adaptor-bert-shaped's 12 heads leave them),
+    # then at hd 96 and GQA 8 x hd 128
+    print("live_kv (dead groups NaN in q and pool, outputs exact zeros; "
+          "fixed key ranges 1 and 3 gated too):")
+    for name, (W, starts) in shape.items():
+        sub = []
+        for h, kv, hdf, dead, label in (
+                (16, 16, hd, 4, "fleet"),
+                (32, 32, 96, 4, "phi3-mini hd 96"),
+                (64, 8, 128, 2, qwen72)):
+            live = [kv, kv - dead] * (B // 2)
+            for kv_dt in (bf, i8):
+                sub.append(attn_case(timer, dev, g, name, bf, kv_dt, B, W, h,
+                                     kv, hdf, starts,
+                                     label=f"live_kv {label}", live=live))
+        entries[name]["live_kv"] = dict(sub[0], int8_pool=sub[1],
+                                        other_shapes=sub[2:])
     # both kernels at the serving shape over fixed key-range counts; the
     # plan's own count (its wave: the walk's resident CTAs per SM from the
     # CUDA occupancy) among them
@@ -1125,15 +1209,31 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
 # ---------------------------------------------------------------------------
 # phase 5: the serving engine's main path
 # ---------------------------------------------------------------------------
-def serve(params, kernels: bool, prompts, quant: bool = False
-          ) -> tuple[dict, float, int]:
-    eng = ServingEngine(full_width_spec(kernels, quant), device="cuda")
-    eng.load(params)
-    uids = {eng.submit(p, max_new_tokens=MAX_NEW): i
+def drain(eng, prompts, models=None, sync_every: int = 1,
+          no_sync: bool = False) -> tuple[dict, float]:
+    """Submit ``prompts`` (greedy, ``MAX_NEW`` tokens each; ``models``: the
+    fleet member of each) and drain the engine; every request must finish
+    with ``MAX_NEW`` tokens.  ``no_sync`` runs every fused step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (ROADMAP Queue 3 fault B):
+    a host sync in ``_dispatch`` raises, and no staging buffer may have
+    waited.  Returns the streams and the drain's seconds."""
+    uids = {eng.submit(p, max_new_tokens=MAX_NEW,
+                       model=0 if models is None else models[i]): i
             for i, p in enumerate(prompts)}
+    dispatch = eng._dispatch
+
+    def checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = eng.run_to_completion()
+    with mock.patch.object(eng, "_dispatch", checked) if no_sync \
+            else contextlib.nullcontext():
+        done = eng.run_to_completion(sync_every=sync_every)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if len(done) != len(prompts) or not all(r.done for r in done):
@@ -1141,7 +1241,215 @@ def serve(params, kernels: bool, prompts, quant: bool = False
     streams = {uids[r.uid]: r.generated for r in done}
     if any(len(s) != MAX_NEW for s in streams.values()):
         raise AssertionError("a request stopped short of max_new_tokens")
+    waits = sum(st.waits for st in eng._stages.values())
+    if no_sync and waits:
+        raise AssertionError(f"{waits} uploads waited for a staging buffer")
+    return streams, dt
+
+
+def serve(params, kernels: bool, prompts, quant: bool = False,
+          **kw) -> tuple[dict, float, int]:
+    eng = ServingEngine(full_width_spec(kernels, quant), device="cuda")
+    eng.load(params)
+    streams, dt = drain(eng, prompts, **kw)
     return streams, dt, eng.stats["decode_steps"]
+
+
+def no_sync_line(params, prompts, quant: bool) -> None:
+    """Fault B's check on the card: a kernel-path drain at sync_every=4
+    with every fused step under ``set_sync_debug_mode("error")``; it must
+    run mixed and decode steps and give the sync_every=1 streams."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+    streams, dt, steps = serve(params, True, prompts, quant, sync_every=4,
+                               no_sync=True)
+    counts = {n: KERNELS[n].launches for n in ("chunked_prefill_attention",
+                                               "paged_decode_attention")}
+    if not all(counts.values()):
+        raise AssertionError(f"the sync check ran no mixed or no decode "
+                             f"step: {counts}")
+    mixed = counts["chunked_prefill_attention"] \
+        // full_width_spec(True).arch.num_layers
+    print(f"{'int8' if quant else 'float'} weights, sync_every=4, every "
+          f"fused step under set_sync_debug_mode('error'): no host sync, "
+          f"no staging wait; {steps} steps ({mixed} mixed), {dt:.3f} s")
+    return streams
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the multi-topology fleet
+# ---------------------------------------------------------------------------
+FLEET = ("qwen1.5-0.5b", "adaptor-bert-shaped")
+
+
+def fleet_spec(kv_dtype: str, compute: str = "bf16") -> RuntimeSpec:
+    """The fleet's spec: qwen1.5-0.5b's engine at ``maxima_for`` both
+    members (512 positions), the paged kernels, float weights."""
+    a, b = (get_config(n) for n in FLEET)
+    return RuntimeSpec(
+        arch=a, maxima=maxima_for(a, b, seq_max=ENGINE["max_len"]),
+        execution=ExecutionSpec(paged_attn_impl="pallas",
+                                compute_dtype=compute),
+        memory=MemorySpec(cache_layout="paged",
+                          max_batch=ENGINE["max_batch"],
+                          max_len=ENGINE["max_len"],
+                          block_size=ENGINE["block_size"],
+                          kv_dtype=kv_dtype),
+        scheduler=SchedulerSpec(chunk_size=ENGINE["chunk"]))
+
+
+def fleet_drain(members, prompts, kv_dtype: str, **kw) -> dict:
+    """One fleet engine (both members added) drains the prompts, request i
+    on member i % 2; every request must finish inside its member's vocab.
+    Returns streams, seconds, steps, live_kv launches and the peak device
+    memory above what was allocated before the engine."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(fleet_spec(kv_dtype), max_models=len(members),
+                        device="cuda")
+    ids = [eng.add_model(p, c) for c, p in members]
+    table_gb = DecodeFabric.table_bytes(eng.table) / 1e9
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for name in PATH_KERNELS["fleet"]:
+        KERNELS[name].live_kv_launches = 0
+    models = [ids[i % len(ids)] for i in range(len(prompts))]
+    streams, dt = drain(eng, prompts, models, **kw)
+    for i, stream in streams.items():
+        vocab = members[models[i]][0].vocab_size
+        if not all(0 <= t < vocab for t in stream):
+            raise AssertionError(f"fleet request {i}: a token outside "
+                                 f"member {models[i]}'s vocab {vocab}")
+    out = dict(streams=streams, dt=dt, steps=eng.stats["decode_steps"],
+               table_gb=table_gb,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               launches={n: fn.launches for n, fn in KERNELS.items()},
+               live_kv=sum(KERNELS[n].live_kv_launches
+                           for n in PATH_KERNELS["fleet"]))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_fleet_logits(members, dev, g) -> None:
+    """One mixed step then one decode step of the full-width fabric at
+    float32 compute, kernel path against gather path from the same empty
+    float32 pool (slots alternate the members; chunks of 16 lanes, some
+    partial): live lanes within 2e-2 * max|logits| over each slot's live
+    vocab, the dead vocab lanes NEG_INF on both."""
+    spec = fleet_spec("compute", "fp32")
+    fab = DecodeFabric(spec.maxima, len(members), spec.arch,
+                       compute_dtype=torch.float32, device=dev)
+    table = fab.init_table()
+    for m, (c, p) in enumerate(members):
+        fab.insert_model(table, fab.pack_member(c, p), m)
+    paging = spec.memory.paging()
+    B, W = ENGINE["max_batch"], ENGINE["chunk"]
+    nblk = ENGINE["max_len"] // ENGINE["block_size"]
+    tables = (torch.randperm(paging.num_blocks, generator=g, device=dev)
+              .reshape(B, nblk) + 1).to(torch.int32)
+    topo = torch.tensor([fab.topo_row(members[b % 2][0], b % 2)
+                         for b in range(B)], dtype=torch.int32, device=dev)
+    vocab = topo[:, REG_VOCAB]
+    toks = (torch.randint(0, 1 << 30, (B, W), generator=g, device=dev)
+            % vocab[:, None]).to(torch.int32)
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_live = torch.tensor([16, 16, 16, 16, 16, 9, 3, 1], dtype=torch.int32,
+                          device=dev)
+    out = {}
+    for impl in ("pallas", "gather"):
+        cache = fab.init_cache(paging)
+        mixed = fab.mixed_step(table, cache, toks, start, n_live, topo,
+                               tables, impl)
+        dec = fab.decode_step(table, cache, toks[:, :1], n_live, topo,
+                              tables, impl)
+        out[impl] = (mixed, dec)
+        del cache
+    lanes = torch.arange(W, device=dev)[None, :] < n_live[:, None]
+    vlive = torch.arange(spec.maxima.vocab, device=dev)[None, :] \
+        < vocab[:, None]
+    for i, step in enumerate(("mixed_step", "decode_step")):
+        k, r = out["pallas"][i], out["gather"][i]
+        live = (lanes if i == 0 else lanes[:, :1])[..., None] \
+            & vlive[:, None, :]
+        vdead = ~vlive[:, None, :].expand_as(k)
+        if not ((k[vdead] == masking.NEG_INF).all()
+                and (r[vdead] == masking.NEG_INF).all()):
+            raise AssertionError(f"fleet {step}: a dead vocab lane is not "
+                                 "NEG_INF")
+        ref = r[live.expand_as(r)]
+        err = max_err(k[live.expand_as(k)], ref)
+        tol = LOGIT_TOL * float(ref.abs().max())
+        print(f"fleet {step}, f32 compute, kernels vs gather: max "
+              f"|diff| {err:.4g} (tol {LOGIT_TOL} x max|logits| = "
+              f"{tol:.4g})")
+        if err > tol:
+            raise AssertionError(f"fleet {step} logits disagree: {err} > "
+                                 f"{tol}")
+    del table, fab
+
+
+def check_fleet(dev, g, lengths) -> dict:
+    """The full-width fleet: qwen1.5-0.5b and adaptor-bert-shaped (random
+    weights from the generator) drain the phase 5 request mix, request i
+    on member i % 2, over a bf16 and an int8 pool, each twice on fresh
+    engines (the streams must repeat; the first bf16 drain runs every
+    fused step under ``set_sync_debug_mode("error")``); every fleet step
+    launches one attention kernel per layer with ``live_kv``, 24 a step.
+    Then the kernel-path logits against the gather path's at f32 compute.
+    Returns the first bf16 drain's launches."""
+    members = [(c, Model(c, device=dev).init(g).state_dict())
+               for c in (get_config(n) for n in FLEET)]
+    maxima = fleet_spec("compute").maxima
+    print(f"\n== fleet: {' + '.join(FLEET)} in one engine, maxima heads "
+          f"{maxima.heads_max} layers {maxima.layers_enc_max} d_model "
+          f"{maxima.d_model_max} d_ff {maxima.d_ff_max} vocab "
+          f"{maxima.vocab}; {len(lengths)} greedy requests x {MAX_NEW} new "
+          "tokens, alternating members")
+    rs = np.random.default_rng(1)
+    prompts = [rs.integers(0, members[i % 2][0].vocab_size, n).tolist()
+               for i, n in enumerate(lengths)]
+    n_tok = len(prompts) * MAX_NEW
+    first = None
+    for kv_dtype in ("compute", "int8"):
+        # the first bf16 drain also holds fault B: sync_every=4, every
+        # fused step under set_sync_debug_mode("error")
+        runs = [fleet_drain(members, prompts, kv_dtype,
+                            **(dict(sync_every=4, no_sync=True)
+                               if kv_dtype == "compute" and i == 0 else {}))
+                for i in range(2)]
+        pool = "bf16" if kv_dtype == "compute" else "int8"
+        for i, r in enumerate(runs):
+            want = maxima.layers_enc_max * r["steps"]
+            print(f"fleet, {pool} pool, engine {i + 1}: {n_tok} tokens in "
+                  f"{r['dt']:.3f} s ({n_tok / r['dt']:.1f} tok/s), "
+                  f"{r['steps']} fused steps, live_kv launches "
+                  f"{r['live_kv']} ({maxima.layers_enc_max} x steps = "
+                  f"{want}), decode "
+                  f"{r['launches']['paged_decode_attention']} + chunk "
+                  f"{r['launches']['chunked_prefill_attention']}; table "
+                  f"{r['table_gb']:.3f} GB, peak {r['peak_gb']:.3f} GB "
+                  "allocated above the members' weights"
+                  + (" (sync_every=4, every step under "
+                     "set_sync_debug_mode('error'): no host sync)"
+                     if kv_dtype == "compute" and i == 0 else ""))
+            if r["live_kv"] != want:
+                raise AssertionError(f"fleet live_kv launches {r['live_kv']}"
+                                     f" != {want}: one per layer and step")
+        same = sum(a == b for k in runs[0]["streams"]
+                   for a, b in zip(runs[0]["streams"][k],
+                                   runs[1]["streams"][k]))
+        print(f"fleet, {pool} pool: identical tokens on the two engines "
+              f"{same}/{n_tok}")
+        if runs[0]["streams"] != runs[1]["streams"]:
+            raise AssertionError(f"the fleet's {pool}-pool streams differ "
+                                 "between two fresh engines")
+        first = first or runs[0]
+    check_fleet_logits(members, dev, g)
+    del members
+    torch.cuda.empty_cache()
+    return first["launches"]
 
 
 def main() -> int:
@@ -1233,6 +1541,21 @@ def main() -> int:
                 f"rmsnorm launched {launches[path]['rmsnorm']} times in "
                 f"{steps} steps on the {path} path, not "
                 f"{(2 * layers + 1) * steps}")
+    # fault B: no fused step waits for the device (sync_every=4).  The
+    # float streams are those of the sync_every=1 drain (rows are computed
+    # independently); the fully-quantized ones are reported: one int8
+    # activation scale spans all B x W rows, finished slots' rows among
+    # them, and at sync_every=4 a finished slot waits up to 3 steps for
+    # its harvest
+    for path in ("float", "int8"):
+        got = no_sync_line(params, prompts, path == "int8")
+        same = sum(a == b for i in got
+                   for a, b in zip(got[i], streams[path][i]))
+        print(f"  identical tokens to the sync_every=1 drain: {same}/{n_tok}"
+              + ("" if path == "float" else " (reported, not gated)"))
+        if path == "float" and got != streams[path]:
+            raise AssertionError("the float streams at sync_every=4 differ "
+                                 "from those at sync_every=1")
     # the fully-quantized streams must repeat on a fresh engine: duplicate
     # pool writes of dead lanes (int8 values and scales) resolve to one row
     again, dt_p, _ = serve(params, True, prompts, quant=True)
@@ -1257,6 +1580,12 @@ def main() -> int:
         print(f"identical tokens kernels float vs {other}: {same}/{n_tok} "
               "(reported, not gated: near-ties and quantization may flip)")
 
+    launches["fleet"] = check_fleet(dev, g, PROMPT_LENS)
+    for name in PATH_KERNELS["fleet"]:
+        if launches["fleet"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the fleet path")
+        entries[name]["live_kv"]["launches"] = launches["fleet"][name]
+
     table = []
     for name in KERNELS:
         src, replaces = SOURCES[name]
@@ -1270,7 +1599,8 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for extra in ("int8_pool", "ctas", "splits", "smem_bytes", "bm", "bn",
+        for extra in ("int8_pool", "live_kv", "ctas", "splits", "smem_bytes",
+                      "bm", "bn",
                       "bf16_matmul_ms", "other_shapes", "f32_shapes",
                       "fixed_splits", "plan", "timer_floor_ms"):
             if extra in e:

@@ -1,13 +1,16 @@
 """Config registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-Holds the architectures the port serves so far (the dense family).
+Holds the architectures the port serves so far (the dense family):
+qwen1.5-0.5b, and adaptor-bert-shaped, a fleet member at the paper's BERT
+widths on qwen's template (``--fleet qwen1.5-0.5b,adaptor-bert-shaped``).
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen1_5_0_5b
+from repro_torch.configs import adaptor_bert_shaped, qwen1_5_0_5b
 from repro_torch.configs.base import ArchConfig, reduced
 
-REGISTRY: dict[str, ArchConfig] = {c.name: c for c in (qwen1_5_0_5b.CONFIG,)}
+REGISTRY: dict[str, ArchConfig] = {
+    c.name: c for c in (qwen1_5_0_5b.CONFIG, adaptor_bert_shaped.CONFIG)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -14,9 +14,10 @@ both packages:
 
 What the port serves so far is the dense family through the paged pool
 and the chunked scheduler, with float or int8 weights (``quant``) and a
-float or int8 KV pool (``MemorySpec.kv_dtype``).  Every other option of
-the reference is rejected at construction with the ROADMAP.md queue item
-that ports it.
+float or int8 KV pool (``MemorySpec.kv_dtype``), one model or a fleet of
+them within ``maxima`` (``maxima_for``; float weights only).  Every other
+option of the reference is rejected at construction with the ROADMAP.md
+queue item that ports it.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
 from repro_torch.core.kv_quant import KV_DTYPES
 from repro_torch.core.paging import PagingConfig, blocks_for_tokens
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
+from repro_torch.core.registers import Maxima
 
 _MATMUL_BACKENDS = ("xla", "pallas")
 _PAGED_ATTN_IMPLS = ("gather", "pallas")
@@ -242,16 +244,19 @@ class SchedulerSpec:
 class RuntimeSpec:
     """One frozen description of a runnable configuration.
 
-    ``maxima``, ``speculation`` and ``mesh`` are the reference's fleet,
-    speculative-decoding and mesh axes; the port accepts only their
-    defaults (None) until they are ported.
+    ``maxima`` (a ``core.registers.Maxima``) selects multi-topology
+    serving: one engine built at the maxima serves a fleet of models
+    (``serving/fabric.py``), and the spec's own arch must fit them.
+    ``speculation`` and ``mesh`` are the reference's speculative-decoding
+    and mesh axes; the port accepts only their defaults (None) until they
+    are ported.
     """
 
     arch: ArchConfig
     execution: ExecutionSpec = field(default_factory=ExecutionSpec)
     memory: MemorySpec = field(default_factory=MemorySpec)
     scheduler: SchedulerSpec = field(default_factory=SchedulerSpec)
-    maxima: Any = None
+    maxima: Maxima | None = None
     speculation: Any = None
     mesh: Any = None
 
@@ -267,8 +272,12 @@ class RuntimeSpec:
         if not cfg.tie_embeddings:
             raise _not_ported(f"{cfg.name}: untied embeddings (lm_head)",
                               "item 7b")
-        if self.maxima is not None:
-            raise _not_ported("multi-topology serving (maxima=...)", "item 8")
+        if self.maxima is not None and self.execution.quant == "int8":
+            raise _not_ported(
+                "the fleet's int8 weight table (maxima=... with "
+                "quant='int8')", "item 8b",
+                "; fleet members serve float weights over a bf16 or int8 "
+                "KV pool")
         if mem.prefix_cache:
             raise _not_ported("MemorySpec.prefix_cache=True", "item 9")
         if self.speculation is not None:
@@ -290,4 +299,71 @@ class RuntimeSpec:
                 + "; ".join(bad))
         if self.mesh is not None:
             raise _not_ported("mesh serving (mesh=...)", "item 13")
+        if self.maxima is not None:
+            bad = self.violations(self.maxima)
+            if bad:
+                hint = ""
+                if any(v.startswith("sequence=") for v in bad):
+                    hint = (" (the spec's sequence bound is memory.max_len "
+                            "— set memory=MemorySpec(max_len=...) to the "
+                            "intended sequence length)")
+                raise ValueError(
+                    "spec does not fit its own maxima (re-synthesis "
+                    "required): " + "; ".join(bad) + hint)
         return self
+
+    def static_registers(self, sequence: int | None = None) -> dict[str, int]:
+        """The register values as plain ints (for ceiling checks); the
+        dense family has no decoder stack of its own (layers_dec 0)."""
+        cfg = self.arch
+        return {
+            "sequence": self.memory.max_len if sequence is None else sequence,
+            "heads": cfg.num_heads,
+            "layers_enc": cfg.num_layers,
+            "layers_dec": 0,
+            "embeddings": cfg.d_model,
+            "hidden": cfg.d_ff,
+            "out": cfg.vocab_size,
+        }
+
+    def violations(self, maxima: Maxima) -> list[str]:
+        """Every way this spec exceeds ``maxima`` (empty = fits)."""
+        regs = self.static_registers()
+        lim = {"sequence": maxima.seq_max, "heads": maxima.heads_max,
+               "layers_enc": maxima.layers_enc_max,
+               "layers_dec": maxima.layers_dec_max,
+               "embeddings": maxima.d_model_max, "hidden": maxima.d_ff_max,
+               "out": maxima.out_max}
+        out = [f"{k}={regs[k]} > {lim[k]}" for k in lim if regs[k] > lim[k]]
+        if self.arch.resolved_head_dim > maxima.head_dim_max:
+            out.append(f"head_dim={self.arch.resolved_head_dim} > "
+                       f"{maxima.head_dim_max}")
+        if self.arch.vocab_size > maxima.vocab:
+            out.append(f"vocab={self.arch.vocab_size} > {maxima.vocab}")
+        return out
+
+    def fits_within(self, maxima: Maxima) -> bool:
+        """True iff every live dimension fits the synthesized fabric
+        (exact equality is a fit: the maxima topology itself runs)."""
+        return not self.violations(maxima)
+
+
+def maxima_for(*archs: ArchConfig, seq_max: int,
+               layers_dec_max: int | None = None) -> Maxima:
+    """The smallest fabric covering every arch: elementwise maxima, the
+    'synthesis planning' step of multi-topology serving (the reference's,
+    without its mesh sharding, which waits for ROADMAP.md Queue 1 item
+    13)."""
+    if not archs:
+        raise ValueError("maxima_for needs at least one ArchConfig")
+    return Maxima(
+        seq_max=seq_max,
+        heads_max=max(a.num_heads for a in archs),
+        layers_enc_max=max(a.num_layers for a in archs),
+        layers_dec_max=0 if layers_dec_max is None else layers_dec_max,
+        d_model_max=max(a.d_model for a in archs),
+        d_ff_max=max(a.d_ff for a in archs),
+        out_max=max(a.vocab_size for a in archs),
+        head_dim_max=max(a.resolved_head_dim for a in archs),
+        vocab=max(a.vocab_size for a in archs),
+    )

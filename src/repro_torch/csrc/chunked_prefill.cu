@@ -20,16 +20,18 @@
 // (len_offset 0).
 #include "split_walk.cuh"
 
+// live_kv: [B] live kv groups per sequence (multi-topology serving), or
+// null; every output row of a group g >= live_kv[b] is exact zeros.
 extern "C" int chunked_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* tables,
-    const int* start, void* out, void* ws, int B, int W, int H, int KV,
-    int HD, int BS, int NBLK, int splits, int q_dtype, int kv_dtype,
-    float scale, void* stream) {
+    const int* start, const int* live_kv, void* out, void* ws, int B, int W,
+    int H, int KV, int HD, int BS, int NBLK, int splits, int q_dtype,
+    int kv_dtype, float scale, void* stream) {
   return launch_walk</*kSkipDead=*/false>(
       q, k_pool, v_pool, k_scale, v_scale, tables, start, /*len_offset=*/0,
-      out, ws, B, W, H, KV, HD, BS, NBLK, splits, q_dtype, kv_dtype, scale,
-      stream);
+      live_kv, out, ws, B, W, H, KV, HD, BS, NBLK, splits, q_dtype, kv_dtype,
+      scale, stream);
 }
 
 // The walk's CTAs resident on one SM for the (q, pool) dtype pair at HD and

@@ -32,17 +32,19 @@
 
 // lengths[b]: live positions of sequence b (its cache index + 1).
 // k_scale / v_scale: [NB, BS, KV] float for an int8 pool, else null.
+// live_kv: [B] live kv groups per sequence (multi-topology serving), or
+// null; a CTA of a dead group reads nothing and its rows are exact zeros.
 // splits, ws: as for chunked_prefill_attention.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* tables,
-    const int* lengths, void* out, void* ws, int B, int H, int KV, int HD,
-    int BS, int NBLK, int splits, int q_dtype, int kv_dtype, float scale,
-    void* stream) {
+    const int* lengths, const int* live_kv, void* out, void* ws, int B,
+    int H, int KV, int HD, int BS, int NBLK, int splits, int q_dtype,
+    int kv_dtype, float scale, void* stream) {
   return launch_walk</*kSkipDead=*/true>(
       q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
-      /*len_offset=*/-1, out, ws, B, /*W=*/1, H, KV, HD, BS, NBLK, splits,
-      q_dtype, kv_dtype, scale, stream);
+      /*len_offset=*/-1, live_kv, out, ws, B, /*W=*/1, H, KV, HD, BS, NBLK,
+      splits, q_dtype, kv_dtype, scale, stream);
 }
 
 // Decode's own walk's CTAs resident on one SM (its FMA body skips dead rows

@@ -12,6 +12,9 @@
 //   tables  [B, NBLK] int32     physical block of each logical block
 //   start   [B] int32           the chunk's lane-0 position (len_offset 0)
 //                               or decode's lengths (len_offset -1)
+//   live_kv [B] int32 or null   multi-topology serving: the live kv groups
+//                               of each sequence; every output row of a
+//                               group g >= live_kv[b] is exact zeros
 // Lane l sees the positions <= min(s0 + l, NBLK * BS - 1).  HD is a
 // multiple of 16 up to 128; the output is in q's dtype.
 //
@@ -63,7 +66,13 @@
 //     as the reference does, on FMA: lanes over (position, row half) for
 //     the scores, lanes over features for PV; decode's copy (kSkipDead)
 //     skips the rows past the CTA's live rows (n_rep < 16).
-//  5. NaN never reaches an output.  An mma multiplies p = 0 by the staged V
+//  5. Dead kv groups (live_kv).  A fleet pads the head axis to its maxima,
+//     and the padded groups may hold anything, NaN included, in q and in the
+//     pool.  A CTA whose group is dead reads nothing: with one key range it
+//     writes exact zeros to its output rows, with several it writes nothing,
+//     and the merge, which reads live_kv for each of its rows, writes exact
+//     zeros there without reading the workspace (no 0 / 0).
+//  6. NaN never reaches an output.  An mma multiplies p = 0 by the staged V
 //     row, so every staged row that no row of the CTA may see (past its
 //     last position or its range), or whose physical block is the null
 //     block 0, is zero-filled by the copy itself (src-size 0) and never
@@ -101,6 +110,7 @@ struct Args {
   const float* vsc;
   const int* tables;
   const int* start;
+  const int* live_kv;  // null: every group is live
   void* out;
   float* ws;  // splits > 1: acc [splits][rows][HD], then m, l [splits][rows]
   int B, W, H, KV, HD, BS, NBLK, splits, row_tiles;
@@ -254,6 +264,14 @@ template <typename TQ, bool kBf16Q>
 __device__ __forceinline__ bool prologue(const Args& a, Cta& c,
                                          unsigned char* smem, int* tbl) {
   const int tid = threadIdx.x;
+  if (a.live_kv != nullptr && c.g >= a.live_kv[c.b]) {
+    // a dead group: exact zeros (one range) or nothing (the merge zeroes it)
+    if (a.splits == 1)
+      for (int i = tid; i < c.rows * a.HD; i += kThreads)
+        static_cast<TQ*>(a.out)[out_row(a, c, i / a.HD) * a.HD + i % a.HD] =
+            from_f<TQ>(0.f);
+    return false;
+  }
   c.s0 = a.start[c.b] + a.len_offset;
   const int* trow = a.tables + (size_t)c.b * a.NBLK + c.lo_blk;
   for (int i = tid; i < c.hi_blk - c.lo_blk; i += kThreads) tbl[i] = trow[i];
@@ -657,7 +675,8 @@ __global__ void __launch_bounds__(kThreads) chunk_fma(const Args a) {
 //   m* = max_s m_s, w_s = e^(m_s - m*), O = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)
 // A range in which the row saw nothing (m_s = NEG_INF) weighs 0 and its
 // accumulator, never written, is not read.  m* is finite but for a decode
-// length of 0, whose every range weighs 0: O = 0.
+// length of 0, whose every range weighs 0: O = 0.  A row of a dead kv group
+// (live_kv) is exact zeros, its workspace never read.
 // ---------------------------------------------------------------------------
 template <typename TQ>
 __global__ void __launch_bounds__(256) chunk_merge(const Args a) {
@@ -665,6 +684,14 @@ __global__ void __launch_bounds__(256) chunk_merge(const Args a) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const size_t row = idx / a.HD;
+  if (a.live_kv != nullptr) {
+    const int b = static_cast<int>(row / ((size_t)a.W * a.H));
+    const int g = static_cast<int>(row % a.H) / (a.H / a.KV);
+    if (g >= a.live_kv[b]) {
+      static_cast<TQ*>(a.out)[idx] = from_f<TQ>(0.f);
+      return;
+    }
+  }
   const float* mws = a.ws + (size_t)a.splits * n;
   const float* lws = mws + (size_t)a.splits * rows;
   float mx = kNegInf;
@@ -753,10 +780,12 @@ cudaError_t launch_merge(const Args& a, cudaStream_t s) {
 // (f32, int8), (bf16, int8)}; an int8 pool needs both scale pools, a float
 // pool takes none.  HD: a multiple of 16 up to 128.  splits: key ranges
 // (>= 1); with splits > 1, ws holds splits * B * W * H * (HD + 2) floats.
+// live_kv: [B] int32, or null for no masking.
 template <bool kSkipDead>
 int launch_walk(const void* q, const void* k_pool, const void* v_pool,
                 const float* k_scale, const float* v_scale, const int* tables,
-                const int* start, int len_offset, void* out, void* ws, int B,
+                const int* start, int len_offset, const int* live_kv,
+                void* out, void* ws, int B,
                 int W, int H, int KV, int HD, int BS, int NBLK, int splits,
                 int q_dtype, int kv_dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -767,10 +796,11 @@ int launch_walk(const void* q, const void* k_pool, const void* v_pool,
   if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return cudaErrorInvalidValue;
   const int rows = W * (H / KV);
-  const Args a{q,      k_pool, v_pool,  k_scale, v_scale, tables, start, out,
+  const Args a{q,      k_pool,  v_pool, k_scale, v_scale, tables,
+               start,  live_kv, out,
                splits > 1 ? static_cast<float*>(ws) : nullptr,
-               B,      W,      H,       KV,      HD,      BS,     NBLK,  splits,
-               (rows + kRows - 1) / kRows, len_offset, scale};
+               B,      W,       H,      KV,      HD,      BS,
+               NBLK,   splits,  (rows + kRows - 1) / kRows, len_offset, scale};
   if ((long long)B * KV * a.row_tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const cudaError_t e =

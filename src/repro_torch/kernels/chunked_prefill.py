@@ -12,6 +12,13 @@ An int8 pool comes with ``k_scale``/``v_scale`` ``[NB, bs, kv]`` float32
 pool is dequantized to float32, q is cast to float32, p is not rounded,
 and the output is float32 until the one cast to q's dtype.
 
+``live_kv`` ``[B]`` int32 (multi-topology serving, ``serving/fabric.py``)
+gives each sequence's live kv groups: the output of every head of a group
+``g >= live_kv[b]`` is exact zeros, whatever q and the pool hold there
+(the reference's ``where(g < live_kv[b], out, 0)``).  The kernel's CTAs of
+a dead group read nothing; ``apply_live_kv`` is that step in plain
+PyTorch.
+
 The kernel (the split-KV walk of ``csrc/split_walk.cuh``, which decode
 shares at W = 1) gives each CTA 16 query rows of one (sequence, kv head)
 and splits each sequence's block table into key ranges of whole logical
@@ -50,19 +57,37 @@ def chunked_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                     start: torch.Tensor,
                                     scale: float | None = None, *,
                                     k_scale: torch.Tensor | None = None,
-                                    v_scale: torch.Tensor | None = None
+                                    v_scale: torch.Tensor | None = None,
+                                    live_kv: torch.Tensor | None = None
                                     ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, with the reference kernel's
     numerics: ``chunked_prefill_partial_plain`` over the whole table
     (float32 scores, one online-softmax update per pool block, p rounded to
     the pool's dtype before PV; an int8 pool dequantized and attended in
-    float32), then O = acc / max(l, 1e-30) in q's dtype.  Block 0 holds
+    float32), then O = acc / max(l, 1e-30) in q's dtype, and the dead kv
+    groups of ``live_kv`` zeroed (``apply_live_kv``).  Block 0 holds
     position 0, which every lane sees, so every row's running max is
     finite from the first block on."""
     acc, _, lsum = chunked_prefill_partial_plain(
         q, k_pool, v_pool, block_tables, start, 0, block_tables.shape[1],
         scale, k_scale=k_scale, v_scale=v_scale)
-    return (acc / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)
+    out = (acc / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return apply_live_kv(out, live_kv, k_pool.shape[2])
+
+
+def apply_live_kv(out: torch.Tensor, live_kv: torch.Tensor | None,
+                  kv: int) -> torch.Tensor:
+    """``out`` ``[B, ..., h, hd]`` with every head of a kv group ``g >=
+    live_kv[b]`` set to exact zeros (heads group as ``g = head // n_rep``);
+    ``live_kv=None`` leaves it as it is."""
+    if live_kv is None:
+        return out
+    h = out.shape[-2]
+    group = torch.arange(h, device=out.device) // (h // kv)
+    live = group[None, :] < live_kv[:, None]               # [B, h]
+    live = live.reshape(out.shape[0], *[1] * (out.dim() - 3), h, 1)
+    return torch.where(live, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
 
 
 def chunked_prefill_partial_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -211,9 +236,12 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def check_operands(name: str, q, k_pool, v_pool, block_tables, lens,
-                   k_scale=None, v_scale=None):
+                   k_scale=None, v_scale=None, live_kv=None):
     """Shape / dtype checks shared by both paged attention wrappers (q is
-    [B, W, h, hd] here)."""
+    [B, W, h, hd] here).  ``live_kv`` is None or ``[B]`` int32 on q's
+    device with values in [0, kv]; its values are checked where they lie
+    on the host (on the card a check would wait for the device, and the
+    kernel reads a value past kv as every group live, one below 0 as none)."""
     B, _, h, hd = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"{name}: k/v pools must share one [NB, bs, kv, hd] "
@@ -241,20 +269,32 @@ def check_operands(name: str, q, k_pool, v_pool, block_tables, lens,
                      for s in scales):
         raise ValueError(f"{name}: scales must be float32 "
                          f"{tuple(k_pool.shape[:3])} (one per pool row)")
+    if live_kv is None:
+        return
+    if live_kv.shape != (B,) or live_kv.dtype != torch.int32 \
+            or live_kv.device != q.device:
+        raise ValueError(f"{name}: live_kv must be int32 [B={B}] on q's "
+                         f"device {q.device}, got {live_kv.dtype} "
+                         f"{tuple(live_kv.shape)} on {live_kv.device}")
+    if live_kv.device.type == "cpu" and \
+            bool(((live_kv < 0) | (live_kv > kv)).any()):
+        raise ValueError(f"{name}: live_kv values must lie in [0, kv={kv}], "
+                         f"got {live_kv.tolist()}")
 
 
 def launch_checks(name: str, q, k_pool, v_pool, block_tables, lens,
-                  k_scale=None, v_scale=None, scale: float | None = None
-                  ) -> float:
+                  k_scale=None, v_scale=None, scale: float | None = None,
+                  live_kv=None) -> float:
     """The checks both paged attention kernels' launches make: every
     operand on one CUDA device and contiguous, q and the pools 16-byte
     aligned (rows are copied as 16-byte vectors).  Returns the softmax
     scale, 1 / sqrt(hd) unless one is given."""
-    scales = [s for s in (k_scale, v_scale) if s is not None]
-    runtime.require_cuda(name, q, k_pool, v_pool, block_tables, lens, *scales)
+    opt = {k: t for k, t in (("k_scale", k_scale), ("v_scale", v_scale),
+                             ("live_kv", live_kv)) if t is not None}
+    runtime.require_cuda(name, q, k_pool, v_pool, block_tables, lens,
+                         *opt.values())
     runtime.require_contiguous(name, q=q, k_pool=k_pool, v_pool=v_pool,
-                               block_tables=block_tables, lens=lens,
-                               **dict(zip(("k_scale", "v_scale"), scales)))
+                               block_tables=block_tables, lens=lens, **opt)
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
         raise ValueError(f"{name}: q and the pools must be 16-byte aligned "
                          "(rows are copied as 16-byte vectors)")
@@ -265,7 +305,7 @@ def launch_checks(name: str, q, k_pool, v_pool, block_tables, lens,
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return runtime.bind("chunked_prefill_attention",
-                        [p] * 9 + [i] * 10 + [ctypes.c_float, p])
+                        [p] * 10 + [i] * 10 + [ctypes.c_float, p])
 
 
 def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -273,6 +313,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                               start: torch.Tensor, *,
                               k_scale: torch.Tensor | None = None,
                               v_scale: torch.Tensor | None = None,
+                              live_kv: torch.Tensor | None = None,
                               scale: float | None = None) -> torch.Tensor:
     """W-lane chunk/decode attention over the pooled KV cache.
 
@@ -281,24 +322,29 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     block_tables: [B, nblk] int32   physical block of each logical block
     start:        [B] int32         first lane's cache position per slot
     k/v_scale:    [NB, bs, kv] f32  with an int8 pool only: per-row scales
+    live_kv:      [B] int32 or None live kv groups per slot, in [0, kv], on
+                                    q's device: every head of a group
+                                    g >= live_kv[b] gives exact zeros
     -> [B, W, h, hd] in q's dtype
 
     The caller guarantees table entries lie in [0, NB) and that no live
     lane sees a null-block entry.  The launch never waits for the device:
-    the grid comes from the shapes, and start and the tables stay on it.
-    A call that splits its keys launches the walk and the merge kernel.
+    the grid comes from the shapes, and start, live_kv and the tables stay
+    on it.  A call that splits its keys launches the walk and the merge
+    kernel.  ``launches`` counts calls, ``live_kv_launches`` those with
+    ``live_kv``.
     """
     name = "chunked_prefill_attention"
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [B, W, h, hd]")
     check_operands(name, q, k_pool, v_pool, block_tables, start, k_scale,
-                   v_scale)
+                   v_scale, live_kv)
     if q.device.type == "cpu":
         return chunked_prefill_attention_plain(
             q, k_pool, v_pool, block_tables, start, scale, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, live_kv=live_kv)
     scale = launch_checks(name, q, k_pool, v_pool, block_tables, start,
-                          k_scale, v_scale, scale)
+                          k_scale, v_scale, scale, live_kv)
     B, W, h, hd = q.shape
     check_head_dim(hd)
     _, bs, kv, _ = k_pool.shape
@@ -307,16 +353,18 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     err = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
         ptr(v_scale), block_tables.data_ptr(), start.data_ptr(),
-        out.data_ptr(), ptr(ws), B, W, h, kv, hd, bs,
+        ptr(live_kv), out.data_ptr(), ptr(ws), B, W, h, kv, hd, bs,
         block_tables.shape[1], grid[1], runtime.DTYPE_CODES[q.dtype],
         runtime.DTYPE_CODES[k_pool.dtype], float(scale),
         runtime.stream_handle(q))
     runtime.check(err, name)
     chunked_prefill_attention.launches += 1
+    chunked_prefill_attention.live_kv_launches += live_kv is not None
     chunked_prefill_attention.last_grid = grid
     return out
 
 
 chunked_prefill_attention.launches = 0
+chunked_prefill_attention.live_kv_launches = 0
 # (CTAs of 16 query rows, key ranges) of the last launch
 chunked_prefill_attention.last_grid = None

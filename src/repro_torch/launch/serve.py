@@ -13,6 +13,14 @@ int8`` serves int8 weights (through the hand-written ``int8_matmul`` under
 ``--kernels pallas``) and ``--kv-dtype int8`` an int8 KV pool.  The
 reference serves reduced configs in this driver; ``--full-width`` serves
 the architecture at its published widths.
+
+Multi-topology mode: ``--fleet qwen1.5-0.5b,adaptor-bert-shaped`` serves
+several architectures of the port's registry from one fused step: the
+shared maxima are planned with ``maxima_for``, each model is packed into
+the fabric's weight table (``add_model``, random weights from generator
+seed ``--seed`` + its index), and the requests take the model ids in
+turn.  Float weights only (the fleet's int8 weight table is ROADMAP.md
+Queue 1 item 8b); ``--kernels`` stays ``xla``.
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ import time
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--fleet", default=None,
+                    help="comma-separated architectures served together "
+                         "by one multi-topology engine")
     ap.add_argument("--full-width", action="store_true",
                     help="serve the architecture at its published widths "
                          "(default: the reduced test config)")
@@ -69,15 +80,18 @@ def main(argv: list[str] | None = None) -> None:
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.spec import (ExecutionSpec, MemorySpec,
-                                       RuntimeSpec, SchedulerSpec)
+                                       RuntimeSpec, SchedulerSpec, maxima_for)
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.sampling import SamplingParams
 
-    cfg = get_config(args.arch)
+    names = args.fleet.split(",") if args.fleet else [args.arch]
+    cfgs = [get_config(n) for n in names]
     if not args.full_width:
-        cfg = reduced(cfg)
+        cfgs = [reduced(c) for c in cfgs]
+    cfg = cfgs[0]
+    maxima = maxima_for(*cfgs, seq_max=args.max_len) if args.fleet else None
     ex_kw = {}
     if args.param_dtype is not None:
         ex_kw["param_dtype"] = args.param_dtype
@@ -86,7 +100,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.quant_min_size is not None:
         ex_kw["quant_min_size"] = args.quant_min_size
     spec = RuntimeSpec(
-        arch=cfg,
+        arch=cfg, maxima=maxima,
         execution=ExecutionSpec(matmul_backend=args.kernels,
                                 paged_attn_impl=args.attn, quant=args.quant,
                                 **ex_kw),
@@ -97,17 +111,30 @@ def main(argv: list[str] | None = None) -> None:
         scheduler=SchedulerSpec(chunk_size=args.chunk_size))
     device = resolve_device(args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
-    eng = ServingEngine(spec, device=device, sampling=sampling,
-                        seed=args.seed)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    eng.load(Model.from_spec(spec, device=device).init(gen).state_dict())
+    eng = ServingEngine(spec, max_models=len(cfgs), device=device,
+                        sampling=sampling, seed=args.seed)
+    ex = spec.execution
+    model_ids = []
+    for i, c in enumerate(cfgs):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed + i)
+        params = Model(c, param_dtype=ex.param_dtype,
+                       compute_dtype=ex.compute_dtype, quant=ex.quant,
+                       quant_min_size=ex.quant_min_size,
+                       device=device).init(gen).state_dict()
+        if args.fleet:
+            model_ids.append(eng.add_model(params, c))
+        else:
+            eng.load(params)
+            model_ids.append(0)
+        del params
 
     rs = np.random.default_rng(7)
-    for _ in range(args.requests):
+    for i in range(args.requests):
+        mid = model_ids[i % len(model_ids)]
         plen = int(rs.integers(4, args.max_len // 2))
-        eng.submit(rs.integers(0, cfg.vocab_size, plen).tolist(),
-                   max_new_tokens=args.max_new)
+        eng.submit(rs.integers(0, cfgs[mid].vocab_size, plen).tolist(),
+                   max_new_tokens=args.max_new, model=mid)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -118,16 +145,18 @@ def main(argv: list[str] | None = None) -> None:
     total_new = sum(len(r.generated) for r in done)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"{cfg.name} on {name}: {len(done)} requests, {total_new} tokens "
-          f"in {dt:.2f}s ({total_new / dt:,.1f} tok/s)")
+    print(f"{'+'.join(names)} on {name}: {len(done)} requests, {total_new} "
+          f"tokens in {dt:.2f}s ({total_new / dt:,.1f} tok/s)")
     print(f"host traffic: {eng.stats['device_gets']} bulk transfers over "
           f"{eng.stats['decode_steps']} fused steps")
     s = eng.memory_stats()
     print(f"paged pool: {s.total_blocks} x {spec.memory.block_size}-token "
           f"blocks, {eng.stats['preemptions']} preemptions")
+    if args.fleet:
+        print(f"fleet: {names} served by one fused step")
     for r in done[:3]:
-        print(f"  req {r.uid}: prompt[:6]={r.prompt[:6]} -> "
-              f"{r.generated[:10]}...")
+        print(f"  req {r.uid} (model {r.model}): prompt[:6]={r.prompt[:6]} "
+              f"-> {r.generated[:10]}...")
 
 
 if __name__ == "__main__":

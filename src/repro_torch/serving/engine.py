@@ -16,6 +16,19 @@ reference's discipline:
 * a second transfer only for the finished rows' token buffers, sliced to
   the longest finished stream.
 
+Nothing between two syncs waits for the device, so ``sync_every=k`` lets
+the host queue k fused steps ahead: block tables, chunk grants, the
+stochastic rows' index and each admitted prompt (with its topology
+registers) go up through ``HostStage``'s pinned buffers as asynchronous
+copies into device tensors that stay in place.
+
+Multi-topology serving: ``ServingEngine(spec, maxima=...)`` (or a spec
+with ``maxima``) runs the register-driven ``serving.fabric`` at the maxima
+instead of one fixed model.  ``add_model(params, arch)`` packs a
+dense-family model into the fabric's weight table, each slot carries its
+model's topology registers in ``SlotState.topo``, and one fused step
+serves the mixed fleet; ``submit(..., model=id)`` picks the member.
+
 ``ServingEngine(spec, device=None)`` runs on the CUDA device and raises
 without one; pass ``device="cpu"`` for the host.  ``seed`` seeds the
 per-request generators of stochastic sampling (a request's stream is a
@@ -34,11 +47,59 @@ from repro_torch.core.spec import RuntimeSpec
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.events import EngineEvent, EventBus
+from repro_torch.serving.fabric import N_REGS, DecodeFabric
 from repro_torch.serving.events import now as _now
 from repro_torch.serving.sampling import SamplingParams, sample_per_slot
 
 _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
               "prefill_tokens", "max_step_prefill_tokens")
+# uploads of tables, grants and sampling rows the host may queue ahead of
+# the device before one waits for a staging buffer
+_STAGE_DEPTH = 16
+
+
+class HostStage:
+    """Host-to-device uploads of small int32 arrays that never wait for
+    the device.  On CUDA the values go into one of ``depth`` pinned host
+    buffers, taken in turn and allocated once, and each goes up by an
+    asynchronous copy on the current stream into its device tensor.  A
+    buffer is written again only once the copies that last read it have
+    run (an event recorded after them); ``waits`` counts the uploads that
+    had to wait for that.  On a CPU device there is nothing to pin: the
+    values are copied in place."""
+
+    def __init__(self, numel: int, device: torch.device, depth: int):
+        self.waits = 0
+        self._turn = 0
+        self._bufs: list[torch.Tensor] = []
+        self._events: list[torch.cuda.Event] = []
+        if device.type == "cuda":
+            self._bufs = [torch.empty(numel, dtype=torch.int32,
+                                      pin_memory=True) for _ in range(depth)]
+            self._events = [torch.cuda.Event() for _ in range(depth)]
+
+    def put(self, *pairs: tuple[torch.Tensor, object]) -> None:
+        """Each (dst, values) pair: ``values`` (ints, nested lists) into
+        the int32 device tensor ``dst`` of the same number of elements."""
+        srcs = [torch.as_tensor(v, dtype=torch.int32).reshape(d.shape)
+                for d, v in pairs]
+        if not self._bufs:
+            for (dst, _), src in zip(pairs, srcs):
+                dst.copy_(src)
+            return
+        i = self._turn
+        self._turn = (i + 1) % len(self._bufs)
+        event = self._events[i]
+        if not event.query():
+            self.waits += 1
+            event.synchronize()
+        at = 0
+        for (dst, _), src in zip(pairs, srcs):
+            staged = self._bufs[i][at:at + src.numel()].view(dst.shape)
+            staged.copy_(src)
+            dst.copy_(staged, non_blocking=True)
+            at += src.numel()
+        event.record(torch.cuda.current_stream(pairs[0][0].device))
 
 
 @dataclasses.dataclass
@@ -54,6 +115,8 @@ class Request:
     # tokens generated before a preemption; on re-admission they extend
     # the prompt (recompute-resume) and still count against the budget
     prefix: list[int] = dataclasses.field(default_factory=list)
+    # fleet member serving this request (multi-topology mode; 0 otherwise)
+    model: int = 0
 
 
 @dataclasses.dataclass
@@ -74,6 +137,7 @@ class SlotState:
     prompt_buf: torch.Tensor  # [B, max_len] i32 prompt tokens, chunk source
     prompt_len: torch.Tensor  # [B] i32 total prompt length
     pf_pos: torch.Tensor      # [B] i32 prompt tokens already in the cache
+    topo: torch.Tensor        # [B, N_REGS] i32 topology registers (fleet)
 
     @classmethod
     def zeros(cls, batch: int, max_len: int, device) -> "SlotState":
@@ -86,15 +150,19 @@ class SlotState:
                    temp=z(batch, dtype=torch.float32), top_k=z(batch),
                    top_p=z(batch, dtype=torch.float32) + 1.0,
                    buf=z(batch, max_len), prompt_buf=z(batch, max_len),
-                   prompt_len=z(batch), pf_pos=z(batch))
+                   prompt_len=z(batch), pf_pos=z(batch),
+                   topo=z(batch, N_REGS))
 
 
 class ServingEngine:
-    def __init__(self, spec: RuntimeSpec, *, device=None,
+    def __init__(self, spec: RuntimeSpec, *, maxima=None,
+                 max_models: int = 4, device=None,
                  sampling: SamplingParams = SamplingParams(), seed: int = 0):
         if not isinstance(spec, RuntimeSpec):
             raise TypeError("ServingEngine expects a repro_torch.core.spec."
                             f"RuntimeSpec, got {type(spec).__name__}")
+        if maxima is not None:
+            spec = dataclasses.replace(spec, maxima=maxima)
         self.device = resolve_device(device)
         self.spec = spec
         self.cfg: ArchConfig = spec.arch
@@ -104,7 +172,29 @@ class ServingEngine:
         self.seed = seed
         self.chunk_size = min(spec.scheduler.chunk_size, self.max_len)
         self.token_budget = spec.scheduler.resolved_token_budget
-        self.model = Model.from_spec(spec, device=self.device)
+        self.fabric: DecodeFabric | None = None
+        self.model: Model | None = None
+        if spec.maxima is not None:
+            # multi-topology mode: one step at the maxima serves a fleet of
+            # models selected by per-slot registers (add_model)
+            ex = spec.execution
+            if ex.matmul_backend != "xla":
+                raise ValueError(
+                    f"matmul_backend={ex.matmul_backend!r} is not yet "
+                    "supported in multi-topology mode: the fabric's per-slot "
+                    "weight gathers do not route through the tiled-kernel "
+                    "backend (use the default 'xla'; quantized fleet "
+                    "serving, ExecutionSpec(quant='int8') with the fabric's "
+                    "own int8 weight table, is ROADMAP.md Queue 1 item 8b)")
+            self.fabric = DecodeFabric(
+                spec.maxima, max_models, self.cfg,
+                compute_dtype=ex.compute_dtype, param_dtype=ex.param_dtype,
+                kv_dtype=spec.memory.kv_dtype, device=self.device)
+            self.fabric.check_member(self.cfg)
+            self.fleet: list[ArchConfig | None] = [None] * max_models
+            self._fleet_rows: list[list[int] | None] = [None] * max_models
+        else:
+            self.model = Model.from_spec(spec, device=self.device)
 
         self.paging = spec.memory.paging()
         self.allocator = BlockAllocator(self.paging)
@@ -125,10 +215,28 @@ class ServingEngine:
         self._seq = 0
         # chunked-prefill progress mirror: exact, the host grants every chunk
         self._pf = [0] * self.max_batch
-        # per-slot generator for stochastic slots, None for greedy ones
+        # per-slot generator for stochastic slots, None for greedy ones, and
+        # the device index of those slots (rebuilt when the list changes)
         self._gens: list[torch.Generator | None] = [None] * self.max_batch
+        self._rows_buf = torch.zeros(self.max_batch, dtype=torch.int32,
+                                     device=self.device)
+        self._rows_key: tuple[int, ...] = ()
+        self._grants = torch.zeros(self.max_batch, dtype=torch.int32,
+                                   device=self.device)
+        self._stages = {
+            "tables": HostStage(self.block_tables.numel(), self.device,
+                                _STAGE_DEPTH),
+            "grants": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
+            "rows": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
+            # one admitted prompt and its topology row per buffer
+            "admit": HostStage(self.max_len + N_REGS, self.device,
+                               2 * self.max_batch)}
 
-        self.cache = None
+        # the fleet's weight table exists before any model is loaded:
+        # add_model only writes device data into it
+        self.table = self.fabric.init_table() if self.fabric else None
+        self.cache = self.fabric.init_cache(self.paging) if self.fabric \
+            else None
         self.state = SlotState.zeros(self.max_batch, self.max_len, self.device)
         self.slot_req: list[Request | None] = [None] * self.max_batch
         self.queue: list[Request] = []
@@ -156,13 +264,41 @@ class ServingEngine:
         ``spec.execution.quant="int8"`` float weights are quantized here
         (the model's ``load_state_dict`` applies
         ``core.serve_quant.quantize_params`` at ``quant_min_size``), as the
-        reference's ``load`` does."""
+        reference's ``load`` does.  Multi-topology mode: ``add_model`` for
+        the engine's own architecture."""
+        if self.fabric is not None:
+            self.add_model(params)
+            return
         self.model.load_state_dict(params)
         self.cache = self.model.init_cache(self.paging)
 
+    def add_model(self, params, arch: ArchConfig | None = None) -> int:
+        """Pack one fleet member's weights (a state dict of the port's
+        ``Model(arch)``) into the fabric's model table and return its model
+        id (pass it to ``submit(..., model=id)``).  A copy into the table,
+        never a new step."""
+        if self.fabric is None:
+            raise ValueError(
+                "add_model requires multi-topology mode — construct the "
+                "engine with ServingEngine(spec, maxima=...)")
+        if isinstance(arch, RuntimeSpec):
+            arch = arch.arch
+        arch = arch or self.cfg
+        mid = next((i for i, a in enumerate(self.fleet) if a is None), None)
+        if mid is None:
+            raise ValueError(
+                f"model table full ({self.fabric.max_models} rows); "
+                "construct the engine with a larger max_models")
+        row = self.fabric.pack_member(arch, params)
+        self.table = self.fabric.insert_model(self.table, row, mid)
+        self.fleet[mid] = arch
+        self._fleet_rows[mid] = self.fabric.topo_row(arch, mid)
+        return mid
+
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
                eos_id: int | None = None,
-               sampling: SamplingParams | None = None) -> int:
+               sampling: SamplingParams | None = None,
+               model: int = 0) -> int:
         if not prompt:
             raise ValueError("empty prompt: the engine needs at least one "
                              "token to condition on")
@@ -178,15 +314,29 @@ class ServingEngine:
             raise ValueError(
                 f"prompt needs {need} blocks but the pool has only "
                 f"{self.paging.num_blocks}; increase num_blocks")
-        vocab = self.cfg.vocab_size
-        if not all(0 <= t < vocab for t in prompt):
-            raise ValueError(
-                f"prompt contains token ids outside vocab [0, {vocab})")
+        if self.fabric is not None:
+            if not 0 <= model < len(self.fleet) or self.fleet[model] is None:
+                loaded = [i for i, a in enumerate(self.fleet) if a is not None]
+                raise ValueError(f"model id {model} is not loaded "
+                                 f"(loaded ids: {loaded}); call add_model")
+            vocab = self.fleet[model].vocab_size
+            if not all(0 <= t < vocab for t in prompt):
+                raise ValueError(
+                    f"prompt contains token ids outside model {model}'s "
+                    f"vocab [0, {vocab})")
+        elif model != 0:
+            raise ValueError("submit(model=...) requires multi-topology "
+                             "mode (ServingEngine(spec, maxima=...))")
+        else:
+            vocab = self.cfg.vocab_size
+            if not all(0 <= t < vocab for t in prompt):
+                raise ValueError(
+                    f"prompt contains token ids outside vocab [0, {vocab})")
         self._uid += 1
         self.queue.append(Request(self._uid, list(prompt), max_new_tokens,
-                                  eos_id, sampling))
+                                  eos_id, sampling, model=model))
         self._emit("submit", self._uid, prompt_len=len(prompt),
-                   max_new_tokens=max_new_tokens, model=0)
+                   max_new_tokens=max_new_tokens, model=model)
         return self._uid
 
     # ------------------------------------------------------------------
@@ -214,10 +364,15 @@ class ServingEngine:
         """The one-lane fused step: decode -> sample -> scatter token ->
         advance indices/budgets -> raise done flags."""
         st = self.state
-        logits = self.model.decode_step(self.cache, st.last, st.index,
-                                        self.block_tables)
+        if self.fabric is not None:
+            logits = self.fabric.decode_step(
+                self.table, self.cache, st.last, st.index, st.topo,
+                self.block_tables, self.spec.execution.paged_attn_impl)
+        else:
+            logits = self.model.decode_step(self.cache, st.last, st.index,
+                                            self.block_tables)
         toks = sample_per_slot(logits[:, 0], st.temp, st.top_k, st.top_p,
-                               self._gens)
+                               self._gens, self._sample_rows())
         act = st.active
         self._finish(st, act, toks, st.index + act.to(torch.int32))
 
@@ -238,14 +393,19 @@ class ServingEngine:
         ptoks = st.prompt_buf.gather(1, gidx.long())
         dtoks = torch.nn.functional.pad(st.last, (0, W - 1))
         toks = torch.where(prefilling[:, None], ptoks, dtoks)
-        logits = self.model.mixed_step(self.cache, toks, start, n_live,
-                                       self.block_tables)
+        if self.fabric is not None:
+            logits = self.fabric.mixed_step(
+                self.table, self.cache, toks, start, n_live, st.topo,
+                self.block_tables, self.spec.execution.paged_attn_impl)
+        else:
+            logits = self.model.mixed_step(self.cache, toks, start, n_live,
+                                           self.block_tables)
         # sampling lane: a completing prompt's last live lane, else 0
         completes = prefilling & (st.pf_pos + chunk_len >= st.prompt_len)
         sel = torch.where(completes, chunk_len - 1, 0).long()
         rows = torch.arange(self.max_batch, device=self.device)
         toks_s = sample_per_slot(logits[rows, sel], st.temp, st.top_k,
-                                 st.top_p, self._gens)
+                                 st.top_p, self._gens, self._sample_rows())
         st.pf_pos += torch.where(prefilling, chunk_len, 0)
         self._finish(st, decoding | completes, toks_s, st.index + n_live)
 
@@ -274,9 +434,11 @@ class ServingEngine:
             self.queue.pop(0)
             sp = req.sampling or self.sampling
             st = self.state
-            st.prompt_buf[slot].zero_()
-            st.prompt_buf[slot, :plen] = torch.tensor(prompt,
-                                                      dtype=torch.int32)
+            topo = self._fleet_rows[req.model] if self.fabric is not None \
+                else [0] * N_REGS
+            self._stages["admit"].put(
+                (st.prompt_buf[slot], prompt + [0] * (self.max_len - plen)),
+                (st.topo[slot], topo))
             for field, value in (
                     ("last", 0), ("index", 0), ("active", True),
                     ("done", False), ("budget", budget), ("count", 0),
@@ -395,16 +557,27 @@ class ServingEngine:
         self.stats["preemptions"] += 1
         self._emit("preempt", req.uid, banked=len(req.prefix))
 
+    def _sample_rows(self) -> torch.Tensor | None:
+        """The device index of the stochastic slots (None: all greedy),
+        uploaded again only when the host's list of generators changed."""
+        key = tuple(b for b, g in enumerate(self._gens) if g is not None)
+        if not key:
+            return None
+        if key != self._rows_key:
+            self._stages["rows"].put((self._rows_buf[:len(key)], key))
+            self._rows_key = key
+        return self._rows_buf[:len(key)]
+
     def _dispatch(self) -> None:
+        """One fused step, queued without waiting for the device."""
         if self._tables_dirty:
-            self.block_tables.copy_(torch.tensor(self._tables,
-                                                 dtype=torch.int32))
+            self._stages["tables"].put((self.block_tables, self._tables))
             self._tables_dirty = False
         grants = self._grant_chunks()
         granted = sum(grants)
         if granted:
-            self._mixed_impl(torch.tensor(grants, dtype=torch.int32,
-                                          device=self.device))
+            self._stages["grants"].put((self._grants, grants))
+            self._mixed_impl(self._grants)
         else:
             # steady state: the one-lane decode is the W == 1 special case
             # of the mixed step (same math, ~chunk_size x less query work)

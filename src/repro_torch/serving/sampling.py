@@ -42,22 +42,32 @@ def filtered_probs(logits: torch.Tensor, temperature: torch.Tensor,
 
 def sample_per_slot(logits: torch.Tensor, temperature: torch.Tensor,
                     top_k: torch.Tensor, top_p: torch.Tensor,
-                    generators: list[torch.Generator | None]) -> torch.Tensor:
+                    generators: list[torch.Generator | None],
+                    rows: torch.Tensor | None) -> torch.Tensor:
     """logits [B, V] -> tokens [B] int32.
 
     ``generators[b]`` is slot b's generator when its temperature is > 0
     and None for a greedy slot (the engine knows each slot's sampling
     parameters on the host), so an all-greedy batch costs one argmax.
+    ``rows`` is the index of the stochastic slots on logits' device (None
+    when there are none), which the caller keeps between calls and
+    rebuilds only when its list of generators changes, so no call uploads
+    it.
+
+    A slot's draw is ``torch.multinomial(probs, 1, generator=g)``'s own for
+    one sample: the argmax of probs / q with q ~ Exp(1) from ``g``, the
+    same numbers drawn in the same order, without multinomial's check of
+    probs, which reads a device value on the host and so waits for it.
     """
     toks = logits.argmax(dim=-1).to(torch.int32)
-    rows = [b for b, g in enumerate(generators) if g is not None]
-    if not rows:
+    live = [b for b, g in enumerate(generators) if g is not None]
+    if not live:
         return toks
-    sel = torch.tensor(rows, device=logits.device)
-    probs = filtered_probs(logits[sel], temperature[sel], top_k[sel],
-                           top_p[sel])
-    drawn = torch.cat([torch.multinomial(probs[i], 1,
-                                         generator=generators[b])
-                       for i, b in enumerate(rows)])
-    toks[sel] = drawn.to(torch.int32)
+    probs = filtered_probs(logits[rows], temperature[rows], top_k[rows],
+                           top_p[rows])
+    drawn = torch.cat([
+        (probs[i] / torch.empty_like(probs[i]).exponential_(
+            1, generator=generators[b])).argmax(-1, keepdim=True)
+        for i, b in enumerate(live)])
+    toks[rows] = drawn.to(torch.int32)
     return toks

@@ -33,7 +33,7 @@ from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
-                                   SchedulerSpec)
+                                   SchedulerSpec, maxima_for)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 
@@ -256,7 +256,11 @@ def test_entry_points_need_a_device_choice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(maxima=object()), "item 8"),
+    # a fleet serves float weights: its int8 weight table is item 8b (the
+    # case keeps the id it had when maxima= itself was refused as item 8)
+    pytest.param(dict(maxima=maxima_for(CFG, seq_max=512),
+                      execution=ExecutionSpec(quant="int8")), "item 8b",
+                 id="kw0-item 8"),
     (dict(memory=MemorySpec(cache_layout="paged", prefix_cache=True)),
      "item 9"),
     (dict(speculation=object()), "item 10"),

@@ -17,6 +17,7 @@ card test also runs where JAX is absent:
 import ast
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
                                    SchedulerSpec)
 from repro_torch.models.model import Model
+from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.sampling import SamplingParams, filtered_probs
 
@@ -151,6 +153,62 @@ def test_stochastic_streams_replay_per_seed(weights):
     assert all(0 <= t < CFG.vocab_size for s in a.values() for t in s)
 
 
+def _multinomial_sample(logits, temperature, top_k, top_p, generators,
+                        rows=None):
+    """``sample_per_slot`` as it drew before the staged route: the index of
+    the stochastic rows built from the host list on every call and one
+    ``torch.multinomial`` per row."""
+    toks = logits.argmax(dim=-1).to(torch.int32)
+    live = [b for b, g in enumerate(generators) if g is not None]
+    if not live:
+        return toks
+    sel = torch.tensor(live, device=logits.device)
+    probs = filtered_probs(logits[sel], temperature[sel], top_k[sel],
+                           top_p[sel])
+    drawn = torch.cat([torch.multinomial(probs[i], 1,
+                                         generator=generators[b])
+                       for i, b in enumerate(live)])
+    toks[sel] = drawn.to(torch.int32)
+    return toks
+
+
+def test_staged_uploads_keep_the_streams(weights):
+    """The route without host syncs (uploads through ``HostStage``, the
+    stochastic rows' index kept between steps, multinomial's own draw
+    without its host-side check) streams what the route before it did:
+    greedy and stochastic requests in one batch, 4 steps per sync, the
+    block tables on the device equal to the host's after every step."""
+    sp = SamplingParams(temperature=0.9, top_k=20, top_p=0.95)
+
+    def run(sample):
+        eng = ServingEngine(RuntimeSpec(
+            arch=CFG, memory=MemorySpec(cache_layout="paged", max_batch=4,
+                                        max_len=64, block_size=8),
+            scheduler=SchedulerSpec(chunk_size=8)), device="cpu", seed=3)
+        eng.load(weights[1])
+        uids = {eng.submit(p, max_new_tokens=7,
+                           sampling=sp if i % 2 else None): i
+                for i, p in enumerate(PROMPTS)}
+        dispatch, tables = eng._dispatch, []
+
+        def checked():
+            dispatch()
+            tables.append(torch.equal(eng.block_tables, torch.tensor(
+                eng._tables, dtype=torch.int32)))
+
+        with mock.patch.object(engine_mod, "sample_per_slot", sample), \
+                mock.patch.object(eng, "_dispatch", checked):
+            done = eng.run_to_completion(sync_every=4)
+        assert len(tables) > 8 and all(tables)
+        assert len(done) == len(PROMPTS)
+        assert sum(s.waits for s in eng._stages.values()) == 0
+        return {uids[r.uid]: r.generated for r in done}
+
+    staged = run(engine_mod.sample_per_slot)
+    assert staged == run(_multinomial_sample)
+    assert len({tuple(s) for s in staged.values()}) == len(PROMPTS)
+
+
 def test_filters_match_reference_semantics():
     """top_k = 1 keeps only the argmax; top_p keeps the smallest prefix of
     the sorted distribution reaching p; disabled filters keep everything."""
@@ -200,6 +258,46 @@ def test_port_and_smoke_import_no_jax_and_no_reference():
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.cuda
+def test_dispatch_never_waits_for_the_card():
+    """ROADMAP Queue 3 fault B: with every kernel selected, a drain at
+    ``sync_every=4`` runs each fused step, mixed and decode, under
+    ``torch.cuda.set_sync_debug_mode("error")``, greedy and stochastic
+    slots together: no host sync, and no staging buffer waited."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import chunked_prefill, paged_attention
+    spec = RuntimeSpec(
+        arch=CFG, execution=ExecutionSpec(matmul_backend="pallas",
+                                          paged_attn_impl="pallas"),
+        memory=MemorySpec(cache_layout="paged", max_batch=4, max_len=64,
+                          block_size=8),
+        scheduler=SchedulerSpec(chunk_size=8))
+    eng = ServingEngine(spec)
+    eng.load(Model.from_spec(spec, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0)).state_dict())
+    sp = SamplingParams(temperature=0.9, top_k=20)
+    for i, p in enumerate(PROMPTS):
+        eng.submit(p, max_new_tokens=6, sampling=sp if i % 2 else None)
+    dispatch = eng._dispatch
+
+    def checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    kernels = (chunked_prefill.chunked_prefill_attention,
+               paged_attention.paged_decode_attention)
+    before = [k.launches for k in kernels]
+    with mock.patch.object(eng, "_dispatch", checked):
+        done = eng.run_to_completion(sync_every=4)
+    assert len(done) == len(PROMPTS)
+    assert all(k.launches > n for k, n in zip(kernels, before))
+    assert sum(s.waits for s in eng._stages.values()) == 0
 
 
 @pytest.mark.cuda
