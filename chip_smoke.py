@@ -73,41 +73,69 @@ Phases (any failure raises and the script exits non-zero):
    their kernel), and both are printed.
 5. Serve 8 greedy requests (prompts of 24-400 tokens, 16 new tokens each)
    through the full-width paged, chunked ``ServingEngine`` with every
-   kernel selected, once with float weights and twice fully quantized, on
-   fresh engines; every request must finish, every kernel of each path
-   must be launched in that path's run (the counts are zeroed just before
-   it), ``rmsnorm`` must launch 2L+1 = 49 times per fused step on both
-   paths, and the two fully-quantized runs must give identical streams.
-   The float run's steps, counted from its attention launches, times
-   phase 2's per-call medians of the six ``tiled_matmul`` serving shapes
-   give an estimate of the drain's matmul device time, printed against
-   the same sum for ``torch.matmul``; the first fully-quantized run's
-   steps do the same for ``int8_matmul`` against the bf16
-   ``torch.matmul``.  Fault B's check (ROADMAP Queue 3): a drain of each
-   kernel path at ``sync_every=4`` with every fused step under
+   kernel selected, with float weights and fully quantized, each on a
+   graphed engine (each fused program one CUDA graph, captured once) and
+   an eager one: every request must finish, the graphed streams must
+   equal the eager ones, ``compilations`` decode = prefill = 1 with no
+   eager step, every kernel of each path must be launched in that path's
+   run (the counts are zeroed just before it; a graphed drain's launches
+   are the wrappers' counts less what the captures recorded plus each
+   graph's capture counts times its replays) and as often as in the
+   eager run, and ``rmsnorm`` 2L+1 = 49 times per fused step.  The
+   graphed engine drains the mix once more on its captured graphs (warm)
+   without a capture; a second fresh fully-quantized engine must repeat
+   the streams.  Tokens/s, steps, captures, replays and eager steps are
+   printed for every drain; the device's idle share (``torch.profiler``
+   device time over wall time) and the PyTorch operators per fused step
+   for a graphed engine's first drain, a warm one and an eager one.  A
+   mixed step captured with ``keep_graph=True`` gives the census of its
+   edges: each split ``tiled_matmul``'s reduce, a programmatic dependent
+   launch, should be a programmatic edge.  The float run's steps,
+   counted from its attention launches, times phase 2's per-call medians
+   of the six ``tiled_matmul`` serving shapes give an estimate of the
+   drain's matmul device time, printed against the same sum for
+   ``torch.matmul``; the fully-quantized run's steps do the same for
+   ``int8_matmul`` against the bf16 ``torch.matmul``.  Fault B's check
+   (ROADMAP Queue 3): a graphed drain of each kernel path at
+   ``sync_every=4`` with every fused step, the captures included, under
    ``set_sync_debug_mode("error")`` must make no host sync and wait for
    no staging buffer; the float streams must equal the sync_every=1
    drain's (the fully-quantized ones are reported: their one activation
-   scale spans the rows of slots that finished but wait for a harvest).  A plain-path engine serves
-   the float requests and the share of identical tokens is reported.
+   scale spans the rows of slots that finished but wait for a harvest).
+   A plain-path engine serves the float requests and the share of
+   identical tokens is reported.
 6. The multi-topology fleet: one engine at ``maxima_for(qwen1.5-0.5b,
    adaptor-bert-shaped)`` (full widths: 24 layers, 16 heads of 64,
    d_model 1024, d_ff 3072, vocab 151936; random weights) serves the
    phase 5 request mix, requests alternating the members, through the
-   paged kernels with ``live_kv``, over a bf16 and an int8 pool, each on
-   two fresh engines: every request finishes inside its member's vocab,
-   the streams repeat, ``live_kv`` launches number 24 per fused step, and
-   the first bf16 drain holds fault B's check.  Tokens/s, the table's
-   bytes and the peak device memory are printed.  Then one mixed and one
-   decode step of the fabric at float32 compute, kernels against the
-   gather path, within 2e-2 * max|logits|.
+   paged kernels with ``live_kv``, over a bf16 pool on two graphed
+   engines and an eager one and over an int8 pool on two graphed
+   engines: every request finishes inside its member's vocab, the
+   streams repeat, the graphed bf16 streams and launches equal the eager
+   ones with one capture per program, ``live_kv`` launches number 24 per
+   fused step, and the first bf16 drain holds fault B's check.
+   Tokens/s, the table's bytes and the peak device memory are printed.
+   Then one mixed and one decode step of the fabric at float32 compute,
+   kernels against the gather path, within 2e-2 * max|logits|.
+7. The rest of the dense family, whose embeddings are untied:
+   phi3-mini-3.8b at full width and depth (32 layers, 32 heads of 96) and
+   qwen2-72b at full width and 2 of its 80 layers (64 heads of 128 over 8
+   kv heads), random weights: one mixed and one decode step at float32
+   compute through the kernels within phase 4's gate of the plain
+   versions (the untied ``lm_head``'s own float32 error is printed as a
+   share of that distance), then the phase 5 request mix on a graphed
+   and an eager engine with phase 5's gates, and the launches of the
+   paged walks at hd 96 and at GQA 8 x hd 128.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
+import dataclasses
 import itertools
 import json
 import math
@@ -127,12 +155,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
                                    RuntimeSpec, SchedulerSpec, maxima_for)
-from repro_torch.core.quant import quantize  # noqa: E402
+from repro_torch.core.quant import QTensor, quantize  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
 from repro_torch.kernels import ops, runtime  # noqa: E402
+from repro_torch.kernels.counts import (LIVE_KV, launch_counts,  # noqa: E402
+                                        wrappers)
 from repro_torch.kernels import tiled_matmul as tm_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import (  # noqa: E402
     chunked_prefill_attention, chunked_prefill_attention_plain)
@@ -144,7 +175,7 @@ from repro_torch.kernels.int8_matmul import (  # noqa: E402
     int8_matmul, int8_matmul_plain)
 from repro_torch.kernels import layernorm as ln_mod  # noqa: E402
 from repro_torch.kernels.layernorm import (  # noqa: E402
-    layernorm, layernorm_plain, rmsnorm, rmsnorm_plain)
+    layernorm_plain, rmsnorm_plain)
 from repro_torch.kernels.qkv_proj import qkv_proj, qkv_proj_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
@@ -169,18 +200,7 @@ ENGINE = dict(max_batch=8, max_len=512, block_size=16, chunk=16)
 PROMPT_LENS = (24, 57, 96, 150, 203, 260, 333, 400)
 MAX_NEW = 16
 
-KERNELS = {
-    "tiled_matmul": tiled_matmul,
-    "paged_decode_attention": paged_decode_attention,
-    "chunked_prefill_attention": chunked_prefill_attention,
-    "int8_matmul": int8_matmul,
-    "ffn1": ffn1,
-    "ffn1_gated": ffn1_gated,
-    "qkv_proj": qkv_proj,
-    "layernorm": layernorm,
-    "rmsnorm": rmsnorm,
-    "flash_attention": flash_attention,
-}
+KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
 # the kernels each path must launch: the two serving paths and the kernel
 # library entry point (``repro_torch.kernels.ops``); a kernel's JSON
 # ``launches`` is its count on the first path listed with it (the
@@ -1061,15 +1081,19 @@ def check_ops(dev, g) -> dict:
     return counts
 
 
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width model steps, kernels vs plain path
 # ---------------------------------------------------------------------------
-def full_width_spec(kernels: bool, quant: bool = False) -> RuntimeSpec:
-    """The serving spec at full width; ``quant`` serves fully quantized
-    (int8 weights at the reference's default floor, int8 KV pool)."""
+def full_width_spec(kernels: bool, quant: bool = False,
+                    arch: ArchConfig | None = None) -> RuntimeSpec:
+    """The serving spec at full width (qwen1.5-0.5b unless ``arch``);
+    ``quant`` serves fully quantized (int8 weights at the reference's
+    default floor, int8 KV pool)."""
     impl = ("pallas", "pallas") if kernels else ("xla", "gather")
     return RuntimeSpec(
-        arch=get_config("qwen1.5-0.5b"),
+        arch=arch or get_config("qwen1.5-0.5b"),
         execution=ExecutionSpec(matmul_backend=impl[0],
                                 paged_attn_impl=impl[1],
                                 compute_dtype="bf16",
@@ -1126,36 +1150,63 @@ def plain_versions(perturb: float = 0.0):
         yield
 
 
-def check_model_steps(model: Model, dev, g, gate: bool) -> None:
+# the step paths of phase 4: (matmul backend, attention impl, context)
+STEP_PATHS = {
+    "kernels": (("pallas", "pallas"), contextlib.nullcontext),
+    "kernels, norms eager": (("pallas", "pallas"), eager_norms),
+    "plain versions": (("pallas", "pallas"), plain_versions),
+    "plain, perturbed": (("pallas", "pallas"),
+                         lambda: plain_versions(ATTN_PERTURB)),
+    "xla + gather": (("xla", "gather"), contextlib.nullcontext)}
+
+
+def unembed_exact(x: torch.Tensor, table) -> torch.Tensor:
+    """``layers.unembed(x, table)`` in float64, 16384 vocab rows at a time
+    (the float32 product's reference)."""
+    xd = x.reshape(-1, x.shape[-1]).double()
+    t = table.values.double() * table.scale.double() \
+        if isinstance(table, QTensor) else table
+    out = torch.cat([xd @ t[i:i + 16384].double().t()
+                     for i in range(0, t.shape[0], 16384)], dim=1)
+    return out.reshape(*x.shape[:-1], -1)
+
+
+def check_model_steps(model: Model, dev, g, gate: bool,
+                      paths=tuple(STEP_PATHS)) -> dict:
     """One mixed step (a 16-lane chunk, some slots partial) then one decode
-    step, on fresh pools, along five paths: the kernels, the kernels with
-    the model's norms eager (``eager_norms``), the kernels'
-    plain versions, those plain versions with the attention outputs
-    perturbed by ``ATTN_PERTURB`` (relative), and the XLA-style path
-    ``matmul_backend="xla"`` + ``paged_attn_impl="gather"`` (whose scores
-    are rounded to the compute dtype before the softmax, as the
+    step, on fresh pools, along ``paths`` of ``STEP_PATHS``: the kernels,
+    the kernels with the model's norms eager (``eager_norms``), the
+    kernels' plain versions, those plain versions with the attention
+    outputs perturbed by ``ATTN_PERTURB`` (relative), and the XLA-style
+    path ``matmul_backend="xla"`` + ``paged_attn_impl="gather"`` (whose
+    scores are rounded to the compute dtype before the softmax, as the
     reference's gather path does; under int8 weights it is another
     function, with no activation quantization).  Max and mean
     |difference| against the plain versions are printed, and the PyTorch
-    operators each step of the two kernel paths dispatches.  With ``gate``
+    operators each step of the kernel paths dispatches.  With ``gate``
     the kernels' max must stay within 2e-2 * max|logits|, or within twice
     the perturbed path's max where that is larger: with int8 activations
     (one per-tensor scale) a float32 last-bit difference moves values
     across rounding boundaries and grows over 24 layers, so the model's
-    own sensitivity, not the kernels, sets the floor."""
+    own sensitivity, not the kernels, sets the floor.  For a model with an
+    untied ``lm_head`` the unembedding's own share of the kernels' logit
+    distance is printed: the distance between its float32 product on the
+    kernel path's final states and the same product in float64, over the
+    kernels' distance from the plain versions.  Returns each step's
+    kernels' distance and tolerance."""
     dt = str(model.compute_dtype)[6:]
     kind = "int8 weights + int8 pool" if model.quant == "int8" \
         else "float weights + bf16 pool"
-    print(f"\n== full-width qwen1.5-0.5b steps, {kind}, {dt} compute: "
-          "|path - kernels' plain versions| "
+    cfg = model.cfg
+    print(f"\n== full-width {cfg.name} steps ({cfg.num_layers} layers), "
+          f"{kind}, {dt} compute: |path - kernels' plain versions| "
           + ("(gated)" if gate else "(reported)"))
-    spec = full_width_spec(True)
-    paging = spec.memory.paging()
+    paging = full_width_spec(True).memory.paging()
     B, W = ENGINE["max_batch"], ENGINE["chunk"]
     nblk = ENGINE["max_len"] // ENGINE["block_size"]
     tables = (torch.randperm(paging.num_blocks, generator=g, device=dev)
               .reshape(B, nblk) + 1).to(torch.int32)
-    vocab = model.cfg.vocab_size
+    vocab = cfg.vocab_size
     toks = torch.randint(0, vocab, (B, W), generator=g, device=dev,
                          dtype=torch.int32)
     start = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -1163,60 +1214,181 @@ def check_model_steps(model: Model, dev, g, gate: bool) -> None:
                           device=dev)
     dtoks = torch.randint(0, vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
-    paths = (("kernels", ("pallas", "pallas"), contextlib.nullcontext),
-             ("kernels, norms eager", ("pallas", "pallas"), eager_norms),
-             ("plain versions", ("pallas", "pallas"), plain_versions),
-             ("plain, perturbed", ("pallas", "pallas"),
-              lambda: plain_versions(ATTN_PERTURB)),
-             ("xla + gather", ("xla", "gather"), contextlib.nullcontext))
-    out, ops = {}, {}
-    for path, (mm, attn), ctx in paths:
+    live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
+    out, ops, heads = {}, {}, []
+    unembed = layers_mod.unembed
+
+    def recording(x, table):
+        heads.append((x, table))
+        return unembed(x, table)
+
+    for path in paths:
+        (mm, attn), ctx = STEP_PATHS[path]
         model.matmul_backend, model.paged_attn_impl = mm, attn
         cache = model.init_cache(paging)
         counts = (OpCount(), OpCount()) if path.startswith("kernels") \
             else (contextlib.nullcontext(),) * 2
-        with ctx():
+        record = mock.patch.object(layers_mod, "unembed", recording) \
+            if path == "kernels" else contextlib.nullcontext()
+        with ctx(), record:
             with counts[0]:
                 mixed = model.mixed_step(cache, toks, start, n_live, tables)
             with counts[1]:
                 dec = model.decode_step(cache, dtoks, n_live.clone(), tables)
         if path.startswith("kernels"):
             ops[path] = [c.n for c in counts]
-        live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
         out[path] = (mixed[live], dec)
         del cache
     model.matmul_backend, model.paged_attn_impl = "pallas", "pallas"
     print("PyTorch operators dispatched per step on the kernel path: "
           + "; ".join(f"{path}: mixed {n[0]}, decode {n[1]}"
                       for path, n in ops.items()))
+    result = {}
     for i, step in enumerate(("mixed_step", "decode_step")):
         ref = out["plain versions"][i]
         floor = max_err(out["plain, perturbed"][i], ref)
         tol = max(LOGIT_TOL * float(ref.abs().max()), 2 * floor)
         line = (f"{step}: tol max({LOGIT_TOL} x max|logits|, 2 x perturbed) "
                 f"= {tol:.4g}")
-        for path in ("kernels", "kernels, norms eager", "plain, perturbed",
-                     "xla + gather"):
+        for path in paths:
+            if path == "plain versions":
+                continue
             d = (out[path][i] - ref).abs()
             line += (f"; {path}: max {float(d.max()):.4g} "
                      f"mean {float(d.mean()):.4g}")
         print(line)
         err = max_err(out["kernels"][i], ref)
+        result[step] = dict(err=err, tol=tol)
+        if model.lm_head is not None:
+            x, table = heads[i]
+            exact = unembed_exact(x, table)
+            exact = exact[live] if i == 0 else exact
+            d_head = max_err(out["kernels"][i], exact)
+            result[step]["lm_head"] = d_head
+            print(f"  untied lm_head ({table.shape[0]} x {table.shape[1]}, "
+                  f"f32 torch.matmul): its own float32 error {d_head:.4g} "
+                  f"against float64 on the kernel path's final states, "
+                  f"{d_head / err if err else float('nan'):.3g} of the "
+                  f"kernels' distance {err:.4g}")
         if gate and err > tol:
-            raise AssertionError(f"{step} logits disagree: {err} > {tol}")
+            raise AssertionError(f"{cfg.name} {step} logits disagree: "
+                                 f"{err} > {tol}")
+    return result
+
+
+def census_dependent_launches(params, dev, g) -> None:
+    """ROADMAP Queue 1 item 7a: does a split matmul's reduce, launched as a
+    programmatic dependent (``csrc/launch.cuh`` ``launch_dependent``),
+    capture as a programmatic edge?  One full-width mixed step of the
+    float kernel path is captured (``keep_graph=True``) and the graph's
+    nodes and edges by type are read through libcuda's
+    ``cuGraphGetEdges_v2``: each split ``tiled_matmul`` should give one
+    programmatic edge (loop -> reduce)."""
+    model = Model.from_spec(full_width_spec(True), device=dev)
+    model.load_state_dict(params)
+    paging = full_width_spec(True).memory.paging()
+    B, W = ENGINE["max_batch"], ENGINE["chunk"]
+    nblk = ENGINE["max_len"] // ENGINE["block_size"]
+    tables = (torch.arange(B * nblk, device=dev).reshape(B, nblk) + 1) \
+        .to(torch.int32)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, W), generator=g,
+                         device=dev, dtype=torch.int32)
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_live = torch.full((B,), W, dtype=torch.int32, device=dev)
+    cache = model.init_cache(paging)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.mixed_step(cache, toks, start, n_live, tables)
+    torch.cuda.current_stream().wait_stream(side)
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        print("dependent launches under capture: torch.cuda.CUDAGraph takes "
+              "no keep_graph here, so the census is not available")
+        return
+    before = tm_mod.tiled_matmul.launches
+    with torch.cuda.graph(graph, stream=side):
+        model.mixed_step(cache, toks, start, n_live, tables)
+    matmuls = tm_mod.tiled_matmul.launches - before
+    split = tm_mod.launched_grid()[1] > 1
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n_nodes, n_edges = ctypes.c_size_t(0), ctypes.c_size_t(0)
+    get_edges = getattr(cuda, "cuGraphGetEdges_v2", None)
+    if get_edges is None:
+        print("dependent launches under capture: libcuda gives no "
+              "cuGraphGetEdges_v2, so the census is not available")
+        return
+    for err in (cuda.cuGraphGetNodes(raw, None, ctypes.byref(n_nodes)),
+                get_edges(raw, None, None, None, ctypes.byref(n_edges))):
+        if err:
+            raise AssertionError(f"the graph census failed: CUresult {err}")
+    n = n_edges.value
+    src, dst = (ctypes.c_void_p * n)(), (ctypes.c_void_p * n)()
+    data = (ctypes.c_ubyte * (8 * n))()    # CUgraphEdgeData: 8 bytes each
+    err = get_edges(raw, src, dst, data, ctypes.byref(n_edges))
+    if err:
+        raise AssertionError(f"cuGraphGetEdges_v2 failed: {err}")
+    kinds = collections.Counter(data[8 * i + 2] for i in range(n))
+    print(f"dependent launches under capture: a full-width mixed step "
+          f"graph holds {n_nodes.value} nodes and {n} edges, "
+          f"{kinds.get(1, 0)} programmatic and {kinds.get(0, 0)} default; "
+          f"{matmuls} tiled_matmul launches captured, "
+          f"{'each' if split else 'none'} split into a loop and its reduce")
+    del graph, cache, model
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the serving engine's main path
 # ---------------------------------------------------------------------------
+def zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for name in LIVE_KV:
+        KERNELS[name].live_kv_launches = 0
+
+
+def made_launches(eng, captured: dict, replayed: dict) -> dict[str, int]:
+    """The kernel launches a drain on ``eng`` made, the counts zeroed just
+    before it and ``captured`` / ``replayed`` the engine's tallies then:
+    every wrapper's count (eager steps, capture warm-ups, and the launches
+    each capture recorded but did not run), less what the drain's captures
+    recorded, plus each graph's capture counts times its replays in the
+    drain (``ServingEngine.replayed_launches``)."""
+    counts = launch_counts()
+    return {n: counts[n] - (eng.captured_launches[n] - captured[n])
+            + (eng.replayed_launches[n] - replayed[n]) for n in counts}
+
+
+def device_seconds(prof) -> float | None:
+    """Device time of the kernels, copies and fills a ``torch.profiler``
+    run traced, in seconds (None: it traced no device activity)."""
+    us = sum(e.self_device_time_total for e in device_events(prof))
+    return us / 1e6 if us else None
+
+
+def device_events(prof) -> list:
+    """The traced device activities (kernels, copies, fills), each name
+    with its summed device time, longest first."""
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+
+
 def drain(eng, prompts, models=None, sync_every: int = 1,
-          no_sync: bool = False) -> tuple[dict, float]:
+          no_sync: bool = False, measure: str | None = None) -> dict:
     """Submit ``prompts`` (greedy, ``MAX_NEW`` tokens each; ``models``: the
     fleet member of each) and drain the engine; every request must finish
-    with ``MAX_NEW`` tokens.  ``no_sync`` runs every fused step under
-    ``torch.cuda.set_sync_debug_mode("error")`` (ROADMAP Queue 3 fault B):
-    a host sync in ``_dispatch`` raises, and no staging buffer may have
-    waited.  Returns the streams and the drain's seconds."""
+    with ``MAX_NEW`` tokens.  The kernel counts are zeroed just before the
+    drain.  ``no_sync`` runs every fused step, captures included, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (ROADMAP Queue 3 fault
+    B): a host sync in ``_dispatch`` raises, and no staging buffer may
+    have waited.  ``measure``: "profile" traces the drain with
+    ``torch.profiler`` (its device seconds), "ops" counts the PyTorch
+    operators it dispatches.  Returns the streams, seconds, steps, the
+    drain's share of the engine's stats, the engine's compilations and
+    the launches made."""
     uids = {eng.submit(p, max_new_tokens=MAX_NEW,
                        model=0 if models is None else models[i]): i
             for i, p in enumerate(prompts)}
@@ -1229,12 +1401,20 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    meter = torch.profiler.profile(activities=act) if measure == "profile" \
+        else OpCount() if measure == "ops" else contextlib.nullcontext()
+    zero_counts()
+    tallies = (collections.Counter(eng.captured_launches),
+               collections.Counter(eng.replayed_launches))
+    stats0 = dict(eng.stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with mock.patch.object(eng, "_dispatch", checked) if no_sync \
-            else contextlib.nullcontext():
+            else contextlib.nullcontext(), meter:
         done = eng.run_to_completion(sync_every=sync_every)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if len(done) != len(prompts) or not all(r.done for r in done):
         raise AssertionError(f"{len(done)}/{len(prompts)} requests finished")
@@ -1244,36 +1424,143 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
     waits = sum(st.waits for st in eng._stages.values())
     if no_sync and waits:
         raise AssertionError(f"{waits} uploads waited for a staging buffer")
-    return streams, dt
+    stats = {k: v - stats0[k] for k, v in eng.stats.items()}
+    out = dict(streams=streams, dt=dt, steps=stats["decode_steps"],
+               stats=stats, compilations=dict(eng.compilations),
+               launches=made_launches(eng, *tallies))
+    if measure == "profile":
+        out["device_s"] = device_seconds(meter)
+        out["top"] = [(e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in device_events(meter)[:12]]
+    elif measure == "ops":
+        out["ops"] = meter.n
+    return out
 
 
-def serve(params, kernels: bool, prompts, quant: bool = False,
-          **kw) -> tuple[dict, float, int]:
-    eng = ServingEngine(full_width_spec(kernels, quant), device="cuda")
+def serve(params, prompts, kernels: bool = True, quant: bool = False,
+          graphs: bool = True, arch: ArchConfig | None = None,
+          warm: bool = False, **kw) -> dict:
+    """A fresh full-width engine (``graphs``: each fused program one CUDA
+    graph, else eager) loads ``params`` and drains ``prompts``; ``warm``
+    drains them once more on the same engine (its graphs captured) into
+    ``out["warm"]``."""
+    eng = ServingEngine(full_width_spec(kernels, quant, arch), device="cuda",
+                        graphs=graphs)
     eng.load(params)
-    streams, dt = drain(eng, prompts, **kw)
-    return streams, dt, eng.stats["decode_steps"]
+    out = drain(eng, prompts, **kw)
+    if warm:
+        out["warm"] = drain(eng, prompts, **kw)
+    del eng
+    return out
 
 
-def no_sync_line(params, prompts, quant: bool) -> None:
-    """Fault B's check on the card: a kernel-path drain at sync_every=4
-    with every fused step under ``set_sync_debug_mode("error")``; it must
-    run mixed and decode steps and give the sync_every=1 streams."""
-    for fn in KERNELS.values():
-        fn.launches = 0
-    streams, dt, steps = serve(params, True, prompts, quant, sync_every=4,
-                               no_sync=True)
-    counts = {n: KERNELS[n].launches for n in ("chunked_prefill_attention",
-                                               "paged_decode_attention")}
+def drain_line(label: str, r: dict, n_tok: int) -> str:
+    st = r["stats"]
+    return (f"{label}: {n_tok} tokens in {r['dt']:.3f} s "
+            f"({n_tok / r['dt']:.1f} tok/s), {r['steps']} fused steps; "
+            f"{st['graph_captures']} captures, {st['graph_replays']} "
+            f"replays, {st['eager_steps']} eager steps; compilations "
+            f"decode {r['compilations']['decode']} prefill "
+            f"{r['compilations']['prefill']}")
+
+
+def check_graphed(label: str, runs: dict, kernels, layers: int,
+                  n_tok: int) -> None:
+    """Phase 5's graphed-against-eager gates on one path: both drains
+    finish, the graphed streams equal the eager ones, each program was
+    captured once (``compilations`` decode = prefill = 1) and no step ran
+    eagerly, the launches the replays made equal the eager drain's, each
+    kernel of ``kernels`` launched in both, and ``rmsnorm`` (where the
+    path runs it) 2L+1 times per fused step."""
+    g, e = runs["graphed"], runs["eager"]
+    for mode, r in runs.items():
+        print(drain_line(f"{label}, {mode}", r, n_tok))
+        print(f"  launches {dict((n, c) for n, c in r['launches'].items() if c)}")
+    same = sum(a == b for i in g["streams"]
+               for a, b in zip(g["streams"][i], e["streams"][i]))
+    print(f"  {label}: identical tokens graphed vs eager {same}/{n_tok}")
+    if g["streams"] != e["streams"]:
+        raise AssertionError(f"{label}: the graphed streams differ from the "
+                             f"eager ones ({same}/{n_tok})")
+    comp = g["compilations"]
+    if comp["decode"] != 1 or comp["prefill"] != 1 \
+            or g["stats"]["eager_steps"]:
+        raise AssertionError(f"{label}: compilations {comp}, eager steps "
+                             f"{g['stats']['eager_steps']}; want one capture "
+                             "per program and no eager step")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"{label}: the graphed drain's launches "
+                             f"{g['launches']} differ from the eager "
+                             f"drain's {e['launches']}")
+    for r in runs.values():
+        for name in kernels:
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{label} path")
+        if "rmsnorm" in kernels and r["launches"]["rmsnorm"] \
+                != (2 * layers + 1) * r["steps"]:
+            raise AssertionError(
+                f"rmsnorm launched {r['launches']['rmsnorm']} times in "
+                f"{r['steps']} steps on the {label} path, not "
+                f"{(2 * layers + 1) * r['steps']}")
+
+
+def no_sync_line(params, prompts, quant: bool) -> dict:
+    """Fault B's check on the card: a graphed kernel-path drain at
+    sync_every=4 with every fused step, the captures included, under
+    ``set_sync_debug_mode("error")``; it must run mixed and decode steps
+    and give the sync_every=1 streams."""
+    r = serve(params, prompts, quant=quant, sync_every=4, no_sync=True)
+    counts = {n: r["launches"][n] for n in ("chunked_prefill_attention",
+                                            "paged_decode_attention")}
     if not all(counts.values()):
         raise AssertionError(f"the sync check ran no mixed or no decode "
                              f"step: {counts}")
     mixed = counts["chunked_prefill_attention"] \
         // full_width_spec(True).arch.num_layers
-    print(f"{'int8' if quant else 'float'} weights, sync_every=4, every "
-          f"fused step under set_sync_debug_mode('error'): no host sync, "
-          f"no staging wait; {steps} steps ({mixed} mixed), {dt:.3f} s")
-    return streams
+    print(f"{'int8' if quant else 'float'} weights, graphed, sync_every=4, "
+          f"every fused step under set_sync_debug_mode('error'): no host "
+          f"sync, no staging wait; {r['steps']} steps ({mixed} mixed, "
+          f"{r['stats']['graph_captures']} captures), {r['dt']:.3f} s")
+    return r["streams"]
+
+
+def host_and_device_line(label: str, make_engine, prompts,
+                         timed: dict) -> None:
+    """The device's idle share and the host's PyTorch operators per fused
+    step, for a graphed engine's first drain (its two captures and their
+    warm-ups included), a warm graphed engine's drain (replays only) and
+    an eager drain.  Idle: 1 - the device seconds of the kernels, copies
+    and fills that ``torch.profiler`` traced in a drain, over the wall
+    seconds of the untimed traced drain and of the same drain untraced
+    (``timed``: phase 5's drains).  Operators: ``OpCount`` over a drain."""
+    counted, traced, eager = make_engine(True), make_engine(True), \
+        make_engine(False)
+    runs = {"graphed, first drain": timed["graphed"],
+            "graphed, warm engine": timed["graphed"]["warm"],
+            "eager": timed["eager"]}
+    for mode, untraced in runs.items():
+        o = drain(eager if mode == "eager" else counted, prompts,
+                  measure="ops")
+        p = drain(eager if mode == "eager" else traced, prompts,
+                  measure="profile")
+        if p["device_s"] is None:
+            idle = "not measured (the profiler traced no device activity)"
+        else:
+            idle = (f"{1 - p['device_s'] / untraced['dt']:.3f} of the "
+                    f"untraced drain's {untraced['dt']:.3f} s "
+                    f"({p['device_s'] * 1e3:.1f} ms of device time; "
+                    f"{1 - p['device_s'] / p['dt']:.3f} of the traced "
+                    f"drain's {p['dt']:.3f} s)")
+        print(f"{label}, {mode}: device idle {idle}; PyTorch operators "
+              f"{o['ops']} over {o['steps']} fused steps = "
+              f"{o['ops'] / o['steps']:.1f} per step")
+        if mode == "graphed, warm engine" and p["device_s"]:
+            print("  where the warm drain's device time goes (the 12 "
+                  "longest by name: calls, ms, share):")
+            for key, calls, ms in p["top"]:
+                print(f"    {key[:90]:<90} {calls:>6} {ms:9.3f} "
+                      f"{ms / (p['device_s'] * 1e3):6.1%}")
 
 
 # ---------------------------------------------------------------------------
@@ -1298,35 +1585,30 @@ def fleet_spec(kv_dtype: str, compute: str = "bf16") -> RuntimeSpec:
         scheduler=SchedulerSpec(chunk_size=ENGINE["chunk"]))
 
 
-def fleet_drain(members, prompts, kv_dtype: str, **kw) -> dict:
+def fleet_drain(members, prompts, kv_dtype: str, graphs: bool = True,
+                **kw) -> dict:
     """One fleet engine (both members added) drains the prompts, request i
     on member i % 2; every request must finish inside its member's vocab.
-    Returns streams, seconds, steps, live_kv launches and the peak device
-    memory above what was allocated before the engine."""
+    Adds the table's bytes, the peak device memory above what was
+    allocated before the engine and the ``live_kv`` launches to
+    ``drain``'s result."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(fleet_spec(kv_dtype), max_models=len(members),
-                        device="cuda")
+                        device="cuda", graphs=graphs)
     ids = [eng.add_model(p, c) for c, p in members]
     table_gb = DecodeFabric.table_bytes(eng.table) / 1e9
-    for fn in KERNELS.values():
-        fn.launches = 0
-    for name in PATH_KERNELS["fleet"]:
-        KERNELS[name].live_kv_launches = 0
     models = [ids[i % len(ids)] for i in range(len(prompts))]
-    streams, dt = drain(eng, prompts, models, **kw)
-    for i, stream in streams.items():
+    out = drain(eng, prompts, models, **kw)
+    for i, stream in out["streams"].items():
         vocab = members[models[i]][0].vocab_size
         if not all(0 <= t < vocab for t in stream):
             raise AssertionError(f"fleet request {i}: a token outside "
                                  f"member {models[i]}'s vocab {vocab}")
-    out = dict(streams=streams, dt=dt, steps=eng.stats["decode_steps"],
-               table_gb=table_gb,
+    out.update(table_gb=table_gb,
                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
-               launches={n: fn.launches for n, fn in KERNELS.items()},
-               live_kv=sum(KERNELS[n].live_kv_launches
-                           for n in PATH_KERNELS["fleet"]))
+               live_kv=sum(out["launches"][f"{n}.live_kv"] for n in LIVE_KV))
     del eng
     torch.cuda.empty_cache()
     return out
@@ -1393,12 +1675,15 @@ def check_fleet_logits(members, dev, g) -> None:
 def check_fleet(dev, g, lengths) -> dict:
     """The full-width fleet: qwen1.5-0.5b and adaptor-bert-shaped (random
     weights from the generator) drain the phase 5 request mix, request i
-    on member i % 2, over a bf16 and an int8 pool, each twice on fresh
-    engines (the streams must repeat; the first bf16 drain runs every
-    fused step under ``set_sync_debug_mode("error")``); every fleet step
-    launches one attention kernel per layer with ``live_kv``, 24 a step.
-    Then the kernel-path logits against the gather path's at f32 compute.
-    Returns the first bf16 drain's launches."""
+    on member i % 2, over a bf16 pool on two graphed engines (the first at
+    sync_every=4 with every fused step under
+    ``set_sync_debug_mode("error")``) and an eager one, and over an int8
+    pool on two graphed engines: the streams repeat, the graphed bf16
+    streams equal the eager ones with one capture per program and the
+    same launches, and every fleet step launches one attention kernel per
+    layer with ``live_kv``, 24 a step.  Then the kernel-path logits
+    against the gather path's at f32 compute.  Returns the first bf16
+    drain's launches."""
     members = [(c, Model(c, device=dev).init(g).state_dict())
                for c in (get_config(n) for n in FLEET)]
     maxima = fleet_spec("compute").maxima
@@ -1413,43 +1698,112 @@ def check_fleet(dev, g, lengths) -> dict:
     n_tok = len(prompts) * MAX_NEW
     first = None
     for kv_dtype in ("compute", "int8"):
-        # the first bf16 drain also holds fault B: sync_every=4, every
-        # fused step under set_sync_debug_mode("error")
+        bf16 = kv_dtype == "compute"
         runs = [fleet_drain(members, prompts, kv_dtype,
                             **(dict(sync_every=4, no_sync=True)
-                               if kv_dtype == "compute" and i == 0 else {}))
+                               if bf16 and i == 0 else {}))
                 for i in range(2)]
-        pool = "bf16" if kv_dtype == "compute" else "int8"
+        if bf16:
+            runs.append(fleet_drain(members, prompts, kv_dtype,
+                                    graphs=False))
+        pool = "bf16" if bf16 else "int8"
         for i, r in enumerate(runs):
             want = maxima.layers_enc_max * r["steps"]
-            print(f"fleet, {pool} pool, engine {i + 1}: {n_tok} tokens in "
-                  f"{r['dt']:.3f} s ({n_tok / r['dt']:.1f} tok/s), "
-                  f"{r['steps']} fused steps, live_kv launches "
-                  f"{r['live_kv']} ({maxima.layers_enc_max} x steps = "
-                  f"{want}), decode "
+            mode = "eager" if i == 2 else "graphed"
+            print(drain_line(f"fleet, {pool} pool, engine {i + 1} ({mode})",
+                             r, n_tok)
+                  + f"; live_kv launches {r['live_kv']} "
+                  f"({maxima.layers_enc_max} x steps = {want}), decode "
                   f"{r['launches']['paged_decode_attention']} + chunk "
                   f"{r['launches']['chunked_prefill_attention']}; table "
                   f"{r['table_gb']:.3f} GB, peak {r['peak_gb']:.3f} GB "
                   "allocated above the members' weights"
                   + (" (sync_every=4, every step under "
                      "set_sync_debug_mode('error'): no host sync)"
-                     if kv_dtype == "compute" and i == 0 else ""))
+                     if bf16 and i == 0 else ""))
             if r["live_kv"] != want:
                 raise AssertionError(f"fleet live_kv launches {r['live_kv']}"
                                      f" != {want}: one per layer and step")
         same = sum(a == b for k in runs[0]["streams"]
                    for a, b in zip(runs[0]["streams"][k],
                                    runs[1]["streams"][k]))
-        print(f"fleet, {pool} pool: identical tokens on the two engines "
-              f"{same}/{n_tok}")
+        print(f"fleet, {pool} pool: identical tokens on the two graphed "
+              f"engines {same}/{n_tok}")
         if runs[0]["streams"] != runs[1]["streams"]:
             raise AssertionError(f"the fleet's {pool}-pool streams differ "
                                  "between two fresh engines")
+        if bf16:
+            check_graphed("fleet, bf16 pool",
+                          {"graphed": runs[1], "eager": runs[2]},
+                          PATH_KERNELS["fleet"], maxima.layers_enc_max,
+                          n_tok)
         first = first or runs[0]
     check_fleet_logits(members, dev, g)
     del members
     torch.cuda.empty_cache()
     return first["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the rest of the dense family (untied lm_head)
+# ---------------------------------------------------------------------------
+# (config, depth it runs at): phi3-mini at its full 32 layers; qwen2-72b
+# at full width and 2 of its 80 layers (one card: ~1.76 G parameters of
+# layers, ~7 GB at f32 compute, beside two f32 [152064, 8192] tables of
+# 5 GB each).  codeqwen1.5-7b runs only in the CPU tests.
+DENSE_FAMILY = (("phi3-mini-3.8b", None), ("qwen2-72b", 2))
+
+
+def check_dense_family(dev, g, lengths) -> dict:
+    """Each untied config at full width with random weights from the
+    generator: one mixed and one decode step at f32 compute, the kernels
+    against their plain versions within phase 4's gate (with the untied
+    ``lm_head``'s share of the distance); then the phase 5 request mix
+    drained by a graphed and an eager bf16 engine through the kernels:
+    streams equal, one capture per program, launches equal, ``rmsnorm``
+    2L+1 a step.  Prints the launches of the paged walks at the config's
+    head shape (phi3-mini: 32 heads of 96; qwen2-72b: 64 of 128 over 8
+    kv heads).  Returns {config: the graphed drain's launches}."""
+    out = {}
+    for name, depth in DENSE_FAMILY:
+        cfg = get_config(name)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        hd, rep = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+        params = Model(cfg, device=dev).init(g).state_dict()
+        n_params = sum(t.numel() for t in params.values())
+        print(f"\n== dense family: {name} at full width, {cfg.num_layers} "
+              f"of {get_config(name).num_layers} layers, {n_params / 1e9:.3f}"
+              f" G parameters, {cfg.num_heads} heads of {hd} over "
+              f"{cfg.num_kv_heads} kv heads (GQA {rep}), untied lm_head")
+        zero_counts()
+        model32 = Model(cfg, compute_dtype=torch.float32, device=dev)
+        model32.load_state_dict(params)
+        check_model_steps(model32, dev, g, gate=True,
+                          paths=("kernels", "plain versions",
+                                 "plain, perturbed"))
+        steps_walks = {n: KERNELS[n].launches for n in (
+            "paged_decode_attention", "chunked_prefill_attention")}
+        del model32
+        torch.cuda.empty_cache()
+        rs = np.random.default_rng(2)
+        prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+                   for n in lengths]
+        n_tok = len(prompts) * MAX_NEW
+        runs = {mode: serve(params, prompts, graphs=mode == "graphed",
+                            arch=cfg) for mode in ("graphed", "eager")}
+        check_graphed(name, runs, PATH_KERNELS["float"], cfg.num_layers,
+                      n_tok)
+        walks = {n: steps_walks[n] + runs["graphed"]["launches"][n]
+                 for n in steps_walks}
+        print(f"{name}: the paged walks at {cfg.num_heads} heads of {hd} "
+              f"(GQA {rep}) launched decode {walks['paged_decode_attention']}"
+              f", chunk {walks['chunked_prefill_attention']} times (the f32 "
+              f"steps and the graphed drain)")
+        out[name] = runs["graphed"]["launches"]
+        del params, runs
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1513,40 +1867,49 @@ def main() -> int:
         del m16
 
     print("\n== serving: full-width qwen1.5-0.5b, paged + chunked, "
-          f"{len(PROMPT_LENS)} greedy requests x {MAX_NEW} new tokens")
+          f"{len(PROMPT_LENS)} greedy requests x {MAX_NEW} new tokens, "
+          "each fused program one CUDA graph (graphed) and eager")
     rs = np.random.default_rng(0)
     prompts = [rs.integers(0, model.cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
     layers = model.cfg.num_layers
     del model
     n_tok = len(prompts) * MAX_NEW
-    streams = {}
+    streams, timed = {}, {}
     for path in ("float", "int8"):
-        for fn in KERNELS.values():
-            fn.launches = 0
-        streams[path], dt_p, steps = serve(params, True, prompts,
-                                           quant=path == "int8")
-        launches[path] = {name: fn.launches for name, fn in KERNELS.items()}
-        print(f"kernels, {path} weights: {n_tok} tokens in {dt_p:.3f} s "
-              f"({n_tok / dt_p:.1f} tok/s), {steps} fused steps, launches "
-              f"{launches[path]}")
-        for name in PATH_KERNELS[path]:
-            if launches[path][name] <= 0:
-                raise AssertionError(f"{name} was not launched on the "
-                                     f"{path} serving path")
-        # every fused step runs the model once: ln1 and ln2 of each layer
-        # and the final norm
-        if launches[path]["rmsnorm"] != (2 * layers + 1) * steps:
+        quant = path == "int8"
+        timed[path] = {mode: serve(params, prompts, quant=quant,
+                                   graphs=mode == "graphed",
+                                   warm=mode == "graphed")
+                       for mode in ("graphed", "eager")}
+        check_graphed(f"kernels, {path} weights", timed[path],
+                      PATH_KERNELS[path], layers, n_tok)
+        # the same engine drains the mix again on its captured graphs
+        cold, warm = timed[path]["graphed"], timed[path]["graphed"]["warm"]
+        same = sum(a == b for i in warm["streams"]
+                   for a, b in zip(warm["streams"][i], cold["streams"][i]))
+        print(drain_line(f"kernels, {path} weights, graphed, warm engine "
+                         "(a second drain)", warm, n_tok)
+              + f"; identical tokens to the first drain {same}/{n_tok}"
+              + ("" if path == "float" else " (reported, not gated: idle "
+                 "slots' stale rows join the int8 activation scale)"))
+        if warm["compilations"] != cold["compilations"] \
+                or warm["stats"]["graph_captures"] \
+                or warm["launches"] != cold["launches"]:
             raise AssertionError(
-                f"rmsnorm launched {launches[path]['rmsnorm']} times in "
-                f"{steps} steps on the {path} path, not "
-                f"{(2 * layers + 1) * steps}")
-    # fault B: no fused step waits for the device (sync_every=4).  The
-    # float streams are those of the sync_every=1 drain (rows are computed
-    # independently); the fully-quantized ones are reported: one int8
-    # activation scale spans all B x W rows, finished slots' rows among
-    # them, and at sync_every=4 a finished slot waits up to 3 steps for
-    # its harvest
+                f"kernels, {path} weights: the warm drain captured again "
+                f"({warm['compilations']}, {warm['stats']}) or launched "
+                f"otherwise ({warm['launches']})")
+        if path == "float" and warm["streams"] != cold["streams"]:
+            raise AssertionError("the warm float drain's streams differ")
+        streams[path] = timed[path]["graphed"]["streams"]
+        launches[path] = timed[path]["graphed"]["launches"]
+    # fault B: no fused step waits for the device (sync_every=4), captures
+    # included.  The float streams are those of the sync_every=1 drain
+    # (rows are computed independently); the fully-quantized ones are
+    # reported: one int8 activation scale spans all B x W rows, finished
+    # slots' rows among them, and at sync_every=4 a finished slot waits up
+    # to 3 steps for its harvest
     for path in ("float", "int8"):
         got = no_sync_line(params, prompts, path == "int8")
         same = sum(a == b for i in got
@@ -1558,33 +1921,48 @@ def main() -> int:
                                  "from those at sync_every=1")
     # the fully-quantized streams must repeat on a fresh engine: duplicate
     # pool writes of dead lanes (int8 values and scales) resolve to one row
-    again, dt_p, _ = serve(params, True, prompts, quant=True)
-    same = sum(a == b for i in again
-               for a, b in zip(streams["int8"][i], again[i]))
-    print(f"kernels, int8 weights, a second fresh engine: {n_tok} tokens in "
-          f"{dt_p:.3f} s; identical tokens to the first: {same}/{n_tok}")
-    if again != streams["int8"]:
+    again = serve(params, prompts, quant=True)
+    same = sum(a == b for i in again["streams"]
+               for a, b in zip(streams["int8"][i], again["streams"][i]))
+    print(f"kernels, int8 weights, a second fresh graphed engine: {n_tok} "
+          f"tokens in {again['dt']:.3f} s; identical tokens to the first: "
+          f"{same}/{n_tok}")
+    if again["streams"] != streams["int8"]:
         raise AssertionError("the fully-quantized streams differ between "
                              f"two fresh engines ({same}/{n_tok} equal)")
+    for path in ("float", "int8"):
+        quant = path == "int8"
+
+        def make_engine(graphs, quant=quant):
+            eng = ServingEngine(full_width_spec(True, quant), device="cuda",
+                                graphs=graphs)
+            eng.load(params)
+            return eng
+        host_and_device_line(f"kernels, {path} weights", make_engine,
+                             prompts, timed[path])
+    census_dependent_launches(params, dev, g)
     drain_estimate("tiled_matmul", entries["tiled_matmul"]["serving"],
                    layers, launches["float"], "library_ms", "torch.matmul")
     drain_estimate("int8_matmul", entries["int8_matmul"]["serving"], layers,
                    launches["int8"], "bf16_matmul_ms", "bf16 torch.matmul")
-    streams_p, dt_p, steps_p = serve(params, False, prompts)
-    print(f"plain, float weights: {n_tok} tokens in {dt_p:.3f} s "
-          f"({n_tok / dt_p:.1f} tok/s), {steps_p} fused steps")
-    for other, s_other in (("plain float", streams_p),
+    plain = serve(params, prompts, kernels=False)
+    print(drain_line("plain, float weights", plain, n_tok))
+    for other, s_other in (("plain float", plain["streams"]),
                            ("kernels int8", streams["int8"])):
         same = sum(a == b for i in s_other
                    for a, b in zip(streams["float"][i], s_other[i]))
         print(f"identical tokens kernels float vs {other}: {same}/{n_tok} "
               "(reported, not gated: near-ties and quantization may flip)")
+    del params
+    torch.cuda.empty_cache()
 
     launches["fleet"] = check_fleet(dev, g, PROMPT_LENS)
     for name in PATH_KERNELS["fleet"]:
         if launches["fleet"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the fleet path")
         entries[name]["live_kv"]["launches"] = launches["fleet"][name]
+
+    launches.update(check_dense_family(dev, g, PROMPT_LENS))
 
     table = []
     for name in KERNELS:

@@ -6,7 +6,8 @@ values plus a float32 scale stored beside them under ``<name>_scale``:
 
 * dense ``kernel``s ``[K, N]`` get per-column scales ``[1, N]`` (reduced
   over the contraction dim only);
-* the embedding ``table`` ``[V, D]`` gets per-row scales ``[V, 1]``.
+* the embedding and untied ``lm_head`` tables ``[V, D]`` get per-row
+  scales ``[V, 1]``.
 
 Eligibility is the reference's, which measures the *stacked* leaf: the
 reference keeps one ``[L, K, N]`` array per projection, the port one

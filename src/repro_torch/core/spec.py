@@ -269,9 +269,6 @@ class RuntimeSpec:
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               "; the port serves family 'dense'")
-        if not cfg.tie_embeddings:
-            raise _not_ported(f"{cfg.name}: untied embeddings (lm_head)",
-                              "item 7b")
         if self.maxima is not None and self.execution.quant == "int8":
             raise _not_ported(
                 "the fleet's int8 weight table (maxima=... with "

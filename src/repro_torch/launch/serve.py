@@ -12,7 +12,14 @@ through the hand-written decode and chunked-prefill kernels.  ``--quant
 int8`` serves int8 weights (through the hand-written ``int8_matmul`` under
 ``--kernels pallas``) and ``--kv-dtype int8`` an int8 KV pool.  The
 reference serves reduced configs in this driver; ``--full-width`` serves
-the architecture at its published widths.
+the architecture at its published widths.  ``--arch`` takes any id of the
+port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
+phi3-mini-3.8b, and adaptor-bert-shaped.
+
+On the card each fused program runs as one CUDA graph, captured on its
+first all-greedy step and replayed after (a step with a stochastic slot
+runs eagerly); ``--eager`` runs every step eagerly.  The report gives the
+captures, replays and eager steps beside the engine's ``compilations``.
 
 Multi-topology mode: ``--fleet qwen1.5-0.5b,adaptor-bert-shaped`` serves
 several architectures of the port's registry from one fused step: the
@@ -73,6 +80,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--chunk-size", type=int, default=16,
                     help="prompt tokens per slot per fused step")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eager", action="store_true",
+                    help="run every fused step eagerly (default on the "
+                         "card: each fused program is one CUDA graph)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -112,7 +122,8 @@ def main(argv: list[str] | None = None) -> None:
     device = resolve_device(args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
     eng = ServingEngine(spec, max_models=len(cfgs), device=device,
-                        sampling=sampling, seed=args.seed)
+                        sampling=sampling, seed=args.seed,
+                        graphs=False if args.eager else None)
     ex = spec.execution
     model_ids = []
     for i, c in enumerate(cfgs):
@@ -147,8 +158,12 @@ def main(argv: list[str] | None = None) -> None:
         else "cpu"
     print(f"{'+'.join(names)} on {name}: {len(done)} requests, {total_new} "
           f"tokens in {dt:.2f}s ({total_new / dt:,.1f} tok/s)")
-    print(f"host traffic: {eng.stats['device_gets']} bulk transfers over "
-          f"{eng.stats['decode_steps']} fused steps")
+    st = eng.stats
+    print(f"host traffic: {st['device_gets']} bulk transfers over "
+          f"{st['decode_steps']} fused steps")
+    print(f"fused programs: {st['graph_captures']} CUDA graph captures, "
+          f"{st['graph_replays']} replays, {st['eager_steps']} eager steps; "
+          f"compilations {dict(eng.compilations)}")
     s = eng.memory_stats()
     print(f"paged pool: {s.total_blocks} x {spec.memory.block_size}-token "
           f"blocks, {eng.stats['preemptions']} preemptions")

@@ -3,15 +3,16 @@
 and ``mixed_step``.
 
 Parameters mirror the reference's pytree, one module per layer instead
-of a stacked layer axis: ``embed.table``, ``final_norm.scale`` and
-``layers.<i>.{ln1, attn.{wq,wk,wv,wo}, ln2, ffn.{w1,wg,w2}}``.  Dense
+of a stacked layer axis: ``embed.table``, ``final_norm.scale``,
+``layers.<i>.{ln1, attn.{wq,wk,wv,wo}, ln2, ffn.{w1,wg,w2}}`` and, for a
+model with untied embeddings, ``lm_head.table``.  Dense
 kernels (``[d_in, d_out]``, as the reference stores them) and their
 biases are kept in the compute dtype, cast once from the parameter dtype;
 norm scales and the embedding table stay in the parameter dtype, since
 the norms and ``unembed`` read them in float32.
 
-With ``quant="int8"`` every eligible dense kernel and the embedding table
-(``core.serve_quant``) is held as int8 values with a float32 buffer beside
+With ``quant="int8"`` every eligible dense kernel and the embedding and
+``lm_head`` tables (``core.serve_quant``) is held as int8 values with a float32 buffer beside
 it, ``kernel_scale`` ``[1, d_out]`` or ``table_scale`` ``[vocab, 1]``; the
 model quantizes float weights as they arrive (``init`` and
 ``load_state_dict``).  ``kv_dtype`` selects the KV pool's codec
@@ -132,10 +133,6 @@ class Model(nn.Module):
             raise ValueError(
                 f"{cfg.name}: the port's Model serves the dense family with "
                 "rope (or no) positions (ROADMAP.md Queue 1 items 11-12)")
-        if not cfg.tie_embeddings:
-            raise ValueError(
-                f"{cfg.name}: the port's Model serves tied embeddings only; "
-                "the untied lm_head is ROADMAP.md Queue 1 item 7b")
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")
@@ -154,6 +151,11 @@ class Model(nn.Module):
             Block(cfg, param_dtype, compute_dtype, dev)
             for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, param_dtype, dev)
+        # the untied unembedding [vocab, d_model] (the reference's
+        # ``params["lm_head"]["table"]``); tied models unembed with the
+        # embedding table
+        self.lm_head = None if cfg.tie_embeddings else Embedding(
+            cfg.vocab_size, cfg.d_model, param_dtype, dev)
         if quant == "int8":
             for name, prm in list(self.named_parameters()):
                 leaf = serve_quant.eligible(name, prm.shape, cfg.num_layers,
@@ -176,8 +178,10 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights at the reference ``ParamBuilder``'s scales: dense
-        kernels normal / sqrt(fan_in), the embedding normal * 0.02, biases
-        zero, norm scales one.  Draws come from ``generator`` on its own
+        kernels normal / sqrt(fan_in), the embedding normal * 0.02, the
+        untied ``lm_head`` table normal / sqrt(vocab) (the reference builds
+        it with no scale, so its fan-in rule reads the table's first
+        dim), biases zero, norm scales one.  Draws come from ``generator`` on its own
         device, in the order of ``named_parameters``, rounded to the
         parameter dtype before any cast to the storage dtype (or before
         quantization, for an int8 leaf)."""
@@ -234,7 +238,8 @@ class Model(nn.Module):
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = layers.apply_norm(x, self.final_norm, self.cfg.norm,
                               self.matmul_backend)
-        return layers.unembed(x, _weight(self.embed, "table"))
+        head = self.embed if self.lm_head is None else self.lm_head
+        return layers.unembed(x, _weight(head, "table"))
 
     def _ffn_half(self, h: torch.Tensor, blk: Block) -> torch.Tensor:
         hn = layers.apply_norm(h, blk.ln2, self.cfg.norm,

@@ -22,6 +22,23 @@ stochastic rows' index and each admitted prompt (with its topology
 registers) go up through ``HostStage``'s pinned buffers as asynchronous
 copies into device tensors that stay in place.
 
+Each fused program is one CUDA graph (``graphs=True``, the default on a
+CUDA device; the counterpart of the reference's
+``strict_jit(..., donate_argnums=(1, 2))``): the first step of a kind runs
+eagerly on a side stream as the warm-up, is captured there once into a
+graph pool the engine's graphs share, and every later step of that kind
+replays the graph on the current stream, after the host work
+(``HostStage`` uploads, grants, stats).  Every tensor the step reads stays
+in place: the slot state, the pool, the block tables, the grants, the
+stochastic rows' index and the fleet's table.  ``load`` drops the graphs
+(it replaces the pool), as does any step that finds a captured tensor
+replaced.  Only all-greedy steps are captured: a step with a stochastic
+slot draws from that slot's host-side generator, so it runs eagerly and
+counts in ``stats["eager_steps"]``.  A capture that fails raises with its
+cause; nothing falls back to eager quietly.  ``compilations`` counts the
+captures per program (on an eager engine, 1 per program that ran), with
+the reference's accounting.
+
 Multi-topology serving: ``ServingEngine(spec, maxima=...)`` (or a spec
 with ``maxima``) runs the register-driven ``serving.fabric`` at the maxima
 instead of one fixed model.  ``add_model(params, arch)`` packs a
@@ -36,6 +53,7 @@ function of ``seed`` and its uid).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -44,15 +62,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.paging import (NULL_BLOCK, BlockAllocator,
                                      FragmentationStats, blocks_for_tokens)
 from repro_torch.core.spec import RuntimeSpec
+from repro_torch.kernels.counts import launch_counts
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.events import EngineEvent, EventBus
-from repro_torch.serving.fabric import N_REGS, DecodeFabric
+from repro_torch.serving.fabric import N_REGS, DecodeFabric, tree_leaves
 from repro_torch.serving.events import now as _now
 from repro_torch.serving.sampling import SamplingParams, sample_per_slot
 
+# decode_steps = graph_captures + graph_replays + eager_steps: a capture's
+# step runs once eagerly as its warm-up; on an eager engine every step is
+# an eager step
 _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
-              "prefill_tokens", "max_step_prefill_tokens")
+              "prefill_tokens", "max_step_prefill_tokens", "graph_captures",
+              "graph_replays", "eager_steps")
 # uploads of tables, grants and sampling rows the host may queue ahead of
 # the device before one waits for a staging buffer
 _STAGE_DEPTH = 16
@@ -100,6 +123,26 @@ class HostStage:
             dst.copy_(staged, non_blocking=True)
             at += src.numel()
         event.record(torch.cuda.current_stream(pairs[0][0].device))
+
+
+class Compilations(dict):
+    """Compile-count mapping that is also callable, as the reference's:
+    ``engine.compilations["decode"]`` and ``engine.compilations()["decode"]``
+    read the same accounting."""
+
+    def __call__(self) -> "Compilations":
+        return self
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One captured fused program: the graph, the tensors it reads (held
+    so that a replaced one is seen), and the launches per kernel wrapper
+    that its capture recorded, which each replay makes again."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple[torch.Tensor, ...]
+    launches: dict[str, int]
 
 
 @dataclasses.dataclass
@@ -157,13 +200,21 @@ class SlotState:
 class ServingEngine:
     def __init__(self, spec: RuntimeSpec, *, maxima=None,
                  max_models: int = 4, device=None,
-                 sampling: SamplingParams = SamplingParams(), seed: int = 0):
+                 sampling: SamplingParams = SamplingParams(), seed: int = 0,
+                 graphs: bool | None = None):
         if not isinstance(spec, RuntimeSpec):
             raise TypeError("ServingEngine expects a repro_torch.core.spec."
                             f"RuntimeSpec, got {type(spec).__name__}")
         if maxima is not None:
             spec = dataclasses.replace(spec, maxima=maxima)
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"graphs=True needs a CUDA device (got {self.device}); the "
+                "fused steps run eagerly on the host")
+        self.graphs = graphs
         self.spec = spec
         self.cfg: ArchConfig = spec.arch
         self.max_batch = spec.memory.max_batch
@@ -244,6 +295,17 @@ class ServingEngine:
         self.stats = dict.fromkeys(_STAT_KEYS, 0)
         self.events = EventBus()
         self._ft_emitted: set[int] = set()
+        # the fused programs: their graphs (graphed engine), the captures
+        # (graphed) or 1 once run (eager) per program, the pool and the
+        # side stream of the captures, and the kernel launches the captures
+        # recorded and the replays made (phase 5 of chip_smoke.py reads
+        # them: a wrapper counts a launch at capture, not at replay)
+        self._graphs: dict[str, StepGraph] = {}
+        self._programs = {"mixed": 0, "decode": 0}
+        self._graph_pool = None
+        self._graph_stream: torch.cuda.Stream | None = None
+        self.captured_launches: collections.Counter = collections.Counter()
+        self.replayed_launches: collections.Counter = collections.Counter()
 
     # ------------------------------------------------------------------
     def _emit(self, kind: str, uid: int, **data) -> None:
@@ -269,6 +331,7 @@ class ServingEngine:
         if self.fabric is not None:
             self.add_model(params)
             return
+        self._graphs.clear()      # they read the pool this call replaces
         self.model.load_state_dict(params)
         self.cache = self.model.init_cache(self.paging)
 
@@ -568,8 +631,101 @@ class ServingEngine:
             self._rows_key = key
         return self._rows_buf[:len(key)]
 
+    # ------------------------------------------------------------------
+    # the fused programs as CUDA graphs
+    # ------------------------------------------------------------------
+    @property
+    def compilations(self) -> Compilations:
+        """Compile-count accounting, the reference's: ``prefill`` and
+        ``decode`` count the programs serving each role, here the captures
+        of each fused step (on an eager engine, 1 for a program that ran).
+        Under the chunked scheduler both name the ONE fused mixed step, and
+        ``decode`` falls back to the mixed step's count when the one-lane
+        program never ran.  ``prefill_buckets`` (the bucketed scheduler's)
+        stays 0."""
+        n = self._programs["mixed"]
+        return Compilations(decode=self._programs["decode"] or n,
+                            prefill=n, prefill_buckets=0)
+
+    def _graph_inputs(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor a fused step reads or writes apart from the
+        weights, which ``load`` and ``add_model`` write in place."""
+        st, c = self.state, self.cache
+        out = [getattr(st, f.name) for f in dataclasses.fields(st)]
+        out += [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+        if self.table is not None:
+            out += tree_leaves(self.table)
+        return (*out, self.block_tables, self._grants, self._rows_buf)
+
+    def _run(self, kind: str, impl, *args) -> None:
+        """Run one fused step of program ``kind`` ("mixed" | "decode"):
+        replay its graph, capture it on its first all-greedy step, or run
+        it eagerly (an eager engine, or a step with a stochastic slot)."""
+        if not self.graphs or any(g is not None for g in self._gens):
+            impl(*args)
+            self.stats["eager_steps"] += 1
+            if not self.graphs:
+                self._programs[kind] = 1
+            return
+        sg = self._graphs.get(kind)
+        if sg is not None and not all(
+                a is b for a, b in zip(sg.inputs, self._graph_inputs())):
+            self._graphs.clear()      # a captured tensor was replaced
+            sg = None
+        if sg is None:
+            self._graphs[kind] = self._capture(kind, impl, *args)
+            return
+        sg.graph.replay()
+        self.stats["graph_replays"] += 1
+        self.replayed_launches.update(sg.launches)
+
+    def _capture(self, kind: str, impl, *args) -> StepGraph:
+        """Warm up (this step's own run, eager) and capture program
+        ``kind`` on the side stream, ordered after the uploads queued on
+        the current stream and before what follows there, without a host
+        sync.  A failed capture raises with its cause."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if not self._graphs:
+            # the pool lives as long as a graph holds it: after the graphs
+            # were dropped the next capture starts a new one
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side, current = self._graph_stream, torch.cuda.current_stream(
+            self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            impl(*args)                          # the warm-up is the step
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                impl(*args)
+            except Exception as err:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass                         # the capture was invalid
+                raise RuntimeError(
+                    f"capturing the fused {kind} step as a CUDA graph "
+                    f"failed: {err}") from err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                raise RuntimeError(
+                    f"capturing the fused {kind} step as a CUDA graph "
+                    f"failed: {err}") from err
+        current.wait_stream(side)
+        after = launch_counts()
+        launches = {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]}
+        self.captured_launches.update(launches)
+        self.stats["graph_captures"] += 1
+        self._programs[kind] += 1
+        return StepGraph(graph, self._graph_inputs(), launches)
+
     def _dispatch(self) -> None:
-        """One fused step, queued without waiting for the device."""
+        """One fused step, queued without waiting for the device: the
+        host work (uploads, grants, stats), then the step's program."""
         if self._tables_dirty:
             self._stages["tables"].put((self.block_tables, self._tables))
             self._tables_dirty = False
@@ -577,11 +733,11 @@ class ServingEngine:
         granted = sum(grants)
         if granted:
             self._stages["grants"].put((self._grants, grants))
-            self._mixed_impl(self._grants)
+            self._run("mixed", self._mixed_impl, self._grants)
         else:
             # steady state: the one-lane decode is the W == 1 special case
             # of the mixed step (same math, ~chunk_size x less query work)
-            self._decode_impl()
+            self._run("decode", self._decode_impl)
         self.stats["decode_steps"] += 1
         self.stats["prefill_tokens"] += granted
         self.stats["max_step_prefill_tokens"] = max(

@@ -76,9 +76,10 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _leaves(tree) -> list[torch.Tensor]:
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict (the fabric's weight table)."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
 
 
@@ -120,11 +121,6 @@ class DecodeFabric:
             raise ValueError(
                 f"{arch.name}: multi-topology serving covers the dense GQA "
                 f"family; family {arch.family!r} needs its own engine")
-        if not arch.tie_embeddings:
-            raise ValueError(
-                f"{arch.name}: untied embeddings (lm_head) is not ported to "
-                "repro_torch yet (ROADMAP.md Queue 1 item 7b); fleet members "
-                "must tie their embeddings")
         for knob, want, got in (("norm", t.norm, arch.norm),
                                 ("activation", t.activation, arch.activation),
                                 ("positional", "rope", arch.positional)):
@@ -199,7 +195,8 @@ class DecodeFabric:
         from ``bridge.from_jax_params`` or ``Model.init``) -> one
         zero-padded table row: KV weights replicated across the head group
         (so the step is uniform MHA over ``heads`` lanes), absent biases as
-        exact zeros, the tied embedding as ``lm_head``."""
+        exact zeros, the ``lm_head`` row the member's untied table or, when
+        it ties its embeddings, the embedding table."""
         self.check_member(arch)
         mx, L = self.mx, self.mx.layers_enc_max
         h, kv, hd = arch.num_heads, arch.num_kv_heads, self.hd
@@ -257,8 +254,9 @@ class DecodeFabric:
             row_layers["wg"] = pad(stacked(f"{f}.wg.kernel"), L, D, F)
             row_layers["bg"] = pad(stacked(f"{f}.wg.bias", arch.d_ff), L, F)
         table = params["embed.table"]
+        head = table if arch.tie_embeddings else params["lm_head.table"]
         return {"embed": pad(table, mx.vocab, D),
-                "lm_head": pad(table, mx.vocab, D),
+                "lm_head": pad(head, mx.vocab, D),
                 "final_norm": norm_row("final_norm", D, layers=False),
                 "layers": row_layers}
 
@@ -283,7 +281,7 @@ class DecodeFabric:
     @staticmethod
     def table_bytes(table: dict) -> int:
         """Resident device bytes of a packed weight table (all rows)."""
-        return sum(t.numel() * t.element_size() for t in _leaves(table))
+        return sum(t.numel() * t.element_size() for t in tree_leaves(table))
 
     # ------------------------------------------------------------------
     # Decode cache (maxima-shaped, paged)
@@ -362,9 +360,9 @@ class DecodeFabric:
 
     def _unembed(self, x: torch.Tensor, table: dict, mid: torch.Tensor,
                  d_live: torch.Tensor, v_live: torch.Tensor) -> torch.Tensor:
-        """Float32 logits [B, S, V_max] against each slot's tied table, the
-        dead vocab lanes at NEG_INF so that sampling can never pick a token
-        outside the slot's vocab.  The [B, V_max, D] float32 gather of the
+        """Float32 logits [B, S, V_max] against each slot's ``lm_head``
+        row, the dead vocab lanes at NEG_INF so that sampling can never pick
+        a token outside the slot's vocab.  The [B, V_max, D] float32 gather of the
         per-slot tables is the reference's."""
         mid = mid.long()
         xn = self._norm(x, _tree_map(lambda t: t[mid], table["final_norm"]),

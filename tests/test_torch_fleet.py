@@ -503,7 +503,9 @@ def test_cuda_live_kv_matches_plain_version():
 def test_cuda_fleet_engine_serves():
     """The reduced fleet on the card through the paged kernels: every
     request finishes inside its member's vocab, and every step launched
-    the attention kernels with ``live_kv`` once a layer."""
+    the attention kernels with ``live_kv`` once a layer (the engine's
+    graphs: a wrapper counts its launch at capture, and each replay
+    launches what its graph's capture recorded)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from repro_torch.models.model import Model
@@ -526,6 +528,10 @@ def test_cuda_fleet_engine_serves():
         vocab = (CFG_A, CFG_B)[uids[r.uid]].vocab_size
         assert len(r.generated) == 6 and all(0 <= t < vocab
                                              for t in r.generated)
+    keys = [f"{n}.live_kv" for n in ("paged_decode_attention",
+                                     "chunked_prefill_attention")]
     launched = (pa.paged_decode_attention.live_kv_launches - counts[0]
-                + cp.chunked_prefill_attention.live_kv_launches - counts[1])
+                + cp.chunked_prefill_attention.live_kv_launches - counts[1]
+                - sum(eng.captured_launches[k] for k in keys)
+                + sum(eng.replayed_launches[k] for k in keys))
     assert launched == MAXIMA.layers_enc_max * eng.stats["decode_steps"]

@@ -1,14 +1,12 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-Untied embeddings (qwen2-72b, codeqwen1.5-7b and phi3-mini are dense but
-untied) wait for ROADMAP Queue 1 item 7b: ``RuntimeSpec``, ``Model`` and
-a fleet's ``add_model`` say so.  A fleet (``maxima=``) refuses int8
-weights (its int8 weight table, item 8b), the dense layout and the
-bucketed scheduler (item 12) and the prefix cache (item 9), and its
-engine refuses the matmul kernels as the reference's does.
-``flash_attention``'s kernel puts B * H on its grid's x
-dimension, so it refuses only what the grid cannot hold (ROADMAP Queue 3
-fault D).
+A fleet (``maxima=``) refuses int8 weights (its int8 weight table, item
+8b), the dense layout and the bucketed scheduler (item 12) and the prefix
+cache (item 9), and its engine refuses the matmul kernels as the
+reference's does.  ``flash_attention``'s kernel puts B * H on its grid's
+x dimension, so it refuses only what the grid cannot hold (ROADMAP Queue
+3 fault D).  Untied embeddings are served (the dense family's parity
+tests are in tests/test_torch_dense_family.py).
 """
 import dataclasses
 
@@ -22,19 +20,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
-UNTIED = dataclasses.replace(CFG, tie_embeddings=False)
 MAXIMA = maxima_for(CFG, seq_max=64)
 PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
-
-
-def test_spec_names_item_7b_for_untied_embeddings():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 7b"):
-        RuntimeSpec(arch=UNTIED, memory=MemorySpec(cache_layout="paged"))
-
-
-def test_model_names_item_7b_for_untied_embeddings():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 7b"):
-        Model(UNTIED, device="cpu")
 
 
 def test_model_names_items_11_12_for_other_families():
@@ -71,14 +58,6 @@ def test_fleet_refusals_name_their_items(change, item):
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         RuntimeSpec(**{**kw, **change})
-
-
-def test_fleet_names_item_7b_for_an_untied_member():
-    eng = ServingEngine(RuntimeSpec(arch=CFG, maxima=MAXIMA,
-                                    memory=MemorySpec(**PAGED)),
-                        device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 7b"):
-        eng.add_model({}, UNTIED)
 
 
 def test_fleet_refuses_the_matmul_kernels_as_the_reference_does():
