@@ -26,10 +26,11 @@ Phases (any failure raises and the script exits non-zero):
    every other slot) and at hd 96 and GQA 8 x hd 128, the dead groups'
    outputs bit-exact zeros at the planned and at 1 and 3 key ranges; the
    build prints the split walk's (both entry points')
-   and the flash kernels' registers and spills, and those of every
-   instantiation of the bf16 matmul loop (``mma_tile``, ``mma_reduce``),
-   of the int8 kernel (``int8_mma``, ``int8_reduce``) and of the norms
-   (``norm_regs``, ``norm_stream``), which must not spill.
+   registers and spills, and those of every instantiation of the flash
+   kernels (hd <= 128 and the column-group kernels past it), of the bf16
+   matmul loop (``mma_tile``, ``mma_reduce``), of the int8 kernel
+   (``int8_mma``, ``int8_reduce``) and of the norms (``norm_regs``,
+   ``norm_stream``), which must not spill.
    ``tiled_matmul`` at the six bf16 serving shapes (a decode and a mixed
    step against each weight shape), each with the grid it
    launched (tiles x K ranges) and its dynamic shared memory, a second
@@ -48,9 +49,14 @@ Phases (any failure raises and the script exits non-zero):
    attention over 1500 frames), in bf16 and f32; ``qkv_proj`` must equal
    three ``tiled_matmul`` launches bit for bit; the matmul rows print
    their grid and dynamic shared memory.  ``flash_attention`` also
-   runs a causal qwen2-72b-width prompt (64 heads of 128) and, gated but
-   not timed, two ragged head dims over 1000 keys; each flash shape
-   prints its grid (CTAs, key ranges).
+   runs a causal qwen2-72b-width prompt (64 heads of 128),
+   recurrentgemma-2b's local attention (10 heads of 256 over a 2048
+   window, causal) and a causal hd 512 prompt (ROADMAP Queue 3 fault D:
+   column groups), with the kernels SDPA launches at hd 512; gated but
+   not timed, three ragged head dims over 1000 keys (80, 36, 200) and,
+   in bf16, one query tile past the old 65535-tile limit ([1, 65535 x 64
+   + 1 | 64, 1, 32]); each flash shape prints its grid (query-tile CTAs
+   x column groups x key ranges).
 3. The kernel library entry point ``repro_torch.kernels.ops``: every
    function on CUDA tensors with leading batch dims, chained as one
    qwen1.5-0.5b-wide layer, each result against the plain versions; each
@@ -126,6 +132,28 @@ Phases (any failure raises and the script exits non-zero):
    share of that distance), then the phase 5 request mix on a graphed
    and an eager engine with phase 5's gates, and the launches of the
    paged walks at hd 96 and at GQA 8 x hd 128.
+8. The prefix cache with copy-on-write: full-width qwen1.5-0.5b (random
+   weights), float weights, the kernel path, graphed, phase 5's engine
+   geometry with a pool that preempts nobody.  A warm request (a
+   320-token system prompt S + 8 tokens, 4 new) registers S's 20
+   blocks; then 8 requests of 16 new tokens: six S + a distinct suffix
+   (full-block hits of 320), one S[:312] + a tail diverging at 312 (a
+   19-block hit and a copy-on-write fork of block 20's first 8 rows),
+   one unrelated prompt (a miss); the same traffic with the cache off.
+   Gates: 7 hits, 1 fork, 2232 cached tokens and exactly 2232 fewer
+   prefill tokens; the fork's rows bit for bit in every layer right
+   after it lands (over a bf16 and an int8 pool, scales included); each
+   request's first token equal with the cache on and off over a bf16, an
+   int8 and an f32 pool; whole f32 streams equal, or diverging only where
+   the two tokens' f32 logits lie within phase 4's f32 distance (printed);
+   graphed = eager (streams, one capture per program, launches); no host
+   sync in a fused step or a fork at sync_every=4; a 40-block pool
+   evicts parked blocks and keeps the first tokens; the fully-quantized
+   drain's identical tokens printed.  Prefill tokens, the hit requests'
+   TTFT (``admit`` to ``first_token`` events) and the wave's tokens/s are
+   printed, cache on and off.  Inside phase 6, one graphed fleet engine
+   with the prefix cache serves both members the same prompts: each hits
+   only its own member's chain.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -188,6 +216,8 @@ from repro_torch.core import masking  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.core.kv_quant import fork_block  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
 
@@ -213,7 +243,12 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                         "rmsnorm", "flash_attention"),
                 # the multi-topology fleet: both with live_kv
                 "fleet": ("paged_decode_attention",
-                          "chunked_prefill_attention")}
+                          "chunked_prefill_attention"),
+                # phase 8: the float path with the prefix cache on
+                "prefix": ("tiled_matmul", "paged_decode_attention",
+                           "chunked_prefill_attention", "rmsnorm")}
+PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
+                "prefix_evictions")
 SOURCES = {
     "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                      "src/repro/kernels/tiled_matmul.py:56"),
@@ -254,6 +289,9 @@ QWEN = dict(rows=128, d=1024, ff=2816, heads=16, hd=64, prompt=512)
 QWEN72 = dict(d=8192, kv_width=1024, heads=64, hd=128)
 BERT = dict(batch=8, seq=64, d=768, ff=3072, heads=12, hd=64)
 WHISPER = dict(frames=1500, heads=16, hd=64)
+# recurrentgemma-2b (configs/recurrentgemma_2b.py): 10 heads of 256, local
+# attention over a 2048-token window
+RGEMMA = dict(window=2048, heads=10, hd=256)
 
 
 def print_ptxas(log: Path, source: str) -> dict[str, tuple[int, int, int]]:
@@ -287,6 +325,27 @@ def print_ptxas(log: Path, source: str) -> dict[str, tuple[int, int, int]]:
             report[name] = (int(m.group(1)), smem, sum(spill))
             name = None
     return report
+
+
+def flash_grid(e: dict) -> str:
+    """The flash kernel's last launch (query-tile CTAs, column groups, key
+    ranges), recorded in ``e`` and as text."""
+    ctas, groups, splits = flash_attention.last_grid
+    e.update(ctas=ctas, groups=groups, splits=splits)
+    return (f"grid {ctas} query-tile CTAs x {groups} column groups x "
+            f"{splits} key ranges = {ctas * groups * splits} CTAs")
+
+
+def sdpa_kernels(q, k, v, causal: bool) -> str:
+    """The device kernels one SDPA call launches (the backend PyTorch
+    picks), read from a ``torch.profiler`` trace."""
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=causal)
+        torch.cuda.synchronize()
+    names = [e.key for e in device_events(prof)]
+    return ", ".join(n[:80] for n in names) or "(no device kernel traced)"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -946,8 +1005,11 @@ def check_library(timer, dev, g) -> dict:
 
         # flash attention: one qwen1.5-0.5b prompt (causal), adaptor_bert
         # (non-causal), whisper-medium cross attention over 1500 frames,
-        # one qwen2-72b-width prompt (causal, 64 heads of 128); the grid
-        # (CTAs, key ranges) the wrapper launched beside each
+        # one qwen2-72b-width prompt (causal, 64 heads of 128),
+        # recurrentgemma-2b's local attention (hd 256) and hd 512 (both
+        # past the old hd 128 limit: column groups); the grid (query-tile
+        # CTAs x column groups x key ranges) the wrapper launched beside
+        # each
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         flash = []
         for label, b, sq, skv, h, hd, causal in (
@@ -958,7 +1020,10 @@ def check_library(timer, dev, g) -> dict:
                 ("cross whisper-medium", 1, 64, WHISPER["frames"],
                  WHISPER["heads"], WHISPER["hd"], False),
                 ("causal qwen2-72b prompt", 1, QWEN["prompt"], QWEN["prompt"],
-                 QWEN72["heads"], QWEN72["hd"], True)):
+                 QWEN72["heads"], QWEN72["hd"], True),
+                ("local recurrentgemma-2b", 1, RGEMMA["window"],
+                 RGEMMA["window"], RGEMMA["heads"], RGEMMA["hd"], True),
+                ("causal hd 512", 1, 512, 512, 8, 512, True)):
             q = rn(b, sq, h, hd, dt=dt)
             k, v = rn(b, skv, h, hd, dt=dt), rn(b, skv, h, hd, dt=dt)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -974,15 +1039,16 @@ def check_library(timer, dev, g) -> dict:
                 (2 * b * sq + 2 * b * skv) * h * hd * es,
                 4 * b * h * hd * pairs, dt, None,
                 gate=lambda ref, v=v: flash_limit(v, ref))
-            ctas, splits = flash_attention.last_grid
-            print(f"{'':>15} grid: {ctas} CTAs x {splits} key ranges = "
-                  f"{ctas * splits} CTAs on {sms} SMs")
-            e.update(ctas=ctas, splits=splits)
+            print(f"{'':>15} {flash_grid(e)} on {sms} SMs")
+            if hd == 512 and main:
+                print(f"{'':>15} SDPA at hd 512 runs "
+                      f"{sdpa_kernels(qt, kt, vt, causal)}")
             flash.append(e)
         # the kernel's contract beyond the timed shapes, gated only: a
         # ragged hd (80: padded to 96 in shared memory, 16-byte loads; 36:
-        # element loads) over a split 1000-key walk
-        for hd in (80, 36):
+        # element loads; 200: two column groups, the second ragged) over a
+        # split 1000-key walk
+        for hd in (80, 36, 200):
             q = rn(1, 64, 8, hd, dt=dt)
             k, v = rn(1, 1000, 8, hd, dt=dt), rn(1, 1000, 8, hd, dt=dt)
             want = flash_attention_plain(q, k, v, causal=False)
@@ -990,10 +1056,26 @@ def check_library(timer, dev, g) -> dict:
             lim = flash_limit(v, want)
             print(f"{'flash_attention':>15} {f'ragged hd [1,64|1000,8,{hd}]':>36} "
                   f"{str(dt)[6:]:>8} {err:>10.3g} {lim:>10.3g}   (gated, "
-                  f"not timed; {flash_attention.last_grid[1]} key ranges)")
+                  f"not timed; {flash_grid({})})")
             if err > lim:
                 raise AssertionError(f"flash_attention ragged hd {hd} {dt}: "
                                      f"err {err} > tol {lim}")
+        if main:
+            # one query tile past the grid's old y limit of 65535 tiles
+            # (fault D): 4 194 241 rows, 537 MB of q and o
+            sq = 65535 * 64 + 1
+            q = rn(1, sq, 1, 32, dt=dt)
+            k, v = rn(1, 64, 1, 32, dt=dt), rn(1, 64, 1, 32, dt=dt)
+            want = flash_attention_plain(q, k, v, causal=False)
+            err = max_err(flash_attention(q, k, v, causal=False), want)
+            lim = flash_limit(v, want)
+            print(f"{'flash_attention':>15} {f'[1,{sq}|64,1,32]':>36} "
+                  f"{str(dt)[6:]:>8} {err:>10.3g} {lim:>10.3g}   (gated, "
+                  f"not timed; {flash_grid({})})")
+            if err > lim:
+                raise AssertionError(f"flash_attention Sq {sq}: err {err} "
+                                     f"> tol {lim}")
+            del q, k, v, want
         if main:
             entries["flash_attention"] = dict(flash[0], other_shapes=flash[1:])
         else:
@@ -1739,6 +1821,7 @@ def check_fleet(dev, g, lengths) -> dict:
                           n_tok)
         first = first or runs[0]
     check_fleet_logits(members, dev, g)
+    check_prefix_fleet(members)
     del members
     torch.cuda.empty_cache()
     return first["launches"]
@@ -1806,6 +1889,350 @@ def check_dense_family(dev, g, lengths) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the prefix cache with copy-on-write
+# ---------------------------------------------------------------------------
+SYSTEM_LEN = 320                      # the shared system prompt, 20 blocks
+FORK_AT = 312                         # the fork request's divergence
+SUFFIXES = (16, 29, 40, 55, 64, 80)   # the six full-block hits' suffixes
+
+
+def prefix_traffic(vocab: int, seed: int = 8) -> tuple[list, list]:
+    """The warm request (S + 8 tokens) and the wave of 8: six S + a
+    distinct suffix, one S[:312] + a 40-token tail diverging at 312 (a
+    19-block hit and a fork of block 20's first 8 tokens), one unrelated
+    200-token prompt (a miss: its first token differs from S's)."""
+    rs = np.random.default_rng(seed)
+    system = rs.integers(0, vocab, SYSTEM_LEN).tolist()
+    warm = system + rs.integers(0, vocab, 8).tolist()
+    wave = [system + rs.integers(0, vocab, n).tolist() for n in SUFFIXES]
+    tail = rs.integers(0, vocab, 40).tolist()
+    tail[0] = (system[FORK_AT] + 1 + tail[0] % (vocab - 1)) % vocab
+    wave.append(system[:FORK_AT] + tail)
+    miss = rs.integers(0, vocab, 200).tolist()
+    miss[0] = (system[0] + 1 + miss[0] % (vocab - 1)) % vocab
+    wave.append(miss)
+    return warm, wave
+
+
+def prefix_spec(prefix: bool, kv_dtype: str = "compute",
+                compute: str = "bf16", quant: bool = False,
+                num_blocks: int | None = None) -> RuntimeSpec:
+    """Phase 5's full-width kernel-path spec with the prefix cache on or
+    off, over a ``kv_dtype`` pool at ``compute`` (``quant``: int8 weights
+    and pool)."""
+    spec = full_width_spec(True, quant)
+    return dataclasses.replace(
+        spec, execution=dataclasses.replace(spec.execution,
+                                            compute_dtype=compute),
+        memory=dataclasses.replace(spec.memory, prefix_cache=prefix,
+                                   num_blocks=num_blocks,
+                                   kv_dtype="int8" if quant else kv_dtype))
+
+
+def prefix_drain(spec, params, traffic, graphs: bool = True,
+                 sync_every: int = 1, no_sync: bool = False,
+                 f32_pool: bool = False) -> dict:
+    """A fresh engine drains the warm request (4 new tokens), then the wave
+    (16 new tokens each).  The kernel counts are zeroed before the warm
+    request.  ``f32_pool``: the pool in float32 (installed before any
+    step).  ``no_sync``: every fused step (the captures included) and
+    every fork under ``set_sync_debug_mode("error")`` (the rest of
+    admission writes each slot field from a host scalar, a blocking copy
+    that this gate leaves out, as phase 5's does); otherwise each fork is
+    checked right after it lands: the destination's first 8 rows equal
+    the source's bit for bit in every layer, K, V and any scales.
+    Returns ``drain``'s keys (streams and seconds of the wave; steps,
+    stats and launches of both drains), the wave's steps, the admissions'
+    cached tokens, each wave request's TTFT (its ``admit`` to its
+    ``first_token`` event, host clock) and the forks."""
+    warm, wave = traffic
+    eng = ServingEngine(spec, device="cuda", graphs=graphs)
+    eng.load(params)
+    if f32_pool:
+        eng.cache = attn_mod.KVCache(
+            *(torch.zeros_like(t, dtype=torch.float32)
+              for t in (eng.cache.k, eng.cache.v)))
+    log, forks = [], []
+    eng.events.subscribe(log.append)
+
+    def fork(cache, src, dst):
+        fork_block(cache, src, dst)
+        forks.append(all(torch.equal(t[:, dst, :8], t[:, src, :8])
+                         for t in (cache.k, cache.v, cache.k_scale,
+                                   cache.v_scale) if t is not None))
+
+    def checked(fn):
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    patches = [mock.patch.object(eng, "_dispatch", checked(eng._dispatch)),
+               mock.patch.object(engine_mod, "fork_block",
+                                 checked(fork_block))] \
+        if no_sync else [mock.patch.object(engine_mod, "fork_block", fork)]
+    zero_counts()
+    tallies = (collections.Counter(eng.captured_launches),
+               collections.Counter(eng.replayed_launches))
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        uid = eng.submit(warm, max_new_tokens=4)
+        done = eng.run_to_completion(sync_every=sync_every)
+        warm_stream = {r.uid: r.generated for r in done}[uid]
+        steps0 = eng.stats["decode_steps"]
+        uids = {eng.submit(p, max_new_tokens=MAX_NEW): i
+                for i, p in enumerate(wave)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_to_completion(sync_every=sync_every)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    if len(done) != len(wave) or len(warm_stream) != 4:
+        raise AssertionError(f"{len(done)}/{len(wave)} wave requests "
+                             "finished")
+    streams = {uids[r.uid]: r.generated for r in done}
+    if any(len(x) != MAX_NEW for x in streams.values()):
+        raise AssertionError("a wave request stopped short of max_new")
+    if no_sync and sum(st.waits for st in eng._stages.values()):
+        raise AssertionError("an upload waited for a staging buffer")
+    times = collections.defaultdict(dict)
+    for e in log:
+        times[e.uid][e.kind] = e
+    ttft = {uids[u]: times[u]["first_token"].t - times[u]["admit"].t
+            for u in uids}
+    out = dict(streams=streams, warm=warm_stream, dt=dt,
+               steps=eng.stats["decode_steps"],
+               wave_steps=eng.stats["decode_steps"] - steps0,
+               stats=dict(eng.stats),
+               compilations=dict(eng.compilations),
+               launches=made_launches(eng, *tallies), ttft=ttft, forks=forks,
+               cached=[e.data["cached_tokens"] for e in log
+                       if e.kind == "admit"], memory=eng.memory_stats())
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_tokens(a: dict, b: dict) -> tuple[int, int]:
+    """(identical tokens, tokens) of two drains' wave streams."""
+    n = sum(len(x) for x in a.values())
+    return sum(x == y for i in a for x, y in zip(a[i], b[i])), n
+
+
+def first_tokens_equal(label: str, on: dict, off: dict) -> None:
+    firsts = [(on["streams"][i][0], off["streams"][i][0])
+              for i in sorted(on["streams"])]
+    same, n = same_tokens(on["streams"], off["streams"])
+    print(f"{label}: first tokens cache on = off "
+          f"{sum(a == b for a, b in firsts)}/{len(firsts)}; identical "
+          f"tokens {same}/{n}")
+    if any(a != b for a, b in firsts):
+        raise AssertionError(f"{label}: a first token differs with the "
+                             f"prefix cache on and off: {firsts}")
+
+
+def logit_gap(model32: Model, seq: list[int], a: int, b: int) -> float:
+    """|logit a - logit b| after ``seq``, at float32 compute over a
+    float32 pool, the whole sequence one chunk of the plain path."""
+    dev = model32.device
+    paging = full_width_spec(True).memory.paging()
+    cache = model32.init_cache(paging)
+    cache = attn_mod.KVCache(cache.k.float(), cache.v.float())
+    nblk = ENGINE["max_len"] // ENGINE["block_size"]
+    tables = torch.arange(1, nblk + 1, dtype=torch.int32,
+                          device=dev)[None]
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    model32.matmul_backend, model32.paged_attn_impl = "xla", "gather"
+    try:
+        logits = model32.mixed_step(
+            cache, toks, torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.tensor([len(seq)], dtype=torch.int32, device=dev), tables)
+    finally:
+        model32.matmul_backend, model32.paged_attn_impl = "pallas", "pallas"
+    row = logits[0, len(seq) - 1]
+    return float((row[a] - row[b]).abs())
+
+
+def f32_streams_equal(params, traffic, on: dict, off: dict,
+                      f32_dist: float) -> None:
+    """Whole f32 streams, cache on against off: equal, or where a request
+    diverges, the two tokens' logits at that step (recomputed in float32)
+    lie within phase 4's f32 distance of each other (a near-tie that a
+    decode step and a mixed step, whose K-split plans differ, may break
+    either way); the request is not compared past that step."""
+    wave = traffic[1]
+    same, n = same_tokens(on["streams"], off["streams"])
+    print(f"f32 compute, f32 pool: identical tokens cache on vs off "
+          f"{same}/{n}")
+    model32 = None
+    for i in sorted(on["streams"]):
+        a, b = on["streams"][i], off["streams"][i]
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        if model32 is None:
+            model32 = Model(get_config("qwen1.5-0.5b"),
+                            compute_dtype=torch.float32, device="cuda")
+            model32.load_state_dict(params)
+        gap = logit_gap(model32, wave[i] + a[:t], a[t], b[t])
+        print(f"  request {i} diverges at token {t}: {a[t]} vs {b[t]}, "
+              f"their f32 logits {gap:.4g} apart (phase 4's f32 distance "
+              f"{f32_dist:.4g})")
+        if gap > f32_dist:
+            raise AssertionError(f"f32 request {i} diverges at token {t} "
+                                 f"with the cache on and off, and it is no "
+                                 f"near-tie ({gap} > {f32_dist})")
+    del model32
+    torch.cuda.empty_cache()
+
+
+def check_prefix(dev, g, f32_dist: float) -> dict:
+    """Phase 8: full-width qwen1.5-0.5b (random weights), float weights,
+    the kernel path, graphed, 16-token blocks, chunk 16, 8 slots, 512
+    positions and a pool that preempts nobody; the warm request, then the
+    wave (``prefix_traffic``), with the prefix cache on and off.  Gates:
+    the stats (7 hits, 1 fork, 2232 cached tokens, prefill tokens 2232
+    under the cache-off drain's), the fork bit for bit, first tokens on =
+    off over a bf16 and an int8 pool, whole f32 streams on = off up to
+    printed near-ties, graphed = eager (streams, one capture per program,
+    launches), no host sync at sync_every=4 in a fused step (the
+    captures included) or a fork, and evictions on a pool too small for the chain with first
+    tokens equal to the cache-off drain's on that pool.  The fully
+    quantized drain's share of identical tokens is printed.  Returns the
+    graphed cache-on drain's launches."""
+    params = Model(get_config("qwen1.5-0.5b"), device=dev).init(g) \
+        .state_dict()
+    traffic = prefix_traffic(get_config("qwen1.5-0.5b").vocab_size)
+    hits = len(SUFFIXES) + 1
+    cached = len(SUFFIXES) * SYSTEM_LEN + FORK_AT
+    print(f"\n== prefix cache: full-width qwen1.5-0.5b, a {SYSTEM_LEN}-token "
+          f"system prompt; the warm request, then {len(traffic[1])} "
+          f"requests x {MAX_NEW} new tokens ({len(SUFFIXES)} full-block "
+          f"hits, one fork at {FORK_AT}, one miss)")
+    runs = {mode: prefix_drain(prefix_spec(mode != "off"), params, traffic,
+                               graphs=mode != "eager")
+            for mode in ("on", "off", "eager")}
+    on, off = runs["on"], runs["off"]
+    st = {k: on["stats"][k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                      "cow_forks", "prefix_evictions",
+                                      "preemptions")}
+    saved = off["stats"]["prefill_tokens"] - on["stats"]["prefill_tokens"]
+    print(f"stats, cache on: {st}; admissions' cached tokens "
+          f"{on['cached']}; prefill tokens on {on['stats']['prefill_tokens']}"
+          f", off {off['stats']['prefill_tokens']} ({saved} fewer); pool "
+          f"{on['memory']}")
+    if (st["prefix_hits"], st["cow_forks"], st["prefix_hit_tokens"],
+            saved, st["preemptions"], off["stats"]["preemptions"]) \
+            != (hits, 1, cached, cached, 0, 0):
+        raise AssertionError(f"prefix stats {st}, {saved} prefill tokens "
+                             f"saved; want {hits} hits, 1 fork, {cached} "
+                             "cached tokens saved, no preemption")
+    print(f"the fork: destination rows 0-7 = the source's in every layer "
+          f"(K, V): {on['forks']}")
+    if on["forks"] != [True]:
+        raise AssertionError(f"the copy-on-write fork: {on['forks']}")
+    first_tokens_equal("float weights, bf16 pool", on, off)
+    n_tok = len(traffic[1]) * MAX_NEW
+    for mode in ("on", "off"):
+        r = runs[mode]
+        hit = [r["ttft"][i] * 1e3 for i in range(hits)]
+        print(f"cache {mode}: wave {n_tok} tokens in {r['dt']:.3f} s "
+              f"({n_tok / r['dt']:.1f} tok/s), {r['wave_steps']} fused "
+              f"steps; "
+              f"TTFT of the {hits} hit requests (admit -> first_token, "
+              f"host clock) mean {np.mean(hit):.1f} ms, max "
+              f"{max(hit):.1f} ms")
+    check_graphed("prefix cache, float weights",
+                  {"graphed": on, "eager": runs["eager"]},
+                  PATH_KERNELS["prefix"], get_config("qwen1.5-0.5b")
+                  .num_layers, n_tok)
+    quiet = prefix_drain(prefix_spec(True), params, traffic, sync_every=4,
+                         no_sync=True)
+    print(f"cache on, graphed, sync_every=4, every fused step (the "
+          f"captures) and the fork under set_sync_debug_mode('error'): no "
+          f"host sync, no staging wait; {quiet['wave_steps']} wave steps, "
+          f"{quiet['stats']['graph_captures']} captures")
+    if quiet["streams"] != on["streams"] \
+            or quiet["stats"]["cow_forks"] != 1:
+        raise AssertionError("the sync_every=4 cache-on drain differs from "
+                             "the sync_every=1 one")
+    int8 = {mode: prefix_drain(prefix_spec(mode == "on", "int8"), params,
+                               traffic) for mode in ("on", "off")}
+    print(f"int8 pool, the fork rows and scales: {int8['on']['forks']}")
+    if int8["on"]["forks"] != [True]:
+        raise AssertionError(f"int8 pool fork: {int8['on']['forks']}")
+    first_tokens_equal("float weights, int8 pool", int8["on"], int8["off"])
+    f32 = {mode: prefix_drain(prefix_spec(mode == "on", compute="fp32"),
+                              params, traffic, f32_pool=True)
+           for mode in ("on", "off")}
+    first_tokens_equal("f32 compute, f32 pool", f32["on"], f32["off"])
+    f32_streams_equal(params, traffic, f32["on"], f32["off"], f32_dist)
+    # a pool of 40 blocks: after the warm request 20 are free and S's 20
+    # parked, so a 400-token miss admitted first (25 blocks) must evict
+    small = ENGINE["max_len"] // ENGINE["block_size"] + 8
+    rs = np.random.default_rng(10)
+    miss = rs.integers(0, get_config("qwen1.5-0.5b").vocab_size, 400) \
+        .tolist()
+    miss[0] = traffic[1][-1][0]            # not S's first token
+    tight = [traffic[0], [miss] + traffic[1][:-1]]
+    ev = {mode: prefix_drain(prefix_spec(mode == "on", num_blocks=small),
+                             params, tight) for mode in ("on", "off")}
+    print(f"a {small}-block pool, a 400-token miss first: cache on evicted "
+          f"{ev['on']['stats']['prefix_evictions']} parked blocks, "
+          f"{ev['on']['stats']['prefix_hits']} hits, preemptions on "
+          f"{ev['on']['stats']['preemptions']} / off "
+          f"{ev['off']['stats']['preemptions']}")
+    if ev["on"]["stats"]["prefix_evictions"] <= 0:
+        raise AssertionError("the small pool evicted no parked block")
+    first_tokens_equal(f"{small}-block pool", ev["on"], ev["off"])
+    quant = {mode: prefix_drain(prefix_spec(mode == "on", quant=True),
+                                params, traffic) for mode in ("on", "off")}
+    same, n = same_tokens(quant["on"]["streams"], quant["off"]["streams"])
+    print(f"int8 weights + int8 pool: identical tokens cache on vs off "
+          f"{same}/{n} (reported: one activation scale spans all rows); "
+          f"stats {[quant['on']['stats'][k] for k in PREFIX_STATS]}")
+    del params
+    torch.cuda.empty_cache()
+    return on["launches"]
+
+
+def check_prefix_fleet(members) -> None:
+    """Phase 8 on the fleet: one graphed fleet engine with the prefix
+    cache serves one warm request per member with the same tokens (the
+    second may not hit the first's chain: namespaces), then three requests
+    of the shared prompt per member, each of which hits its own member's
+    20 blocks."""
+    spec = fleet_spec("compute")
+    spec = dataclasses.replace(spec, memory=dataclasses.replace(
+        spec.memory, prefix_cache=True))
+    eng = ServingEngine(spec, max_models=len(members), device="cuda")
+    for c, p in members:
+        eng.add_model(p, c)
+    log = []
+    eng.events.subscribe(log.append)
+    vocab = min(c.vocab_size for c, _ in members)
+    warm, wave = prefix_traffic(vocab, seed=9)
+    for m in range(len(members)):
+        drain(eng, [warm], models=[m])
+    wave = wave[:3] * len(members)
+    models = [i // 3 for i in range(len(wave))]
+    r = drain(eng, wave, models=models)
+    cached = [e.data["cached_tokens"] for e in log if e.kind == "admit"]
+    print(f"fleet with the prefix cache: admissions' cached tokens "
+          f"{cached} (members {[0, 1] + models}); {eng.stats['prefix_hits']}"
+          f" hits, {r['dt']:.3f} s for the wave")
+    if cached != [0, 0] + [SYSTEM_LEN] * len(wave):
+        raise AssertionError(f"fleet prefix hits {cached}: a hit across "
+                             "members, or a miss within one")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1821,13 +2248,14 @@ def main() -> int:
     runtime.library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
           f"({lib.parent / 'build.log'})")
-    print_ptxas(lib.parent / "build.log", "flash_attention.cu")
     print_ptxas(lib.parent / "build.log", "chunked_prefill.cu")
     print_ptxas(lib.parent / "build.log", "paged_attention.cu")
     # the bf16 main loop (mma_tile, dynamic shared memory) and its reduce,
     # in each of the four wrappers' instantiations, the int8 kernel and
-    # its reduce, and every instantiation of the norms: no spills
-    for src, kern in (("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
+    # its reduce, every instantiation of the norms and of flash attention
+    # (hd <= 128 and the column-group kernels past it): no spills
+    for src, kern in (("flash_attention.cu", "flash_"),
+                      ("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
                       ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_"),
                       ("layernorm.cu", "norm_")):
         spills = {k: v for k, v in
@@ -1859,7 +2287,10 @@ def main() -> int:
         model32 = Model(model.cfg, compute_dtype=torch.float32, device=dev,
                         **qkw)
         model32.load_state_dict(params)
-        check_model_steps(model32, dev, g, gate=True)
+        steps32 = check_model_steps(model32, dev, g, gate=True)
+        if not quant:
+            # phase 8's yardstick of a float32 near-tie
+            f32_dist = max(r["err"] for r in steps32.values())
         del model32
         m16 = Model.from_spec(full_width_spec(True, quant), device=dev)
         m16.load_state_dict(params)
@@ -1963,6 +2394,11 @@ def main() -> int:
         entries[name]["live_kv"]["launches"] = launches["fleet"][name]
 
     launches.update(check_dense_family(dev, g, PROMPT_LENS))
+    launches["prefix"] = check_prefix(dev, g, f32_dist)
+    for name in PATH_KERNELS["prefix"]:
+        if launches["prefix"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the prefix "
+                                 "path")
 
     table = []
     for name in KERNELS:
@@ -1977,7 +2413,8 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for extra in ("int8_pool", "live_kv", "ctas", "splits", "smem_bytes",
+        for extra in ("int8_pool", "live_kv", "ctas", "groups", "splits",
+                      "smem_bytes",
                       "bm", "bn",
                       "bf16_matmul_ms", "other_shapes", "f32_shapes",
                       "fixed_splits", "plan", "timer_floor_ms"):

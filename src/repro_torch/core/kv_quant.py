@@ -135,6 +135,21 @@ def cache_put(values: torch.Tensor, scales: torch.Tensor | None, idx: tuple,
                           .reshape(new_scales.shape))
 
 
+def fork_block(cache, src: int, dst: int) -> None:
+    """Copy-on-write fork: copy pool block ``src`` into block ``dst`` in
+    every layer of a paged cache (``k``, ``v`` and, over an int8 pool,
+    their ``k_scale`` / ``v_scale`` rows alike, all pool-block-major on
+    axis 1), so the fork is the codec's stored representation bit for bit.
+    In place (``copy_`` on views): the tensors keep their addresses, so
+    captured CUDA graphs still read them.  ``src`` and ``dst`` are Python
+    ints: the copies queue on the current stream with no host sync.  The
+    reference's ``fork_block`` is an XLA ``.at[].set`` (no Pallas
+    kernel)."""
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is not None:
+            t[:, dst].copy_(t[:, src])
+
+
 def gather_view(codec: CacheCodec, values: torch.Tensor,
                 scales: torch.Tensor | None, block_tables: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:

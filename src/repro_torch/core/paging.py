@@ -1,10 +1,13 @@
-"""Paged KV-cache block allocator (host side) for the PyTorch port.
+"""Paged KV-cache block allocator and prefix trie (host side) for the
+PyTorch port.
 
-A copy of the reference's ``core/paging.py`` free-list half: the pool
-geometry (``PagingConfig``), the refcounted LIFO ``BlockAllocator``, the
-occupancy snapshot (``FragmentationStats``) and ``blocks_for_tokens``.
-Pure Python, no torch.  The prefix-sharing trie (``PrefixCache``) is
-ported with the prefix cache (ROADMAP.md Queue 1 item 9).
+A copy of the reference's ``core/paging.py``: the pool geometry
+(``PagingConfig``), the refcounted LIFO ``BlockAllocator``, the occupancy
+snapshot (``FragmentationStats``), ``blocks_for_tokens``, and the
+prefix-sharing radix trie (``PrefixCache``, with ``PrefixHit``) whose
+nodes each own one pool block of ``block_size`` prompt tokens; blocks at
+refcount zero stay parked in the trie as an LRU eviction tier.  Pure
+Python, no torch.
 
 Block 0 is the **null block**: never handed out, it absorbs the writes
 of idle slots and dead chunk lanes inside the fused step and backs
@@ -14,6 +17,7 @@ intervention to stay safe.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Hashable
 
 
 NULL_BLOCK = 0
@@ -209,3 +213,242 @@ class BlockAllocator:
             capacity_tokens=used * cfg.block_size,
             shared_blocks=shared,
             cached_blocks=cached)
+
+
+class _TrieNode:
+    """One block-granule of cached prompt: ``block_size`` tokens and the
+    physical block holding their KV."""
+
+    __slots__ = ("chain", "tokens", "block", "parent", "children", "tick")
+
+    def __init__(self, chain: int, tokens: tuple[int, ...], block: int,
+                 parent: "Any"):
+        self.chain = chain          # rolling hash up to and incl. this node
+        self.tokens = tokens        # verified on every walk
+        self.block = block
+        self.parent = parent        # _TrieNode | namespace-root sentinel
+        self.children: dict[int, _TrieNode] = {}
+        self.tick = 0               # LRU stamp while parked
+
+
+class _Root:
+    """Per-namespace virtual root (no block of its own)."""
+
+    __slots__ = ("chain", "children")
+
+    def __init__(self, namespace: Hashable):
+        self.chain = hash(("prefix-cache-ns", namespace))
+        self.children: dict[int, _TrieNode] = {}
+
+
+@dataclasses.dataclass
+class PrefixHit:
+    """Result of a trie lookup: the cached span a request may map.
+
+    ``blocks`` are whole cached blocks (``len(blocks) * block_size``
+    tokens reusable as-is); ``fork_block``/``fork_tokens`` describe a
+    trailing partial match whose first ``fork_tokens`` rows must be
+    copy-on-write forked into a private block before the request may
+    write the remainder.
+    """
+
+    blocks: list[int]
+    tokens: int
+    fork_block: int | None = None
+    fork_tokens: int = 0
+    nodes: list = dataclasses.field(default_factory=list)
+    fork_node: Any = None
+
+    @property
+    def cached_tokens(self) -> int:
+        return self.tokens + self.fork_tokens
+
+
+class PrefixCache:
+    """Radix trie over token-block hashes + LRU tier of parked blocks.
+
+    Pure host-side bookkeeping, same contract as the allocator: no
+    torch, no device access.  The engine owns when to ``lookup``/``acquire``
+    (admission), ``insert`` (prefill completion), ``park`` (release
+    decref hit zero) and ``evict`` (pool ran dry).
+    """
+
+    def __init__(self, allocator: BlockAllocator):
+        self.allocator = allocator
+        self.block_size = allocator.config.block_size
+        self._roots: dict[Hashable, _Root] = {}
+        self._node_of_block: dict[int, _TrieNode] = {}
+        self._parked: dict[int, _TrieNode] = {}   # block -> node, ref==0
+        self._tick = 0
+        self.evictions = 0
+
+    # -- introspection -------------------------------------------------
+    @property
+    def num_nodes(self) -> int:
+        return len(self._node_of_block)
+
+    @property
+    def num_parked(self) -> int:
+        return len(self._parked)
+
+    def owns(self, block: int) -> bool:
+        return block in self._node_of_block
+
+    def _next_tick(self) -> int:
+        self._tick += 1
+        return self._tick
+
+    def _root(self, namespace: Hashable) -> _Root:
+        root = self._roots.get(namespace)
+        if root is None:
+            root = self._roots[namespace] = _Root(namespace)
+        return root
+
+    @staticmethod
+    def _key(chain: int, tokens: tuple[int, ...]) -> int:
+        return hash((chain, tokens))
+
+    # -- admission side ------------------------------------------------
+    def lookup(self, namespace: Hashable, tokens: list[int],
+               limit: int | None = None) -> PrefixHit:
+        """Longest cached prefix of ``tokens`` (capped at ``limit``).
+
+        Walks whole-block children first, then scans the final node's
+        children for the longest partial token match (the CoW fork
+        source).  Never mutates refcounts — pair with :meth:`acquire`.
+        """
+        bs = self.block_size
+        limit = len(tokens) if limit is None else min(limit, len(tokens))
+        node: Any = self._root(namespace)
+        hit = PrefixHit(blocks=[], tokens=0)
+        i = 0
+        while i + bs <= limit:
+            chunk = tuple(tokens[i:i + bs])
+            child = node.children.get(self._key(node.chain, chunk))
+            if child is None or child.tokens != chunk:
+                break
+            hit.blocks.append(child.block)
+            hit.nodes.append(child)
+            node = child
+            i += bs
+        hit.tokens = i
+        # partial tail: longest common prefix with any child, >= 1 token
+        rem = limit - i
+        if rem > 0:
+            best, best_len = None, 0
+            for child in node.children.values():
+                k = 0
+                for a, b in zip(child.tokens, tokens[i:i + rem]):
+                    if a != b:
+                        break
+                    k += 1
+                if k > best_len:
+                    best, best_len = child, k
+            if best is not None and best_len >= 1:
+                hit.fork_block = best.block
+                hit.fork_tokens = best_len
+                hit.fork_node = best
+        return hit
+
+    def acquire(self, hit: PrefixHit) -> None:
+        """Pin a hit before any allocation that could evict: incref all
+        matched blocks (the fork source too — it must survive until the
+        CoW copy lands) and unpark their nodes from the LRU tier."""
+        blocks = list(hit.blocks)
+        if hit.fork_block is not None:
+            blocks.append(hit.fork_block)
+        self.allocator.incref(blocks)
+        tick = self._next_tick()
+        for node in [*hit.nodes, *([hit.fork_node] if hit.fork_node else [])]:
+            node.tick = tick
+            self._parked.pop(node.block, None)
+
+    def release(self, hit: PrefixHit) -> None:
+        """Roll back an :meth:`acquire` (admission failed mid-way)."""
+        blocks = list(hit.blocks)
+        if hit.fork_block is not None:
+            blocks.append(hit.fork_block)
+        self.park(self.allocator.decref(blocks))
+
+    def drop_fork_source(self, hit: PrefixHit) -> None:
+        """Release just the fork source once its rows are copied."""
+        if hit.fork_block is not None:
+            self.park(self.allocator.decref([hit.fork_block]))
+
+    # -- registration / release side -----------------------------------
+    def insert(self, namespace: Hashable, tokens: list[int],
+               blocks: list[int]) -> int:
+        """Register a prefilled prompt's whole blocks: ``blocks[j]``
+        holds KV for ``tokens[j*bs:(j+1)*bs]``.  An existing node always
+        wins (its KV is identical by construction) and the caller's
+        duplicate block simply stays slot-private; new nodes take
+        ownership of the caller's block (which keeps its current
+        refcount — the registering slot still maps it).  Returns the
+        number of newly registered blocks."""
+        bs = self.block_size
+        node: Any = self._root(namespace)
+        added = 0
+        for j, block in enumerate(blocks):
+            chunk = tuple(tokens[j * bs:(j + 1) * bs])
+            if len(chunk) != bs:
+                break
+            key = self._key(node.chain, chunk)
+            child = node.children.get(key)
+            if child is not None:
+                if child.tokens != chunk:
+                    break  # hash collision: skip registration, never alias
+                node = child
+                continue
+            if block in self._node_of_block:
+                break  # block already registered under another path
+            child = _TrieNode(self._key(node.chain, chunk), chunk, block, node)
+            node.children[key] = child
+            self._node_of_block[block] = child
+            node = child
+            added += 1
+        return added
+
+    def park(self, blocks: list[int]) -> list[int]:
+        """Route decref-to-zero blocks: trie-owned ones stay resident as
+        parked LRU entries; returns the rest for ``allocator.free``."""
+        remainder: list[int] = []
+        tick = self._next_tick()
+        for b in blocks:
+            node = self._node_of_block.get(b)
+            if node is None:
+                remainder.append(b)
+            else:
+                node.tick = tick
+                self._parked[b] = node
+        return remainder
+
+    # -- eviction ------------------------------------------------------
+    def evict(self, n: int) -> int:
+        """Free up to ``n`` parked blocks, least recently used first,
+        leaves before parents (a node with children anchors its
+        subtree's chain and is skipped until they go).  May free fewer
+        than ``n``; the caller falls back to preemption."""
+        freed = 0
+        while freed < n:
+            victims = sorted(
+                (node for node in self._parked.values()
+                 if not node.children),
+                key=lambda nd: nd.tick)
+            if not victims:
+                break
+            for node in victims:
+                if freed >= n:
+                    break
+                self._unlink(node)
+                self.allocator.free([node.block])
+                freed += 1
+                self.evictions += 1
+        return freed
+
+    def _unlink(self, node: _TrieNode) -> None:
+        parent = node.parent
+        key = self._key(parent.chain, node.tokens)
+        if parent.children.get(key) is node:
+            del parent.children[key]
+        self._parked.pop(node.block, None)
+        self._node_of_block.pop(node.block, None)

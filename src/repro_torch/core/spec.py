@@ -15,7 +15,8 @@ both packages:
 What the port serves so far is the dense family through the paged pool
 and the chunked scheduler, with float or int8 weights (``quant``) and a
 float or int8 KV pool (``MemorySpec.kv_dtype``), one model or a fleet of
-them within ``maxima`` (``maxima_for``; float weights only).  Every other
+them within ``maxima`` (``maxima_for``; float weights only), with or
+without the prefix cache (``MemorySpec.prefix_cache``).  Every other
 option of the reference is rejected at construction with the ROADMAP.md
 queue item that ports it.
 """
@@ -275,8 +276,6 @@ class RuntimeSpec:
                 "quant='int8')", "item 8b",
                 "; fleet members serve float weights over a bf16 or int8 "
                 "KV pool")
-        if mem.prefix_cache:
-            raise _not_ported("MemorySpec.prefix_cache=True", "item 9")
         if self.speculation is not None:
             raise _not_ported("speculative decoding (speculation=...)",
                               "item 10")
@@ -284,10 +283,20 @@ class RuntimeSpec:
             raise _not_ported(
                 f"cache_layout={mem.cache_layout!r}", "item 12",
                 "; use MemorySpec(cache_layout='paged')")
+        bad = self.scheduler.chunk_violations(mem)
+        if mem.prefix_cache and (bad or self.scheduler.policy == "bucketed"):
+            # the reference's engine check: a cache hit resumes prefill
+            # mid-prompt, which only the fused chunked step supports
+            raise ValueError(
+                "prefix_cache=True requires the chunked scheduler, but "
+                f"policy {self.scheduler.policy!r} resolves to 'bucketed' "
+                "for this spec (a cache-hit request resumes prefill "
+                "mid-prompt, which only the fused chunked step supports); "
+                "fix the chunk geometry so the chunked scheduler is "
+                "satisfiable" + (": " + "; ".join(bad) if bad else ""))
         if self.scheduler.policy == "bucketed":
             raise _not_ported("scheduler policy 'bucketed'", "item 12",
                               "; use policy='auto' or 'chunked'")
-        bad = self.scheduler.chunk_violations(mem)
         if bad:
             # the reference's "auto" falls back to the bucketed scheduler
             # here; the port has only the chunked one

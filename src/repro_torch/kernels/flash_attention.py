@@ -13,13 +13,19 @@ transposed in device memory (``[B*H, S, hd]`` is the case H = 1).  A CUDA
 tensor launches the hand-written kernel of ``csrc/flash_attention.cu``; a
 CPU tensor runs the plain version.
 
-The kernel gives each CTA 64 query rows of one (b, h).  Where that leaves
-the card's SMs idle, ``kv_splits`` cuts the keys into ranges of whole
-64-key tiles (``kv_ranges``); each range's CTAs write an unnormalised
-float32 accumulator and the running (max, sum) to a workspace, and a merge
-kernel combines them.  ``flash_attention_partial_plain`` (whose
-range [0, Skv) is ``flash_attention_plain``) and ``merge_partials_plain``
-are those two steps in plain PyTorch.
+The kernel gives each CTA 64 query rows of one (b, h) and one group of at
+most 128 output columns (``col_groups``: one group up to hd 128, else
+ceil(hd / 128)); every group sums the same scores over the whole hd, so
+their running (max, sum) agree bit for bit.  The grid (``grid``) is (B x
+H x column groups x chunks, query tiles, key ranges), at most 65535 query
+tiles on y and the rest in chunks of 65535 on x, and ``cta_block`` gives
+the part of the output each CTA writes.  Where the CTAs leave the card's SMs idle,
+``kv_splits`` cuts the keys into ranges of whole 64-key tiles
+(``kv_ranges``); each range's CTAs write an unnormalised float32
+accumulator and the running (max, sum) to a workspace, and a merge kernel
+combines them.  ``flash_attention_partial_plain`` (whose range [0, Skv)
+over all columns is ``flash_attention_plain``) and
+``merge_partials_plain`` are those two steps in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -33,8 +39,10 @@ from repro_torch.kernels import runtime
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-MAX_HEAD_DIM = 128          # the kernel pads hd to 32, 64, 96 or 128
 TILE = 64                   # the kernel's query rows per CTA and keys per tile
+GROUP = 128                 # output columns per CTA where hd > 128
+MAX_X = 2 ** 31 - 1         # grid x: B x H x column groups x tile chunks
+MAX_Y = 65535               # grid y: query tiles per chunk
 
 
 def _block(skv: int) -> int:
@@ -58,13 +66,49 @@ def _kv_len(sq: int, skv: int, causal: bool) -> int:
     return min(skv, sq) if causal else skv
 
 
+def col_groups(hd: int) -> list[tuple[int, int]]:
+    """The output columns [lo, hi) of each CTA's column group (grid y):
+    all of hd up to 128, else groups of 128 with a ragged last one."""
+    if hd <= GROUP:
+        return [(0, hd)]
+    return [(c, min(hd, c + GROUP)) for c in range(0, hd, GROUP)]
+
+
+def grid(B: int, H: int, Sq: int, hd: int,
+         max_y: int = MAX_Y) -> tuple[int, int]:
+    """The kernel's grid (x, y) before the key ranges (z): x = B x H x
+    column groups x ceil(query tiles / ``max_y``), y = the query tiles of
+    one chunk."""
+    qtiles, groups = -(-Sq // TILE), len(col_groups(hd))
+    return B * H * groups * -(-qtiles // max_y), min(qtiles, max_y)
+
+
+def cta_block(B: int, H: int, Sq: int, hd: int, causal: bool, x: int,
+              y: int, max_y: int = MAX_Y
+              ) -> tuple[int, int, int, int, int, int] | None:
+    """The output block (b, h, first row, row end, first column, column
+    end) that the CTA at grid (x, y) writes, as the kernel's ``tile_of``
+    computes it (None: a CTA past the last query tile).  x runs over the
+    (b, h) pairs fastest, then the column groups, then the chunks of
+    ``max_y`` query tiles; y over a chunk's tiles, the last tile first
+    where ``causal``."""
+    qtiles, groups = -(-Sq // TILE), col_groups(hd)
+    pair, rest = x % (B * H), x // (B * H)
+    qi = rest // len(groups) * max_y + y
+    if qi >= qtiles:
+        return None
+    qt = qtiles - 1 - qi if causal else qi
+    lo, hi = groups[rest % len(groups)]
+    return (pair // H, pair % H, qt * TILE, min(Sq, (qt + 1) * TILE), lo, hi)
+
+
 def kv_splits(B: int, H: int, Sq: int, Skv: int, causal: bool,
-              sms: int) -> int:
+              sms: int, groups: int = 1) -> int:
     """How many key ranges the kernel's grid takes: 1 where the
-    ceil(Sq/64) * B * H CTAs already cover the ``sms`` SMs; else about one
-    wave of CTAs (``sms // ctas`` ranges), capped so that every range holds
-    at least two 64-key tiles."""
-    ctas = -(-Sq // TILE) * B * H
+    ceil(Sq/64) * B * H * ``groups`` CTAs already cover the ``sms`` SMs;
+    else about one wave of CTAs (``sms // ctas`` ranges), capped so that
+    every range holds at least two 64-key tiles."""
+    ctas = -(-Sq // TILE) * B * H * groups
     if ctas >= sms:
         return 1
     tiles = -(-_kv_len(Sq, Skv, causal) // TILE)
@@ -85,23 +129,27 @@ def kv_ranges(Sq: int, Skv: int, causal: bool,
 
 def flash_attention_partial_plain(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, lo: int, hi: int, *,
-                                  causal: bool = True
+                                  causal: bool = True,
+                                  cols: tuple[int, int] | None = None
                                   ) -> tuple[torch.Tensor, ...]:
     """The Pallas kernel's block loop over the keys [lo, hi): the running
     (max, sum, f32 accumulator) is updated once per kv block of the
     reference's size, masked scores are ``NEG_INF``, and p is rounded to
     V's dtype before the PV product.  Returns the unnormalised float32
-    accumulator ``[B, Sq, H, hd]`` and the running max and sum ``[B, Sq,
+    accumulator ``[B, Sq, H, hd]`` (``cols`` = (c0, c1): only V's columns
+    [c0, c1), a column group's share, ``[B, Sq, H, c1 - c0]``; the scores
+    still sum over the whole hd) and the running max and sum ``[B, Sq,
     H]``.  A row that sees no key of the range keeps m = NEG_INF and l = 0
     (p of a masked score is 0)."""
     B, Sq, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
+    c0, c1 = (0, hd) if cols is None else cols
     qf = q.transpose(1, 2).float()                       # [B, H, Sq, hd]
     kf = k.transpose(1, 2).float()
-    vt = v.transpose(1, 2)
+    vt = v.transpose(1, 2)[..., c0:c1]
     m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, H, Sq, 1), device=q.device)
-    acc = torch.zeros((B, H, Sq, hd), device=q.device)
+    acc = torch.zeros((B, H, Sq, c1 - c0), device=q.device)
     qpos = torch.arange(Sq, device=q.device)[:, None]
     bkv = _block(hi - lo)
     for k0 in range(lo, hi, bkv):
@@ -138,13 +186,16 @@ def merge_partials_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
 
 
 def check_grid(B: int, H: int, Sq: int, hd: int) -> None:
-    """The kernel's limits: hd <= 128, and a grid of B * H CTAs on x (up to
-    2^31 - 1), ceil(Sq / 64) query tiles on y (up to 65535)."""
-    if hd > MAX_HEAD_DIM or B * H > 2 ** 31 - 1 or -(-Sq // TILE) > 65535:
-        raise ValueError(f"flash_attention: the kernel takes hd <= "
-                         f"{MAX_HEAD_DIM}, B * H < 2^31 and Sq <= "
-                         f"{65535 * TILE}, got hd={hd}, B * H = {B * H}, "
-                         f"Sq = {Sq}")
+    """What the hardware's grid holds: at most 2^31 - 1 CTAs on x (B x H
+    x column groups x chunks of 65535 query tiles).  Any other hd and Sq
+    are taken."""
+    x = grid(B, H, Sq, hd)[0]
+    if x > MAX_X:
+        raise ValueError(
+            f"flash_attention: the kernel takes what the hardware's grid "
+            f"holds, at most 2^31 - 1 CTAs on x (B x H x ceil(hd / 128) "
+            f"column groups x ceil(ceil(Sq / 64) / 65535) tile chunks); got "
+            f"{x} (B = {B}, H = {H}, Sq = {Sq}, hd = {hd})")
 
 
 @functools.cache
@@ -180,7 +231,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B == 0 or Sq == 0 or H == 0:
         return o
     ctas = -(-Sq // TILE) * B * H
-    splits = kv_splits(B, H, Sq, skv, causal, runtime.sm_count(q.device))
+    groups = len(col_groups(hd))
+    splits = kv_splits(B, H, Sq, skv, causal, runtime.sm_count(q.device),
+                       groups)
     # splits > 1: the ranges' accumulators, then their m and l, in float32
     ws = torch.empty(splits * B * Sq * H * (hd + 2), dtype=torch.float32,
                      device=q.device) if splits > 1 else None
@@ -191,9 +244,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     runtime.stream_handle(q))
     runtime.check(err, "flash_attention")
     flash_attention.launches += 1
-    flash_attention.last_grid = (ctas, splits)
+    flash_attention.last_grid = (ctas, groups, splits)
     return o
 
 
 flash_attention.launches = 0
-flash_attention.last_grid = None    # (query-tile CTAs, key ranges) launched
+# (query-tile CTAs, column groups, key ranges) of the last launch
+flash_attention.last_grid = None

@@ -14,7 +14,9 @@ int8`` serves int8 weights (through the hand-written ``int8_matmul`` under
 reference serves reduced configs in this driver; ``--full-width`` serves
 the architecture at its published widths.  ``--arch`` takes any id of the
 port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
-phi3-mini-3.8b, and adaptor-bert-shaped.
+phi3-mini-3.8b, and adaptor-bert-shaped.  ``--prefix-cache`` shares
+prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
+reports its hits, skipped tokens, copy-on-write forks and evictions.
 
 On the card each fused program runs as one CUDA graph, captured on its
 first all-greedy step and replayed after (a step with a stochastic slot
@@ -77,6 +79,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="tokens per KV block of the paged pool")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="pool size (default: the dense worst case)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV blocks across requests")
     ap.add_argument("--chunk-size", type=int, default=16,
                     help="prompt tokens per slot per fused step")
     ap.add_argument("--seed", type=int, default=0)
@@ -117,7 +121,8 @@ def main(argv: list[str] | None = None) -> None:
         memory=MemorySpec(cache_layout="paged", max_batch=args.max_batch,
                           max_len=args.max_len, block_size=args.block_size,
                           num_blocks=args.num_blocks,
-                          kv_dtype=args.kv_dtype),
+                          kv_dtype=args.kv_dtype,
+                          prefix_cache=args.prefix_cache),
         scheduler=SchedulerSpec(chunk_size=args.chunk_size))
     device = resolve_device(args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
@@ -167,6 +172,12 @@ def main(argv: list[str] | None = None) -> None:
     s = eng.memory_stats()
     print(f"paged pool: {s.total_blocks} x {spec.memory.block_size}-token "
           f"blocks, {eng.stats['preemptions']} preemptions")
+    if spec.memory.prefix_cache:
+        print(f"prefix cache: {st['prefix_hits']} hits / "
+              f"{st['prefix_hit_tokens']} tokens skipped, "
+              f"{st['cow_forks']} CoW forks, {st['prefix_evictions']} "
+              f"evictions; {s.shared_blocks} shared + {s.cached_blocks} "
+              "parked blocks resident")
     if args.fleet:
         print(f"fleet: {names} served by one fused step")
     for r in done[:3]:

@@ -39,6 +39,20 @@ cause; nothing falls back to eager quietly.  ``compilations`` counts the
 captures per program (on an eager engine, 1 per program that ran), with
 the reference's accounting.
 
+Prefix cache (``MemorySpec(prefix_cache=True)``): admission looks the
+prompt up in ``core.paging.PrefixCache``'s trie first (at most plen - 1
+tokens: the last prompt token always runs, for its logits), maps the hit's
+whole blocks into the slot's table (refcounted, shared with the other
+holders) and starts its prefill at the hit length.  A hit that ends inside
+a cached block forks that block's rows into the slot's first private block
+(``kv_quant.fork_block``, a device copy queued on the current stream
+before the next step) and drops the source.  A slot's whole prompt blocks
+are registered in the trie right after the dispatch that completes its
+prefill; releases decref, park trie-owned blocks at refcount zero, and
+parked blocks are evicted oldest-first before any request is preempted.
+A slot writes only at positions at or past its start, so never into a
+block it shares.
+
 Multi-topology serving: ``ServingEngine(spec, maxima=...)`` (or a spec
 with ``maxima``) runs the register-driven ``serving.fabric`` at the maxima
 instead of one fixed model.  ``add_model(params, arch)`` packs a
@@ -59,8 +73,10 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.kv_quant import fork_block
 from repro_torch.core.paging import (NULL_BLOCK, BlockAllocator,
-                                     FragmentationStats, blocks_for_tokens)
+                                     FragmentationStats, PrefixCache,
+                                     blocks_for_tokens)
 from repro_torch.core.spec import RuntimeSpec
 from repro_torch.kernels.counts import launch_counts
 from repro_torch.kernels.runtime import resolve_device
@@ -74,8 +90,9 @@ from repro_torch.serving.sampling import SamplingParams, sample_per_slot
 # step runs once eagerly as its warm-up; on an eager engine every step is
 # an eager step
 _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
-              "prefill_tokens", "max_step_prefill_tokens", "graph_captures",
-              "graph_replays", "eager_steps")
+              "prefill_tokens", "max_step_prefill_tokens", "prefix_hits",
+              "prefix_hit_tokens", "cow_forks", "prefix_evictions",
+              "graph_captures", "graph_replays", "eager_steps")
 # uploads of tables, grants and sampling rows the host may queue ahead of
 # the device before one waits for a staging buffer
 _STAGE_DEPTH = 16
@@ -257,6 +274,11 @@ class ServingEngine:
         self.block_tables = torch.zeros(
             (self.max_batch, self.blocks_per_slot), dtype=torch.int32,
             device=self.device)
+        self.prefix_cache: PrefixCache | None = \
+            PrefixCache(self.allocator) if spec.memory.prefix_cache else None
+        # one-shot per occupancy: a slot's prompt blocks are registered in
+        # the trie once its prefill completes
+        self._reg_done = [False] * self.max_batch
         # host mirrors for block budgeting (exact at sync points; between
         # syncs ``_idx_ub`` is a per-step upper bound on the device index)
         self._plen = [0] * self.max_batch
@@ -486,10 +508,35 @@ class ServingEngine:
             prompt = req.prompt + req.prefix
             plen = len(prompt)
             budget = req.max_new_tokens - len(req.prefix)
-            blocks = self.allocator.alloc(
-                blocks_for_tokens(plen, self.paging.block_size))
-            if blocks is None:
-                break   # FCFS: the queue head waits for blocks
+            total = blocks_for_tokens(plen, self.paging.block_size)
+            start = 0
+            if self.prefix_cache is not None:
+                # look up before allocating: the hit's blocks are pinned
+                # (incref + unpark) so an eviction the allocation makes
+                # cannot reclaim them; the last prompt token always runs
+                hit = self.prefix_cache.lookup(self._namespace(req.model),
+                                               prompt, plen - 1)
+                self.prefix_cache.acquire(hit)
+                fresh = self._alloc_blocks(total - len(hit.blocks))
+                if fresh is None:
+                    self.prefix_cache.release(hit)
+                    break   # FCFS: the queue head waits for blocks
+                blocks = hit.blocks + fresh
+                start = hit.tokens
+                if hit.fork_block is not None:
+                    # mid-block divergence: fork the partial source into
+                    # the first private block, then unpin the source
+                    fork_block(self.cache, hit.fork_block, fresh[0])
+                    self.prefix_cache.drop_fork_source(hit)
+                    start += hit.fork_tokens
+                    self.stats["cow_forks"] += 1
+                if start:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += start
+            else:
+                blocks = self.allocator.alloc(total)
+                if blocks is None:
+                    break   # FCFS: the queue head waits for blocks
             self._slot_blocks[slot] = blocks
             self._tables[slot] = blocks + [NULL_BLOCK] * (
                 self.blocks_per_slot - len(blocks))
@@ -502,13 +549,15 @@ class ServingEngine:
             self._stages["admit"].put(
                 (st.prompt_buf[slot], prompt + [0] * (self.max_len - plen)),
                 (st.topo[slot], topo))
+            # positions below ``start`` (a prefix hit) are in the mapped
+            # blocks already: prefill resumes there, as after a chunk
             for field, value in (
-                    ("last", 0), ("index", 0), ("active", True),
+                    ("last", 0), ("index", start), ("active", True),
                     ("done", False), ("budget", budget), ("count", 0),
                     ("eos", -1 if req.eos_id is None else req.eos_id),
                     ("temp", sp.temperature), ("top_k", sp.top_k),
                     ("top_p", sp.top_p), ("prompt_len", plen),
-                    ("pf_pos", 0)):
+                    ("pf_pos", start)):
                 getattr(st, field)[slot] = value
             st.buf[slot].zero_()
             self._gens[slot] = None
@@ -521,11 +570,12 @@ class ServingEngine:
             self.slot_req[slot] = req
             self._plen[slot] = plen
             self._budget[slot] = budget
-            self._idx_ub[slot] = 0
-            self._pf[slot] = 0
+            # the token budget is charged only for the uncached suffix
+            self._idx_ub[slot] = start
+            self._pf[slot] = start
             self._seq += 1
             self._admit_seq[slot] = self._seq
-            self._emit("admit", req.uid, slot=slot, cached_tokens=0)
+            self._emit("admit", req.uid, slot=slot, cached_tokens=start)
 
     def _grant_chunks(self) -> list[int]:
         """Up to ``token_budget`` prompt tokens per fused step, at most
@@ -552,6 +602,27 @@ class ServingEngine:
     def _occupied(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    def _namespace(self, model: int):
+        """Prefix-trie namespace of one request's KV blocks.  Fleet
+        members share the physical pool but never a trie chain: a
+        prompt's KV is a function of the model that prefilled it."""
+        if self.fabric is not None:
+            return self.fabric.cache_namespace(self.fleet[model], model)
+        return 0
+
+    def _alloc_blocks(self, n: int) -> list[int] | None:
+        """``allocator.alloc`` with the LRU eviction tier behind it: when
+        the free list cannot cover ``n``, parked blocks (unreferenced but
+        in the trie) are evicted oldest-first before the caller falls back
+        to preempting live requests."""
+        got = self.allocator.alloc(n)
+        if got is None and self.prefix_cache is not None:
+            freed = self.prefix_cache.evict(n - self.allocator.num_free)
+            if freed:
+                self.stats["prefix_evictions"] += freed
+                got = self.allocator.alloc(n)
+        return got
+
     def _slot_token_cap(self, slot: int) -> int:
         """Most cache positions this slot can ever need (then it finishes)."""
         return min(self._plen[slot] + self._budget[slot] - 1, self.max_len)
@@ -574,7 +645,7 @@ class ServingEngine:
             missing = blocks_for_tokens(need_tokens, bs) \
                 - len(self._slot_blocks[slot])
             while missing > 0:
-                got = self.allocator.alloc(missing)
+                got = self._alloc_blocks(missing)
                 if got is not None:
                     n_have = len(self._slot_blocks[slot])
                     self._slot_blocks[slot] += got
@@ -591,15 +662,24 @@ class ServingEngine:
                 self._preempt(max(victims, key=lambda s: self._admit_seq[s]))
 
     def _release_slot_blocks(self, slot: int) -> None:
-        self.allocator.free(self._slot_blocks[slot])
+        """Release a slot's blocks and null its table row.  With the prefix
+        cache this is a decref: blocks other requests map lose one
+        reference, trie-owned blocks at refcount zero park in the LRU tier,
+        and only unshared, uncached blocks return to the free list."""
+        zeros = self.allocator.decref(self._slot_blocks[slot])
+        if self.prefix_cache is not None:
+            zeros = self.prefix_cache.park(zeros)
+        self.allocator.free(zeros)
         self._slot_blocks[slot] = []
         self._tables[slot] = [NULL_BLOCK] * self.blocks_per_slot
         self._tables_dirty = True
+        self._reg_done[slot] = False
 
     def _preempt(self, slot: int) -> None:
         """Recompute-preemption: bank the slot's generated tokens (one
-        transfer), free its blocks and push the request back to the queue
-        head; it resumes with prompt + banked tokens."""
+        transfer), release its blocks (a decref where they are shared)
+        and push the request back to the queue head; it resumes with
+        prompt + banked tokens, through the trie where that hits."""
         req = self.slot_req[slot]
         st = self.state
         cap = min(self._budget[slot], self.max_len)
@@ -752,6 +832,26 @@ class ServingEngine:
             elif self._pf[slot] >= self._plen[slot]:
                 self._idx_ub[slot] = min(self._idx_ub[slot] + 1,
                                          self._slot_token_cap(slot))
+        if self.prefix_cache is not None:
+            self._register_prefixes()
+
+    def _register_prefixes(self) -> None:
+        """Register every slot whose prefill just completed: its whole
+        prompt blocks enter the trie (an existing chain wins; the slot's
+        duplicate block stays private and is freed at release).  Once per
+        occupancy, right after the completing dispatch, so a later
+        reader's step is ordered behind the writes on the stream."""
+        bs = self.paging.block_size
+        for slot in self._occupied():
+            if self._reg_done[slot] or self._pf[slot] < self._plen[slot]:
+                continue
+            req = self.slot_req[slot]
+            tokens = req.prompt + req.prefix
+            n_full = len(tokens) // bs
+            if n_full:
+                self.prefix_cache.insert(self._namespace(req.model), tokens,
+                                         self._slot_blocks[slot][:n_full])
+            self._reg_done[slot] = True
 
     def _harvest(self) -> list[Request]:
         """One bulk transfer of the done/count vectors; token buffers come
@@ -816,8 +916,10 @@ class ServingEngine:
         return done
 
     def memory_stats(self) -> FragmentationStats:
-        """Pool occupancy + fragmentation.  Exact at sync points; between
-        syncs resident tokens are an upper bound."""
+        """Pool occupancy + fragmentation, with the blocks several requests
+        map (``shared_blocks``) and those parked in the prefix trie
+        (``cached_blocks``).  Exact at sync points; between syncs resident
+        tokens are an upper bound."""
         self.allocator.set_used_tokens(
             sum(self._idx_ub[i] for i in self._occupied()))
         return self.allocator.stats()

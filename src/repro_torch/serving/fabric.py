@@ -155,6 +155,18 @@ class DecodeFabric:
         return [model_id, arch.num_heads, arch.num_layers, arch.d_model,
                 arch.d_ff, arch.vocab_size]
 
+    def cache_namespace(self, arch: ArchConfig, model_id: int) -> tuple:
+        """Prefix-trie namespace for one fleet member's KV blocks.
+
+        Fleet members share ONE physical pool, but a prompt's KV is a
+        function of the *model* that prefilled it: identical token
+        prefixes under different members must never alias.  Keyed on the
+        model id *and* the architecture name, so a table row reloaded
+        with a different member (same id, new weights via
+        ``insert_model``) still separates if the caller re-registers the
+        engine's namespace map."""
+        return ("fleet", model_id, arch.name)
+
     # ------------------------------------------------------------------
     # Model table
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Split-KV flash attention: the key-range plan, the plain partial and the
-plain merge of ``repro_torch.kernels.flash_attention``.
+"""Split-KV flash attention: the key-range plan, the column groups, the
+plain partial and the plain merge of ``repro_torch.kernels.flash_attention``.
 
 Where the grid of 64-row query tiles leaves the card's SMs idle, the CUDA
 kernel cuts the keys into ranges of whole 64-key tiles (``kv_splits`` /
@@ -11,7 +11,12 @@ range, ``merge_partials_plain``) and hold them against
 reorders float32 sums), at bfloat16 within the card kernel's gate, and
 against the JAX reference
 (``repro.kernels.ops.flash_attention`` in interpret mode) at the
-tolerances of ``tests/test_torch_ops.py``.
+tolerances of ``tests/test_torch_ops.py``.  Past hd 128 each CTA writes
+one group of at most 128 output columns (``col_groups``, ``cta_block``):
+every (row, column) of the output is written by exactly one CTA of the
+grid, each group's partials (``cols=``) share one running (max, sum),
+and the groups' merged columns make up the reference's output at hd 160,
+256 and 512.
 """
 import types
 
@@ -173,3 +178,101 @@ def test_split_merge_matches_reference(ref, B, Sq, Skv, H, hd, causal):
                              fa.kv_splits(B, H, Sq, Skv, causal, SMS))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def _groups_merge(q, k, v, causal, splits):
+    """The kernel's plan past hd 128 in plain PyTorch: per column group
+    and key range a partial over the group's columns, each group merged
+    over the ranges, the groups side by side.  Returns the output and
+    each group's (m, l)."""
+    outs, stats = [], []
+    for cols in fa.col_groups(q.shape[-1]):
+        parts = [fa.flash_attention_partial_plain(q, k, v, lo, hi,
+                                                  causal=causal, cols=cols)
+                 for lo, hi in fa.kv_ranges(q.shape[1], k.shape[1], causal,
+                                            splits)]
+        acc, m, l = (torch.stack(x) for x in zip(*parts))
+        outs.append(fa.merge_partials_plain(acc, m, l, q.dtype))
+        stats.append((m, l))
+    return torch.cat(outs, -1), stats
+
+
+@pytest.mark.parametrize("hd,groups", [
+    (1, 1), (64, 1), (128, 1), (129, [(0, 128), (128, 129)]),
+    (160, [(0, 128), (128, 160)]), (256, [(0, 128), (128, 256)]),
+    (512, [(0, 128), (128, 256), (256, 384), (384, 512)]),
+])
+def test_col_groups(hd, groups):
+    assert fa.col_groups(hd) == ([(0, hd)] if groups == 1 else groups)
+
+
+@pytest.mark.parametrize("B,H,Sq,hd,causal,max_y", [
+    (1, 1, 64, 64, True, fa.MAX_Y), (2, 3, 130, 96, False, fa.MAX_Y),
+    (1, 2, 200, 160, True, fa.MAX_Y), (2, 1, 65, 256, False, fa.MAX_Y),
+    (1, 3, 129, 512, True, fa.MAX_Y), (3, 2, 1, 200, False, fa.MAX_Y),
+    (2, 2, 330, 64, True, 2),       # 6 tiles in chunks of 2 on x
+    (1, 2, 450, 256, False, 3),     # 8 tiles, chunks of 3: one CTA idle
+])
+def test_grid_writes_every_row_and_column_once(B, H, Sq, hd, causal,
+                                               max_y):
+    """The grid (B x H x column groups x chunks, query tiles):
+    ``cta_block`` of every CTA, as the kernel's ``tile_of`` places it,
+    covers each (b, row, h, column) of the output exactly once; a CTA
+    past the last tile of the last chunk writes nothing."""
+    written = np.zeros((B, Sq, H, hd), np.int32)
+    x_dim, y_dim = fa.grid(B, H, Sq, hd, max_y)
+    assert y_dim <= max_y
+    idle = 0
+    for x in range(x_dim):
+        for y in range(y_dim):
+            block = fa.cta_block(B, H, Sq, hd, causal, x, y, max_y)
+            if block is None:
+                idle += 1
+                continue
+            b, h, r0, r1, c0, c1 = block
+            assert r0 < r1 <= Sq and 0 < c1 - c0 <= fa.GROUP
+            written[b, r0:r1, h, c0:c1] += 1
+    assert (written == 1).all()
+    assert idle < B * H * len(fa.col_groups(hd)) * max_y
+    # at most 65535 tiles and 128 columns: one (b, h) per x, as before
+    if hd <= fa.GROUP and -(-Sq // fa.TILE) <= max_y:
+        assert x_dim == B * H
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,hd,causal", [
+    (1, 70, 130, 2, 160, False),    # ragged last group, one key range
+    (1, 64, 1000, 2, 200, False),   # ragged hd over a split walk
+    (1, 200, 200, 1, 256, True),    # recurrentgemma's hd, causal split
+    (1, 100, 260, 1, 512, False),   # four groups
+    (2, 40, 40, 2, 512, True),
+])
+def test_column_groups_match_reference(ref, B, Sq, Skv, H, hd, causal):
+    """Past hd 128: every group's partials carry the same (m, l) bit for
+    bit, the plain version equals the groups merged and set side by side,
+    and both match the reference in interpret mode within 1e-5."""
+    arrays = _qkv(B, Sq, Skv, H, hd, seed=13)
+    want = np.asarray(ref.ops.flash_attention(
+        *(ref.jnp.asarray(a) for a in arrays), causal=causal), np.float32)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    groups = len(fa.col_groups(hd))
+    splits = fa.kv_splits(B, H, Sq, Skv, causal, SMS, groups)
+    got, stats = _groups_merge(q, k, v, causal, splits)
+    assert groups > 1 and got.shape == (B, Sq, H, hd)
+    for m, l in stats[1:]:
+        assert torch.equal(m, stats[0][0]) and torch.equal(l, stats[0][1])
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-6 * float(v.abs().max()))
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=tol)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,causal,groups,splits", [
+    (1, 2048, 2048, 10, True, 2, 1),    # recurrentgemma-2b local attention
+    (1, 512, 512, 8, True, 4, 1),       # hd 512
+    (1, 64, 1000, 8, False, 2, 8),      # ragged hd 200: 16 CTAs -> 8 ranges
+])
+def test_kv_splits_count_the_column_groups(B, Sq, Skv, H, causal, groups,
+                                           splits):
+    assert fa.kv_splits(B, H, Sq, Skv, causal, SMS, groups) == splits

@@ -1,12 +1,14 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
 A fleet (``maxima=``) refuses int8 weights (its int8 weight table, item
-8b), the dense layout and the bucketed scheduler (item 12) and the prefix
-cache (item 9), and its engine refuses the matmul kernels as the
-reference's does.  ``flash_attention``'s kernel puts B * H on its grid's
-x dimension, so it refuses only what the grid cannot hold (ROADMAP Queue
-3 fault D).  Untied embeddings are served (the dense family's parity
-tests are in tests/test_torch_dense_family.py).
+8b), the dense layout and the bucketed scheduler (item 12), and its
+engine refuses the matmul kernels as the reference's does; it serves the
+prefix cache (tests/test_torch_prefix.py).  ``flash_attention``'s kernel
+puts the (b, h) pairs, the column groups of any hd and the chunks of
+65535 query tiles on its grid's x dimension, so it takes every hd and Sq
+the reference takes and refuses only what the hardware's grid cannot hold
+(2^31 CTAs on x).  Untied embeddings are served (the dense family's
+parity tests are in tests/test_torch_dense_family.py).
 """
 import dataclasses
 
@@ -30,18 +32,24 @@ def test_model_names_items_11_12_for_other_families():
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
-    (1, 65536, 64, 64),          # B * H past 65535: the grid's x dimension
+    (1, 65536, 64, 64),          # B * H past 65535
     (4096, 64, 1, 128),          # 262144 (b, h) pairs of one query each
-    (1, 1, 65535 * 64, 16),      # the most query tiles the y dimension holds
+    (1, 1, 65535 * 64, 16),      # the most query tiles y once held
+    (1, 1, 64, 256),             # recurrentgemma's hd (fault D)
+    (1, 1, 65535 * 64 + 1, 64),  # one query tile past the old y limit
+    (1, 8, 512, 512),            # hd 512: four column groups
+    (1, 1, 64, 200),             # a ragged hd past 128
+    (2 ** 15, 2 ** 16 - 1, 1, 64),   # 2^31 - 2^15 CTAs on x
+    (1, 1, 64, 65536 * 128),     # 65536 column groups
 ])
 def test_flash_grid_takes_what_its_grid_holds(B, H, Sq, hd):
     fa.check_grid(B, H, Sq, hd)
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
-    (1, 1, 64, 256),             # recurrentgemma's hd (fault D, still open)
-    (1, 1, 65535 * 64 + 1, 64),  # one query tile past the y dimension
     (2 ** 16, 2 ** 15, 1, 64),   # B * H = 2^31
+    (2 ** 15, 2 ** 15, 65536 * 64, 64),  # 2^30 pairs x 2 tile chunks
+    (1, 2 ** 16, 1, 2 ** 15 * 128),  # 2^16 heads x 2^15 column groups
 ])
 def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
     with pytest.raises(ValueError, match="flash_attention: the kernel takes"):
@@ -52,7 +60,6 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
     (dict(execution=ExecutionSpec(quant="int8")), "item 8b"),
     (dict(memory=MemorySpec(max_len=64)), "item 12"),
     (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
-    (dict(memory=MemorySpec(prefix_cache=True, **PAGED)), "item 9"),
 ])
 def test_fleet_refusals_name_their_items(change, item):
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))

@@ -261,8 +261,6 @@ def test_entry_points_need_a_device_choice():
     pytest.param(dict(maxima=maxima_for(CFG, seq_max=512),
                       execution=ExecutionSpec(quant="int8")), "item 8b",
                  id="kw0-item 8"),
-    (dict(memory=MemorySpec(cache_layout="paged", prefix_cache=True)),
-     "item 9"),
     (dict(speculation=object()), "item 10"),
     (dict(memory=MemorySpec()), "item 12"),
     (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),

@@ -167,6 +167,9 @@ def test_norm_parameters_in_x_dtype_match_reference(ref):
     (2, 70, 40, 2, 16, True),       # causal with Sq > Skv
     (1, 8, 600, 2, 16, False),      # two kv blocks, the second ragged
     (1, 520, 520, 1, 16, True),     # causal across a block boundary
+    (1, 70, 130, 2, 160, False),    # past hd 128: two column groups
+    (1, 100, 100, 2, 256, True),    # recurrentgemma's hd
+    (1, 40, 90, 1, 512, False),     # four column groups
 ])
 @pytest.mark.parametrize("dt", DTYPES)
 def test_flash_attention_matches_reference(ref, B, Sq, Skv, H, hd, causal,
@@ -307,7 +310,11 @@ def test_cuda_kernels_match_plain_versions(dt):
                                       (1, 130, 60, 2, 128, True),
                                       (1, 64, 1500, 4, 64, False),   # split
                                       (1, 512, 512, 2, 128, True),   # split
-                                      (1, 64, 1000, 2, 36, False)):  # ragged
+                                      (1, 64, 1000, 2, 36, False),   # ragged
+                                      (1, 300, 300, 2, 256, True),   # groups
+                                      (1, 64, 1000, 2, 200, False),  # + split
+                                      (1, 130, 70, 1, 512, False),
+                                      (1, 100, 100, 1, 138, True)):  # ragged
         if Skv >= 1000:
             assert fa_mod.kv_splits(B, H, Sq, Skv, causal, sms) > 1
         q, k, v = (_dev(_rnd(12 + i, B, s, H, hd), dev, dt)
