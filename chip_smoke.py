@@ -154,6 +154,32 @@ Phases (any failure raises and the script exits non-zero):
    printed, cache on and off.  Inside phase 6, one graphed fleet engine
    with the prefix cache serves both members the same prompts: each hits
    only its own member's chain.
+9. Speculative decoding (k = 3): full-width qwen1.5-0.5b (random
+   weights), the kernel path, graphed, phase 5's engine and request mix.
+   (a) A self-draft (the target's own weights) against speculation off:
+   f32 streams (float32 pools) equal, or diverging only where the two
+   tokens' f32 logits lie within phase 4's f32 distance (printed); bf16
+   identical tokens printed; fewer fused steps and accepted draft
+   tokens; graphed = eager (streams, launches), one capture per program;
+   the decode program's capture launches the chunk walk 24 times (the
+   verify pass at W = 4) and the decode walk never, ``tiled_matmul`` and
+   ``rmsnorm`` once per projection and norm of the target's pass and the
+   draft's 4 (the mixed program: 5) passes; an eager drain's walks are
+   24 a step, at W = 4 on the decode steps; no host sync in a fused step
+   at sync_every=4.  (b) A 4-layer draft (the target's embedding, first 4
+   layers and final norm): the same stream, graph and launch gates;
+   truncation hands blocks back; with the prefix cache on, the pool's
+   used blocks are its parked ones after the drain and none leak.  (c)
+   The fully quantized engine (int8 weights and pool, the draft
+   quantized too): graphed = eager, the launches, a second fresh engine
+   repeats the streams; identical tokens against speculation off
+   printed.  Warm graphed tokens/s and fused steps for speculation off,
+   the self-draft and the 4-layer draft; for both drafts the mean
+   accepted length, tokens per step, device ms and the idle share
+   (traced warm drain; speculation off is phase 5's warm float drain).
+   Phase 2 also holds the chunk walk at W = 4 (bf16 and int8 pools),
+   ``tiled_matmul`` at the verify pass's 32 rows and ``rmsnorm`` at
+   32 x 1024.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -185,7 +211,8 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
-                                   RuntimeSpec, SchedulerSpec, maxima_for)
+                                   RuntimeSpec, SchedulerSpec,
+                                   SpeculationSpec, maxima_for)
 from repro_torch.core.quant import QTensor, quantize  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
@@ -227,6 +254,10 @@ LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # whose effect on the logits is the floor of the phase 4 gate
 ATTN_PERTURB = 2.0 ** -19
 ENGINE = dict(max_batch=8, max_len=512, block_size=16, chunk=16)
+# phase 9: draft tokens per speculative step; the decode program's verify
+# pass runs W = SPEC_K + 1 lanes, its projections M = 8 x (SPEC_K + 1) rows
+SPEC_K = 3
+SPEC_ROWS = ENGINE["max_batch"] * (SPEC_K + 1)
 PROMPT_LENS = (24, 57, 96, 150, 203, 260, 333, 400)
 MAX_NEW = 16
 
@@ -246,7 +277,13 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                           "chunked_prefill_attention"),
                 # phase 8: the float path with the prefix cache on
                 "prefix": ("tiled_matmul", "paged_decode_attention",
-                           "chunked_prefill_attention", "rmsnorm")}
+                           "chunked_prefill_attention", "rmsnorm"),
+                # phase 9: speculative decoding (the verify pass runs the
+                # chunk walk on the decode program too)
+                "spec": ("tiled_matmul", "chunked_prefill_attention",
+                         "rmsnorm"),
+                "spec_int8": ("int8_matmul", "chunked_prefill_attention",
+                              "rmsnorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -387,9 +424,11 @@ def check_matmul(timer, dev, g) -> dict:
           f"{'kernel_ms':>10} {'plain_ms':>9} {'torch_ms':>9} {'bound_ms':>9}")
     shapes = [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
               for k, n in LAYER_MATMULS]
+    # phase 9's speculative decode step: the target's verify rows
+    shapes += [(SPEC_ROWS, k, n, torch.bfloat16) for k, n in LAYER_MATMULS]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
-    serving = {}
+    serving, verify = {}, []
     for m, k, n, dt in shapes:
         a = torch.randn(m, k, generator=g, device=dev).to(dt)
         b = (torch.randn(k, n, generator=g, device=dev) / math.sqrt(k)).to(dt)
@@ -420,6 +459,12 @@ def check_matmul(timer, dev, g) -> dict:
                 e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms,
                 shape=f"{step}-step M={m} K={k} N={n} bf16")
+        elif m == SPEC_ROWS and dt == torch.bfloat16:
+            verify.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shape=f"speculative verify (k={SPEC_K}) M={m} K={k} N={n} "
+                      "bf16"))
     # the wrapper never waits for the device (a split launch: workspace,
     # plan and reduce included)
     a = torch.randn(128, 1024, generator=g, device=dev).bfloat16()
@@ -437,8 +482,8 @@ def check_matmul(timer, dev, g) -> dict:
     rows = list(serving.values())
     main = next(e for e in rows if e["shape"].startswith("mixed-step M=128 "
                                                          "K=1024 N=2816"))
-    return dict(main, other_shapes=[e for e in rows if e is not main],
-                serving=serving)
+    return dict(main, other_shapes=[e for e in rows if e is not main]
+                + verify, serving=serving)
 
 
 def drain_estimate(name: str, serving: dict, layers: int, launches: dict,
@@ -738,7 +783,9 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
 
 # chunk lane-0 positions: the last lane reaches start + W - 1 <= 511
 CHUNK_STARTS = {16: [0, 16, 48, 100, 203, 300, 400, 496],
-                32: [0, 16, 48, 100, 203, 300, 400, 480]}
+                32: [0, 16, 48, 100, 203, 300, 400, 480],
+                # phase 9's verify pass: lane 0 at each slot's index
+                SPEC_K + 1: [0, 16, 99, 251, 252, 296, 400, 508]}
 DECODE_LENS = [0, 16, 99, 254, 255, 299, 510, 511]
 
 
@@ -770,6 +817,15 @@ def check_attention(timer, dev, g) -> dict:
                 entries[name] = dict(nums, other_shapes=[])
             elif (q_dt, kv_dt) == (bf, i8):
                 entries[name]["int8_pool"] = nums
+    # phase 9's speculative decode step verifies k + 1 = 4 lanes per slot:
+    # 4 of a CTA's 16 query rows live (n_rep 1), over a bf16 and an int8
+    # pool
+    print(f"speculative verify (W = {SPEC_K + 1}):")
+    for kv_dt in (bf, i8):
+        entries["chunked_prefill_attention"]["other_shapes"].append(
+            attn_case(timer, dev, g, "chunked_prefill_attention", bf, kv_dt,
+                      B, SPEC_K + 1, 16, 16, hd, CHUNK_STARTS[SPEC_K + 1],
+                      label=f"speculative verify W {SPEC_K + 1}"))
     # fault A: hd 96 (phi3-mini: 32 heads of 96, no GQA) and GQA 8 x hd 128
     # (qwen2-72b: 64 heads over 8 kv heads): decode, chunk at W 16 and 32
     print("fault A shapes (ROADMAP Queue 3):")
@@ -2059,15 +2115,16 @@ def logit_gap(model32: Model, seq: list[int], a: int, b: int) -> float:
 
 
 def f32_streams_equal(params, traffic, on: dict, off: dict,
-                      f32_dist: float) -> None:
-    """Whole f32 streams, cache on against off: equal, or where a request
-    diverges, the two tokens' logits at that step (recomputed in float32)
-    lie within phase 4's f32 distance of each other (a near-tie that a
-    decode step and a mixed step, whose K-split plans differ, may break
-    either way); the request is not compared past that step."""
+                      f32_dist: float, what: str = "cache") -> None:
+    """Whole f32 streams, ``what`` (the prefix cache, speculation) on
+    against off: equal, or where a request diverges, the two tokens'
+    logits at that step (recomputed in float32) lie within phase 4's f32
+    distance of each other (a near-tie that a decode step and a mixed
+    step, whose K-split plans differ, may break either way); the request
+    is not compared past that step."""
     wave = traffic[1]
     same, n = same_tokens(on["streams"], off["streams"])
-    print(f"f32 compute, f32 pool: identical tokens cache on vs off "
+    print(f"f32 compute, f32 pool: identical tokens {what} on vs off "
           f"{same}/{n}")
     model32 = None
     for i in sorted(on["streams"]):
@@ -2085,7 +2142,7 @@ def f32_streams_equal(params, traffic, on: dict, off: dict,
               f"{f32_dist:.4g})")
         if gap > f32_dist:
             raise AssertionError(f"f32 request {i} diverges at token {t} "
-                                 f"with the cache on and off, and it is no "
+                                 f"with {what} on and off, and it is no "
                                  f"near-tie ({gap} > {f32_dist})")
     del model32
     torch.cuda.empty_cache()
@@ -2231,6 +2288,275 @@ def check_prefix_fleet(members) -> None:
                              "members, or a miss within one")
     del eng
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding
+# ---------------------------------------------------------------------------
+SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 of 24 layers
+
+
+def spec_spec(draft: ArchConfig | None, quant: bool = False,
+              compute: str = "bf16", prefix: bool = False) -> RuntimeSpec:
+    """Phase 5's full-width kernel-path spec at ``compute`` (``quant``:
+    int8 weights and pool; ``prefix``: the prefix cache on), speculating
+    with k = ``SPEC_K`` and ``draft`` as the proposer's architecture, or
+    not at all (``draft`` None)."""
+    spec = full_width_spec(True, quant)
+    return dataclasses.replace(
+        spec, execution=dataclasses.replace(spec.execution,
+                                            compute_dtype=compute),
+        memory=dataclasses.replace(spec.memory, prefix_cache=prefix),
+        speculation=None if draft is None
+        else SpeculationSpec(draft_model=draft, k=SPEC_K))
+
+
+def spec_drain(params, prompts, draft=None, graphs: bool = True,
+               warm: bool = False, f32_pool: bool = False,
+               profile: bool = False, sync_every: int = 1,
+               no_sync: bool = False, **kw) -> dict:
+    """A fresh engine of ``spec_spec(**kw)`` (``draft``: the proposer's
+    (architecture, state dict), None for speculation off) drains
+    ``prompts`` (phase 5's ``drain`` at ``sync_every``, ``no_sync``);
+    ``warm`` drains them again on the
+    same engine into ``out["warm"]`` (``profile``: and once more traced,
+    into ``out["traced"]``).  ``f32_pool``: the target's pool in float32,
+    installed before any step.  Also returns the width W of every call of
+    the chunk kernel's wrapper in the first drain (``widths``; a graphed
+    engine calls it only while it warms up and captures), the blocks
+    truncation handed back, the per-program launches each capture
+    recorded, and the pool's occupancy after the drain."""
+    eng = ServingEngine(spec_spec(draft and draft[0], **kw), device="cuda",
+                        graphs=graphs)
+    eng.load(params, draft=draft and draft[1])
+    if f32_pool:
+        eng.cache = attn_mod.KVCache(
+            *(torch.zeros_like(t, dtype=torch.float32)
+              for t in (eng.cache.k, eng.cache.v)))
+    widths, cut = collections.Counter(), collections.Counter()
+    walk, truncate = attn_mod.chunked_prefill_attention, \
+        eng.allocator.truncate
+
+    def counting_walk(q, *a, **k):
+        widths[q.shape[1]] += 1
+        return walk(q, *a, **k)
+
+    def counting_truncate(blocks, keep):
+        kept, zeros = truncate(blocks, keep)
+        cut["blocks"] += len(blocks) - len(kept)
+        return kept, zeros
+    eng.allocator.truncate = counting_truncate
+    with mock.patch.object(attn_mod, "chunked_prefill_attention",
+                           counting_walk):
+        out = drain(eng, prompts, sync_every=sync_every, no_sync=no_sync)
+    if warm:
+        out["warm"] = drain(eng, prompts)
+    if profile:
+        out["traced"] = drain(eng, prompts, measure="profile")
+    mem = eng.memory_stats()
+    out.update(widths=dict(widths), truncated=cut["blocks"],
+               programs={k: sg.launches for k, sg in eng._graphs.items()},
+               memory=mem, free=eng.allocator.num_free)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_rates(label: str, r: dict, n_tok: int) -> str:
+    """Steps, acceptance and tokens per step of one speculative drain."""
+    st = r["stats"]
+    acc, ss = st["spec_accepted"], st["spec_steps"]
+    mean = acc / ss if ss else 0.0
+    return (f"{label}: {r['steps']} fused steps, {ss} slot-steps "
+            f"speculating, {acc} draft tokens accepted (mean accepted "
+            f"length {mean:.3f}; {1 + mean:.3f} tokens per decoding slot "
+            f"per step; {n_tok / r['steps']:.3f} tokens per fused step)")
+
+
+def check_spec_launches(label: str, r: dict, layers: int, draft_layers: int,
+                        mm: str) -> None:
+    """The launches of a speculative engine: the decode program (its
+    capture) runs the chunk walk once per layer (the verify pass at W =
+    k + 1) and no decode walk, and its matmul kernel and ``rmsnorm`` once
+    per projection / norm of the target's pass and of the draft's k + 1
+    passes (k proposals, the write-only pass); the mixed program adds the
+    draft's prompt pass.  An eager drain calls the walk at W = k + 1 on
+    each decode step and at W = chunk on each mixed step: 24 a step."""
+    for kind, passes in (("decode", SPEC_K + 1), ("mixed", SPEC_K + 2)):
+        got = r["programs"].get(kind)
+        if got is None:
+            continue
+        want = {mm: 7 * (layers + passes * draft_layers),
+                "rmsnorm": 2 * layers + 1 + passes * (2 * draft_layers + 1),
+                "chunked_prefill_attention": layers}
+        have = {n: got.get(n, 0) for n in (*want, "paged_decode_attention")}
+        print(f"  {label}, the {kind} program's capture: {have}")
+        if any(have[n] != c for n, c in want.items()) \
+                or have["paged_decode_attention"]:
+            raise AssertionError(f"{label}: the {kind} program launched "
+                                 f"{have}, want {want} and no decode walk")
+    if r["launches"]["paged_decode_attention"]:
+        raise AssertionError(f"{label}: the decode walk ran in a "
+                             "speculative drain")
+
+
+def spec_walk_widths(label: str, r: dict, layers: int) -> int:
+    """An eager speculative drain's chunk walks by width: 24 at W = k + 1
+    per decode step and 24 at W = chunk per mixed step, the steps all
+    accounted for.  Returns the decode steps."""
+    w = r["widths"]
+    dec, mix = w.get(SPEC_K + 1, 0), w.get(ENGINE["chunk"], 0)
+    print(f"  {label}, eager: chunk walks by width {w} over {r['steps']} "
+          f"fused steps ({dec // layers} decode, {mix // layers} mixed)")
+    if set(w) - {SPEC_K + 1, ENGINE["chunk"]} or dec % layers \
+            or mix % layers or (dec + mix) // layers != r["steps"] \
+            or not dec:
+        raise AssertionError(f"{label}: chunk walks {w} over {r['steps']} "
+                             f"steps; want {layers} a step, at W = "
+                             f"{SPEC_K + 1} on the decode steps")
+    return dec // layers
+
+
+def check_speculation(dev, g, f32_dist: float) -> dict:
+    """Phase 9: full-width qwen1.5-0.5b (random weights), the kernel
+    path, graphed, phase 5's engine and request mix, k = ``SPEC_K``:
+    (a) a self-draft against speculation off, (b) a 4-layer draft (the
+    target's embedding, first 4 layers and final norm), (c) the fully
+    quantized engine with the draft quantized too.  Gates: f32 streams
+    equal to speculation off up to printed near-ties (a, b); fewer fused
+    steps and accepted drafts (a); graphed = eager (streams, launches),
+    one capture per program (a, b, c); the launches of each program
+    (``check_spec_launches``) and the eager walks' widths; no host sync
+    in a fused step at sync_every=4 (a); blocks handed back by truncation
+    and, with the prefix cache on, a pool whose used blocks are the
+    parked ones after the drain (b); a second fresh fully-quantized
+    engine repeats the streams (c).  Returns the launches of (a)'s and
+    (c)'s graphed drains."""
+    cfg = get_config("qwen1.5-0.5b")
+    L, Ld = cfg.num_layers, SPEC_DRAFT_LAYERS
+    params = Model(cfg, device=dev).init(g).state_dict()
+    small = (dataclasses.replace(cfg, num_layers=Ld),
+             {k: v for k, v in params.items()
+              if not k.startswith("layers.") or int(k.split(".")[1]) < Ld})
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    n_tok = len(prompts) * MAX_NEW
+    selfd = (cfg, params)
+    t_start = time.perf_counter()
+    print(f"\n== speculative decoding: full-width qwen1.5-0.5b, k = "
+          f"{SPEC_K}, the phase 5 mix ({len(prompts)} requests x {MAX_NEW} "
+          "new tokens), kernels, graphed")
+    # speculation off is phase 5's float engine: its warm drain's device
+    # time and idle share are phase 5's (the trace of a drain takes tens
+    # of seconds to read back)
+    off = spec_drain(params, prompts, warm=True)
+    on = spec_drain(params, prompts, selfd, warm=True, profile=True)
+    on_e = spec_drain(params, prompts, selfd, graphs=False)
+    four = spec_drain(params, prompts, small, warm=True, profile=True)
+    four_e = spec_drain(params, prompts, small, graphs=False)
+    for label, r in (("speculation off", off), ("self-draft", on),
+                     (f"{Ld}-layer draft", four)):
+        w = r["warm"]
+        print(drain_line(f"{label}, graphed, first drain", r, n_tok))
+        print(drain_line(f"{label}, graphed, warm engine", w, n_tok))
+        if r is off:
+            print("  speculation off, warm: device time and idle share in "
+                  "phase 5 (kernels, float weights, graphed, warm engine)")
+        else:
+            print("  " + spec_rates(label, w, n_tok))
+            t = r["traced"]
+            idle = "not measured (the profiler traced no device activity)" \
+                if t["device_s"] is None else \
+                (f"{1 - t['device_s'] / w['dt']:.3f} of the untraced warm "
+                 f"drain's {w['dt']:.3f} s ({t['device_s'] * 1e3:.1f} ms of "
+                 "device time)")
+            print(f"  {label}, warm: device idle {idle}")
+            if t["device_s"]:
+                print("  where its device time goes (the 12 longest by "
+                      "name: calls, ms, share):")
+                for key, calls, ms in t["top"]:
+                    print(f"    {key[:90]:<90} {calls:>6} {ms:9.3f} "
+                          f"{ms / (t['device_s'] * 1e3):6.1%}")
+        if w["streams"] != r["streams"] or w["stats"]["graph_captures"]:
+            raise AssertionError(f"{label}: the warm drain captured again "
+                                 "or streamed otherwise")
+    for label, r, e, ld in (("self-draft", on, on_e, L),
+                            (f"{Ld}-layer draft", four, four_e, Ld)):
+        check_graphed(f"speculation, {label}", {"graphed": r, "eager": e},
+                      ("tiled_matmul", "chunked_prefill_attention"), L,
+                      n_tok)
+        check_spec_launches(label, r, L, ld, "tiled_matmul")
+        spec_walk_widths(label, e, L)
+        same, n = same_tokens(r["streams"], off["streams"])
+        print(f"  {label}, bf16: identical tokens speculation on vs off "
+              f"{same}/{n} (reported; at bf16 a verify pass and a decode "
+              "step may break a near-tie differently)")
+    st = on["stats"]
+    if st["spec_accepted"] <= 0 or on["steps"] >= off["steps"]:
+        raise AssertionError(f"self-draft: {st['spec_accepted']} accepted, "
+                             f"{on['steps']} fused steps against "
+                             f"{off['steps']} with speculation off")
+    print(f"{Ld}-layer draft: truncation handed back {four['truncated']} "
+          "blocks in the first drain; (a) and (b) graphed and eager took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    if four["truncated"] <= 0:
+        raise AssertionError("the 4-layer draft's rollback handed back no "
+                             "block")
+    # f32 streams: speculation on and off over float32 pools
+    f32_off = spec_drain(params, prompts, compute="fp32", f32_pool=True)
+    for label, d in (("self-draft", selfd), (f"{Ld}-layer draft", small)):
+        r = spec_drain(params, prompts, d, compute="fp32", f32_pool=True)
+        print("  " + spec_rates(f"{label}, f32", r, n_tok))
+        f32_streams_equal(params, (None, prompts), r, f32_off, f32_dist,
+                          what=f"speculation ({label})")
+    print(f"  the f32 drains: {time.perf_counter() - t_start:.1f} s into "
+          "phase 9")
+    # fault B: no fused step waits for the device
+    quiet = spec_drain(params, prompts, selfd, sync_every=4, no_sync=True)
+    print(f"self-draft, graphed, sync_every=4, every fused step (the "
+          f"captures) under set_sync_debug_mode('error'): no host sync, no "
+          f"staging wait; {quiet['steps']} steps, "
+          f"{quiet['stats']['graph_captures']} captures")
+    if quiet["streams"] != on["streams"]:
+        raise AssertionError("self-draft: the sync_every=4 streams differ "
+                             "from the sync_every=1 ones")
+    # the prefix cache on for the same traffic: rollback parks trie-owned
+    # tails, and the pool holds only the parked chains after the drain
+    pc = spec_drain(params, prompts, small, prefix=True)
+    m = pc["memory"]
+    print(f"{Ld}-layer draft with the prefix cache: {pc['truncated']} blocks "
+          f"handed back by truncation; after the drain {m.used_blocks} used "
+          f"= {m.cached_blocks} parked, {pc['free']} free of "
+          f"{m.total_blocks}")
+    if m.used_blocks != m.cached_blocks \
+            or pc["free"] + m.cached_blocks != m.total_blocks \
+            or pc["streams"] != four["streams"]:
+        raise AssertionError(f"{Ld}-layer draft with the prefix cache: "
+                             f"pool {m}, {pc['free']} free, or other "
+                             "streams than without the cache")
+    # (c) fully quantized: int8 weights and pool, the draft quantized too
+    print(f"  (c) starts {time.perf_counter() - t_start:.1f} s into phase 9")
+    q_on = spec_drain(params, prompts, selfd, quant=True)
+    q_e = spec_drain(params, prompts, selfd, quant=True, graphs=False)
+    check_graphed("speculation, fully quantized", {"graphed": q_on,
+                                                   "eager": q_e},
+                  ("int8_matmul", "chunked_prefill_attention"), L, n_tok)
+    check_spec_launches("fully quantized", q_on, L, L, "int8_matmul")
+    print("  " + spec_rates("fully quantized", q_on, n_tok))
+    again = spec_drain(params, prompts, selfd, quant=True)
+    if again["streams"] != q_on["streams"]:
+        raise AssertionError("fully quantized speculation: the streams "
+                             "differ between two fresh engines")
+    q_off = spec_drain(params, prompts, quant=True)
+    same, n = same_tokens(q_on["streams"], q_off["streams"])
+    print(f"fully quantized: a second fresh engine repeats the streams; "
+          f"identical tokens speculation on vs off {same}/{n} (reported: "
+          "one activation scale spans every row of a step)")
+    print(f"phase 9 took {time.perf_counter() - t_start:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return {"spec": on["launches"], "spec_int8": q_on["launches"]}
 
 
 def main() -> int:
@@ -2395,10 +2721,12 @@ def main() -> int:
 
     launches.update(check_dense_family(dev, g, PROMPT_LENS))
     launches["prefix"] = check_prefix(dev, g, f32_dist)
-    for name in PATH_KERNELS["prefix"]:
-        if launches["prefix"][name] <= 0:
-            raise AssertionError(f"{name} was not launched on the prefix "
-                                 "path")
+    launches.update(check_speculation(dev, g, f32_dist))
+    for path in ("prefix", "spec", "spec_int8"):
+        for name in PATH_KERNELS[path]:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"{path} path")
 
     table = []
     for name in KERNELS:

@@ -16,9 +16,10 @@ What the port serves so far is the dense family through the paged pool
 and the chunked scheduler, with float or int8 weights (``quant``) and a
 float or int8 KV pool (``MemorySpec.kv_dtype``), one model or a fleet of
 them within ``maxima`` (``maxima_for``; float weights only), with or
-without the prefix cache (``MemorySpec.prefix_cache``).  Every other
-option of the reference is rejected at construction with the ROADMAP.md
-queue item that ports it.
+without the prefix cache (``MemorySpec.prefix_cache``), and for one model
+with speculative decoding (``SpeculationSpec``).  Every other option of
+the reference is rejected at construction with the ROADMAP.md queue item
+that ports it.
 """
 from __future__ import annotations
 
@@ -242,15 +243,60 @@ class SchedulerSpec:
 
 
 @dataclass(frozen=True)
+class SpeculationSpec:
+    """Speculative decoding: a draft model proposes ``k`` tokens per fused
+    step and the target verifies all ``k + 1`` positions in one
+    chunk-shaped attend (lane ``j`` of the verify pass scores position
+    ``index + j`` against the pool like a prefill chunk lane).
+
+    * ``draft_model`` -- the proposer's architecture.  It decodes from its
+      own private dense KV cache inside the same fused step, so it must
+      share the target's token space: ``vocab_size`` must match the
+      serving arch (checked by ``RuntimeSpec.validate``).
+    * ``k`` -- draft tokens proposed per step; ``k + 1 <= chunk_size``.
+    * ``greedy_accept=True`` -- accept proposal ``j + 1`` iff it equals the
+      target argmax at lane ``j`` (cumulative), which keeps greedy streams
+      token-identical to target-only decode.  ``False`` uses rejection
+      sampling on the softened distributions (rows with temperature <= 0
+      still take the greedy path).
+    """
+
+    draft_model: ArchConfig
+    k: int = 3
+    greedy_accept: bool = True
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.draft_model, ArchConfig):
+            raise ValueError(
+                "SpeculationSpec.draft_model must be an ArchConfig, got "
+                f"{type(self.draft_model).__name__}")
+        self.draft_model.validate()
+        if self.k < 1:
+            raise ValueError(
+                f"SpeculationSpec.k={self.k} must be >= 1 (propose at "
+                "least one draft token per step)")
+        if self.draft_model.family not in PORTED_FAMILIES:
+            raise _not_ported(
+                f"a draft of family {self.draft_model.family!r}",
+                "items 11-12", "; the port drafts with family 'dense'")
+
+    @property
+    def horizon(self) -> int:
+        """Positions a decoding slot may consume per fused step (the ``k``
+        proposals plus the bonus / correction token)."""
+        return self.k + 1
+
+
+@dataclass(frozen=True)
 class RuntimeSpec:
     """One frozen description of a runnable configuration.
 
     ``maxima`` (a ``core.registers.Maxima``) selects multi-topology
     serving: one engine built at the maxima serves a fleet of models
     (``serving/fabric.py``), and the spec's own arch must fit them.
-    ``speculation`` and ``mesh`` are the reference's speculative-decoding
-    and mesh axes; the port accepts only their defaults (None) until they
-    are ported.
+    ``speculation`` (a ``SpeculationSpec``) drafts and verifies inside the
+    fused step of one model.  ``mesh`` is the reference's mesh axis; the
+    port accepts only its default (None) until it is ported.
     """
 
     arch: ArchConfig
@@ -258,7 +304,7 @@ class RuntimeSpec:
     memory: MemorySpec = field(default_factory=MemorySpec)
     scheduler: SchedulerSpec = field(default_factory=SchedulerSpec)
     maxima: Maxima | None = None
-    speculation: Any = None
+    speculation: SpeculationSpec | None = None
     mesh: Any = None
 
     def __post_init__(self) -> None:
@@ -276,9 +322,26 @@ class RuntimeSpec:
                 "quant='int8')", "item 8b",
                 "; fleet members serve float weights over a bf16 or int8 "
                 "KV pool")
+        if self.speculation is not None and self.maxima is not None:
+            raise _not_ported(
+                "speculative decoding in a fleet (maxima=... with "
+                "speculation=...)", "item 10b",
+                "; one model speculates")
         if self.speculation is not None:
-            raise _not_ported("speculative decoding (speculation=...)",
-                              "item 10")
+            # the reference's messages: the verify pass rides the fused
+            # chunked step
+            if self.scheduler.policy == "bucketed":
+                raise ValueError(
+                    "speculation requires the chunked scheduler: the "
+                    "draft-propose / target-verify pass is fused into the "
+                    "chunk-shaped mixed step (the bucketed path has no "
+                    "multi-position attend); use policy='auto' or "
+                    "'chunked'")
+            bad = self.scheduler.chunk_violations(mem)
+            if bad:
+                raise ValueError(
+                    "speculation requires a satisfiable chunked scheduler: "
+                    + "; ".join(bad))
         if mem.cache_layout != "paged":
             raise _not_ported(
                 f"cache_layout={mem.cache_layout!r}", "item 12",
@@ -303,6 +366,8 @@ class RuntimeSpec:
             raise ValueError(
                 "scheduler policy 'chunked' is not satisfiable: "
                 + "; ".join(bad))
+        if self.speculation is not None:
+            self._validate_speculation()
         if self.mesh is not None:
             raise _not_ported("mesh serving (mesh=...)", "item 13")
         if self.maxima is not None:
@@ -317,6 +382,29 @@ class RuntimeSpec:
                     "spec does not fit its own maxima (re-synthesis "
                     "required): " + "; ".join(bad) + hint)
         return self
+
+    def _validate_speculation(self) -> None:
+        """The reference's checks of a speculating spec: the verify lanes
+        fit the fused step's chunk, and the draft shares the target's
+        token space.  (The chunked scheduler it needs is the port's only
+        one, checked above.)"""
+        sp = self.speculation
+        if not isinstance(sp, SpeculationSpec):
+            raise ValueError(
+                "RuntimeSpec.speculation must be a SpeculationSpec, got "
+                f"{type(sp).__name__}")
+        chunk = min(self.scheduler.chunk_size, self.memory.max_len)
+        if sp.horizon > chunk:
+            raise ValueError(
+                f"SpeculationSpec.k={sp.k} needs {sp.horizon} verify "
+                f"lanes but the fused step has only chunk_size={chunk} "
+                "(raise SchedulerSpec.chunk_size or lower k)")
+        if sp.draft_model.vocab_size != self.arch.vocab_size:
+            raise ValueError(
+                f"speculation draft vocab_size={sp.draft_model.vocab_size} "
+                f"!= target vocab {self.arch.vocab_size}: draft proposals "
+                "are verified as target token ids, so the models must "
+                "share a tokenizer space")
 
     def static_registers(self, sequence: int | None = None) -> dict[str, int]:
         """The register values as plain ints (for ceiling checks); the

@@ -18,6 +18,15 @@ phi3-mini-3.8b, and adaptor-bert-shaped.  ``--prefix-cache`` shares
 prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
 reports its hits, skipped tokens, copy-on-write forks and evictions.
 
+``--spec-k K`` turns on speculative decoding: a draft (``--draft``, an
+arch id of the registry at the target's width; by default the target's
+own architecture and weights, a self-draft) proposes K tokens per fused
+step and the target verifies K + 1 positions in one chunk-shaped attend;
+the report gives the accepted draft tokens over the speculative steps.
+A greedy mix (``--temperature 0``) accepts by argmax match, a sampled one
+by rejection sampling.  ``--spec-k`` is refused with ``--fleet``, as the
+reference's launcher refuses it.
+
 On the card each fused program runs as one CUDA graph, captured on its
 first all-greedy step and replayed after (a step with a stochastic slot
 runs eagerly); ``--eager`` runs every step eagerly.  The report gives the
@@ -83,18 +92,30 @@ def main(argv: list[str] | None = None) -> None:
                     help="share prompt-prefix KV blocks across requests")
     ap.add_argument("--chunk-size", type=int, default=16,
                     help="prompt tokens per slot per fused step")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens proposed per "
+                         "fused step (0 disables); the target verifies all "
+                         "k+1 positions in one chunk-shaped attend")
+    ap.add_argument("--draft", default=None,
+                    help="draft arch id for --spec-k (default: the target "
+                         "itself, i.e. self-draft; must share the target's "
+                         "vocab / tokenizer space)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eager", action="store_true",
                     help="run every fused step eagerly (default on the "
                          "card: each fused program is one CUDA graph)")
     args = ap.parse_args(argv)
+    if args.spec_k and args.fleet:
+        ap.error("--spec-k serves one model here; drop --fleet "
+                 "(a fleet that speculates is ROADMAP.md Queue 1 item 10b)")
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.spec import (ExecutionSpec, MemorySpec,
-                                       RuntimeSpec, SchedulerSpec, maxima_for)
+                                       RuntimeSpec, SchedulerSpec,
+                                       SpeculationSpec, maxima_for)
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
@@ -106,6 +127,15 @@ def main(argv: list[str] | None = None) -> None:
         cfgs = [reduced(c) for c in cfgs]
     cfg = cfgs[0]
     maxima = maxima_for(*cfgs, seq_max=args.max_len) if args.fleet else None
+    speculation = draft_cfg = None
+    if args.spec_k:
+        draft_cfg = get_config(args.draft) if args.draft else cfg
+        if args.draft and not args.full_width:
+            draft_cfg = reduced(draft_cfg)
+        # a sampled mix takes the rejection-sampling accept path; a greedy
+        # one the exact argmax match
+        speculation = SpeculationSpec(draft_model=draft_cfg, k=args.spec_k,
+                                      greedy_accept=args.temperature <= 0.0)
     ex_kw = {}
     if args.param_dtype is not None:
         ex_kw["param_dtype"] = args.param_dtype
@@ -123,7 +153,8 @@ def main(argv: list[str] | None = None) -> None:
                           num_blocks=args.num_blocks,
                           kv_dtype=args.kv_dtype,
                           prefix_cache=args.prefix_cache),
-        scheduler=SchedulerSpec(chunk_size=args.chunk_size))
+        scheduler=SchedulerSpec(chunk_size=args.chunk_size),
+        speculation=speculation)
     device = resolve_device(args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
     eng = ServingEngine(spec, max_models=len(cfgs), device=device,
@@ -141,7 +172,13 @@ def main(argv: list[str] | None = None) -> None:
         if args.fleet:
             model_ids.append(eng.add_model(params, c))
         else:
-            eng.load(params)
+            draft = None
+            if draft_cfg is not None:
+                draft = params if draft_cfg == c else Model(
+                    draft_cfg, param_dtype=ex.param_dtype,
+                    compute_dtype=ex.compute_dtype, device=device).init(
+                        gen.manual_seed(args.seed + 1)).state_dict()
+            eng.load(params, draft=draft)
             model_ids.append(0)
         del params
 
@@ -178,6 +215,13 @@ def main(argv: list[str] | None = None) -> None:
               f"{st['cow_forks']} CoW forks, {st['prefix_evictions']} "
               f"evictions; {s.shared_blocks} shared + {s.cached_blocks} "
               "parked blocks resident")
+    if args.spec_k:
+        acc, ss = st["spec_accepted"], st["spec_steps"]
+        mean = acc / ss if ss else 0.0
+        print(f"speculation: k={args.spec_k} draft={draft_cfg.name}, "
+              f"{acc} draft tokens accepted over {ss} speculative steps "
+              f"(mean {mean:.2f}; ~{1 + mean:.2f} tokens/step per "
+              "decoding slot)")
     if args.fleet:
         print(f"fleet: {names} served by one fused step")
     for r in done[:3]:

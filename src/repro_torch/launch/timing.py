@@ -29,6 +29,7 @@ STEP_ROWS = {"mixed": 128, "decode": 8}
 NORM_SHAPES = (
     ("rmsnorm", 8, 1024, "qwen1.5-0.5b decode step", 0),
     ("rmsnorm", 128, 1024, "qwen1.5-0.5b mixed step", 0),
+    ("rmsnorm", 32, 1024, "qwen1.5-0.5b speculative verify (k 3)", 0),
     ("rmsnorm", 128, 8192, "qwen2-72b mixed step", 0),
     ("rmsnorm", 16384, 1024, "qwen1.5-0.5b 16K-token prefill", 0),
     ("rmsnorm", 8192, 8192, "qwen2-72b 8K-token prefill", 0),

@@ -1,5 +1,6 @@
-"""GQA attention of the port: full-sequence, paged decode and the paged
-mixed (chunk) step.
+"""GQA attention of the port: full-sequence, paged decode, the paged
+mixed (chunk) step, and the mixed step over a dense per-slot cache (the
+speculation draft's).
 
 The counterpart of the reference's ``models/attention.py`` GQA half.  The
 dtype flow is the reference's: scores are an einsum in the promoted
@@ -10,7 +11,7 @@ The paged pool is updated **in place** (``core.kv_quant.cache_put``): the
 reference donates the cache to its jitted step, the port writes the new
 K/V rows (and, with the int8 codec, their scales) straight into the pool
 tensors.  Writes past a slot's blocks and writes of dead lanes are routed
-to the null block explicitly.  With the int8 codec the gather path
+to the null block explicitly; in a dense cache they go to its spare row.  With the int8 codec the gather path
 dequantizes the gathered view to x's dtype and the kernels take the
 scales.
 """
@@ -183,6 +184,34 @@ def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
         o = _gather_attend(q, cache, codec, block_tables, live, cfg)
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
+    return apply_dense(o, p.wo, mm)
+
+
+def gqa_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
+              start: torch.Tensor, n_live: torch.Tensor, *,
+              mm: str) -> torch.Tensor:
+    """W-lane chunk/decode attention against one layer's dense cache
+    ``[B, max_len + 1, kv, hd]`` (``Model.init_dense_cache``; float
+    storage): lane ``l`` of slot ``b`` sits at position ``start[b] + l``
+    and only its first ``n_live[b]`` lanes are real.  The chunk's K/V are
+    written before the attend, so one mask (``chunk_causal_mask`` over the
+    first ``max_len`` rows) covers the chunk's own causality and the prior
+    cache.  Dead lanes and positions past ``max_len - 1`` write into the
+    spare row ``max_len``, which no mask admits (the reference drops them
+    as out-of-bounds scatters); live lanes never share a row."""
+    b_, w, _ = x.shape
+    positions = start[:, None] + torch.arange(w, device=x.device,
+                                              dtype=start.dtype)[None, :]
+    q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm)
+    s_max = cache.k.shape[1] - 1
+    live_w = masking.lane_mask(w, n_live) & (positions < s_max)
+    idx = (torch.arange(b_, device=x.device)[:, None],
+           torch.where(live_w, positions, s_max).long())
+    cache.k.index_put_(idx, k_new.to(cache.k.dtype))
+    cache.v.index_put_(idx, v_new.to(cache.v.dtype))
+    live = masking.chunk_causal_mask(s_max, start, w)
+    o = _gqa_attend(q, cache.k[:, :s_max].to(x.dtype),
+                    cache.v[:, :s_max].to(x.dtype), live, cfg)
     return apply_dense(o, p.wo, mm)
 
 

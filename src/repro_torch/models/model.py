@@ -1,6 +1,6 @@
 """The dense decoder LM of the port (the reference's ``Model`` for family
-``dense``): parameters, the paged KV pool, ``forward``, ``decode_step``
-and ``mixed_step``.
+``dense``): parameters, the paged KV pool and the dense per-slot cache,
+``forward``, ``decode_step`` and ``mixed_step``.
 
 Parameters mirror the reference's pytree, one module per layer instead
 of a stacked layer axis: ``embed.table``, ``final_norm.scale``,
@@ -28,7 +28,7 @@ from torch import nn
 from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
                                       DEFAULT_PARAM_DTYPE, ArchConfig)
 from repro_torch.core import serve_quant
-from repro_torch.core.kv_quant import CacheCodec
+from repro_torch.core.kv_quant import FLOAT_CODEC, CacheCodec
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 from repro_torch.kernels.runtime import resolve_device
@@ -230,6 +230,19 @@ class Model(nn.Module):
         v, v_scale = self.codec.cache_tensors(shape, self.device)
         return KVCache(k, v, k_scale, v_scale)
 
+    def init_dense_cache(self, batch: int, max_len: int) -> KVCache:
+        """The dense per-slot cache ``[layers, batch, max_len + 1, kv, hd]``
+        of a speculation draft: the float codec's storage (bf16, as the
+        reference's dense cache), never int8 and never paged.  Row
+        ``max_len`` is a spare that takes the writes of dead lanes and of
+        positions past the end; no mask admits it."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        k, _ = FLOAT_CODEC.cache_tensors(shape, self.device)
+        v, _ = FLOAT_CODEC.cache_tensors(shape, self.device)
+        return KVCache(k, v)
+
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return layers.embed(tokens, _weight(self.embed, "table"),
@@ -284,19 +297,27 @@ class Model(nn.Module):
     @torch.no_grad()
     def mixed_step(self, cache: KVCache, tokens: torch.Tensor,
                    start: torch.Tensor, n_live: torch.Tensor,
-                   block_tables: torch.Tensor) -> torch.Tensor:
+                   block_tables: torch.Tensor | None = None
+                   ) -> torch.Tensor:
         """Chunked-prefill/decode mixed step: tokens [B, W] -> logits
         [B, W, V].  Lane ``l`` of slot ``b`` sits at position
         ``start[b] + l``; only the first ``n_live[b]`` lanes are real (a
         decoding slot uses one, a prefilling slot up to a chunk, an idle
-        slot none).  The pool is updated in place."""
+        slot none).  The cache is updated in place: the paged pool through
+        ``block_tables``, or with ``block_tables=None`` the dense cache of
+        ``init_dense_cache`` (a speculation draft's)."""
         x = self._embed(tokens)
         for i, blk in enumerate(self.layers):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
-            x = x + attn.gqa_mixed_paged(
-                hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
-                block_tables, impl=self.paged_attn_impl,
-                mm=self.matmul_backend, codec=self.codec)
+            if block_tables is None:
+                o = attn.gqa_mixed(hn, blk.attn, self.cfg, cache.layer(i),
+                                   start, n_live, mm=self.matmul_backend)
+            else:
+                o = attn.gqa_mixed_paged(
+                    hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
+                    block_tables, impl=self.paged_attn_impl,
+                    mm=self.matmul_backend, codec=self.codec)
+            x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)

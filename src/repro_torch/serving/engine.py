@@ -53,6 +53,22 @@ parked blocks are evicted oldest-first before any request is preempted.
 A slot writes only at positions at or past its start, so never into a
 block it shares.
 
+Speculative decoding (``RuntimeSpec(speculation=SpeculationSpec(...))``):
+a draft model (``load(params, draft=...)`` or ``load_draft``) rides the
+same fused step with its own dense cache (``Model.init_dense_cache``, at
+``max_batch x max_len``): on the mixed program it first takes the same
+prompt chunks, then it proposes k tokens (k one-lane passes at ``index +
+j``) and writes the last proposal's K/V; the target verifies ``[last,
+d_1..d_k]`` as one chunk-shaped attend over the paged pool (W =
+``chunk_size`` on the mixed program, W = k + 1 on the decode one), and
+``sampling.speculative_accept`` keeps the accepted prefix plus the
+bonus / correction token.  Rollback is an index rewind: ``index``
+advances by the tokens kept, the rejected suffix's K/V lie past every
+mask until the next step overwrites them.  The host reserves k + 1
+positions per step for a decoding slot and at each sync hands back the
+blocks past the slot's resident tokens (``_truncate_slot_blocks``:
+``allocator.truncate``, then the prefix trie's ``park``, then ``free``).
+
 Multi-topology serving: ``ServingEngine(spec, maxima=...)`` (or a spec
 with ``maxima``) runs the register-driven ``serving.fabric`` at the maxima
 instead of one fixed model.  ``add_model(params, arch)`` packs a
@@ -84,7 +100,9 @@ from repro_torch.models.model import Model
 from repro_torch.serving.events import EngineEvent, EventBus
 from repro_torch.serving.fabric import N_REGS, DecodeFabric, tree_leaves
 from repro_torch.serving.events import now as _now
-from repro_torch.serving.sampling import SamplingParams, sample_per_slot
+from repro_torch.serving.sampling import (SamplingParams, propose_per_slot,
+                                          sample_per_slot,
+                                          speculative_accept)
 
 # decode_steps = graph_captures + graph_replays + eager_steps: a capture's
 # step runs once eagerly as its warm-up; on an eager engine every step is
@@ -92,7 +110,8 @@ from repro_torch.serving.sampling import SamplingParams, sample_per_slot
 _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
               "prefill_tokens", "max_step_prefill_tokens", "prefix_hits",
               "prefix_hit_tokens", "cow_forks", "prefix_evictions",
-              "graph_captures", "graph_replays", "eager_steps")
+              "graph_captures", "graph_replays", "eager_steps",
+              "spec_steps", "spec_accepted")
 # uploads of tables, grants and sampling rows the host may queue ahead of
 # the device before one waits for a staging buffer
 _STAGE_DEPTH = 16
@@ -193,11 +212,16 @@ class SlotState:
     temp: torch.Tensor        # [B]    f32  sampling temperature (0 = greedy)
     top_k: torch.Tensor       # [B]    i32  top-k cutoff (0 = disabled)
     top_p: torch.Tensor       # [B]    f32  nucleus threshold (1 = disabled)
-    buf: torch.Tensor         # [B, max_len] i32 generated tokens
+    # [B, max_len + 1] i32 generated tokens; column max_len is a spare
+    # that takes the speculative step's writes of lanes it does not emit
+    buf: torch.Tensor
     prompt_buf: torch.Tensor  # [B, max_len] i32 prompt tokens, chunk source
     prompt_len: torch.Tensor  # [B] i32 total prompt length
     pf_pos: torch.Tensor      # [B] i32 prompt tokens already in the cache
     topo: torch.Tensor        # [B, N_REGS] i32 topology registers (fleet)
+    # speculative-decoding accounting (zeros when speculation is off)
+    acc: torch.Tensor         # [B] i32 accepted draft tokens, cumulative
+    spec_steps: torch.Tensor  # [B] i32 fused steps this slot spec-decoded in
 
     @classmethod
     def zeros(cls, batch: int, max_len: int, device) -> "SlotState":
@@ -209,9 +233,10 @@ class SlotState:
                    count=z(batch), eos=z(batch) - 1,
                    temp=z(batch, dtype=torch.float32), top_k=z(batch),
                    top_p=z(batch, dtype=torch.float32) + 1.0,
-                   buf=z(batch, max_len), prompt_buf=z(batch, max_len),
-                   prompt_len=z(batch), pf_pos=z(batch),
-                   topo=z(batch, N_REGS))
+                   buf=z(batch, max_len + 1),
+                   prompt_buf=z(batch, max_len), prompt_len=z(batch),
+                   pf_pos=z(batch), topo=z(batch, N_REGS), acc=z(batch),
+                   spec_steps=z(batch))
 
 
 class ServingEngine:
@@ -263,6 +288,22 @@ class ServingEngine:
             self._fleet_rows: list[list[int] | None] = [None] * max_models
         else:
             self.model = Model.from_spec(spec, device=self.device)
+        # speculation: the draft decodes from its own dense cache inside
+        # the fused step; ``spec_horizon`` (k + 1) is the positions a
+        # decoding slot may take per step, which block budgeting scales by
+        sp = spec.speculation
+        self.speculation = sp
+        self.spec_horizon = 1 if sp is None else sp.horizon
+        self.draft_model: Model | None = None
+        self.draft_cache = None
+        if sp is not None:
+            ex = spec.execution
+            self.draft_model = Model(
+                sp.draft_model, param_dtype=ex.param_dtype,
+                compute_dtype=ex.compute_dtype,
+                matmul_backend=ex.matmul_backend,
+                paged_attn_impl=ex.paged_attn_impl, quant=ex.quant,
+                quant_min_size=ex.quant_min_size, device=self.device)
 
         self.paging = spec.memory.paging()
         self.allocator = BlockAllocator(self.paging)
@@ -341,7 +382,7 @@ class ServingEngine:
             self.events.publish(EngineEvent(
                 "first_token", uid, self.stats["decode_steps"], _now(), {}))
 
-    def load(self, params) -> None:
+    def load(self, params, draft=None) -> None:
         """Install weights (a state dict of the port's ``Model``, e.g. from
         ``Model.init(...).state_dict()`` or ``bridge.from_jax_params``) and
         allocate the paged pool through the spec's cache codec.  Under
@@ -349,13 +390,36 @@ class ServingEngine:
         (the model's ``load_state_dict`` applies
         ``core.serve_quant.quantize_params`` at ``quant_min_size``), as the
         reference's ``load`` does.  Multi-topology mode: ``add_model`` for
-        the engine's own architecture."""
+        the engine's own architecture.  ``draft`` installs the speculation
+        draft's weights in the same call (``load_draft``)."""
+        if draft is not None and self.speculation is None:
+            raise ValueError(
+                "load(draft=...) requires spec.speculation — construct the "
+                "RuntimeSpec with speculation=SpeculationSpec(...)")
         if self.fabric is not None:
             self.add_model(params)
             return
         self._graphs.clear()      # they read the pool this call replaces
         self.model.load_state_dict(params)
         self.cache = self.model.init_cache(self.paging)
+        if draft is not None:
+            self.load_draft(draft)
+
+    def load_draft(self, params) -> None:
+        """Install the speculation draft's weights (a state dict of the
+        port's ``Model(spec.speculation.draft_model)``; quantized as they
+        load under ``quant="int8"``, as the target's) and allocate its
+        private dense cache at ``max_batch x max_len``.  The draft's cache
+        never pages and never quantizes: it is small, and rolling back a
+        rejected suffix is an index rewind alone."""
+        if self.speculation is None:
+            raise ValueError(
+                "load_draft requires spec.speculation — construct the "
+                "RuntimeSpec with speculation=SpeculationSpec(...)")
+        self._graphs.clear()      # they read the cache this call replaces
+        self.draft_model.load_state_dict(params)
+        self.draft_cache = self.draft_model.init_dense_cache(self.max_batch,
+                                                             self.max_len)
 
     def add_model(self, params, arch: ArchConfig | None = None) -> int:
         """Pack one fleet member's weights (a state dict of the port's
@@ -447,7 +511,12 @@ class ServingEngine:
     @torch.no_grad()
     def _decode_impl(self) -> None:
         """The one-lane fused step: decode -> sample -> scatter token ->
-        advance indices/budgets -> raise done flags."""
+        advance indices/budgets -> raise done flags.  With speculation on
+        the steady-state decode program is the speculative step with no
+        prompt lanes (``decode_only``)."""
+        if self.speculation is not None:
+            self._spec_impl(None, decode_only=True)
+            return
         st = self.state
         if self.fabric is not None:
             logits = self.fabric.decode_step(
@@ -466,6 +535,9 @@ class ServingEngine:
         """The fused mixed step of the chunked scheduler: every slot
         advances by up to W lanes (its next prompt chunk, its next decode
         token, or nothing), then samples and advances."""
+        if self.speculation is not None:
+            self._spec_impl(chunk_len, decode_only=False)
+            return
         st = self.state
         W = self.chunk_size
         prefilling = chunk_len > 0
@@ -493,6 +565,120 @@ class ServingEngine:
                                  st.top_p, self._gens, self._sample_rows())
         st.pf_pos += torch.where(prefilling, chunk_len, 0)
         self._finish(st, decoding | completes, toks_s, st.index + n_live)
+
+    @torch.no_grad()
+    def _spec_impl(self, chunk_len: torch.Tensor | None,
+                   decode_only: bool) -> None:
+        """The speculative fused step (the reference's ``_spec_impl``):
+        draft-propose -> target-verify -> accept / rollback, in place on
+        the pool, the draft's dense cache and the slot state.
+
+        Per decoding slot the draft proposes k tokens (one live lane per
+        pass, at ``index + j``) and a write-only pass parks the last
+        proposal's K/V at ``index + k``; the target scores ``[last, d_1 ..
+        d_k]`` at ``index .. index + k`` in one W-lane pass through the
+        paged pool (lanes past the cache end, ``n_spec``, are dead); the
+        accepted prefix plus the bonus / correction token, cut by the
+        budget and at an EOS, is emitted, and ``index`` advances by what
+        was emitted.  ``decode_only`` is the steady-state specialisation:
+        no prompt lanes, so no draft prompt pass and W = k + 1.  On the
+        mixed program the draft first takes the same prompt chunks, and a
+        completing prompt samples its first token from the verify pass's
+        logits, as the plain mixed step does."""
+        if self.draft_cache is None:
+            raise ValueError("speculation needs the draft's weights: "
+                             "load(params, draft=...) or load_draft(...)")
+        st, dev = self.state, self.device
+        B, k, L = self.max_batch, self.speculation.k, self.max_len
+        greedy_mode = self.speculation.greedy_accept
+        W = self.spec_horizon if decode_only else self.chunk_size
+        rows_s = self._sample_rows()
+        prefilling = torch.zeros(B, dtype=torch.bool, device=dev) \
+            if decode_only else chunk_len > 0
+        decoding = st.active & (st.pf_pos >= st.prompt_len)
+        start = torch.where(prefilling, st.pf_pos, st.index)
+        draft, d_cache = self.draft_model, self.draft_cache
+        if not decode_only:
+            # the draft's cache takes the prompt before it can propose (a
+            # prefix-cache hit skips positions for the target only, as in
+            # the reference: acceptance degrades over the reused span)
+            lanes = torch.arange(W, device=dev, dtype=torch.int32)
+            gidx = (start[:, None] + lanes[None, :]).clamp(max=L - 1)
+            ptoks = st.prompt_buf.gather(1, gidx.long())
+            draft.mixed_step(d_cache, ptoks, start,
+                             torch.where(prefilling, chunk_len, 0))
+        # k proposals, one live lane each (dead lanes write nothing that a
+        # mask admits, so idle and prefilling slots keep their cache)
+        dec1 = decoding.to(torch.int32)
+        cur = st.last
+        proposals, dlogits = [], []
+        for j in range(k):
+            dl = draft.mixed_step(d_cache, cur, st.index + j, dec1)[:, 0]
+            d = dl.argmax(dim=-1).to(torch.int32) if greedy_mode \
+                else propose_per_slot(dl, st.temp, self._gens, rows_s)
+            proposals.append(d)
+            dlogits.append(dl)
+            cur = d[:, None]
+        # the write-only pass: d_k's K/V at index + k, so a fully accepted
+        # step leaves no hole in the draft's cache
+        draft.mixed_step(d_cache, cur, st.index + k, dec1)
+        d_toks = torch.stack(proposals, dim=1)                  # [B, k]
+        d_logits = None if greedy_mode else torch.stack(dlogits, dim=1)
+        ver = torch.cat([st.last, d_toks], dim=1)               # [B, k+1]
+        toks = torch.nn.functional.pad(ver, (0, W - (k + 1)))
+        n_spec = (L - st.index).clamp(0, k + 1)
+        n_live = torch.where(decoding, n_spec, 0)
+        if not decode_only:
+            n_live = torch.where(prefilling, chunk_len, n_live)
+            toks = torch.where(prefilling[:, None], ptoks, toks)
+        logits = self.model.mixed_step(self.cache, toks, start, n_live,
+                                       self.block_tables)
+        n_acc, out = speculative_accept(logits[:, :k + 1], d_toks, d_logits,
+                                        st.temp, self._gens, rows_s,
+                                        greedy=greedy_mode)
+        n_acc = torch.minimum(n_acc, (n_spec - 1).clamp(min=0))
+        jar = torch.arange(k + 1, device=dev, dtype=torch.int32)[None, :]
+        cand = (jar <= n_acc[:, None]) & decoding[:, None]
+        room = st.count[:, None] + jar < st.budget[:, None]
+        is_eos = (st.eos[:, None] >= 0) & (out == st.eos[:, None])
+        stop = (cand & room & is_eos).to(torch.int32)
+        # the emitted lanes are a prefix: the room and EOS cuts are
+        # monotone in j
+        valid = cand & room & (stop.cumsum(dim=1) - stop == 0)
+        m = valid.sum(dim=1).to(torch.int32)
+        # lanes not emitted write into buf's spare column L (a clamped
+        # where-write would race a valid lane's at L - 1)
+        st.buf.scatter_(1, torch.where(valid, st.count[:, None] + jar,
+                                       L).long(), out)
+        count = st.count + m
+        index = st.index + torch.where(decoding, m, 0)
+        last_dec = out.gather(1, (m - 1).clamp(min=0)[:, None].long())[:, 0]
+        lastv = torch.where(decoding, last_dec, st.last[:, 0])
+        emit = decoding
+        hit_eos = stop.bool().any(dim=1)
+        if not decode_only:
+            completes = prefilling & (st.pf_pos + chunk_len >= st.prompt_len)
+            sel = torch.where(completes, chunk_len - 1, 0).long()
+            toks_s = sample_per_slot(
+                logits[torch.arange(B, device=dev), sel], st.temp, st.top_k,
+                st.top_p, self._gens, rows_s)
+            st.buf.scatter_(1, torch.where(completes, count, L)[:, None]
+                            .long(), toks_s[:, None])
+            count = count + completes.to(torch.int32)
+            index = index + torch.where(prefilling, chunk_len, 0)
+            st.pf_pos += torch.where(prefilling, chunk_len, 0)
+            lastv = torch.where(completes, toks_s, lastv)
+            emit = emit | completes
+            hit_eos = hit_eos | (completes & (st.eos >= 0)
+                                 & (toks_s == st.eos))
+        finish = emit & (hit_eos | (count >= st.budget) | (index >= L))
+        st.last.copy_(lastv[:, None])
+        st.index.copy_(index)
+        st.active &= ~finish
+        st.done |= finish
+        st.count.copy_(count)
+        st.acc += torch.where(decoding, (m - 1).clamp(min=0), 0)
+        st.spec_steps += decoding.to(torch.int32)
 
     # ------------------------------------------------------------------
     # host-side control
@@ -557,7 +743,7 @@ class ServingEngine:
                     ("eos", -1 if req.eos_id is None else req.eos_id),
                     ("temp", sp.temperature), ("top_k", sp.top_k),
                     ("top_p", sp.top_p), ("prompt_len", plen),
-                    ("pf_pos", start)):
+                    ("pf_pos", start), ("acc", 0), ("spec_steps", 0)):
                 getattr(st, field)[slot] = value
             st.buf[slot].zero_()
             self._gens[slot] = None
@@ -630,8 +816,12 @@ class ServingEngine:
     def _ensure_capacity(self, horizon: int) -> None:
         """Pre-reserve blocks so the next ``horizon`` fused steps cannot
         write outside a slot's blocks.  Oldest slots are served first; when
-        the pool runs dry the most recently admitted slot is preempted."""
+        the pool runs dry the most recently admitted slot is preempted.  A
+        speculative step writes up to ``spec_horizon`` (k + 1) verify
+        positions, so the window scales by it; the tails it over-reserves
+        are handed back at the next sync (``_truncate_slot_blocks``)."""
         bs = self.paging.block_size
+        horizon *= self.spec_horizon
         for slot in sorted(self._occupied(),
                            key=lambda s: self._admit_seq[s]):
             if self.slot_req[slot] is None:   # preempted by an earlier turn
@@ -675,6 +865,27 @@ class ServingEngine:
         self._tables_dirty = True
         self._reg_done[slot] = False
 
+    def _truncate_slot_blocks(self, slot: int, keep_tokens: int) -> None:
+        """Roll back a slot's block tail after rejected speculation: the
+        blocks past its first ``keep_tokens`` positions are handed back
+        through ``allocator.truncate`` (a block another request maps loses
+        one reference; a trie-owned one parks, never frees; the rest
+        return to the free list), and the table tail is nulled so a later
+        verify pass's masked overrun lands in the null block, never in a
+        reassigned one."""
+        keep = blocks_for_tokens(keep_tokens, self.paging.block_size)
+        blocks = self._slot_blocks[slot]
+        if keep >= len(blocks):
+            return
+        kept, zeros = self.allocator.truncate(blocks, keep)
+        if self.prefix_cache is not None:
+            zeros = self.prefix_cache.park(zeros)
+        self.allocator.free(zeros)
+        self._slot_blocks[slot] = kept
+        self._tables[slot][keep:] = [NULL_BLOCK] * (self.blocks_per_slot
+                                                    - keep)
+        self._tables_dirty = True
+
     def _preempt(self, slot: int) -> None:
         """Recompute-preemption: bank the slot's generated tokens (one
         transfer), release its blocks (a decref where they are shared)
@@ -690,7 +901,7 @@ class ServingEngine:
             self.stats["harvest_elems"] += cnt
             req.prefix = req.prefix + row[1:cnt + 1].tolist()
         for field in ("active", "done", "count", "index", "prompt_len",
-                      "pf_pos"):
+                      "pf_pos", "acc", "spec_steps"):
             getattr(st, field)[slot] = 0
         self._release_slot_blocks(slot)
         self.slot_req[slot] = None
@@ -729,12 +940,17 @@ class ServingEngine:
 
     def _graph_inputs(self) -> tuple[torch.Tensor, ...]:
         """Every tensor a fused step reads or writes apart from the
-        weights, which ``load`` and ``add_model`` write in place."""
+        target's weights, which ``load`` and ``add_model`` write in place:
+        with speculation the draft's weights and dense cache too."""
         st, c = self.state, self.cache
         out = [getattr(st, f.name) for f in dataclasses.fields(st)]
         out += [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
         if self.table is not None:
             out += tree_leaves(self.table)
+        if self.draft_model is not None:
+            out += [*self.draft_model.parameters(),
+                    *self.draft_model.buffers(),
+                    *(t for t in self.draft_cache or () if t is not None)]
         return (*out, self.block_tables, self._grants, self._rows_buf)
 
     def _run(self, kind: str, impl, *args) -> None:
@@ -830,8 +1046,11 @@ class ServingEngine:
                     # this dispatch's completing chunk sampled the first token
                     self._emit_first_token(self.slot_req[slot].uid)
             elif self._pf[slot] >= self._plen[slot]:
-                self._idx_ub[slot] = min(self._idx_ub[slot] + 1,
-                                         self._slot_token_cap(slot))
+                # a speculative step can land up to k + 1 tokens: the
+                # mirror is an upper bound until the next sync
+                self._idx_ub[slot] = min(
+                    self._idx_ub[slot] + self.spec_horizon,
+                    self._slot_token_cap(slot))
         if self.prefix_cache is not None:
             self._register_prefixes()
 
@@ -854,13 +1073,21 @@ class ServingEngine:
             self._reg_done[slot] = True
 
     def _harvest(self) -> list[Request]:
-        """One bulk transfer of the done/count vectors; token buffers come
-        over (one more transfer) only for slots that finished, sliced to
-        the longest finished stream."""
+        """One bulk transfer of the done/count vectors (with speculation,
+        and of the acc/spec_steps ones); token buffers come over (one more
+        transfer) only for slots that finished, sliced to the longest
+        finished stream.  With speculation each decoding slot that is not
+        done hands back the blocks past its resident tokens."""
         st = self.state
-        dc = torch.stack([st.done.to(torch.int32), st.count]).cpu()
+        spec = self.speculation is not None
+        rows = [st.done.to(torch.int32), st.count]
+        if spec:
+            rows += [st.acc, st.spec_steps]
+        dc = torch.stack(rows).cpu()
         self.stats["device_gets"] += 1
         done_h, count_h = dc[0].tolist(), dc[1].tolist()
+        acc_h, ss_h = (dc[2].tolist(), dc[3].tolist()) if spec \
+            else (None, None)
         occ = self._occupied()
         slots = [i for i in occ if done_h[i]]
         for i in occ:   # sync point: tighten the index upper bounds
@@ -868,7 +1095,17 @@ class ServingEngine:
                 self._idx_ub[i] = self._pf[i]
             else:
                 self._idx_ub[i] = self._plen[i] + max(count_h[i] - 1, 0)
-            self._emit("progress", self.slot_req[i].uid, count=count_h[i])
+                if spec and not done_h[i]:
+                    # rollback, host half: the dispatch loop reserved k + 1
+                    # positions a step; the resident length is exact now
+                    self._truncate_slot_blocks(i, self._idx_ub[i])
+            if spec:
+                self._emit("progress", self.slot_req[i].uid,
+                           count=count_h[i], accepted=acc_h[i],
+                           spec_steps=ss_h[i])
+            else:
+                self._emit("progress", self.slot_req[i].uid,
+                           count=count_h[i])
         if not slots:
             return []
         maxc = max(count_h[i] for i in slots)
@@ -880,6 +1117,9 @@ class ServingEngine:
             req = self.slot_req[i]
             req.generated = req.prefix + row[:count_h[i]]
             req.done = True
+            if spec:
+                self.stats["spec_accepted"] += acc_h[i]
+                self.stats["spec_steps"] += ss_h[i]
             self.slot_req[i] = None
             self._gens[i] = None
             self._release_slot_blocks(i)
