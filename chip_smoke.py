@@ -24,8 +24,14 @@ Phases (any failure raises and the script exits non-zero):
    with ``live_kv`` (the fleet's dead kv groups, NaN in their queries and
    pool rows) at the fleet's shape (16 heads of 64, groups 12-15 dead on
    every other slot) and at hd 96 and GQA 8 x hd 128, the dead groups'
-   outputs bit-exact zeros at the planned and at 1 and 3 key ranges; the
-   build prints the split walk's (both entry points')
+   outputs bit-exact zeros at the planned and at 1 and 3 key ranges, and
+   the chunk walk so at W = 4 (a speculating fleet's verify); both at the
+   head dims of ROADMAP Queue 3 fault F, which run the walk's general
+   bodies: recurrentgemma-2b's 10 heads over 1 kv head of 256 over bf16,
+   f32 and int8 pools, hd 192 and the ragged hd 72 (16-byte bf16 rows)
+   and 66 (4-byte rows) over bf16 and int8 pools, decode and chunk at W
+   16, each with its column groups; the build prints the split walk's
+   (both entry points')
    registers and spills, and those of every instantiation of the flash
    kernels (hd <= 128 and the column-group kernels past it), of the bf16
    matmul loop (``mma_tile``, ``mma_reduce``), of the int8 kernel
@@ -119,12 +125,15 @@ Phases (any failure raises and the script exits non-zero):
    engines: every request finishes inside its member's vocab, the
    streams repeat, the graphed bf16 streams and launches equal the eager
    ones with one capture per program, ``live_kv`` launches number 24 per
-   fused step, and the first bf16 drain holds fault B's check.
-   Tokens/s, the table's bytes and the peak device memory are printed.
-   Then one mixed and one decode step of the fabric at float32 compute,
-   kernels against the gather path, within 2e-2 * max|logits|.
+   fused step, and the first bf16 drain holds fault B's check.  The same
+   with the fabric's int8 weight table (ROADMAP Queue 1 item 8b; graphed
+   = eager over both pools), which must take under 0.3 of the float
+   table's bytes.  Tokens/s, the table's bytes and the peak device memory
+   are printed.  Then one mixed and one decode step of the fabric at
+   float32 compute, kernels against the gather path, within 2e-2 *
+   max|logits|, with either table.
 7. The rest of the dense family, whose embeddings are untied:
-   phi3-mini-3.8b at full width and depth (32 layers, 32 heads of 96) and
+   phi3-mini-3.8b at full width and 8 of its 32 layers (32 heads of 96) and
    qwen2-72b at full width and 2 of its 80 layers (64 heads of 128 over 8
    kv heads), random weights: one mixed and one decode step at float32
    compute through the kernels within phase 4's gate of the plain
@@ -179,7 +188,17 @@ Phases (any failure raises and the script exits non-zero):
    (traced warm drain; speculation off is phase 5's warm float drain).
    Phase 2 also holds the chunk walk at W = 4 (bf16 and int8 pools),
    ``tiled_matmul`` at the verify pass's 32 rows and ``rmsnorm`` at
-   32 x 1024.
+   32 x 1024.  The self-draft engine's first drain prints its captures
+   timed in parts (eager warm-up; capture and instantiation; first
+   replay) beside its compilations, captures, replays and eager steps.
+10. A fleet that speculates (ROADMAP Queue 1 item 10b): phase 6's fleet
+   and mix with k = 3, qwen1.5-0.5b's weights drafting for both members,
+   over a bf16 pool, graphed (first and warm drain) and eager, and graphed
+   with the int8 weight table; the same fleet without speculation for
+   tokens/s.  Gates: graphed = eager, one capture per program; the
+   decode program's capture launches 24 chunk walks, each with
+   ``live_kv`` (the verify at W = 4), and no decode walk, with either
+   table; every eager walk with ``live_kv``; draft tokens accepted.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -272,9 +291,14 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                          "chunked_prefill_attention", "rmsnorm"),
                 "ops": ("ffn1", "ffn1_gated", "qkv_proj", "layernorm",
                         "rmsnorm", "flash_attention"),
-                # the multi-topology fleet: both with live_kv
+                # the multi-topology fleet: both with live_kv, float and
+                # int8 weight tables; phase 10's speculating fleet verifies
+                # through the chunk walk alone
                 "fleet": ("paged_decode_attention",
                           "chunked_prefill_attention"),
+                "fleet_int8": ("paged_decode_attention",
+                               "chunked_prefill_attention"),
+                "fleet_spec": ("chunked_prefill_attention",),
                 # phase 8: the float path with the prefix cache on
                 "prefix": ("tiled_matmul", "paged_decode_attention",
                            "chunked_prefill_attention", "rmsnorm"),
@@ -767,17 +791,19 @@ def attn_case(timer, dev, g, name, q_dt, kv_dt, B, W, h, kv, hd, starts,
     bms, by = bound_ms(nbytes, 4 * sum(n * gb * (h // kv) for n, gb in
                                        zip(seen, groups)) * hd,
                        torch.float32 if kv_dt == torch.int8 else q_dt)
+    groups = cp_mod.col_groups(hd)[2]
     print(f"{name:>26} {pair:>10} {h:>3}/{kv:<2} {err:>10.3g} {tol:>8.3g} "
           f"{ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f} {frac:>7.3f} "
           f"{label}"
-          + (f" grid {grid[0]} CTAs x {grid[1]} key ranges" if grid else ""))
+          + (f" grid {grid[0]} CTAs ({groups} column groups) x {grid[1]} "
+             "key ranges" if grid else ""))
     nums = dict(max_abs_err=err, of_tol=frac, ms=ms, plain_ms=pms,
                 bound_ms=bms, bound_by=by, library_ms=lms,
                 shape=f"B={B} W={W} h={h} kv={kv} hd={hd} bs=16 {pair}"
                       + (f" {label}" if label else "")
                       + (f" live_kv={live}" if live is not None else ""))
     if grid:
-        nums.update(ctas=grid[0], splits=grid[1])
+        nums.update(ctas=grid[0], groups=groups, splits=grid[1])
     return nums
 
 
@@ -794,8 +820,10 @@ def check_attention(timer, dev, g) -> dict:
     per slot; qwen1.5-0.5b widths) in every (q, pool) dtype pair and with
     GQA, then the head dims and GQA widths of ROADMAP Queue 3 fault A:
     phi3-mini's hd 96 (32 heads; decode and chunk) and qwen2-72b's GQA 8 x
-    hd 128 (64 heads over 8; decode, and chunk at W 16 and 32).  Both
-    kernels are also timed at the serving shape over fixed key-range
+    hd 128 (64 heads over 8; decode, and chunk at W 16 and 32), with
+    ``live_kv``, and the head dims of fault F (the general walk:
+    recurrentgemma-2b's MQA 10 x hd 256, hd 192, the ragged 72 and 66).
+    Both kernels are also timed at the serving shape over fixed key-range
     counts, and one split call of each runs under
     ``torch.cuda.set_sync_debug_mode("error")``."""
     print("\n== paged attention kernels vs plain (bs=16, 32 blocks/slot)")
@@ -820,12 +848,17 @@ def check_attention(timer, dev, g) -> dict:
     # phase 9's speculative decode step verifies k + 1 = 4 lanes per slot:
     # 4 of a CTA's 16 query rows live (n_rep 1), over a bf16 and an int8
     # pool
-    print(f"speculative verify (W = {SPEC_K + 1}):")
-    for kv_dt in (bf, i8):
-        entries["chunked_prefill_attention"]["other_shapes"].append(
-            attn_case(timer, dev, g, "chunked_prefill_attention", bf, kv_dt,
-                      B, SPEC_K + 1, 16, 16, hd, CHUNK_STARTS[SPEC_K + 1],
-                      label=f"speculative verify W {SPEC_K + 1}"))
+    print(f"speculative verify (W = {SPEC_K + 1}; a speculating fleet's with "
+          "live_kv, groups 12-15 dead on every other slot):")
+    for live in (None, [16, 12] * (B // 2)):
+        for kv_dt in (bf, i8):
+            entries["chunked_prefill_attention"]["other_shapes"].append(
+                attn_case(timer, dev, g, "chunked_prefill_attention", bf,
+                          kv_dt, B, SPEC_K + 1, 16, 16, hd,
+                          CHUNK_STARTS[SPEC_K + 1],
+                          label=f"{'fleet ' if live else ''}speculative "
+                                f"verify W {SPEC_K + 1}"
+                                + (" live_kv" if live else ""), live=live))
     # fault A: hd 96 (phi3-mini: 32 heads of 96, no GQA) and GQA 8 x hd 128
     # (qwen2-72b: 64 heads over 8 kv heads): decode, chunk at W 16 and 32
     print("fault A shapes (ROADMAP Queue 3):")
@@ -860,6 +893,26 @@ def check_attention(timer, dev, g) -> dict:
                                      label=f"live_kv {label}", live=live))
         entries[name]["live_kv"] = dict(sub[0], int8_pool=sub[1],
                                         other_shapes=sub[2:])
+    # fault F (ROADMAP Queue 3): the general walk (K rows staged at hd
+    # rounded up to 16, 128-column groups) at recurrentgemma-2b's widths (10
+    # heads over 1 kv head of 256) over bf16, f32 and int8 pools, at hd 192
+    # and at the ragged hd 72 (16-byte bf16 rows) and 66 (4-byte bf16 rows)
+    # over bf16 and int8 pools; decode (W = 1) and chunk (W = 16)
+    print("fault F shapes (ROADMAP Queue 3; the general walk):")
+    for name, (W, starts) in shape.items():
+        sub = []
+        for h, kv, hdf, pairs, label in (
+                (RGEMMA["heads"], 1, RGEMMA["hd"], ((bf, bf), (f32, f32),
+                                                   (bf, i8)),
+                 "recurrentgemma-2b MQA 10 x hd 256"),
+                (16, 4, 192, ((bf, bf), (bf, i8)), "hd 192"),
+                (16, 16, 72, ((bf, bf), (bf, i8)), "ragged hd 72"),
+                (16, 16, 66, ((bf, bf), (bf, i8)), "ragged hd 66")):
+            for q_dt, kv_dt in pairs:
+                sub.append(attn_case(timer, dev, g, name, q_dt, kv_dt, B, W,
+                                     h, kv, hdf, starts,
+                                     label=f"fault F {label}"))
+        entries[name]["fault_f"] = sub
     # both kernels at the serving shape over fixed key-range counts; the
     # plan's own count (its wave: the walk's resident CTAs per SM from the
     # CUDA occupancy) among them
@@ -1707,35 +1760,46 @@ def host_and_device_line(label: str, make_engine, prompts,
 FLEET = ("qwen1.5-0.5b", "adaptor-bert-shaped")
 
 
-def fleet_spec(kv_dtype: str, compute: str = "bf16") -> RuntimeSpec:
+def fleet_spec(kv_dtype: str, compute: str = "bf16", quant: str = "none",
+               spec: bool = False) -> RuntimeSpec:
     """The fleet's spec: qwen1.5-0.5b's engine at ``maxima_for`` both
-    members (512 positions), the paged kernels, float weights."""
+    members (512 positions), the paged kernels, float weights or
+    (``quant="int8"``) the fabric's int8 weight table; ``spec``:
+    speculating with k = ``SPEC_K``, qwen1.5-0.5b drafting for both."""
     a, b = (get_config(n) for n in FLEET)
     return RuntimeSpec(
         arch=a, maxima=maxima_for(a, b, seq_max=ENGINE["max_len"]),
         execution=ExecutionSpec(paged_attn_impl="pallas",
-                                compute_dtype=compute),
+                                compute_dtype=compute, quant=quant),
         memory=MemorySpec(cache_layout="paged",
                           max_batch=ENGINE["max_batch"],
                           max_len=ENGINE["max_len"],
                           block_size=ENGINE["block_size"],
                           kv_dtype=kv_dtype),
-        scheduler=SchedulerSpec(chunk_size=ENGINE["chunk"]))
+        scheduler=SchedulerSpec(chunk_size=ENGINE["chunk"]),
+        speculation=SpeculationSpec(draft_model=a, k=SPEC_K) if spec
+        else None)
 
 
 def fleet_drain(members, prompts, kv_dtype: str, graphs: bool = True,
+                quant: str = "none", spec: bool = False, warm: bool = False,
                 **kw) -> dict:
-    """One fleet engine (both members added) drains the prompts, request i
-    on member i % 2; every request must finish inside its member's vocab.
-    Adds the table's bytes, the peak device memory above what was
-    allocated before the engine and the ``live_kv`` launches to
-    ``drain``'s result."""
+    """One fleet engine (both members added; ``spec``: member 0's weights
+    as the draft too) drains the prompts, request i on member i % 2; every
+    request must finish inside its member's vocab; ``warm`` drains them
+    again on the same engine into ``out["warm"]``.  Adds the table's
+    bytes, the peak device memory above what was allocated before the
+    engine, the ``live_kv`` launches and the launches each capture
+    recorded (``programs``) to ``drain``'s result."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(fleet_spec(kv_dtype), max_models=len(members),
-                        device="cuda", graphs=graphs)
+    eng = ServingEngine(fleet_spec(kv_dtype, quant=quant, spec=spec),
+                        max_models=len(members), device="cuda",
+                        graphs=graphs)
     ids = [eng.add_model(p, c) for c, p in members]
+    if spec:
+        eng.load_draft(members[0][1])
     table_gb = DecodeFabric.table_bytes(eng.table) / 1e9
     models = [ids[i % len(ids)] for i in range(len(prompts))]
     out = drain(eng, prompts, models, **kw)
@@ -1746,21 +1810,25 @@ def fleet_drain(members, prompts, kv_dtype: str, graphs: bool = True,
                                  f"member {models[i]}'s vocab {vocab}")
     out.update(table_gb=table_gb,
                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
-               live_kv=sum(out["launches"][f"{n}.live_kv"] for n in LIVE_KV))
+               live_kv=sum(out["launches"][f"{n}.live_kv"] for n in LIVE_KV),
+               programs={k: sg.launches for k, sg in eng._graphs.items()})
+    if warm:
+        out["warm"] = drain(eng, prompts, models)
     del eng
     torch.cuda.empty_cache()
     return out
 
 
-def check_fleet_logits(members, dev, g) -> None:
+def check_fleet_logits(members, dev, g, quant: str = "none") -> None:
     """One mixed step then one decode step of the full-width fabric at
-    float32 compute, kernel path against gather path from the same empty
-    float32 pool (slots alternate the members; chunks of 16 lanes, some
-    partial): live lanes within 2e-2 * max|logits| over each slot's live
-    vocab, the dead vocab lanes NEG_INF on both."""
+    float32 compute (``quant``: its weight table), kernel path against
+    gather path from the same empty float32 pool (slots alternate the
+    members; chunks of 16 lanes, some partial): live lanes within 2e-2 *
+    max|logits| over each slot's live vocab, the dead vocab lanes NEG_INF
+    on both."""
     spec = fleet_spec("compute", "fp32")
     fab = DecodeFabric(spec.maxima, len(members), spec.arch,
-                       compute_dtype=torch.float32, device=dev)
+                       compute_dtype=torch.float32, quant=quant, device=dev)
     table = fab.init_table()
     for m, (c, p) in enumerate(members):
         fab.insert_model(table, fab.pack_member(c, p), m)
@@ -1801,9 +1869,9 @@ def check_fleet_logits(members, dev, g) -> None:
         ref = r[live.expand_as(r)]
         err = max_err(k[live.expand_as(k)], ref)
         tol = LOGIT_TOL * float(ref.abs().max())
-        print(f"fleet {step}, f32 compute, kernels vs gather: max "
-              f"|diff| {err:.4g} (tol {LOGIT_TOL} x max|logits| = "
-              f"{tol:.4g})")
+        print(f"fleet {step}, f32 compute, {quant} weights, kernels vs "
+              f"gather: max |diff| {err:.4g} (tol {LOGIT_TOL} x max|logits| "
+              f"= {tol:.4g})")
         if err > tol:
             raise AssertionError(f"fleet {step} logits disagree: {err} > "
                                  f"{tol}")
@@ -1813,15 +1881,19 @@ def check_fleet_logits(members, dev, g) -> None:
 def check_fleet(dev, g, lengths) -> dict:
     """The full-width fleet: qwen1.5-0.5b and adaptor-bert-shaped (random
     weights from the generator) drain the phase 5 request mix, request i
-    on member i % 2, over a bf16 pool on two graphed engines (the first at
-    sync_every=4 with every fused step under
+    on member i % 2, with float weights and with the fabric's int8 weight
+    table (ROADMAP Queue 1 item 8b), each over a bf16 pool on two graphed
+    engines (the first at sync_every=4 with every fused step under
     ``set_sync_debug_mode("error")``) and an eager one, and over an int8
-    pool on two graphed engines: the streams repeat, the graphed bf16
-    streams equal the eager ones with one capture per program and the
-    same launches, and every fleet step launches one attention kernel per
-    layer with ``live_kv``, 24 a step.  Then the kernel-path logits
-    against the gather path's at f32 compute.  Returns the first bf16
-    drain's launches."""
+    pool on two graphed engines (and an eager one under the int8 table):
+    the streams repeat, the graphed streams equal the eager ones with one
+    capture per program and the same launches, and every fleet step
+    launches one attention kernel per layer with ``live_kv``, 24 a step;
+    the int8 table takes under 0.3 of the float table's bytes.  Then the
+    kernel-path logits against the gather path's at f32 compute for both
+    tables, the fleet's prefix drain and phase 10 (a fleet that
+    speculates).  Returns the launches of the first bf16-pool drain of
+    each table ("fleet", "fleet_int8") and phase 10's ("fleet_spec")."""
     members = [(c, Model(c, device=dev).init(g).state_dict())
                for c in (get_config(n) for n in FLEET)]
     maxima = fleet_spec("compute").maxima
@@ -1834,22 +1906,24 @@ def check_fleet(dev, g, lengths) -> dict:
     prompts = [rs.integers(0, members[i % 2][0].vocab_size, n).tolist()
                for i, n in enumerate(lengths)]
     n_tok = len(prompts) * MAX_NEW
-    first = None
-    for kv_dtype in ("compute", "int8"):
+    out, table_gb = {}, {}
+    for quant, kv_dtype in (("none", "compute"), ("none", "int8"),
+                            ("int8", "compute"), ("int8", "int8")):
         bf16 = kv_dtype == "compute"
-        runs = [fleet_drain(members, prompts, kv_dtype,
+        runs = [fleet_drain(members, prompts, kv_dtype, quant=quant,
                             **(dict(sync_every=4, no_sync=True)
                                if bf16 and i == 0 else {}))
                 for i in range(2)]
-        if bf16:
-            runs.append(fleet_drain(members, prompts, kv_dtype,
+        if bf16 or quant == "int8":
+            runs.append(fleet_drain(members, prompts, kv_dtype, quant=quant,
                                     graphs=False))
         pool = "bf16" if bf16 else "int8"
+        label = f"fleet, {'float' if quant == 'none' else 'int8'} table, " \
+            f"{pool} pool"
         for i, r in enumerate(runs):
             want = maxima.layers_enc_max * r["steps"]
             mode = "eager" if i == 2 else "graphed"
-            print(drain_line(f"fleet, {pool} pool, engine {i + 1} ({mode})",
-                             r, n_tok)
+            print(drain_line(f"{label}, engine {i + 1} ({mode})", r, n_tok)
                   + f"; live_kv launches {r['live_kv']} "
                   f"({maxima.layers_enc_max} x steps = {want}), decode "
                   f"{r['launches']['paged_decode_attention']} + chunk "
@@ -1865,32 +1939,114 @@ def check_fleet(dev, g, lengths) -> dict:
         same = sum(a == b for k in runs[0]["streams"]
                    for a, b in zip(runs[0]["streams"][k],
                                    runs[1]["streams"][k]))
-        print(f"fleet, {pool} pool: identical tokens on the two graphed "
-              f"engines {same}/{n_tok}")
+        print(f"{label}: identical tokens on the two graphed engines "
+              f"{same}/{n_tok}")
         if runs[0]["streams"] != runs[1]["streams"]:
-            raise AssertionError(f"the fleet's {pool}-pool streams differ "
-                                 "between two fresh engines")
-        if bf16:
-            check_graphed("fleet, bf16 pool",
-                          {"graphed": runs[1], "eager": runs[2]},
+            raise AssertionError(f"{label}: the streams differ between two "
+                                 "fresh engines")
+        if len(runs) == 3:
+            check_graphed(label, {"graphed": runs[1], "eager": runs[2]},
                           PATH_KERNELS["fleet"], maxima.layers_enc_max,
                           n_tok)
-        first = first or runs[0]
-    check_fleet_logits(members, dev, g)
+        table_gb[quant] = runs[0]["table_gb"]
+        key = "fleet" if quant == "none" else "fleet_int8"
+        out.setdefault(key, runs[0]["launches"])
+    ratio = table_gb["int8"] / table_gb["none"]
+    print(f"fleet weight table: int8 {table_gb['int8']:.3f} GB against "
+          f"float {table_gb['none']:.3f} GB ({ratio:.3f}: int8 values and "
+          "float32 scales beside float biases and norms)")
+    if ratio >= 0.3:
+        raise AssertionError(f"the fleet's int8 table holds {ratio:.3f} of "
+                             "the float table's bytes")
+    for quant in ("none", "int8"):
+        check_fleet_logits(members, dev, g, quant)
     check_prefix_fleet(members)
+    out["fleet_spec"] = check_fleet_speculation(members, prompts, maxima)
     del members
     torch.cuda.empty_cache()
-    return first["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: a fleet that speculates
+# ---------------------------------------------------------------------------
+def check_fleet_speculation(members, prompts, maxima) -> dict:
+    """The phase 6 fleet and request mix with k = ``SPEC_K`` and
+    qwen1.5-0.5b's own weights drafting for both members, over a bf16
+    pool, graphed (a first and a warm drain) and eager, and graphed once
+    with the int8 weight table; the same fleet without speculation for
+    tokens/s.  Gates: graphed = eager (streams, launches), one capture per
+    program, no eager step; the decode program's capture launches the
+    chunk walk 24 times, each with ``live_kv`` (the verify at W = k + 1),
+    and the decode walk never; no drain launches the decode walk, every
+    eager walk has ``live_kv``; draft tokens accepted.  Returns the
+    graphed bf16 drain's launches."""
+    L = maxima.layers_enc_max
+    n_tok = len(prompts) * MAX_NEW
+    t0 = time.perf_counter()
+    print(f"\n== fleet speculation: {' + '.join(FLEET)}, k = {SPEC_K}, "
+          f"{FLEET[0]} drafting for both members, the phase 6 mix, kernels")
+    off = fleet_drain(members, prompts, "compute", warm=True)
+    on = fleet_drain(members, prompts, "compute", spec=True, warm=True)
+    on_e = fleet_drain(members, prompts, "compute", spec=True, graphs=False)
+    q_on = fleet_drain(members, prompts, "compute", spec=True,
+                       quant="int8")
+    for label, r in (("speculation off", off), ("speculating", on)):
+        for mode, d in (("first drain", r), ("warm engine", r["warm"])):
+            print(drain_line(f"fleet, bf16 pool, {label}, graphed, {mode}",
+                             d, n_tok))
+        if r["warm"]["streams"] != r["streams"] \
+                or r["warm"]["stats"]["graph_captures"]:
+            raise AssertionError(f"fleet, {label}: the warm drain captured "
+                                 "again or streamed otherwise")
+    check_graphed("fleet speculation, bf16 pool",
+                  {"graphed": on, "eager": on_e},
+                  ("chunked_prefill_attention",), L, n_tok)
+    for label, r in (("float table", on), ("int8 table", q_on)):
+        print("  " + spec_rates(f"fleet speculation, {label}", r, n_tok))
+        dec = r["programs"].get("decode", {})
+        walks = (dec.get("chunked_prefill_attention", 0),
+                 dec.get("chunked_prefill_attention.live_kv", 0),
+                 dec.get("paged_decode_attention", 0))
+        print(f"  fleet speculation, {label}: the decode program's capture "
+              f"launches {walks[0]} chunk walks, {walks[1]} with live_kv, "
+              f"{walks[2]} decode walks")
+        if walks != (L, L, 0) or r["launches"]["paged_decode_attention"]:
+            raise AssertionError(f"fleet speculation, {label}: decode "
+                                 f"program walks {walks}, drain "
+                                 f"{r['launches']}; want {L} chunk walks "
+                                 "with live_kv and no decode walk")
+        # the draft is member 0: its slots accept, member 1's rarely (its
+        # slots bound the fused steps, so fewer steps are not gated)
+        st = r["stats"]
+        if st["spec_accepted"] <= 0 or st["spec_steps"] <= 0:
+            raise AssertionError(f"fleet speculation, {label}: "
+                                 f"{st['spec_accepted']} accepted over "
+                                 f"{st['spec_steps']} speculating "
+                                 "slot-steps")
+    if on_e["live_kv"] != L * on_e["steps"]:
+        raise AssertionError(f"fleet speculation, eager: {on_e['live_kv']} "
+                             f"live_kv walks in {on_e['steps']} steps")
+    same, n = same_tokens(q_on["streams"], on["streams"])
+    print(f"fleet speculation: warm tok/s {n_tok / on['warm']['dt']:.1f} "
+          f"against {n_tok / off['warm']['dt']:.1f} without speculation "
+          f"({on['warm']['steps']} against {off['warm']['steps']} fused "
+          f"steps); the int8 table's identical tokens to the float table's "
+          f"{same}/{n} (reported); phase 10 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return on["launches"]
 
 
 # ---------------------------------------------------------------------------
 # phase 7: the rest of the dense family (untied lm_head)
 # ---------------------------------------------------------------------------
-# (config, depth it runs at): phi3-mini at its full 32 layers; qwen2-72b
-# at full width and 2 of its 80 layers (one card: ~1.76 G parameters of
-# layers, ~7 GB at f32 compute, beside two f32 [152064, 8192] tables of
-# 5 GB each).  codeqwen1.5-7b runs only in the CPU tests.
-DENSE_FAMILY = (("phi3-mini-3.8b", None), ("qwen2-72b", 2))
+# (config, depth it runs at): phi3-mini at 8 of its 32 layers (the
+# untied lm_head and the hd 96 walk need no more; the cut keeps the run
+# near its time once phases 6 and 10 grew); qwen2-72b at full width and 2
+# of its 80 layers (one card: ~1.76 G parameters of layers, ~7 GB at f32
+# compute, beside two f32 [152064, 8192] tables of 5 GB each).
+# codeqwen1.5-7b runs only in the CPU tests.
+DENSE_FAMILY = (("phi3-mini-3.8b", 8), ("qwen2-72b", 2))
 
 
 def check_dense_family(dev, g, lengths) -> dict:
@@ -2311,10 +2467,48 @@ def spec_spec(draft: ArchConfig | None, quant: bool = False,
         else SpeculationSpec(draft_model=draft, k=SPEC_K))
 
 
+def timed_captures(eng) -> list:
+    """Wrap ``eng._capture`` so that each capture's parts are timed on the
+    host clock, the device synchronised around each: the warm-up (the
+    step's own eager run), the capture with the graph's instantiation,
+    and the graph's first replay.  Returns the list the (part, seconds)
+    pairs land in."""
+    parts, capture = [], eng._capture
+
+    def synced(label, fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        parts.append((label, time.perf_counter() - t))
+        return out
+
+    def timed(kind, impl, *args):
+        calls = []
+
+        def first_timed(*a):      # the warm-up is impl's first call
+            calls.append(1)
+            if len(calls) == 1:
+                return synced(f"{kind} warm-up", impl, *a)
+            return impl(*a)
+        sg = synced(f"{kind} warm-up + capture + instantiation", capture,
+                    kind, first_timed, *args)
+        replay = sg.graph.replay
+
+        def first_replay():
+            sg.graph.replay = replay           # later replays untimed
+            synced(f"{kind} first replay", replay)
+        sg.graph.replay = first_replay
+        return sg
+    eng._capture = timed
+    return parts
+
+
 def spec_drain(params, prompts, draft=None, graphs: bool = True,
                warm: bool = False, f32_pool: bool = False,
                profile: bool = False, sync_every: int = 1,
-               no_sync: bool = False, **kw) -> dict:
+               no_sync: bool = False, time_capture: bool = False,
+               **kw) -> dict:
     """A fresh engine of ``spec_spec(**kw)`` (``draft``: the proposer's
     (architecture, state dict), None for speculation off) drains
     ``prompts`` (phase 5's ``drain`` at ``sync_every``, ``no_sync``);
@@ -2325,10 +2519,13 @@ def spec_drain(params, prompts, draft=None, graphs: bool = True,
     the chunk kernel's wrapper in the first drain (``widths``; a graphed
     engine calls it only while it warms up and captures), the blocks
     truncation handed back, the per-program launches each capture
-    recorded, and the pool's occupancy after the drain."""
+    recorded, and the pool's occupancy after the drain.  ``time_capture``:
+    the first drain's captures timed in parts (``timed_captures``, into
+    ``out["capture_parts"]``)."""
     eng = ServingEngine(spec_spec(draft and draft[0], **kw), device="cuda",
                         graphs=graphs)
     eng.load(params, draft=draft and draft[1])
+    parts = timed_captures(eng) if time_capture else None
     if f32_pool:
         eng.cache = attn_mod.KVCache(
             *(torch.zeros_like(t, dtype=torch.float32)
@@ -2349,6 +2546,9 @@ def spec_drain(params, prompts, draft=None, graphs: bool = True,
     with mock.patch.object(attn_mod, "chunked_prefill_attention",
                            counting_walk):
         out = drain(eng, prompts, sync_every=sync_every, no_sync=no_sync)
+    if parts is not None:
+        out["capture_parts"] = list(parts)
+        del eng._capture                       # the class's again
     if warm:
         out["warm"] = drain(eng, prompts)
     if profile:
@@ -2451,7 +2651,23 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
     # time and idle share are phase 5's (the trace of a drain takes tens
     # of seconds to read back)
     off = spec_drain(params, prompts, warm=True)
-    on = spec_drain(params, prompts, selfd, warm=True, profile=True)
+    on = spec_drain(params, prompts, selfd, warm=True, profile=True,
+                    time_capture=True)
+    # where a fresh self-draft engine's first drain goes (PERF.md §6, PR
+    # 24's open question): its captures in parts, beside the drain
+    st = on["stats"]
+    cap_s = sum(t for k, t in on["capture_parts"] if "+" in k)
+    print(f"self-draft, graphed, first drain: {on['dt']:.3f} s for "
+          f"{on['steps']} fused steps; compilations {on['compilations']}, "
+          f"{st['graph_captures']} captures, {st['graph_replays']} replays, "
+          f"{st['eager_steps']} eager steps; its captures took "
+          f"{cap_s:.3f} s ({cap_s / on['dt']:.1%} of the drain):")
+    for part, secs in on["capture_parts"]:
+        print(f"    {part:<48} {secs:9.3f} s")
+    if st["eager_steps"] or st["graph_captures"] != 2 \
+            or st["graph_replays"] != on["steps"] - 2:
+        raise AssertionError(f"self-draft first drain: {st}; want two "
+                             "captures and every other step a replay")
     on_e = spec_drain(params, prompts, selfd, graphs=False)
     four = spec_drain(params, prompts, small, warm=True, profile=True)
     four_e = spec_drain(params, prompts, small, graphs=False)
@@ -2593,13 +2809,22 @@ def main() -> int:
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     timer = Timer(dev)
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"-- {phase} took {now - clock[-1]:.1f} s ({now - t0:.1f} s "
+              "since the build began)")
+        clock.append(now)
 
     entries = {"tiled_matmul": check_matmul(timer, dev, g),
                "int8_matmul": check_int8_matmul(timer, dev, g)}
     entries.update(check_attention(timer, dev, g))
     entries.update(check_norms(timer, dev, g))
     entries.update(check_library(timer, dev, g))
+    lap("phase 2")
     launches = {"ops": check_ops(dev, g)}
+    lap("phase 3")
 
     model = Model.from_spec(full_width_spec(True), device=dev).init(g)
     params = model.state_dict()
@@ -2623,6 +2848,7 @@ def main() -> int:
         check_model_steps(m16, dev, g, gate=False)
         del m16
 
+    lap("phase 4")
     print("\n== serving: full-width qwen1.5-0.5b, paged + chunked, "
           f"{len(PROMPT_LENS)} greedy requests x {MAX_NEW} new tokens, "
           "each fused program one CUDA graph (graphed) and eager")
@@ -2712,16 +2938,24 @@ def main() -> int:
               "(reported, not gated: near-ties and quantization may flip)")
     del params
     torch.cuda.empty_cache()
+    lap("phase 5")
 
-    launches["fleet"] = check_fleet(dev, g, PROMPT_LENS)
+    launches.update(check_fleet(dev, g, PROMPT_LENS))
+    lap("phases 6 and 10")
+    for path in ("fleet", "fleet_int8", "fleet_spec"):
+        for name in PATH_KERNELS[path]:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} "
+                                     "path")
     for name in PATH_KERNELS["fleet"]:
-        if launches["fleet"][name] <= 0:
-            raise AssertionError(f"{name} was not launched on the fleet path")
         entries[name]["live_kv"]["launches"] = launches["fleet"][name]
 
     launches.update(check_dense_family(dev, g, PROMPT_LENS))
+    lap("phase 7")
     launches["prefix"] = check_prefix(dev, g, f32_dist)
+    lap("phase 8")
     launches.update(check_speculation(dev, g, f32_dist))
+    lap("phase 9")
     for path in ("prefix", "spec", "spec_int8"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
@@ -2741,7 +2975,8 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for extra in ("int8_pool", "live_kv", "ctas", "groups", "splits",
+        for extra in ("int8_pool", "live_kv", "fault_f", "ctas", "groups",
+                      "splits",
                       "smem_bytes",
                       "bm", "bn",
                       "bf16_matmul_ms", "other_shapes", "f32_shapes",

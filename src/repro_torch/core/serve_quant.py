@@ -22,7 +22,7 @@ from collections.abc import Mapping
 
 import torch
 
-from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor, quantize
+from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 
 SCALE_SUFFIX = "_scale"
 
@@ -49,9 +49,16 @@ def eligible(name: str, shape, num_layers: int,
 
 
 def quantize_leaf(w: torch.Tensor, kind: str) -> QTensor:
-    """Kernels ``[K, N]``: per-column scales ``[1, N]`` over the
-    contraction dim; tables ``[V, D]``: per-row scales ``[V, 1]``."""
-    return quantize(w, axis=-1 if kind == "kernel" else 0)
+    """Kernels ``[..., K, N]``: per-(stack, column) scales ``[..., 1, N]``
+    reduced over the contraction dim only (``[1, N]`` for one layer's
+    kernel); tables ``[V, ...]``: per-row scales ``[V, 1, ...]`` (the
+    reference's ``quantize_leaf``, so a fleet's stacked table rows take one
+    scale per layer and column)."""
+    w32 = w.float()
+    dims = (-2,) if kind == "kernel" else tuple(range(1, w32.dim()))
+    scale = w32.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8) / 127.0
+    return QTensor(torch.clamp(torch.round(w32 / scale), -127, 127)
+                   .to(torch.int8), scale)
 
 
 def quantize_params(params: Mapping[str, torch.Tensor],

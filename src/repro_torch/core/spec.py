@@ -15,11 +15,11 @@ both packages:
 What the port serves so far is the dense family through the paged pool
 and the chunked scheduler, with float or int8 weights (``quant``) and a
 float or int8 KV pool (``MemorySpec.kv_dtype``), one model or a fleet of
-them within ``maxima`` (``maxima_for``; float weights only), with or
-without the prefix cache (``MemorySpec.prefix_cache``), and for one model
-with speculative decoding (``SpeculationSpec``).  Every other option of
-the reference is rejected at construction with the ROADMAP.md queue item
-that ports it.
+them within ``maxima`` (``maxima_for``; a fleet's int8 weights are its own
+int8 weight table), with or without the prefix cache
+(``MemorySpec.prefix_cache``), and with or without speculative decoding
+(``SpeculationSpec``).  Every other option of the reference is rejected
+at construction with the ROADMAP.md queue item that ports it.
 """
 from __future__ import annotations
 
@@ -252,7 +252,8 @@ class SpeculationSpec:
     * ``draft_model`` -- the proposer's architecture.  It decodes from its
       own private dense KV cache inside the same fused step, so it must
       share the target's token space: ``vocab_size`` must match the
-      serving arch (checked by ``RuntimeSpec.validate``).
+      serving arch, or a fleet's ``maxima.vocab`` (checked by
+      ``RuntimeSpec.validate``).
     * ``k`` -- draft tokens proposed per step; ``k + 1 <= chunk_size``.
     * ``greedy_accept=True`` -- accept proposal ``j + 1`` iff it equals the
       target argmax at lane ``j`` (cumulative), which keeps greedy streams
@@ -295,8 +296,9 @@ class RuntimeSpec:
     serving: one engine built at the maxima serves a fleet of models
     (``serving/fabric.py``), and the spec's own arch must fit them.
     ``speculation`` (a ``SpeculationSpec``) drafts and verifies inside the
-    fused step of one model.  ``mesh`` is the reference's mesh axis; the
-    port accepts only its default (None) until it is ported.
+    fused step of one model or of the fleet.  ``mesh`` is the reference's
+    mesh axis; the port accepts only its default (None) until it is
+    ported.
     """
 
     arch: ArchConfig
@@ -316,17 +318,6 @@ class RuntimeSpec:
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               "; the port serves family 'dense'")
-        if self.maxima is not None and self.execution.quant == "int8":
-            raise _not_ported(
-                "the fleet's int8 weight table (maxima=... with "
-                "quant='int8')", "item 8b",
-                "; fleet members serve float weights over a bf16 or int8 "
-                "KV pool")
-        if self.speculation is not None and self.maxima is not None:
-            raise _not_ported(
-                "speculative decoding in a fleet (maxima=... with "
-                "speculation=...)", "item 10b",
-                "; one model speculates")
         if self.speculation is not None:
             # the reference's messages: the verify pass rides the fused
             # chunked step
@@ -386,8 +377,8 @@ class RuntimeSpec:
     def _validate_speculation(self) -> None:
         """The reference's checks of a speculating spec: the verify lanes
         fit the fused step's chunk, and the draft shares the target's
-        token space.  (The chunked scheduler it needs is the port's only
-        one, checked above.)"""
+        token space (a fleet's: the maxima's vocab).  (The chunked
+        scheduler it needs is the port's only one, checked above.)"""
         sp = self.speculation
         if not isinstance(sp, SpeculationSpec):
             raise ValueError(
@@ -399,12 +390,15 @@ class RuntimeSpec:
                 f"SpeculationSpec.k={sp.k} needs {sp.horizon} verify "
                 f"lanes but the fused step has only chunk_size={chunk} "
                 "(raise SchedulerSpec.chunk_size or lower k)")
-        if sp.draft_model.vocab_size != self.arch.vocab_size:
+        # a fleet verifies over the maxima's vocab lanes
+        target_vocab = (self.maxima.vocab if self.maxima is not None
+                        else self.arch.vocab_size)
+        if sp.draft_model.vocab_size != target_vocab:
             raise ValueError(
                 f"speculation draft vocab_size={sp.draft_model.vocab_size} "
-                f"!= target vocab {self.arch.vocab_size}: draft proposals "
-                "are verified as target token ids, so the models must "
-                "share a tokenizer space")
+                f"!= target vocab {target_vocab}: draft proposals are "
+                "verified as target token ids, so the models must share a "
+                "tokenizer space")
 
     def static_registers(self, sequence: int | None = None) -> dict[str, int]:
         """The register values as plain ints (for ceiling checks); the

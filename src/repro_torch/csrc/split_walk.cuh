@@ -15,8 +15,9 @@
 //   live_kv [B] int32 or null   multi-topology serving: the live kv groups
 //                               of each sequence; every output row of a
 //                               group g >= live_kv[b] is exact zeros
-// Lane l sees the positions <= min(s0 + l, NBLK * BS - 1).  HD is a
-// multiple of 16 up to 128; the output is in q's dtype.
+// Lane l sees the positions <= min(s0 + l, NBLK * BS - 1).  HD is any
+// head dim whose CTA fits in shared memory (every hd up to 512 in every
+// dtype pair); the output is in q's dtype.
 //
 // Numerics (the reference kernels'): QK^T of the stored dtypes summed in
 // f32 and scaled after the product, one online-softmax update per 16-
@@ -79,6 +80,24 @@
 //     read from the pool; an int8 row's scale likewise.  A live lane never
 //     sees the null block; dead lanes (which the caller drops) do, and see
 //     zeros there.
+//  7. Every other head dim (fault F; the reference pads hd to 128 lanes and
+//     takes any): HD not a multiple of 16, or past 128, runs the general
+//     bodies (chunk_mma_gen, chunk_fma_gen).  K and q rows are staged at
+//     KP = HD rounded up to 16, their tails zero, so QK^T over KP is QK^T
+//     over HD.  A CTA owns one group of GW = 128 output columns
+//     (blockIdx.z picks the group, flash_bf16_wide's design; the last
+//     group's columns past HD are zeros that no one writes out): it sums S
+//     over the whole row and runs PV over its own columns, staging only
+//     their V columns, so acc stays 128 columns in registers.  One width
+//     keeps the general bodies to one instantiation per dtype pair.  Every
+//     group sums the same scores in the same order, so m and l agree bit
+//     for bit and the split workspace and merge are the hd <= 128 walk's
+//     (group 0 writes m, l).  q stays in shared memory (one ldmatrix per
+//     k16 step).  Rows that are not 16-byte aligned (hd * dtype bytes) are
+//     copied in 4-byte cp.async units where hd * bytes is a multiple of 4,
+//     else byte by byte through registers.  The ring takes 3 stages (2 for
+//     f32 pools), fewer where a CTA's shared memory would pass 227 KB
+//     (plan_general).
 // Shared memory is bounded whatever W * n_rep is: a CTA holds 16 rows.
 // Everything here has internal linkage: each entry point's translation
 // unit compiles its own copy of the walk.
@@ -116,7 +135,17 @@ struct Args {
   int B, W, H, KV, HD, BS, NBLK, splits, row_tiles;
   int len_offset;  // lane 0 sits at start[b] + len_offset
   float scale;
+  // the general bodies only (plan_general): staged K / q row KP = HD
+  // rounded up to 16, GW columns per group, ring stages S, copy unit bytes
+  int KP, GW, S, unit;
 };
+
+constexpr int kGroupCols = 128;  // GW of the general bodies
+
+// HD that the hd <= 128 bodies take; every other runs the general ones
+__host__ __device__ inline bool general_hd(int hd) {
+  return hd % 16 != 0 || hd > 128;
+}
 
 // f32 pools take two stages (their rows are twice a bf16 row)
 template <typename TKV>
@@ -259,24 +288,41 @@ __device__ __forceinline__ void walk(const Args& a, const Cta& c,
 // Shared prologue: start[b], the range's table entries and q (as f32, or as
 // bf16 rows padded by 16 bytes for ldmatrix), loaded together since none
 // depends on another.  Returns false (after writing the empty partial) when
-// the range begins past the last position the rows see.
-template <typename TQ, bool kBf16Q>
+// the range begins past the last position the rows see.  kGen: the general
+// bodies' layout (q rows of KP columns, zeros past HD, loaded element by
+// element; a dead group zeroes only its CTA's columns).
+template <typename TQ, bool kBf16Q, bool kGen = false>
 __device__ __forceinline__ bool prologue(const Args& a, Cta& c,
                                          unsigned char* smem, int* tbl) {
   const int tid = threadIdx.x;
   if (a.live_kv != nullptr && c.g >= a.live_kv[c.b]) {
     // a dead group: exact zeros (one range) or nothing (the merge zeroes it)
-    if (a.splits == 1)
-      for (int i = tid; i < c.rows * a.HD; i += kThreads)
-        static_cast<TQ*>(a.out)[out_row(a, c, i / a.HD) * a.HD + i % a.HD] =
+    if (a.splits == 1) {
+      const int c0 = kGen ? blockIdx.z * a.GW : 0;
+      const int nc = kGen ? min(a.GW, a.HD - c0) : a.HD;
+      for (int i = tid; i < c.rows * nc; i += kThreads)
+        static_cast<TQ*>(a.out)[out_row(a, c, i / nc) * a.HD + c0 + i % nc] =
             from_f<TQ>(0.f);
+    }
     return false;
   }
   c.s0 = a.start[c.b] + a.len_offset;
   const int* trow = a.tables + (size_t)c.b * a.NBLK + c.lo_blk;
   for (int i = tid; i < c.hi_blk - c.lo_blk; i += kThreads) tbl[i] = trow[i];
   const TQ* q = static_cast<const TQ*>(a.q);
-  if constexpr (kBf16Q) {
+  if constexpr (kGen) {
+    // [16][KP + 8] bf16 or [16][KP] f32, zeros past HD and past the rows
+    const int p = kBf16Q ? a.KP + 8 : a.KP;
+    for (int i = tid; i < kRows * a.KP; i += kThreads) {
+      const int r = i / a.KP, d = i % a.KP;
+      const TQ val = r < c.rows && d < a.HD ? q[out_row(a, c, r) * a.HD + d]
+                                            : from_f<TQ>(0.f);
+      if constexpr (kBf16Q)
+        reinterpret_cast<__nv_bfloat16*>(smem)[r * p + d] = val;
+      else
+        reinterpret_cast<float*>(smem)[r * p + d] = to_f(val);
+    }
+  } else if constexpr (kBf16Q) {
     using bf16 = __nv_bfloat16;
     bf16* qs = reinterpret_cast<bf16*>(smem);  // [16][HD + 8]
     const int ch = a.HD / 8, p = a.HD + 8;
@@ -302,6 +348,7 @@ __device__ __forceinline__ bool prologue(const Args& a, Cta& c,
   // but for a decode length of 0: that single range walks no tile and the
   // epilogue writes O = 0 / max(0, 1e-30) = 0)
   if (c.hi <= c.lo && a.splits > 1) {
+    if (kGen && blockIdx.z != 0) return false;  // group 0 writes m, l
     const size_t rows = (size_t)a.B * a.W * a.H;
     float* mws = a.ws + (size_t)a.splits * rows * a.HD;
     for (int i = tid; i < c.rows; i += kThreads) {
@@ -315,17 +362,22 @@ __device__ __forceinline__ bool prologue(const Args& a, Cta& c,
   return true;
 }
 
-// Shared epilogue: the four warps' partials (red [4][16][HD], then m, l
-// [4][16], written by the bodies) merged in order; the normalised output
-// (one range) or the range's partial to the workspace.
-template <typename TQ>
+// Shared epilogue: the four warps' partials (red [4][16][RW], then m, l
+// [4][16], written by the bodies; RW = HD, or GW for the general bodies)
+// merged in order; the normalised output (one range) or the range's partial
+// to the workspace.  kGen: the CTA's columns c0 .. c0 + GW (cut at HD), m
+// and l from group 0.
+template <typename TQ, bool kGen = false>
 __device__ __forceinline__ void epilogue(const Args& a, const Cta& c,
                                          const float* red) {
-  const float* rm = red + kWarps * kRows * a.HD;
+  const int rw = kGen ? a.GW : a.HD;
+  const int c0 = kGen ? blockIdx.z * a.GW : 0;
+  const int nc = kGen ? min(a.GW, a.HD - c0) : a.HD;
+  const float* rm = red + kWarps * kRows * rw;
   const float* rl = rm + kWarps * kRows;
   const size_t rows = (size_t)a.B * a.W * a.H;
-  for (int idx = threadIdx.x; idx < c.rows * a.HD; idx += kThreads) {
-    const int i = idx / a.HD, d = idx % a.HD;
+  for (int idx = threadIdx.x; idx < c.rows * nc; idx += kThreads) {
+    const int i = idx / nc, d = idx % nc;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, rm[w * kRows + i]);
@@ -336,16 +388,16 @@ __device__ __forceinline__ void epilogue(const Args& a, const Cta& c,
       if (mw == kNegInf) continue;  // this warp saw nothing of the row
       const float wt = expf(mw - mx);
       lsum += rl[w * kRows + i] * wt;
-      o += red[(w * kRows + i) * a.HD + d] * wt;
+      o += red[(w * kRows + i) * rw + d] * wt;
     }
     const size_t row = out_row(a, c, i);
     if (a.splits == 1) {
-      static_cast<TQ*>(a.out)[row * a.HD + d] =
+      static_cast<TQ*>(a.out)[row * a.HD + c0 + d] =
           from_f<TQ>(o / fmaxf(lsum, 1e-30f));
     } else {
       const size_t at = blockIdx.y * rows + row;
-      a.ws[at * a.HD + d] = o;
-      if (d == 0) {
+      a.ws[at * a.HD + c0 + d] = o;
+      if (d == 0 && c0 == 0) {
         float* mws = a.ws + (size_t)a.splits * rows * a.HD;
         mws[at] = mx;
         mws[(size_t)a.splits * rows + at] = lsum;
@@ -671,6 +723,464 @@ __global__ void __launch_bounds__(kThreads) chunk_fma(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// The general bodies (design, 7): any HD, in column groups of GW.
+// ---------------------------------------------------------------------------
+// one stage of one warp: K tile (rows of KP), V tile (rows of GW: the
+// group's columns), then the tile's K and V scales (int8 pools)
+__host__ __device__ inline int gen_stage_bytes(int kp, int gw, int esz) {
+  return kTile * (kp * esz + 16) + kTile * (gw * esz + 16) + 2 * kTile * 4;
+}
+
+// Shared memory of a general body at `stages` ring stages: q rows, the
+// table of a one-range walk (the largest), the warps' rings (at least the
+// partials red [4][16][GW] + m, l that reuse them), the FMA body's p.
+__host__ inline size_t gen_smem_bytes(const Args& a, int esz, int stages,
+                                      bool fma) {
+  const size_t q = (size_t)kRows * a.KP * 4;
+  const size_t tbl = ((size_t)(a.NBLK + 1) * 4 + 15) / 16 * 16;
+  size_t ring = (size_t)kWarps * stages * gen_stage_bytes(a.KP, a.GW, esz);
+  const size_t red = ((size_t)kWarps * kRows * a.GW + 2 * kWarps * kRows) * 4;
+  if (ring < red) ring = red;
+  const size_t p = fma ? (size_t)kWarps * (kRows * kTile + kRows) * 4 : 0;
+  return q + tbl + ring + p;
+}
+
+// The general bodies' geometry for a.HD: KP, GW, the copy unit (16 or 4
+// bytes where the rows' alignment allows, else 1) and the most ring stages
+// (3, or 2 for f32 pools, down to 1) whose shared memory fits a CTA; false
+// when one stage does not fit.  The column groups are ceil(HD / GW).  The
+// stages are planned at one key range, so a split launch (a smaller table)
+// takes the same ring.
+__host__ inline bool plan_general(Args& a, int esz, bool fma) {
+  a.KP = (a.HD + 15) / 16 * 16;
+  a.GW = kGroupCols;
+  const int bytes = a.HD * esz;
+  a.unit = bytes % 16 == 0 ? 16 : bytes % 4 == 0 ? 4 : 1;
+  for (a.S = esz == 4 ? 2 : 3; a.S >= 1; --a.S)
+    if (gen_smem_bytes(a, esz, a.S, fma) <= 227 * 1024) return true;
+  return false;
+}
+
+__host__ __device__ inline int col_groups(const Args& a) {
+  return general_hd(a.HD) ? (a.HD + a.GW - 1) / a.GW : 1;
+}
+
+// One U-byte piece of a staged row: cp.async for 16 and 4 bytes
+// (zero-filled, the source not read, where !in), a load and a store for 1.
+template <int U>
+__device__ __forceinline__ void copy_unit(unsigned char* dst,
+                                          const unsigned char* src,
+                                          bool in) {
+  if constexpr (U == 16) {
+    cp_async16(dst, src, in ? 16 : 0);
+  } else if constexpr (U == 4) {
+    cp_async4(dst, src, in ? 4 : 0);
+  } else {
+    *dst = in ? *src : static_cast<unsigned char>(0);
+  }
+}
+
+// `n` bytes of each of the tile's 16 pool rows from byte `col` of the row
+// into rows of `stride` bytes at dst, in U-byte pieces; rows past hi or in
+// the null block are zero-filled and not read.
+template <int U>
+__device__ __forceinline__ void stage_rows(const Args& a, const Cta& c,
+                                           const int* tbl,
+                                           const unsigned char* pool,
+                                           unsigned char* dst, int stride,
+                                           int col, int n, int esz, int t0,
+                                           int lane) {
+  const int ch = n / U;
+  for (int i = lane; i < kTile * ch; i += 32) {
+    const int r = i / ch, x = i % ch, pos = t0 + r;
+    const int phys = pos < c.hi ? tbl[pos / a.BS - c.lo_blk] : 0;
+    const bool in = phys != 0;
+    const size_t off =
+        (((size_t)phys * a.BS + pos % a.BS) * a.KV + c.g) * a.HD * esz +
+        col + x * U;
+    copy_unit<U>(dst + r * stride + x * U, in ? pool + off : pool, in);
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void stage_kv_gen(const Args& a, const Cta& c,
+                                             const int* tbl,
+                                             unsigned char* dst, int esz,
+                                             int t0, int lane) {
+  const int krb = a.KP * esz + 16, c0 = blockIdx.z * a.GW;
+  stage_rows<U>(a, c, tbl, static_cast<const unsigned char*>(a.k), dst, krb,
+                0, a.HD * esz, esz, t0, lane);
+  stage_rows<U>(a, c, tbl, static_cast<const unsigned char*>(a.v),
+                dst + kTile * krb, a.GW * esz + 16, c0 * esz,
+                min(a.GW, a.HD - c0) * esz, esz, t0, lane);
+}
+
+// Tile [t0, t0 + 16) of the pool into one stage of a general body: K rows
+// whole, V rows over the CTA's column group, in the call's copy unit.
+template <typename TKV>
+__device__ __forceinline__ void stage_tile_gen(const Args& a, const Cta& c,
+                                               const int* tbl,
+                                               unsigned char* dst, int t0,
+                                               int lane) {
+  constexpr int E = sizeof(TKV);
+  switch (a.unit) {
+    case 16: stage_kv_gen<16>(a, c, tbl, dst, E, t0, lane); break;
+    case 4: stage_kv_gen<4>(a, c, tbl, dst, E, t0, lane); break;
+    default: stage_kv_gen<1>(a, c, tbl, dst, E, t0, lane); break;
+  }
+  if constexpr (std::is_same<TKV, int8_t>::value) {
+    if (lane < kTile) {
+      const int pos = t0 + lane;
+      const int phys = pos < c.hi ? tbl[pos / a.BS - c.lo_blk] : 0;
+      const bool in = phys != 0;
+      const size_t row = ((size_t)phys * a.BS + pos % a.BS) * a.KV + c.g;
+      float* sd = reinterpret_cast<float*>(
+          dst + kTile * (a.KP * E + 16) + kTile * (a.GW * E + 16));
+      cp_async4(sd + lane, in ? a.ksc + row : a.ksc, in ? 4 : 0);
+      cp_async4(sd + kTile + lane, in ? a.vsc + row : a.vsc, in ? 4 : 0);
+    }
+  }
+}
+
+// The staged rows' tails, which no copy writes: K columns [HD, KP) and the
+// group's V columns past HD, zeroed once in each stage of the warp's ring,
+// so that QK^T over KP and PV over GW add zeros there.
+template <typename TKV>
+__device__ __forceinline__ void zero_tails(const Args& a, unsigned char* ring,
+                                           int lane) {
+  constexpr int E = sizeof(TKV);
+  const int krb = a.KP * E + 16, vrb = a.GW * E + 16;
+  const int sb = gen_stage_bytes(a.KP, a.GW, E);
+  const int vt = min(a.GW, a.HD - (int)blockIdx.z * a.GW) * E;
+  for (int i = lane; i < a.S * kTile; i += 32) {
+    unsigned char* k = ring + (i / kTile) * sb + (i % kTile) * krb;
+    unsigned char* v = ring + (i / kTile) * sb + kTile * krb +
+                       (i % kTile) * vrb;
+    for (int b = a.HD * E; b < a.KP * E; ++b) k[b] = 0;
+    for (int b = vt; b < a.GW * E; ++b) v[b] = 0;
+  }
+  __syncwarp();
+}
+
+template <int N>
+__device__ __forceinline__ void wait_upto(int n) {
+  if (n >= N) {
+    cp_async_wait<N>();
+  } else if constexpr (N > 0) {
+    wait_upto<N - 1>(n);
+  }
+}
+
+// walk() for the general bodies: a ring of a.S stages (1-3, chosen by
+// plan_general) staged by stage_tile_gen.
+template <typename TKV, typename Body>
+__device__ __forceinline__ void walk_gen(const Args& a, const Cta& c,
+                                         const int* tbl, unsigned char* ring,
+                                         int warp, int lane, Body&& body) {
+  const int S = a.S;
+  const int sb = gen_stage_bytes(a.KP, a.GW, sizeof(TKV));
+  const int n_tiles = (c.hi - c.lo + kTile - 1) / kTile;
+  const int mine = n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
+  auto t0_of = [&](int it) { return c.lo + (warp + it * kWarps) * kTile; };
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < mine)
+      stage_tile_gen<TKV>(a, c, tbl, ring + st * sb, t0_of(st), lane);
+    cp_async_commit();
+  }
+  for (int it = 0; it < mine; ++it) {
+    const int nxt = it + S - 1;  // in flight during this tile's math
+    if (nxt < mine)
+      stage_tile_gen<TKV>(a, c, tbl, ring + (nxt % S) * sb, t0_of(nxt),
+                          lane);
+    cp_async_commit();
+    wait_upto<2>(S - 1);  // tile it has landed (this lane's copies)
+    __syncwarp();         // ... and every lane's
+    body(ring + (it % S) * sb, t0_of(it));
+    __syncwarp();  // this stage is free again
+  }
+}
+
+// bf16 q over a bf16 pool at any HD: the mma.sync body of chunk_mma with q
+// read from shared memory each k16 step and PV over the CTA's GW columns.
+__global__ void __launch_bounds__(kThreads) chunk_mma_gen(const Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int GW = kGroupCols;
+  constexpr int DT = GW / 8;
+  constexpr int VR = GW + 8;  // staged V row, in elements
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int KR = a.KP + 8;  // staged K row and q row, in elements
+  Cta c = cta_of(a);
+  int* tbl = reinterpret_cast<int*>(smem + kRows * a.KP * 4);
+  unsigned char* ring = smem + kRows * a.KP * 4 +
+                        ((size_t)table_slots(a) * 4 + 15) / 16 * 16;
+  if (!prologue<bf16, true, true>(a, c, smem, tbl)) return;
+  const int sb = gen_stage_bytes(a.KP, GW, 2);
+  unsigned char* mine = ring + warp * a.S * sb;
+  zero_tails<bf16>(a, mine, lane);
+
+  const bf16* qs = reinterpret_cast<const bf16*>(smem);
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int lim[2] = {limit_of(c, lane >> 2), limit_of(c, (lane >> 2) + 8)};
+  const int kt = a.KP / 16;
+
+  walk_gen<bf16>(a, c, tbl, mine, warp, lane,
+                 [&](const unsigned char* st, int t0) {
+    const bf16* Kt = reinterpret_cast<const bf16*>(st);
+    const bf16* Vt = Kt + kTile * KR;
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < kt; ++ks) {
+      uint32_t qf[4], kf[4];
+      ldmatrix_x4(qf, qs + (lane & 15) * KR + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(kf, Kt + ((lane & 7) + (lane >> 4) * 8) * KR + ks * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], qf, kf);
+      mma_bf16(s[1], qf, kf + 2);
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = t0 + j * 8 + (lane & 3) * 2 + (e & 1);
+        const bool ok = pos < c.hi && pos <= lim[e >> 1];
+        s[j][e] = ok ? s[j][e] * a.scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    uint32_t pf[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = s[j][e] == kNegInf ? 0.f : expf(s[j][e] - mx[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      pf[j * 2] = pack2(__float2bfloat16(p[0]), __float2bfloat16(p[1]));
+      pf[j * 2 + 1] = pack2(__float2bfloat16(p[2]), __float2bfloat16(p[3]));
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; d += 2) {
+      uint32_t vf[4];
+      ldmatrix_x4_trans(vf, Vt + (lane & 15) * VR + d * 8 + (lane >> 4) * 8);
+      mma_bf16(acc[d], pf, vf);
+      mma_bf16(acc[d + 1], pf, vf + 2);
+    }
+  });
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();  // every warp is done with its ring
+  float* red = reinterpret_cast<float*>(ring);
+  float* rm = red + kWarps * kRows * GW;
+  float* rl = rm + kWarps * kRows;
+  const int col0 = (lane & 3) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = (lane >> 2) + r * 8;
+    float* row = red + (warp * kRows + i) * GW;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<float2*>(row + d * 8 + col0) =
+          make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+    if ((lane & 3) == 0) {
+      rm[warp * kRows + i] = m[r];
+      rl[warp * kRows + i] = l[r];
+    }
+  }
+  __syncthreads();
+  epilogue<bf16, true>(a, c, red);
+}
+
+// f32 q, or an int8 pool, at any HD: chunk_fma's body over K rows of KP and
+// the CTA's GW columns of V (HC = GW / 32 features per lane in PV).  One CTA
+// per SM is asked for, so ptxas may take every register a thread can have
+// (at most 2 fit by shared memory where HD > 128).
+template <typename TQ, typename TKV, bool kSkipDead>
+__global__ void __launch_bounds__(kThreads, 1) chunk_fma_gen(const Args a) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  constexpr int E = sizeof(TKV);
+  constexpr int GW = kGroupCols;
+  constexpr int HC = GW / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int KP = a.KP;
+  Cta c = cta_of(a);
+  int* tbl = reinterpret_cast<int*>(smem + kRows * KP * 4);
+  unsigned char* ring = smem + kRows * KP * 4 +
+                        ((size_t)table_slots(a) * 4 + 15) / 16 * 16;
+  const int sb = gen_stage_bytes(KP, GW, E);
+  const size_t red_bytes =
+      ((size_t)kWarps * kRows * GW + 2 * kWarps * kRows) * 4;
+  size_t ring_bytes = (size_t)kWarps * a.S * sb;
+  if (ring_bytes < red_bytes) ring_bytes = red_bytes;
+  float* ps = reinterpret_cast<float*>(ring + ring_bytes) +
+              warp * (kRows * kTile + kRows);
+  float* as = ps + kRows * kTile;
+  if (!prologue<TQ, false, true>(a, c, smem, tbl)) return;
+  unsigned char* mine = ring + warp * a.S * sb;
+  zero_tails<TKV>(a, mine, lane);
+  const float* qs = reinterpret_cast<const float*>(smem);
+
+  const int j = lane & 15, h8 = lane >> 4;
+  float m[8], l[8];
+  int lim[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+    lim[i] = limit_of(c, h8 * 8 + i);
+  }
+  float acc[kRows][HC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int cc = 0; cc < HC; ++cc) acc[i][cc] = 0.f;
+  const int kre = (KP * E + 16) / E;  // staged K row, in elements
+  constexpr int vre = (GW * E + 16) / E;
+
+  walk_gen<TKV>(a, c, tbl, mine, warp, lane,
+                [&](const unsigned char* st, int t0) {
+    const TKV* Kt = reinterpret_cast<const TKV*>(st);
+    const TKV* Vt = Kt + kTile * kre;
+    const float* ksc = reinterpret_cast<const float*>(Vt + kTile * vre);
+    const float* vsc = ksc + kTile;
+    float s[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+    const TKV* kr = Kt + j * kre;
+    const float kscale = kQuant ? ksc[j] : 1.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < KP; d0 += 8) {
+      float kf[8];
+      load8<TKV>(kr + d0, kf);
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] *= kscale;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (kSkipDead && h8 * 8 + i >= c.rows) continue;  // no such row
+        const float* qr = qs + (h8 * 8 + i) * KP + d0;
+        const float4 qa = *reinterpret_cast<const float4*>(qr);
+        const float4 qb = *reinterpret_cast<const float4*>(qr + 4);
+        s[i] = fmaf(qa.x, kf[0], s[i]);
+        s[i] = fmaf(qa.y, kf[1], s[i]);
+        s[i] = fmaf(qa.z, kf[2], s[i]);
+        s[i] = fmaf(qa.w, kf[3], s[i]);
+        s[i] = fmaf(qb.x, kf[4], s[i]);
+        s[i] = fmaf(qb.y, kf[5], s[i]);
+        s[i] = fmaf(qb.z, kf[6], s[i]);
+        s[i] = fmaf(qb.w, kf[7], s[i]);
+      }
+    }
+    const int pos = t0 + j;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (kSkipDead && i >= c.rows) break;  // neither half has row i
+      const bool ok = pos < c.hi && pos <= lim[i];
+      const float x = ok ? s[i] * a.scale : kNegInf;
+      float mx = x;
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mx = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - mx);
+      const float p = ok ? expf(x - mx) : 0.f;
+      l[i] = l[i] * alpha + p;
+      m[i] = mx;
+      if constexpr (kQuant) ps[(h8 * 8 + i) * kTile + j] = p;
+      else ps[(h8 * 8 + i) * kTile + j] = round_as<TKV>(p);
+      if (j == 0) as[h8 * 8 + i] = alpha;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (kSkipDead && i >= c.rows) break;
+      const float al = as[i];
+#pragma unroll
+      for (int cc = 0; cc < HC; ++cc) acc[i][cc] *= al;
+    }
+#pragma unroll
+    for (int j4 = 0; j4 < kTile; j4 += 4) {
+      float v[4][HC];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float vscale = kQuant ? vsc[j4 + jj] : 1.f;
+#pragma unroll
+        for (int cc = 0; cc < HC; ++cc)
+          v[jj][cc] = to_f(Vt[(j4 + jj) * vre + lane + 32 * cc]) * vscale;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (kSkipDead && i >= c.rows) break;
+        const float4 p4 = *reinterpret_cast<const float4*>(ps + i * kTile + j4);
+#pragma unroll
+        for (int cc = 0; cc < HC; ++cc) {
+          acc[i][cc] = fmaf(p4.x, v[0][cc], acc[i][cc]);
+          acc[i][cc] = fmaf(p4.y, v[1][cc], acc[i][cc]);
+          acc[i][cc] = fmaf(p4.z, v[2][cc], acc[i][cc]);
+          acc[i][cc] = fmaf(p4.w, v[3][cc], acc[i][cc]);
+        }
+      }
+    }
+  });
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  __syncthreads();  // every warp is done with its ring
+  float* red = reinterpret_cast<float*>(ring);
+  float* rm = red + kWarps * kRows * GW;
+  float* rl = rm + kWarps * kRows;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int cc = 0; cc < HC; ++cc)
+      red[(warp * kRows + i) * GW + lane + 32 * cc] = acc[i][cc];
+  if (j == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      rm[warp * kRows + h8 * 8 + i] = m[i];
+      rl[warp * kRows + h8 * 8 + i] = l[i];
+    }
+  }
+  __syncthreads();
+  epilogue<TQ, true>(a, c, red);
+}
+
+// ---------------------------------------------------------------------------
 // merge of the key ranges, one thread per output element, ranges in order:
 //   m* = max_s m_s, w_s = e^(m_s - m*), O = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30)
 // A range in which the row saw nothing (m_s = NEG_INF) weighs 0 and its
@@ -744,8 +1254,30 @@ cudaError_t with_fma(const Args& a, F f) {
   }
 }
 
+// the general bodies (any HD): plan_general sets the geometry in `a`
+template <class F>
+cudaError_t with_mma_gen(Args& a, F f) {
+  if (!plan_general(a, 2, false)) return cudaErrorInvalidValue;
+  return with_smem(chunk_mma_gen, gen_smem_bytes(a, 2, a.S, false), f);
+}
+
+template <typename TQ, typename TKV, bool kSkipDead, class F>
+cudaError_t with_fma_gen(Args& a, F f) {
+  if (!plan_general(a, sizeof(TKV), true)) return cudaErrorInvalidValue;
+  return with_smem(chunk_fma_gen<TQ, TKV, kSkipDead>,
+                   gen_smem_bytes(a, sizeof(TKV), a.S, true), f);
+}
+
+template <typename TQ, typename TKV, bool kSkipDead, class F>
+cudaError_t with_fma_any(Args& a, F f) {
+  return general_hd(a.HD) ? with_fma_gen<TQ, TKV, kSkipDead>(a, f)
+                          : with_fma<TQ, TKV, kSkipDead>(a, f);
+}
+
 // f(kernel, dynamic shared memory) with the walk of the (q, pool) dtype pair
-// and a.HD; any other pair is cudaErrorInvalidValue.  kSkipDead: the FMA
+// and a.HD (a.HD a multiple of 16 up to 128: the bodies above; any other:
+// the general ones, their geometry planned into `a`); any other pair is
+// cudaErrorInvalidValue.  kSkipDead: the FMA
 // body skips the rows past a CTA's live rows (decode, where n_rep < 16
 // leaves most of the 16 dead); the chunk kernel, whose CTAs hold 16 live
 // rows but at the edge, keeps the unconditional body.  Each is the faster
@@ -753,16 +1285,17 @@ cudaError_t with_fma(const Args& a, F f) {
 // walk 14.1 us with the skip against 20.5 without; the chunk's 27.8
 // without against 33.3 with, and 42.0 against 79.6 at one key range).
 template <bool kSkipDead, class F>
-cudaError_t with_walk(const Args& a, int q_dtype, int kv_dtype, F f) {
-  if (q_dtype == 1 && kv_dtype == 1) return with_mma(a, f);
+cudaError_t with_walk(Args& a, int q_dtype, int kv_dtype, F f) {
+  if (q_dtype == 1 && kv_dtype == 1)
+    return general_hd(a.HD) ? with_mma_gen(a, f) : with_mma(a, f);
   if (q_dtype == 0 && kv_dtype == 0)
-    return with_fma<float, float, kSkipDead>(a, f);
+    return with_fma_any<float, float, kSkipDead>(a, f);
   if (q_dtype == 0 && kv_dtype == 1)
-    return with_fma<float, __nv_bfloat16, kSkipDead>(a, f);
+    return with_fma_any<float, __nv_bfloat16, kSkipDead>(a, f);
   if (q_dtype == 0 && kv_dtype == 2)
-    return with_fma<float, int8_t, kSkipDead>(a, f);
+    return with_fma_any<float, int8_t, kSkipDead>(a, f);
   if (q_dtype == 1 && kv_dtype == 2)
-    return with_fma<__nv_bfloat16, int8_t, kSkipDead>(a, f);
+    return with_fma_any<__nv_bfloat16, int8_t, kSkipDead>(a, f);
   return cudaErrorInvalidValue;
 }
 
@@ -778,9 +1311,10 @@ cudaError_t launch_merge(const Args& a, cudaStream_t s) {
 // the merge kernel after it.  dtype codes: 0 = float32, 1 = bfloat16,
 // 2 = int8.  Taken: (q, pool) in {(f32, f32), (f32, bf16), (bf16, bf16),
 // (f32, int8), (bf16, int8)}; an int8 pool needs both scale pools, a float
-// pool takes none.  HD: a multiple of 16 up to 128.  splits: key ranges
-// (>= 1); with splits > 1, ws holds splits * B * W * H * (HD + 2) floats.
-// live_kv: [B] int32, or null for no masking.
+// pool takes none.  HD: any whose CTA fits in shared memory (the general
+// bodies add a third grid dimension, the column groups).  splits: key
+// ranges (>= 1); with splits > 1, ws holds splits * B * W * H * (HD + 2)
+// floats.  live_kv: [B] int32, or null for no masking.
 template <bool kSkipDead>
 int launch_walk(const void* q, const void* k_pool, const void* v_pool,
                 const float* k_scale, const float* v_scale, const int* tables,
@@ -790,24 +1324,24 @@ int launch_walk(const void* q, const void* k_pool, const void* v_pool,
                 int q_dtype, int kv_dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || W <= 0 || KV <= 0 || H % KV || BS <= 0 || NBLK <= 0 ||
-      HD <= 0 || HD % 16 || HD > 128 || splits < 1 || splits > 65535 ||
-      splits > NBLK || (splits > 1 && ws == nullptr))
+      HD <= 0 || splits < 1 || splits > 65535 || splits > NBLK ||
+      (splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return cudaErrorInvalidValue;
   const int rows = W * (H / KV);
-  const Args a{q,      k_pool,  v_pool, k_scale, v_scale, tables,
-               start,  live_kv, out,
-               splits > 1 ? static_cast<float*>(ws) : nullptr,
-               B,      W,       H,      KV,      HD,      BS,
-               NBLK,   splits,  (rows + kRows - 1) / kRows, len_offset, scale};
+  Args a{q,      k_pool,  v_pool, k_scale, v_scale, tables,
+         start,  live_kv, out,
+         splits > 1 ? static_cast<float*>(ws) : nullptr,
+         B,      W,       H,      KV,      HD,      BS,
+         NBLK,   splits,  (rows + kRows - 1) / kRows, len_offset, scale};
   if ((long long)B * KV * a.row_tiles > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const cudaError_t e =
       with_walk<kSkipDead>(a, q_dtype, kv_dtype, [&](auto kern,
                                                       size_t smem) {
-        kern<<<dim3(a.B * a.KV * a.row_tiles, a.splits), kThreads, smem,
-               s>>>(a);
+        kern<<<dim3(a.B * a.KV * a.row_tiles, a.splits, col_groups(a)),
+               kThreads, smem, s>>>(a);
         return cudaGetLastError();
       });
   if (e != cudaSuccess || splits == 1) return e;
@@ -817,12 +1351,12 @@ int launch_walk(const void* q, const void* k_pool, const void* v_pool,
 
 // The walk's CTAs resident on one SM (its shared memory at one key range,
 // its registers and threads) for the (q, pool) dtype pair at HD and NBLK:
-// the wave that the wrappers' split plan fills.
+// the wave that the wrappers' split plan fills.  An HD whose CTA does not
+// fit in shared memory is cudaErrorInvalidValue.
 template <bool kSkipDead>
 int walk_resident_ctas(int HD, int NBLK, int q_dtype, int kv_dtype,
                        int* ctas) {
-  if (HD <= 0 || HD % 16 || HD > 128 || NBLK <= 0 || ctas == nullptr)
-    return cudaErrorInvalidValue;
+  if (HD <= 0 || NBLK <= 0 || ctas == nullptr) return cudaErrorInvalidValue;
   Args a{};
   a.HD = HD;
   a.NBLK = NBLK;

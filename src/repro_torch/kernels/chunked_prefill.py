@@ -28,6 +28,14 @@ with more than one range each CTA writes its range's unnormalised
 float32 accumulator and running (max, sum) to a workspace, and a merge
 kernel combines them.  ``chunked_prefill_partial_plain`` and
 ``merge_partials_plain`` are those two steps in plain PyTorch.
+
+Every head dim the reference takes (it pads hd to 128 lanes): an hd that
+is not a multiple of 16, or is past 128, runs the walk's general bodies,
+which stage rows padded to a multiple of 16 with zeros and give each CTA
+one group of 128 output columns (``col_groups``: a third grid dimension
+beside the row tiles and the key ranges).  The one refusal left is an hd
+whose CTA would not fit in shared memory (``check_head_dim``): past 512
+for some dtype pairs, never at or below it.
 """
 from __future__ import annotations
 
@@ -43,8 +51,13 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import merge_partials_plain  # noqa: F401
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-MAX_HEAD_DIM = 128          # the kernel takes head_dim a multiple of 16 up to it
+# every dtype pair takes every head dim up to this one (past it, as far as
+# one CTA's shared memory holds: check_head_dim)
+MAX_HEAD_DIM = 512
 TILE_ROWS = 16              # query rows per CTA (one m16 tile)
+CTA_SMEM = 227 * 1024       # the shared memory one CTA can have
+WARPS = 4                   # a CTA's warps, each with its own ring
+GROUP_COLS = 128            # output columns per CTA of the general walk
 # (query dtype, pool dtype) pairs the kernels take
 DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                (torch.bfloat16, torch.bfloat16), (torch.float32, torch.int8),
@@ -152,16 +165,64 @@ def row_tiles(rows: int) -> int:
 
 
 def kv_splits(B: int, kv: int, rows: int, nblk: int, sms: int,
-              resident: int) -> int:
+              resident: int, groups: int = 1) -> int:
     """How many key ranges the kernel's grid takes, from the shapes alone:
-    1 where the B * kv * row_tiles(rows) CTAs already fill one wave
-    (``resident`` CTAs on each of ``sms`` SMs); else about one wave,
-    capped so that every range holds at least two pool blocks."""
-    ctas = B * kv * row_tiles(rows)
+    1 where the B * kv * row_tiles(rows) * ``groups`` (column groups) CTAs
+    already fill one wave (``resident`` CTAs on each of ``sms`` SMs); else
+    about one wave, capped so that every range holds at least two pool
+    blocks."""
+    ctas = B * kv * row_tiles(rows) * groups
     wave = resident * sms
     if ctas >= wave:
         return 1
     return max(1, min(wave // ctas, nblk // 2))
+
+
+def general_hd(hd: int) -> bool:
+    """True where the walk runs its general bodies (an hd that is not a
+    multiple of 16, or is past 128)."""
+    return hd % 16 != 0 or hd > 128
+
+
+def col_groups(hd: int) -> tuple[int, int, int]:
+    """The walk's column plan at hd (``plan_general`` in
+    ``csrc/split_walk.cuh``): (staged row width KP, columns per CTA GW,
+    column groups).  The general bodies stage K rows of KP = hd rounded up
+    to 16 and give each CTA GW = 128 output columns (the last group's past
+    hd are never written); the hd <= 128 bodies (hd a multiple of 16) take
+    hd in one group."""
+    if not general_hd(hd):
+        return hd, hd, 1
+    return -(-hd // 16) * 16, GROUP_COLS, -(-hd // GROUP_COLS)
+
+
+def walk_smem(hd: int, nblk: int, q_dtype: torch.dtype,
+              kv_dtype: torch.dtype, stages: int) -> int:
+    """Bytes of shared memory one CTA of the general walk needs at hd
+    over ``nblk`` table entries with ``stages`` ring stages
+    (``gen_smem_bytes`` in ``csrc/split_walk.cuh``): q rows, the table,
+    the warps' rings (at least the partials that reuse them) and the FMA
+    body's p."""
+    kp, gw, _ = col_groups(hd)
+    esz = torch.empty((), dtype=kv_dtype).element_size()
+    stage = TILE_ROWS * (kp * esz + 16) + TILE_ROWS * (gw * esz + 16) \
+        + 2 * TILE_ROWS * 4
+    red = (WARPS * TILE_ROWS * gw + 2 * WARPS * TILE_ROWS) * 4
+    fma = (q_dtype, kv_dtype) != (torch.bfloat16, torch.bfloat16)
+    return (TILE_ROWS * kp * 4 + -(-(nblk + 1) * 4 // 16) * 16
+            + max(WARPS * stages * stage, red)
+            + (WARPS * (TILE_ROWS * TILE_ROWS + TILE_ROWS) * 4 if fma else 0))
+
+
+def walk_stages(hd: int, nblk: int, q_dtype: torch.dtype,
+                kv_dtype: torch.dtype) -> int:
+    """Ring stages of the general walk at hd: 3 (2 over an f32 pool), fewer
+    where a CTA's shared memory would pass 227 KB; 0 where one stage does
+    not fit."""
+    top = 2 if kv_dtype == torch.float32 else 3
+    return next((s for s in range(top, 0, -1)
+                 if walk_smem(hd, nblk, q_dtype, kv_dtype, s) <= CTA_SMEM),
+                0)
 
 
 def kv_ranges(nblk: int, splits: int) -> list[tuple[int, int]]:
@@ -202,32 +263,43 @@ def resident_ctas(device: torch.device, q_dtype: torch.dtype,
                      kernel, q_dtype, kv_dtype, hd, nblk)
 
 
-def check_head_dim(hd: int, name: str = "chunked_prefill_attention"
-                   ) -> None:
-    """The walk takes head_dim a multiple of 16 up to 128."""
-    if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
+def check_head_dim(hd: int, name: str = "chunked_prefill_attention",
+                   q_dtype: torch.dtype = torch.float32,
+                   kv_dtype: torch.dtype = torch.float32,
+                   nblk: int = 1) -> None:
+    """The walk takes every hd whose CTA fits in shared memory: every hd
+    of the hd <= 128 bodies, and of the general bodies every one at which
+    a ring of one stage fits (``walk_stages``; all up to 512 in every
+    dtype pair, as far as the table of ``nblk`` entries leaves room)."""
+    if hd <= 0:
+        raise ValueError(f"{name}: head_dim must be positive, got {hd}")
+    if general_hd(hd) and not walk_stages(hd, nblk, q_dtype, kv_dtype):
+        need = walk_smem(hd, nblk, q_dtype, kv_dtype, 1)
         raise ValueError(
-            f"{name}: the kernel takes head_dim a multiple of 16 up to "
-            f"{MAX_HEAD_DIM}, got {hd} (ROADMAP.md Queue 3 fault A)")
+            f"{name}: at head_dim {hd} ({q_dtype} q over a {kv_dtype} pool, "
+            f"{nblk} table entries) one CTA's shared memory would need "
+            f"{need} B with a one-stage ring, more than the {CTA_SMEM} B a "
+            "CTA can have")
 
 
 def walk_plan(kernel: str, q: torch.Tensor, k_pool: torch.Tensor,
               block_tables: torch.Tensor):
     """One launch of ``kernel``'s walk for q ``[B, W, h, hd]`` on the card:
-    its grid (CTAs, key ranges) from the shapes and the walk's occupancy
-    alone, and the float32 workspace of the ranges' partials (accumulators,
-    then m and l; None with one range).  The workspace is freed on return;
-    the caching allocator hands it out again only to work queued behind the
-    merge on the stream."""
+    its grid (CTAs: row tiles x column groups, key ranges) from the shapes
+    and the walk's occupancy alone, and the float32 workspace of the
+    ranges' partials (accumulators, then m and l; None with one range).
+    The workspace is freed on return; the caching allocator hands it out
+    again only to work queued behind the merge on the stream."""
     B, W, h, hd = q.shape
     kv, nblk = k_pool.shape[2], block_tables.shape[1]
     rows = W * (h // kv)
+    groups = col_groups(hd)[2]
     splits = kv_splits(B, kv, rows, nblk, runtime.sm_count(q.device),
                        resident_ctas(q.device, q.dtype, k_pool.dtype, hd,
-                                     nblk, kernel))
+                                     nblk, kernel), groups)
     ws = torch.empty(splits * B * W * h * (hd + 2), dtype=torch.float32,
                      device=q.device) if splits > 1 else None
-    return (B * kv * row_tiles(rows), splits), ws
+    return (B * kv * row_tiles(rows) * groups, splits), ws
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
@@ -346,7 +418,7 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     scale = launch_checks(name, q, k_pool, v_pool, block_tables, start,
                           k_scale, v_scale, scale, live_kv)
     B, W, h, hd = q.shape
-    check_head_dim(hd)
+    check_head_dim(hd, name, q.dtype, k_pool.dtype, block_tables.shape[1])
     _, bs, kv, _ = k_pool.shape
     grid, ws = walk_plan(name, q, k_pool, block_tables)
     out = torch.empty_like(q)
@@ -366,5 +438,5 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 chunked_prefill_attention.launches = 0
 chunked_prefill_attention.live_kv_launches = 0
-# (CTAs of 16 query rows, key ranges) of the last launch
+# (CTAs of 16 query rows x column groups, key ranges) of the last launch
 chunked_prefill_attention.last_grid = None

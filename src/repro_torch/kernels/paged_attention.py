@@ -26,8 +26,9 @@ import torch
 from repro_torch.kernels import chunked_prefill as cp
 from repro_torch.kernels import runtime
 
-# the head dims the kernel takes: multiples of 16 up to 128
-HEAD_DIMS = tuple(range(16, cp.MAX_HEAD_DIM + 1, 16))
+# the head dims the kernel takes in every (q, pool) dtype pair (past them,
+# as far as one CTA's shared memory holds: cp.check_head_dim)
+HEAD_DIMS = tuple(range(1, cp.MAX_HEAD_DIM + 1))
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -89,7 +90,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     scale = cp.launch_checks(name, q, k_pool, v_pool, block_tables, lengths,
                              k_scale, v_scale, scale, live_kv)
     B, h, hd = q.shape
-    cp.check_head_dim(hd, name)
+    cp.check_head_dim(hd, name, q.dtype, k_pool.dtype, block_tables.shape[1])
     _, bs, kv, _ = k_pool.shape
     grid, ws = cp.walk_plan(name, q[:, None], k_pool, block_tables)
     out = torch.empty_like(q)
@@ -109,5 +110,5 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.live_kv_launches = 0
-# (CTAs of 16 query rows, key ranges) of the last launch
+# (CTAs of 16 query rows x column groups, key ranges) of the last launch
 paged_decode_attention.last_grid = None

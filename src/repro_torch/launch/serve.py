@@ -24,8 +24,9 @@ own architecture and weights, a self-draft) proposes K tokens per fused
 step and the target verifies K + 1 positions in one chunk-shaped attend;
 the report gives the accepted draft tokens over the speculative steps.
 A greedy mix (``--temperature 0``) accepts by argmax match, a sampled one
-by rejection sampling.  ``--spec-k`` is refused with ``--fleet``, as the
-reference's launcher refuses it.
+by rejection sampling.  With ``--fleet`` the draft proposes for every
+member's slots (its vocab must be the fleet's largest; the default
+self-draft is the first member with its weights).
 
 On the card each fused program runs as one CUDA graph, captured on its
 first all-greedy step and replayed after (a step with a stochastic slot
@@ -35,10 +36,12 @@ captures, replays and eager steps beside the engine's ``compilations``.
 Multi-topology mode: ``--fleet qwen1.5-0.5b,adaptor-bert-shaped`` serves
 several architectures of the port's registry from one fused step: the
 shared maxima are planned with ``maxima_for``, each model is packed into
-the fabric's weight table (``add_model``, random weights from generator
-seed ``--seed`` + its index), and the requests take the model ids in
-turn.  Float weights only (the fleet's int8 weight table is ROADMAP.md
-Queue 1 item 8b); ``--kernels`` stays ``xla``.
+the fabric's weight table (``add_model``, random float weights from
+generator seed ``--seed`` + its index), and the requests take the model
+ids in turn.  ``--quant int8`` packs the fabric's int8 weight table
+(``--quant-min-size`` is compared with the maxima-padded leaves);
+``--kernels`` stays ``xla``, as the reference's fleet refuses the matmul
+kernels.
 """
 from __future__ import annotations
 
@@ -105,9 +108,6 @@ def main(argv: list[str] | None = None) -> None:
                     help="run every fused step eagerly (default on the "
                          "card: each fused program is one CUDA graph)")
     args = ap.parse_args(argv)
-    if args.spec_k and args.fleet:
-        ap.error("--spec-k serves one model here; drop --fleet "
-                 "(a fleet that speculates is ROADMAP.md Queue 1 item 10b)")
 
     import numpy as np
     import torch
@@ -165,22 +165,26 @@ def main(argv: list[str] | None = None) -> None:
     for i, c in enumerate(cfgs):
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed + i)
+        # a fleet packs float weights and quantizes its own table rows
         params = Model(c, param_dtype=ex.param_dtype,
-                       compute_dtype=ex.compute_dtype, quant=ex.quant,
+                       compute_dtype=ex.compute_dtype,
+                       quant="none" if args.fleet else ex.quant,
                        quant_min_size=ex.quant_min_size,
                        device=device).init(gen).state_dict()
+        draft = None
+        if draft_cfg is not None and i == 0:
+            draft = params if draft_cfg == c else Model(
+                draft_cfg, param_dtype=ex.param_dtype,
+                compute_dtype=ex.compute_dtype, device=device).init(
+                    gen.manual_seed(args.seed + 1)).state_dict()
         if args.fleet:
             model_ids.append(eng.add_model(params, c))
+            if draft is not None:
+                eng.load_draft(draft)
         else:
-            draft = None
-            if draft_cfg is not None:
-                draft = params if draft_cfg == c else Model(
-                    draft_cfg, param_dtype=ex.param_dtype,
-                    compute_dtype=ex.compute_dtype, device=device).init(
-                        gen.manual_seed(args.seed + 1)).state_dict()
             eng.load(params, draft=draft)
             model_ids.append(0)
-        del params
+        del params, draft
 
     rs = np.random.default_rng(7)
     for i in range(args.requests):

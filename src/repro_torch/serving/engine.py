@@ -72,9 +72,13 @@ blocks past the slot's resident tokens (``_truncate_slot_blocks``:
 Multi-topology serving: ``ServingEngine(spec, maxima=...)`` (or a spec
 with ``maxima``) runs the register-driven ``serving.fabric`` at the maxima
 instead of one fixed model.  ``add_model(params, arch)`` packs a
-dense-family model into the fabric's weight table, each slot carries its
-model's topology registers in ``SlotState.topo``, and one fused step
-serves the mixed fleet; ``submit(..., model=id)`` picks the member.
+dense-family model into the fabric's weight table (int8 values and scales
+under ``quant="int8"``), each slot carries its model's topology registers
+in ``SlotState.topo``, and one fused step serves the mixed fleet;
+``submit(..., model=id)`` picks the member.  A fleet speculates as one
+model does: the draft (one ``Model`` at the maxima's vocab) proposes for
+every slot and the fabric's ``mixed_step`` verifies, so a proposal
+outside a small member's vocab meets a NEG_INF logit and is rejected.
 
 ``ServingEngine(spec, device=None)`` runs on the CUDA device and raises
 without one; pass ``device="cpu"`` for the host.  ``seed`` seeds the
@@ -276,12 +280,13 @@ class ServingEngine:
                     f"matmul_backend={ex.matmul_backend!r} is not yet "
                     "supported in multi-topology mode: the fabric's per-slot "
                     "weight gathers do not route through the tiled-kernel "
-                    "backend (use the default 'xla'; quantized fleet "
-                    "serving, ExecutionSpec(quant='int8') with the fabric's "
-                    "own int8 weight table, is ROADMAP.md Queue 1 item 8b)")
+                    "backend (use the default 'xla'; for quantized fleet "
+                    "serving use ExecutionSpec(quant='int8'): the fabric "
+                    "packs an int8 weight table itself)")
             self.fabric = DecodeFabric(
                 spec.maxima, max_models, self.cfg,
                 compute_dtype=ex.compute_dtype, param_dtype=ex.param_dtype,
+                quant=ex.quant, quant_min_size=ex.quant_min_size,
                 kv_dtype=spec.memory.kv_dtype, device=self.device)
             self.fabric.check_member(self.cfg)
             self.fleet: list[ArchConfig | None] = [None] * max_models
@@ -390,18 +395,19 @@ class ServingEngine:
         (the model's ``load_state_dict`` applies
         ``core.serve_quant.quantize_params`` at ``quant_min_size``), as the
         reference's ``load`` does.  Multi-topology mode: ``add_model`` for
-        the engine's own architecture.  ``draft`` installs the speculation
-        draft's weights in the same call (``load_draft``)."""
+        the engine's own architecture (float weights; the fabric quantizes
+        its table rows).  ``draft`` installs the speculation draft's weights
+        in the same call (``load_draft``)."""
         if draft is not None and self.speculation is None:
             raise ValueError(
                 "load(draft=...) requires spec.speculation — construct the "
                 "RuntimeSpec with speculation=SpeculationSpec(...)")
         if self.fabric is not None:
             self.add_model(params)
-            return
-        self._graphs.clear()      # they read the pool this call replaces
-        self.model.load_state_dict(params)
-        self.cache = self.model.init_cache(self.paging)
+        else:
+            self._graphs.clear()      # they read the pool this replaces
+            self.model.load_state_dict(params)
+            self.cache = self.model.init_cache(self.paging)
         if draft is not None:
             self.load_draft(draft)
 
@@ -631,8 +637,15 @@ class ServingEngine:
         if not decode_only:
             n_live = torch.where(prefilling, chunk_len, n_live)
             toks = torch.where(prefilling[:, None], ptoks, toks)
-        logits = self.model.mixed_step(self.cache, toks, start, n_live,
-                                       self.block_tables)
+        if self.fabric is not None:
+            # the fleet's verify: dead kv groups and vocab lanes masked per
+            # slot (live_kv at W = k + 1 on the decode program)
+            logits = self.fabric.mixed_step(
+                self.table, self.cache, toks, start, n_live, st.topo,
+                self.block_tables, self.spec.execution.paged_attn_impl)
+        else:
+            logits = self.model.mixed_step(self.cache, toks, start, n_live,
+                                           self.block_tables)
         n_acc, out = speculative_accept(logits[:, :k + 1], d_toks, d_logits,
                                         st.temp, self._gens, rows_s,
                                         greedy=greedy_mode)

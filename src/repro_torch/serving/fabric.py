@@ -18,9 +18,13 @@ weight set, selected by register data.
   dim are fixed when the fabric is built; ``check_member`` rejects models
   that would need another fabric.
 
-The port serves the paged pool with float weights (the reference's dense
-layout and bucketed prefill wait for ROADMAP.md Queue 1 item 12, its int8
-weight table for item 8b).  Under ``paged_attn_impl="pallas"`` attention
+The port serves the paged pool (the reference's dense layout and bucketed
+prefill wait for ROADMAP.md Queue 1 item 12) with float weights or, under
+``quant="int8"``, an int8 weight table: the planned leaves (``_quant_names``,
+decided on the maxima-padded sizes) hold int8 values with float32 scales
+per (layer, output column) for the kernels and per row for ``embed`` and
+``lm_head`` (``QTensor`` leaves), dequantized into each product as the
+reference's einsum takes them.  Under ``paged_attn_impl="pallas"`` attention
 runs through the hand-written paged kernels with ``live_kv`` = the slot's
 live heads: KV heads are replicated to the head count, so each head is its
 own kv group and the padded heads' outputs are exact zeros.  The per-slot
@@ -40,7 +44,9 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
 from repro_torch.core import masking
 from repro_torch.core.kv_quant import CacheCodec, cache_put, gather_view
 from repro_torch.core.paging import PagingConfig
+from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 from repro_torch.core.registers import Maxima
+from repro_torch.core.serve_quant import quantize_leaf
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.runtime import resolve_device
@@ -70,16 +76,22 @@ class FabricTemplate:
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of one structure."""
+    """``fn`` over the leaves of nested dicts of one structure; a
+    ``QTensor`` is two leaves, its values and its scales."""
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], QTensor):
+        return QTensor(*(fn(*leaves) for leaves in zip(*trees)))
     return fn(*trees)
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict (the fabric's weight table)."""
+    """The tensors of a nested dict (the fabric's weight table), a
+    ``QTensor``'s values and scales included."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, QTensor):
+        return list(tree)
     return [tree]
 
 
@@ -92,6 +104,8 @@ class DecodeFabric:
                  template: FabricTemplate | ArchConfig,
                  compute_dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE,
                  param_dtype: torch.dtype = DEFAULT_PARAM_DTYPE,
+                 quant: str = "none",
+                 quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         if isinstance(template, ArchConfig):
             template = FabricTemplate.of(template)
@@ -102,11 +116,16 @@ class DecodeFabric:
                 "synthesis (RoPE pairs by head_dim, so it cannot be a "
                 "runtime register); synthesize at the fleet's common "
                 "head_dim")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"DecodeFabric quant={quant!r} is not one of "
+                             "('none', 'int8')")
         self.mx = maxima
         self.max_models = max_models
         self.template = template
         self.compute_dtype = compute_dtype
         self.param_dtype = param_dtype
+        self.quant = quant
+        self.quant_min_size = quant_min_size
         self.codec = CacheCodec(kv_dtype)
         self.hd = template.head_dim
         self.device = resolve_device(device)
@@ -167,6 +186,24 @@ class DecodeFabric:
         engine's namespace map."""
         return ("fleet", model_id, arch.name)
 
+    def _quant_names(self) -> frozenset:
+        """Table leaves stored as int8 ``QTensor``s under quant='int8',
+        decided on the maxima-padded sizes (the table's structure is
+        shared by every member, so a small member may get int8 weights
+        that its own ``quantize_params`` would leave float); leaves under
+        ``quant_min_size`` stay float, biases and norms always do."""
+        if self.quant != "int8":
+            return frozenset()
+        mx, L = self.mx, self.mx.layers_enc_max
+        D, F, V, HO = (mx.d_model_max, mx.d_ff_max, mx.vocab,
+                       mx.heads_max * self.hd)
+        sizes = {"embed": V * D, "lm_head": V * D,
+                 "wq": L * D * HO, "wk": L * D * HO, "wv": L * D * HO,
+                 "wo": L * HO * D, "w1": L * D * F, "wg": L * D * F,
+                 "w2": L * F * D}
+        return frozenset(n for n, sz in sizes.items()
+                         if sz >= self.quant_min_size)
+
     # ------------------------------------------------------------------
     # Model table
     # ------------------------------------------------------------------
@@ -180,25 +217,41 @@ class DecodeFabric:
         return torch.zeros(shape, dtype=self.param_dtype, device=self.device)
 
     def init_table(self) -> dict:
-        """The zeroed ``[max_models, ...]`` table, in the parameter dtype."""
+        """The zeroed ``[max_models, ...]`` table, in the parameter dtype;
+        under quant='int8' the planned leaves are int8 ``QTensor``s, their
+        float32 scales ``[M, L, 1, Dout]`` (kernels) or ``[M, V, 1]``
+        (``embed``, ``lm_head``)."""
         mx, M, L = self.mx, self.max_models, self.mx.layers_enc_max
         D, F, V, HO = (mx.d_model_max, mx.d_ff_max, mx.vocab,
                        mx.heads_max * self.hd)
         z = self._zeros
+        qn = self._quant_names()
+
+        def leaf(name, *shape, scale):
+            if name not in qn:
+                return z(*shape)
+            return QTensor(
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.zeros(scale, dtype=torch.float32, device=self.device))
+
+        def kern(name, *shape):
+            return leaf(name, *shape, scale=(*shape[:-2], 1, shape[-1]))
+
         layers = {
             "ln1": self._norm_shape(M, L),
-            "wq": z(M, L, D, HO), "bq": z(M, L, HO),
-            "wk": z(M, L, D, HO), "bk": z(M, L, HO),
-            "wv": z(M, L, D, HO), "bv": z(M, L, HO),
-            "wo": z(M, L, HO, D),
+            "wq": kern("wq", M, L, D, HO), "bq": z(M, L, HO),
+            "wk": kern("wk", M, L, D, HO), "bk": z(M, L, HO),
+            "wv": kern("wv", M, L, D, HO), "bv": z(M, L, HO),
+            "wo": kern("wo", M, L, HO, D),
             "ln2": self._norm_shape(M, L),
-            "w1": z(M, L, D, F), "b1": z(M, L, F),
-            "w2": z(M, L, F, D), "b2": z(M, L, D),
+            "w1": kern("w1", M, L, D, F), "b1": z(M, L, F),
+            "w2": kern("w2", M, L, F, D), "b2": z(M, L, D),
         }
         if is_gated(self.template.activation):
-            layers["wg"] = z(M, L, D, F)
+            layers["wg"] = kern("wg", M, L, D, F)
             layers["bg"] = z(M, L, F)
-        return {"embed": z(M, V, D), "lm_head": z(M, V, D),
+        return {"embed": leaf("embed", M, V, D, scale=(M, V, 1)),
+                "lm_head": leaf("lm_head", M, V, D, scale=(M, V, 1)),
                 "final_norm": self._norm_shape(M), "layers": layers}
 
     def pack_member(self, arch: ArchConfig,
@@ -208,7 +261,8 @@ class DecodeFabric:
         zero-padded table row: KV weights replicated across the head group
         (so the step is uniform MHA over ``heads`` lanes), absent biases as
         exact zeros, the ``lm_head`` row the member's untied table or, when
-        it ties its embeddings, the embedding table."""
+        it ties its embeddings, the embedding table; under quant='int8'
+        its planned leaves quantized (``_quantize_row``)."""
         self.check_member(arch)
         mx, L = self.mx, self.mx.layers_enc_max
         h, kv, hd = arch.num_heads, arch.num_kv_heads, self.hd
@@ -267,10 +321,28 @@ class DecodeFabric:
             row_layers["bg"] = pad(stacked(f"{f}.wg.bias", arch.d_ff), L, F)
         table = params["embed.table"]
         head = table if arch.tie_embeddings else params["lm_head.table"]
-        return {"embed": pad(table, mx.vocab, D),
-                "lm_head": pad(head, mx.vocab, D),
-                "final_norm": norm_row("final_norm", D, layers=False),
-                "layers": row_layers}
+        return self._quantize_row({
+            "embed": pad(table, mx.vocab, D),
+            "lm_head": pad(head, mx.vocab, D),
+            "final_norm": norm_row("final_norm", D, layers=False),
+            "layers": row_layers})
+
+    def _quantize_row(self, row: dict) -> dict:
+        """Symmetric-int8-quantize the planned leaves of one packed row
+        through the one quantizer (``core.serve_quant.quantize_leaf``:
+        per-(layer, output column) scales for kernels, per-row for the
+        vocab tables).  Zero padding moves no scale, so on leaves quantized
+        on both sides a member's values equal its single-model ones on the
+        live lanes."""
+        qn = self._quant_names()
+        for name in ("embed", "lm_head"):
+            if name in qn:
+                row[name] = quantize_leaf(row[name], "table")
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2", "wg"):
+            if name in qn and name in row["layers"]:
+                row["layers"][name] = quantize_leaf(row["layers"][name],
+                                                    "kernel")
+        return row
 
     @staticmethod
     def insert_model(table: dict, row: dict, model_id: int) -> dict:
@@ -319,21 +391,32 @@ class DecodeFabric:
                                               d_live)
 
     @staticmethod
-    def _mm(x: torch.Tensor, w: torch.Tensor,
+    def _mm(x: torch.Tensor, w: torch.Tensor | QTensor,
             b: torch.Tensor | None = None) -> torch.Tensor:
         """Per-slot dense: x [B, S, Din] @ w [B, Din, Dout] (+ b [B, Dout]),
         the weights rounded to x's dtype and the product in float32 (the
-        reference's einsum), cast back to x's dtype."""
-        y = torch.bmm(x.float(), w.to(x.dtype).float()).to(x.dtype)
+        reference's einsum), cast back to x's dtype.  An int8 ``QTensor``
+        is dequantized in x's dtype first, values times scales, as the
+        reference rounds it."""
+        if isinstance(w, QTensor):
+            wb = w.values.to(x.dtype) * w.scale.to(x.dtype)
+        else:
+            wb = w.to(x.dtype)
+        y = torch.bmm(x.float(), wb.float()).to(x.dtype)
         if b is not None:
             y = y + b.to(y.dtype)[:, None]
         return y
 
     def _embed_rows(self, table: dict, mid: torch.Tensor,
                     tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings gathered by (model row, token id)."""
-        return table["embed"][mid.long(), tokens.long()].to(
-            self.compute_dtype)
+        """Token embeddings gathered by (model row, token id); an int8
+        table dequantized with its gathered per-row scales in the compute
+        dtype."""
+        emb, mid, tokens = table["embed"], mid.long(), tokens.long()
+        if isinstance(emb, QTensor):
+            return emb.values[mid, tokens].to(self.compute_dtype) \
+                * emb.scale[mid, tokens].to(self.compute_dtype)
+        return emb[mid, tokens].to(self.compute_dtype)
 
     def _qkv(self, xn: torch.Tensor, lp: dict, positions: torch.Tensor,
              he: torch.Tensor):
@@ -375,11 +458,16 @@ class DecodeFabric:
         """Float32 logits [B, S, V_max] against each slot's ``lm_head``
         row, the dead vocab lanes at NEG_INF so that sampling can never pick
         a token outside the slot's vocab.  The [B, V_max, D] float32 gather of the
-        per-slot tables is the reference's."""
+        per-slot tables (an int8 one dequantized in float32) is the
+        reference's."""
         mid = mid.long()
         xn = self._norm(x, _tree_map(lambda t: t[mid], table["final_norm"]),
                         d_live)
-        lmf = table["lm_head"][mid].float()                    # [B, V, D]
+        lm = table["lm_head"]
+        if isinstance(lm, QTensor):                            # [B, V, D]
+            lmf = lm.values[mid].float() * lm.scale[mid]
+        else:
+            lmf = lm[mid].float()
         logits = torch.bmm(xn.float(), lmf.transpose(1, 2))
         vm = torch.arange(self.mx.vocab, device=x.device)[None, None, :] \
             < v_live[:, None, None]

@@ -12,7 +12,12 @@ PyTorch on the CPU (``chunked_prefill_partial_plain`` per range,
 only reorders float32 sums; a bf16 pool within the card's gate, since p
 is rounded against another running max), and hold the plain path against
 the reference Pallas kernel in interpret mode at hd 96 and at GQA 8 x hd
-128 (float32 at 2e-6, the reference kernels' own tolerance).
+128 (float32 at 2e-6, the reference kernels' own tolerance), and at the
+head dims of ROADMAP Queue 3 fault F (hd 144, recurrentgemma-2b's MQA 10
+over 1 at hd 256, the ragged hd 72 and 66; the same tolerance, at one key
+range and at a split): every hd the reference takes, the general walk's
+column groups (each output column in exactly one) and its shared-memory
+plan (every hd up to 512 in every dtype pair).
 
 The kernel itself runs only on a CUDA card (``cuda`` marker):
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_chunked.py``.
@@ -128,8 +133,9 @@ def test_split_plan_reads_shapes_only():
     """The plan takes no tensor: no host ever reads start or the tables.
     At the serving shape (128 CTAs) it fills the wave the walk's occupancy
     allows: 3 ranges at 3 resident CTAs per SM, none at 1."""
+    # (the column groups of the general walk are a shape too: fault F)
     assert list(inspect.signature(cp.kv_splits).parameters) == \
-        ["B", "kv", "rows", "nblk", "sms", "resident"]
+        ["B", "kv", "rows", "nblk", "sms", "resident", "groups"]
     assert cp.kv_splits(8, 16, 16, 32, SMS, 3) == 3
     assert cp.kv_splits(8, 16, 16, 32, SMS, 1) == 1
     assert cp.row_tiles(16) == 1 and cp.row_tiles(17) == 2
@@ -260,8 +266,110 @@ def test_kernel_head_dims(hd):
 
 @pytest.mark.parametrize("hd", [8, 36, 100, 144, 256])
 def test_other_head_dims_name_fault_a(hd):
-    with pytest.raises(ValueError, match="Queue 3 fault A"):
-        cp.check_head_dim(hd)
+    """These head dims named fault A while the walk stopped at multiples of
+    16 up to 128 (ROADMAP Queue 3 fault F); the general walk takes them in
+    every (q, pool) dtype pair now."""
+    assert cp.general_hd(hd)
+    for q_dt, kv_dt in cp.DTYPE_PAIRS:
+        cp.check_head_dim(hd, "chunked_prefill_attention", q_dt, kv_dt, 32)
+
+
+# ---------------------------------------------------------------------------
+# fault F: every head dim, the general walk's columns and shared memory
+# ---------------------------------------------------------------------------
+FAULT_F_CASES = [  # (B, W, h, kv, hd, bs, nblk, start)
+    (2, 4, 4, 2, 144, 8, 3, [0, 13]),        # two column groups of 96
+    (2, 4, 10, 1, 256, 8, 3, [2, 17]),       # recurrentgemma-2b: MQA 10/1
+    (2, 4, 4, 2, 72, 8, 3, [0, 13]),         # ragged, 16-byte rows in bf16
+    (2, 5, 4, 2, 66, 8, 3, [5, 12]),         # ragged, 4-byte rows in bf16
+]
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+@pytest.mark.parametrize("B,W,h,kv,hd,bs,nblk,start", FAULT_F_CASES)
+def test_fault_f_shapes_match_pallas(ref, B, W, h, kv, hd, bs, nblk, start,
+                                     pool):
+    """The plain walk at one key range and at the split the kernel takes
+    on a small card against the reference Pallas kernel, which pads hd to
+    128 lanes, in interpret mode (float32 at 2e-6)."""
+    q, kp, vp, bt, st, ks, vs = _case(hd + W, B, W, h, kv, hd, bs, nblk,
+                                      start, pool)
+    jnp = ref.jnp
+    jsc = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                     v_scale=jnp.asarray(vs))
+    want = np.asarray(ref.chunk(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(bt),
+                                jnp.asarray(st), interpret=True, **jsc))
+    tq, tk, tv, tbt, tst, sc = _torch_case(q, kp, vp, bt, st, ks, vs, pool)
+    got = cp.chunked_prefill_attention(tq, tk, tv, tbt, tst, **sc).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
+    groups = cp.col_groups(hd)[2]
+    splits = max(2, cp.kv_splits(B, kv, W * h // kv, nblk, 4, 1, groups))
+    split, _, _ = _split_merge(tq, tk, tv, tbt, tst, splits, sc)
+    np.testing.assert_allclose(split.numpy(), want, atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [1, 8, 16, 66, 72, 100, 128, 136, 144, 192,
+                                200, 256, 384, 400, 512, 1000])
+def test_column_groups_write_every_column_once(hd):
+    """The general walk's CTAs of one row tile own the columns [g * GW,
+    min((g + 1) * GW, hd)): each column of the head in exactly one group,
+    none empty, GW = 128 and KP the staged width (hd up to 15 columns of
+    zeros)."""
+    kp, gw, groups = cp.col_groups(hd)
+    if not cp.general_hd(hd):
+        assert (kp, gw, groups) == (hd, hd, 1)
+        return
+    assert kp % 16 == 0 and hd <= kp < hd + 16
+    assert gw == 128
+    cols = [c for g in range(groups) for c in range(g * gw,
+                                                    min((g + 1) * gw, hd))]
+    assert cols == list(range(hd))
+    assert (groups - 1) * gw < hd            # no group without a column
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", cp.DTYPE_PAIRS,
+                         ids=lambda d: str(d)[6:])
+def test_walk_takes_every_head_dim_up_to_512(q_dt, kv_dt):
+    """One CTA of the general walk fits in shared memory at every hd up to
+    512 with a 32-entry table (the serving tables), with 3 ring stages (2
+    over an f32 pool) where they fit and never fewer than 1; the hd <= 128
+    walk (multiples of 16) is untouched."""
+    for hd in range(1, cp.MAX_HEAD_DIM + 1):
+        cp.check_head_dim(hd, "chunked_prefill_attention", q_dt, kv_dt, 32)
+        if cp.general_hd(hd):
+            s = cp.walk_stages(hd, 32, q_dt, kv_dt)
+            assert 1 <= s <= (2 if kv_dt == torch.float32 else 3)
+            assert cp.walk_smem(hd, 32, q_dt, kv_dt, s) <= cp.CTA_SMEM
+    # recurrentgemma-2b's hd 256 keeps the full ring
+    assert cp.walk_stages(256, 32, q_dt, kv_dt) == \
+        (2 if kv_dt == torch.float32 else 3)
+
+
+def test_head_dim_refusal_names_what_a_cta_cannot_hold():
+    """Past 512 an f32 pool runs out of shared memory first: the refusal
+    names the bytes one CTA would need, and nothing refuses by fault."""
+    cp.check_head_dim(560, "chunked_prefill_attention", torch.float32,
+                      torch.float32, 32)
+    need = cp.walk_smem(600, 32, torch.float32, torch.float32, 1)
+    assert need > cp.CTA_SMEM
+    with pytest.raises(ValueError, match=f"one CTA's shared memory would "
+                                         f"need {need} B"):
+        cp.check_head_dim(600, "chunked_prefill_attention", torch.float32,
+                          torch.float32, 32)
+    with pytest.raises(ValueError, match="head_dim must be positive"):
+        cp.check_head_dim(0)
+
+
+def test_split_plan_counts_the_column_groups():
+    """The grid's CTAs are row tiles x column groups: recurrentgemma-2b's
+    decode (8 slots, one kv head, hd 256 in 2 groups) fills half the wave
+    the ungrouped walk would, so it takes half the key ranges."""
+    groups = cp.col_groups(256)[2]
+    assert groups == 2
+    assert cp.kv_splits(8, 1, 10, 256, SMS, 1, groups) == SMS // 16
+    assert cp.kv_splits(8, 1, 10, 256, SMS, 1) == SMS // 8
 
 
 def test_decode_takes_head_dim_96():
@@ -318,3 +426,51 @@ def test_cuda_kernel_matches_plain_version():
             err = float(d.max())
             assert err <= tol, (i, q_dt, pool, err, tol,
                                 cp.chunked_prefill_attention.last_grid)
+
+
+CUDA_F_CASES = [  # (B, W, h, kv, hd, bs, nblk, start): fault F's shapes
+    (4, 16, 10, 1, 256, 16, 32, [0, 100, 300, 496]),   # recurrentgemma W 16
+    (4, 1, 10, 1, 256, 16, 32, [0, 99, 300, 511]),     # ... and W 1
+    (3, 16, 8, 2, 192, 16, 8, [0, 40, 100]),           # hd 192
+    (3, 8, 4, 2, 72, 8, 6, [0, 9, 40]),                # ragged, aligned
+    (3, 8, 4, 2, 66, 8, 6, [3, 9, 40]),                # ragged, unaligned
+    (2, 4, 4, 1, 512, 16, 8, [5, 100]),                # hd 512: 4 groups
+]
+
+
+@pytest.mark.cuda
+def test_cuda_fault_f_matches_plain_version():
+    """The general walk at fault F's head dims in every (q, pool) dtype
+    pair, NaN in the null block and the unseen tails, at the planned key
+    ranges and at 1 and 3, under the gates of the test above."""
+    from unittest import mock
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    runtime.build()
+    for i, (B, W, h, kv, hd, bs, nblk, start) in enumerate(CUDA_F_CASES):
+        for q_dt, pool in PAIRS:
+            arrays = _case(i, B, W, h, kv, hd, bs, nblk, start,
+                           "int8" if pool == "int8" else "f32", nan=True)
+            q, kp, vp, bt, st, sc = _torch_case(*arrays, pool)
+            q = q.to(dev, torch.bfloat16 if q_dt == "bf16" else torch.float32)
+            kp, vp, bt, st = (t.to(dev) for t in (kp, vp, bt, st))
+            sc = {k: v.to(dev) for k, v in sc.items()}
+            want = cp.chunked_prefill_attention_plain(q, kp, vp, bt, st,
+                                                      **sc)
+            for splits in (None, 1, 3):
+                with mock.patch.object(cp, "kv_splits",
+                                       (lambda *a, s=splits: s) if splits
+                                       else cp.kv_splits):
+                    got = cp.chunked_prefill_attention(q, kp, vp, bt, st,
+                                                       **sc)
+                d = (got.float() - want.float()).abs()
+                if q_dt == "bf16":
+                    d = d / (2 ** -7 * want.float().abs().clamp_min(1))
+                    tol = 1.0
+                else:
+                    tol = 2 ** -8 * float(vp.float().nan_to_num().abs()
+                                          .max()) if pool == "bf16" else 2e-5
+                err = float(d.max())
+                assert err <= tol, (i, hd, q_dt, pool, splits, err, tol,
+                                    cp.chunked_prefill_attention.last_grid)

@@ -12,7 +12,9 @@ plain PyTorch on the CPU (``chunked_prefill_partial_plain`` at W = 1 with
 start = lengths - 1, ``merge_partials_plain``) and hold them against
 ``paged_decode_attention_plain`` (float32 within 2e-6: the merge only
 reorders float32 sums) and against the reference Pallas kernel in
-interpret mode (atol / rtol 1e-5).
+interpret mode (atol / rtol 1e-5), also at ROADMAP Queue 3 fault F's head
+dims (hd 144, recurrentgemma-2b's MQA 10 over 1 at hd 256, the ragged
+72 and 66), which the reference takes by padding hd to 128 lanes.
 
 The kernel itself runs only on a CUDA card (``cuda`` marker):
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_decode.py``.
@@ -133,8 +135,9 @@ def test_decode_plan_reads_shapes_only():
     Rows are the n_rep heads of a kv group: 128 CTAs x 3 key ranges at the
     serving shape with 3 resident CTAs per SM, 64 x 4 at qwen2-72b's GQA 8
     with 2."""
+    # (the column groups of the general walk are a shape too: fault F)
     assert list(inspect.signature(cp.kv_splits).parameters) == \
-        ["B", "kv", "rows", "nblk", "sms", "resident"]
+        ["B", "kv", "rows", "nblk", "sms", "resident", "groups"]
     assert list(inspect.signature(cp.walk_plan).parameters) == \
         ["kernel", "q", "k_pool", "block_tables"]
     assert cp.kv_splits(8, 16, 1, 32, SMS, 3) == 3
@@ -272,10 +275,43 @@ def test_decode_takes_every_multiple_of_16_up_to_128(hd):
 
 @pytest.mark.parametrize("hd", [8, 36, 100, 144, 256])
 def test_other_decode_head_dims_name_fault_a(hd):
-    assert hd not in pa.HEAD_DIMS
-    with pytest.raises(ValueError, match="paged_decode_attention.*Queue 3 "
-                                         "fault A"):
-        cp.check_head_dim(hd, "paged_decode_attention")
+    """These head dims named fault A while the walk stopped at multiples of
+    16 up to 128 (ROADMAP Queue 3 fault F); decode takes them in every
+    (q, pool) dtype pair now, through the general walk."""
+    assert hd in pa.HEAD_DIMS and cp.general_hd(hd)
+    for q_dt, kv_dt in cp.DTYPE_PAIRS:
+        cp.check_head_dim(hd, "paged_decode_attention", q_dt, kv_dt, 32)
+
+
+FAULT_F_CASES = [  # (h, kv, hd, bs, nblk)
+    (4, 2, 144, 8, 4),       # two column groups of 96
+    (10, 1, 256, 8, 4),      # recurrentgemma-2b: MQA 10 over 1, hd 256
+    (4, 2, 72, 8, 4),        # ragged, 16-byte rows in bf16
+    (4, 4, 66, 8, 4),        # ragged, 4-byte rows in bf16
+]
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+@pytest.mark.parametrize("h,kv,hd,bs,nblk", FAULT_F_CASES)
+def test_fault_f_decode_matches_pallas(ref, h, kv, hd, bs, nblk, pool):
+    """The plain decode at one key range and at a split of 3 against the
+    reference Pallas kernel in interpret mode (atol / rtol 1e-5)."""
+    lengths = [1, bs + 1, nblk * bs - 3]
+    arrays = _case(hd, lengths, h, kv, hd, bs, nblk, pool)
+    q, kp, vp, bt, ln, sc = _torch_case(*arrays, pool)
+    jnp = ref.jnp
+    qa, kpa, vpa, bta, lna, ks, vs = arrays
+    jsc = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                     v_scale=jnp.asarray(vs))
+    want = np.asarray(ref.decode(jnp.asarray(qa), jnp.asarray(kpa),
+                                 jnp.asarray(vpa), jnp.asarray(bta),
+                                 jnp.asarray(lna), interpret=True, **jsc))
+    got = pa.paged_decode_attention(q, kp, vp, bt, ln, **sc)
+    np.testing.assert_allclose(got.numpy(), want, atol=REF_TOL,
+                               rtol=REF_TOL)
+    split, _, _ = _split_merge(q, kp, vp, bt, ln, 3, sc)
+    np.testing.assert_allclose(split.numpy(), want, atol=REF_TOL,
+                               rtol=REF_TOL)
 
 
 def test_host_tensors_run_the_plain_version_and_launch_nothing():
@@ -300,6 +336,13 @@ CUDA_CASES = [  # (lengths, h, kv, hd, bs, nblk)
     ([1, 17, 200, 512], 64, 8, 128, 16, 32),      # qwen2-72b GQA 8 x hd 128
     ([1, 8, 9, 48], 8, 2, 16, 8, 6),              # the reduced model's hd
     ([0, 1, 9, 48], 8, 2, 16, 8, 6),              # a length of 0: zeros
+    # fault F: recurrentgemma-2b's MQA 10 x hd 256, hd 192, the ragged 72
+    # and 66, hd 512 (four column groups)
+    ([1, 17, 200, 512], 10, 1, 256, 16, 32),
+    ([0, 1, 17, 200, 512], 8, 2, 192, 16, 32),
+    ([1, 9, 40], 4, 2, 72, 8, 6),
+    ([1, 9, 40], 4, 4, 66, 8, 6),
+    ([3, 100], 4, 1, 512, 16, 8),
 ]
 PAIRS = [("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"), ("f32", "int8"),
          ("bf16", "int8")]

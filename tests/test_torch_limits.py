@@ -1,10 +1,10 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-A fleet (``maxima=``) refuses int8 weights (its int8 weight table, item
-8b), speculation (item 10b; one model speculates,
-tests/test_torch_speculative.py), the dense layout and the bucketed
-scheduler (item 12), and its engine refuses the matmul kernels as the
-reference's does; it serves the prefix cache (tests/test_torch_prefix.py).  ``flash_attention``'s kernel
+A fleet (``maxima=``) refuses the dense layout and the bucketed scheduler
+(item 12), and its engine refuses the matmul kernels as the reference's
+does; it serves the prefix cache (tests/test_torch_prefix.py), its own
+int8 weight table (tests/test_torch_fleet_quant.py) and speculation
+(tests/test_torch_speculative.py).  ``flash_attention``'s kernel
 puts the (b, h) pairs, the column groups of any hd and the chunks of
 65535 query tiles on its grid's x dimension, so it takes every hd and Sq
 the reference takes and refuses only what the hardware's grid cannot hold
@@ -17,7 +17,7 @@ import pytest
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
-                                   SchedulerSpec, SpeculationSpec, maxima_for)
+                                   SchedulerSpec, maxima_for)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
@@ -58,8 +58,6 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(execution=ExecutionSpec(quant="int8")), "item 8b"),
-    (dict(speculation=SpeculationSpec(draft_model=CFG)), "item 10b"),
     (dict(memory=MemorySpec(max_len=64)), "item 12"),
     (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
 ])

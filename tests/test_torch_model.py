@@ -33,7 +33,7 @@ from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
-                                   SchedulerSpec, SpeculationSpec, maxima_for)
+                                   SchedulerSpec)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 
@@ -256,16 +256,6 @@ def test_entry_points_need_a_device_choice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # a fleet serves float weights: its int8 weight table is item 8b (the
-    # case keeps the id it had when maxima= itself was refused as item 8)
-    pytest.param(dict(maxima=maxima_for(CFG, seq_max=512),
-                      execution=ExecutionSpec(quant="int8")), "item 8b",
-                 id="kw0-item 8"),
-    # one model speculates; a fleet that speculates is item 10b (the case
-    # keeps the id it had when speculation= itself was refused as item 10)
-    pytest.param(dict(maxima=maxima_for(CFG, seq_max=512),
-                      speculation=SpeculationSpec(draft_model=CFG)),
-                 "item 10b", id="kw1-item 10"),
     (dict(memory=MemorySpec()), "item 12"),
     (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
     (dict(mesh=object()), "item 13"),

@@ -27,7 +27,16 @@ packages:
   ``spec_steps`` and ``spec_accepted`` equal the reference's, and the
   streams equal the port's engine with speculation off; the prefix cache
   composition drains to ``used_blocks == cached_blocks``; int8 weights
-  with a quantized draft; the validation messages.
+  with a quantized draft; the validation messages;
+* a fleet that speculates (the reference census's
+  ``fleet-paged-spec-chunked``: a self-draft of member A, and member B, a
+  1-layer "adaptor-bert-shaped" topology of vocab 96, in maxima): streams,
+  events, fused steps, ``spec_steps`` and ``spec_accepted`` equal the
+  reference fleet engine's bit for bit at float32 compute over bf16 and
+  int8 pools, on the gather path and the kernels' plain versions (live_kv
+  at W = 4 on the decode program), and with the fleet's int8 weight
+  table; the draft's proposals for B's slots are rejected where they fall
+  past B's vocab (NEG_INF logits there), and no token leaves it.
 
 This module imports the JAX reference only inside its fixtures, so the
 card test also runs where JAX is absent:
@@ -53,6 +62,12 @@ from repro_torch.serving.sampling import (SamplingParams, propose_per_slot,
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
 DRAFT1 = dataclasses.replace(CFG, num_layers=1)
+# the fleet's second member (the reference census's fleet point)
+MEMBER = dataclasses.replace(
+    CFG, name="adaptor-bert-shaped", num_layers=1, d_model=48, num_heads=3,
+    num_kv_heads=3, d_ff=96, vocab_size=96)
+FLEET_MAXIMA = maxima_for(CFG, MEMBER, seq_max=64)
+MEMBER_REQS = [([4, 5], 10), ([6, 7, 8], 8), ([80, 70, 60, 50], 6)]
 # the reference suite's workload (tests/test_speculative.py)
 REQS = [([1, 2, 3], 16), (list(range(9, 17)), 12), ([5, 4], 10)]
 # the reference's near-tie-free workload for int8 serving
@@ -81,6 +96,10 @@ def ref():
     from repro_torch.bridge import from_jax_params
     j_cfg = j_reduced(REGISTRY["qwen1.5-0.5b"])
     params = JModel(j_cfg).init(jax.random.PRNGKey(0))
+    j_member = dataclasses.replace(
+        j_cfg, name="adaptor-bert-shaped", num_layers=1, d_model=48,
+        num_heads=3, num_kv_heads=3, d_ff=96, vocab_size=96)
+    member_params = JModel(j_member).init(jax.random.PRNGKey(1))
     np_params = jax.tree.map(np.asarray, params)
     j_draft = dataclasses.replace(j_cfg, num_layers=1)
     j_draft_params = dict(params, layers=jax.tree.map(lambda a: a[:1],
@@ -99,7 +118,11 @@ def ref():
         params=params, attn=j_attn, model=JModel, options=ModelOptions,
         sampling=j_sampling, draft_cfg=j_draft, draft_params=j_draft_params,
         sd=sd, draft_sd=draft_sd, noisy=noisy,
-        noisy_sd=from_jax_params(noisy_np, CFG, "cpu"))
+        noisy_sd=from_jax_params(noisy_np, CFG, "cpu"),
+        member_cfg=j_member, member_params=member_params,
+        member_sd=from_jax_params(jax.tree.map(np.asarray, member_params),
+                                  MEMBER, "cpu"),
+        maxima=j_spec.maxima_for(j_cfg, j_member, seq_max=64))
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +495,12 @@ def test_stochastic_speculation_replays(ref):
         scheduler=SchedulerSpec(chunk_size=8),
         speculation=SpeculationSpec(draft_model=dataclasses.replace(
             CFG, vocab_size=CFG.vocab_size + 1))), "tokenizer space"),
-    (lambda: RuntimeSpec(arch=CFG, memory=MemorySpec(
+    # a fleet's draft proposes over the maxima's vocab lanes
+    (lambda: RuntimeSpec(arch=MEMBER, memory=MemorySpec(
         cache_layout="paged", max_len=64, block_size=8),
-        maxima=maxima_for(CFG, seq_max=64),
-        speculation=SpeculationSpec(draft_model=CFG)),
-     "ROADMAP.md Queue 1 item 10b"),
+        scheduler=SchedulerSpec(chunk_size=8), maxima=FLEET_MAXIMA,
+        speculation=SpeculationSpec(draft_model=MEMBER)),
+     "draft vocab_size=96 != target vocab 128"),
     (lambda: RuntimeSpec(arch=CFG, memory=MemorySpec(max_len=64),
                          speculation=SpeculationSpec(draft_model=CFG)),
      "ROADMAP.md Queue 1 item 12"),
@@ -508,11 +532,99 @@ def test_launch_serve_speculates_on_cpu(capsys):
     assert "3 requests, 18 tokens" in out and "speculation: k=3" in out
 
 
-def test_launch_serve_refuses_spec_k_with_a_fleet():
+def test_launch_serve_speculates_in_a_fleet(capsys):
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--fleet", "qwen1.5-0.5b,qwen1.5-0.5b",
-              "--spec-k", "3"])
+    main(["--device", "cpu", "--requests", "4", "--max-new", "6",
+          "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--temperature", "0", "--attn", "pallas", "--spec-k", "3",
+          "--fleet", "qwen1.5-0.5b,adaptor-bert-shaped"])
+    out = capsys.readouterr().out
+    assert "4 requests, 24 tokens" in out and "speculation: k=3" in out
+    assert "served by one fused step" in out
+
+
+# ---------------------------------------------------------------------------
+# (d) a fleet that speculates
+# ---------------------------------------------------------------------------
+def _fleet_engines(ref, *, kv="compute", impl="gather", ref_impl=None,
+                   quant="none"):
+    """The reference's fleet engine and the port's, k = 3, the target A's
+    own weights as the draft, member B added after ``load``."""
+    qkw = dict(quant=quant, quant_min_size=1) if quant != "none" else {}
+    mem = dict(cache_layout="paged", max_batch=4, max_len=64, block_size=8,
+               kv_dtype=kv)
+    s = ref.spec
+    je = ref.engine(s.RuntimeSpec(
+        arch=ref.cfg, maxima=ref.maxima,
+        execution=s.ExecutionSpec(paged_attn_impl=ref_impl or impl,
+                                  compute_dtype="fp32", **qkw),
+        memory=s.MemorySpec(**mem),
+        scheduler=s.SchedulerSpec(policy="chunked", chunk_size=8),
+        speculation=s.SpeculationSpec(draft_model=ref.cfg, k=3)),
+        max_models=2)
+    te = ServingEngine(RuntimeSpec(
+        arch=CFG, maxima=FLEET_MAXIMA,
+        execution=ExecutionSpec(paged_attn_impl=impl, compute_dtype="fp32",
+                                **qkw),
+        memory=MemorySpec(**mem),
+        scheduler=SchedulerSpec(policy="chunked", chunk_size=8),
+        speculation=SpeculationSpec(draft_model=CFG, k=3)), max_models=2,
+        device="cpu")
+    je.load(ref.params, draft=ref.params)
+    te.load(ref.sd, draft=ref.sd)
+    assert je.add_model(ref.member_params, ref.member_cfg) == \
+        te.add_model(ref.member_sd, MEMBER) == 1
+    return je, te
+
+
+def _fleet_drain(eng):
+    """Both members' requests, interleaved, in one drain."""
+    log = []
+    eng.events.subscribe(log.append)
+    reqs = [(p, b, 0) for p, b in REQS] + [(p, b, 1) for p, b in MEMBER_REQS]
+    uids = [eng.submit(p, max_new_tokens=b, model=m) for p, b, m in
+            sorted(reqs, key=lambda r: len(r[0]))]
+    done = {r.uid: r.generated for r in eng.run_to_completion()}
+    return [done[u] for u in uids], [(e.kind, e.uid, e.step, e.data)
+                                     for e in log]
+
+
+FLEET_PATHS = {"bf16-gather": ("compute", "gather", None, "none"),
+               "bf16-kernels": ("compute", "pallas", None, "none"),
+               "int8-gather": ("int8", "gather", None, "none"),
+               "int8-kernels": ("int8", "pallas", "gather", "none"),
+               "int8-table": ("compute", "pallas", None, "int8"),
+               "int8-table-int8-pool": ("int8", "gather", None, "int8")}
+
+
+@pytest.mark.parametrize("path", FLEET_PATHS)
+def test_fleet_speculation_matches_reference(ref, path):
+    """A speculating fleet against the reference's (its census point
+    fleet-paged-spec-chunked at k = 3): streams, events, fused steps and
+    the speculation stats bit for bit; every token inside its member's
+    vocab; the self-draft accepts on A's slots, B's slots reject what the
+    draft proposes past B's vocab.  Over an int8 pool the kernels' route
+    is held against the reference's gather engine (its Pallas engine
+    diverges there)."""
+    kv, impl, ref_impl, quant = FLEET_PATHS[path]
+    je, te = _fleet_engines(ref, kv=kv, impl=impl, ref_impl=ref_impl,
+                            quant=quant)
+    seen = _truncations(te)
+    want, got = _fleet_drain(je), _fleet_drain(te)
+    assert got == want
+    for key in ("decode_steps", "spec_steps", "spec_accepted",
+                "prefill_tokens"):
+        assert te.stats[key] == je.stats[key], key
+    assert te.compilations["decode"] == te.compilations["prefill"] == 1
+    assert te.stats["spec_accepted"] > 0 and seen["blocks"] >= 0
+    for (p, _, m), stream in zip(sorted(
+            [(p, b, 0) for p, b in REQS] + [(p, b, 1) for p, b in
+                                            MEMBER_REQS],
+            key=lambda r: len(r[0])), got[0]):
+        vocab = (CFG, MEMBER)[m].vocab_size
+        assert all(0 <= t < vocab for t in stream)
+    s = te.memory_stats()
+    assert s.used_blocks == 0 and te.allocator.num_free == s.total_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +659,39 @@ def test_graphed_speculation_equals_eager(draft):
         done = {r.uid: r.generated for r in eng.run_to_completion(
             sync_every=4)}
         runs.append(([done[u] for u in uids], eng.stats["spec_accepted"],
+                     eng.stats["decode_steps"]))
+        if graphs:
+            assert eng.compilations["decode"] == 1
+            assert eng.compilations["prefill"] == 1
+            assert eng.stats["eager_steps"] == 0
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_graphed_fleet_speculation_equals_eager():
+    """A speculating fleet (self-draft of member A, member B added) with
+    each fused program one CUDA graph, through the paged kernels with
+    live_kv: the streams and the speculation stats equal an eager
+    engine's, one capture per program, no eager step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = RuntimeSpec(
+        arch=CFG, maxima=FLEET_MAXIMA,
+        execution=ExecutionSpec(paged_attn_impl="pallas"),
+        memory=MemorySpec(cache_layout="paged", max_batch=4, max_len=64,
+                          block_size=8),
+        scheduler=SchedulerSpec(chunk_size=8),
+        speculation=SpeculationSpec(draft_model=CFG, k=3))
+    gen = torch.Generator(device="cuda")
+    params = Model(CFG, device="cuda").init(gen.manual_seed(0)).state_dict()
+    member = Model(MEMBER, device="cuda").init(gen.manual_seed(1)) \
+        .state_dict()
+    runs = []
+    for graphs in (True, False):
+        eng = ServingEngine(spec, max_models=2, graphs=graphs)
+        eng.load(params, draft=params)
+        eng.add_model(member, MEMBER)
+        runs.append((_fleet_drain(eng)[0], eng.stats["spec_accepted"],
                      eng.stats["decode_steps"]))
         if graphs:
             assert eng.compilations["decode"] == 1
