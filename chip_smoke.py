@@ -163,29 +163,31 @@ Phases (any failure raises and the script exits non-zero):
    printed, cache on and off.  Inside phase 6, one graphed fleet engine
    with the prefix cache serves both members the same prompts: each hits
    only its own member's chain.
-9. Speculative decoding (k = 3): full-width qwen1.5-0.5b (random
-   weights), the kernel path, graphed, phase 5's engine and request mix.
+9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 12 of its
+   24 layers (random weights; cut since phase 11 joined, for run time),
+   the kernel path, graphed, phase 5's engine and request mix.
    (a) A self-draft (the target's own weights) against speculation off:
    f32 streams (float32 pools) equal, or diverging only where the two
    tokens' f32 logits lie within phase 4's f32 distance (printed); bf16
    identical tokens printed; fewer fused steps and accepted draft
    tokens; graphed = eager (streams, launches), one capture per program;
-   the decode program's capture launches the chunk walk 24 times (the
+   the decode program's capture launches the chunk walk once a layer (the
    verify pass at W = 4) and the decode walk never, ``tiled_matmul`` and
    ``rmsnorm`` once per projection and norm of the target's pass and the
    draft's 4 (the mixed program: 5) passes; an eager drain's walks are
-   24 a step, at W = 4 on the decode steps; no host sync in a fused step
-   at sync_every=4.  (b) A 4-layer draft (the target's embedding, first 4
-   layers and final norm): the same stream, graph and launch gates;
-   truncation hands blocks back; with the prefix cache on, the pool's
-   used blocks are its parked ones after the drain and none leak.  (c)
+   one a layer a step, at W = 4 on the decode steps; no host sync in a
+   fused step at sync_every=4.  (b) A 4-layer draft (the target's
+   embedding, first 4 layers and final norm): the same stream, graph and
+   launch gates; truncation hands blocks back; with the prefix cache on,
+   the pool's used blocks are its parked ones after the drain and none
+   leak.  (c)
    The fully quantized engine (int8 weights and pool, the draft
    quantized too): graphed = eager, the launches, a second fresh engine
    repeats the streams; identical tokens against speculation off
    printed.  Warm graphed tokens/s and fused steps for speculation off,
    the self-draft and the 4-layer draft; for both drafts the mean
    accepted length, tokens per step, device ms and the idle share
-   (traced warm drain; speculation off is phase 5's warm float drain).
+   (traced warm drain; speculation off is not traced).
    Phase 2 also holds the chunk walk at W = 4 (bf16 and int8 pools),
    ``tiled_matmul`` at the verify pass's 32 rows and ``rmsnorm`` at
    32 x 1024.  The self-draft engine's first drain prints its captures
@@ -199,6 +201,29 @@ Phases (any failure raises and the script exits non-zero):
    decode program's capture launches 24 chunk walks, each with
    ``live_kv`` (the verify at W = 4), and no decode walk, with either
    table; every eager walk with ``live_kv``; draft tokens accepted.
+11. The MoE family (ROADMAP Queue 1 item 11): granite-moe-1b-a400m at
+   full width (24 layers, 32 experts top-8, 16 heads over 8 kv heads of
+   64, vocab 49155), random weights from the port's ``init``: one mixed
+   and one decode step at f32 compute, the kernels against their plain
+   versions within phase 4's gate, the plain versions routed as the
+   kernel path was (an expert choice is discontinuous in the router's
+   logits: a near-tie that the last bits break the other way moves the
+   logits by a token's share of two experts), with the live tokens whose
+   own routing differs between the paths printed; then the phase 5 mix
+   with float weights and fully quantized (the experts and router stay
+   float), each graphed (first and warm drain) and eager, with phase 5's
+   gates and 96 matmul launches, 24 walks and 49 ``rmsnorm`` a fused
+   step, a sync_every=4 drain under ``set_sync_debug_mode("error")`` and
+   a second fresh fully-quantized engine repeating the streams; the warm
+   float drain traced (device ms, idle share, the bf16 gemm kernels of
+   the expert products against the expert weights' bytes at 3.35 TB/s,
+   0.72 ms a step), the expert products also timed alone; and the
+   self-draft speculating at k = 3 on granite cut to 8 of its 24 layers
+   (run time), graphed and eager: graphed = eager, the decode program's
+   capture one chunk walk a layer at W = 4 (8) and no decode walk.
+   Phase 2 holds ``tiled_matmul`` and ``int8_matmul`` (bit-identical)
+   at granite's K/V width (8 and 128 x 1024 x 512) and both walks at 16
+   heads over 8 kv heads of 64 (decode and W 16, bf16 and int8 pools).
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -261,6 +286,7 @@ from repro_torch.launch.timing import (  # noqa: E402
 from repro_torch.core import masking  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.core.kv_quant import fork_block  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
@@ -279,6 +305,11 @@ SPEC_K = 3
 SPEC_ROWS = ENGINE["max_batch"] * (SPEC_K + 1)
 PROMPT_LENS = (24, 57, 96, 150, 203, 260, 333, 400)
 MAX_NEW = 16
+# granite-moe-1b-a400m (configs/granite_moe_1b_a400m.py): the K/V
+# projections' width (8 kv heads of 64) against d_model 1024, and its
+# attention (16 heads over 8 kv heads of 64, n_rep 2)
+GRANITE_KV = (1024, 512)
+GRANITE_ATTN = dict(h=16, kv=8, hd=64)
 
 KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
 # the kernels each path must launch: the two serving paths and the kernel
@@ -307,7 +338,15 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 "spec": ("tiled_matmul", "chunked_prefill_attention",
                          "rmsnorm"),
                 "spec_int8": ("int8_matmul", "chunked_prefill_attention",
-                              "rmsnorm")}
+                              "rmsnorm"),
+                # phase 11: granite-moe-1b-a400m, float and fully
+                # quantized, and speculating with its self-draft
+                "moe": ("tiled_matmul", "paged_decode_attention",
+                        "chunked_prefill_attention", "rmsnorm"),
+                "moe_int8": ("int8_matmul", "paged_decode_attention",
+                             "chunked_prefill_attention", "rmsnorm"),
+                "moe_spec": ("tiled_matmul", "chunked_prefill_attention",
+                             "rmsnorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -450,9 +489,11 @@ def check_matmul(timer, dev, g) -> dict:
               for k, n in LAYER_MATMULS]
     # phase 9's speculative decode step: the target's verify rows
     shapes += [(SPEC_ROWS, k, n, torch.bfloat16) for k, n in LAYER_MATMULS]
+    # phase 11's granite-moe steps: the K/V projections, N = 512
+    shapes += [(m, *GRANITE_KV, torch.bfloat16) for m in STEP_ROWS.values()]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
-    serving, verify = {}, []
+    serving, more = {}, []
     for m, k, n, dt in shapes:
         a = torch.randn(m, k, generator=g, device=dev).to(dt)
         b = (torch.randn(k, n, generator=g, device=dev) / math.sqrt(k)).to(dt)
@@ -484,10 +525,16 @@ def check_matmul(timer, dev, g) -> dict:
                 bound_by=by, library_ms=lms,
                 shape=f"{step}-step M={m} K={k} N={n} bf16")
         elif m == SPEC_ROWS and dt == torch.bfloat16:
-            verify.append(dict(
+            more.append(dict(
                 e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms,
                 shape=f"speculative verify (k={SPEC_K}) M={m} K={k} N={n} "
+                      "bf16"))
+        elif (k, n) == GRANITE_KV and step:
+            more.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shape=f"granite-moe {step}-step wk/wv M={m} K={k} N={n} "
                       "bf16"))
     # the wrapper never waits for the device (a split launch: workspace,
     # plan and reduce included)
@@ -507,7 +554,7 @@ def check_matmul(timer, dev, g) -> dict:
     main = next(e for e in rows if e["shape"].startswith("mixed-step M=128 "
                                                          "K=1024 N=2816"))
     return dict(main, other_shapes=[e for e in rows if e is not main]
-                + verify, serving=serving)
+                + more, serving=serving)
 
 
 def drain_estimate(name: str, serving: dict, layers: int, launches: dict,
@@ -557,9 +604,9 @@ def check_int8_matmul(timer, dev, g) -> dict:
           f"{'plain_ms':>9} {'int_mm_ms':>10} {'bf16_mm':>9} {'bound_ms':>9}")
     bf, f32 = torch.bfloat16, torch.float32
     shapes = [(m, k, n, dt) for m in STEP_ROWS.values()
-              for k, n in LAYER_MATMULS for dt in (bf, f32)]
+              for k, n in (*LAYER_MATMULS, GRANITE_KV) for dt in (bf, f32)]
     shapes += [(77, 300, 199, bf), (5, 1000, 67, f32), (8, 8192, 256, bf)]
-    serving = {}
+    serving, granite = {}, []
     for m, k, n, dt in shapes:
         qx = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                            dtype=torch.int8)
@@ -576,7 +623,7 @@ def check_int8_matmul(timer, dev, g) -> dict:
             raise AssertionError(f"int8_matmul {m}x{k}x{n} {dt}: err {err} "
                                  "!= 0")
         step = next((s for s, rows in STEP_ROWS.items() if rows == m), None)
-        serve = step is not None and (k, n) in LAYER_MATMULS
+        serve = step is not None and (k, n) in (*LAYER_MATMULS, GRANITE_KV)
         if serve and dt == bf:
             slices = -(-k // i8_mod.K_SLICE)
             for plan in itertools.product(
@@ -611,7 +658,13 @@ def check_int8_matmul(timer, dev, g) -> dict:
               f"   {grid}")
         if lms is None:
             print(f"      torch._int_mm refused M={m}: {why}")
-        if serve and dt == bf:
+        if serve and dt == bf and (k, n) == GRANITE_KV:
+            granite.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms, bf16_matmul_ms=mm16,
+                shape=f"granite-moe {step}-step wk/wv M={m} K={k} N={n} "
+                      "bf16 out"))
+        elif serve and dt == bf:
             serving[(m, k, n)] = dict(
                 e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms, bf16_matmul_ms=mm16,
@@ -631,8 +684,8 @@ def check_int8_matmul(timer, dev, g) -> dict:
     rows = list(serving.values())
     main = next(e for e in rows if e["shape"].startswith("mixed-step M=128 "
                                                          "K=1024 N=2816"))
-    return dict(main, other_shapes=[e for e in rows if e is not main],
-                serving=serving)
+    return dict(main, other_shapes=[e for e in rows if e is not main]
+                + granite, serving=serving)
 
 
 def paged_inputs(g, dev, B, W, h, kv, hd, q_dt, kv_dt, starts, bs=16,
@@ -874,6 +927,15 @@ def check_attention(timer, dev, g) -> dict:
             nums = attn_case(timer, dev, g, name, bf, kv_dt, B, W, h, kv,
                              hdf, starts, label=label)
             entries[name]["other_shapes"].append(nums)
+    # phase 11's granite-moe: 16 heads over 8 kv heads of 64 (n_rep 2),
+    # decode and chunk at W 16, over bf16 and int8 pools
+    print("granite-moe-1b-a400m (16 heads over 8 kv heads of 64):")
+    for name, (W, starts) in shape.items():
+        for kv_dt in (bf, i8):
+            entries[name]["other_shapes"].append(attn_case(
+                timer, dev, g, name, bf, kv_dt, B, W, GRANITE_ATTN["h"],
+                GRANITE_ATTN["kv"], GRANITE_ATTN["hd"], starts,
+                label="granite-moe n_rep 2 x hd 64"))
     # live_kv (the fleet's dead kv groups): at the fleet's shape (16 heads
     # of 64, one per kv group as the fabric packs them; groups 12-15 dead
     # on every other slot, as adaptor-bert-shaped's 12 heads leave them),
@@ -1362,6 +1424,10 @@ def unembed_exact(x: torch.Tensor, table) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], -1)
 
 
+# the live lanes of each slot in phase 4's mixed step
+STEP_N_LIVE = (16, 16, 16, 16, 16, 9, 3, 1)
+
+
 def check_model_steps(model: Model, dev, g, gate: bool,
                       paths=tuple(STEP_PATHS)) -> dict:
     """One mixed step (a 16-lane chunk, some slots partial) then one decode
@@ -1401,8 +1467,7 @@ def check_model_steps(model: Model, dev, g, gate: bool,
     toks = torch.randint(0, vocab, (B, W), generator=g, device=dev,
                          dtype=torch.int32)
     start = torch.zeros(B, dtype=torch.int32, device=dev)
-    n_live = torch.tensor([16, 16, 16, 16, 16, 9, 3, 1], dtype=torch.int32,
-                          device=dev)
+    n_live = torch.tensor(STEP_N_LIVE, dtype=torch.int32, device=dev)
     dtoks = torch.randint(0, vocab, (B, 1), generator=g, device=dev,
                           dtype=torch.int32)
     live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
@@ -1621,8 +1686,9 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
                launches=made_launches(eng, *tallies))
     if measure == "profile":
         out["device_s"] = device_seconds(meter)
-        out["top"] = [(e.key, e.count, e.self_device_time_total / 1e3)
-                      for e in device_events(meter)[:12]]
+        out["kernels"] = [(e.key, e.count, e.self_device_time_total / 1e3)
+                          for e in device_events(meter)]
+        out["top"] = out["kernels"][:12]
     elif measure == "ops":
         out["ops"] = meter.n
     return out
@@ -2271,7 +2337,8 @@ def logit_gap(model32: Model, seq: list[int], a: int, b: int) -> float:
 
 
 def f32_streams_equal(params, traffic, on: dict, off: dict,
-                      f32_dist: float, what: str = "cache") -> None:
+                      f32_dist: float, what: str = "cache",
+                      arch: ArchConfig | None = None) -> None:
     """Whole f32 streams, ``what`` (the prefix cache, speculation) on
     against off: equal, or where a request diverges, the two tokens'
     logits at that step (recomputed in float32) lie within phase 4's f32
@@ -2289,7 +2356,7 @@ def f32_streams_equal(params, traffic, on: dict, off: dict,
         if t is None:
             continue
         if model32 is None:
-            model32 = Model(get_config("qwen1.5-0.5b"),
+            model32 = Model(arch or get_config("qwen1.5-0.5b"),
                             compute_dtype=torch.float32, device="cuda")
             model32.load_state_dict(params)
         gap = logit_gap(model32, wave[i] + a[:t], a[t], b[t])
@@ -2449,16 +2516,21 @@ def check_prefix_fleet(members) -> None:
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding
 # ---------------------------------------------------------------------------
-SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 of 24 layers
+# phase 9's target: qwen1.5-0.5b at 12 of its 24 layers (cut when phase 11
+# joined: the run stays near its time; every gate a layer carries stays)
+SPEC_TARGET_LAYERS = 12
+SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 layers
 
 
 def spec_spec(draft: ArchConfig | None, quant: bool = False,
-              compute: str = "bf16", prefix: bool = False) -> RuntimeSpec:
-    """Phase 5's full-width kernel-path spec at ``compute`` (``quant``:
-    int8 weights and pool; ``prefix``: the prefix cache on), speculating
-    with k = ``SPEC_K`` and ``draft`` as the proposer's architecture, or
-    not at all (``draft`` None)."""
-    spec = full_width_spec(True, quant)
+              compute: str = "bf16", prefix: bool = False,
+              arch: ArchConfig | None = None) -> RuntimeSpec:
+    """Phase 5's full-width kernel-path spec (of ``arch``, else
+    qwen1.5-0.5b) at ``compute`` (``quant``: int8 weights and pool;
+    ``prefix``: the prefix cache on), speculating with k = ``SPEC_K`` and
+    ``draft`` as the proposer's architecture, or not at all (``draft``
+    None)."""
+    spec = full_width_spec(True, quant, arch)
     return dataclasses.replace(
         spec, execution=dataclasses.replace(spec.execution,
                                             compute_dtype=compute),
@@ -2574,7 +2646,7 @@ def spec_rates(label: str, r: dict, n_tok: int) -> str:
 
 
 def check_spec_launches(label: str, r: dict, layers: int, draft_layers: int,
-                        mm: str) -> None:
+                        mm: str, mm_per_layer: int = 7) -> None:
     """The launches of a speculative engine: the decode program (its
     capture) runs the chunk walk once per layer (the verify pass at W =
     k + 1) and no decode walk, and its matmul kernel and ``rmsnorm`` once
@@ -2586,7 +2658,7 @@ def check_spec_launches(label: str, r: dict, layers: int, draft_layers: int,
         got = r["programs"].get(kind)
         if got is None:
             continue
-        want = {mm: 7 * (layers + passes * draft_layers),
+        want = {mm: mm_per_layer * (layers + passes * draft_layers),
                 "rmsnorm": 2 * layers + 1 + passes * (2 * draft_layers + 1),
                 "chunked_prefill_attention": layers}
         have = {n: got.get(n, 0) for n in (*want, "paged_decode_attention")}
@@ -2618,8 +2690,9 @@ def spec_walk_widths(label: str, r: dict, layers: int) -> int:
 
 
 def check_speculation(dev, g, f32_dist: float) -> dict:
-    """Phase 9: full-width qwen1.5-0.5b (random weights), the kernel
-    path, graphed, phase 5's engine and request mix, k = ``SPEC_K``:
+    """Phase 9: full-width qwen1.5-0.5b at ``SPEC_TARGET_LAYERS`` layers
+    (random weights), the kernel path, graphed, phase 5's engine and
+    request mix, k = ``SPEC_K``:
     (a) a self-draft against speculation off, (b) a 4-layer draft (the
     target's embedding, first 4 layers and final norm), (c) the fully
     quantized engine with the draft quantized too.  Gates: f32 streams
@@ -2632,8 +2705,12 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
     parked ones after the drain (b); a second fresh fully-quantized
     engine repeats the streams (c).  Returns the launches of (a)'s and
     (c)'s graphed drains."""
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=SPEC_TARGET_LAYERS)
     L, Ld = cfg.num_layers, SPEC_DRAFT_LAYERS
+
+    def drain9(*a, **kw):                # the target at its cut depth
+        return spec_drain(*a, arch=cfg, **kw)
     params = Model(cfg, device=dev).init(g).state_dict()
     small = (dataclasses.replace(cfg, num_layers=Ld),
              {k: v for k, v in params.items()
@@ -2644,14 +2721,14 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
     n_tok = len(prompts) * MAX_NEW
     selfd = (cfg, params)
     t_start = time.perf_counter()
-    print(f"\n== speculative decoding: full-width qwen1.5-0.5b, k = "
-          f"{SPEC_K}, the phase 5 mix ({len(prompts)} requests x {MAX_NEW} "
-          "new tokens), kernels, graphed")
-    # speculation off is phase 5's float engine: its warm drain's device
-    # time and idle share are phase 5's (the trace of a drain takes tens
-    # of seconds to read back)
-    off = spec_drain(params, prompts, warm=True)
-    on = spec_drain(params, prompts, selfd, warm=True, profile=True,
+    print(f"\n== speculative decoding: full-width qwen1.5-0.5b at {L} of "
+          f"{get_config('qwen1.5-0.5b').num_layers} layers, k = {SPEC_K}, "
+          f"the phase 5 mix ({len(prompts)} requests x {MAX_NEW} new "
+          "tokens), kernels, graphed")
+    # speculation off is not traced (the trace of a drain takes tens of
+    # seconds to read back; phase 5 traces the 24-layer engine)
+    off = drain9(params, prompts, warm=True)
+    on = drain9(params, prompts, selfd, warm=True, profile=True,
                     time_capture=True)
     # where a fresh self-draft engine's first drain goes (PERF.md §6, PR
     # 24's open question): its captures in parts, beside the drain
@@ -2668,17 +2745,17 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
             or st["graph_replays"] != on["steps"] - 2:
         raise AssertionError(f"self-draft first drain: {st}; want two "
                              "captures and every other step a replay")
-    on_e = spec_drain(params, prompts, selfd, graphs=False)
-    four = spec_drain(params, prompts, small, warm=True, profile=True)
-    four_e = spec_drain(params, prompts, small, graphs=False)
+    on_e = drain9(params, prompts, selfd, graphs=False)
+    four = drain9(params, prompts, small, warm=True, profile=True)
+    four_e = drain9(params, prompts, small, graphs=False)
     for label, r in (("speculation off", off), ("self-draft", on),
                      (f"{Ld}-layer draft", four)):
         w = r["warm"]
         print(drain_line(f"{label}, graphed, first drain", r, n_tok))
         print(drain_line(f"{label}, graphed, warm engine", w, n_tok))
         if r is off:
-            print("  speculation off, warm: device time and idle share in "
-                  "phase 5 (kernels, float weights, graphed, warm engine)")
+            print("  speculation off, warm: not traced (phase 5 traces the "
+                  "24-layer engine)")
         else:
             print("  " + spec_rates(label, w, n_tok))
             t = r["traced"]
@@ -2720,16 +2797,17 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
         raise AssertionError("the 4-layer draft's rollback handed back no "
                              "block")
     # f32 streams: speculation on and off over float32 pools
-    f32_off = spec_drain(params, prompts, compute="fp32", f32_pool=True)
+    f32_off = drain9(params, prompts, compute="fp32", f32_pool=True)
     for label, d in (("self-draft", selfd), (f"{Ld}-layer draft", small)):
-        r = spec_drain(params, prompts, d, compute="fp32", f32_pool=True)
+        r = drain9(params, prompts, d, compute="fp32", f32_pool=True)
         print("  " + spec_rates(f"{label}, f32", r, n_tok))
         f32_streams_equal(params, (None, prompts), r, f32_off, f32_dist,
+                          arch=cfg,
                           what=f"speculation ({label})")
     print(f"  the f32 drains: {time.perf_counter() - t_start:.1f} s into "
           "phase 9")
     # fault B: no fused step waits for the device
-    quiet = spec_drain(params, prompts, selfd, sync_every=4, no_sync=True)
+    quiet = drain9(params, prompts, selfd, sync_every=4, no_sync=True)
     print(f"self-draft, graphed, sync_every=4, every fused step (the "
           f"captures) under set_sync_debug_mode('error'): no host sync, no "
           f"staging wait; {quiet['steps']} steps, "
@@ -2739,7 +2817,7 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
                              "from the sync_every=1 ones")
     # the prefix cache on for the same traffic: rollback parks trie-owned
     # tails, and the pool holds only the parked chains after the drain
-    pc = spec_drain(params, prompts, small, prefix=True)
+    pc = drain9(params, prompts, small, prefix=True)
     m = pc["memory"]
     print(f"{Ld}-layer draft with the prefix cache: {pc['truncated']} blocks "
           f"handed back by truncation; after the drain {m.used_blocks} used "
@@ -2753,18 +2831,18 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
                              "streams than without the cache")
     # (c) fully quantized: int8 weights and pool, the draft quantized too
     print(f"  (c) starts {time.perf_counter() - t_start:.1f} s into phase 9")
-    q_on = spec_drain(params, prompts, selfd, quant=True)
-    q_e = spec_drain(params, prompts, selfd, quant=True, graphs=False)
+    q_on = drain9(params, prompts, selfd, quant=True)
+    q_e = drain9(params, prompts, selfd, quant=True, graphs=False)
     check_graphed("speculation, fully quantized", {"graphed": q_on,
                                                    "eager": q_e},
                   ("int8_matmul", "chunked_prefill_attention"), L, n_tok)
     check_spec_launches("fully quantized", q_on, L, L, "int8_matmul")
     print("  " + spec_rates("fully quantized", q_on, n_tok))
-    again = spec_drain(params, prompts, selfd, quant=True)
+    again = drain9(params, prompts, selfd, quant=True)
     if again["streams"] != q_on["streams"]:
         raise AssertionError("fully quantized speculation: the streams "
                              "differ between two fresh engines")
-    q_off = spec_drain(params, prompts, quant=True)
+    q_off = drain9(params, prompts, quant=True)
     same, n = same_tokens(q_on["streams"], q_off["streams"])
     print(f"fully quantized: a second fresh engine repeats the streams; "
           f"identical tokens speculation on vs off {same}/{n} (reported: "
@@ -2773,6 +2851,277 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
     del params
     torch.cuda.empty_cache()
     return {"spec": on["launches"], "spec_int8": q_on["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+MOE = "granite-moe-1b-a400m"
+# projections per layer through the matmul kernel (wq, wk, wv, wo; the
+# router and experts are torch.matmul / torch.bmm, as XLA einsums are in
+# the reference)
+MOE_MATMULS = 4
+# the speculative drain's depth: granite's first 8 of 24 layers, target
+# and self-draft (at full depth its eager drain alone takes ~14 s on one
+# H100; the walks' and matmuls' counts a pass scale with L)
+MOE_SPEC_LAYERS = 8
+
+
+def route_flips(calls: list, layers: int) -> str:
+    """The routing of ``check_model_steps``' kernel path against its plain
+    versions' (``calls``: every ``moe.route`` call's expert ids, path by
+    path, a mixed step's ``layers`` calls then a decode step's): live
+    tokens whose set of experts differs, and whose ordered ids differ."""
+    mask = torch.arange(ENGINE["chunk"])[None, :] \
+        < torch.tensor(STEP_N_LIVE)[:, None]
+    out = []
+    for step, (lo, hi) in (("mixed", (0, layers)),
+                           ("decode", (layers, 2 * layers))):
+        sets = order = total = 0
+        for a, b in zip(calls[0][lo:hi], calls[1][lo:hi], strict=True):
+            a, b = a.cpu(), b.cpu()
+            if step == "mixed":
+                a, b = a[mask], b[mask]
+            a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+            total += a.shape[0]
+            order += int((a != b).any(dim=1).sum())
+            sets += int((a.sort(dim=1).values != b.sort(dim=1).values)
+                        .any(dim=1).sum())
+        out.append(f"{step}: {sets} of {total} live token-layers route to "
+                   f"another expert set ({order} in another order)")
+    return "; ".join(out)
+
+
+def expert_floor(cfg: ArchConfig) -> tuple[float, float]:
+    """Bytes of the bf16 expert weights one fused step reads (every layer's
+    w1, wg and w2, each once, whatever the lanes), and their time at
+    3.35 TB/s in ms."""
+    m = cfg.moe
+    nbytes = cfg.num_layers * m.num_experts * 3 * cfg.d_model \
+        * m.expert_d_ff * 2
+    return nbytes, nbytes / 3.35e12 * 1e3
+
+
+def expert_products_ms(timer, cfg: ArchConfig, dev, g) -> dict:
+    """The three ``torch.bmm`` of one layer's experts (w1, wg, w2 over E
+    experts of B x C rows) at a decode step's capacity (C = 1) and a
+    mixed step's (C of W = 16), bf16, timed (L2 flushed), times the
+    layers: a fused step's expert products."""
+    m, d, f = cfg.moe, cfg.d_model, cfg.moe.expert_d_ff
+    w1, wg = (torch.randn(m.num_experts, d, f, generator=g, device=dev)
+              .bfloat16() for _ in range(2))
+    w2 = torch.randn(m.num_experts, f, d, generator=g, device=dev).bfloat16()
+    out = {}
+    for step, W in (("decode", 1), ("mixed", ENGINE["chunk"])):
+        rows = ENGINE["max_batch"] * moe_mod.capacity(W, m)
+        x = torch.randn(m.num_experts, rows, d, generator=g,
+                        device=dev).bfloat16()
+
+        def products():
+            h = torch.bmm(x, w1) * torch.bmm(x, wg)
+            return torch.bmm(h, w2)
+        out[step] = dict(rows=rows, ms=timer(products) * cfg.num_layers)
+    return out
+
+
+def check_moe(timer, dev, g) -> dict:
+    """Phase 11: granite-moe-1b-a400m at full width (24 layers, 32 experts
+    top-8 of width 512, 16 heads over 8 kv heads of 64, vocab 49155),
+    random weights from the port's ``init``.  (a) One mixed and one
+    decode step at f32 compute, the kernels against their plain versions
+    within phase 4's gate, the plain paths replaying the kernel path's
+    expert ids, the routing flips between the paths' own routing
+    printed; (b)
+    the phase 5 mix with float weights and fully quantized, each on a
+    graphed engine (first and warm drain) and an eager one, with phase
+    5's gates and 96 matmul launches, 24 walks and 49 ``rmsnorm`` a
+    fused step, a sync_every=4 drain under
+    ``set_sync_debug_mode("error")``, a second fresh fully-quantized
+    engine repeating the streams; the warm float drain traced (device ms,
+    idle share, the expert products' device time against the bytes of
+    the expert weights at 3.35 TB/s); (c) speculation with the self-draft,
+    k = ``SPEC_K``, at ``MOE_SPEC_LAYERS`` layers, graphed and eager:
+    graphed = eager and the decode program's capture one chunk walk a
+    layer at W = k + 1, no decode walk.
+    Returns the launches of the graphed drains by path."""
+    t_start = time.perf_counter()
+    cfg = get_config(MOE)
+    L = cfg.num_layers
+    params = Model(cfg, device=dev).init(g).state_dict()
+    n_params = sum(t.numel() for t in params.values())
+    floor_bytes, floor_ms = expert_floor(cfg)
+    print(f"\n== MoE family: {MOE} at full width, {L} layers, "
+          f"{n_params / 1e9:.3f} G parameters, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.experts_per_token} of width {cfg.moe.expert_d_ff}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}; capacity a "
+          f"decode step {moe_mod.capacity(1, cfg.moe)}, a mixed step "
+          f"{moe_mod.capacity(ENGINE['chunk'], cfg.moe)} of "
+          f"{ENGINE['chunk'] * cfg.moe.experts_per_token} routed slots")
+    # (a) f32 steps.  The expert choice is a discontinuous function of
+    # the router's logits: where the kernel path's last bits move a token
+    # across a near-tie of two experts, the logits jump by that token's
+    # share of two experts' outputs.  So the plain paths route as the
+    # kernel path did (its expert ids, in call order, with their own
+    # probabilities as weights) and the gate holds the kernels on equal
+    # routing; the tokens whose own routing differs are printed.
+    calls = []
+    route = moe_mod.route
+
+    def replaying(x, w, m):
+        weights, ids = route(x, w, m)
+        calls.append(ids)
+        i = len(calls) - 1
+        if i < 2 * L:                      # the kernel path routes itself
+            return weights, ids
+        ids = calls[i % (2 * L)]
+        top = torch.softmax(x.float() @ w.float(), dim=-1).gather(-1, ids)
+        return m.router_scale * top / top.sum(dim=-1, keepdim=True), ids
+    model32 = Model(cfg, compute_dtype=torch.float32, device=dev)
+    model32.load_state_dict(params)
+    with mock.patch.object(moe_mod, "route", replaying):
+        check_model_steps(model32, dev, g, gate=True,
+                          paths=("kernels", "plain versions",
+                                 "plain, perturbed"))
+    kernels, plain, perturbed = (calls[i:i + 2 * L]
+                                 for i in range(0, 6 * L, 2 * L))
+    print("  the plain paths above route as the kernel path did; their own "
+          "routing (f32):")
+    print("  kernels vs plain versions: " + route_flips([kernels, plain], L))
+    print("  plain perturbed by 2^-19 vs plain: "
+          + route_flips([perturbed, plain], L))
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    # (b) the phase 5 mix, float weights and fully quantized
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    n_tok = len(prompts) * MAX_NEW
+    launches = {}
+    for path in ("moe", "moe_int8"):
+        quant = path == "moe_int8"
+        label = f"{MOE}, {'int8' if quant else 'float'} weights"
+        eng = ServingEngine(full_width_spec(True, quant, cfg), device="cuda",
+                            graphs=True)
+        eng.load(params)
+        first = drain(eng, prompts)
+        first["warm"] = drain(eng, prompts)
+        traced = drain(eng, prompts, measure="profile") if not quant \
+            else None
+        del eng
+        torch.cuda.empty_cache()
+        runs = {"graphed": first, "eager": serve(params, prompts,
+                                                 quant=quant, graphs=False,
+                                                 arch=cfg)}
+        check_graphed(label, runs, PATH_KERNELS[path], L, n_tok)
+        warm = first["warm"]
+        print(drain_line(f"{label}, graphed, warm engine", warm, n_tok))
+        mm = PATH_KERNELS[path][0]
+        for mode, r in (*runs.items(), ("warm", warm)):
+            walks = r["launches"]["paged_decode_attention"] \
+                + r["launches"]["chunked_prefill_attention"]
+            want = {mm: MOE_MATMULS * L * r["steps"], "walks": L * r["steps"]}
+            have = {mm: r["launches"][mm], "walks": walks}
+            if have != want:
+                raise AssertionError(f"{label}, {mode}: launches {have}, "
+                                     f"want {want} ({r['steps']} steps)")
+        print(f"  {label}: {MOE_MATMULS * L} {mm}, {L} walks and "
+              f"{2 * L + 1} rmsnorm a fused step on every drain")
+        if warm["streams"] != first["streams"] and not quant:
+            raise AssertionError(f"{label}: the warm drain streamed "
+                                 "otherwise")
+        if warm["stats"]["graph_captures"] \
+                or warm["launches"] != first["launches"]:
+            raise AssertionError(f"{label}: the warm drain captured again or "
+                                 "launched otherwise")
+        if traced is not None:
+            dev_s = traced["device_s"]
+            if dev_s is None:
+                print("  the profiler traced no device activity: device "
+                      "time, idle share and the expert products not "
+                      "measured")
+            else:
+                # cuBLAS's bf16 batched gemms (its Hopper "nvjet" kernels
+                # name no dtype); no other cuBLAS call of the step is bf16
+                gemms = [(k, c, t) for k, c, t in traced["kernels"]
+                         if "nvjet" in k or ("gemm" in k and "bf16" in k)]
+                ex_ms = sum(t for _, _, t in gemms)
+                steps = traced["steps"]
+                n_gemm, want_gemm = sum(c for _, c, _ in gemms), 3 * L * steps
+                print(f"  the expert products' kernels: {n_gemm} launches "
+                      f"({want_gemm} expected: 3 a layer a step)"
+                      + ("" if n_gemm == want_gemm else " -- the attribution "
+                         "below is not the expert products alone"))
+                print(f"  {label}, graphed, warm engine, traced: "
+                      f"{dev_s * 1e3:.1f} ms of device time over {steps} "
+                      f"fused steps; idle {1 - dev_s / warm['dt']:.3f} of "
+                      f"the untraced warm drain's {warm['dt']:.3f} s "
+                      f"({1 - dev_s / traced['dt']:.3f} of the traced "
+                      f"drain's {traced['dt']:.3f} s)")
+                print(f"  expert products (the bf16 gemm kernels, "
+                      f"torch.bmm): {ex_ms:.3f} ms = {ex_ms / steps:.4f} ms "
+                      f"a step against the floor {floor_ms:.4f} ms a step "
+                      f"({floor_bytes / 1e9:.3f} GB of bf16 expert weights "
+                      f"at 3.35 TB/s); {ex_ms / (dev_s * 1e3):.1%} of the "
+                      "device time; kernels counted: "
+                      + ", ".join(f"{k[:70]} x{c}" for k, c, _ in gemms))
+                print("  where the warm drain's device time goes (the 12 "
+                      "longest by name: calls, ms, share):")
+                for key, calls_n, ms in traced["top"]:
+                    print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                          f"{ms / (dev_s * 1e3):6.1%}")
+        quiet = serve(params, prompts, quant=quant, arch=cfg, sync_every=4,
+                      no_sync=True)
+        same, n = same_tokens(quiet["streams"], first["streams"])
+        print(f"  {label}, graphed, sync_every=4, every fused step under "
+              f"set_sync_debug_mode('error'): no host sync, no staging "
+              f"wait; {quiet['steps']} steps, {quiet['dt']:.3f} s; "
+              f"identical tokens to sync_every=1 {same}/{n}"
+              + (" (reported: the int8 activation scale spans finished "
+                 "slots' rows)" if quant else ""))
+        if not quant and quiet["streams"] != first["streams"]:
+            raise AssertionError(f"{label}: the sync_every=4 streams differ")
+        if quant:
+            again = serve(params, prompts, quant=True, arch=cfg)
+            if again["streams"] != first["streams"]:
+                raise AssertionError(f"{label}: the streams differ between "
+                                     "two fresh engines")
+            print(f"  {label}: a second fresh graphed engine repeats the "
+                  f"streams ({again['dt']:.3f} s)")
+        launches[path] = first["launches"]
+        print(f"  {label}: {time.perf_counter() - t_start:.1f} s into phase "
+              "11")
+    products = expert_products_ms(timer, cfg, dev, g)
+    print("  expert products timed alone (bf16 torch.bmm x 3, L2 flushed, "
+          f"x {L} layers): decode step {products['decode']['ms']:.4f} ms "
+          f"({products['decode']['rows']} rows an expert), mixed step "
+          f"{products['mixed']['ms']:.4f} ms ({products['mixed']['rows']} "
+          f"rows an expert); floor {floor_ms:.4f} ms a step")
+    # (c) speculation: the self-draft, target and draft at
+    # MOE_SPEC_LAYERS layers
+    t_spec = time.perf_counter()
+    Ls = min(MOE_SPEC_LAYERS, L)
+    cut = dataclasses.replace(cfg, num_layers=Ls)
+    cut_params = {k: v for k, v in params.items()
+                  if not k.startswith("layers.") or int(k.split(".")[1]) < Ls}
+    selfd = (cut, cut_params)
+    on = spec_drain(cut_params, prompts, selfd, warm=True, arch=cut)
+    on_e = spec_drain(cut_params, prompts, selfd, graphs=False, arch=cut)
+    label = f"{MOE} at {Ls} of {L} layers speculating, self-draft"
+    print(drain_line(f"{label}, graphed, first drain", on, n_tok))
+    print(drain_line(f"{label}, graphed, warm engine", on["warm"], n_tok))
+    print("  " + spec_rates(label, on["warm"], n_tok))
+    check_graphed(label, {"graphed": on, "eager": on_e},
+                  ("tiled_matmul", "chunked_prefill_attention"), Ls, n_tok)
+    check_spec_launches(label, on, Ls, Ls, "tiled_matmul", MOE_MATMULS)
+    spec_walk_widths(label, on_e, Ls)
+    print(f"  speculation took {time.perf_counter() - t_spec:.1f} s; phase "
+          f"11 {time.perf_counter() - t_start:.1f} s")
+    launches["moe_spec"] = on["launches"]
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2956,7 +3305,10 @@ def main() -> int:
     lap("phase 8")
     launches.update(check_speculation(dev, g, f32_dist))
     lap("phase 9")
-    for path in ("prefix", "spec", "spec_int8"):
+    launches.update(check_moe(timer, dev, g))
+    lap("phase 11")
+    for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
+                 "moe_spec"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

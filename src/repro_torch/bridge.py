@@ -6,7 +6,10 @@ converted to a numpy array (the caller does that conversion; this module
 imports no JAX) and returns a state dict of the port's ``Model``, so both
 packages compute the same function.  The reference stacks the layers on a
 leading axis; the port keeps one module per layer, so that axis is
-unstacked into ``layers.<i>.``.
+unstacked into ``layers.<i>.`` (the ``num_layers - first_k_dense`` layers
+of an MoE model's main stack).  An MoE model's dense prefix is a list of
+unstacked layers in the reference; its ``j``-th entry becomes
+``dense_prefix.<j>.``.
 
 A tree the reference has quantized (its ``serve_quant.quantize_params``)
 holds ``QTensor`` leaves; after the numpy conversion each is a
@@ -31,6 +34,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
             out.update(_flatten(val, name + "."))
+        elif isinstance(val, list):          # the dense prefix's layers
+            out.update(_flatten(dict(enumerate(val)), name + "."))
         elif isinstance(val, tuple):       # a QTensor: (int8 values, scale)
             values, scale = val
             out[name] = np.asarray(values)
@@ -59,15 +64,17 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
     dtype.
     """
     flat = _flatten(np_tree)
+    stacked = cfg.num_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
     out: dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         t = _tensor(arr, name, dtype)
         if name.startswith("layers."):
-            if t.shape[0] != cfg.num_layers:
+            if t.shape[0] != stacked:
                 raise ValueError(f"{name}: leading axis {t.shape[0]} != "
+                                 f"the {stacked} stacked layers of "
                                  f"num_layers={cfg.num_layers}")
             rest = name[len("layers."):]
-            for i in range(cfg.num_layers):
+            for i in range(stacked):
                 out[f"layers.{i}.{rest}"] = t[i].to(device).contiguous()
         else:
             out[name] = t.to(device)

@@ -2,10 +2,10 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense decoder family needs (the MoE / MLA / SSM /
-hybrid / enc-dec sub-configs are ported with their families, ROADMAP.md
-Queue 1 items 11-12).  Dtype defaults are torch dtypes where the JAX
-package names ``jnp`` ones.
+restricted to what the dense and MoE decoder families need (the MLA /
+SSM / hybrid / enc-dec sub-configs are ported with their families,
+ROADMAP.md Queue 1 items 11m-12).  Dtype defaults are torch dtypes
+where the JAX package names ``jnp`` ones.
 """
 from __future__ import annotations
 
@@ -17,8 +17,28 @@ import torch
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    num_experts: int
+    experts_per_token: int
+    expert_d_ff: int
+    num_shared_experts: int = 0
+    shared_expert_d_ff: int = 0
+    # Layers [0, first_k_dense) use a dense FFN of size ``dense_d_ff`` instead
+    # of the MoE block (DeepSeek-V3 uses 3 dense layers).
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    router_scale: float = 1.0
+    # Expert capacity factor: C = ceil(S * k / E * capacity_factor); tokens
+    # routed past capacity are dropped (residual keeps them intact).
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
 class ArchConfig:
-    """A single architecture (the dense-family fields of the reference)."""
+    """A single architecture (the dense- and MoE-family fields of the
+    reference)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -37,6 +57,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     max_position_embeddings: int = 131_072
     source: str = ""
+    moe: MoEConfig | None = None
 
     def __post_init__(self) -> None:
         self.validate()
@@ -67,7 +88,8 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     """A tiny same-family config for CPU tests: the reference's shrink rule
-    (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept)."""
+    (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept; an MoE
+    block shrunk to 4 experts of width 32, top-min(2, k))."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     small: dict[str, Any] = dict(
@@ -80,6 +102,16 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
         num_kv_heads=max(1, heads // ratio),
         head_dim=16,
     )
+    if cfg.moe is not None:
+        small["moe"] = MoEConfig(
+            num_experts=4,
+            experts_per_token=min(2, cfg.moe.experts_per_token),
+            expert_d_ff=32,
+            num_shared_experts=cfg.moe.num_shared_experts,
+            shared_expert_d_ff=32 if cfg.moe.num_shared_experts else 0,
+            first_k_dense=min(1, cfg.moe.first_k_dense),
+            dense_d_ff=128 if cfg.moe.first_k_dense else 0,
+        )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
 

@@ -12,9 +12,12 @@ values plus a float32 scale stored beside them under ``<name>_scale``:
 Eligibility is the reference's, which measures the *stacked* leaf: the
 reference keeps one ``[L, K, N]`` array per projection, the port one
 ``[K, N]`` module per layer, so a ``layers.<i>.`` kernel is compared with
-``quant_min_size`` at ``L * K * N`` elements.  Per-column scales of a
-stacked leaf are per-layer, so quantizing layer by layer gives the same
-numbers.
+``quant_min_size`` at ``L * K * N`` elements, L the number of
+``layers.<i>.`` modules (an MoE model's main stack; its ``dense_prefix``
+layers are unstacked leaves in the reference and are measured alone).
+Per-column scales of a stacked leaf are per-layer, so quantizing layer by
+layer gives the same numbers.  The expert and router leaves are not
+named ``kernel``, so they stay float.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ def stacked_layers(names) -> int:
 def eligible(name: str, shape, num_layers: int,
              min_size: int = DEFAULT_QUANT_MIN_SIZE) -> str | None:
     """'kernel' / 'table' when the leaf ``name`` of ``shape`` is quantized
-    (the reference's ``_eligible`` on the stacked leaf)."""
+    (the reference's ``_eligible`` on the stacked leaf); ``num_layers``
+    is the count of ``layers.<i>.`` modules (``stacked_layers``)."""
     kind = name.rsplit(".", 1)[-1]
     if kind not in ("kernel", "table") or len(shape) < 2:
         return None

@@ -12,14 +12,15 @@ both packages:
 * ``param_dtype`` / ``compute_dtype`` accept torch dtypes or the same
   string names (``"bf16"``, ``"fp32"``, ...).
 
-What the port serves so far is the dense family through the paged pool
-and the chunked scheduler, with float or int8 weights (``quant``) and a
-float or int8 KV pool (``MemorySpec.kv_dtype``), one model or a fleet of
-them within ``maxima`` (``maxima_for``; a fleet's int8 weights are its own
-int8 weight table), with or without the prefix cache
-(``MemorySpec.prefix_cache``), and with or without speculative decoding
-(``SpeculationSpec``).  Every other option of the reference is rejected
-at construction with the ROADMAP.md queue item that ports it.
+What the port serves so far is the dense and moe families through the
+paged pool and the chunked scheduler, with float or int8 weights
+(``quant``) and a float or int8 KV pool (``MemorySpec.kv_dtype``), one
+model or a fleet of dense models within ``maxima`` (``maxima_for``; a
+fleet's int8 weights are its own int8 weight table), with or without the
+prefix cache (``MemorySpec.prefix_cache``), and with or without
+speculative decoding (``SpeculationSpec``).  Every other option of the
+reference is rejected at construction with the ROADMAP.md queue item
+that ports it.
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ _DTYPE_ALIASES = {
     "fp16": torch.float16, "f16": torch.float16, "float16": torch.float16,
 }
 
-# Families the port serves so far.
-PORTED_FAMILIES = ("dense",)
+# Families the port serves so far (and drafts with).
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _normalize_dtype(field_name: str, value):
@@ -279,7 +280,8 @@ class SpeculationSpec:
         if self.draft_model.family not in PORTED_FAMILIES:
             raise _not_ported(
                 f"a draft of family {self.draft_model.family!r}",
-                "items 11-12", "; the port drafts with family 'dense'")
+                "items 11-12", "; the port drafts with the families "
+                f"{PORTED_FAMILIES}")
 
     @property
     def horizon(self) -> int:
@@ -317,7 +319,13 @@ class RuntimeSpec:
         cfg.validate()
         if cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
-                              "; the port serves family 'dense'")
+                              f"; the port serves the families "
+                              f"{PORTED_FAMILIES}")
+        if self.maxima is not None and cfg.family != "dense":
+            # the reference fabric's membership check (check_member)
+            raise ValueError(
+                f"{cfg.name}: multi-topology serving covers the dense GQA "
+                f"family; family {cfg.family!r} needs its own engine")
         if self.speculation is not None:
             # the reference's messages: the verify pass rides the fused
             # chunked step

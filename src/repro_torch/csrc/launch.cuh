@@ -15,7 +15,9 @@ namespace {
 // Let `kern` take `bytes` of dynamic shared memory: above the default 48 KB
 // only after cudaFuncSetAttribute, which is called once per device for each
 // kernel (`set_on` is that kernel's own flag word, a bit per device id; ids
-// past 63 set it on every launch).  An error goes back to the caller, whose
+// past 63 set it on every launch).  The device is the current one, which
+// the Python side makes the operands' device for every launch
+// (`kernels/runtime.py` `launch`).  An error goes back to the caller, whose
 // launch it would refuse.
 inline cudaError_t allow_dynamic_smem(const void* kern, int bytes,
                                       std::atomic<uint64_t>& set_on) {

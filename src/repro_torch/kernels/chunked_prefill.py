@@ -422,14 +422,13 @@ def chunked_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _, bs, kv, _ = k_pool.shape
     grid, ws = walk_plan(name, q, k_pool, block_tables)
     out = torch.empty_like(q)
-    err = _kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
-        ptr(v_scale), block_tables.data_ptr(), start.data_ptr(),
-        ptr(live_kv), out.data_ptr(), ptr(ws), B, W, h, kv, hd, bs,
-        block_tables.shape[1], grid[1], runtime.DTYPE_CODES[q.dtype],
-        runtime.DTYPE_CODES[k_pool.dtype], float(scale),
-        runtime.stream_handle(q))
-    runtime.check(err, name)
+    runtime.launch(
+        name, _kernel(), q, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+        block_tables.data_ptr(), start.data_ptr(), ptr(live_kv),
+        out.data_ptr(), ptr(ws), B, W, h, kv, hd, bs, block_tables.shape[1],
+        grid[1], runtime.DTYPE_CODES[q.dtype],
+        runtime.DTYPE_CODES[k_pool.dtype], float(scale))
     chunked_prefill_attention.launches += 1
     chunked_prefill_attention.live_kv_launches += live_kv is not None
     chunked_prefill_attention.last_grid = grid

@@ -109,12 +109,11 @@ def ffn1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if M == 0 or N == 0:
         return out
     splits, ws = split_plan(x, (N,))
-    err = _kernels()[0](x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                        out.data_ptr(), M, K, N, runtime.DTYPE_CODES[x.dtype],
-                        int(b1.dtype == torch.float32), code,
-                        None if ws is None else ws.data_ptr(), splits, PLAN,
-                        runtime.stream_handle(x))
-    runtime.check(err, "ffn1")
+    runtime.launch("ffn1", _kernels()[0], x, x.data_ptr(), w1.data_ptr(),
+                   b1.data_ptr(), out.data_ptr(), M, K, N,
+                   runtime.DTYPE_CODES[x.dtype],
+                   int(b1.dtype == torch.float32), code,
+                   None if ws is None else ws.data_ptr(), splits, PLAN)
     ffn1.launches += 1
     return out
 
@@ -136,11 +135,10 @@ def ffn1_gated(x: torch.Tensor, w1: torch.Tensor, wg: torch.Tensor,
     if M == 0 or N == 0:
         return out
     splits, ws = split_plan(x, (N, N))
-    err = _kernels()[1](x.data_ptr(), w1.data_ptr(), wg.data_ptr(),
-                        out.data_ptr(), M, K, N, runtime.DTYPE_CODES[x.dtype],
-                        code, None if ws is None else ws.data_ptr(), splits,
-                        PLAN, runtime.stream_handle(x))
-    runtime.check(err, "ffn1_gated")
+    runtime.launch("ffn1_gated", _kernels()[1], x, x.data_ptr(),
+                   w1.data_ptr(), wg.data_ptr(), out.data_ptr(), M, K, N,
+                   runtime.DTYPE_CODES[x.dtype], code,
+                   None if ws is None else ws.data_ptr(), splits, PLAN)
     ffn1_gated.launches += 1
     return out
 

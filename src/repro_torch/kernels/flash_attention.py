@@ -237,12 +237,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # splits > 1: the ranges' accumulators, then their m and l, in float32
     ws = torch.empty(splits * B * Sq * H * (hd + 2), dtype=torch.float32,
                      device=q.device) if splits > 1 else None
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, H, Sq, skv, hd, 1.0 / math.sqrt(hd), int(causal),
-                    runtime.DTYPE_CODES[q.dtype],
-                    None if ws is None else ws.data_ptr(), splits,
-                    runtime.stream_handle(q))
-    runtime.check(err, "flash_attention")
+    runtime.launch("flash_attention", _kernel(), q, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Sq, skv,
+                   hd, 1.0 / math.sqrt(hd), int(causal),
+                   runtime.DTYPE_CODES[q.dtype],
+                   None if ws is None else ws.data_ptr(), splits)
     flash_attention.launches += 1
     flash_attention.last_grid = (ctas, groups, splits)
     return o

@@ -148,12 +148,10 @@ def int8_matmul(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
     c = torch.empty((M, N), dtype=out_dtype, device=qx.device)
     ws = torch.empty(splits * M * N, dtype=torch.int32, device=qx.device) \
         if splits > 1 else None
-    err = _kernel()(qx.data_ptr(), qw.data_ptr(), sx.data_ptr(),
-                    sw.data_ptr(), c.data_ptr(),
-                    None if ws is None else ws.data_ptr(), M, K, N,
-                    runtime.DTYPE_CODES[out_dtype], bm, bn, splits, PLAN,
-                    runtime.stream_handle(qx))
-    runtime.check(err, "int8_matmul")
+    runtime.launch("int8_matmul", _kernel(), qx, qx.data_ptr(),
+                   qw.data_ptr(), sx.data_ptr(), sw.data_ptr(), c.data_ptr(),
+                   None if ws is None else ws.data_ptr(), M, K, N,
+                   runtime.DTYPE_CODES[out_dtype], bm, bn, splits, PLAN)
     int8_matmul.launches += 1
     return c
 

@@ -177,10 +177,9 @@ def _launch(wrapper, x: torch.Tensor, params: tuple, eps: float
         and not any(p % UNIT_BYTES for p in ptrs)
     plan = norm_plan(R, D, x.dtype, runtime.sm_count(x.device), vector)
     fn = _kernels()[0 if name == "layernorm" else 1]
-    err = fn(*ptrs, R, D, runtime.DTYPE_CODES[x.dtype],
-             runtime.DTYPE_CODES[params[0].dtype], plan.code, plan.units,
-             plan.wpr, plan.threads, plan.grid, eps, runtime.stream_handle(x))
-    runtime.check(err, name)
+    runtime.launch(name, fn, x, *ptrs, R, D, runtime.DTYPE_CODES[x.dtype],
+                   runtime.DTYPE_CODES[params[0].dtype], plan.code,
+                   plan.units, plan.wpr, plan.threads, plan.grid, eps)
     wrapper.launches += 1
     wrapper.last_plan = plan
     return y

@@ -94,14 +94,13 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _, bs, kv, _ = k_pool.shape
     grid, ws = cp.walk_plan(name, q[:, None], k_pool, block_tables)
     out = torch.empty_like(q)
-    err = _kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), cp.ptr(k_scale),
-        cp.ptr(v_scale), block_tables.data_ptr(), lengths.data_ptr(),
-        cp.ptr(live_kv), out.data_ptr(), cp.ptr(ws), B, h, kv, hd, bs,
-        block_tables.shape[1], grid[1], runtime.DTYPE_CODES[q.dtype],
-        runtime.DTYPE_CODES[k_pool.dtype], float(scale),
-        runtime.stream_handle(q))
-    runtime.check(err, name)
+    runtime.launch(
+        name, _kernel(), q, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), cp.ptr(k_scale), cp.ptr(v_scale),
+        block_tables.data_ptr(), lengths.data_ptr(), cp.ptr(live_kv),
+        out.data_ptr(), cp.ptr(ws), B, h, kv, hd, bs, block_tables.shape[1],
+        grid[1], runtime.DTYPE_CODES[q.dtype],
+        runtime.DTYPE_CODES[k_pool.dtype], float(scale))
     paged_decode_attention.launches += 1
     paged_decode_attention.live_kv_launches += live_kv is not None
     paged_decode_attention.last_grid = grid

@@ -66,12 +66,10 @@ def qkv_proj(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     if M == 0:
         return outs
     splits, work = split_plan(x, (nq, nkv, nkv))
-    err = _kernel()(x.data_ptr(), *(w.data_ptr() for w in ws),
-                    *(o.data_ptr() for o in outs), M, K, nq, nkv,
-                    runtime.DTYPE_CODES[x.dtype],
-                    None if work is None else work.data_ptr(), splits, PLAN,
-                    runtime.stream_handle(x))
-    runtime.check(err, "qkv_proj")
+    runtime.launch("qkv_proj", _kernel(), x, x.data_ptr(),
+                   *(w.data_ptr() for w in ws), *(o.data_ptr() for o in outs),
+                   M, K, nq, nkv, runtime.DTYPE_CODES[x.dtype],
+                   None if work is None else work.data_ptr(), splits, PLAN)
     qkv_proj.launches += 1
     return outs
 

@@ -150,6 +150,26 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(name: str, entry: ctypes._CFuncPtr, t: torch.Tensor,
+           *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` with ``t``'s device
+    current and its current stream, and raise on a CUDA error.  Every
+    kernel wrapper launches through here: the launch, the dynamic shared
+    memory attribute (set once per kernel and current device,
+    ``csrc/launch.cuh``) and the stream then all belong to the tensor's
+    device, whichever device is current.  The device is switched only
+    where it differs (never inside a CUDA graph capture, which runs on the
+    captured tensors' device), so an eager step pays one device query a
+    launch."""
+    index = t.device.index
+    if index is None or index == torch.cuda.current_device():
+        err = entry(*args, stream_handle(t))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, stream_handle(t))
+    check(err, name)
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -124,11 +124,9 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.zeros((M, N), dtype=a.dtype, device=a.device)
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     splits, ws = split_plan(a, (N,))
-    err = _kernel()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, K, N,
-                    runtime.DTYPE_CODES[a.dtype],
-                    None if ws is None else ws.data_ptr(), splits, PLAN,
-                    runtime.stream_handle(a))
-    runtime.check(err, "tiled_matmul")
+    runtime.launch("tiled_matmul", _kernel(), a, a.data_ptr(), b.data_ptr(),
+                   c.data_ptr(), M, K, N, runtime.DTYPE_CODES[a.dtype],
+                   None if ws is None else ws.data_ptr(), splits, PLAN)
     tiled_matmul.launches += 1
     return c
 

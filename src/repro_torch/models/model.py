@@ -1,15 +1,21 @@
-"""The dense decoder LM of the port (the reference's ``Model`` for family
-``dense``): parameters, the paged KV pool and the dense per-slot cache,
-``forward``, ``decode_step`` and ``mixed_step``.
+"""The decoder LM of the port (the reference's ``Model`` for the families
+``dense`` and ``moe``): parameters, the paged KV pool and the dense
+per-slot cache, ``forward``, ``decode_step`` and ``mixed_step``.
 
 Parameters mirror the reference's pytree, one module per layer instead
 of a stacked layer axis: ``embed.table``, ``final_norm.scale``,
 ``layers.<i>.{ln1, attn.{wq,wk,wv,wo}, ln2, ffn.{w1,wg,w2}}`` and, for a
-model with untied embeddings, ``lm_head.table``.  Dense
-kernels (``[d_in, d_out]``, as the reference stores them) and their
-biases are kept in the compute dtype, cast once from the parameter dtype;
-norm scales and the embedding table stay in the parameter dtype, since
-the norms and ``unembed`` read them in float32.
+model with untied embeddings, ``lm_head.table``.  An MoE model's layers
+hold ``moe.{router, w1, wg, w2}`` (and ``moe.shared.{w1,wg,w2}`` with
+shared experts) in place of ``ffn``, after a dense prefix of
+``first_k_dense`` layers ``dense_prefix.<j>.…`` with FFNs of width
+``dense_d_ff``; the prefix's layer j uses cache layer j, main layer i
+cache layer ``first_k_dense + i``.  Dense kernels (``[d_in, d_out]``,
+as the reference stores them), their biases and the expert weights are
+kept in the compute dtype, cast once from the parameter dtype (the
+reference casts them to x's dtype on every call: the same numbers);
+norm scales, the router and the embedding table stay in the parameter
+dtype, since the norms, the router and ``unembed`` read them in float32.
 
 With ``quant="int8"`` every eligible dense kernel and the embedding and
 ``lm_head`` tables (``core.serve_quant``) is held as int8 values with a float32 buffer beside
@@ -88,22 +94,50 @@ class Attention(nn.Module):
 
 
 class FFN(nn.Module):
-    def __init__(self, cfg: ArchConfig, dtype, device):
+    def __init__(self, cfg: ArchConfig, d_ff: int, bias: bool, dtype,
+                 device):
         super().__init__()
-        bias = cfg.norm == "layernorm"  # paper-style FFN carries biases
-        self.w1 = Dense(cfg.d_model, cfg.d_ff, bias, dtype, device)
-        self.wg = Dense(cfg.d_model, cfg.d_ff, bias, dtype, device) \
+        self.w1 = Dense(cfg.d_model, d_ff, bias, dtype, device)
+        self.wg = Dense(cfg.d_model, d_ff, bias, dtype, device) \
             if layers.is_gated(cfg.activation) else None
-        self.w2 = Dense(cfg.d_ff, cfg.d_model, bias, dtype, device)
+        self.w2 = Dense(d_ff, cfg.d_model, bias, dtype, device)
+
+
+class MoE(nn.Module):
+    """The routed experts ``[E, d, f]`` / ``[E, f, d]`` and the router
+    ``[d, E]`` (in the parameter dtype), plus a shared dense FFN of width
+    ``num_shared_experts * shared_expert_d_ff`` (no biases)."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        e, f = m.num_experts, m.expert_d_ff
+        self.router = _frozen((d, e), param_dtype, device)
+        self.w1 = _frozen((e, d, f), dtype, device)
+        self.wg = _frozen((e, d, f), dtype, device) \
+            if layers.is_gated(cfg.activation) else None
+        self.w2 = _frozen((e, f, d), dtype, device)
+        self.shared = FFN(cfg, m.num_shared_experts * m.shared_expert_d_ff,
+                          False, dtype, device) \
+            if m.num_shared_experts else None
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ArchConfig, param_dtype, compute_dtype, device):
+    """A decoder layer: the dense FFN of width ``d_ff`` (with biases in a
+    layernorm model, as the paper's FFN) or, with ``moe``, the MoE
+    block."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, compute_dtype, device,
+                 d_ff: int | None = None, moe_block: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
         self.attn = Attention(cfg, compute_dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
-        self.ffn = FFN(cfg, compute_dtype, device)
+        if moe_block:
+            self.moe = MoE(cfg, param_dtype, compute_dtype, device)
+        else:
+            self.ffn = FFN(cfg, cfg.d_ff if d_ff is None else d_ff,
+                           cfg.norm == "layernorm", compute_dtype, device)
 
 
 class Embedding(nn.Module):
@@ -113,7 +147,7 @@ class Embedding(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense-family causal LM.
+    """A dense- or MoE-family causal LM.
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -129,10 +163,13 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.positional not in ("rope", "none"):
+        if cfg.family not in ("dense", "moe") \
+                or (cfg.family == "moe") != (cfg.moe is not None) \
+                or cfg.positional not in ("rope", "none"):
             raise ValueError(
-                f"{cfg.name}: the port's Model serves the dense family with "
-                "rope (or no) positions (ROADMAP.md Queue 1 items 11-12)")
+                f"{cfg.name}: the port's Model serves the dense and moe "
+                "families (an moe config with its MoEConfig) with rope (or "
+                "no) positions (ROADMAP.md Queue 1 items 11-12)")
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")
@@ -147,9 +184,15 @@ class Model(nn.Module):
         self.quant_min_size = quant_min_size
         self.codec = CacheCodec(kv_dtype)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, param_dtype, dev)
+        # an MoE model: the dense prefix, then the MoE blocks
+        k = cfg.moe.first_k_dense if cfg.moe is not None else 0
+        self.dense_prefix = nn.ModuleList(
+            Block(cfg, param_dtype, compute_dtype, dev,
+                  d_ff=cfg.moe.dense_d_ff) for _ in range(k)) if k else None
         self.layers = nn.ModuleList(
-            Block(cfg, param_dtype, compute_dtype, dev)
-            for _ in range(cfg.num_layers))
+            Block(cfg, param_dtype, compute_dtype, dev,
+                  moe_block=cfg.moe is not None)
+            for _ in range(cfg.num_layers - k))
         self.final_norm = Norm(cfg.d_model, cfg.norm, param_dtype, dev)
         # the untied unembedding [vocab, d_model] (the reference's
         # ``params["lm_head"]["table"]``); tied models unembed with the
@@ -157,9 +200,11 @@ class Model(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else Embedding(
             cfg.vocab_size, cfg.d_model, param_dtype, dev)
         if quant == "int8":
+            # expert and router leaves are not named kernel: they stay
+            # float, as in the reference
             for name, prm in list(self.named_parameters()):
-                leaf = serve_quant.eligible(name, prm.shape, cfg.num_layers,
-                                            quant_min_size)
+                leaf = serve_quant.eligible(name, prm.shape,
+                                            len(self.layers), quant_min_size)
                 if leaf is not None:
                     _to_int8(self.get_submodule(name.rpartition(".")[0]),
                              leaf)
@@ -178,13 +223,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights at the reference ``ParamBuilder``'s scales: dense
-        kernels normal / sqrt(fan_in), the embedding normal * 0.02, the
-        untied ``lm_head`` table normal / sqrt(vocab) (the reference builds
-        it with no scale, so its fan-in rule reads the table's first
-        dim), biases zero, norm scales one.  Draws come from ``generator`` on its own
-        device, in the order of ``named_parameters``, rounded to the
-        parameter dtype before any cast to the storage dtype (or before
-        quantization, for an int8 leaf)."""
+        kernels, the router and the experts normal / sqrt(fan_in) with
+        fan_in = ``shape[-2]`` (d for an expert leaf ``[E, d, f]``), the
+        embedding normal * 0.02, the untied ``lm_head`` table normal /
+        sqrt(vocab) (the reference builds it with no scale, so its fan-in
+        rule reads the table's first dim), biases zero, norm scales one.
+        Draws come from ``generator`` on its own device, in the order of
+        ``named_parameters``, rounded to the parameter dtype before any
+        cast to the storage dtype (or before quantization, for an int8
+        leaf)."""
         for name, prm in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "bias":
@@ -193,7 +240,7 @@ class Model(nn.Module):
                 prm.fill_(1.0)
             else:
                 std = 0.02 if name == "embed.table" \
-                    else 1.0 / math.sqrt(max(prm.shape[0], 1))
+                    else 1.0 / math.sqrt(max(prm.shape[-2], 1))
                 x = torch.randn(prm.shape, generator=generator,
                                 device=generator.device) * std
                 if prm.dtype == torch.int8:
@@ -257,8 +304,16 @@ class Model(nn.Module):
     def _ffn_half(self, h: torch.Tensor, blk: Block) -> torch.Tensor:
         hn = layers.apply_norm(h, blk.ln2, self.cfg.norm,
                                self.matmul_backend)
+        if hasattr(blk, "moe"):
+            return h + moe.apply_moe(hn, blk.moe, self.cfg,
+                                     self.matmul_backend)
         return h + moe.apply_ffn(hn, blk.ffn, self.cfg.activation,
                                  self.matmul_backend)
+
+    def blocks(self) -> list[Block]:
+        """Every layer in cache order: the dense prefix, then the main
+        stack."""
+        return [*(self.dense_prefix or ()), *self.layers]
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -268,7 +323,7 @@ class Model(nn.Module):
         x = self._embed(tokens)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
-        for blk in self.layers:
+        for blk in self.blocks():
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
             x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
@@ -284,7 +339,7 @@ class Model(nn.Module):
         logits [B, 1, V]; the new K/V rows are written into ``cache`` in
         place."""
         x = self._embed(tokens)
-        for i, blk in enumerate(self.layers):
+        for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
             x = x + attn.gqa_decode_paged(
@@ -307,7 +362,7 @@ class Model(nn.Module):
         ``block_tables``, or with ``block_tables=None`` the dense cache of
         ``init_dense_cache`` (a speculation draft's)."""
         x = self._embed(tokens)
-        for i, blk in enumerate(self.layers):
+        for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
             if block_tables is None:

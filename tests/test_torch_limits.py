@@ -29,7 +29,7 @@ PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
 
 def test_model_names_items_11_12_for_other_families():
     with pytest.raises(ValueError, match="Queue 1 items 11-12"):
-        Model(dataclasses.replace(CFG, family="moe"), device="cpu")
+        Model(dataclasses.replace(CFG, family="vlm"), device="cpu")
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [

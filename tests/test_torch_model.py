@@ -259,7 +259,7 @@ def test_entry_points_need_a_device_choice():
     (dict(memory=MemorySpec()), "item 12"),
     (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
     (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="moe")), "items 11-12"),
+    (dict(arch=dataclasses.replace(CFG, family="vlm")), "items 11-12"),
 ])
 def test_spec_rejects_what_is_not_ported(kw, item):
     base = dict(arch=CFG, memory=MemorySpec(cache_layout="paged"))

@@ -480,7 +480,7 @@ def test_stochastic_speculation_replays(ref):
 @pytest.mark.parametrize("build,match", [
     (lambda: SpeculationSpec(draft_model=CFG, k=0), "must be >= 1"),
     (lambda: SpeculationSpec(draft_model=dataclasses.replace(
-        CFG, family="moe"), k=2), "Queue 1 items 11-12"),
+        CFG, family="vlm"), k=2), "Queue 1 items 11-12"),
     (lambda: RuntimeSpec(arch=CFG, memory=MemorySpec(
         cache_layout="paged", max_len=64, block_size=8),
         scheduler=SchedulerSpec(policy="bucketed"),
