@@ -163,8 +163,9 @@ Phases (any failure raises and the script exits non-zero):
    printed, cache on and off.  Inside phase 6, one graphed fleet engine
    with the prefix cache serves both members the same prompts: each hits
    only its own member's chain.
-9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 12 of its
-   24 layers (random weights; cut since phase 11 joined, for run time),
+9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 8 of its
+   24 layers (random weights; cut since phases 11 and 12 joined, for run
+   time),
    the kernel path, graphed, phase 5's engine and request mix.
    (a) A self-draft (the target's own weights) against speculation off:
    f32 streams (float32 pools) equal, or diverging only where the two
@@ -224,6 +225,28 @@ Phases (any failure raises and the script exits non-zero):
    Phase 2 holds ``tiled_matmul`` and ``int8_matmul`` (bit-identical)
    at granite's K/V width (8 and 128 x 1024 x 512) and both walks at 16
    heads over 8 kv heads of 64 (decode and W 16, bf16 and int8 pools).
+12. The register-driven engine (ROADMAP Queue 1 item 14, the paper's
+   claim C1) at the paper's full BERT widths, f32 with TF32 off, each
+   fabric one CUDA graph.  Fabric E (``maxima_for`` adaptor-bert,
+   shallow-transformer and custom-encoder at 64 positions: 12 heads, 12
+   layers, d_model 768, d_ff 3072, head dim 66, 30522 outputs; batch 1)
+   serves the three networks, adaptor-bert at 32 positions, a GQA-packed
+   topology (12 heads over 4 kv heads) and the Fig. 8 heads sweep (h =
+   2..12, d_model 64h, d_ff 256h); fabric D (a 12-layer decoder
+   provisioned) two enc-dec topologies (adaptor-bert widths 12 + 12,
+   shallow-transformer widths 2 + 2) and encoder-only adaptor-bert without
+   target tokens; then fabric E at batch 8 and in bf16, engines of their
+   own.  Random networks from the generator through the port's
+   ``random_network`` and ``pack``.  Gates: each output's live lanes within
+   2e-4 x max|want| (rtol 1e-3) of ``engine_ref.forward`` (bf16: printed),
+   the idle-lane case (adaptor-bert loaded, a 6-head 6-layer topology
+   selected) within 3e-4, one capture per engine, graphed = eager bit for
+   bit, the weight buffers' addresses unchanged across loads, a topology
+   switch with its weight load under ``set_sync_debug_mode("error")``, and
+   no launch of a hand-written kernel.  Printed: per-call medians graphed
+   and eager (``Timer``), the first call's seconds (warm-up, capture,
+   replay), one weight load's time, each call's bound (products' FLOPs at
+   67 TFLOP/s, bytes at 3.35 TB/s) and the Fig. 8 live-FLOP fractions.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -283,7 +306,12 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
 from repro_torch.launch.timing import (  # noqa: E402
     LAYER_MATMULS, NORM_SHAPES, NORM_TOL, STEP_ROWS, Timer, bound_ms,
     norm_calls, norm_cost, norm_err, norm_operands)
-from repro_torch.core import masking  # noqa: E402
+from repro_torch.core import engine_ref, masking  # noqa: E402
+from repro_torch.core.adaptive import (AdaptiveEngine,  # noqa: E402
+                                       EngineOptions, pack)
+from repro_torch.core.registers import make_registers  # noqa: E402
+from repro_torch.launch.adaptive import (FIG8_HEADS, live_cost,  # noqa: E402
+                                         padded_cost)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -346,7 +374,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 "moe_int8": ("int8_matmul", "paged_decode_attention",
                              "chunked_prefill_attention", "rmsnorm"),
                 "moe_spec": ("tiled_matmul", "chunked_prefill_attention",
-                             "rmsnorm")}
+                             "rmsnorm"),
+                # phase 12: the register-driven engine computes with
+                # torch.matmul, as the reference with jnp.einsum: no
+                # hand-written kernel may launch there (checked)
+                "adaptive": ()}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -2516,9 +2548,10 @@ def check_prefix_fleet(members) -> None:
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding
 # ---------------------------------------------------------------------------
-# phase 9's target: qwen1.5-0.5b at 12 of its 24 layers (cut when phase 11
-# joined: the run stays near its time; every gate a layer carries stays)
-SPEC_TARGET_LAYERS = 12
+# phase 9's target: qwen1.5-0.5b at 8 of its 24 layers (cut to 12 when
+# phase 11 joined and to 8 when phase 12 did: the run stays near its time;
+# every gate a layer carries stays)
+SPEC_TARGET_LAYERS = 8
 SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 layers
 
 
@@ -3124,6 +3157,323 @@ def check_moe(timer, dev, g) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the register-driven engine (the paper's claim C1)
+# ---------------------------------------------------------------------------
+# the paper's three evaluation networks (configs/adaptor_bert.py,
+# shallow_transformer.py, custom_encoder.py) at its measurement point, 64
+# positions
+PAPER_NETS = ("adaptor-bert", "shallow-transformer", "custom-encoder")
+ADAPTIVE_SEQ = 64
+# tests/test_adaptive.py's gates: x max|want| with rtol 1e-3, and its
+# idle-lane case's
+ADAPTIVE_TOL, LEAK_TOL = 2e-4, 3e-4
+
+
+@dataclasses.dataclass
+class Topo:
+    """One topology of a fabric: its unpadded network, registers and
+    activation, and whether the call passes target tokens."""
+
+    label: str
+    net: dict
+    regs: object
+    act: str
+    tgt: bool = False
+
+
+def run_fabric(timer, eng, topos: list, g, batch: int, tol: float | None,
+               label: str) -> dict:
+    """Every topology of ``topos`` through one compiled step of ``eng``:
+    its live lanes against the oracle (``tol`` x max|want|, rtol 1e-3;
+    None: the distance printed only), the graphed output equal to the
+    eager one bit for bit, the buffers' addresses unchanged, and the
+    per-call median of each (``Timer``).  Gates one capture in all.
+    Returns per-topology rows and the first call's seconds."""
+    step, serve = eng.compile(), eng.serve_fn()
+    ptrs = eng.buffer_ptrs()
+    S = ADAPTIVE_SEQ
+    padded, nbytes = padded_cost(eng, batch, S)
+    pb, pby = bound_ms(nbytes, padded, torch.float32)
+    print(f"\n== {label}: {eng.mx}, batch {batch}, {eng.opt.dtype}; a call "
+          f"computes {padded / 1e9:.3f} GFLOP (products) and moves "
+          f"{nbytes / 1e9:.4f} GB: bound {pb:.4f} ms ({pby}; 67 TFLOP/s f32, "
+          "3.35 TB/s)")
+    rows, first_s = [], None
+    for t in topos:
+        st = t.regs.static()
+        s, o = st["sequence"], st["out"]
+        vocab = t.net["vocab"]
+        toks = torch.randint(0, vocab, (batch, S), generator=g, device=eng.device)
+        tgt = (torch.randint(0, vocab, (batch, S), generator=g,
+                             device=eng.device) if t.tgt else None)
+        act = int(t.act == "gelu")
+        params = pack(eng, t.net)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, t.regs, act, toks, tgt)
+        torch.cuda.synchronize()
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        want = engine_ref.forward(t.net, toks[:, :s], activation=t.act,
+                                  tgt_tokens=tgt[:, :s] if t.tgt else None)
+        got = out[:, :s, :o].float()
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        if tol is not None and not torch.allclose(
+                got, want, rtol=1e-3, atol=tol * scale):
+            raise AssertionError(f"{label}, {t.label}: {err:.3e} from the "
+                                 f"oracle, past {tol} x {scale:.3e} "
+                                 "(rtol 1e-3)")
+        act_t = torch.tensor(act, dtype=torch.int32, device=eng.device)
+        tgt_e = tgt if tgt is not None else (toks if eng.has_decoder
+                                             else None)
+
+        def eager(t=t, act_t=act_t, toks=toks, tgt_e=tgt_e):
+            return serve(eng.params(), t.regs, act_t, toks, tgt_e)
+        if not torch.equal(eager(), out):
+            raise AssertionError(f"{label}, {t.label}: the graphed output "
+                                 "differs from the eager one")
+        if eng.buffer_ptrs() != ptrs:
+            raise AssertionError(f"{label}: a weight buffer moved")
+        ms = timer(lambda: step(params, t.regs, act, toks, tgt))
+        ms_e = timer(eager)
+        live, live_bytes = live_cost(st, batch, eng.opt.dtype.itemsize)
+        lb, lby = bound_ms(live_bytes, live, torch.float32)
+        rows.append(dict(label=t.label, ms=ms, eager_ms=ms_e, err=err / scale,
+                         frac=live / padded, live_bound=lb))
+        print(f"  {t.label:44s} graphed {ms:.4f} ms, eager {ms_e:.4f} ms "
+              f"(bound {pb:.4f}); max|err| / max|want| {err / scale:.2e}"
+              f"{'' if tol is not None else ' (not gated)'}; live-FLOP "
+              f"fraction {live / padded:.3f} (live bound {lb:.4f} ms, "
+              f"{lby})")
+    if eng.capture_count() != 1:
+        raise AssertionError(f"{label}: {eng.capture_count()} captures, "
+                             "one must serve every topology")
+    print(f"  {label}: {len(topos)} topologies, captures = "
+          f"{eng.capture_count()}; the first call (warm-up, capture, "
+          f"replay) {first_s:.3f} s; buffers never moved")
+    return {"rows": rows, "first_s": first_s, "bound_ms": pb,
+            "captures": eng.capture_count()}
+
+
+def trace_call(label: str, fn) -> None:
+    """One call of ``fn`` traced by ``torch.profiler``: its device kernels,
+    their summed device time, the products' share (cuBLAS gemm kernels)
+    and the longest kernels by name."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    if not evs:
+        print(f"  {label}: the profiler traced no device activity (not "
+              "measured)")
+        return
+    us = sum(e.self_device_time_total for e in evs)
+    gemm = sum(e.self_device_time_total for e in evs
+               if "gemm" in e.key.lower() or "nvjet" in e.key)
+    print(f"  {label}, traced: {sum(e.count for e in evs)} device "
+          f"activities, {us / 1e3:.4f} ms of device time, of which the "
+          f"products (cuBLAS gemm kernels) {gemm / 1e3:.4f} ms; the longest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.4f} ms"
+                      for e in evs[:4]))
+
+
+def no_sync_switch(eng, a: Topo, b: Topo, g) -> None:
+    """Two calls of ``eng``'s captured step that switch topology and load
+    new weights (device tensors, ``copy_``), then tokens staged from the
+    host, all under ``set_sync_debug_mode("error")``; the return to the
+    first topology must repeat its output bit for bit."""
+    step = eng.compile()
+    pa, pb = pack(eng, a.net), pack(eng, b.net)
+    vocab = min(a.net["vocab"], b.net["vocab"])
+    toks = torch.randint(0, vocab, (1, ADAPTIVE_SEQ), generator=g,
+                         device=eng.device)
+    first = step(pa, a.regs, int(a.act == "gelu"), toks)
+    host_toks = toks.cpu()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(pb, b.regs, int(b.act == "gelu"), toks)
+        again = step(pa, a.regs, int(a.act == "gelu"), host_toks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(again, first):
+        raise AssertionError("the topology switch under "
+                             "set_sync_debug_mode('error') changed the output")
+    print("  a topology switch with its weight load, and a call with host "
+          "tokens, under set_sync_debug_mode('error'): no host sync")
+
+
+def check_adaptive(timer, dev, g) -> dict:
+    """Phase 12: the register-driven engine (ROADMAP Queue 1 item 14) at the
+    paper's full BERT widths, each fabric one CUDA graph.  Fabric E
+    (encoder-only, ``maxima_for`` the three networks at 64 positions,
+    batch 1, f32) serves the three networks, adaptor-bert at 32 positions,
+    a GQA-packed topology (12 heads over 4 kv heads) and the Fig. 8 heads
+    sweep (h = 2..12, d_model 64h, d_ff 256h), each within
+    ``ADAPTIVE_TOL`` of the port's oracle, then the idle-lane case
+    (adaptor-bert loaded, 6 heads x 6 layers selected) within
+    ``LEAK_TOL``; fabric D (a 12-layer decoder provisioned) serves two
+    enc-dec topologies and encoder-only adaptor-bert without target
+    tokens; then fabric E at batch 8 and in bf16 (its distance to the f32
+    oracle printed).  Each: one capture, graphed = eager bit for bit,
+    buffers never move, per-call medians graphed and eager, the bound;
+    a topology switch under ``set_sync_debug_mode("error")``; the time of
+    one weight load.  No hand-written kernel may launch on this path.
+    Returns {"adaptive": launch counts}."""
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("\n== the register-driven engine (ROADMAP Queue 1 item 14): "
+          "torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+          f"precision {torch.get_float32_matmul_precision()!r}")
+    cfgs = [get_config(n) for n in PAPER_NETS]
+    bert_cfg, shallow_cfg = cfgs[0], cfgs[1]
+    S = ADAPTIVE_SEQ
+    mx_e = maxima_for(*cfgs, seq_max=S)
+    # adaptor-bert's widths, from which the GQA, Fig. 8, idle-lane and
+    # enc-dec topologies are drawn
+    D, H, F, L = (bert_cfg.d_model, bert_cfg.num_heads, bert_cfg.d_ff,
+                  bert_cfg.num_layers)
+    V = bert_cfg.vocab_size
+    hd = D // H
+
+    def net(d, h, f, le, ld=0, kv=None, vocab=V, out=V):
+        return engine_ref.random_network(
+            generator=g, seq=S, d_model=d, heads=h, d_ff=f, layers_enc=le,
+            layers_dec=ld, vocab=vocab, out=out, kv_heads=kv)
+
+    def regs(d, h, f, le, ld=0, kv=None):
+        return make_registers(sequence=S, heads=h, layers_enc=le,
+                              layers_dec=ld, embeddings=d, hidden=f, out=V,
+                              kv_heads=kv, device=dev)
+
+    specs = {c.name: RuntimeSpec(arch=c, maxima=mx_e,
+                                 memory=MemorySpec(max_len=S)) for c in cfgs}
+    paper = [Topo(f"{c.name} at {S}", net(c.d_model, c.num_heads, c.d_ff,
+                                          c.num_layers, vocab=c.vocab_size,
+                                          out=c.vocab_size),
+                  specs[c.name].registers(S, device=dev), c.activation)
+             for c in cfgs]
+    bert = paper[0]
+    e_topos = [*paper,
+               Topo(f"adaptor-bert at {S // 2}", bert.net,
+                    specs[bert_cfg.name].registers(S // 2, device=dev),
+                    "gelu"),
+               Topo(f"GQA {H} heads over {H // 3} kv heads, d {D}",
+                    net(D, H, F, L, kv=H // 3),
+                    regs(D, H, F, L, kv=H // 3), "gelu")]
+    for h in FIG8_HEADS:
+        if h > H:
+            continue
+        e_topos.append(Topo(
+            f"fig8 heads {h}, d {hd * h}, d_ff {4 * hd * h}",
+            net(hd * h, h, 4 * hd * h, L), regs(hd * h, h, 4 * hd * h, L),
+            "relu"))
+    zero_counts()
+    eng_e = AdaptiveEngine(
+        mx_e, EngineOptions(batch=1), device=dev)
+    fab_e = run_fabric(timer, eng_e, e_topos, g, 1, ADAPTIVE_TOL,
+                       "fabric E, encoder-only")
+    step = eng_e.compile()
+    toks = torch.randint(0, V, (1, S), generator=g, device=dev)
+    act_t = torch.ones((), dtype=torch.int32, device=dev)
+    params = pack(eng_e, bert.net)
+    trace_call("adaptor-bert on fabric E, graphed",
+               lambda: step(params, bert.regs, 1, toks))
+    trace_call("adaptor-bert on fabric E, eager",
+               lambda: eng_e.serve_fn()(eng_e.params(), bert.regs, act_t,
+                                        toks))
+    del params
+    # the idle-lane case: adaptor-bert's weights loaded, a topology of half
+    # its heads, width and depth selected; the oracle is adaptor-bert cut
+    # down to it
+    small = dict(d=D // 2, h=H // 2, f=F // 2, layers=L // 2)
+    got = step(pack(eng_e, bert.net),
+               regs(small["d"], small["h"], small["f"], small["layers"]), 1,
+               toks)
+    want = engine_ref.forward(engine_ref.slice_network(bert.net, **small),
+                              toks,
+                              activation="gelu")
+    scale, err = float(want.abs().max()), max_err(got, want)
+    if not torch.allclose(got, want, rtol=1e-3, atol=LEAK_TOL * scale):
+        raise AssertionError(f"idle lanes leak: {err:.3e} past {LEAK_TOL} x "
+                             f"{scale:.3e}")
+    print(f"  idle lanes: adaptor-bert loaded, {small['h']} heads x "
+          f"{small['layers']} layers x d {small['d']} selected: max|err| / "
+          f"max|want| {err / scale:.2e} (gate {LEAK_TOL})")
+    no_sync_switch(eng_e, paper[1], paper[2], g)
+    pa = pack(eng_e, paper[0].net)
+    pb = pack(eng_e, paper[1].net)
+    load_ms = timer(lambda: (eng_e.load(pa), eng_e.load(pb))) / 2
+    n_bytes = sum(b.numel() * b.element_size() for b in eng_e.buffers())
+    print(f"  one weight load (a copy_ per leaf, {len(eng_e.buffer_ptrs())} "
+          f"leaves, {n_bytes / 1e9:.4f} GB): {load_ms:.4f} ms (bound "
+          f"{bound_ms(2 * n_bytes, 0, torch.float32)[0]:.4f} ms, read and "
+          "write at 3.35 TB/s)")
+    if eng_e.capture_count() != 1:
+        raise AssertionError("fabric E captured again")
+    del pa, pb
+    # fabric D: a decoder as deep as adaptor-bert provisioned beside the
+    # encoder
+    mx_d = maxima_for(*cfgs, seq_max=S, layers_dec_max=L)
+    eng_d = AdaptiveEngine(
+        mx_d, EngineOptions(batch=1, decoder=True), device=dev)
+    d_spec = RuntimeSpec(arch=bert_cfg, maxima=mx_d,
+                         memory=MemorySpec(max_len=S))
+    sd, sh, sf, sl = (shallow_cfg.d_model, shallow_cfg.num_heads,
+                      shallow_cfg.d_ff, shallow_cfg.num_layers)
+    d_topos = [
+        Topo(f"enc-dec at adaptor-bert widths, {L} + {L}",
+             net(D, H, F, L, L), regs(D, H, F, L, L), "gelu", tgt=True),
+        Topo(f"enc-dec at shallow-transformer widths, {sl} + {sl}",
+             net(sd, sh, sf, sl, sl), regs(sd, sh, sf, sl, sl), "relu",
+             tgt=True),
+        Topo("adaptor-bert encoder-only, no target", bert.net,
+             d_spec.registers(S, device=dev), "gelu")]
+    fab_d = run_fabric(timer, eng_d, d_topos, g, 1, ADAPTIVE_TOL,
+                       "fabric D, decoder provisioned")
+    del eng_d, d_topos
+    # fabric E at batch 8 and in bf16: engines of their own
+    eng_8 = AdaptiveEngine(
+        mx_e, EngineOptions(batch=8), device=dev)
+    fab_8 = run_fabric(timer, eng_8, paper, g, 8, ADAPTIVE_TOL,
+                       "fabric E at batch 8")
+    del eng_8
+    eng_b = AdaptiveEngine(
+        mx_e, EngineOptions(batch=1, dtype=torch.bfloat16),
+        device=dev)
+    fab_b = run_fabric(timer, eng_b, paper, g, 1, None,
+                       "fabric E in bf16 against the f32 oracle")
+    del eng_b
+    counts = launch_counts()
+    ran = {n: c for n, c in counts.items() if c}
+    if ran:
+        raise AssertionError("a hand-written kernel launched on the "
+                             f"register-driven engine's path: {ran}")
+    print("  fig8 (fabric E, batch 1, f32): heads, graphed ms, eager ms, "
+          "live-FLOP fraction, live bound ms")
+    for r in fab_e["rows"]:
+        if r["label"].startswith("fig8"):
+            print(f"    {r['label']:34s} {r['ms']:.4f} {r['eager_ms']:.4f} "
+                  f"{r['frac']:.3f} {r['live_bound']:.4f}")
+    print(f"  captures: fabric E {eng_e.capture_count()}, D "
+          f"{fab_d['captures']}, batch 8 {fab_8['captures']}, bf16 "
+          f"{fab_b['captures']}; first calls {fab_e['first_s']:.3f} / "
+          f"{fab_d['first_s']:.3f} / {fab_8['first_s']:.3f} / "
+          f"{fab_b['first_s']:.3f} s; no kernel of the library launched; "
+          f"phase 12 took {time.perf_counter() - t_start:.1f} s")
+    del eng_e
+    torch.cuda.empty_cache()
+    return {"adaptive": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3307,6 +3657,8 @@ def main() -> int:
     lap("phase 9")
     launches.update(check_moe(timer, dev, g))
     lap("phase 11")
+    launches.update(check_adaptive(timer, dev, g))
+    lap("phase 12")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec"):
         for name in PATH_KERNELS[path]:

@@ -16,6 +16,12 @@ holds ``QTensor`` leaves; after the numpy conversion each is a
 ``(values, scale)`` pair.  Its int8 values land under the leaf's name and
 its float32 scale under ``<name>_scale``, unstacked like the float leaves,
 so a test can hand both packages the same int8 weights.
+
+``from_jax_adaptive(np_tree, engine)`` takes the register-driven engine's
+padded weights from the reference (its ``pack(...)`` or
+``AdaptiveEngine.init(...)`` output, numpy leaves) and returns the
+parameter tree of the port's ``AdaptiveEngine``: the same names and
+stacked shapes, on the engine's device in its dtype, ready for its step.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.adaptive import unflatten
 from repro_torch.core.serve_quant import SCALE_SUFFIX
 
 
@@ -79,3 +86,22 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
         else:
             out[name] = t.to(device)
     return out
+
+
+def from_jax_adaptive(np_tree: Mapping, engine) -> dict:
+    """The port's ``AdaptiveEngine`` parameter tree from the reference
+    engine's padded weights (numpy leaves).  Names and shapes must be the
+    engine's buffers' exactly: both packages stack the layers alike."""
+    flat = _flatten(np_tree)
+    bufs = dict(engine.named_buffers())
+    if flat.keys() != bufs.keys():
+        raise ValueError(
+            "the reference tree does not match the engine's buffers: "
+            f"missing {sorted(bufs.keys() - flat.keys())}, unexpected "
+            f"{sorted(flat.keys() - bufs.keys())}")
+    for name, arr in flat.items():
+        if arr.shape != tuple(bufs[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape} != the engine's "
+                             f"{tuple(bufs[name].shape)}")
+    return unflatten({name: _tensor(arr, name, engine.opt.dtype)
+                      .to(engine.device) for name, arr in flat.items()})

@@ -2,10 +2,12 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense and MoE decoder families need (the MLA /
-SSM / hybrid / enc-dec sub-configs are ported with their families,
-ROADMAP.md Queue 1 items 11m-12).  Dtype defaults are torch dtypes
-where the JAX package names ``jnp`` ones.
+restricted to what the dense, MoE and encoder families need (the MLA /
+SSM / hybrid / frontend sub-configs are ported with their families,
+ROADMAP.md Queue 1 items 11m-12).  ``EncDecConfig`` is here for the
+register-driven engine's encoder/decoder rule (``core/registers.py``
+``registers_for``, ``core/spec.py`` ``maxima_for``).  Dtype defaults are
+torch dtypes where the JAX package names ``jnp`` ones.
 """
 from __future__ import annotations
 
@@ -36,9 +38,19 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder/decoder (Whisper) configuration."""
+
+    num_encoder_layers: int
+    # Length of the (stub) frontend output fed to the encoder.  For Whisper
+    # this is n_audio_frames / 2 after the conv stack.
+    encoder_seq_len: int = 1500
+
+
+@dataclass(frozen=True)
 class ArchConfig:
-    """A single architecture (the dense- and MoE-family fields of the
-    reference)."""
+    """A single architecture (the dense-, MoE- and encoder-family fields of
+    the reference, and its enc-dec sub-config)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -58,15 +70,20 @@ class ArchConfig:
     max_position_embeddings: int = 131_072
     source: str = ""
     moe: MoEConfig | None = None
+    encdec: EncDecConfig | None = None
 
     def __post_init__(self) -> None:
         self.validate()
 
     def validate(self) -> "ArchConfig":
         """Construction-time shape sanity (same checks and messages as the
-        reference, minus the encoder-family exemption)."""
+        reference)."""
         if self.num_heads > 0:
-            if self.head_dim == 0 and self.d_model % self.num_heads:
+            # the paper's own encoder networks use deliberately odd dims
+            # (custom-encoder: 200/3) and define head_dim = floor(d/h); the
+            # decode families have no such convention, so reject there
+            if self.head_dim == 0 and self.family != "encoder" \
+                    and self.d_model % self.num_heads:
                 raise ValueError(
                     f"{self.name}: d_model={self.d_model} is not divisible "
                     f"by num_heads={self.num_heads} (and no explicit "

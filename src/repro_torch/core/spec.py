@@ -18,9 +18,13 @@ paged pool and the chunked scheduler, with float or int8 weights
 model or a fleet of dense models within ``maxima`` (``maxima_for``; a
 fleet's int8 weights are its own int8 weight table), with or without the
 prefix cache (``MemorySpec.prefix_cache``), and with or without
-speculative decoding (``SpeculationSpec``).  Every other option of the
-reference is rejected at construction with the ROADMAP.md queue item
-that ports it.
+speculative decoding (``SpeculationSpec``).  An encoder-family spec with
+``maxima`` describes one topology of the register-driven engine
+(``core/adaptive.py`` ``AdaptiveEngine.from_spec``), which it lowers to
+the register file (``RuntimeSpec.registers``); it has no decode state, so
+the cache-layout and scheduler rules of the decoding families do not
+apply to it.  Every other option of the reference is rejected at
+construction with the ROADMAP.md queue item that ports it.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
 from repro_torch.core.kv_quant import KV_DTYPES
 from repro_torch.core.paging import PagingConfig, blocks_for_tokens
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
-from repro_torch.core.registers import Maxima
+from repro_torch.core.registers import Maxima, TopologyRegisters, \
+    registers_for
 
 _MATMUL_BACKENDS = ("xla", "pallas")
 _PAGED_ATTN_IMPLS = ("gather", "pallas")
@@ -317,11 +322,14 @@ class RuntimeSpec:
     def validate(self) -> "RuntimeSpec":
         cfg, mem = self.arch, self.memory
         cfg.validate()
-        if cfg.family not in PORTED_FAMILIES:
+        decodes = cfg.family != "encoder"
+        if not decodes:
+            self._validate_encoder()
+        elif cfg.family not in PORTED_FAMILIES:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               f"; the port serves the families "
                               f"{PORTED_FAMILIES}")
-        if self.maxima is not None and cfg.family != "dense":
+        if self.maxima is not None and decodes and cfg.family != "dense":
             # the reference fabric's membership check (check_member)
             raise ValueError(
                 f"{cfg.name}: multi-topology serving covers the dense GQA "
@@ -341,6 +349,53 @@ class RuntimeSpec:
                 raise ValueError(
                     "speculation requires a satisfiable chunked scheduler: "
                     + "; ".join(bad))
+        if decodes:
+            self._validate_decode_state()
+        if self.speculation is not None:
+            self._validate_speculation()
+        if self.mesh is not None:
+            raise _not_ported("mesh serving (mesh=...)", "item 13")
+        if self.maxima is not None:
+            bad = self.violations(self.maxima)
+            if bad:
+                hint = ""
+                if any(v.startswith("sequence=") for v in bad):
+                    hint = (" (the spec's sequence bound is memory.max_len "
+                            "— set memory=MemorySpec(max_len=...) to the "
+                            "intended sequence length)")
+                raise ValueError(
+                    "spec does not fit its own maxima (re-synthesis "
+                    "required): " + "; ".join(bad) + hint)
+        return self
+
+    def _validate_encoder(self) -> None:
+        """An encoder has no decode step: its spec is a topology of the
+        register-driven engine, which is built at ``maxima``.  The
+        reference's refusals of a paged or int8 KV cache for the family
+        hold as well."""
+        cfg, mem = self.arch, self.memory
+        if self.maxima is None:
+            raise _not_ported(
+                "family 'encoder' without maxima", "items 11-12",
+                "; an encoder runs on the register-driven engine "
+                "(core/adaptive.py), built at maxima= (maxima_for)")
+        if mem.cache_layout == "paged":
+            raise ValueError(
+                f"cache_layout='paged' is unsupported for family "
+                f"{cfg.family!r} (SSM / rolling-window / enc-dec decode "
+                "state is not paged); use cache_layout='dense'")
+        if mem.kv_dtype == "int8":
+            raise ValueError(
+                f"kv_dtype='int8' is unsupported for family {cfg.family!r}: "
+                "only KV/latent attention caches are quantized "
+                f"(families ('dense', 'vlm', 'moe')); recurrent / "
+                "rolling-window / enc-dec decode state keeps the compute "
+                "dtype — use kv_dtype='compute'")
+
+    def _validate_decode_state(self) -> None:
+        """The cache layout and the scheduler of a decoding family: the
+        paged pool and the chunked scheduler are what the port serves."""
+        mem = self.memory
         if mem.cache_layout != "paged":
             raise _not_ported(
                 f"cache_layout={mem.cache_layout!r}", "item 12",
@@ -365,22 +420,6 @@ class RuntimeSpec:
             raise ValueError(
                 "scheduler policy 'chunked' is not satisfiable: "
                 + "; ".join(bad))
-        if self.speculation is not None:
-            self._validate_speculation()
-        if self.mesh is not None:
-            raise _not_ported("mesh serving (mesh=...)", "item 13")
-        if self.maxima is not None:
-            bad = self.violations(self.maxima)
-            if bad:
-                hint = ""
-                if any(v.startswith("sequence=") for v in bad):
-                    hint = (" (the spec's sequence bound is memory.max_len "
-                            "— set memory=MemorySpec(max_len=...) to the "
-                            "intended sequence length)")
-                raise ValueError(
-                    "spec does not fit its own maxima (re-synthesis "
-                    "required): " + "; ".join(bad) + hint)
-        return self
 
     def _validate_speculation(self) -> None:
         """The reference's checks of a speculating spec: the verify lanes
@@ -408,15 +447,26 @@ class RuntimeSpec:
                 "verified as target token ids, so the models must share a "
                 "tokenizer space")
 
+    def registers(self, sequence: int, layers_dec: int | None = None, *,
+                  device: str | torch.device | None = None
+                  ) -> TopologyRegisters:
+        """Lower to the §3.12 register file on ``device`` (default: the
+        card), identical to ``registers_for(self.arch, ...)``: one
+        lowering, two spellings."""
+        return registers_for(self.arch, sequence, layers_dec, device=device)
+
     def static_registers(self, sequence: int | None = None) -> dict[str, int]:
-        """The register values as plain ints (for ceiling checks); the
-        dense family has no decoder stack of its own (layers_dec 0)."""
+        """The register values as plain ints (for ceiling checks): an
+        enc-dec arch's encoder depth is ``encdec.num_encoder_layers`` and
+        its decoder depth ``num_layers``; every other arch has no decoder
+        stack (layers_dec 0)."""
         cfg = self.arch
         return {
             "sequence": self.memory.max_len if sequence is None else sequence,
             "heads": cfg.num_heads,
-            "layers_enc": cfg.num_layers,
-            "layers_dec": 0,
+            "layers_enc": (cfg.encdec.num_encoder_layers if cfg.encdec
+                           else cfg.num_layers),
+            "layers_dec": cfg.num_layers if cfg.encdec else 0,
             "embeddings": cfg.d_model,
             "hidden": cfg.d_ff,
             "out": cfg.vocab_size,
@@ -447,16 +497,22 @@ class RuntimeSpec:
 def maxima_for(*archs: ArchConfig, seq_max: int,
                layers_dec_max: int | None = None) -> Maxima:
     """The smallest fabric covering every arch: elementwise maxima, the
-    'synthesis planning' step of multi-topology serving (the reference's,
-    without its mesh sharding, which waits for ROADMAP.md Queue 1 item
-    13)."""
+    'synthesis planning' step of multi-topology serving and of the
+    register-driven engine (the reference's, without its mesh sharding,
+    which waits for ROADMAP.md Queue 1 item 13).  An enc-dec arch
+    contributes ``encdec.num_encoder_layers`` encoder and ``num_layers``
+    decoder layers; ``layers_dec_max`` overrides the decoder depth."""
     if not archs:
         raise ValueError("maxima_for needs at least one ArchConfig")
+    enc = [a.encdec.num_encoder_layers if a.encdec else a.num_layers
+           for a in archs]
+    dec = [a.num_layers if a.encdec else 0 for a in archs]
     return Maxima(
         seq_max=seq_max,
         heads_max=max(a.num_heads for a in archs),
-        layers_enc_max=max(a.num_layers for a in archs),
-        layers_dec_max=0 if layers_dec_max is None else layers_dec_max,
+        layers_enc_max=max(enc),
+        layers_dec_max=(layers_dec_max if layers_dec_max is not None
+                        else max(dec)),
         d_model_max=max(a.d_model for a in archs),
         d_ff_max=max(a.d_ff for a in archs),
         out_max=max(a.vocab_size for a in archs),

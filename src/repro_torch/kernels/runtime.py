@@ -8,7 +8,9 @@ source, all started together), links them into one shared library, and
 loads it with ``ctypes``.  The build lands in ``build/repro_torch/<hash>``
 at the repository root, keyed by a hash of the sources and flags, so an
 edited kernel rebuilds and an unchanged one is reused.  Nothing is built
-when a module is imported.
+when a module is imported.  ``HostStage`` is the host-to-device upload of
+small int32 arrays that the serving engine and the register-driven engine
+both stage their per-step fields through without a host sync.
 """
 from __future__ import annotations
 
@@ -47,6 +49,50 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' to run the plain "
             "PyTorch path on the host")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+class HostStage:
+    """Host-to-device uploads of small int32 arrays that never wait for
+    the device.  On CUDA the values go into one of ``depth`` pinned host
+    buffers, taken in turn and allocated once, and each goes up by an
+    asynchronous copy on the current stream into its device tensor.  A
+    buffer is written again only once the copies that last read it have
+    run (an event recorded after them); ``waits`` counts the uploads that
+    had to wait for that.  On a CPU device there is nothing to pin: the
+    values are copied in place."""
+
+    def __init__(self, numel: int, device: torch.device, depth: int):
+        self.waits = 0
+        self._turn = 0
+        self._bufs: list[torch.Tensor] = []
+        self._events: list[torch.cuda.Event] = []
+        if device.type == "cuda":
+            self._bufs = [torch.empty(numel, dtype=torch.int32,
+                                      pin_memory=True) for _ in range(depth)]
+            self._events = [torch.cuda.Event() for _ in range(depth)]
+
+    def put(self, *pairs: tuple[torch.Tensor, object]) -> None:
+        """Each (dst, values) pair: ``values`` (ints, nested lists) into
+        the int32 device tensor ``dst`` of the same number of elements."""
+        srcs = [torch.as_tensor(v, dtype=torch.int32).reshape(d.shape)
+                for d, v in pairs]
+        if not self._bufs:
+            for (dst, _), src in zip(pairs, srcs):
+                dst.copy_(src)
+            return
+        i = self._turn
+        self._turn = (i + 1) % len(self._bufs)
+        event = self._events[i]
+        if not event.query():
+            self.waits += 1
+            event.synchronize()
+        at = 0
+        for (dst, _), src in zip(pairs, srcs):
+            staged = self._bufs[i][at:at + src.numel()].view(dst.shape)
+            staged.copy_(src)
+            dst.copy_(staged, non_blocking=True)
+            at += src.numel()
+        event.record(torch.cuda.current_stream(pairs[0][0].device))
 
 
 def _nvcc() -> str:

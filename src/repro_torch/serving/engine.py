@@ -99,7 +99,7 @@ from repro_torch.core.paging import (NULL_BLOCK, BlockAllocator,
                                      blocks_for_tokens)
 from repro_torch.core.spec import RuntimeSpec
 from repro_torch.kernels.counts import launch_counts
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.runtime import HostStage, resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serving.events import EngineEvent, EventBus
 from repro_torch.serving.fabric import N_REGS, DecodeFabric, tree_leaves
@@ -119,50 +119,6 @@ _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
 # uploads of tables, grants and sampling rows the host may queue ahead of
 # the device before one waits for a staging buffer
 _STAGE_DEPTH = 16
-
-
-class HostStage:
-    """Host-to-device uploads of small int32 arrays that never wait for
-    the device.  On CUDA the values go into one of ``depth`` pinned host
-    buffers, taken in turn and allocated once, and each goes up by an
-    asynchronous copy on the current stream into its device tensor.  A
-    buffer is written again only once the copies that last read it have
-    run (an event recorded after them); ``waits`` counts the uploads that
-    had to wait for that.  On a CPU device there is nothing to pin: the
-    values are copied in place."""
-
-    def __init__(self, numel: int, device: torch.device, depth: int):
-        self.waits = 0
-        self._turn = 0
-        self._bufs: list[torch.Tensor] = []
-        self._events: list[torch.cuda.Event] = []
-        if device.type == "cuda":
-            self._bufs = [torch.empty(numel, dtype=torch.int32,
-                                      pin_memory=True) for _ in range(depth)]
-            self._events = [torch.cuda.Event() for _ in range(depth)]
-
-    def put(self, *pairs: tuple[torch.Tensor, object]) -> None:
-        """Each (dst, values) pair: ``values`` (ints, nested lists) into
-        the int32 device tensor ``dst`` of the same number of elements."""
-        srcs = [torch.as_tensor(v, dtype=torch.int32).reshape(d.shape)
-                for d, v in pairs]
-        if not self._bufs:
-            for (dst, _), src in zip(pairs, srcs):
-                dst.copy_(src)
-            return
-        i = self._turn
-        self._turn = (i + 1) % len(self._bufs)
-        event = self._events[i]
-        if not event.query():
-            self.waits += 1
-            event.synchronize()
-        at = 0
-        for (dst, _), src in zip(pairs, srcs):
-            staged = self._bufs[i][at:at + src.numel()].view(dst.shape)
-            staged.copy_(src)
-            dst.copy_(staged, non_blocking=True)
-            at += src.numel()
-        event.record(torch.cuda.current_stream(pairs[0][0].device))
 
 
 class Compilations(dict):
@@ -253,6 +209,8 @@ class ServingEngine:
                             f"RuntimeSpec, got {type(spec).__name__}")
         if maxima is not None:
             spec = dataclasses.replace(spec, maxima=maxima)
+        if spec.arch.family == "encoder":
+            raise ValueError("encoder-only archs have no decode step")
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"
