@@ -248,6 +248,41 @@ Phases (any failure raises and the script exits non-zero):
    replay), one weight load's time, each call's bound (products' FLOPs at
    67 TFLOP/s, bytes at 3.35 TB/s) and the Fig. 8 live-FLOP fractions.
 
+13. The load harness (ROADMAP Queue 1 item 17a, ``repro_torch.harness``)
+   on the card, printed after phase 5: ``bursty_trace`` (24 requests in
+   bursts of 8 every 8 steps, prompts up to 383 tokens, 8-16 new tokens)
+   replayed on a fresh graphed float engine of phase 5's spec (one capture
+   per program it runs), again on the same warm engine (no capture) and on
+   a fresh eager engine; ``poisson_trace`` (24 arrivals at 0.5 a step) on
+   a fresh fully quantized graphed engine; inside phase 8
+   ``shared_prefix_trace`` (two families of 320-token prefixes) on its
+   graphed cache-on engine, inside phase 6 ``fleet_trace`` (16 requests
+   over both members) on its float table's second graphed engine.  Gates:
+   every request finishes; each uid has one ``submit``, ``first_token``
+   and ``finish`` and admits - preempts = 1; ``deterministic_json()``
+   graphed = eager; the warm replay's deterministic view keyed by trace
+   rid (uids differ on one engine) = the first's; the prefix replay hits.
+   Printed per replay: TTFT and ITL p50/p99 in steps and in ms, goodput
+   per second under TTFT <= 64 steps, peak concurrency, preemptions,
+   prefix hits, captures.
+14. MLA (ROADMAP Queue 1 item 11m): deepseek-v3-671b at its published
+   widths (d_model 7168, 128 heads, q_lora 1536, kv_lora 512, rope 64,
+   v 128, 256 experts top-8 + 1 shared, vocab 129280), cut to 2 of 61
+   layers and ``first_k_dense`` 3 -> 1 so that one dense layer (d_ff
+   18432) and one MoE layer run.  (a) One mixed and one decode step at
+   f32 compute (weights drawn in place, 55.8 GB), the kernels against
+   their plain versions within phase 4's gate, the plain paths replaying
+   the kernel path's expert ids, routing flips printed; (b) phase 5's mix
+   in bf16 (27.9 GB of weights, at most two engines resident) over a bf16
+   and over an int8 latent pool, each graphed (first and warm drain) and
+   eager: phase 5's gates, 14 ``tiled_matmul`` and 9 ``rmsnorm`` launches
+   a fused step and no paged walk (MLA attends through the gather view,
+   as the reference does), the warm bf16-pool drain traced (device ms,
+   idle share, the longest kernels), ``max_memory_allocated``.  Phase 2
+   holds ``tiled_matmul`` at deepseek-v3's MLA and dense-prefix shapes
+   (8 and 128 rows: 7168->1536, 1536->24576, 7168->576, 16384->7168,
+   7168->18432, 18432->7168) and ``rmsnorm`` at 128 x 1536 and 128 x 512.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -317,6 +352,7 @@ from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.core.kv_quant import fork_block  # noqa: E402
+from repro_torch import harness  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
@@ -338,6 +374,13 @@ MAX_NEW = 16
 # attention (16 heads over 8 kv heads of 64, n_rep 2)
 GRANITE_KV = (1024, 512)
 GRANITE_ATTN = dict(h=16, kv=8, hd=64)
+# deepseek-v3-671b (configs/deepseek_v3_671b.py): the bf16 products that
+# its fused steps route through tiled_matmul, (K, N) -> name: MLA's
+# q_down, q_up (128 heads x 192), kv_down (latent 512 + rope 64) and wo
+# (128 heads x 128), and the dense prefix layer's FFN (d_ff 18432)
+DEEPSEEK_MATMULS = {(7168, 1536): "q_down", (1536, 24576): "q_up",
+                    (7168, 576): "kv_down", (16384, 7168): "wo",
+                    (7168, 18432): "dense w1/wg", (18432, 7168): "dense w2"}
 
 KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
 # the kernels each path must launch: the two serving paths and the kernel
@@ -375,6 +418,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                              "chunked_prefill_attention", "rmsnorm"),
                 "moe_spec": ("tiled_matmul", "chunked_prefill_attention",
                              "rmsnorm"),
+                # phase 14: deepseek-v3's MLA (the latents attend through
+                # the gather view, as in the reference), over a bf16 and
+                # an int8 latent pool
+                "mla": ("tiled_matmul", "rmsnorm"),
+                "mla_int8_pool": ("tiled_matmul", "rmsnorm"),
                 # phase 12: the register-driven engine computes with
                 # torch.matmul, as the reference with jnp.einsum: no
                 # hand-written kernel may launch there (checked)
@@ -523,6 +571,9 @@ def check_matmul(timer, dev, g) -> dict:
     shapes += [(SPEC_ROWS, k, n, torch.bfloat16) for k, n in LAYER_MATMULS]
     # phase 11's granite-moe steps: the K/V projections, N = 512
     shapes += [(m, *GRANITE_KV, torch.bfloat16) for m in STEP_ROWS.values()]
+    # phase 14's deepseek-v3 steps
+    shapes += [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
+               for k, n in DEEPSEEK_MATMULS]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
     serving, more = {}, []
@@ -568,6 +619,12 @@ def check_matmul(timer, dev, g) -> dict:
                 bound_by=by, library_ms=lms,
                 shape=f"granite-moe {step}-step wk/wv M={m} K={k} N={n} "
                       "bf16"))
+        elif (k, n) in DEEPSEEK_MATMULS and step:
+            more.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shape=f"deepseek-v3 {step}-step {DEEPSEEK_MATMULS[(k, n)]} "
+                      f"M={m} K={k} N={n} bf16"))
     # the wrapper never waits for the device (a split launch: workspace,
     # plan and reduce included)
     a = torch.randn(128, 1024, generator=g, device=dev).bfloat16()
@@ -1754,13 +1811,14 @@ def drain_line(label: str, r: dict, n_tok: int) -> str:
 
 
 def check_graphed(label: str, runs: dict, kernels, layers: int,
-                  n_tok: int) -> None:
+                  n_tok: int, norms: int | None = None) -> None:
     """Phase 5's graphed-against-eager gates on one path: both drains
     finish, the graphed streams equal the eager ones, each program was
     captured once (``compilations`` decode = prefill = 1) and no step ran
     eagerly, the launches the replays made equal the eager drain's, each
     kernel of ``kernels`` launched in both, and ``rmsnorm`` (where the
-    path runs it) 2L+1 times per fused step."""
+    path runs it) ``norms`` (default 2L+1) times per fused step."""
+    norms = 2 * layers + 1 if norms is None else norms
     g, e = runs["graphed"], runs["eager"]
     for mode, r in runs.items():
         print(drain_line(f"{label}, {mode}", r, n_tok))
@@ -1787,11 +1845,11 @@ def check_graphed(label: str, runs: dict, kernels, layers: int,
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{label} path")
         if "rmsnorm" in kernels and r["launches"]["rmsnorm"] \
-                != (2 * layers + 1) * r["steps"]:
+                != norms * r["steps"]:
             raise AssertionError(
                 f"rmsnorm launched {r['launches']['rmsnorm']} times in "
                 f"{r['steps']} steps on the {label} path, not "
-                f"{(2 * layers + 1) * r['steps']}")
+                f"{norms * r['steps']}")
 
 
 def no_sync_line(params, prompts, quant: bool) -> dict:
@@ -1853,6 +1911,139 @@ def host_and_device_line(label: str, make_engine, prompts,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the load harness on the card
+# ---------------------------------------------------------------------------
+# the traces' token ids lie in [1, HARNESS_VOCAB], inside every served
+# vocab; their prompts and budgets fit phase 5's engine (512 positions,
+# 16 new tokens at most)
+HARNESS_VOCAB = 1000
+HARNESS_SLO = harness.SLO(ttft_steps=64)
+
+
+def harness_traces() -> dict:
+    """Phase 13's traces: 24 requests in bursts of 8 every 8 steps, 24
+    Poisson arrivals at 0.5 a step, 16 system-prompt requests over two
+    320-token prefixes, 16 fleet requests over two members."""
+    common = dict(max_len=ENGINE["max_len"], max_new=MAX_NEW,
+                  vocab=HARNESS_VOCAB, seed=13)
+    return {
+        "bursty": harness.bursty_trace(24, burst_size=8, gap_steps=8,
+                                       **common),
+        "poisson": harness.poisson_trace(24, rate=0.5, **common),
+        "shared-prefix": harness.shared_prefix_trace(
+            16, n_families=2, prefix_len=SYSTEM_LEN, **common),
+        "fleet": harness.fleet_trace(16, n_models=2, burst_size=8,
+                                     gap_steps=8, **common)}
+
+
+def rid_json(res) -> str:
+    """``deterministic_json()`` with the per-request view keyed by trace
+    rid: two replays on one engine assign other uids to the same
+    requests."""
+    d = res.metrics.deterministic()
+    d["per_request"] = res.rid_metrics
+    return json.dumps(d, sort_keys=True, separators=(",", ":"))
+
+
+def harness_replay(label: str, eng, trace) -> dict:
+    """Replay ``trace`` on ``eng`` (``harness.replay``, one fused step per
+    host sync) and gate its lifecycle: every request finishes, and each
+    uid has exactly one submit, first_token and finish with admits -
+    preempts = 1.  Prints the metrics in steps and in wall milliseconds.
+    Returns the replay, its seconds and the captures it made."""
+    captures = eng.stats["graph_captures"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = harness.replay(eng, trace, slo=HARNESS_SLO)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = res.metrics
+    if m.n_finished != len(trace) or len(res.finished) != len(trace):
+        raise AssertionError(f"harness {label}: {m.n_finished}/{len(trace)} "
+                             "requests finished")
+    kinds = collections.defaultdict(collections.Counter)
+    for e in res.events:
+        kinds[e.uid][e.kind] += 1
+    for uid, c in kinds.items():
+        if (c["submit"], c["first_token"], c["finish"]) != (1, 1, 1) \
+                or c["admit"] - c["preempt"] != 1:
+            raise AssertionError(f"harness {label}: uid {uid}'s lifecycle "
+                                 f"{dict(c)}")
+
+    def ms(x):
+        return "n/a" if x is None else f"{x * 1e3:.2f}"
+    print(f"harness {label}: {len(trace)} requests, {m.total_new_tokens} "
+          f"tokens over {m.steps} fused steps in {dt:.3f} s "
+          f"({m.tokens_per_s:.1f} tok/s); TTFT p50/p99 {m.ttft_steps_p50}/"
+          f"{m.ttft_steps_p99} steps ({ms(m.ttft_s_p50)}/{ms(m.ttft_s_p99)} "
+          f"ms); ITL p50/p99 {m.itl_steps_p50}/{m.itl_steps_p99} steps "
+          f"({ms(m.itl_s_p50)}/{ms(m.itl_s_p99)} ms); goodput "
+          f"{m.goodput_req_s:.2f} req/s ({m.n_slo_met}/{m.n_requests} within "
+          f"TTFT <= {HARNESS_SLO.ttft_steps} steps); peak concurrency "
+          f"{m.peak_concurrency}; {m.n_preemptions} preemptions; "
+          f"{m.prefix_hits} prefix hits; "
+          f"{eng.stats['graph_captures'] - captures} captures")
+    return dict(res=res, dt=dt,
+                captures=eng.stats["graph_captures"] - captures,
+                programs=sum(n > 0 for n in eng._programs.values()))
+
+
+def check_harness(params) -> None:
+    """Phase 13 on phase 5's full-width qwen1.5-0.5b: ``bursty`` on a fresh
+    graphed float engine (it captures each program once), then again on
+    the same warm engine (no capture; the rid-keyed deterministic view
+    equals the first replay's) and on a fresh eager engine
+    (``deterministic_json()`` equal to the graphed one's); ``poisson`` on
+    a fresh fully quantized graphed engine.  The prefix and fleet replays
+    run inside phases 8 and 6 on their engines."""
+    t_start = time.perf_counter()
+    traces = harness_traces()
+    print(f"\n== load harness: full-width qwen1.5-0.5b (phase 5's engine "
+          f"spec), SLO TTFT <= {HARNESS_SLO.ttft_steps} steps; bursty "
+          f"{len(traces['bursty'])} requests (bursts of 8 every 8 steps, "
+          f"prompts up to {traces['bursty'].max_prompt_len}), poisson "
+          f"{len(traces['poisson'])} (0.5 a step)")
+    runs = {}
+    for mode in ("graphed", "eager"):
+        eng = ServingEngine(full_width_spec(True), device="cuda",
+                            graphs=mode == "graphed")
+        eng.load(params)
+        runs[mode] = harness_replay(f"bursty, float weights, {mode}", eng,
+                                    traces["bursty"])
+        if mode == "graphed":
+            runs["warm"] = harness_replay(
+                "bursty, float weights, graphed, warm engine", eng,
+                traces["bursty"])
+        del eng
+        torch.cuda.empty_cache()
+    first, warm, eager = runs["graphed"], runs["warm"], runs["eager"]
+    if not 1 <= first["captures"] == first["programs"] or warm["captures"]:
+        raise AssertionError(f"harness: captures first {first['captures']} "
+                             f"for {first['programs']} programs run, warm "
+                             f"{warm['captures']} (want one per program, "
+                             "then none)")
+    if eager["res"].metrics.deterministic_json() \
+            != first["res"].metrics.deterministic_json():
+        raise AssertionError("harness: the eager replay's deterministic "
+                             "view differs from the graphed one's")
+    if rid_json(warm["res"]) != rid_json(first["res"]):
+        raise AssertionError("harness: the warm replay's deterministic view "
+                             "differs from the first replay's")
+    print("harness bursty: deterministic_json() graphed = eager; the warm "
+          "replay's rid-keyed view = the first's; no capture when warm")
+    eng = ServingEngine(full_width_spec(True, quant=True), device="cuda",
+                        graphs=True)
+    eng.load(params)
+    harness_replay("poisson, int8 weights + int8 pool, graphed", eng,
+                   traces["poisson"])
+    del eng
+    torch.cuda.empty_cache()
+    print(f"phase 13 on phase 5's engines took "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the multi-topology fleet
 # ---------------------------------------------------------------------------
 FLEET = ("qwen1.5-0.5b", "adaptor-bert-shaped")
@@ -1881,14 +2072,15 @@ def fleet_spec(kv_dtype: str, compute: str = "bf16", quant: str = "none",
 
 def fleet_drain(members, prompts, kv_dtype: str, graphs: bool = True,
                 quant: str = "none", spec: bool = False, warm: bool = False,
-                **kw) -> dict:
+                trace=None, **kw) -> dict:
     """One fleet engine (both members added; ``spec``: member 0's weights
     as the draft too) drains the prompts, request i on member i % 2; every
     request must finish inside its member's vocab; ``warm`` drains them
     again on the same engine into ``out["warm"]``.  Adds the table's
     bytes, the peak device memory above what was allocated before the
     engine, the ``live_kv`` launches and the launches each capture
-    recorded (``programs``) to ``drain``'s result."""
+    recorded (``programs``) to ``drain``'s result; ``trace``: phase 13
+    replays it on the engine after the drains (``out["harness"]``)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1912,6 +2104,10 @@ def fleet_drain(members, prompts, kv_dtype: str, graphs: bool = True,
                programs={k: sg.launches for k, sg in eng._graphs.items()})
     if warm:
         out["warm"] = drain(eng, prompts, models)
+    if trace is not None:
+        out["harness"] = harness_replay(
+            f"fleet, {quant} table, {kv_dtype} pool, graphed (phase 6's "
+            "engine)", eng, trace)
     del eng
     torch.cuda.empty_cache()
     return out
@@ -2008,7 +2204,10 @@ def check_fleet(dev, g, lengths) -> dict:
     for quant, kv_dtype in (("none", "compute"), ("none", "int8"),
                             ("int8", "compute"), ("int8", "int8")):
         bf16 = kv_dtype == "compute"
+        # phase 13: the fleet trace on the float table's second engine
         runs = [fleet_drain(members, prompts, kv_dtype, quant=quant,
+                            trace=harness_traces()["fleet"]
+                            if bf16 and quant == "none" and i == 1 else None,
                             **(dict(sync_every=4, no_sync=True)
                                if bf16 and i == 0 else {}))
                 for i in range(2)]
@@ -2242,7 +2441,7 @@ def prefix_spec(prefix: bool, kv_dtype: str = "compute",
 
 def prefix_drain(spec, params, traffic, graphs: bool = True,
                  sync_every: int = 1, no_sync: bool = False,
-                 f32_pool: bool = False) -> dict:
+                 f32_pool: bool = False, trace=None) -> dict:
     """A fresh engine drains the warm request (4 new tokens), then the wave
     (16 new tokens each).  The kernel counts are zeroed before the warm
     request.  ``f32_pool``: the pool in float32 (installed before any
@@ -2255,7 +2454,8 @@ def prefix_drain(spec, params, traffic, graphs: bool = True,
     Returns ``drain``'s keys (streams and seconds of the wave; steps,
     stats and launches of both drains), the wave's steps, the admissions'
     cached tokens, each wave request's TTFT (its ``admit`` to its
-    ``first_token`` event, host clock) and the forks."""
+    ``first_token`` event, host clock) and the forks; ``trace``: phase 13
+    replays it on the engine after the wave (``out["harness"]``)."""
     warm, wave = traffic
     eng = ServingEngine(spec, device="cuda", graphs=graphs)
     eng.load(params)
@@ -2323,6 +2523,10 @@ def prefix_drain(spec, params, traffic, graphs: bool = True,
                launches=made_launches(eng, *tallies), ttft=ttft, forks=forks,
                cached=[e.data["cached_tokens"] for e in log
                        if e.kind == "admit"], memory=eng.memory_stats())
+    if trace is not None:
+        out["harness"] = harness_replay(
+            "shared-prefix, float weights, cache on, graphed (phase 8's "
+            "engine)", eng, trace)
     del eng
     torch.cuda.empty_cache()
     return out
@@ -2426,10 +2630,15 @@ def check_prefix(dev, g, f32_dist: float) -> dict:
           f"system prompt; the warm request, then {len(traffic[1])} "
           f"requests x {MAX_NEW} new tokens ({len(SUFFIXES)} full-block "
           f"hits, one fork at {FORK_AT}, one miss)")
+    # phase 13: the shared-prefix trace on the graphed cache-on engine
     runs = {mode: prefix_drain(prefix_spec(mode != "off"), params, traffic,
-                               graphs=mode != "eager")
+                               graphs=mode != "eager",
+                               trace=harness_traces()["shared-prefix"]
+                               if mode == "on" else None)
             for mode in ("on", "off", "eager")}
     on, off = runs["on"], runs["off"]
+    if on["harness"]["res"].metrics.prefix_hits <= 0:
+        raise AssertionError("harness shared-prefix: no prefix hit")
     st = {k: on["stats"][k] for k in ("prefix_hits", "prefix_hit_tokens",
                                       "cow_forks", "prefix_evictions",
                                       "preemptions")}
@@ -2925,6 +3134,29 @@ def route_flips(calls: list, layers: int) -> str:
     return "; ".join(out)
 
 
+@contextlib.contextmanager
+def replayed_routing(n_calls: int):
+    """``moe.route`` patched for ``check_model_steps``' kernel path then its
+    plain paths: the first ``n_calls`` calls (the kernel path's mixed and
+    decode steps) route themselves, and each later call takes the expert
+    ids of the call ``n_calls`` before it, weighted by its own
+    probabilities.  Yields every call's expert ids (``route_flips``)."""
+    calls = []
+    route = moe_mod.route
+
+    def replaying(x, w, m):
+        weights, ids = route(x, w, m)
+        calls.append(ids)
+        i = len(calls) - 1
+        if i < n_calls:                    # the kernel path routes itself
+            return weights, ids
+        ids = calls[i % n_calls]
+        top = torch.softmax(x.float() @ w.float(), dim=-1).gather(-1, ids)
+        return m.router_scale * top / top.sum(dim=-1, keepdim=True), ids
+    with mock.patch.object(moe_mod, "route", replaying):
+        yield calls
+
+
 def expert_floor(cfg: ArchConfig) -> tuple[float, float]:
     """Bytes of the bf16 expert weights one fused step reads (every layer's
     w1, wg and w2, each once, whatever the lanes), and their time at
@@ -2998,21 +3230,9 @@ def check_moe(timer, dev, g) -> dict:
     # kernel path did (its expert ids, in call order, with their own
     # probabilities as weights) and the gate holds the kernels on equal
     # routing; the tokens whose own routing differs are printed.
-    calls = []
-    route = moe_mod.route
-
-    def replaying(x, w, m):
-        weights, ids = route(x, w, m)
-        calls.append(ids)
-        i = len(calls) - 1
-        if i < 2 * L:                      # the kernel path routes itself
-            return weights, ids
-        ids = calls[i % (2 * L)]
-        top = torch.softmax(x.float() @ w.float(), dim=-1).gather(-1, ids)
-        return m.router_scale * top / top.sum(dim=-1, keepdim=True), ids
     model32 = Model(cfg, compute_dtype=torch.float32, device=dev)
     model32.load_state_dict(params)
-    with mock.patch.object(moe_mod, "route", replaying):
+    with replayed_routing(2 * L) as calls:
         check_model_steps(model32, dev, g, gate=True,
                           paths=("kernels", "plain versions",
                                  "plain, perturbed"))
@@ -3155,6 +3375,180 @@ def check_moe(timer, dev, g) -> dict:
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: MLA (deepseek-v3-671b)
+# ---------------------------------------------------------------------------
+MLA = "deepseek-v3-671b"
+# the cut: 2 of 61 layers and first_k_dense 3 -> 1, so that one dense
+# layer (d_ff 18432) and one MoE layer (256 experts top-8 and the shared
+# expert) run, both with MLA; 13.9 G parameters (55.8 GB at f32 compute,
+# 27.9 GB at bf16), most of them the MoE layer's experts and the two
+# [129280, 7168] tables: one model resident at a time
+MLA_LAYERS, MLA_DENSE = 2, 1
+
+
+def mla_cut() -> ArchConfig:
+    cfg = get_config(MLA)
+    return dataclasses.replace(cfg, num_layers=MLA_LAYERS,
+                               moe=dataclasses.replace(
+                                   cfg.moe, first_k_dense=MLA_DENSE))
+
+
+def mla_step_launches(cfg: ArchConfig) -> dict[str, int]:
+    """The hand-written kernels' launches per fused step of an MLA model
+    under ``matmul_backend="pallas"`` (``models/attention.py``,
+    ``models/moe.py``): every layer's q_down, q_up, kv_down and wo through
+    ``tiled_matmul`` (the absorbed attend's k_up / v_up contractions are
+    einsums, as in the reference), a dense layer's w1, wg, w2 and an MoE
+    layer's shared expert's; ``rmsnorm`` for ln1, ln2, q_norm and kv_norm
+    of every layer and the final norm.  No paged walk."""
+    k, L = cfg.moe.first_k_dense, cfg.num_layers
+    shared = 3 * (L - k) if cfg.moe.num_shared_experts else 0
+    return {"tiled_matmul": 4 * L + 3 * k + shared, "rmsnorm": 4 * L + 1,
+            "paged_decode_attention": 0, "chunked_prefill_attention": 0}
+
+
+def init_in_place(model: Model, g) -> Model:
+    """Random weights at ``Model.init``'s scales drawn straight into a
+    float32 model's parameters: no full-size float32 temporary beside
+    the 15 GB expert leaves."""
+    for name, prm in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            prm.zero_()
+        elif leaf == "scale":
+            prm.fill_(1.0)
+        else:
+            prm.normal_(0.0, 0.02 if name == "embed.table" else
+                        1.0 / math.sqrt(max(prm.shape[-2], 1)), generator=g)
+    return model
+
+
+def check_mla(dev, g) -> dict:
+    """Phase 14: deepseek-v3-671b at its published widths, cut to
+    ``MLA_LAYERS`` of 61 layers with ``first_k_dense`` ``MLA_DENSE``.
+    (a) One mixed and one decode step at f32 compute (its own random
+    weights), the kernels against their plain versions within phase 4's
+    gate, the plain paths replaying the kernel path's expert ids.  (b) The
+    phase 5 mix in bf16 over a bf16 latent pool and over an int8 one, each
+    graphed (first and warm drain) and eager: phase 5's gates, the
+    launches a fused step makes (``mla_step_launches``) on every drain, no
+    paged walk; the warm bf16-pool drain traced (device ms, idle share),
+    and the peak device memory.  Returns the graphed drains' launches."""
+    t_start = time.perf_counter()
+    full, cfg = get_config(MLA), mla_cut()
+    L, k, m = cfg.num_layers, cfg.moe.first_k_dense, cfg.mla
+    per_step = mla_step_launches(cfg)
+    print(f"\n== MLA: {MLA} at its published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, q_lora {m.q_lora_rank}, kv_lora "
+          f"{m.kv_lora_rank}, rope {m.qk_rope_head_dim}, v {m.v_head_dim}; "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.experts_per_token} + "
+          f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}), "
+          f"cut to {L} of {full.num_layers} layers and first_k_dense "
+          f"{full.moe.first_k_dense} -> {k}: one dense layer (d_ff "
+          f"{cfg.moe.dense_d_ff}) and one MoE layer; per fused step "
+          f"{per_step['tiled_matmul']} tiled_matmul and "
+          f"{per_step['rmsnorm']} rmsnorm launches, no paged walk")
+    # (a) f32 steps, the plain paths routed as the kernel path was
+    torch.cuda.empty_cache()
+    model32 = init_in_place(Model(cfg, compute_dtype=torch.float32,
+                                  device=dev), g)
+    n_params = sum(t.numel() for t in model32.parameters())
+    print(f"  {n_params / 1e9:.3f} G parameters "
+          f"({torch.cuda.memory_allocated() / 1e9:.1f} GB at f32 compute)")
+    with replayed_routing(2 * (L - k)) as calls:
+        check_model_steps(model32, dev, g, gate=True,
+                          paths=("kernels", "plain versions",
+                                 "plain, perturbed"))
+    n_route = 2 * (L - k)
+    kernels, plain, perturbed = (calls[i:i + n_route]
+                                 for i in range(0, 3 * n_route, n_route))
+    print("  the plain paths above route as the kernel path did; their own "
+          "routing (f32): kernels vs plain versions: "
+          + route_flips([kernels, plain], L - k)
+          + "; plain perturbed by 2^-19 vs plain: "
+          + route_flips([perturbed, plain], L - k))
+    del model32, calls, kernels, plain, perturbed
+    torch.cuda.empty_cache()
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    # (b) the phase 5 mix in bf16, graphed and eager, bf16 and int8 pools
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    n_tok = len(prompts) * MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
+    spec = full_width_spec(True, arch=cfg)
+    launches, source = {}, None
+    for path, kv in (("mla", "compute"), ("mla_int8_pool", "int8")):
+        pspec = dataclasses.replace(spec, memory=dataclasses.replace(
+            spec.memory, kv_dtype=kv))
+        pool = "bf16" if kv == "compute" else "int8"
+        label = f"{MLA} at {L} layers, bf16, {pool} latent pool"
+        eng = ServingEngine(pspec, device="cuda", graphs=True)
+        if source is None:
+            eng.model.init(g)
+            eng.load(eng.model.state_dict())
+        else:
+            eng.load(source.model.state_dict())
+            del source
+            torch.cuda.empty_cache()
+        first = drain(eng, prompts)
+        first["warm"] = drain(eng, prompts)
+        traced = drain(eng, prompts, measure="profile") \
+            if path == "mla" else None
+        eager_eng = ServingEngine(pspec, device="cuda", graphs=False)
+        eager_eng.load(eng.model.state_dict())
+        runs = {"graphed": first, "eager": drain(eager_eng, prompts)}
+        del eager_eng
+        torch.cuda.empty_cache()
+        check_graphed(label, runs, PATH_KERNELS[path], L, n_tok,
+                      norms=per_step["rmsnorm"])
+        warm = first["warm"]
+        print(drain_line(f"{label}, graphed, warm engine", warm, n_tok))
+        for mode, r in (*runs.items(), ("warm", warm)):
+            have = {name: r["launches"][name] for name in per_step}
+            want = {name: c * r["steps"] for name, c in per_step.items()}
+            if have != want:
+                raise AssertionError(f"{label}, {mode}: launches {have}, "
+                                     f"want {want} ({r['steps']} steps)")
+        if warm["stats"]["graph_captures"] or warm["streams"] \
+                != first["streams"] or warm["launches"] != first["launches"]:
+            raise AssertionError(f"{label}: the warm drain captured again or "
+                                 "streamed or launched otherwise")
+        print(f"  {label}: {per_step['tiled_matmul']} tiled_matmul and "
+              f"{per_step['rmsnorm']} rmsnorm a fused step and no paged walk "
+              "on every drain; warm "
+              f"{n_tok / warm['dt']:.1f} tok/s")
+        if traced is not None:
+            dev_s = traced["device_s"]
+            if dev_s is None:
+                print("  the profiler traced no device activity: device "
+                      "time and idle share not measured")
+            else:
+                print(f"  {label}, graphed, warm engine, traced: "
+                      f"{dev_s * 1e3:.1f} ms of device time over "
+                      f"{traced['steps']} fused steps; idle "
+                      f"{1 - dev_s / warm['dt']:.3f} of the untraced warm "
+                      f"drain's {warm['dt']:.3f} s "
+                      f"({1 - dev_s / traced['dt']:.3f} of the traced "
+                      f"drain's {traced['dt']:.3f} s)")
+                print("  where the warm drain's device time goes (the 12 "
+                      "longest by name: calls, ms, share):")
+                for key, calls_n, ms in traced["top"]:
+                    print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                          f"{ms / (dev_s * 1e3):6.1%}")
+        launches[path] = first["launches"]
+        source = eng
+        del eng
+    del source
+    torch.cuda.empty_cache()
+    print(f"  max_memory_allocated over (b): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 14 took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return launches
+
 
 
 # ---------------------------------------------------------------------------
@@ -3635,9 +4029,12 @@ def main() -> int:
                    for a, b in zip(streams["float"][i], s_other[i]))
         print(f"identical tokens kernels float vs {other}: {same}/{n_tok} "
               "(reported, not gated: near-ties and quantization may flip)")
+    lap("phase 5")
+    check_harness(params)
+    lap("phase 13 (its replays on phase 5's engines; phases 6 and 8 "
+        "replay their traces on theirs)")
     del params
     torch.cuda.empty_cache()
-    lap("phase 5")
 
     launches.update(check_fleet(dev, g, PROMPT_LENS))
     lap("phases 6 and 10")
@@ -3659,8 +4056,10 @@ def main() -> int:
     lap("phase 11")
     launches.update(check_adaptive(timer, dev, g))
     lap("phase 12")
+    launches.update(check_mla(dev, g))
+    lap("phase 14")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
-                 "moe_spec"):
+                 "moe_spec", "mla", "mla_int8_pool"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

@@ -9,7 +9,11 @@ leading axis; the port keeps one module per layer, so that axis is
 unstacked into ``layers.<i>.`` (the ``num_layers - first_k_dense`` layers
 of an MoE model's main stack).  An MoE model's dense prefix is a list of
 unstacked layers in the reference; its ``j``-th entry becomes
-``dense_prefix.<j>.``.
+``dense_prefix.<j>.``.  An MLA model's attention leaves (``attn.{q_down,
+q_norm, q_up, kv_down, kv_norm, k_up, v_up, wo}``) carry over by the same
+rule.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
+training-only module (ROADMAP.md Queue 1 item 16) that the port's serving
+``Model`` does not hold, so it is left out.
 
 A tree the reference has quantized (its ``serve_quant.quantize_params``)
 holds ``QTensor`` leaves; after the numpy conversion each is a
@@ -70,7 +74,7 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
     dtype); ``Model.load_state_dict`` casts dense kernels to the compute
     dtype.
     """
-    flat = _flatten(np_tree)
+    flat = _flatten({k: v for k, v in np_tree.items() if k != "mtp"})
     stacked = cfg.num_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
     out: dict[str, torch.Tensor] = {}
     for name, arr in flat.items():

@@ -2,9 +2,9 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense, MoE and encoder families need (the MLA /
-SSM / hybrid / frontend sub-configs are ported with their families,
-ROADMAP.md Queue 1 items 11m-12).  ``EncDecConfig`` is here for the
+restricted to what the dense, MoE (with MLA) and encoder families need
+(the SSM / hybrid / frontend sub-configs are ported with their families,
+ROADMAP.md Queue 1 item 12).  ``EncDecConfig`` is here for the
 register-driven engine's encoder/decoder rule (``core/registers.py``
 ``registers_for``, ``core/spec.py`` ``maxima_for``).  Dtype defaults are
 torch dtypes where the JAX package names ``jnp`` ones.
@@ -38,6 +38,21 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V3) configuration."""
+
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
 class EncDecConfig:
     """Encoder/decoder (Whisper) configuration."""
 
@@ -50,7 +65,7 @@ class EncDecConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     """A single architecture (the dense-, MoE- and encoder-family fields of
-    the reference, and its enc-dec sub-config)."""
+    the reference, its MLA and enc-dec sub-configs and the MTP depth)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -70,7 +85,11 @@ class ArchConfig:
     max_position_embeddings: int = 131_072
     source: str = ""
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     encdec: EncDecConfig | None = None
+    # Multi-token prediction depth (DeepSeek-V3 MTP); 0 disables.  A
+    # training-only head (ROADMAP.md Queue 1 item 16): serving ignores it.
+    num_mtp_modules: int = 0
 
     def __post_init__(self) -> None:
         self.validate()
@@ -82,7 +101,8 @@ class ArchConfig:
             # the paper's own encoder networks use deliberately odd dims
             # (custom-encoder: 200/3) and define head_dim = floor(d/h); the
             # decode families have no such convention, so reject there
-            if self.head_dim == 0 and self.family != "encoder" \
+            if self.head_dim == 0 and self.mla is None \
+                    and self.family != "encoder" \
                     and self.d_model % self.num_heads:
                 raise ValueError(
                     f"{self.name}: d_model={self.d_model} is not divisible "
@@ -106,7 +126,8 @@ class ArchConfig:
 def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     """A tiny same-family config for CPU tests: the reference's shrink rule
     (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept; an MoE
-    block shrunk to 4 experts of width 32, top-min(2, k))."""
+    block shrunk to 4 experts of width 32, top-min(2, k); MLA to ranks
+    32 / 16 with head dims 16 + 8 and 16; an MTP depth to 1)."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     small: dict[str, Any] = dict(
@@ -129,6 +150,16 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
             first_k_dense=min(1, cfg.moe.first_k_dense),
             dense_d_ff=128 if cfg.moe.first_k_dense else 0,
         )
+    if cfg.mla is not None:
+        small["mla"] = MLAConfig(
+            q_lora_rank=32,
+            kv_lora_rank=16,
+            qk_nope_head_dim=16,
+            qk_rope_head_dim=8,
+            v_head_dim=16,
+        )
+    if cfg.num_mtp_modules:
+        small["num_mtp_modules"] = 1
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
 

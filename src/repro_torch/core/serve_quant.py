@@ -18,6 +18,13 @@ layers are unstacked leaves in the reference and are measured alone).
 Per-column scales of a stacked leaf are per-layer, so quantizing layer by
 layer gives the same numbers.  The expert and router leaves are not
 named ``kernel``, so they stay float.
+
+An MLA model's ``k_up`` and ``v_up`` kernels are eligible by the same
+rule, but the absorbed attend contracts them as float weights: the
+reference's ``_mla_attend`` reshapes the leaf and raises
+``AttributeError`` on its ``QTensor`` (``src/repro/models/attention.py``
+``_mla_attend``).  ``check_mla_quant`` refuses such a configuration with
+a ``ValueError`` rather than serve something the reference cannot.
 """
 from __future__ import annotations
 
@@ -50,6 +57,43 @@ def eligible(name: str, shape, num_layers: int,
     if name.startswith("layers."):
         n *= num_layers
     return kind if n >= min_size else None
+
+
+def mla_absorbed_leaves(cfg, min_size: int = DEFAULT_QUANT_MIN_SIZE
+                        ) -> list[tuple[str, int]]:
+    """The MLA up-projections (``k_up`` / ``v_up`` kernels of the main
+    stack and of the dense prefix) that ``quant="int8"`` at ``min_size``
+    would quantize, with the element count the size rule measures."""
+    if cfg.mla is None:
+        return []
+    m, h = cfg.mla, cfg.num_heads
+    k = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    out = []
+    for leaf, width in (("k_up", m.qk_nope_head_dim), ("v_up", m.v_head_dim)):
+        shape = (m.kv_lora_rank, h * width)
+        for name, stack in ((f"dense_prefix.0.attn.{leaf}.kernel", 0),
+                            (f"layers.0.attn.{leaf}.kernel",
+                             cfg.num_layers - k)):
+            if (stack or k) and eligible(name, shape, stack, min_size):
+                n = shape[0] * shape[1] * max(stack, 1)
+                out.append((name.replace(".0.", ".<i>."), n))
+    return out
+
+
+def check_mla_quant(cfg, min_size: int = DEFAULT_QUANT_MIN_SIZE) -> None:
+    """Refuse int8 weights on an MLA model whose ``k_up`` or ``v_up`` the
+    size rule would quantize (``mla_absorbed_leaves``)."""
+    bad = mla_absorbed_leaves(cfg, min_size)
+    if bad:
+        names = ", ".join(f"{n} ({c} elements)" for n, c in bad)
+        raise ValueError(
+            f"{cfg.name}: quant='int8' at quant_min_size={min_size} would "
+            f"quantize the MLA up-projections {names}, which the absorbed "
+            "attend contracts as float weights; the reference cannot serve "
+            "this configuration (its _mla_attend reshapes the QTensor and "
+            "raises AttributeError, src/repro/models/attention.py:595), so "
+            f"the port refuses it: set quant_min_size above "
+            f"{max(c for _, c in bad)} or serve float weights")
 
 
 def quantize_leaf(w: torch.Tensor, kind: str) -> QTensor:

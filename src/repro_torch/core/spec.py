@@ -12,7 +12,8 @@ both packages:
 * ``param_dtype`` / ``compute_dtype`` accept torch dtypes or the same
   string names (``"bf16"``, ``"fp32"``, ...).
 
-What the port serves so far is the dense and moe families through the
+What the port serves so far is the dense and moe families (GQA or MLA
+attention; MLA on one model's engine, never in a fleet) through the
 paged pool and the chunked scheduler, with float or int8 weights
 (``quant``) and a float or int8 KV pool (``MemorySpec.kv_dtype``), one
 model or a fleet of dense models within ``maxima`` (``maxima_for``; a
@@ -38,6 +39,7 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
 from repro_torch.core.kv_quant import KV_DTYPES
 from repro_torch.core.paging import PagingConfig, blocks_for_tokens
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
+from repro_torch.core.serve_quant import check_mla_quant
 from repro_torch.core.registers import Maxima, TopologyRegisters, \
     registers_for
 
@@ -329,6 +331,12 @@ class RuntimeSpec:
             raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               f"; the port serves the families "
                               f"{PORTED_FAMILIES}")
+        if self.maxima is not None and cfg.mla is not None:
+            raise ValueError(
+                f"{cfg.name}: multi-topology serving covers the dense GQA "
+                "family; an MLA model's latent cache and absorbed attend "
+                "have no fleet weight table (ROADMAP.md Queue 1 item 11m "
+                "serves MLA on its own engine)")
         if self.maxima is not None and decodes and cfg.family != "dense":
             # the reference fabric's membership check (check_member)
             raise ValueError(
@@ -353,6 +361,12 @@ class RuntimeSpec:
             self._validate_decode_state()
         if self.speculation is not None:
             self._validate_speculation()
+        if self.execution.quant == "int8":
+            # the reference's _mla_attend cannot contract a quantized
+            # k_up / v_up; a draft is quantized by the same rule
+            for arch in (cfg, *((self.speculation.draft_model,)
+                                if self.speculation is not None else ())):
+                check_mla_quant(arch, self.execution.quant_min_size)
         if self.mesh is not None:
             raise _not_ported("mesh serving (mesh=...)", "item 13")
         if self.maxima is not None:

@@ -42,6 +42,14 @@ ids in turn.  ``--quant int8`` packs the fabric's int8 weight table
 (``--quant-min-size`` is compared with the maxima-padded leaves);
 ``--kernels`` stays ``xla``, as the reference's fleet refuses the matmul
 kernels.
+
+Harness mode: ``--trace t.jsonl`` replays an on-disk trace
+(``repro_torch.harness.trace``'s format, which the reference's files
+share) through the engine instead of the demo mix and prints the reduced
+TTFT / ITL / goodput metrics in engine steps and in wall milliseconds;
+``--slo-ttft-steps N`` counts a request toward goodput only if its first
+token lands within N steps.  The reference's ``--tuned`` (its analytical
+autotuner) is refused until ROADMAP.md Queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -107,7 +115,23 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--eager", action="store_true",
                     help="run every fused step eagerly (default on the "
                          "card: each fused program is one CUDA graph)")
+    ap.add_argument("--trace", default=None,
+                    help="replay this on-disk trace (repro_torch.harness."
+                         "trace format) instead of the demo request mix and "
+                         "print harness metrics")
+    ap.add_argument("--slo-ttft-steps", type=int, default=None,
+                    help="with --trace: count a request toward goodput only "
+                         "if its first token lands within this many steps")
+    ap.add_argument("--tuned", action="store_true",
+                    help="the reference's analytical autotuner (not ported)")
     args = ap.parse_args(argv)
+    if args.tuned:
+        ap.error("--tuned (the analytical autotuner, harness/tune.py and "
+                 "core/analytical.py) is not ported to repro_torch yet "
+                 "(ROADMAP.md Queue 1 item 15); set the memory and "
+                 "scheduler flags by hand")
+    if args.slo_ttft_steps is not None and args.trace is None:
+        ap.error("--slo-ttft-steps applies to a --trace replay")
 
     import numpy as np
     import torch
@@ -186,24 +210,53 @@ def main(argv: list[str] | None = None) -> None:
             model_ids.append(0)
         del params, draft
 
-    rs = np.random.default_rng(7)
-    for i in range(args.requests):
-        mid = model_ids[i % len(model_ids)]
-        plen = int(rs.integers(4, args.max_len // 2))
-        eng.submit(rs.integers(0, cfgs[mid].vocab_size, plen).tolist(),
-                   max_new_tokens=args.max_new, model=mid)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    done = eng.run_to_completion(sync_every=args.sync_every)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    total_new = sum(len(r.generated) for r in done)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"{'+'.join(names)} on {name}: {len(done)} requests, {total_new} "
-          f"tokens in {dt:.2f}s ({total_new / dt:,.1f} tok/s)")
+    if args.trace is not None:
+        from repro_torch.harness import SLO, load_trace, replay
+        trace = load_trace(args.trace)
+        slo = (SLO(ttft_steps=args.slo_ttft_steps)
+               if args.slo_ttft_steps is not None else None)
+        t0 = time.perf_counter()
+        res = replay(eng, trace, slo=slo)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        done, m = res.finished, res.metrics
+        print(f"trace {trace.name!r} (seed {trace.seed}) on {name}: "
+              f"{m.n_finished}/{m.n_requests} finished over {m.steps} fused "
+              f"steps in {dt:.2f}s ({m.tokens_per_s:,.1f} tok/s)")
+        print(f"  TTFT p50/p99 {m.ttft_steps_p50}/{m.ttft_steps_p99} steps "
+              f"({_ms(m.ttft_s_p50)}/{_ms(m.ttft_s_p99)} ms)   ITL p50/p99 "
+              f"{m.itl_steps_p50}/{m.itl_steps_p99} steps "
+              f"({_ms(m.itl_s_p50)}/{_ms(m.itl_s_p99)} ms)")
+        print(f"  peak concurrency {m.peak_concurrency}, "
+              f"{m.n_preemptions} preemptions, {m.prefix_hits} prefix hits")
+        if slo is not None:
+            print(f"  SLO (ttft<={args.slo_ttft_steps} steps): "
+                  f"{m.n_slo_met}/{m.n_requests} met, goodput "
+                  f"{m.goodput_req_per_1k_steps:.1f} req/1k-steps "
+                  f"({m.goodput_req_s:.2f} req/s)")
+    else:
+        rs = np.random.default_rng(7)
+        for i in range(args.requests):
+            mid = model_ids[i % len(model_ids)]
+            plen = int(rs.integers(4, args.max_len // 2))
+            eng.submit(rs.integers(0, cfgs[mid].vocab_size, plen).tolist(),
+                       max_new_tokens=args.max_new, model=mid)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        done = eng.run_to_completion(sync_every=args.sync_every)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        total_new = sum(len(r.generated) for r in done)
+        print(f"{'+'.join(names)} on {name}: {len(done)} requests, "
+              f"{total_new} tokens in {dt:.2f}s ({total_new / dt:,.1f} "
+              "tok/s)")
     st = eng.stats
     print(f"host traffic: {st['device_gets']} bulk transfers over "
           f"{st['decode_steps']} fused steps")
@@ -231,6 +284,10 @@ def main(argv: list[str] | None = None) -> None:
     for r in done[:3]:
         print(f"  req {r.uid} (model {r.model}): prompt[:6]={r.prompt[:6]} "
               f"-> {r.generated[:10]}...")
+
+
+def _ms(seconds: float | None) -> str:
+    return "n/a" if seconds is None else f"{seconds * 1e3:.1f}"
 
 
 if __name__ == "__main__":

@@ -33,6 +33,8 @@ NORM_SHAPES = (
     ("rmsnorm", 128, 8192, "qwen2-72b mixed step", 0),
     ("rmsnorm", 16384, 1024, "qwen1.5-0.5b 16K-token prefill", 0),
     ("rmsnorm", 8192, 8192, "qwen2-72b 8K-token prefill", 0),
+    ("rmsnorm", 128, 1536, "deepseek-v3 mixed step q_norm", 0),
+    ("rmsnorm", 128, 512, "deepseek-v3 mixed step kv_norm", 0),
     ("layernorm", 512, 768, "adaptor_bert 8 x 64 tokens", 0),
     ("layernorm", 12000, 1024, "whisper-medium encoder 8 x 1500", 0),
     *((k, r, d, label, off) for k in ("rmsnorm", "layernorm")

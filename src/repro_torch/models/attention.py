@@ -1,8 +1,8 @@
-"""GQA attention of the port: full-sequence, paged decode, the paged
-mixed (chunk) step, and the mixed step over a dense per-slot cache (the
-speculation draft's).
+"""Attention of the port: GQA and MLA, each full-sequence, as the paged
+decode, the paged mixed (chunk) step, and the mixed step over a dense
+per-slot cache (the speculation draft's).
 
-The counterpart of the reference's ``models/attention.py`` GQA half.  The
+The counterpart of the reference's ``models/attention.py``.  The
 dtype flow is the reference's: scores are an einsum in the promoted
 operand dtype, softmax in float32, and the probabilities are cast to V's
 dtype before the PV product.
@@ -14,6 +14,18 @@ tensors.  Writes past a slot's blocks and writes of dead lanes are routed
 to the null block explicitly; in a dense cache they go to its spare row.  With the int8 codec the gather path
 dequantizes the gathered view to x's dtype and the kernels take the
 scales.
+
+MLA (DeepSeek-V3) caches one compressed latent ``c_kv`` [rank] and one
+shared rope key ``k_rope`` per position (``MLACache``), paged through the
+same block tables and codec (the int8 codec: one float32 scale per cached
+position and tensor).  Decode and the chunk step attend with the absorbed
+contraction (``_mla_attend``, the reference's: ``k_up`` folded into the
+query in float32, scores in float32, the latent attend in the stored
+dtype, one ``v_up`` expansion) over the gathered latent view; the
+reference has no Pallas kernel there, so neither has the port.  The
+projections go through ``apply_dense`` (the matmul kernels under
+``"pallas"``) and ``q_norm`` / ``kv_norm`` through ``apply_norm`` (the
+``rmsnorm`` kernel under ``"pallas"``).
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ from repro_torch.core.kv_quant import (FLOAT_CODEC, CacheCodec, cache_put,
 from repro_torch.core.paging import NULL_BLOCK
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.models.layers import apply_dense, apply_rope
+from repro_torch.models.layers import apply_dense, apply_norm, apply_rope
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -244,3 +256,177 @@ def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
     return apply_dense(o, p.wo, mm)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+class MLACache(NamedTuple):
+    """The latent cache: the compressed kv ``c_kv`` and the shared rope key
+    ``k_rope``, paged ``[layers, pool_blocks, block_size, rank | rope]``
+    (pool row 0 the null block) or dense ``[layers, batch, max_len + 1,
+    ...]`` (a draft's; row ``max_len`` the spare), and with the int8 codec
+    their float32 scales ``[layers, pool_blocks, block_size]`` (None
+    otherwise)."""
+
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    c_scale: torch.Tensor | None = None
+    r_scale: torch.Tensor | None = None
+
+    def layer(self, i: int) -> "MLACache":
+        """Layer ``i``'s views."""
+        return MLACache(*(None if t is None else t[i] for t in self))
+
+
+def _mla_q(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
+           mm: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [B, S, h, nope], q_rope [B, S, h, rope]) through the query's
+    low-rank path: q_down, q_norm, q_up, rope on the rope half."""
+    m = cfg.mla
+    b_, s, _ = x.shape
+    cq = apply_norm(apply_dense(x, p.q_down, mm), p.q_norm, "rmsnorm", mm)
+    q = apply_dense(cq, p.q_up, mm).reshape(b_, s, cfg.num_heads,
+                                            m.qk_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(x: torch.Tensor, p, cfg: ArchConfig,
+                positions: torch.Tensor, mm: str
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv [B, S, rank], k_rope [B, S, rope]): kv_down, kv_norm on the
+    latent half, rope on the shared key half."""
+    m = cfg.mla
+    b_, s, _ = x.shape
+    full = apply_dense(x, p.kv_down, mm)
+    c_kv = apply_norm(full[..., :m.kv_lora_rank].contiguous(), p.kv_norm,
+                      "rmsnorm", mm)
+    k_rope = full[..., m.kv_lora_rank:].reshape(b_, s, 1, m.qk_rope_head_dim)
+    return c_kv, apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+
+
+def mla_attention(x: torch.Tensor, p, cfg: ArchConfig,
+                  positions: torch.Tensor, mm: str) -> torch.Tensor:
+    """Full-sequence causal MLA (the forward pass): the latents expanded to
+    per-head K/V (the reference's naive path)."""
+    m, h = cfg.mla, cfg.num_heads
+    b_, s, _ = x.shape
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
+    c_kv, k_rope = _mla_latent(x, p, cfg, positions, mm)
+    k_nope = apply_dense(c_kv, p.k_up, mm).reshape(b_, s, h,
+                                                   m.qk_nope_head_dim)
+    v = apply_dense(c_kv, p.v_up, mm).reshape(b_, s, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        b_, s, h, m.qk_rope_head_dim)], dim=-1)
+    o = full_attention(q, k, v, causal=True,
+                       scale=1.0 / math.sqrt(m.qk_head_dim))
+    return apply_dense(o.reshape(b_, s, h * m.v_head_dim), p.wo, mm)
+
+
+def _mla_attend(x: torch.Tensor, p, cfg: ArchConfig, q_nope: torch.Tensor,
+                q_rope: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor, live: torch.Tensor,
+                mm: str) -> torch.Tensor:
+    """The absorbed contraction over a sequence-major latent view (c_kv
+    [B, T, rank], k_rope [B, T, rope], as stored or dequantized; ``live``
+    [B, 1, W, T]): ``k_up`` folded into the query in float32, the scores
+    in float32, softmax, the latent attend in c_kv's dtype, then one
+    ``v_up`` expansion in x's dtype and ``wo``."""
+    m, h = cfg.mla, cfg.num_heads
+    b_, w = q_nope.shape[:2]
+    wk = p.k_up.kernel.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), wk.float())
+    s_lat = torch.einsum("bqhl,bkl->bhqk", q_lat, c_kv.float())
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) / math.sqrt(m.qk_head_dim)
+    pr = torch.softmax(torch.where(live, scores, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhqk,bkl->bqhl", pr.to(c_kv.dtype), c_kv)
+    wv = p.v_up.kernel.reshape(m.kv_lora_rank, h, m.v_head_dim) \
+        .permute(1, 0, 2).to(x.dtype)
+    o = torch.einsum("bqhl,hld->bqhd", *_promote(o_lat, wv))
+    return apply_dense(o.reshape(b_, w, h * m.v_head_dim), p.wo, mm)
+
+
+def _mla_write(cache: MLACache, codec: CacheCodec, where: tuple,
+               c_new: torch.Tensor, kr_new: torch.Tensor) -> None:
+    """Encode the new latents and write values (+ scales) in place."""
+    cq, cs = codec.store(c_new, cache.c_kv.dtype)
+    rq, rs = codec.store(kr_new, cache.k_rope.dtype)
+    cache_put(cache.c_kv, cache.c_scale, where, cq, cs)
+    cache_put(cache.k_rope, cache.r_scale, where, rq, rs)
+
+
+def _mla_gather(cache: MLACache, codec: CacheCodec,
+                block_tables: torch.Tensor, dtype: torch.dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (gather_view(codec, cache.c_kv, cache.c_scale, block_tables,
+                        dtype),
+            gather_view(codec, cache.k_rope, cache.r_scale, block_tables,
+                        dtype))
+
+
+def mla_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
+                     idx: torch.Tensor, block_tables: torch.Tensor, *,
+                     mm: str, codec: CacheCodec = FLOAT_CODEC
+                     ) -> torch.Tensor:
+    """One-token MLA decode against one layer's latent pool: write the new
+    latents at ``idx`` [B] in place, attend over the slot's blocks."""
+    bs = cache.c_kv.shape[1]
+    positions = idx[:, None]
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
+    c_new, kr_new = _mla_latent(x, p, cfg, positions, mm)
+    _mla_write(cache, codec, paged_write_slot(idx, block_tables, bs),
+               c_new[:, 0], kr_new[:, 0])
+    t_max = block_tables.shape[1] * bs
+    live = (torch.arange(t_max, device=x.device)[None, :]
+            <= idx[:, None])[:, None, None, :]
+    return _mla_attend(x, p, cfg, q_nope, q_rope,
+                       *_mla_gather(cache, codec, block_tables, x.dtype),
+                       live, mm)
+
+
+def mla_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
+                    start: torch.Tensor, n_live: torch.Tensor,
+                    block_tables: torch.Tensor, *, mm: str,
+                    codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+    """W-lane chunk/decode MLA against one layer's latent pool (the lane
+    protocol of ``gqa_mixed_paged``): the chunk's latents are written
+    before the attend, dead lanes into the null block."""
+    b_, w, _ = x.shape
+    bs = cache.c_kv.shape[1]
+    positions = start[:, None] + torch.arange(w, device=x.device,
+                                              dtype=start.dtype)[None, :]
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
+    c_new, kr_new = _mla_latent(x, p, cfg, positions, mm)
+    t_max = block_tables.shape[1] * bs
+    idx_w = torch.where(masking.lane_mask(w, n_live), positions, t_max)
+    _mla_write(cache, codec, paged_write_slot(idx_w, block_tables, bs),
+               c_new, kr_new)
+    live = masking.chunk_causal_mask(t_max, start, w)[:, None]
+    return _mla_attend(x, p, cfg, q_nope, q_rope,
+                       *_mla_gather(cache, codec, block_tables, x.dtype),
+                       live, mm)
+
+
+def mla_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
+              start: torch.Tensor, n_live: torch.Tensor, *,
+              mm: str) -> torch.Tensor:
+    """W-lane chunk/decode MLA against one layer's dense latent cache
+    ``[B, max_len + 1, ...]`` (``Model.init_dense_cache``, float storage;
+    the lane protocol of ``gqa_mixed``): dead lanes and positions past
+    ``max_len - 1`` write into the spare row, which no mask admits."""
+    b_, w, _ = x.shape
+    positions = start[:, None] + torch.arange(w, device=x.device,
+                                              dtype=start.dtype)[None, :]
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
+    c_new, kr_new = _mla_latent(x, p, cfg, positions, mm)
+    s_max = cache.c_kv.shape[1] - 1
+    live_w = masking.lane_mask(w, n_live) & (positions < s_max)
+    where = (torch.arange(b_, device=x.device)[:, None],
+             torch.where(live_w, positions, s_max).long())
+    _mla_write(cache, FLOAT_CODEC, where, c_new, kr_new)
+    live = masking.chunk_causal_mask(s_max, start, w)[:, None]
+    return _mla_attend(x, p, cfg, q_nope, q_rope, cache.c_kv[:, :s_max],
+                       cache.k_rope[:, :s_max], live, mm)

@@ -1,6 +1,7 @@
 """The decoder LM of the port (the reference's ``Model`` for the families
-``dense`` and ``moe``): parameters, the paged KV pool and the dense
-per-slot cache, ``forward``, ``decode_step`` and ``mixed_step``.
+``dense`` and ``moe``, with GQA or MLA attention): parameters, the paged
+KV pool and the dense per-slot cache, ``forward``, ``decode_step`` and
+``mixed_step``.
 
 Parameters mirror the reference's pytree, one module per layer instead
 of a stacked layer axis: ``embed.table``, ``final_norm.scale``,
@@ -10,19 +11,26 @@ hold ``moe.{router, w1, wg, w2}`` (and ``moe.shared.{w1,wg,w2}`` with
 shared experts) in place of ``ffn``, after a dense prefix of
 ``first_k_dense`` layers ``dense_prefix.<j>.…`` with FFNs of width
 ``dense_d_ff``; the prefix's layer j uses cache layer j, main layer i
-cache layer ``first_k_dense + i``.  Dense kernels (``[d_in, d_out]``,
+cache layer ``first_k_dense + i``.  An MLA model (``cfg.mla``, DeepSeek-V3)
+holds ``attn.{q_down, q_norm, q_up, kv_down, kv_norm, k_up, v_up, wo}``,
+the reference's ``build_mla`` leaves, and caches latents (``MLACache``)
+in place of K/V, paged or dense alike.  Dense kernels (``[d_in, d_out]``,
 as the reference stores them), their biases and the expert weights are
 kept in the compute dtype, cast once from the parameter dtype (the
 reference casts them to x's dtype on every call: the same numbers);
-norm scales, the router and the embedding table stay in the parameter
-dtype, since the norms, the router and ``unembed`` read them in float32.
+norm scales, the router, the embedding table and MLA's ``k_up`` stay in
+the parameter dtype, since the norms, the router, ``unembed`` and the
+absorbed MLA query read them in float32.
 
 With ``quant="int8"`` every eligible dense kernel and the embedding and
 ``lm_head`` tables (``core.serve_quant``) is held as int8 values with a float32 buffer beside
 it, ``kernel_scale`` ``[1, d_out]`` or ``table_scale`` ``[vocab, 1]``; the
 model quantizes float weights as they arrive (``init`` and
 ``load_state_dict``).  ``kv_dtype`` selects the KV pool's codec
-(``core.kv_quant``).
+(``core.kv_quant``).  int8 weights on an MLA model are refused where the
+size rule would quantize ``k_up`` or ``v_up`` (``core.serve_quant``
+``mla_absorbed_leaves``): the absorbed attend contracts them as float
+weights, and the reference cannot serve that configuration.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -93,6 +101,29 @@ class Attention(nn.Module):
         self.wo = Dense(h * hd, d, False, dtype, device)
 
 
+class MLAttention(nn.Module):
+    """Multi-head latent attention's projections (the reference's
+    ``build_mla``; no biases).  ``k_up`` is kept in the parameter dtype:
+    the absorbed attend reads it in float32, as the reference reads its
+    float32 leaf."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
+        super().__init__()
+        m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+        self.q_down = Dense(d, m.q_lora_rank, False, dtype, device)
+        self.q_norm = Norm(m.q_lora_rank, "rmsnorm", param_dtype, device)
+        self.q_up = Dense(m.q_lora_rank, h * m.qk_head_dim, False, dtype,
+                          device)
+        self.kv_down = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, False,
+                             dtype, device)
+        self.kv_norm = Norm(m.kv_lora_rank, "rmsnorm", param_dtype, device)
+        self.k_up = Dense(m.kv_lora_rank, h * m.qk_nope_head_dim, False,
+                          param_dtype, device)
+        self.v_up = Dense(m.kv_lora_rank, h * m.v_head_dim, False, dtype,
+                          device)
+        self.wo = Dense(h * m.v_head_dim, d, False, dtype, device)
+
+
 class FFN(nn.Module):
     def __init__(self, cfg: ArchConfig, d_ff: int, bias: bool, dtype,
                  device):
@@ -131,7 +162,8 @@ class Block(nn.Module):
                  d_ff: int | None = None, moe_block: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
-        self.attn = Attention(cfg, compute_dtype, device)
+        self.attn = MLAttention(cfg, param_dtype, compute_dtype, device) \
+            if cfg.mla is not None else Attention(cfg, compute_dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
         if moe_block:
             self.moe = MoE(cfg, param_dtype, compute_dtype, device)
@@ -173,6 +205,8 @@ class Model(nn.Module):
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")
+        if quant == "int8":
+            serve_quant.check_mla_quant(cfg, quant_min_size)
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
@@ -250,6 +284,9 @@ class Model(nn.Module):
                         q.scale)
                 else:
                     prm.copy_(x.to(self.param_dtype))
+                # free the draw before the next one: at deepseek-v3's width
+                # an expert leaf's float32 draw is 15 GB
+                del x
         return self
 
     def load_state_dict(self, state_dict, strict: bool = True,
@@ -264,26 +301,44 @@ class Model(nn.Module):
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 
-    def init_cache(self, paging: PagingConfig) -> KVCache:
+    def init_cache(self, paging: PagingConfig) -> KVCache | MLACache:
         """The paged KV pool ``[layers, num_blocks + 1, block_size, kv, hd]``
         through the model's codec (pool row 0 is the null block): bf16
         values as the reference's float codec stores them, or int8 values
         with float32 ``k_scale``/``v_scale`` ``[layers, num_blocks + 1,
-        block_size, kv]``."""
+        block_size, kv]``.  An MLA model's pool is the latent pool
+        ``[layers, num_blocks + 1, block_size, rank]`` and ``[..., rope]``
+        (int8: scales ``[layers, num_blocks + 1, block_size]``)."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            lead = (cfg.num_layers, paging.pool_blocks, paging.block_size)
+            return MLACache(*self._latents(self.codec, lead))
         shape = (cfg.num_layers, paging.pool_blocks, paging.block_size,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
         k, k_scale = self.codec.cache_tensors(shape, self.device)
         v, v_scale = self.codec.cache_tensors(shape, self.device)
         return KVCache(k, v, k_scale, v_scale)
 
-    def init_dense_cache(self, batch: int, max_len: int) -> KVCache:
+    def _latents(self, codec: CacheCodec, lead: tuple[int, ...]) -> tuple:
+        """(c_kv, k_rope, c_scale, r_scale) of an MLA cache whose leading
+        dims are ``lead``."""
+        m = self.cfg.mla
+        c, cs = codec.cache_tensors((*lead, m.kv_lora_rank), self.device)
+        r, rs = codec.cache_tensors((*lead, m.qk_rope_head_dim), self.device)
+        return c, r, cs, rs
+
+    def init_dense_cache(self, batch: int, max_len: int) -> KVCache | MLACache:
         """The dense per-slot cache ``[layers, batch, max_len + 1, kv, hd]``
-        of a speculation draft: the float codec's storage (bf16, as the
-        reference's dense cache), never int8 and never paged.  Row
-        ``max_len`` is a spare that takes the writes of dead lanes and of
-        positions past the end; no mask admits it."""
+        of a speculation draft (an MLA model's: the latents ``[layers,
+        batch, max_len + 1, rank | rope]``): the float codec's storage
+        (bf16, as the reference's dense cache), never int8 and never
+        paged.  Row ``max_len`` is a spare that takes the writes of dead
+        lanes and of positions past the end; no mask admits it."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            return MLACache(*self._latents(FLOAT_CODEC,
+                                           (cfg.num_layers, batch,
+                                            max_len + 1)))
         shape = (cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         k, _ = FLOAT_CODEC.cache_tensors(shape, self.device)
@@ -326,8 +381,9 @@ class Model(nn.Module):
         for blk in self.blocks():
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
-            x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
-                                       self.matmul_backend)
+            fn = attn.gqa_attention if self.cfg.mla is None \
+                else attn.mla_attention
+            x = x + fn(hn, blk.attn, self.cfg, positions, self.matmul_backend)
             x = self._ffn_half(x, blk)
         return self._unembed(x)
 
@@ -342,10 +398,17 @@ class Model(nn.Module):
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
-            x = x + attn.gqa_decode_paged(
-                hn, blk.attn, self.cfg, cache.layer(i), cache_index,
-                block_tables, impl=self.paged_attn_impl,
-                mm=self.matmul_backend, codec=self.codec)
+            if self.cfg.mla is not None:
+                # the reference attends MLA through its gather route only
+                o = attn.mla_decode_paged(
+                    hn, blk.attn, self.cfg, cache.layer(i), cache_index,
+                    block_tables, mm=self.matmul_backend, codec=self.codec)
+            else:
+                o = attn.gqa_decode_paged(
+                    hn, blk.attn, self.cfg, cache.layer(i), cache_index,
+                    block_tables, impl=self.paged_attn_impl,
+                    mm=self.matmul_backend, codec=self.codec)
+            x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)
 
@@ -365,7 +428,14 @@ class Model(nn.Module):
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
-            if block_tables is None:
+            if self.cfg.mla is not None and block_tables is None:
+                o = attn.mla_mixed(hn, blk.attn, self.cfg, cache.layer(i),
+                                   start, n_live, mm=self.matmul_backend)
+            elif self.cfg.mla is not None:
+                o = attn.mla_mixed_paged(
+                    hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
+                    block_tables, mm=self.matmul_backend, codec=self.codec)
+            elif block_tables is None:
                 o = attn.gqa_mixed(hn, blk.attn, self.cfg, cache.layer(i),
                                    start, n_live, mm=self.matmul_backend)
             else:

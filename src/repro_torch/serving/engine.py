@@ -915,7 +915,7 @@ class ServingEngine:
         with speculation the draft's weights and dense cache too."""
         st, c = self.state, self.cache
         out = [getattr(st, f.name) for f in dataclasses.fields(st)]
-        out += [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+        out += [t for t in c if t is not None]
         if self.table is not None:
             out += tree_leaves(self.table)
         if self.draft_model is not None:

@@ -2,13 +2,19 @@
 
 The port's copy of the reference's ``serving/events.py``: the engine
 publishes one :class:`EngineEvent` per request lifecycle transition
-through an :class:`EventBus`, and consumers subscribe instead of
+through an :class:`EventBus`, and consumers (the load harness,
+``repro_torch.harness``, through :class:`EventLog`) subscribe instead of
 polling.
 
 Lifecycle of one request::
 
     submit ──> admit ──> first_token ──> progress* ──> finish
                   └──────────── preempt ──> admit ...(re-entry)
+
+``progress`` is published after the harvest's transfer has brought the
+counts to the host, so its wall stamp is completion-honest (the harness's
+wall-clock TTFT reads the first ``progress`` with ``count >= 1``); every
+value in ``data`` is a Python scalar.
 
 Every event carries the engine's logical clock (``step`` = fused
 dispatches so far) and a ``time.perf_counter()`` wall stamp; step
@@ -62,6 +68,25 @@ class EventBus:
     def publish(self, event: EngineEvent) -> None:
         for cb in self._subs:
             cb(event)
+
+
+class EventLog:
+    """The standard subscriber: an append-only list with per-uid views."""
+
+    def __init__(self) -> None:
+        self.events: list[EngineEvent] = []
+
+    def __call__(self, event: EngineEvent) -> None:
+        self.events.append(event)
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def of_kind(self, kind: str) -> list[EngineEvent]:
+        return [e for e in self.events if e.kind == kind]
+
+    def of_uid(self, uid: int) -> list[EngineEvent]:
+        return [e for e in self.events if e.uid == uid]
 
 
 def now() -> float:
