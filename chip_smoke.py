@@ -283,6 +283,33 @@ Phases (any failure raises and the script exits non-zero):
    (8 and 128 rows: 7168->1536, 1536->24576, 7168->576, 16384->7168,
    7168->18432, 18432->7168) and ``rmsnorm`` at 128 x 1536 and 128 x 512.
 
+15. The vlm family, the dense layout and the bucketed scheduler (ROADMAP
+   Queue 1 items 12a-12b): phi-3-vision-4.2b at its published widths and
+   all 32 layers, seeded random weights.  (a) At f32 compute, along the
+   kernels, their plain versions and those perturbed (phase 4's gate): a
+   mixed step whose prompt lanes straddle the 576 patch positions
+   (``prefill_lanes``) and a decode step, over the paged pool and the
+   dense layout, and ``Model.prefill`` of a 1024-token prompt with the
+   zero frontend; then the frontend rule: other token ids below position
+   576 leave the prefill's logits bit for bit.  (b) bf16, 8 greedy
+   requests of 576 + 16-416 tokens x 16 new, max_batch 8, max_len 1024,
+   blocks and chunks of 16, on three engines (paged + chunked, dense +
+   bucketed, paged + bucketed), each graphed (first and warm drain, then
+   a traced warm drain) and eager: graphed = eager streams, the warm drain
+   captures nothing, one capture per program and per bucket, every
+   drain's launches equal ``kernels/counts.py`` ``program_launches``;
+   tok/s, device ms, idle share, peak memory.  Then 3 requests at f32
+   compute over float32 pools on the three engines: first tokens equal
+   on all three, the two bucketed engines' streams equal (the chunked
+   engine's later tokens reported: the bucketed prefill stages the
+   prompt's K/V in bf16, as the reference does).  (c) qwen1.5-0.5b on
+   phase 5's mix on the bucketed scheduler over the dense layout and the
+   paged pool (buckets 32-512) with (b)'s gates, and (b)'s f32 gate on
+   the mix.  Phase 2 holds ``tiled_matmul`` and ``int8_matmul`` at
+   phi-3-vision's widths (3072->3072, 3072->8192, 8192->3072 at M 8, 128
+   and 1024) and at qwen's 512-row bucket, and ``rmsnorm`` at 8 and 1024
+   x 3072.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -320,7 +347,7 @@ from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
 from repro_torch.kernels import int8_matmul as i8_mod  # noqa: E402
 from repro_torch.kernels import ops, runtime  # noqa: E402
 from repro_torch.kernels.counts import (LIVE_KV, launch_counts,  # noqa: E402
-                                        wrappers)
+                                        program_launches, wrappers)
 from repro_torch.kernels import tiled_matmul as tm_mod  # noqa: E402
 from repro_torch.kernels.chunked_prefill import (  # noqa: E402
     chunked_prefill_attention, chunked_prefill_attention_plain)
@@ -382,6 +409,26 @@ DEEPSEEK_MATMULS = {(7168, 1536): "q_down", (1536, 24576): "q_up",
                     (7168, 576): "kv_down", (16384, 7168): "wo",
                     (7168, 18432): "dense w1/wg", (18432, 7168): "dense w2"}
 
+# phi-3-vision-4.2b (configs/phi_3_vision_4_2b.py): a layer's bf16 products,
+# (K, N) -> name (32 heads of 96, d_ff 8192), at a decode step's 8 rows, a
+# mixed step's 128 and a bucketed prefill's 1024 (phase 15); and
+# qwen1.5-0.5b's layer products at its 512-token bucket's prefill (15c)
+PHI3V_MATMULS = {(3072, 3072): "wq/wk/wv/wo", (3072, 8192): "w1/wg",
+                 (8192, 3072): "w2"}
+PHI3V_ROWS = {8: "decode-step", 128: "mixed-step", 1024: "1024-bucket prefill"}
+QWEN_BUCKET_ROWS = 512
+
+
+def prefill_rows() -> dict[tuple[int, int, int], str]:
+    """Phase 2's rows at phase 15's shapes: (M, K, N) -> label."""
+    rows = {(m, k, n): f"phi-3-vision-4.2b {step} {name}"
+            for m, step in PHI3V_ROWS.items()
+            for (k, n), name in PHI3V_MATMULS.items()}
+    rows.update({(QWEN_BUCKET_ROWS, k, n): "qwen1.5-0.5b 512-bucket prefill"
+                 for k, n in LAYER_MATMULS})
+    return rows
+
+
 KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
 # the kernels each path must launch: the two serving paths and the kernel
 # library entry point (``repro_torch.kernels.ops``); a kernel's JSON
@@ -426,7 +473,21 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 # phase 12: the register-driven engine computes with
                 # torch.matmul, as the reference with jnp.einsum: no
                 # hand-written kernel may launch there (checked)
-                "adaptive": ()}
+                "adaptive": (),
+                # phase 15: phi-3-vision on the three engines (the dense
+                # layout attends as the reference's XLA: no walk; the
+                # bucketed prefill's attention is plain torch), and qwen
+                # on the bucketed scheduler over both layouts
+                "vlm_chunked_paged": ("tiled_matmul",
+                                      "paged_decode_attention",
+                                      "chunked_prefill_attention",
+                                      "rmsnorm"),
+                "vlm_bucketed_dense": ("tiled_matmul", "rmsnorm"),
+                "vlm_bucketed_paged": ("tiled_matmul",
+                                       "paged_decode_attention", "rmsnorm"),
+                "bucketed_dense": ("tiled_matmul", "rmsnorm"),
+                "bucketed_paged": ("tiled_matmul", "paged_decode_attention",
+                                   "rmsnorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -574,6 +635,9 @@ def check_matmul(timer, dev, g) -> dict:
     # phase 14's deepseek-v3 steps
     shapes += [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
                for k, n in DEEPSEEK_MATMULS]
+    # phase 15's phi-3-vision steps and prefills, qwen's 512 bucket
+    extra = prefill_rows()
+    shapes += [(*mkn, torch.bfloat16) for mkn in extra]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
     serving, more = {}, []
@@ -602,7 +666,12 @@ def check_matmul(timer, dev, g) -> dict:
               f"{tol:>10.3g} {ms:>10.4f} {pms:>9.4f} {lms:>9.4f} {bms:>9.4f}"
               f"   {grid}")
         step = next((s for s, rows in STEP_ROWS.items() if rows == m), None)
-        if dt == torch.bfloat16 and (k, n) in LAYER_MATMULS and step:
+        if dt == torch.bfloat16 and (m, k, n) in extra:
+            more.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms,
+                shape=f"{extra[(m, k, n)]} M={m} K={k} N={n} bf16"))
+        elif dt == torch.bfloat16 and (k, n) in LAYER_MATMULS and step:
             serving[(m, k, n)] = dict(
                 e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms,
@@ -694,6 +763,10 @@ def check_int8_matmul(timer, dev, g) -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     shapes = [(m, k, n, dt) for m in STEP_ROWS.values()
               for k, n in (*LAYER_MATMULS, GRANITE_KV) for dt in (bf, f32)]
+    # phase 15's phi-3-vision steps and prefills, qwen's 512 bucket (bf16
+    # out); the last shape splits K for the sync check below
+    extra = prefill_rows()
+    shapes += [(*mkn, bf) for mkn in extra]
     shapes += [(77, 300, 199, bf), (5, 1000, 67, f32), (8, 8192, 256, bf)]
     serving, granite = {}, []
     for m, k, n, dt in shapes:
@@ -733,7 +806,7 @@ def check_int8_matmul(timer, dev, g) -> dict:
             lms, lib = None, "refused"
             why = str(exc).splitlines()[0][:80]
         mm16 = None
-        if serve:
+        if serve or (m, k, n) in extra:
             a = torch.randn(m, k, generator=g, device=dev).to(bf)
             w = (torch.randn(k, n, generator=g, device=dev)
                  / math.sqrt(k)).to(bf)
@@ -747,7 +820,12 @@ def check_int8_matmul(timer, dev, g) -> dict:
               f"   {grid}")
         if lms is None:
             print(f"      torch._int_mm refused M={m}: {why}")
-        if serve and dt == bf and (k, n) == GRANITE_KV:
+        if (m, k, n) in extra:
+            granite.append(dict(
+                e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lms, bf16_matmul_ms=mm16,
+                shape=f"{extra[(m, k, n)]} M={m} K={k} N={n} bf16 out"))
+        elif serve and dt == bf and (k, n) == GRANITE_KV:
             granite.append(dict(
                 e, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lms, bf16_matmul_ms=mm16,
@@ -2797,7 +2875,7 @@ def timed_captures(eng) -> list:
         parts.append((label, time.perf_counter() - t))
         return out
 
-    def timed(kind, impl, *args):
+    def timed(kind, impl, inputs, *args):
         calls = []
 
         def first_timed(*a):      # the warm-up is impl's first call
@@ -2805,15 +2883,15 @@ def timed_captures(eng) -> list:
             if len(calls) == 1:
                 return synced(f"{kind} warm-up", impl, *a)
             return impl(*a)
-        sg = synced(f"{kind} warm-up + capture + instantiation", capture,
-                    kind, first_timed, *args)
+        sg, out = synced(f"{kind} warm-up + capture + instantiation",
+                         capture, kind, first_timed, inputs, *args)
         replay = sg.graph.replay
 
         def first_replay():
             sg.graph.replay = replay           # later replays untimed
             synced(f"{kind} first replay", replay)
         sg.graph.replay = first_replay
-        return sg
+        return sg, out
     eng._capture = timed
     return parts
 
@@ -3552,6 +3630,359 @@ def check_mla(dev, g) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the vlm family (phi-3-vision-4.2b), the dense cache layout and
+# the bucketed scheduler
+# ---------------------------------------------------------------------------
+VLM = "phi-3-vision-4.2b"
+VLM_ENGINE = dict(max_batch=8, max_len=1024, block_size=16, chunk=16)
+# text tokens after the 576 patch positions: prompts of 592-992 tokens
+VLM_TEXT = (16, 73, 130, 187, 244, 301, 358, 416)
+# phase 15a's mixed step: lane 0 positions, live lanes and prompt slots;
+# slot 0's chunk lies below position 576, slots 1-5 straddle it, slot 6
+# starts at it, slot 7 decodes one lane at 580 (not a prompt lane)
+VLM_START = (560, 565, 568, 570, 572, 575, 576, 580)
+VLM_N_LIVE = (16, 16, 16, 16, 16, 16, 9, 1)
+VLM_PREFILL = (True,) * 7 + (False,)
+# phase 15b/15c's engines: (label, policy, layout)
+BUCKETED_ENGINES = (("paged + chunked", "chunked", "paged"),
+                    ("dense + bucketed", "bucketed", "dense"),
+                    ("paged + bucketed", "bucketed", "paged"))
+
+
+def vlm_spec(policy: str, layout: str, compute: str = "bf16",
+             arch: ArchConfig | None = None,
+             engine: dict = VLM_ENGINE) -> RuntimeSpec:
+    """Phase 15's spec on the kernel path: phi-3-vision-4.2b (or ``arch``)
+    at ``engine``'s geometry on ``policy`` over ``layout``."""
+    return RuntimeSpec(
+        arch=arch or get_config(VLM),
+        execution=ExecutionSpec(matmul_backend="pallas",
+                                paged_attn_impl="pallas",
+                                compute_dtype=compute),
+        memory=MemorySpec(cache_layout=layout,
+                          max_batch=engine["max_batch"],
+                          max_len=engine["max_len"],
+                          block_size=engine["block_size"]),
+        scheduler=SchedulerSpec(policy=policy, chunk_size=engine["chunk"]))
+
+
+def vlm_steps(model: Model, dev, g) -> None:
+    """Phase 15a on the f32 model: along the kernels, their plain versions
+    and those perturbed by ``ATTN_PERTURB`` (``STEP_PATHS``), one mixed
+    step whose prompt lanes straddle position 576 (``prefill_lanes``) and
+    one decode step, over the paged pool and over the dense layout, and
+    ``Model.prefill`` of a 1024-token prompt with the zero frontend; each
+    within phase 4's gate of the plain versions.  Then the frontend rule
+    on the kernel path: other token ids below position 576 leave the
+    prefill's logits bit for bit as they were."""
+    cfg = model.cfg
+    n_fe = cfg.frontend.num_tokens
+    B, W, L = VLM_ENGINE["max_batch"], VLM_ENGINE["chunk"], \
+        VLM_ENGINE["max_len"]
+    bs = VLM_ENGINE["block_size"]
+    paging = vlm_spec("chunked", "paged").memory.paging()
+    tables = (torch.randperm(paging.num_blocks, generator=g, device=dev)
+              .reshape(B, L // bs) + 1).to(torch.int32)
+    ids = lambda *shape: torch.randint(  # noqa: E731
+        0, cfg.vocab_size, shape, generator=g, device=dev,
+        dtype=torch.int32)
+    toks, dtoks, prompt = ids(B, W), ids(B, 1), ids(1, L)
+    start = torch.tensor(VLM_START, dtype=torch.int32, device=dev)
+    n_live = torch.tensor(VLM_N_LIVE, dtype=torch.int32, device=dev)
+    lanes = torch.tensor(VLM_PREFILL, device=dev)
+    live = torch.arange(W, device=dev)[None, :] < n_live[:, None]
+    fe = torch.zeros(1, n_fe, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    print(f"\n== {VLM} at its published widths ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {n_fe} patch positions), f32 compute: "
+          "|kernels - plain versions| (gated)")
+    paths = ("kernels", "plain versions", "plain, perturbed")
+    out = {}
+    for path in paths:
+        _, ctx = STEP_PATHS[path]
+        res = []
+        with ctx():
+            for layout in ("paged", "dense"):
+                cache = model.init_cache(paging) if layout == "paged" \
+                    else model.init_cache(batch=B, max_len=L)
+                tb = tables if layout == "paged" else None
+                mixed = model.mixed_step(cache, toks, start, n_live, tb,
+                                         prefill_lanes=lanes)
+                dec = model.decode_step(cache, dtoks, start + n_live, tb)
+                res += [mixed[live], dec]
+                del cache
+            res.append(model.prefill(prompt, L, fe)[0])
+        out[path] = res
+    cases = ("paged mixed step (prefill lanes across 576)",
+             "paged decode step", "dense mixed step", "dense decode step",
+             "prefill of 1024 tokens, zero frontend")
+    for i, case in enumerate(cases):
+        ref = out["plain versions"][i]
+        floor = max_err(out["plain, perturbed"][i], ref)
+        tol = max(LOGIT_TOL * float(ref.abs().max()), 2 * floor)
+        err = max_err(out["kernels"][i], ref)
+        print(f"  {case}: kernels {err:.4g}, tol max({LOGIT_TOL} x "
+              f"max|logits|, 2 x perturbed {floor:.3g}) = {tol:.4g}")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{VLM} {case}: kernels {err} > {tol}")
+    other = prompt.clone()
+    other[:, :n_fe] = (other[:, :n_fe] + 1) % cfg.vocab_size
+    same = torch.equal(model.prefill(other, L, fe)[0], out["kernels"][-1])
+    print(f"  the frontend rule: other token ids at positions < {n_fe} give "
+          f"the prefill's logits bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{VLM}: token ids below {n_fe} moved the "
+                             "prefill's logits")
+
+
+def bucketed_launches(cfg: ArchConfig, policy: str, layout: str,
+                      r: dict, n_req: int) -> dict[str, int]:
+    """The launches ``kernels/counts.py`` gives a drain ``r`` of ``n_req``
+    requests: the bucketed scheduler's one prefill per request and its
+    decode steps; the chunked scheduler's mixed steps (one chunk walk a
+    layer) and decode steps."""
+    pl = {p: program_launches(cfg, p, layout=layout)
+          for p in ("decode", "mixed", "prefill")}
+    if policy == "bucketed":
+        calls = {"prefill": n_req, "decode": r["steps"]}
+    else:
+        mixed = r["launches"]["chunked_prefill_attention"] \
+            // cfg.num_layers
+        calls = {"mixed": mixed, "decode": r["steps"] - mixed}
+    return {n: sum(c * pl[p][n] for p, c in calls.items())
+            for n in pl["decode"]}
+
+
+def bucketed_engine_line(label: str, cfg: ArchConfig, policy: str,
+                         layout: str, runs: dict, n_req: int,
+                         kernels) -> None:
+    """Phase 15b/15c's gates and lines on one engine: graphed (first and
+    warm drain) = eager streams, the warm drain captured nothing, one
+    capture per fused program and per bucket, and the launches of every
+    drain equal ``bucketed_launches``."""
+    g, e, warm = runs["graphed"], runs["eager"], runs["graphed"]["warm"]
+    n_tok = n_req * MAX_NEW
+    for mode, r in (("graphed, first drain", g), ("graphed, warm", warm),
+                    ("eager", e)):
+        st = r["stats"]
+        print(f"  {label}, {mode}: {n_tok / r['dt']:.1f} tok/s "
+              f"({r['dt']:.3f} s), {r['steps']} fused steps; captures "
+              f"{st['graph_captures']} fused + {st['prefill_captures']} "
+              f"prefill, replays {st['graph_replays']} + "
+              f"{st['prefill_replays']}, {st['eager_steps']} eager steps; "
+              f"compilations {r['compilations']}")
+        want = bucketed_launches(cfg, policy, layout, r, n_req)
+        have = {n: r["launches"][n] for n in want}
+        print(f"    launches {have} (kernels/counts.py: {want})")
+        if have != want:
+            raise AssertionError(f"{label}, {mode}: launches {have} != "
+                                 f"{want}")
+        for name in kernels:
+            if r["launches"][name] <= 0:
+                raise AssertionError(f"{name} was not launched on {label}")
+    if g["streams"] != e["streams"] or warm["streams"] != g["streams"]:
+        raise AssertionError(f"{label}: the graphed streams differ from the "
+                             "eager ones, or the warm drain's from the "
+                             "first's")
+    comp = g["compilations"]
+    buckets = comp["prefill_buckets"]
+    if comp["decode"] != 1 or (policy == "chunked" and comp["prefill"] != 1) \
+            or (policy == "bucketed" and (comp["prefill"] != buckets
+                                          or buckets < 1
+                                          or g["stats"]["prefill_captures"]
+                                          != buckets)) \
+            or g["stats"]["eager_steps"] or warm["stats"]["graph_captures"] \
+            or warm["stats"]["prefill_captures"]:
+        raise AssertionError(f"{label}: compilations {comp}, first "
+                             f"{g['stats']}, warm {warm['stats']}; want one "
+                             "capture per program and per bucket")
+    print(f"  {label}: graphed = eager streams ({n_tok} tokens); one capture "
+          f"per program (decode {comp['decode']}, prefill {comp['prefill']}"
+          f", buckets {buckets})")
+
+
+def f32_streams(label: str, make_spec, params, prompts,
+                max_new: int) -> None:
+    """The three engines of ``BUCKETED_ENGINES`` at f32 compute over float32
+    pools (the CPU parity tests' setting) drain ``prompts`` (greedy,
+    ``max_new`` tokens each) on fresh graphed engines, one resident at a
+    time.  Gates: every request's first token identical on all three (the
+    prompt's forward is the same math: the chunked engine's chunks attend
+    over the unrounded K/V of the float32 pool, as the bucketed prefill
+    attends over its own), and the whole streams identical between the two
+    bucketed engines (the same prefill, then decode over the same rows).
+    The chunked engine's later tokens are reported against them: the
+    bucketed prefill stages the prompt's K/V in bf16 (the reference's rule,
+    ``gqa_prefill``), the chunked engine keeps them in float32, so its
+    decode attends over other K/V."""
+    got = {}
+    for name, policy, layout in BUCKETED_ENGINES:
+        eng = ServingEngine(make_spec(policy, layout), device="cuda")
+        eng.load(params)
+        eng.cache = type(eng.cache)(*(None if t is None else t.float()
+                                      for t in eng.cache))
+        uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        done = {r.uid: r.generated for r in eng.run_to_completion()}
+        got[name] = [done[u] for u in uids]
+        del eng
+        torch.cuda.empty_cache()
+    (chunked, a), (_, b), (_, c) = got.items()
+    n = len(prompts) * max_new
+    same = sum(x == y for s, t in zip(b, a) for x, y in zip(s, t))
+    print(f"  {label}, f32 over float32 pools: first tokens "
+          f"{[s[0] for s in a]} on all three: "
+          f"{[s[0] for s in a] == [s[0] for s in b] == [s[0] for s in c]}; "
+          f"{BUCKETED_ENGINES[1][0]} = {BUCKETED_ENGINES[2][0]}: {b == c}; "
+          f"{chunked} vs the bucketed: identical tokens {same}/{n} "
+          "(reported: bf16 staging of the prompt's K/V)")
+    if not [s[0] for s in a] == [s[0] for s in b] == [s[0] for s in c]:
+        raise AssertionError(f"{label}, f32: the first tokens differ between "
+                             "the chunked and the bucketed engines")
+    if b != c:
+        raise AssertionError(f"{label}, f32: the two bucketed engines' "
+                             "streams differ")
+
+
+def vlm_serving(params, dev, g) -> dict:
+    """Phase 15b: phi-3-vision-4.2b in bf16 (seeded random weights),
+    ``VLM_ENGINE``'s geometry, 8 greedy requests of 576 patch positions +
+    ``VLM_TEXT`` text tokens, ``MAX_NEW`` new tokens each, on the three
+    engines of ``BUCKETED_ENGINES``, each graphed (first and warm drain,
+    then a traced warm drain) and eager, one engine resident beside its
+    eager twin; then a short f32 mix on all three.  Returns each graphed
+    first drain's launches."""
+    cfg = get_config(VLM)
+    rs = np.random.default_rng(15)
+    prompts = [rs.integers(0, cfg.vocab_size, cfg.frontend.num_tokens + n)
+               .tolist() for n in VLM_TEXT]
+    print(f"\n== serving {VLM} in bf16: {len(prompts)} greedy requests of "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens "
+          f"({cfg.frontend.num_tokens} patch positions) x {MAX_NEW} new, "
+          f"max_batch {VLM_ENGINE['max_batch']}, max_len "
+          f"{VLM_ENGINE['max_len']}, blocks of {VLM_ENGINE['block_size']}, "
+          f"chunks of {VLM_ENGINE['chunk']}, the kernel path")
+    launches = {}
+    for label, policy, layout in BUCKETED_ENGINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        spec = vlm_spec(policy, layout)
+        eng = ServingEngine(spec, device="cuda", graphs=True)
+        eng.load(params)
+        first = drain(eng, prompts)
+        first["warm"] = drain(eng, prompts)
+        traced = drain(eng, prompts, measure="profile")
+        eager = ServingEngine(spec, device="cuda", graphs=False)
+        eager.load(params)
+        runs = {"graphed": first, "eager": drain(eager, prompts)}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del eng, eager
+        path = f"vlm_{policy}_{layout}"
+        bucketed_engine_line(label, cfg, policy, layout, runs, len(prompts),
+                             PATH_KERNELS[path])
+        dev_s, warm = traced["device_s"], first["warm"]
+        if dev_s is None:
+            print("  the profiler traced no device activity: device time and "
+                  "idle share not measured")
+        else:
+            idle = 1 - dev_s / warm["dt"]
+            print(f"  {label}, warm drain traced: {dev_s * 1e3:.1f} ms of "
+                  f"device time over {traced['steps']} fused steps; idle "
+                  f"{idle:.3f} of the untraced warm drain's "
+                  f"{warm['dt']:.3f} s "
+                  f"({1 - dev_s / traced['dt']:.3f} of the traced drain's "
+                  f"{traced['dt']:.3f} s)"
+                  + ("; below 0: the traced kernels outlast the untraced "
+                     "drain, the device is never idle" if idle < 0 else "")
+                  + "; the 6 longest kernels:")
+            for key, calls_n, ms in traced["top"][:6]:
+                print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                      f"{ms / (dev_s * 1e3):6.1%}")
+        print(f"  {label}: max_memory_allocated {peak:.2f} GB (graphed and "
+              "eager engines resident)")
+        launches[path] = first["launches"]
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_vlm(dev, g) -> dict:
+    """Phase 15a and 15b on phi-3-vision-4.2b at its published widths and
+    all 32 layers (``vlm_steps``, ``vlm_serving``), then 15b's f32 gate on
+    a short mix: the three engines' greedy streams identical."""
+    t_start = time.perf_counter()
+    cfg = get_config(VLM)
+    model32 = Model(cfg, compute_dtype=torch.float32, device=dev,
+                    matmul_backend="pallas", paged_attn_impl="pallas")
+    init_in_place(model32, g)
+    n_params = sum(t.numel() for t in model32.parameters())
+    print(f"\n== phase 15: {VLM}, {n_params / 1e9:.3f} G parameters "
+          f"({n_params * 2 / 1e9:.2f} GB in bf16)")
+    vlm_steps(model32, dev, g)
+    params = model32.state_dict()
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    launches = vlm_serving(params, dev, g)
+    rs = np.random.default_rng(16)
+    short = [rs.integers(0, cfg.vocab_size, cfg.frontend.num_tokens + n)
+             .tolist() for n in (16, 130, 244)]
+    f32_streams(f"{VLM}, 3 requests of {min(map(len, short))}-"
+                f"{max(map(len, short))} tokens x 4 new",
+                lambda p, lay: vlm_spec(p, lay, compute="fp32"), params,
+                short, 4)
+    del model32, params
+    torch.cuda.empty_cache()
+    print(f"  phase 15a-b took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def check_bucketed_qwen(dev, g) -> dict:
+    """Phase 15c: qwen1.5-0.5b on phase 5's spec and request mix with
+    ``policy="bucketed"`` over the dense layout and the paged pool, each
+    graphed (first and warm drain) and eager (``bucketed_engine_line``'s
+    gates; prompts of 24-400 tokens fill buckets 32-512); then the mix at
+    f32 compute on the chunked engine and both bucketed ones: identical
+    streams."""
+    t_start = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    params = Model(cfg, device=dev).init(g).state_dict()
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    print(f"\n== phase 15c: full-width {cfg.name} on the bucketed "
+          f"scheduler, phase 5's mix ({len(prompts)} requests x {MAX_NEW} "
+          "new), the kernel path")
+    launches = {}
+    for label, policy, layout in BUCKETED_ENGINES[1:]:
+        spec = vlm_spec(policy, layout, arch=cfg, engine=ENGINE)
+        eng = ServingEngine(spec, device="cuda", graphs=True)
+        eng.load(params)
+        first = drain(eng, prompts)
+        first["warm"] = drain(eng, prompts)
+        eager = ServingEngine(spec, device="cuda", graphs=False)
+        eager.load(params)
+        runs = {"graphed": first, "eager": drain(eager, prompts)}
+        del eng, eager
+        bucketed_engine_line(f"{cfg.name} {label}", cfg, policy, layout,
+                             runs, len(prompts),
+                             PATH_KERNELS[f"bucketed_{layout}"])
+        comp = first["compilations"]
+        print(f"  {cfg.name} {label}: warm graphed "
+              f"{len(prompts) * MAX_NEW / first['warm']['dt']:.1f} tok/s; "
+              f"captures: decode {comp['decode']}, one per bucket "
+              f"({comp['prefill_buckets']} buckets, prompts of "
+              f"{min(PROMPT_LENS)}-{max(PROMPT_LENS)} tokens)")
+        launches[f"bucketed_{layout}"] = first["launches"]
+    f32_streams(f"{cfg.name}, phase 5's mix",
+                lambda p, lay: vlm_spec(p, lay, compute="fp32", arch=cfg,
+                                        engine=ENGINE), params, prompts,
+                MAX_NEW)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 15c took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the register-driven engine (the paper's claim C1)
 # ---------------------------------------------------------------------------
 # the paper's three evaluation networks (configs/adaptor_bert.py,
@@ -4058,8 +4489,13 @@ def main() -> int:
     lap("phase 12")
     launches.update(check_mla(dev, g))
     lap("phase 14")
+    launches.update(check_vlm(dev, g))
+    launches.update(check_bucketed_qwen(dev, g))
+    lap("phase 15")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
-                 "moe_spec", "mla", "mla_int8_pool"):
+                 "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
+                 "vlm_bucketed_dense", "vlm_bucketed_paged",
+                 "bucketed_dense", "bucketed_paged"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

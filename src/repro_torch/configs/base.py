@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense, MoE (with MLA) and encoder families need
-(the SSM / hybrid / frontend sub-configs are ported with their families,
-ROADMAP.md Queue 1 item 12).  ``EncDecConfig`` is here for the
+restricted to what the dense, vlm, MoE (with MLA) and encoder families
+need (the SSM / hybrid sub-configs are ported with their families,
+ROADMAP.md Queue 1 items 12c-12d).  ``FrontendConfig`` is the vlm
+family's stub vision frontend.  ``EncDecConfig`` is here for the
 register-driven engine's encoder/decoder rule (``core/registers.py``
 ``registers_for``, ``core/spec.py`` ``maxima_for``).  Dtype defaults are
 torch dtypes where the JAX package names ``jnp`` ones.
@@ -63,9 +64,20 @@ class EncDecConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontend: the caller provides precomputed embeddings
+    (``num_tokens`` rows of width ``feature_dim`` == d_model)."""
+
+    kind: str  # 'vision' | 'audio'
+    num_tokens: int  # patch / frame token count delivered by the stub
+    feature_dim: int  # embedding dim delivered by the stub (== d_model)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
-    """A single architecture (the dense-, MoE- and encoder-family fields of
-    the reference, its MLA and enc-dec sub-configs and the MTP depth)."""
+    """A single architecture (the dense-, vlm-, MoE- and encoder-family
+    fields of the reference, its MLA, enc-dec and frontend sub-configs and
+    the MTP depth)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -87,6 +99,7 @@ class ArchConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     encdec: EncDecConfig | None = None
+    frontend: FrontendConfig | None = None
     # Multi-token prediction depth (DeepSeek-V3 MTP); 0 disables.  A
     # training-only head (ROADMAP.md Queue 1 item 16): serving ignores it.
     num_mtp_modules: int = 0
@@ -127,7 +140,8 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     """A tiny same-family config for CPU tests: the reference's shrink rule
     (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept; an MoE
     block shrunk to 4 experts of width 32, top-min(2, k); MLA to ranks
-    32 / 16 with head dims 16 + 8 and 16; an MTP depth to 1)."""
+    32 / 16 with head dims 16 + 8 and 16; a frontend to 8 tokens of 64;
+    an MTP depth to 1)."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     small: dict[str, Any] = dict(
@@ -158,6 +172,9 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
             qk_rope_head_dim=8,
             v_head_dim=16,
         )
+    if cfg.frontend is not None:
+        small["frontend"] = FrontendConfig(
+            kind=cfg.frontend.kind, num_tokens=8, feature_dim=64)
     if cfg.num_mtp_modules:
         small["num_mtp_modules"] = 1
     small.update(overrides)

@@ -1,7 +1,8 @@
 """The KV-cache codec: quantize-on-write / dequantize-on-read decode state.
 
 The port's counterpart of the reference's ``core/kv_quant.py``.  One
-``CacheCodec`` policy object rules the paged pool:
+``CacheCodec`` policy object rules the paged pool and the dense per-slot
+cache alike:
 
 * **compute** — values are stored in the compute dtype (bf16); the codec
   is the identity and no scale tensors exist.
@@ -67,6 +68,13 @@ class CacheCodec:
         """int8 values + per-row scales -> float ``[..., d]``."""
         return (values.float() * scale[..., None].float()).to(dtype)
 
+    def load(self, values: torch.Tensor, scale: torch.Tensor | None,
+             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """A float view of stored values (as stored in compute mode)."""
+        if not self.quantized:
+            return values
+        return self.decode(values, scale, dtype)
+
     def store(self, x: torch.Tensor, store_dtype: torch.dtype
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Values (+ scales, or None) ready for the cache write."""
@@ -116,11 +124,12 @@ def cache_put(values: torch.Tensor, scales: torch.Tensor | None, idx: tuple,
               new_vals: torch.Tensor, new_scales: torch.Tensor | None
               ) -> None:
     """Write codec-stored (values, scales) at ``idx`` in place — the one
-    write primitive of the paged pool; scales are None end to end in
-    compute mode.
+    write primitive of the paged pool (``idx`` = (block, offset)) and of
+    the dense cache (``idx`` = (slot, position)); scales are None end to
+    end in compute mode.
 
     Rows may share a destination (dead lanes and idle slots all go to the
-    null block), and ``index_put_`` picks no winner among duplicates on
+    null block, or to a dense cache's spare row), and ``index_put_`` picks no winner among duplicates on
     CUDA.  So every row first takes the values and scale of its
     destination's ``last_writer``: each destination then receives one
     row's bytes, values and scale from the same row, whatever order the

@@ -12,14 +12,17 @@ both packages:
 * ``param_dtype`` / ``compute_dtype`` accept torch dtypes or the same
   string names (``"bf16"``, ``"fp32"``, ...).
 
-What the port serves so far is the dense and moe families (GQA or MLA
-attention; MLA on one model's engine, never in a fleet) through the
-paged pool and the chunked scheduler, with float or int8 weights
-(``quant``) and a float or int8 KV pool (``MemorySpec.kv_dtype``), one
-model or a fleet of dense models within ``maxima`` (``maxima_for``; a
-fleet's int8 weights are its own int8 weight table), with or without the
-prefix cache (``MemorySpec.prefix_cache``), and with or without
-speculative decoding (``SpeculationSpec``).  An encoder-family spec with
+What the port serves so far is the dense, vlm and moe families (GQA or
+MLA attention; MLA on one model's engine, never in a fleet) through the
+dense per-slot cache or the paged pool (``MemorySpec.cache_layout``) and
+the chunked or the bucketed scheduler (``SchedulerSpec.policy``, "auto"
+resolving as the reference's engine does: ``RuntimeSpec.resolved_policy``),
+with float or int8 weights (``quant``) and a float or int8 KV cache
+(``MemorySpec.kv_dtype``), one model or a fleet of dense models within
+``maxima`` (``maxima_for``; a fleet's int8 weights are its own int8
+weight table), with or without the prefix cache (``MemorySpec.prefix_cache``,
+paged and chunked only), and with or without speculative decoding
+(``SpeculationSpec``, chunked only).  An encoder-family spec with
 ``maxima`` describes one topology of the register-driven engine
 (``core/adaptive.py`` ``AdaptiveEngine.from_spec``), which it lowers to
 the register file (``RuntimeSpec.registers``); it has no decode state, so
@@ -55,8 +58,17 @@ _DTYPE_ALIASES = {
     "fp16": torch.float16, "f16": torch.float16, "float16": torch.float16,
 }
 
-# Families the port serves so far (and drafts with).
-PORTED_FAMILIES = ("dense", "moe")
+# Families the port serves so far.
+PORTED_FAMILIES = ("dense", "vlm", "moe")
+# Families whose decode state is a genuine KV/latent cache (the reference's
+# KV_QUANTIZABLE_FAMILIES) and whose prefill can be replayed through the
+# fused chunked step (its CHUNKABLE_FAMILIES): attention caches are
+# write-then-attend.
+KV_QUANTIZABLE_FAMILIES = ("dense", "vlm", "moe")
+CHUNKABLE_FAMILIES = ("dense", "vlm", "moe")
+# the ROADMAP.md Queue 1 sub-item that ports each family still refused
+FAMILY_ITEMS = {"hybrid": "item 12c", "ssm": "item 12d", "audio": "item 12e",
+                "encoder": "item 12f"}
 
 
 def _normalize_dtype(field_name: str, value):
@@ -284,11 +296,12 @@ class SpeculationSpec:
             raise ValueError(
                 f"SpeculationSpec.k={self.k} must be >= 1 (propose at "
                 "least one draft token per step)")
-        if self.draft_model.family not in PORTED_FAMILIES:
-            raise _not_ported(
-                f"a draft of family {self.draft_model.family!r}",
-                "items 11-12", "; the port drafts with the families "
-                f"{PORTED_FAMILIES}")
+        if self.draft_model.family not in CHUNKABLE_FAMILIES:
+            raise ValueError(
+                f"SpeculationSpec.draft_model family "
+                f"{self.draft_model.family!r} cannot draft: proposals ride "
+                "the fused mixed step, which needs an attention KV cache "
+                f"(families {CHUNKABLE_FAMILIES})")
 
     @property
     def horizon(self) -> int:
@@ -328,7 +341,8 @@ class RuntimeSpec:
         if not decodes:
             self._validate_encoder()
         elif cfg.family not in PORTED_FAMILIES:
-            raise _not_ported(f"family {cfg.family!r}", "items 11-12",
+            raise _not_ported(f"family {cfg.family!r}",
+                              FAMILY_ITEMS.get(cfg.family, "items 11-12"),
                               f"; the port serves the families "
                               f"{PORTED_FAMILIES}")
         if self.maxima is not None and cfg.mla is not None:
@@ -390,7 +404,7 @@ class RuntimeSpec:
         cfg, mem = self.arch, self.memory
         if self.maxima is None:
             raise _not_ported(
-                "family 'encoder' without maxima", "items 11-12",
+                "family 'encoder' without maxima", FAMILY_ITEMS["encoder"],
                 "; an encoder runs on the register-driven engine "
                 "(core/adaptive.py), built at maxima= (maxima_for)")
         if mem.cache_layout == "paged":
@@ -402,44 +416,58 @@ class RuntimeSpec:
             raise ValueError(
                 f"kv_dtype='int8' is unsupported for family {cfg.family!r}: "
                 "only KV/latent attention caches are quantized "
-                f"(families ('dense', 'vlm', 'moe')); recurrent / "
+                f"(families {KV_QUANTIZABLE_FAMILIES}); recurrent / "
                 "rolling-window / enc-dec decode state keeps the compute "
                 "dtype — use kv_dtype='compute'")
 
     def _validate_decode_state(self) -> None:
-        """The cache layout and the scheduler of a decoding family: the
-        paged pool and the chunked scheduler are what the port serves."""
-        mem = self.memory
-        if mem.cache_layout != "paged":
-            raise _not_ported(
-                f"cache_layout={mem.cache_layout!r}", "item 12",
-                "; use MemorySpec(cache_layout='paged')")
-        bad = self.scheduler.chunk_violations(mem)
-        if mem.prefix_cache and (bad or self.scheduler.policy == "bucketed"):
-            # the reference's engine check: a cache hit resumes prefill
-            # mid-prompt, which only the fused chunked step supports
+        """The cache layout and the scheduler of a decoding family, with
+        the reference's checks and messages: an explicit ``"chunked"``
+        must be satisfiable, and the prefix cache needs the chunked
+        scheduler (explicit, or ``"auto"`` resolving to it; the reference
+        raises the latter in its engine)."""
+        mem, sched = self.memory, self.scheduler
+        if mem.prefix_cache and sched.policy == "bucketed":
+            raise ValueError(
+                "prefix_cache=True requires the chunked scheduler: a "
+                "cache-hit request resumes prefill mid-prompt, which only "
+                "the fused chunked step supports (the bucketed path always "
+                "replays the whole prompt); use policy='auto' or 'chunked'")
+        if sched.policy == "chunked":
+            # "auto" falls back to bucketed on these; an explicit chunked
+            # request fails loudly at construction instead
+            bad = sched.chunk_violations(mem)
+            if bad:
+                raise ValueError(
+                    "scheduler policy 'chunked' is not satisfiable: "
+                    + "; ".join(bad))
+        if mem.prefix_cache and self.resolved_policy != "chunked":
             raise ValueError(
                 "prefix_cache=True requires the chunked scheduler, but "
-                f"policy {self.scheduler.policy!r} resolves to 'bucketed' "
-                "for this spec (a cache-hit request resumes prefill "
-                "mid-prompt, which only the fused chunked step supports); "
-                "fix the chunk geometry so the chunked scheduler is "
-                "satisfiable" + (": " + "; ".join(bad) if bad else ""))
-        if self.scheduler.policy == "bucketed":
-            raise _not_ported("scheduler policy 'bucketed'", "item 12",
-                              "; use policy='auto' or 'chunked'")
-        if bad:
-            # the reference's "auto" falls back to the bucketed scheduler
-            # here; the port has only the chunked one
-            raise ValueError(
-                "scheduler policy 'chunked' is not satisfiable: "
-                + "; ".join(bad))
+                "policy 'auto' resolved to 'bucketed' for this spec "
+                "(a cache-hit request resumes prefill mid-prompt, which "
+                "only the fused chunked step supports); fix the chunk "
+                "geometry so the chunked scheduler is satisfiable")
+
+    @property
+    def resolved_policy(self) -> str:
+        """The scheduler the engine runs (the reference engine's rule):
+        ``"auto"`` is ``"chunked"`` where the family is chunkable (a fleet
+        always is) and the chunk geometry is satisfiable, else
+        ``"bucketed"``."""
+        sched = self.scheduler
+        if sched.policy != "auto":
+            return sched.policy
+        chunkable = (self.maxima is not None
+                     or self.arch.family in CHUNKABLE_FAMILIES) \
+            and not sched.chunk_violations(self.memory)
+        return "chunked" if chunkable else "bucketed"
 
     def _validate_speculation(self) -> None:
         """The reference's checks of a speculating spec: the verify lanes
         fit the fused step's chunk, and the draft shares the target's
         token space (a fleet's: the maxima's vocab).  (The chunked
-        scheduler it needs is the port's only one, checked above.)"""
+        scheduler it needs is checked above.)"""
         sp = self.speculation
         if not isinstance(sp, SpeculationSpec):
             raise ValueError(

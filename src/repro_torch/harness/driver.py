@@ -1,9 +1,10 @@
 """Replay a trace against a configured :class:`ServingEngine`.
 
 The port's own copy of the reference's ``harness/driver.py``; it drives
-the port's ``serving.engine.ServingEngine`` (one model or a fleet, with
-or without the prefix cache or speculation, graphed or eager) through
-the same surface.
+the port's ``serving.engine.ServingEngine`` (one model or a fleet, on the
+chunked or the bucketed scheduler, over the paged pool or the dense
+layout, with or without the prefix cache or speculation, graphed or
+eager) through the same surface.
 
 The driver owns the outer serve loop every benchmark used to hand-roll:
 submit requests when the engine's logical clock reaches their

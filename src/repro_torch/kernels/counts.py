@@ -7,6 +7,11 @@ records its launch into the graph, which later replays it without
 calling the wrapper.  The serving engine reads ``launch_counts()`` around
 each capture, so it knows each graph's launches per wrapper, and adds
 them up per replay (``ServingEngine.replayed_launches``).
+
+``program_launches`` gives what one call of a model's program launches
+under the hand-written kernels: a fused step over the paged pool or the
+dense layout, or a bucketed B = 1 prefill, whose products take the
+bucket's rows.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from repro_torch.kernels import tiled_matmul as _tm
 
 # the wrappers carrying a ``live_kv_launches`` count beside ``launches``
 LIVE_KV = ("paged_decode_attention", "chunked_prefill_attention")
+# the programs of ``program_launches``
+PROGRAMS = ("decode", "mixed", "prefill")
 
 
 def wrappers() -> dict:
@@ -44,3 +51,48 @@ def launch_counts() -> dict[str, int]:
     out.update({f"{name}.live_kv": getattr(fns[name], "live_kv_launches", 0)
                 for name in LIVE_KV})
     return out
+
+
+def program_launches(cfg, program: str, *, layout: str = "paged",
+                     quant: bool = False) -> dict[str, int]:
+    """The hand-written kernels' launches per call of ``program`` ("decode"
+    | "mixed" | "prefill", one of ``PROGRAMS``) of a ``models.model.Model``
+    of ``cfg`` under ``matmul_backend="pallas"`` and
+    ``paged_attn_impl="pallas"``.
+
+    Every layer's projections go through one matmul launch each (the
+    ``int8_matmul`` under ``quant``, which assumes every projection's leaf
+    is quantized, as at the served full widths; else ``tiled_matmul``):
+    wq, wk, wv, wo and the FFN's w1, (wg,) w2 in a dense or vlm layer; an
+    MoE layer's attention projections and its shared expert's (the routed
+    experts are ``torch.bmm``); MLA's q_down, q_up, kv_down and wo, plus
+    k_up and v_up in a prefill (the steps' absorbed attend contracts them
+    as einsums).  ``rmsnorm``: ln1 and ln2 of every layer (MLA's q_norm
+    and kv_norm too) and the final norm.  Attention walks: a GQA layer's
+    decode step over the paged pool one ``paged_decode_attention``, its
+    mixed step one ``chunked_prefill_attention``; none over the dense
+    layout, in a prefill (plain attention, as the reference's XLA) or with
+    MLA (the gather view, as the reference)."""
+    if program not in PROGRAMS:
+        raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
+    L = cfg.num_layers
+    gated = cfg.activation in ("swiglu", "geglu")
+    ffn = 3 if gated else 2
+    k = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    if cfg.mla is not None:
+        attn = 4 + (2 if program == "prefill" else 0)
+    else:
+        attn = 4
+    if cfg.moe is not None:
+        shared = ffn if cfg.moe.num_shared_experts else 0
+        mm = attn * L + ffn * k + shared * (L - k)
+    else:
+        mm = (attn + ffn) * L
+    norms = (4 if cfg.mla is not None else 2) * L + 1
+    walk = L if (layout == "paged" and cfg.mla is None
+                 and program != "prefill") else 0
+    return {"tiled_matmul": 0 if quant else mm,
+            "int8_matmul": mm if quant else 0,
+            "rmsnorm": norms,
+            "paged_decode_attention": walk if program == "decode" else 0,
+            "chunked_prefill_attention": walk if program == "mixed" else 0}

@@ -1,9 +1,14 @@
 """Serving driver of the port: ``python -m repro_torch.launch.serve``.
 
 Builds one ``core.spec.RuntimeSpec`` from the flags (the reference's
-``launch/serve.py`` flags this port supports), starts the paged, chunked
-``ServingEngine`` with random weights from a seeded generator, submits a
-demo request mix and reports tokens/s and the host-traffic accounting.
+``launch/serve.py`` flags this port supports), starts the ``ServingEngine``
+with random weights from a seeded generator, submits a demo request mix
+and reports tokens/s and the host-traffic accounting.  ``--cache-layout``
+is the reference's, ``dense`` by default (one row range per slot) or
+``paged`` (the block pool, needed by ``--prefix-cache``); the scheduler is
+the reference's ``"auto"``: chunked where the chunk geometry allows it
+(``--chunk-size`` within ``--max-len`` and, paged, a multiple of
+``--block-size``), else bucketed.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--kernels
 pallas`` routes every dense projection through the hand-written
@@ -14,7 +19,9 @@ int8`` serves int8 weights (through the hand-written ``int8_matmul`` under
 reference serves reduced configs in this driver; ``--full-width`` serves
 the architecture at its published widths.  ``--arch`` takes any id of the
 port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
-phi3-mini-3.8b, and adaptor-bert-shaped.  ``--prefix-cache`` shares
+phi3-mini-3.8b, adaptor-bert-shaped, granite-moe-1b-a400m,
+deepseek-v3-671b and phi-3-vision-4.2b (its stub frontend's patch
+positions take zeros, as in the reference).  ``--prefix-cache`` shares
 prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
 reports its hits, skipped tokens, copy-on-write forks and evictions.
 
@@ -95,12 +102,17 @@ def main(argv: list[str] | None = None) -> None:
                     help="parameter dtype by name, e.g. fp32 / bf16")
     ap.add_argument("--compute-dtype", default=None,
                     help="activation dtype by name, e.g. bf16 / fp32")
+    ap.add_argument("--cache-layout", choices=("dense", "paged"),
+                    default="dense")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="tokens per KV block of the paged pool")
+                    help="paged layout: tokens per KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
-                    help="pool size (default: the dense worst case)")
+                    help="paged layout: pool size (default: dense worst "
+                         "case)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="share prompt-prefix KV blocks across requests")
+                    help="share prompt-prefix KV blocks across requests "
+                         "(requires --cache-layout paged; rejected at spec "
+                         "construction otherwise)")
     ap.add_argument("--chunk-size", type=int, default=16,
                     help="prompt tokens per slot per fused step")
     ap.add_argument("--spec-k", type=int, default=0,
@@ -172,8 +184,9 @@ def main(argv: list[str] | None = None) -> None:
         execution=ExecutionSpec(matmul_backend=args.kernels,
                                 paged_attn_impl=args.attn, quant=args.quant,
                                 **ex_kw),
-        memory=MemorySpec(cache_layout="paged", max_batch=args.max_batch,
-                          max_len=args.max_len, block_size=args.block_size,
+        memory=MemorySpec(cache_layout=args.cache_layout,
+                          max_batch=args.max_batch, max_len=args.max_len,
+                          block_size=args.block_size,
                           num_blocks=args.num_blocks,
                           kv_dtype=args.kv_dtype,
                           prefix_cache=args.prefix_cache),
@@ -260,18 +273,20 @@ def main(argv: list[str] | None = None) -> None:
     st = eng.stats
     print(f"host traffic: {st['device_gets']} bulk transfers over "
           f"{st['decode_steps']} fused steps")
-    print(f"fused programs: {st['graph_captures']} CUDA graph captures, "
+    print(f"{eng.scheduler} scheduler, {spec.memory.cache_layout} cache; "
+          f"fused programs: {st['graph_captures']} CUDA graph captures, "
           f"{st['graph_replays']} replays, {st['eager_steps']} eager steps; "
           f"compilations {dict(eng.compilations)}")
-    s = eng.memory_stats()
-    print(f"paged pool: {s.total_blocks} x {spec.memory.block_size}-token "
-          f"blocks, {eng.stats['preemptions']} preemptions")
-    if spec.memory.prefix_cache:
-        print(f"prefix cache: {st['prefix_hits']} hits / "
-              f"{st['prefix_hit_tokens']} tokens skipped, "
-              f"{st['cow_forks']} CoW forks, {st['prefix_evictions']} "
-              f"evictions; {s.shared_blocks} shared + {s.cached_blocks} "
-              "parked blocks resident")
+    if spec.memory.cache_layout == "paged":
+        s = eng.memory_stats()
+        print(f"paged pool: {s.total_blocks} x {spec.memory.block_size}-"
+              f"token blocks, {eng.stats['preemptions']} preemptions")
+        if spec.memory.prefix_cache:
+            print(f"prefix cache: {st['prefix_hits']} hits / "
+                  f"{st['prefix_hit_tokens']} tokens skipped, "
+                  f"{st['cow_forks']} CoW forks, {st['prefix_evictions']} "
+                  f"evictions; {s.shared_blocks} shared + "
+                  f"{s.cached_blocks} parked blocks resident")
     if args.spec_k:
         acc, ss = st["spec_accepted"], st["spec_steps"]
         mean = acc / ss if ss else 0.0

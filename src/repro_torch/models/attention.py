@@ -1,6 +1,6 @@
-"""Attention of the port: GQA and MLA, each full-sequence, as the paged
-decode, the paged mixed (chunk) step, and the mixed step over a dense
-per-slot cache (the speculation draft's).
+"""Attention of the port: GQA and MLA, each full-sequence, as the prefill
+that also emits a layer's dense cache, as the one-token decode and the
+mixed (chunk) step over the paged pool or over the dense per-slot cache.
 
 The counterpart of the reference's ``models/attention.py``.  The
 dtype flow is the reference's: scores are an einsum in the promoted
@@ -11,9 +11,18 @@ The paged pool is updated **in place** (``core.kv_quant.cache_put``): the
 reference donates the cache to its jitted step, the port writes the new
 K/V rows (and, with the int8 codec, their scales) straight into the pool
 tensors.  Writes past a slot's blocks and writes of dead lanes are routed
-to the null block explicitly; in a dense cache they go to its spare row.  With the int8 codec the gather path
-dequantizes the gathered view to x's dtype and the kernels take the
-scales.
+to the null block explicitly.  A dense cache ``[B, max_len + 1, ...]``
+holds one spare row past the end that takes the writes of dead lanes and
+of positions past ``max_len - 1`` (the reference drops them as
+out-of-bounds scatters) and that no mask admits.  With the int8 codec
+the gather path dequantizes the gathered view to x's dtype and the
+kernels take the scales; the dense cache is read through ``codec.load``
+(as stored in compute mode, dequantized to x's dtype under int8).
+
+The full-sequence attention of ``forward`` and of the prefill is plain
+PyTorch, as the reference's is XLA: ``full_attention`` below
+``BLOCKWISE_THRESHOLD`` positions, ``blockwise_attention`` (query blocks
+of ``QUERY_BLOCK``, exact) at or above it.
 
 MLA (DeepSeek-V3) caches one compressed latent ``c_kv`` [rank] and one
 shared rope key ``k_rope`` per position (``MLACache``), paged through the
@@ -45,11 +54,18 @@ from repro_torch.models.layers import apply_dense, apply_norm, apply_rope
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
+# Sequences at or above this length use blockwise (streamed) attention;
+# below it the direct einsum chain (the reference's rule).
+BLOCKWISE_THRESHOLD = 8_192
+QUERY_BLOCK = 1_024
+
 
 class KVCache(NamedTuple):
-    """The paged pool: ``[layers, pool_blocks, block_size, kv, hd]`` K and V
-    (pool row 0 is the null block), and with the int8 codec their float32
-    scales ``[layers, pool_blocks, block_size, kv]`` (None otherwise)."""
+    """The paged pool ``[layers, pool_blocks, block_size, kv, hd]`` K and V
+    (pool row 0 is the null block) or the dense cache ``[layers, batch,
+    max_len + 1, kv, hd]`` (row ``max_len`` the spare), and with the int8
+    codec their float32 scales, the values' shape without the last dim
+    (None otherwise)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -100,6 +116,46 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        query_block: int = QUERY_BLOCK,
+                        scale: float | None = None) -> torch.Tensor:
+    """Query-block streamed attention (exact): the score rows of one block
+    of ``query_block`` queries at a time, so the peak score memory is
+    B x h x query_block x Skv.  q: [B, Sq, h, hd], k: [B, Skv, h, hd],
+    v: [B, Skv, h, vd] (MLA's value dim may differ)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    nb = -(-sq // query_block)
+    pad = nb * query_block - sq
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    kv_pos = torch.arange(skv, device=q.device)
+    out = []
+    for i in range(nb):
+        qi = q[:, i * query_block:(i + 1) * query_block]
+        qs, ks = _promote(qi, k)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, ks).float() * scale
+        if causal:
+            q_pos = i * query_block + torch.arange(query_block,
+                                                   device=q.device)
+            m = kv_pos[None, :] <= q_pos[:, None]
+            s = torch.where(m[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v))
+    return torch.cat(out, dim=1)[:, :sq]
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float | None = None) -> torch.Tensor:
+    """Causal full-sequence attention, blockwise at ``BLOCKWISE_THRESHOLD``
+    positions and past (the reference's choice)."""
+    if q.shape[1] >= BLOCKWISE_THRESHOLD:
+        return blockwise_attention(q, k, v, causal=True, scale=scale)
+    return full_attention(q, k, v, causal=True, scale=scale)
+
+
 def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
             mm: str):
     b_, s, _ = x.shape
@@ -116,12 +172,41 @@ def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
 def gqa_attention(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str
                   ) -> torch.Tensor:
     """Full-sequence causal GQA attention (the forward pass)."""
+    return _gqa_full(x, p, cfg, positions, mm)[0]
+
+
+def _gqa_full(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str):
+    """(output, k, v) of full-sequence causal GQA attention."""
     b_, s, _ = x.shape
     q, k, v = gqa_qkv(x, p, cfg, positions, mm)
     n_rep = cfg.num_heads // cfg.num_kv_heads
-    o = full_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                       causal=True)
-    return apply_dense(o.reshape(b_, s, -1), p.wo, mm)
+    o = _attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    return apply_dense(o.reshape(b_, s, -1), p.wo, mm), k, v
+
+
+def padded_store(codec: CacheCodec, x: torch.Tensor, max_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The codec's stored rows of x [B, S, ...] (bf16 values, or int8 with
+    their scales), zero-padded along S to ``max_len`` rows."""
+    q, sc = codec.store(x, torch.bfloat16)
+    pad = max_len - x.shape[1]
+    q = torch.nn.functional.pad(q, (0, 0) * (q.dim() - 2) + (0, pad))
+    if sc is not None:
+        sc = torch.nn.functional.pad(sc, (0, 0) * (sc.dim() - 2) + (0, pad))
+    return q, sc
+
+
+def gqa_prefill(x: torch.Tensor, p, cfg: ArchConfig, positions, *,
+                max_len: int, mm: str, codec: CacheCodec = FLOAT_CODEC
+                ) -> tuple[torch.Tensor, KVCache]:
+    """Full-sequence attention that also emits this layer's dense cache
+    ``[B, max_len, kv, hd]`` through the codec (rows past the sequence are
+    zeros).  The reference's non-window branch; its rolling-window branch
+    is the hybrid family's (ROADMAP.md Queue 1 item 12c)."""
+    o, k, v = _gqa_full(x, p, cfg, positions, mm)
+    kq, ks = padded_store(codec, k, max_len)
+    vq, vs = padded_store(codec, v, max_len)
+    return o, KVCache(kq, vq, ks, vs)
 
 
 def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -199,31 +284,69 @@ def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     return apply_dense(o, p.wo, mm)
 
 
+def dense_write_slot(idx: torch.Tensor, live: torch.Tensor,
+                     s_max: int) -> tuple:
+    """(slot, position) of each write into a dense cache whose spare row is
+    ``s_max``: the live writes below ``s_max`` at their position, the rest
+    at the spare row.  ``idx`` is [B] or [B, W]."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    if idx.dim() == 2:
+        rows = rows[:, None]
+    return rows, torch.where(live & (idx < s_max), idx, s_max).long()
+
+
+def _dense_view(t: torch.Tensor, scale: torch.Tensor | None,
+                codec: CacheCodec, s_max: int, dtype) -> torch.Tensor:
+    """The first ``s_max`` rows of one dense cache tensor, read through the
+    codec (as stored, or dequantized to ``dtype``)."""
+    return codec.load(t[:, :s_max], None if scale is None
+                      else scale[:, :s_max], dtype)
+
+
+def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
+               idx: torch.Tensor, *, mm: str,
+               codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+    """One-token decode against one layer's dense cache ``[B, max_len + 1,
+    kv, hd]``: write the new K/V rows at ``idx`` [B] (the spare row from
+    ``max_len`` on) in place, attend over positions ``<= idx``.  The
+    reference's non-window branch (its rolling buffer is item 12c's)."""
+    q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm)
+    s_max = cache.k.shape[1] - 1
+    every = torch.ones_like(idx, dtype=torch.bool)
+    _write(cache, codec, dense_write_slot(idx, every, s_max), k_new[:, 0],
+           v_new[:, 0])
+    live = torch.arange(s_max, device=x.device)[None, :] <= idx[:, None]
+    o = _gqa_attend(q, _dense_view(cache.k, cache.k_scale, codec, s_max,
+                                   x.dtype),
+                    _dense_view(cache.v, cache.v_scale, codec, s_max,
+                                x.dtype), live, cfg)
+    return apply_dense(o, p.wo, mm)
+
+
 def gqa_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
               start: torch.Tensor, n_live: torch.Tensor, *,
-              mm: str) -> torch.Tensor:
+              mm: str, codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
     """W-lane chunk/decode attention against one layer's dense cache
-    ``[B, max_len + 1, kv, hd]`` (``Model.init_dense_cache``; float
-    storage): lane ``l`` of slot ``b`` sits at position ``start[b] + l``
-    and only its first ``n_live[b]`` lanes are real.  The chunk's K/V are
-    written before the attend, so one mask (``chunk_causal_mask`` over the
-    first ``max_len`` rows) covers the chunk's own causality and the prior
-    cache.  Dead lanes and positions past ``max_len - 1`` write into the
-    spare row ``max_len``, which no mask admits (the reference drops them
-    as out-of-bounds scatters); live lanes never share a row."""
+    ``[B, max_len + 1, kv, hd]`` (``Model.init_cache`` without paging, or a
+    draft's ``init_dense_cache``): lane ``l`` of slot ``b`` sits at
+    position ``start[b] + l`` and only its first ``n_live[b]`` lanes are
+    real.  The chunk's K/V are written before the attend, so one mask
+    (``chunk_causal_mask`` over the first ``max_len`` rows) covers the
+    chunk's own causality and the prior cache.  Dead lanes and positions
+    past ``max_len - 1`` write into the spare row, which no mask admits;
+    live lanes never share a row."""
     b_, w, _ = x.shape
     positions = start[:, None] + torch.arange(w, device=x.device,
                                               dtype=start.dtype)[None, :]
     q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm)
     s_max = cache.k.shape[1] - 1
-    live_w = masking.lane_mask(w, n_live) & (positions < s_max)
-    idx = (torch.arange(b_, device=x.device)[:, None],
-           torch.where(live_w, positions, s_max).long())
-    cache.k.index_put_(idx, k_new.to(cache.k.dtype))
-    cache.v.index_put_(idx, v_new.to(cache.v.dtype))
+    _write(cache, codec, dense_write_slot(
+        positions, masking.lane_mask(w, n_live), s_max), k_new, v_new)
     live = masking.chunk_causal_mask(s_max, start, w)
-    o = _gqa_attend(q, cache.k[:, :s_max].to(x.dtype),
-                    cache.v[:, :s_max].to(x.dtype), live, cfg)
+    o = _gqa_attend(q, _dense_view(cache.k, cache.k_scale, codec, s_max,
+                                   x.dtype),
+                    _dense_view(cache.v, cache.v_scale, codec, s_max,
+                                x.dtype), live, cfg)
     return apply_dense(o, p.wo, mm)
 
 
@@ -265,8 +388,8 @@ class MLACache(NamedTuple):
     """The latent cache: the compressed kv ``c_kv`` and the shared rope key
     ``k_rope``, paged ``[layers, pool_blocks, block_size, rank | rope]``
     (pool row 0 the null block) or dense ``[layers, batch, max_len + 1,
-    ...]`` (a draft's; row ``max_len`` the spare), and with the int8 codec
-    their float32 scales ``[layers, pool_blocks, block_size]`` (None
+    ...]`` (row ``max_len`` the spare), and with the int8 codec their
+    float32 scales, the values' shape without the last dim (None
     otherwise)."""
 
     c_kv: torch.Tensor
@@ -310,6 +433,12 @@ def mla_attention(x: torch.Tensor, p, cfg: ArchConfig,
                   positions: torch.Tensor, mm: str) -> torch.Tensor:
     """Full-sequence causal MLA (the forward pass): the latents expanded to
     per-head K/V (the reference's naive path)."""
+    return _mla_full(x, p, cfg, positions, mm)[0]
+
+
+def _mla_full(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
+              mm: str):
+    """(output, c_kv, k_rope) of full-sequence causal MLA."""
     m, h = cfg.mla, cfg.num_heads
     b_, s, _ = x.shape
     q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
@@ -320,9 +449,22 @@ def mla_attention(x: torch.Tensor, p, cfg: ArchConfig,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         b_, s, h, m.qk_rope_head_dim)], dim=-1)
-    o = full_attention(q, k, v, causal=True,
-                       scale=1.0 / math.sqrt(m.qk_head_dim))
-    return apply_dense(o.reshape(b_, s, h * m.v_head_dim), p.wo, mm)
+    o = _attention(q, k, v, scale=1.0 / math.sqrt(m.qk_head_dim))
+    return (apply_dense(o.reshape(b_, s, h * m.v_head_dim), p.wo, mm),
+            c_kv, k_rope)
+
+
+def mla_prefill(x: torch.Tensor, p, cfg: ArchConfig, positions, *,
+                max_len: int, mm: str, codec: CacheCodec = FLOAT_CODEC
+                ) -> tuple[torch.Tensor, MLACache]:
+    """MLA prefill: the attention output and this layer's dense latent
+    cache ``[B, max_len, rank | rope]`` through the codec (the reference
+    computes the latents a second time for the cache; they are the same
+    numbers, so the port keeps the ones the attention used)."""
+    o, c_kv, k_rope = _mla_full(x, p, cfg, positions, mm)
+    cq, cs = padded_store(codec, c_kv, max_len)
+    rq, rs = padded_store(codec, k_rope, max_len)
+    return o, MLACache(cq, rq, cs, rs)
 
 
 def _mla_attend(x: torch.Tensor, p, cfg: ArchConfig, q_nope: torch.Tensor,
@@ -410,23 +552,46 @@ def mla_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
                        live, mm)
 
 
+def mla_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
+               idx: torch.Tensor, *, mm: str,
+               codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+    """One-token MLA decode against one layer's dense latent cache ``[B,
+    max_len + 1, ...]``: write the new latents at ``idx`` [B] (the spare
+    row from ``max_len`` on) in place, attend over positions ``<= idx``."""
+    positions = idx[:, None]
+    q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
+    c_new, kr_new = _mla_latent(x, p, cfg, positions, mm)
+    s_max = cache.c_kv.shape[1] - 1
+    _mla_write(cache, codec, dense_write_slot(
+        idx, torch.ones_like(idx, dtype=torch.bool), s_max), c_new[:, 0],
+        kr_new[:, 0])
+    live = (torch.arange(s_max, device=x.device)[None, :]
+            <= idx[:, None])[:, None, None, :]
+    return _mla_attend(
+        x, p, cfg, q_nope, q_rope,
+        _dense_view(cache.c_kv, cache.c_scale, codec, s_max, x.dtype),
+        _dense_view(cache.k_rope, cache.r_scale, codec, s_max, x.dtype),
+        live, mm)
+
+
 def mla_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: MLACache,
               start: torch.Tensor, n_live: torch.Tensor, *,
-              mm: str) -> torch.Tensor:
+              mm: str, codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
     """W-lane chunk/decode MLA against one layer's dense latent cache
-    ``[B, max_len + 1, ...]`` (``Model.init_dense_cache``, float storage;
-    the lane protocol of ``gqa_mixed``): dead lanes and positions past
-    ``max_len - 1`` write into the spare row, which no mask admits."""
+    ``[B, max_len + 1, ...]`` (the lane protocol of ``gqa_mixed``): dead
+    lanes and positions past ``max_len - 1`` write into the spare row,
+    which no mask admits."""
     b_, w, _ = x.shape
     positions = start[:, None] + torch.arange(w, device=x.device,
                                               dtype=start.dtype)[None, :]
     q_nope, q_rope = _mla_q(x, p, cfg, positions, mm)
     c_new, kr_new = _mla_latent(x, p, cfg, positions, mm)
     s_max = cache.c_kv.shape[1] - 1
-    live_w = masking.lane_mask(w, n_live) & (positions < s_max)
-    where = (torch.arange(b_, device=x.device)[:, None],
-             torch.where(live_w, positions, s_max).long())
-    _mla_write(cache, FLOAT_CODEC, where, c_new, kr_new)
+    _mla_write(cache, codec, dense_write_slot(
+        positions, masking.lane_mask(w, n_live), s_max), c_new, kr_new)
     live = masking.chunk_causal_mask(s_max, start, w)[:, None]
-    return _mla_attend(x, p, cfg, q_nope, q_rope, cache.c_kv[:, :s_max],
-                       cache.k_rope[:, :s_max], live, mm)
+    return _mla_attend(
+        x, p, cfg, q_nope, q_rope,
+        _dense_view(cache.c_kv, cache.c_scale, codec, s_max, x.dtype),
+        _dense_view(cache.k_rope, cache.r_scale, codec, s_max, x.dtype),
+        live, mm)

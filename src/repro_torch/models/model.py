@@ -1,7 +1,14 @@
 """The decoder LM of the port (the reference's ``Model`` for the families
-``dense`` and ``moe``, with GQA or MLA attention): parameters, the paged
-KV pool and the dense per-slot cache, ``forward``, ``decode_step`` and
-``mixed_step``.
+``dense``, ``vlm`` and ``moe``, with GQA or MLA attention): parameters, the
+paged KV pool and the dense per-slot cache, ``forward``, ``prefill``,
+``decode_step`` and ``mixed_step``.
+
+The vlm family is the dense family's parameters and compute with a stub
+vision frontend (``cfg.frontend``): the first ``num_tokens`` positions of
+a prompt carry precomputed patch embeddings (``forward`` / ``prefill``'s
+``frontend`` [B, n, d_model]; zeros in serving) in place of their token
+embeddings, and a mixed step zeroes the prompt lanes below
+``num_tokens`` (``prefill_lanes``), as the reference's stub does.
 
 Parameters mirror the reference's pytree, one module per layer instead
 of a stacked layer axis: ``embed.table``, ``final_norm.scale``,
@@ -45,6 +52,7 @@ from repro_torch.core import serve_quant
 from repro_torch.core.kv_quant import FLOAT_CODEC, CacheCodec
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
+from repro_torch.core.spec import FAMILY_ITEMS
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe
@@ -179,7 +187,7 @@ class Embedding(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense- or MoE-family causal LM.
+    """A dense-, vlm- or MoE-family causal LM.
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -195,13 +203,14 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe") \
+        if cfg.family not in ("dense", "vlm", "moe") \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
                 or cfg.positional not in ("rope", "none"):
             raise ValueError(
-                f"{cfg.name}: the port's Model serves the dense and moe "
+                f"{cfg.name}: the port's Model serves the dense, vlm and moe "
                 "families (an moe config with its MoEConfig) with rope (or "
-                "no) positions (ROADMAP.md Queue 1 items 11-12)")
+                "no) positions (ROADMAP.md Queue 1 "
+                f"{FAMILY_ITEMS.get(cfg.family, 'items 11-12')})")
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")
@@ -301,22 +310,29 @@ class Model(nn.Module):
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 
-    def init_cache(self, paging: PagingConfig) -> KVCache | MLACache:
-        """The paged KV pool ``[layers, num_blocks + 1, block_size, kv, hd]``
-        through the model's codec (pool row 0 is the null block): bf16
-        values as the reference's float codec stores them, or int8 values
-        with float32 ``k_scale``/``v_scale`` ``[layers, num_blocks + 1,
-        block_size, kv]``.  An MLA model's pool is the latent pool
-        ``[layers, num_blocks + 1, block_size, rank]`` and ``[..., rope]``
-        (int8: scales ``[layers, num_blocks + 1, block_size]``)."""
+    def init_cache(self, paging: PagingConfig | None = None, *,
+                   batch: int = 0, max_len: int = 0) -> KVCache | MLACache:
+        """The decode cache through the model's codec: bf16 values as the
+        reference's float codec stores them, or int8 values with float32
+        scales (the values' shape without the last dim).
+
+        With ``paging`` the paged pool ``[layers, num_blocks + 1,
+        block_size, kv, hd]`` (pool row 0 is the null block); an MLA
+        model's is the latent pool ``[layers, num_blocks + 1, block_size,
+        rank]`` and ``[..., rope]``.  Without it the dense per-slot layout
+        ``[layers, batch, max_len + 1, ...]`` (``init_dense_cache``)."""
+        if paging is None:
+            return self.init_dense_cache(batch, max_len, self.codec)
         cfg = self.cfg
+        lead = (cfg.num_layers, paging.pool_blocks, paging.block_size)
         if cfg.mla is not None:
-            lead = (cfg.num_layers, paging.pool_blocks, paging.block_size)
             return MLACache(*self._latents(self.codec, lead))
-        shape = (cfg.num_layers, paging.pool_blocks, paging.block_size,
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        k, k_scale = self.codec.cache_tensors(shape, self.device)
-        v, v_scale = self.codec.cache_tensors(shape, self.device)
+        return self._kv(self.codec, lead)
+
+    def _kv(self, codec: CacheCodec, lead: tuple[int, ...]) -> KVCache:
+        shape = (*lead, self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+        k, k_scale = codec.cache_tensors(shape, self.device)
+        v, v_scale = codec.cache_tensors(shape, self.device)
         return KVCache(k, v, k_scale, v_scale)
 
     def _latents(self, codec: CacheCodec, lead: tuple[int, ...]) -> tuple:
@@ -327,28 +343,33 @@ class Model(nn.Module):
         r, rs = codec.cache_tensors((*lead, m.qk_rope_head_dim), self.device)
         return c, r, cs, rs
 
-    def init_dense_cache(self, batch: int, max_len: int) -> KVCache | MLACache:
+    def init_dense_cache(self, batch: int, max_len: int,
+                         codec: CacheCodec = FLOAT_CODEC
+                         ) -> KVCache | MLACache:
         """The dense per-slot cache ``[layers, batch, max_len + 1, kv, hd]``
-        of a speculation draft (an MLA model's: the latents ``[layers,
-        batch, max_len + 1, rank | rope]``): the float codec's storage
-        (bf16, as the reference's dense cache), never int8 and never
-        paged.  Row ``max_len`` is a spare that takes the writes of dead
-        lanes and of positions past the end; no mask admits it."""
-        cfg = self.cfg
-        if cfg.mla is not None:
-            return MLACache(*self._latents(FLOAT_CODEC,
-                                           (cfg.num_layers, batch,
-                                            max_len + 1)))
-        shape = (cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        k, _ = FLOAT_CODEC.cache_tensors(shape, self.device)
-        v, _ = FLOAT_CODEC.cache_tensors(shape, self.device)
-        return KVCache(k, v)
+        (an MLA model's: the latents ``[layers, batch, max_len + 1, rank |
+        rope]``) through ``codec``; by default the float codec's bf16
+        storage, as a speculation draft's cache always is.  Row ``max_len``
+        is a spare that takes the writes of dead lanes and of positions
+        past the end (the reference drops them as out-of-bounds
+        scatters); no mask admits it."""
+        lead = (self.cfg.num_layers, batch, max_len + 1)
+        if self.cfg.mla is not None:
+            return MLACache(*self._latents(codec, lead))
+        return self._kv(codec, lead)
 
     # ------------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed(tokens, _weight(self.embed, "table"),
-                            self.compute_dtype)
+    def _embed(self, tokens: torch.Tensor,
+               frontend: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings in the compute dtype; for a model with a stub
+        frontend, positions below ``frontend.shape[1]`` take its rows
+        (cast to the compute dtype) instead."""
+        x = layers.embed(tokens, _weight(self.embed, "table"),
+                         self.compute_dtype)
+        if frontend is not None and self.cfg.frontend is not None:
+            n = min(frontend.shape[1], x.shape[1])
+            x[:, :n] = frontend[:, :n].to(x.dtype)
+        return x
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = layers.apply_norm(x, self.final_norm, self.cfg.norm,
@@ -371,11 +392,13 @@ class Model(nn.Module):
         return [*(self.dense_prefix or ()), *self.layers]
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward: tokens [B, S] -> logits [B, S, V]
+    def forward(self, tokens: torch.Tensor,
+                frontend: torch.Tensor | None = None) -> torch.Tensor:
+        """Full-sequence causal forward: tokens [B, S] (and, for the vlm
+        family, the stub frontend's [B, n, d_model]) -> logits [B, S, V]
         (float32)."""
         b_, s = tokens.shape
-        x = self._embed(tokens)
+        x = self._embed(tokens, frontend)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
         for blk in self.blocks():
@@ -388,34 +411,72 @@ class Model(nn.Module):
         return self._unembed(x)
 
     @torch.no_grad()
-    def decode_step(self, cache: KVCache, tokens: torch.Tensor,
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                frontend: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, KVCache | MLACache]:
+        """Prompt -> (logits [B, S, V] float32, the dense cache ready at
+        index S): ``forward``'s math, with every layer's K/V (an MLA
+        model's latents) stored through the codec into a fresh dense cache
+        ``[layers, B, max_len + 1, ...]`` (rows from S on zeros; row
+        ``max_len`` the spare of ``init_dense_cache``).  The dense, vlm and
+        moe branches of the reference's ``prefill``, with the MoE dense
+        prefix's layers first."""
+        b_, s = tokens.shape
+        x = self._embed(tokens, frontend)
+        positions = torch.arange(s, device=tokens.device)[None, :] \
+            .expand(b_, s)
+        fn = attn.gqa_prefill if self.cfg.mla is None else attn.mla_prefill
+        per_layer = []
+        for blk in self.blocks():
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
+                                   self.matmul_backend)
+            o, c = fn(hn, blk.attn, self.cfg, positions, max_len=max_len + 1,
+                      mm=self.matmul_backend, codec=self.codec)
+            x = self._ffn_half(x + o, blk)
+            per_layer.append(c)
+        cache = type(per_layer[0])(*(
+            None if t[0] is None else torch.stack(t)
+            for t in zip(*per_layer)))
+        return self._unembed(x), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: KVCache | MLACache, tokens: torch.Tensor,
                     cache_index: torch.Tensor,
-                    block_tables: torch.Tensor) -> torch.Tensor:
+                    block_tables: torch.Tensor | None = None
+                    ) -> torch.Tensor:
         """tokens [B, 1] at per-slot positions ``cache_index`` [B] ->
         logits [B, 1, V]; the new K/V rows are written into ``cache`` in
-        place."""
+        place: the paged pool through ``block_tables``, or with
+        ``block_tables=None`` the dense cache of ``init_cache``."""
         x = self._embed(tokens)
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
-            if self.cfg.mla is not None:
+            c, mm = cache.layer(i), self.matmul_backend
+            if self.cfg.mla is not None and block_tables is None:
+                o = attn.mla_decode(hn, blk.attn, self.cfg, c, cache_index,
+                                    mm=mm, codec=self.codec)
+            elif self.cfg.mla is not None:
                 # the reference attends MLA through its gather route only
                 o = attn.mla_decode_paged(
-                    hn, blk.attn, self.cfg, cache.layer(i), cache_index,
-                    block_tables, mm=self.matmul_backend, codec=self.codec)
+                    hn, blk.attn, self.cfg, c, cache_index, block_tables,
+                    mm=mm, codec=self.codec)
+            elif block_tables is None:
+                o = attn.gqa_decode(hn, blk.attn, self.cfg, c, cache_index,
+                                    mm=mm, codec=self.codec)
             else:
                 o = attn.gqa_decode_paged(
-                    hn, blk.attn, self.cfg, cache.layer(i), cache_index,
-                    block_tables, impl=self.paged_attn_impl,
-                    mm=self.matmul_backend, codec=self.codec)
+                    hn, blk.attn, self.cfg, c, cache_index, block_tables,
+                    impl=self.paged_attn_impl, mm=mm, codec=self.codec)
             x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)
 
     @torch.no_grad()
-    def mixed_step(self, cache: KVCache, tokens: torch.Tensor,
+    def mixed_step(self, cache: KVCache | MLACache, tokens: torch.Tensor,
                    start: torch.Tensor, n_live: torch.Tensor,
-                   block_tables: torch.Tensor | None = None
+                   block_tables: torch.Tensor | None = None,
+                   prefill_lanes: torch.Tensor | None = None
                    ) -> torch.Tensor:
         """Chunked-prefill/decode mixed step: tokens [B, W] -> logits
         [B, W, V].  Lane ``l`` of slot ``b`` sits at position
@@ -423,26 +484,36 @@ class Model(nn.Module):
         decoding slot uses one, a prefilling slot up to a chunk, an idle
         slot none).  The cache is updated in place: the paged pool through
         ``block_tables``, or with ``block_tables=None`` the dense cache of
-        ``init_dense_cache`` (a speculation draft's)."""
+        ``init_cache`` / ``init_dense_cache``.  ``prefill_lanes`` ([B]
+        bool) marks the slots whose lanes are prompt tokens: for a model
+        with a stub frontend their positions below ``num_tokens`` take the
+        (zero) patch embeddings, as in the bucketed prefill."""
         x = self._embed(tokens)
+        if self.cfg.frontend is not None and prefill_lanes is not None:
+            w = tokens.shape[1]
+            positions = start[:, None] + torch.arange(
+                w, device=tokens.device, dtype=start.dtype)[None, :]
+            fm = prefill_lanes[:, None, None] \
+                & (positions < self.cfg.frontend.num_tokens)[..., None]
+            x = x.masked_fill(fm, 0)
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
+            c, mm = cache.layer(i), self.matmul_backend
             if self.cfg.mla is not None and block_tables is None:
-                o = attn.mla_mixed(hn, blk.attn, self.cfg, cache.layer(i),
-                                   start, n_live, mm=self.matmul_backend)
+                o = attn.mla_mixed(hn, blk.attn, self.cfg, c, start, n_live,
+                                   mm=mm, codec=self.codec)
             elif self.cfg.mla is not None:
                 o = attn.mla_mixed_paged(
-                    hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
-                    block_tables, mm=self.matmul_backend, codec=self.codec)
+                    hn, blk.attn, self.cfg, c, start, n_live, block_tables,
+                    mm=mm, codec=self.codec)
             elif block_tables is None:
-                o = attn.gqa_mixed(hn, blk.attn, self.cfg, cache.layer(i),
-                                   start, n_live, mm=self.matmul_backend)
+                o = attn.gqa_mixed(hn, blk.attn, self.cfg, c, start, n_live,
+                                   mm=mm, codec=self.codec)
             else:
                 o = attn.gqa_mixed_paged(
-                    hn, blk.attn, self.cfg, cache.layer(i), start, n_live,
-                    block_tables, impl=self.paged_attn_impl,
-                    mm=self.matmul_backend, codec=self.codec)
+                    hn, blk.attn, self.cfg, c, start, n_live, block_tables,
+                    impl=self.paged_attn_impl, mm=mm, codec=self.codec)
             x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)

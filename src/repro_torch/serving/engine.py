@@ -1,17 +1,37 @@
-"""Batched serving engine of the port: paged KV pool + chunked scheduler.
+"""Batched serving engine of the port: the chunked and the bucketed
+scheduler over the paged KV pool or the dense per-slot cache.
 
 The counterpart of the reference's ``serving/engine.py`` on its
-single-topology, paged, chunked path.  One fused mixed step advances every
-slot by up to W = ``chunk_size`` query lanes (prompt chunks for
-prefilling slots, the next token for decoding slots, nothing for idle
-ones); once no slot carries prompt work the one-lane decode step runs
-instead.  Both end in sampling, the token scatter and the finish flags.
+single-topology and fleet paths.  The scheduler is ``spec.resolved_policy``
+(``"auto"``: chunked where the chunk geometry allows it, else bucketed):
+
+* **chunked** -- one fused mixed step advances every slot by up to W =
+  ``chunk_size`` query lanes (prompt chunks for prefilling slots, the next
+  token for decoding slots, nothing for idle ones); once no slot carries
+  prompt work the one-lane decode step runs instead.  Both end in
+  sampling, the token scatter and the finish flags.
+* **bucketed** -- a new request is padded up to its prompt-length bucket
+  (powers of two from 32 up to ``max_len``, ``_buckets``), prefilled at
+  B = 1 (``Model.prefill``, or the fleet's ``DecodeFabric.prefill``) into
+  a staging cache, which is copied into the slot's rows of the dense cache
+  or, in whole blocks, into the slot's pool blocks; its first token is
+  sampled on the device from the prefill's logits (``_admit_slot``).
+  Every fused step is the one-lane decode.
+
+Cache layouts (``spec.memory.cache_layout``): ``"paged"``, the pooled
+``[num_blocks + 1, block_size]`` blocks of ``core.paging`` with block-budget
+admission and preemption; ``"dense"``, one ``[max_len + 1]`` row range per
+slot (``Model.init_cache`` without paging: the spare row ``max_len`` takes
+the writes of dead lanes and of positions past the end, which the
+reference drops as out-of-bounds scatters; no mask admits it, so the
+logits and streams are the reference's).
 
 Per-slot state lives in device tensors (``SlotState``) and is updated in
 place; the KV pool is written in place by the model.  The host keeps the
 reference's discipline:
 
-* block tables are uploaded only when the host changed them;
+* block tables (paged layout) are uploaded only when the host changed
+  them;
 * one bulk ``.cpu()`` of the (done, count) vectors per sync;
 * a second transfer only for the finished rows' token buffers, sliced to
   the longest finished stream.
@@ -19,12 +39,16 @@ reference's discipline:
 Nothing between two syncs waits for the device, so ``sync_every=k`` lets
 the host queue k fused steps ahead: block tables, chunk grants, the
 stochastic rows' index and each admitted prompt (with its topology
-registers) go up through ``HostStage``'s pinned buffers as asynchronous
-copies into device tensors that stay in place.
+registers and, for a bucketed admission into the pool, its block-table
+row) go up through ``HostStage``'s pinned buffers as asynchronous copies
+into device tensors that stay in place.
 
 Each fused program is one CUDA graph (``graphs=True``, the default on a
 CUDA device; the counterpart of the reference's
-``strict_jit(..., donate_argnums=(1, 2))``): the first step of a kind runs
+``strict_jit(..., donate_argnums=(1, 2))``), and so is each bucket's B = 1
+prefill (the reference's one ``jax.jit`` per bucket; its outputs are the
+graph's own tensors, read right after each replay): the first step of a
+kind runs
 eagerly on a side stream as the warm-up, is captured there once into a
 graph pool the engine's graphs share, and every later step of that kind
 replays the graph on the current stream, after the host work
@@ -34,10 +58,12 @@ stochastic rows' index and the fleet's table.  ``load`` drops the graphs
 (it replaces the pool), as does any step that finds a captured tensor
 replaced.  Only all-greedy steps are captured: a step with a stochastic
 slot draws from that slot's host-side generator, so it runs eagerly and
-counts in ``stats["eager_steps"]``.  A capture that fails raises with its
-cause; nothing falls back to eager quietly.  ``compilations`` counts the
-captures per program (on an eager engine, 1 per program that ran), with
-the reference's accounting.
+counts in ``stats["eager_steps"]`` (a prefill samples outside its graph,
+so it is always captured; ``stats["prefill_captures"]`` and
+``["prefill_replays"]`` count those).  A capture that fails raises with
+its cause; nothing falls back to eager quietly.  ``compilations`` counts
+the captures per program (on an eager engine, 1 per program that ran),
+with the reference's accounting.
 
 Prefix cache (``MemorySpec(prefix_cache=True)``): admission looks the
 prompt up in ``core.paging.PrefixCache``'s trie first (at most plen - 1
@@ -97,6 +123,7 @@ from repro_torch.core.kv_quant import fork_block
 from repro_torch.core.paging import (NULL_BLOCK, BlockAllocator,
                                      FragmentationStats, PrefixCache,
                                      blocks_for_tokens)
+from repro_torch.core.kv_quant import last_writer
 from repro_torch.core.spec import RuntimeSpec
 from repro_torch.kernels.counts import launch_counts
 from repro_torch.kernels.runtime import HostStage, resolve_device
@@ -110,11 +137,13 @@ from repro_torch.serving.sampling import (SamplingParams, propose_per_slot,
 
 # decode_steps = graph_captures + graph_replays + eager_steps: a capture's
 # step runs once eagerly as its warm-up; on an eager engine every step is
-# an eager step
+# an eager step.  A bucketed prefill is no fused step: its graphs count in
+# prefill_captures and prefill_replays
 _STAT_KEYS = ("decode_steps", "device_gets", "harvest_elems", "preemptions",
               "prefill_tokens", "max_step_prefill_tokens", "prefix_hits",
               "prefix_hit_tokens", "cow_forks", "prefix_evictions",
               "graph_captures", "graph_replays", "eager_steps",
+              "prefill_captures", "prefill_replays",
               "spec_steps", "spec_accepted")
 # uploads of tables, grants and sampling rows the host may queue ahead of
 # the device before one waits for a staging buffer
@@ -130,15 +159,29 @@ class Compilations(dict):
         return self
 
 
+def _buckets(max_len: int, smallest: int = 32) -> list[int]:
+    """The bucketed scheduler's prompt-length buckets: powers of two from
+    ``smallest`` below ``max_len``, then ``max_len``."""
+    out, b = [], smallest
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return out
+
+
 @dataclasses.dataclass
 class StepGraph:
-    """One captured fused program: the graph, the tensors it reads (held
-    so that a replaced one is seen), and the launches per kernel wrapper
-    that its capture recorded, which each replay makes again."""
+    """One captured program: the graph, the tensors it reads (held so that
+    a replaced one is seen), the launches per kernel wrapper that its
+    capture recorded, which each replay makes again, and the tensors it
+    returns (a prefill's logits and staging cache; None for a fused step,
+    which writes in place)."""
 
     graph: torch.cuda.CUDAGraph
     inputs: tuple[torch.Tensor, ...]
     launches: dict[str, int]
+    outputs: object = None
 
 
 @dataclasses.dataclass
@@ -200,6 +243,8 @@ class SlotState:
 
 
 class ServingEngine:
+    _STEPS = ("mixed", "decode")        # the fused programs
+
     def __init__(self, spec: RuntimeSpec, *, maxima=None,
                  max_models: int = 4, device=None,
                  sampling: SamplingParams = SamplingParams(), seed: int = 0,
@@ -225,6 +270,8 @@ class ServingEngine:
         self.max_len = spec.memory.max_len
         self.sampling = sampling
         self.seed = seed
+        self.scheduler = spec.resolved_policy     # "chunked" | "bucketed"
+        self.buckets = _buckets(self.max_len)
         self.chunk_size = min(spec.scheduler.chunk_size, self.max_len)
         self.token_budget = spec.scheduler.resolved_token_budget
         self.fabric: DecodeFabric | None = None
@@ -269,17 +316,25 @@ class ServingEngine:
                 quant_min_size=ex.quant_min_size, device=self.device)
 
         self.paging = spec.memory.paging()
-        self.allocator = BlockAllocator(self.paging)
-        self.blocks_per_slot = self.max_len // self.paging.block_size
+        self.allocator = self.prefix_cache = self.block_tables = None
+        self.blocks_per_slot = 0
+        if self.paging is not None:
+            bs = self.paging.block_size
+            if self.buckets[0] % bs:
+                raise ValueError(
+                    f"block_size={bs} must divide the smallest prefill "
+                    f"bucket {self.buckets[0]}")
+            self.allocator = BlockAllocator(self.paging)
+            self.blocks_per_slot = self.max_len // bs
+            self.block_tables = torch.zeros(
+                (self.max_batch, self.blocks_per_slot), dtype=torch.int32,
+                device=self.device)
+            if spec.memory.prefix_cache:
+                self.prefix_cache = PrefixCache(self.allocator)
         self._tables = [[NULL_BLOCK] * self.blocks_per_slot
                         for _ in range(self.max_batch)]
         self._slot_blocks: list[list[int]] = [[] for _ in range(self.max_batch)]
-        self._tables_dirty = True
-        self.block_tables = torch.zeros(
-            (self.max_batch, self.blocks_per_slot), dtype=torch.int32,
-            device=self.device)
-        self.prefix_cache: PrefixCache | None = \
-            PrefixCache(self.allocator) if spec.memory.prefix_cache else None
+        self._tables_dirty = self.paging is not None
         # one-shot per occupancy: a slot's prompt blocks are registered in
         # the trie once its prefill completes
         self._reg_done = [False] * self.max_batch
@@ -298,22 +353,38 @@ class ServingEngine:
         self._rows_buf = torch.zeros(self.max_batch, dtype=torch.int32,
                                      device=self.device)
         self._rows_key: tuple[int, ...] = ()
+        self._one_row = torch.zeros(1, dtype=torch.long, device=self.device)
         self._grants = torch.zeros(self.max_batch, dtype=torch.int32,
                                    device=self.device)
+        # the bucketed admission's device inputs: each bucket's padded
+        # prompt [1, bucket], the admitted member's topology registers and
+        # the slot's block-table row (paged), the stub frontend's zeros
+        self._bucket_tokens: dict[int, torch.Tensor] = {}
+        self._admit_topo = torch.zeros(N_REGS, dtype=torch.int32,
+                                       device=self.device)
+        self._admit_row = torch.zeros(self.blocks_per_slot, dtype=torch.int32,
+                                      device=self.device)
+        self._frontend = None
+        if self.cfg.frontend is not None and self.fabric is None:
+            self._frontend = torch.zeros(
+                (1, self.cfg.frontend.num_tokens, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
         self._stages = {
-            "tables": HostStage(self.block_tables.numel(), self.device,
-                                _STAGE_DEPTH),
             "grants": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
             "rows": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
-            # one admitted prompt and its topology row per buffer
-            "admit": HostStage(self.max_len + N_REGS, self.device,
-                               2 * self.max_batch)}
+            # one admitted prompt, its topology row and block-table row
+            "admit": HostStage(self.max_len + N_REGS + self.blocks_per_slot,
+                               self.device, 2 * self.max_batch)}
+        if self.paging is not None:
+            self._stages["tables"] = HostStage(self.block_tables.numel(),
+                                               self.device, _STAGE_DEPTH)
 
         # the fleet's weight table exists before any model is loaded:
         # add_model only writes device data into it
         self.table = self.fabric.init_table() if self.fabric else None
-        self.cache = self.fabric.init_cache(self.paging) if self.fabric \
-            else None
+        self.cache = self.fabric.init_cache(
+            self.paging, batch=self.max_batch, max_len=self.max_len) \
+            if self.fabric else None
         self.state = SlotState.zeros(self.max_batch, self.max_len, self.device)
         self.slot_req: list[Request | None] = [None] * self.max_batch
         self.queue: list[Request] = []
@@ -327,7 +398,8 @@ class ServingEngine:
         # recorded and the replays made (phase 5 of chip_smoke.py reads
         # them: a wrapper counts a launch at capture, not at replay)
         self._graphs: dict[str, StepGraph] = {}
-        self._programs = {"mixed": 0, "decode": 0}
+        # "mixed", "decode" and one "prefill:<bucket>" per bucket used
+        self._programs = dict.fromkeys(self._STEPS, 0)
         self._graph_pool = None
         self._graph_stream: torch.cuda.Stream | None = None
         self.captured_launches: collections.Counter = collections.Counter()
@@ -348,7 +420,8 @@ class ServingEngine:
     def load(self, params, draft=None) -> None:
         """Install weights (a state dict of the port's ``Model``, e.g. from
         ``Model.init(...).state_dict()`` or ``bridge.from_jax_params``) and
-        allocate the paged pool through the spec's cache codec.  Under
+        allocate the cache (the paged pool or the dense layout) through the
+        spec's cache codec.  Under
         ``spec.execution.quant="int8"`` float weights are quantized here
         (the model's ``load_state_dict`` applies
         ``core.serve_quant.quantize_params`` at ``quant_min_size``), as the
@@ -365,7 +438,8 @@ class ServingEngine:
         else:
             self._graphs.clear()      # they read the pool this replaces
             self.model.load_state_dict(params)
-            self.cache = self.model.init_cache(self.paging)
+            self.cache = self.model.init_cache(
+                self.paging, batch=self.max_batch, max_len=self.max_len)
         if draft is not None:
             self.load_draft(draft)
 
@@ -422,11 +496,12 @@ class ServingEngine:
             raise ValueError(
                 f"prompt length {len(prompt)} leaves no cache position for "
                 f"decode (max_len={self.max_len}); max_new_tokens must be 1")
-        need = blocks_for_tokens(len(prompt), self.paging.block_size)
-        if need > self.paging.num_blocks:
-            raise ValueError(
-                f"prompt needs {need} blocks but the pool has only "
-                f"{self.paging.num_blocks}; increase num_blocks")
+        if self.paging is not None:
+            need = blocks_for_tokens(len(prompt), self.paging.block_size)
+            if need > self.paging.num_blocks:
+                raise ValueError(
+                    f"prompt needs {need} blocks but the pool has only "
+                    f"{self.paging.num_blocks}; increase num_blocks")
         if self.fabric is not None:
             if not 0 <= model < len(self.fleet) or self.fleet[model] is None:
                 loaded = [i for i, a in enumerate(self.fleet) if a is not None]
@@ -520,7 +595,8 @@ class ServingEngine:
                 self.block_tables, self.spec.execution.paged_attn_impl)
         else:
             logits = self.model.mixed_step(self.cache, toks, start, n_live,
-                                           self.block_tables)
+                                           self.block_tables,
+                                           prefill_lanes=prefilling)
         # sampling lane: a completing prompt's last live lane, else 0
         completes = prefilling & (st.pf_pos + chunk_len >= st.prompt_len)
         sel = torch.where(completes, chunk_len - 1, 0).long()
@@ -541,7 +617,7 @@ class ServingEngine:
         pass, at ``index + j``) and a write-only pass parks the last
         proposal's K/V at ``index + k``; the target scores ``[last, d_1 ..
         d_k]`` at ``index .. index + k`` in one W-lane pass through the
-        paged pool (lanes past the cache end, ``n_spec``, are dead); the
+        cache (lanes past the cache end, ``n_spec``, are dead); the
         accepted prefix plus the bonus / correction token, cut by the
         budget and at an EOS, is emitted, and ``index`` advances by what
         was emitted.  ``decode_only`` is the steady-state specialisation:
@@ -570,7 +646,8 @@ class ServingEngine:
             gidx = (start[:, None] + lanes[None, :]).clamp(max=L - 1)
             ptoks = st.prompt_buf.gather(1, gidx.long())
             draft.mixed_step(d_cache, ptoks, start,
-                             torch.where(prefilling, chunk_len, 0))
+                             torch.where(prefilling, chunk_len, 0),
+                             prefill_lanes=prefilling)
         # k proposals, one live lane each (dead lanes write nothing that a
         # mask admits, so idle and prefilling slots keep their cache)
         dec1 = decoding.to(torch.int32)
@@ -603,7 +680,8 @@ class ServingEngine:
                 self.block_tables, self.spec.execution.paged_attn_impl)
         else:
             logits = self.model.mixed_step(self.cache, toks, start, n_live,
-                                           self.block_tables)
+                                           self.block_tables,
+                                           prefill_lanes=prefilling)
         n_acc, out = speculative_accept(logits[:, :k + 1], d_toks, d_logits,
                                         st.temp, self._gens, rows_s,
                                         greedy=greedy_mode)
@@ -655,6 +733,15 @@ class ServingEngine:
     # host-side control
     # ------------------------------------------------------------------
     def _admit(self) -> None:
+        """Seat waiting requests in free slots (FCFS: the queue head waits
+        for blocks rather than being overtaken), through the scheduler's
+        admission: ``_admit_chunked`` or ``_admit_bucketed``."""
+        if self.scheduler == "chunked":
+            self._admit_chunked()
+        else:
+            self._admit_bucketed()
+
+    def _admit_chunked(self) -> None:
         """Token-budget admission: seat a request by writing its prompt into
         the device-resident chunk source; the fused mixed step earns its
         first token once the scheduler has granted all its chunks."""
@@ -665,74 +752,208 @@ class ServingEngine:
             prompt = req.prompt + req.prefix
             plen = len(prompt)
             budget = req.max_new_tokens - len(req.prefix)
-            total = blocks_for_tokens(plen, self.paging.block_size)
             start = 0
-            if self.prefix_cache is not None:
-                # look up before allocating: the hit's blocks are pinned
-                # (incref + unpark) so an eviction the allocation makes
-                # cannot reclaim them; the last prompt token always runs
-                hit = self.prefix_cache.lookup(self._namespace(req.model),
-                                               prompt, plen - 1)
-                self.prefix_cache.acquire(hit)
-                fresh = self._alloc_blocks(total - len(hit.blocks))
-                if fresh is None:
-                    self.prefix_cache.release(hit)
-                    break   # FCFS: the queue head waits for blocks
-                blocks = hit.blocks + fresh
-                start = hit.tokens
-                if hit.fork_block is not None:
-                    # mid-block divergence: fork the partial source into
-                    # the first private block, then unpin the source
-                    fork_block(self.cache, hit.fork_block, fresh[0])
-                    self.prefix_cache.drop_fork_source(hit)
-                    start += hit.fork_tokens
-                    self.stats["cow_forks"] += 1
-                if start:
-                    self.stats["prefix_hits"] += 1
-                    self.stats["prefix_hit_tokens"] += start
-            else:
-                blocks = self.allocator.alloc(total)
-                if blocks is None:
-                    break   # FCFS: the queue head waits for blocks
-            self._slot_blocks[slot] = blocks
-            self._tables[slot] = blocks + [NULL_BLOCK] * (
-                self.blocks_per_slot - len(blocks))
-            self._tables_dirty = True
+            if self.paging is not None:
+                total = blocks_for_tokens(plen, self.paging.block_size)
+                if self.prefix_cache is not None:
+                    # look up before allocating: the hit's blocks are
+                    # pinned (incref + unpark) so an eviction the
+                    # allocation makes cannot reclaim them; the last prompt
+                    # token always runs
+                    hit = self.prefix_cache.lookup(
+                        self._namespace(req.model), prompt, plen - 1)
+                    self.prefix_cache.acquire(hit)
+                    fresh = self._alloc_blocks(total - len(hit.blocks))
+                    if fresh is None:
+                        self.prefix_cache.release(hit)
+                        break   # FCFS: the queue head waits for blocks
+                    blocks = hit.blocks + fresh
+                    start = hit.tokens
+                    if hit.fork_block is not None:
+                        # mid-block divergence: fork the partial source
+                        # into the first private block, then unpin it
+                        fork_block(self.cache, hit.fork_block, fresh[0])
+                        self.prefix_cache.drop_fork_source(hit)
+                        start += hit.fork_tokens
+                        self.stats["cow_forks"] += 1
+                    if start:
+                        self.stats["prefix_hits"] += 1
+                        self.stats["prefix_hit_tokens"] += start
+                else:
+                    blocks = self.allocator.alloc(total)
+                    if blocks is None:
+                        break   # FCFS: the queue head waits for blocks
+                self._set_table(slot, blocks)
             self.queue.pop(0)
-            sp = req.sampling or self.sampling
             st = self.state
-            topo = self._fleet_rows[req.model] if self.fabric is not None \
-                else [0] * N_REGS
             self._stages["admit"].put(
                 (st.prompt_buf[slot], prompt + [0] * (self.max_len - plen)),
-                (st.topo[slot], topo))
+                (st.topo[slot], self._topo(req)))
             # positions below ``start`` (a prefix hit) are in the mapped
             # blocks already: prefill resumes there, as after a chunk
-            for field, value in (
-                    ("last", 0), ("index", start), ("active", True),
-                    ("done", False), ("budget", budget), ("count", 0),
-                    ("eos", -1 if req.eos_id is None else req.eos_id),
-                    ("temp", sp.temperature), ("top_k", sp.top_k),
-                    ("top_p", sp.top_p), ("prompt_len", plen),
-                    ("pf_pos", start), ("acc", 0), ("spec_steps", 0)):
+            self._seat(slot, req, plen, budget, start)
+            st.last[slot] = 0
+            for field, value in (("index", start), ("active", True),
+                                 ("done", False), ("count", 0),
+                                 ("pf_pos", start)):
                 getattr(st, field)[slot] = value
             st.buf[slot].zero_()
-            self._gens[slot] = None
-            if sp.temperature > 0:
-                # one stream per request: a function of (seed, uid) alone
-                g = torch.Generator(device=self.device)
-                g.manual_seed(self.seed * 1_000_003 + req.uid)
-                self._gens[slot] = g
-            req.slot = slot
-            self.slot_req[slot] = req
-            self._plen[slot] = plen
-            self._budget[slot] = budget
-            # the token budget is charged only for the uncached suffix
-            self._idx_ub[slot] = start
-            self._pf[slot] = start
-            self._seq += 1
-            self._admit_seq[slot] = self._seq
             self._emit("admit", req.uid, slot=slot, cached_tokens=start)
+
+    def _admit_bucketed(self) -> None:
+        """Bucketed admission: pad the prompt up to its bucket, prefill it
+        at B = 1 (``_prefill``), copy the staging cache into the slot's
+        rows of the dense cache or, in whole blocks, into the slot's pool
+        blocks (``_insert``), and sample the first token on the device from
+        the prefill's logits (``_admit_slot``).  The prompt, the topology
+        registers and the block-table row go up through ``HostStage``."""
+        for slot in range(self.max_batch):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            prompt = req.prompt + req.prefix
+            plen = len(prompt)
+            budget = req.max_new_tokens - len(req.prefix)
+            bucket = next((b for b in self.buckets if b >= plen), None)
+            if bucket is None:
+                raise ValueError(
+                    f"prompt length {plen} exceeds max_len={self.max_len}")
+            blocks: list[int] | None = None
+            if self.paging is not None:
+                # block-budget admission: seat the request iff its prompt's
+                # blocks are free now
+                blocks = self.allocator.alloc(blocks_for_tokens(
+                    plen, self.paging.block_size))
+                if blocks is None:
+                    break
+            self.queue.pop(0)
+            if bucket not in self._bucket_tokens:
+                self._bucket_tokens[bucket] = torch.zeros(
+                    (1, bucket), dtype=torch.int32, device=self.device)
+            pairs = [(self._bucket_tokens[bucket],
+                      prompt + [0] * (bucket - plen)),
+                     (self._admit_topo, self._topo(req))]
+            if blocks is not None:
+                self._set_table(slot, blocks)
+                pairs.append((self._admit_row, self._tables[slot]))
+            self._stages["admit"].put(*pairs)
+            logits, one = self._prefill(bucket)
+            self._insert(one, slot, bucket)
+            self._seat(slot, req, plen, budget, plen)
+            self._admit_slot(slot, logits[:, plen - 1], plen, budget,
+                             -1 if req.eos_id is None else req.eos_id)
+            self._emit("admit", req.uid, slot=slot, cached_tokens=0)
+            # the bucketed prefill samples the first token itself
+            self._emit_first_token(req.uid)
+
+    def _topo(self, req: Request) -> list[int]:
+        """The slot's topology registers (zeros for one fixed model)."""
+        return self._fleet_rows[req.model] if self.fabric is not None \
+            else [0] * N_REGS
+
+    def _set_table(self, slot: int, blocks: list[int]) -> None:
+        self._slot_blocks[slot] = blocks
+        self._tables[slot] = blocks + [NULL_BLOCK] * (
+            self.blocks_per_slot - len(blocks))
+        self._tables_dirty = True
+
+    def _seat(self, slot: int, req: Request, plen: int, budget: int,
+              start: int) -> None:
+        """The per-slot fields both admissions set (the device's from host
+        values, queued without a wait) and the host mirrors; ``start`` is
+        where prefill resumes (a prefix hit's length, or ``plen`` once a
+        bucketed prefill wrote the prompt)."""
+        sp = req.sampling or self.sampling
+        st = self.state
+        for field, value in (
+                ("budget", budget),
+                ("eos", -1 if req.eos_id is None else req.eos_id),
+                ("temp", sp.temperature), ("top_k", sp.top_k),
+                ("top_p", sp.top_p), ("prompt_len", plen), ("acc", 0),
+                ("spec_steps", 0)):
+            getattr(st, field)[slot] = value
+        self._gens[slot] = None
+        if sp.temperature > 0:
+            # one stream per request: a function of (seed, uid) alone
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self.seed * 1_000_003 + req.uid)
+            self._gens[slot] = g
+        req.slot = slot
+        self.slot_req[slot] = req
+        self._plen[slot] = plen
+        self._budget[slot] = budget
+        # the token budget is charged only for the uncached suffix
+        self._idx_ub[slot] = start
+        self._pf[slot] = start
+        self._reg_done[slot] = False
+        self._seq += 1
+        self._admit_seq[slot] = self._seq
+
+    @torch.no_grad()
+    def _prefill(self, bucket: int):
+        """The B = 1 prefill of the staged prompt of ``bucket`` tokens ->
+        (float32 logits [1, bucket, V], its staging cache with ``cache_len``
+        rows + the spare: the bucket over the paged pool, ``max_len`` over
+        the dense layout), one CUDA graph per bucket on a graphed engine."""
+        cache_len = bucket if self.paging is not None else self.max_len
+        tokens = self._bucket_tokens[bucket]
+        if self.fabric is not None:
+            def impl():
+                return self.fabric.prefill(self.table, self._admit_topo,
+                                           tokens, cache_len)
+            inputs = (tokens, self._admit_topo, *tree_leaves(self.table))
+        else:
+            def impl():
+                return self.model.prefill(tokens, cache_len, self._frontend)
+            inputs = (tokens,)
+        return self._run(f"prefill:{bucket}", impl, inputs=inputs)
+
+    @torch.no_grad()
+    def _insert(self, one, slot: int, bucket: int) -> None:
+        """Copy a B = 1 staging cache into the engine's cache (the
+        reference's ``_insert_impl`` / ``_insert_paged_impl``): every row
+        into the slot's rows of the dense layout, or the bucket's rows in
+        whole blocks into the slot's table row (the staged ``_admit_row``);
+        chunks past the prompt's blocks go to the null block, each
+        destination taking one row's bytes (``kv_quant.last_writer``)."""
+        if self.paging is None:
+            for g, o in zip(self.cache, one):
+                if g is not None:
+                    g[:, slot].copy_(o[:, 0])
+            return
+        bs = self.paging.block_size
+        nchunks = bucket // bs
+        blk = self._admit_row[:nchunks].long().repeat_interleave(bs)
+        off = torch.arange(bs, device=self.device).repeat(nchunks)
+        src = last_writer((blk, off), bs, self.paging.pool_blocks)
+        for g, o in zip(self.cache, one):
+            if g is not None:
+                g[:, blk, off] = o[:, 0, src].to(g.dtype)
+
+    @torch.no_grad()
+    def _admit_slot(self, slot: int, last_logits: torch.Tensor, plen: int,
+                    budget: int, eos: int) -> None:
+        """Seat a prefilled request (the reference's ``_admit_slot_impl``):
+        sample its first token from ``last_logits`` [1, V] on the device
+        and set its slot's fields; a 1-token budget, a first token that is
+        the eos, or a ``max_len`` prompt finish it at once."""
+        st = self.state
+        rows = None if self._gens[slot] is None else self._one_row
+        first = sample_per_slot(last_logits, st.temp[slot:slot + 1],
+                                st.top_k[slot:slot + 1],
+                                st.top_p[slot:slot + 1], [self._gens[slot]],
+                                rows)
+        fin = ((first == eos) & (eos >= 0)) \
+            | (budget <= 1 or plen >= self.max_len)
+        st.last[slot] = first
+        st.index[slot] = plen
+        st.active[slot] = ~fin
+        st.done[slot] = fin
+        st.count[slot] = 1
+        st.buf[slot].zero_()
+        st.buf[slot, :1] = first
+        st.pf_pos[slot] = plen
+        st.topo[slot].copy_(self._admit_topo)
 
     def _grant_chunks(self) -> list[int]:
         """Up to ``token_budget`` prompt tokens per fused step, at most
@@ -790,7 +1011,10 @@ class ServingEngine:
         the pool runs dry the most recently admitted slot is preempted.  A
         speculative step writes up to ``spec_horizon`` (k + 1) verify
         positions, so the window scales by it; the tails it over-reserves
-        are handed back at the next sync (``_truncate_slot_blocks``)."""
+        are handed back at the next sync (``_truncate_slot_blocks``).  The
+        dense layout has nothing to reserve."""
+        if self.paging is None:
+            return
         bs = self.paging.block_size
         horizon *= self.spec_horizon
         for slot in sorted(self._occupied(),
@@ -874,7 +1098,8 @@ class ServingEngine:
         for field in ("active", "done", "count", "index", "prompt_len",
                       "pf_pos", "acc", "spec_steps"):
             getattr(st, field)[slot] = 0
-        self._release_slot_blocks(slot)
+        if self.paging is not None:
+            self._release_slot_blocks(slot)
         self.slot_req[slot] = None
         self._pf[slot] = 0
         req.slot = None
@@ -900,14 +1125,20 @@ class ServingEngine:
     def compilations(self) -> Compilations:
         """Compile-count accounting, the reference's: ``prefill`` and
         ``decode`` count the programs serving each role, here the captures
-        of each fused step (on an eager engine, 1 for a program that ran).
+        of each program (on an eager engine, 1 for a program that ran).
         Under the chunked scheduler both name the ONE fused mixed step, and
         ``decode`` falls back to the mixed step's count when the one-lane
-        program never ran.  ``prefill_buckets`` (the bucketed scheduler's)
-        stays 0."""
-        n = self._programs["mixed"]
-        return Compilations(decode=self._programs["decode"] or n,
-                            prefill=n, prefill_buckets=0)
+        program never ran; ``prefill_buckets`` stays 0.  Under the bucketed
+        scheduler ``prefill`` = ``prefill_buckets`` = the buckets whose
+        prefill ran."""
+        buckets = sum(n for k, n in self._programs.items()
+                      if k.startswith("prefill:"))
+        if self.scheduler == "chunked":
+            n = self._programs["mixed"]
+            return Compilations(decode=self._programs["decode"] or n,
+                                prefill=n, prefill_buckets=buckets)
+        return Compilations(decode=self._programs["decode"], prefill=buckets,
+                            prefill_buckets=buckets)
 
     def _graph_inputs(self) -> tuple[torch.Tensor, ...]:
         """Every tensor a fused step reads or writes apart from the
@@ -922,80 +1153,103 @@ class ServingEngine:
             out += [*self.draft_model.parameters(),
                     *self.draft_model.buffers(),
                     *(t for t in self.draft_cache or () if t is not None)]
-        return (*out, self.block_tables, self._grants, self._rows_buf)
+        if self.block_tables is not None:
+            out.append(self.block_tables)
+        return (*out, self._grants, self._rows_buf)
 
-    def _run(self, kind: str, impl, *args) -> None:
-        """Run one fused step of program ``kind`` ("mixed" | "decode"):
-        replay its graph, capture it on its first all-greedy step, or run
-        it eagerly (an eager engine, or a step with a stochastic slot)."""
-        if not self.graphs or any(g is not None for g in self._gens):
-            impl(*args)
-            self.stats["eager_steps"] += 1
+    def _run(self, kind: str, impl, *args, inputs=None):
+        """Run one program of ``kind`` ("mixed" | "decode" | "prefill:<b>")
+        and return what it returns: replay its graph, capture it on its
+        first use, or run it eagerly (an eager engine, or a fused step with
+        a stochastic slot).  ``inputs``: the tensors a prefill reads (a
+        fused step's are ``_graph_inputs``)."""
+        step = inputs is None
+        if not self.graphs or (step and any(g is not None
+                                            for g in self._gens)):
+            out = impl(*args)
+            if step:
+                self.stats["eager_steps"] += 1
             if not self.graphs:
                 self._programs[kind] = 1
-            return
+            return out
+        if step:
+            inputs = self._graph_inputs()
         sg = self._graphs.get(kind)
-        if sg is not None and not all(
-                a is b for a, b in zip(sg.inputs, self._graph_inputs())):
+        if sg is not None and (len(sg.inputs) != len(inputs) or not all(
+                a is b for a, b in zip(sg.inputs, inputs))):
             self._graphs.clear()      # a captured tensor was replaced
             sg = None
         if sg is None:
-            self._graphs[kind] = self._capture(kind, impl, *args)
-            return
+            sg, out = self._capture(kind, impl, inputs, *args)
+            self._graphs[kind] = sg
+            self.stats["graph_captures" if step else "prefill_captures"] += 1
+            return out
         sg.graph.replay()
-        self.stats["graph_replays"] += 1
+        self.stats["graph_replays" if step else "prefill_replays"] += 1
         self.replayed_launches.update(sg.launches)
+        return sg.outputs
 
-    def _capture(self, kind: str, impl, *args) -> StepGraph:
-        """Warm up (this step's own run, eager) and capture program
+    def _capture(self, kind: str, impl, inputs: tuple, *args
+                 ) -> tuple[StepGraph, object]:
+        """Warm up (this call's own run, eager) and capture program
         ``kind`` on the side stream, ordered after the uploads queued on
         the current stream and before what follows there, without a host
-        sync.  A failed capture raises with its cause."""
+        sync; returns the graph and the warm-up's outputs.  A failed
+        capture raises with its cause."""
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(self.device)
         if not self._graphs:
             # the pool lives as long as a graph holds it: after the graphs
             # were dropped the next capture starts a new one
             self._graph_pool = torch.cuda.graph_pool_handle()
+        what = f"fused {kind} step" if kind in self._STEPS \
+            else f"{kind} program"
         side, current = self._graph_stream, torch.cuda.current_stream(
             self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            impl(*args)                          # the warm-up is the step
+            out = impl(*args)                    # the warm-up is the call
             before = launch_counts()
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=self._graph_pool)
             try:
-                impl(*args)
+                outputs = impl(*args)
             except Exception as err:
                 try:
                     graph.capture_end()
                 except RuntimeError:
                     pass                         # the capture was invalid
                 raise RuntimeError(
-                    f"capturing the fused {kind} step as a CUDA graph "
-                    f"failed: {err}") from err
+                    f"capturing the {what} as a CUDA graph failed: "
+                    f"{err}") from err
             try:
                 graph.capture_end()
             except RuntimeError as err:
                 raise RuntimeError(
-                    f"capturing the fused {kind} step as a CUDA graph "
-                    f"failed: {err}") from err
+                    f"capturing the {what} as a CUDA graph failed: "
+                    f"{err}") from err
         current.wait_stream(side)
         after = launch_counts()
         launches = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}
         self.captured_launches.update(launches)
-        self.stats["graph_captures"] += 1
-        self._programs[kind] += 1
-        return StepGraph(graph, self._graph_inputs(), launches)
+        self._programs[kind] = self._programs.get(kind, 0) + 1
+        return StepGraph(graph, tuple(inputs), launches, outputs), out
 
     def _dispatch(self) -> None:
         """One fused step, queued without waiting for the device: the
         host work (uploads, grants, stats), then the step's program."""
-        if self._tables_dirty:
+        if self.paging is not None and self._tables_dirty:
             self._stages["tables"].put((self.block_tables, self._tables))
             self._tables_dirty = False
+        if self.scheduler == "bucketed":
+            # every slot holds its whole prompt already: the one-lane step
+            self._run("decode", self._decode_impl)
+            self.stats["decode_steps"] += 1
+            for slot in self._occupied():
+                self._idx_ub[slot] = min(self._idx_ub[slot] + 1,
+                                         self._slot_token_cap(slot))
+            return
         grants = self._grant_chunks()
         granted = sum(grants)
         if granted:
@@ -1066,7 +1320,7 @@ class ServingEngine:
                 self._idx_ub[i] = self._pf[i]
             else:
                 self._idx_ub[i] = self._plen[i] + max(count_h[i] - 1, 0)
-                if spec and not done_h[i]:
+                if spec and self.paging is not None and not done_h[i]:
                     # rollback, host half: the dispatch loop reserved k + 1
                     # positions a step; the resident length is exact now
                     self._truncate_slot_blocks(i, self._idx_ub[i])
@@ -1093,7 +1347,8 @@ class ServingEngine:
                 self.stats["spec_steps"] += ss_h[i]
             self.slot_req[i] = None
             self._gens[i] = None
-            self._release_slot_blocks(i)
+            if self.paging is not None:
+                self._release_slot_blocks(i)
             finished.append(req)
             self._emit("finish", req.uid, n_generated=len(req.generated))
         return finished
@@ -1130,7 +1385,10 @@ class ServingEngine:
         """Pool occupancy + fragmentation, with the blocks several requests
         map (``shared_blocks``) and those parked in the prefix trie
         (``cached_blocks``).  Exact at sync points; between syncs resident
-        tokens are an upper bound."""
+        tokens are an upper bound.  The paged layout only, as the
+        reference's."""
+        if self.paging is None:
+            raise ValueError("memory_stats requires cache_layout='paged'")
         self.allocator.set_used_tokens(
             sum(self._idx_ub[i] for i in self._occupied()))
         return self.allocator.stats()

@@ -18,8 +18,11 @@ weight set, selected by register data.
   dim are fixed when the fabric is built; ``check_member`` rejects models
   that would need another fabric.
 
-The port serves the paged pool (the reference's dense layout and bucketed
-prefill wait for ROADMAP.md Queue 1 item 12) with float weights or, under
+Both cache layouts work, as in the reference: the paged pool and the dense
+rows ``[L, B, max_len + 1, H, hd]`` (row ``max_len`` the spare that takes
+the writes of dead lanes, see ``models/attention.py``), and ``prefill``
+serves a fleet's bucketed admission (B = 1, one request).  The table holds
+float weights or, under
 ``quant="int8"``, an int8 weight table: the planned leaves (``_quant_names``,
 decided on the maxima-padded sizes) hold int8 values with float32 scales
 per (layer, output column) for the kernels and per row for ``embed`` and
@@ -50,7 +53,8 @@ from repro_torch.core.serve_quant import quantize_leaf
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.attention import KVCache, paged_write_slot
+from repro_torch.models.attention import (KVCache, dense_write_slot,
+                                         padded_store, paged_write_slot)
 from repro_torch.models.layers import activate, apply_rope, is_gated
 
 # Topology register columns (the per-slot register file).
@@ -368,14 +372,17 @@ class DecodeFabric:
         return sum(t.numel() * t.element_size() for t in tree_leaves(table))
 
     # ------------------------------------------------------------------
-    # Decode cache (maxima-shaped, paged)
+    # Decode cache (maxima-shaped; both layouts)
     # ------------------------------------------------------------------
-    def init_cache(self, paging: PagingConfig) -> KVCache:
-        """The paged pool ``[layers_enc_max, num_blocks + 1, block_size,
-        heads_max, hd]`` through the fabric's codec (pool row 0 is the
-        null block)."""
-        shape = (self.mx.layers_enc_max, paging.pool_blocks,
-                 paging.block_size, self.mx.heads_max, self.hd)
+    def init_cache(self, paging: PagingConfig | None, *, batch: int = 0,
+                   max_len: int = 0) -> KVCache:
+        """The cache through the fabric's codec: with ``paging`` the pool
+        ``[layers_enc_max, num_blocks + 1, block_size, heads_max, hd]``
+        (pool row 0 is the null block), else the dense rows
+        ``[layers_enc_max, batch, max_len + 1, heads_max, hd]``."""
+        lead = (paging.pool_blocks, paging.block_size) if paging is not None \
+            else (batch, max_len + 1)
+        shape = (self.mx.layers_enc_max, *lead, self.mx.heads_max, self.hd)
         k, k_scale = self.codec.cache_tensors(shape, self.device)
         v, v_scale = self.codec.cache_tensors(shape, self.device)
         return KVCache(k, v, k_scale, v_scale)
@@ -504,7 +511,8 @@ class DecodeFabric:
             xn = self._norm(x, lp["ln1"], d_live)
             q, k_new, v_new = self._qkv(xn, lp, positions, he)
             # one K/V row per write position ([B] decode, [B, W] lanes)
-            rows = (*where[0].shape, *k_new.shape[2:])
+            rows = (*torch.broadcast_shapes(where[0].shape, where[1].shape),
+                    *k_new.shape[2:])
             kq, ksc = self.codec.store(k_new.reshape(rows), c.k.dtype)
             vq, vsc = self.codec.store(v_new.reshape(rows), c.v.dtype)
             cache_put(c.k, c.k_scale, where, kq, ksc)
@@ -525,31 +533,84 @@ class DecodeFabric:
                                        emb.dtype)[:, None, :]
 
     @torch.no_grad()
+    def prefill(self, table: dict, topo: torch.Tensor, tokens: torch.Tensor,
+                max_len: int) -> tuple[torch.Tensor, KVCache]:
+        """tokens [1, S] + registers topo [N_REGS] -> (masked logits [1, S,
+        V_max], the cache ``[layers_enc_max, 1, max_len + 1, heads_max,
+        hd]`` through the codec, rows from S on zeros): the fleet's
+        bucketed prefill, the same masked math at S lanes with a causal
+        mask (the reference's ``prefill``)."""
+        mx = self.mx
+        topo = topo[None]
+        mid, h_live = topo[:, REG_MODEL], topo[:, REG_HEADS]
+        l_live, d_live = topo[:, REG_LAYERS], topo[:, REG_DMODEL]
+        S = tokens.shape[1]
+        x = self._inputs(table, tokens, topo)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None]
+        he = masking.slot_mask(mx.heads_max, h_live)[:, None, :, None] \
+            .to(self.compute_dtype)
+        dm = masking.slot_mask(mx.d_model_max, d_live)[:, None] \
+            .to(self.compute_dtype)
+        causal = (torch.arange(S, device=tokens.device)[None, :]
+                  <= torch.arange(S, device=tokens.device)[:, None])
+        ks, vs = [], []
+        for i in range(mx.layers_enc_max):
+            lp = self._gather_layer(table, mid, i)
+            xn = self._norm(x, lp["ln1"], d_live)
+            q, k, v = self._qkv(xn, lp, positions, he)
+            o = self._attend(q, k, v, causal[None].expand(1, S, S)) * he
+            a = self._mm(o.reshape(1, S, -1), lp["wo"]) * dm
+            h1 = x + a
+            f = self._ffn(self._norm(h1, lp["ln2"], d_live), lp,
+                          topo[:, REG_DFF]) * dm
+            x = torch.where((i < l_live)[:, None, None], h1 + f, x)
+            ks.append(padded_store(self.codec, k, max_len + 1))
+            vs.append(padded_store(self.codec, v, max_len + 1))
+        kq, ksc = zip(*ks)
+        vq, vsc = zip(*vs)
+        stack = (lambda t: None if t[0] is None else torch.stack(t))
+        cache = KVCache(*(stack(t) for t in (kq, vq, ksc, vsc)))
+        return self._unembed(x, table, mid, d_live, topo[:, REG_VOCAB]), \
+            cache
+
+    @torch.no_grad()
     def decode_step(self, table: dict, cache: KVCache, tokens: torch.Tensor,
                     index: torch.Tensor, topo: torch.Tensor,
-                    block_tables: torch.Tensor,
+                    block_tables: torch.Tensor | None = None,
                     paged_attn_impl: str = "gather") -> torch.Tensor:
         """tokens [B, 1] at per-slot positions ``index`` [B] + per-slot
         registers topo [B, N_REGS] -> masked logits [B, 1, V_max]; the new
-        K/V rows are written into ``cache`` in place."""
+        K/V rows are written into ``cache`` in place: the pool through
+        ``block_tables``, or with ``block_tables=None`` the dense rows
+        (attended through the gather-style path, as in the reference)."""
         idx = index.to(torch.int32)
-        bs = cache.k.shape[2]
-        t_max = block_tables.shape[1] * bs
-        where = paged_write_slot(idx, block_tables, bs)
-        if paged_attn_impl == "pallas":
-            lengths = (idx + 1).clamp(max=t_max).to(torch.int32)
-
-            def attend(q, c, live_kv):
-                return paged_decode_attention(
-                    q[:, 0].contiguous(), c.k, c.v, block_tables, lengths,
-                    live_kv=live_kv, k_scale=c.k_scale,
-                    v_scale=c.v_scale)[:, None]
-        elif paged_attn_impl == "gather":
-            live = torch.arange(t_max, device=tokens.device)[None, :] \
+        if block_tables is None:
+            s_max = cache.k.shape[2] - 1
+            where = dense_write_slot(
+                idx, torch.ones_like(idx, dtype=torch.bool), s_max)
+            live = torch.arange(s_max, device=tokens.device)[None, :] \
                 <= idx[:, None]
-            attend = self._gather_attend(block_tables, live)
+            attend = self._dense_attend(s_max, live)
         else:
-            raise ValueError(f"unknown paged_attn_impl {paged_attn_impl!r}")
+            bs = cache.k.shape[2]
+            t_max = block_tables.shape[1] * bs
+            where = paged_write_slot(idx, block_tables, bs)
+            if paged_attn_impl == "pallas":
+                lengths = (idx + 1).clamp(max=t_max).to(torch.int32)
+
+                def attend(q, c, live_kv):
+                    return paged_decode_attention(
+                        q[:, 0].contiguous(), c.k, c.v, block_tables,
+                        lengths, live_kv=live_kv, k_scale=c.k_scale,
+                        v_scale=c.v_scale)[:, None]
+            elif paged_attn_impl == "gather":
+                live = torch.arange(t_max, device=tokens.device)[None, :] \
+                    <= idx[:, None]
+                attend = self._gather_attend(block_tables, live)
+            else:
+                raise ValueError(
+                    f"unknown paged_attn_impl {paged_attn_impl!r}")
         x = self._inputs(table, tokens, topo)
         x = self._layers(table, cache, x, topo, idx[:, None], where, attend)
         return self._unembed(x, table, topo[:, REG_MODEL],
@@ -558,7 +619,8 @@ class DecodeFabric:
     @torch.no_grad()
     def mixed_step(self, table: dict, cache: KVCache, tokens: torch.Tensor,
                    start: torch.Tensor, n_live: torch.Tensor,
-                   topo: torch.Tensor, block_tables: torch.Tensor,
+                   topo: torch.Tensor,
+                   block_tables: torch.Tensor | None = None,
                    paged_attn_impl: str = "gather") -> torch.Tensor:
         """tokens [B, W] + per-slot registers topo [B, N_REGS] -> masked
         logits [B, W, V_max].
@@ -567,32 +629,52 @@ class DecodeFabric:
         ``b`` sits at cache position ``start[b] + l`` and only the first
         ``n_live[b]`` lanes are real (a decoding slot uses one lane, a
         prefilling slot a chunk of its prompt, an idle slot none).  Chunk
-        K/V are written before the attend (dead lanes into the null
-        block), so one causal-vs-cache mask covers the chunk and the prior
-        cache.
+        K/V are written before the attend (dead lanes into the null block
+        or the dense rows' spare), so one causal-vs-cache mask covers the
+        chunk and the prior cache.
         """
         W = tokens.shape[1]
         start = start.to(torch.int32)
         positions = start[:, None] + torch.arange(
             W, dtype=torch.int32, device=tokens.device)[None, :]
-        bs = cache.k.shape[2]
-        t_max = block_tables.shape[1] * bs
-        idx_w = torch.where(masking.lane_mask(W, n_live), positions, t_max)
-        where = paged_write_slot(idx_w, block_tables, bs)
-        if paged_attn_impl == "pallas":
-            def attend(q, c, live_kv):
-                return chunked_prefill_attention(
-                    q.contiguous(), c.k, c.v, block_tables, start,
-                    live_kv=live_kv, k_scale=c.k_scale, v_scale=c.v_scale)
-        elif paged_attn_impl == "gather":
-            attend = self._gather_attend(
-                block_tables, masking.chunk_causal_mask(t_max, start, W))
+        lane_live = masking.lane_mask(W, n_live)
+        if block_tables is None:
+            s_max = cache.k.shape[2] - 1
+            where = dense_write_slot(positions, lane_live, s_max)
+            attend = self._dense_attend(
+                s_max, masking.chunk_causal_mask(s_max, start, W))
         else:
-            raise ValueError(f"unknown paged_attn_impl {paged_attn_impl!r}")
+            bs = cache.k.shape[2]
+            t_max = block_tables.shape[1] * bs
+            idx_w = torch.where(lane_live, positions, t_max)
+            where = paged_write_slot(idx_w, block_tables, bs)
+            if paged_attn_impl == "pallas":
+                def attend(q, c, live_kv):
+                    return chunked_prefill_attention(
+                        q.contiguous(), c.k, c.v, block_tables, start,
+                        live_kv=live_kv, k_scale=c.k_scale,
+                        v_scale=c.v_scale)
+            elif paged_attn_impl == "gather":
+                attend = self._gather_attend(
+                    block_tables, masking.chunk_causal_mask(t_max, start, W))
+            else:
+                raise ValueError(
+                    f"unknown paged_attn_impl {paged_attn_impl!r}")
         x = self._inputs(table, tokens, topo)
         x = self._layers(table, cache, x, topo, positions, where, attend)
         return self._unembed(x, table, topo[:, REG_MODEL],
                              topo[:, REG_DMODEL], topo[:, REG_VOCAB])
+
+    def _dense_attend(self, s_max: int, live: torch.Tensor):
+        """The attend over one layer's dense rows (their first ``s_max``,
+        read through the codec: as stored, or dequantized to q's dtype)."""
+        def attend(q, c, live_kv):
+            view = (lambda t, sc: self.codec.load(
+                t[:, :s_max], None if sc is None else sc[:, :s_max],
+                q.dtype))
+            return self._attend(q, view(c.k, c.k_scale),
+                                view(c.v, c.v_scale), live)
+        return attend
 
     def _gather_attend(self, block_tables: torch.Tensor, live: torch.Tensor):
         """The XLA-style attend: the block-table gather of one layer's pool

@@ -345,7 +345,7 @@ def test_spec_takes_the_paper_networks_with_maxima():
         with pytest.raises(ValueError,
                            match="encoder-only archs have no decode step"):
             ServingEngine(spec, device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 items 11-12"):
+    with pytest.raises(ValueError, match="Queue 1 item 12f"):
         RuntimeSpec(arch=paper[0], memory=MemorySpec(max_len=64))
     with pytest.raises(ValueError, match="cache_layout='paged' is "
                                          "unsupported for family 'encoder'"):

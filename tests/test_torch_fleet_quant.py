@@ -389,6 +389,7 @@ def test_launch_serve_fleet_with_int8_table(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--requests", "4", "--max-new", "4",
           "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--attn", "pallas", "--quant", "int8", "--quant-min-size", "1",
           "--fleet", "qwen1.5-0.5b,adaptor-bert-shaped"])
     out = capsys.readouterr().out

@@ -395,6 +395,7 @@ def test_serve_replays_a_saved_trace(ref, capsys, tmp_path):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--trace", str(path), "--max-len", "32",
           "--block-size", "8", "--chunk-size", "8", "--temperature", "0",
+          "--cache-layout", "paged",
           "--prefix-cache", "--slo-ttft-steps", "4"])
     out = capsys.readouterr().out
     assert "trace 'shared-prefix' (seed 3) on cpu: 6/6 finished" in out

@@ -1,9 +1,11 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-A fleet (``maxima=``) refuses the dense layout and the bucketed scheduler
-(item 12), and its engine refuses the matmul kernels as the reference's
-does; it serves the prefix cache (tests/test_torch_prefix.py), its own
-int8 weight table (tests/test_torch_fleet_quant.py) and speculation
+A fleet (``maxima=``) refuses a family still unported (items 12c-12f) and
+a mesh (item 13), and its engine refuses the matmul kernels as the
+reference's does; it serves the dense layout and the bucketed scheduler
+(tests/test_torch_bucketed.py), the prefix cache
+(tests/test_torch_prefix.py), its own int8 weight table
+(tests/test_torch_fleet_quant.py) and speculation
 (tests/test_torch_speculative.py).  ``flash_attention``'s kernel
 puts the (b, h) pairs, the column groups of any hd and the chunks of
 65535 query tiles on its grid's x dimension, so it takes every hd and Sq
@@ -28,8 +30,14 @@ PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
 
 
 def test_model_names_items_11_12_for_other_families():
-    with pytest.raises(ValueError, match="Queue 1 items 11-12"):
-        Model(dataclasses.replace(CFG, family="vlm"), device="cpu")
+    """The vlm family is served now (tests/test_torch_vlm.py); the ssm
+    family's refusal names its own sub-item, 12d."""
+    Model(dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=1,
+                              d_model=64, num_heads=4, num_kv_heads=4,
+                              head_dim=16, d_ff=128, vocab_size=128),
+          device="cpu")
+    with pytest.raises(ValueError, match="Queue 1 item 12d"):
+        Model(dataclasses.replace(CFG, family="ssm"), device="cpu")
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
@@ -58,13 +66,27 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(memory=MemorySpec(max_len=64)), "item 12"),
-    (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
+    (dict(mesh=object()), "item 13"),
+    (dict(arch=dataclasses.replace(CFG, family="hybrid")), "item 12c"),
 ])
 def test_fleet_refusals_name_their_items(change, item):
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         RuntimeSpec(**{**kw, **change})
+
+
+@pytest.mark.parametrize("change", [
+    dict(memory=MemorySpec(max_len=64)),
+    dict(scheduler=SchedulerSpec(policy="bucketed")),
+])
+def test_fleet_serves_the_dense_layout_and_the_bucketed_scheduler(change):
+    """What item 12b lifted: a fleet on the dense layout (``"auto"``
+    resolving to chunked) and a fleet on the bucketed scheduler."""
+    kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))
+    spec = RuntimeSpec(**{**kw, **change})
+    eng = ServingEngine(spec, max_models=2, device="cpu")
+    assert eng.scheduler == spec.scheduler.policy.replace("auto", "chunked")
+    assert (eng.paging is None) == (spec.memory.cache_layout == "dense")
 
 
 def test_fleet_refuses_the_matmul_kernels_as_the_reference_does():

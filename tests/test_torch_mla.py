@@ -535,6 +535,7 @@ def test_launch_serve_serves_deepseek_on_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--arch", NAME, "--requests", "3", "--max-new",
           "5", "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--temperature", "0", "--kernels", "pallas", "--kv-dtype", "int8",
           "--prefix-cache", "--spec-k", "2"])
     out = capsys.readouterr().out

@@ -256,10 +256,10 @@ def test_entry_points_need_a_device_choice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(memory=MemorySpec()), "item 12"),
-    (dict(scheduler=SchedulerSpec(policy="bucketed")), "item 12"),
+    (dict(arch=dataclasses.replace(CFG, family="ssm")), "item 12d"),
+    (dict(arch=dataclasses.replace(CFG, family="hybrid")), "item 12c"),
     (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="vlm")), "items 11-12"),
+    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
 ])
 def test_spec_rejects_what_is_not_ported(kw, item):
     base = dict(arch=CFG, memory=MemorySpec(cache_layout="paged"))
@@ -304,9 +304,11 @@ def test_spec_keeps_reference_spellings_and_checks():
     assert spec.execution.compute_dtype == torch.float32
     with pytest.raises(ValueError, match="matmul_backend"):
         ExecutionSpec(matmul_backend="cuda")
+    # an explicit chunked policy (``"auto"`` falls back to bucketed here,
+    # as the reference's engine does)
     with pytest.raises(ValueError, match="block-aligned"):
         RuntimeSpec(arch=CFG, memory=MemorySpec(cache_layout="paged",
                                                 block_size=16),
-                    scheduler=SchedulerSpec(chunk_size=8))
+                    scheduler=SchedulerSpec(policy="chunked", chunk_size=8))
     with pytest.raises(ValueError, match="must divide"):
         MemorySpec(cache_layout="paged", max_len=60, block_size=16)

@@ -479,6 +479,7 @@ def test_launch_serve_serves_granite_on_cpu(capsys, extra):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--arch", NAME, "--requests", "3", "--max-new",
           "6", "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--temperature", "0", "--kernels", "pallas", "--attn", "pallas",
           *extra])
     out = capsys.readouterr().out

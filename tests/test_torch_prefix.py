@@ -499,6 +499,7 @@ def test_launch_serve_reports_the_prefix_cache(capsys):
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--requests", "3", "--max-len", "32",
                 "--block-size", "8", "--chunk-size", "8", "--max-new", "4",
+                "--cache-layout", "paged",
                 "--prefix-cache"])
     out = capsys.readouterr().out
     assert "prefix cache: 0 hits / 0 tokens skipped, 0 CoW forks, " \

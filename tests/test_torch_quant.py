@@ -721,6 +721,7 @@ def test_launch_serve_quantized_on_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--requests", "3", "--max-new", "4",
           "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--kernels", "pallas", "--attn", "pallas", "--quant", "int8",
           "--quant-min-size", "1", "--kv-dtype", "int8"])
     out = capsys.readouterr().out

@@ -235,6 +235,7 @@ def test_launch_serve_runs_on_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--requests", "3", "--max-new", "4",
           "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--kernels", "pallas", "--attn", "pallas"])
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out and "on cpu" in out

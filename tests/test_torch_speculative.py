@@ -480,7 +480,7 @@ def test_stochastic_speculation_replays(ref):
 @pytest.mark.parametrize("build,match", [
     (lambda: SpeculationSpec(draft_model=CFG, k=0), "must be >= 1"),
     (lambda: SpeculationSpec(draft_model=dataclasses.replace(
-        CFG, family="vlm"), k=2), "Queue 1 items 11-12"),
+        CFG, family="ssm"), k=2), "cannot draft"),
     (lambda: RuntimeSpec(arch=CFG, memory=MemorySpec(
         cache_layout="paged", max_len=64, block_size=8),
         scheduler=SchedulerSpec(policy="bucketed"),
@@ -501,9 +501,13 @@ def test_stochastic_speculation_replays(ref):
         scheduler=SchedulerSpec(chunk_size=8), maxima=FLEET_MAXIMA,
         speculation=SpeculationSpec(draft_model=MEMBER)),
      "draft vocab_size=96 != target vocab 128"),
+    # the dense layout is served: a dense target is refused only for the
+    # reference's reasons, here a chunk wider than the cache
     (lambda: RuntimeSpec(arch=CFG, memory=MemorySpec(max_len=64),
+                         scheduler=SchedulerSpec(chunk_size=128),
                          speculation=SpeculationSpec(draft_model=CFG)),
-     "ROADMAP.md Queue 1 item 12"),
+     "speculation requires a satisfiable chunked scheduler: "
+     "chunk_size=128 > max_len=64"),
 ], ids=["k", "draft-family", "bucketed", "verify-lanes", "vocab", "fleet",
         "dense-target"])
 def test_speculation_validation(build, match):
@@ -527,6 +531,7 @@ def test_launch_serve_speculates_on_cpu(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--requests", "3", "--max-new", "6",
           "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--temperature", "0", "--spec-k", "3"])
     out = capsys.readouterr().out
     assert "3 requests, 18 tokens" in out and "speculation: k=3" in out
@@ -536,6 +541,7 @@ def test_launch_serve_speculates_in_a_fleet(capsys):
     from repro_torch.launch.serve import main
     main(["--device", "cpu", "--requests", "4", "--max-new", "6",
           "--max-len", "32", "--block-size", "8", "--chunk-size", "8",
+          "--cache-layout", "paged",
           "--temperature", "0", "--attn", "pallas", "--spec-k", "3",
           "--fleet", "qwen1.5-0.5b,adaptor-bert-shaped"])
     out = capsys.readouterr().out
