@@ -285,7 +285,8 @@ Phases (any failure raises and the script exits non-zero):
 
 15. The vlm family, the dense layout and the bucketed scheduler (ROADMAP
    Queue 1 items 12a-12b): phi-3-vision-4.2b at its published widths and
-   all 32 layers, seeded random weights.  (a) At f32 compute, along the
+   8 of its 32 layers (cut since phase 16 joined, for run time), seeded
+   random weights.  (a) At f32 compute, along the
    kernels, their plain versions and those perturbed (phase 4's gate): a
    mixed step whose prompt lanes straddle the 576 patch positions
    (``prefill_lanes``) and a decode step, over the paged pool and the
@@ -309,6 +310,29 @@ Phases (any failure raises and the script exits non-zero):
    phi-3-vision's widths (3072->3072, 3072->8192, 8192->3072 at M 8, 128
    and 1024) and at qwen's 512-row bucket, and ``rmsnorm`` at 8 and 1024
    x 3072.
+
+16. The hybrid family (ROADMAP Queue 1 item 12c): recurrentgemma-2b at
+   its published widths and all 26 layers (pattern r, r, a: 18 RG-LRU
+   and 8 local-attention layers, d_model and lru_width 2560, 10 heads
+   over 1 kv head of 256, window 2048, GeGLU d_ff 7680, vocab 256000),
+   seeded random weights.  (a) At f32 compute, the kernels against their
+   plain versions (the plain loop in place of ``rglru_scan``) within
+   phase 4's gate: ``Model.prefill`` of a 2300-token prompt (past the
+   window: banded attention, wrapped rolling buffers) and 4 decode steps
+   over its state; the prefill's launches equal ``program_launches``
+   (164 ``tiled_matmul``, 53 ``rmsnorm``, 18 ``rglru_scan``); an explicit
+   chunked spec and ``mixed_step`` refused, "auto" bucketed.  (b) bf16
+   on dense + bucketed, max_batch 8, max_len 3072 (buckets 32-3072), 8
+   greedy requests of 40-3000 tokens x 32 new, graphed (first, warm,
+   traced warm) and eager: graphed = eager, one capture per bucket used
+   (six) and one of the decode program, no mixed program, launches =
+   ``program_launches``; tok/s, device ms by kernel, idle share, peak
+   memory.  Phase 2 holds ``tiled_matmul`` and ``int8_matmul`` at
+   recurrentgemma's widths (2560->2560, 2560->256, 2560->7680,
+   7680->2560 at M 8 and 3072), ``rmsnorm`` at 8 and 3072 x 2560, and
+   ``rglru_scan`` bit for bit its plain loop at [1, 3072, 2560] (2300
+   real positions, and all), [8, 1, 2560] and [2, 300, 2560] with ragged
+   lengths, timed beside its bound (no library call computes it).
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -361,6 +385,9 @@ from repro_torch.kernels import layernorm as ln_mod  # noqa: E402
 from repro_torch.kernels.layernorm import (  # noqa: E402
     layernorm_plain, rmsnorm_plain)
 from repro_torch.kernels.qkv_proj import qkv_proj, qkv_proj_plain  # noqa: E402
+from repro_torch.kernels import rglru_scan as scan_mod  # noqa: E402
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan, rglru_scan_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
@@ -417,13 +444,23 @@ PHI3V_MATMULS = {(3072, 3072): "wq/wk/wv/wo", (3072, 8192): "w1/wg",
                  (8192, 3072): "w2"}
 PHI3V_ROWS = {8: "decode-step", 128: "mixed-step", 1024: "1024-bucket prefill"}
 QWEN_BUCKET_ROWS = 512
+# recurrentgemma-2b (configs/recurrentgemma_2b.py): a layer's bf16
+# products, (K, N) -> name (d_model and lru_width 2560, 10 heads over 1 kv
+# head of 256, GeGLU d_ff 7680), at a decode step's 8 rows and the
+# 3072-token bucket's prefill (phase 16)
+RGEMMA_MATMULS = {(2560, 2560): "in_x/in_gate/out/wq/wo", (2560, 256): "wk/wv",
+                  (2560, 7680): "w1/wg", (7680, 2560): "w2"}
+RGEMMA_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
 
 
 def prefill_rows() -> dict[tuple[int, int, int], str]:
-    """Phase 2's rows at phase 15's shapes: (M, K, N) -> label."""
+    """Phase 2's rows at phase 15's and 16's shapes: (M, K, N) -> label."""
     rows = {(m, k, n): f"phi-3-vision-4.2b {step} {name}"
             for m, step in PHI3V_ROWS.items()
             for (k, n), name in PHI3V_MATMULS.items()}
+    rows.update({(m, k, n): f"recurrentgemma-2b {step} {name}"
+                 for m, step in RGEMMA_ROWS.items()
+                 for (k, n), name in RGEMMA_MATMULS.items()})
     rows.update({(QWEN_BUCKET_ROWS, k, n): "qwen1.5-0.5b 512-bucket prefill"
                  for k, n in LAYER_MATMULS})
     return rows
@@ -487,7 +524,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                                        "paged_decode_attention", "rmsnorm"),
                 "bucketed_dense": ("tiled_matmul", "rmsnorm"),
                 "bucketed_paged": ("tiled_matmul", "paged_decode_attention",
-                                   "rmsnorm")}
+                                   "rmsnorm"),
+                # phase 16: recurrentgemma-2b on dense + bucketed (its
+                # local attention is plain torch, as the reference's XLA;
+                # every prefill runs the RG-LRU recurrence's kernel)
+                "hybrid": ("tiled_matmul", "rmsnorm", "rglru_scan")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -512,6 +553,9 @@ SOURCES = {
                 "src/repro/kernels/layernorm.py:72"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:85"),
+    # no Pallas kernel: the reference's lax.scan in rglru_prefill
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "src/repro/models/rglru.py:124"),
 }
 # full widths of the kernel library's shapes, from the JAX package's
 # config files (kept here as constants; nothing of it is imported):
@@ -1253,6 +1297,54 @@ def check_norms(timer, dev, g) -> dict:
             for k, es in rows.items()}
 
 
+# rglru_scan's rows: (B, S, W, lengths or None).  recurrentgemma-2b's
+# 3072-token bucket holding a 2300-token prompt (phase 16's longest
+# prefill, past the window) and the full bucket; eight one-position rows,
+# two of them past their length; two rows of a 300-token bucket
+SCAN_SHAPES = ((1, 3072, 2560, (2300,)), (1, 3072, 2560, None),
+               (8, 1, 2560, (1, 0, 1, 1, 0, 1, 1, 1)),
+               (2, 300, 2560, (300, 123)))
+
+
+def check_scan(timer, dev, g) -> dict:
+    """``rglru_scan`` against its plain loop, bit for bit (the same two
+    float32 operators a position, in the same order), hs and the last h,
+    at ``SCAN_SHAPES``: a = U(0, 1) (the gates' range), g normal, ragged
+    lengths.  Timed beside the bound (a, g read and hs written once: 3 x
+    B x S x W x 4 bytes; 2 operations a live position and channel at the
+    float32 rate); no single PyTorch call computes a linear recurrence, so
+    no library time."""
+    print("\n== rglru_scan vs its plain loop (h_t = a_t h_{t-1} + g_t, "
+          "float32; the reference's lax.scan, no Pallas kernel)")
+    print(f"{'B':>3} {'S':>5} {'W':>5} {'lengths':>26} {'err':>6} "
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'bound_ms':>9}")
+    rows = []
+    for B, S, W, lens in SCAN_SHAPES:
+        a = torch.rand(B, S, W, generator=g, device=dev)
+        gg = torch.randn(B, S, W, generator=g, device=dev)
+        n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                   device=dev)
+        run = lambda: rglru_scan(a, gg, n)  # noqa: E731
+        plain = lambda: rglru_scan_plain(a, gg, n)  # noqa: E731
+        (hs, h), (phs, ph) = run(), plain()
+        err = max(max_err(hs, phs), max_err(h, ph))
+        if not (torch.equal(hs, phs) and torch.equal(h, ph)):
+            raise AssertionError(f"rglru_scan [{B}, {S}, {W}] lengths "
+                                 f"{lens}: not bit for bit its plain loop "
+                                 f"(max err {err})")
+        live = B * S if lens is None else sum(min(x, S) for x in lens)
+        bms, by = bound_ms(3 * B * S * W * 4 + B * W * 4 + B * 4,
+                           2 * live * W, torch.float32)
+        ms, pms = timer(run), timer(plain, reps=5, warm=1)
+        print(f"{B:>3} {S:>5} {W:>5} {str(lens):>26} {err:>6.3g} "
+              f"{ms:>10.4f} {pms:>9.4f} {bms:>9.4f}")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         shape=f"[{B}, {S}, {W}] float32, lengths {lens}"))
+        del a, gg, hs, phs
+    return {"rglru_scan": dict(rows[0], other_shapes=rows[1:])}
+
+
 def check_library(timer, dev, g) -> dict:
     """The other four kernels of the library entry point against their
     plain versions at full model widths, in bf16 and f32.  Gates: f32 at
@@ -1561,6 +1653,7 @@ def plain_versions(perturb: float = 0.0):
         return lambda *a, **k: fn(*a, **k) * (1.0 + perturb)
     with mock.patch.object(tm_mod, "tiled_matmul", tiled_matmul_plain), \
             mock.patch.object(i8_mod, "int8_matmul", int8_matmul_plain), \
+            mock.patch.object(scan_mod, "rglru_scan", rglru_scan_plain), \
             mock.patch.object(ln_mod, "rmsnorm", rmsnorm_plain), \
             mock.patch.object(ln_mod, "layernorm", layernorm_plain), \
             mock.patch.object(attn_mod, "paged_decode_attention",
@@ -1800,10 +1893,11 @@ def device_events(prof) -> list:
 
 
 def drain(eng, prompts, models=None, sync_every: int = 1,
-          no_sync: bool = False, measure: str | None = None) -> dict:
-    """Submit ``prompts`` (greedy, ``MAX_NEW`` tokens each; ``models``: the
+          no_sync: bool = False, measure: str | None = None,
+          max_new: int = MAX_NEW) -> dict:
+    """Submit ``prompts`` (greedy, ``max_new`` tokens each; ``models``: the
     fleet member of each) and drain the engine; every request must finish
-    with ``MAX_NEW`` tokens.  The kernel counts are zeroed just before the
+    with ``max_new`` tokens.  The kernel counts are zeroed just before the
     drain.  ``no_sync`` runs every fused step, captures included, under
     ``torch.cuda.set_sync_debug_mode("error")`` (ROADMAP Queue 3 fault
     B): a host sync in ``_dispatch`` raises, and no staging buffer may
@@ -1812,7 +1906,7 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
     operators it dispatches.  Returns the streams, seconds, steps, the
     drain's share of the engine's stats, the engine's compilations and
     the launches made."""
-    uids = {eng.submit(p, max_new_tokens=MAX_NEW,
+    uids = {eng.submit(p, max_new_tokens=max_new,
                        model=0 if models is None else models[i]): i
             for i, p in enumerate(prompts)}
     dispatch = eng._dispatch
@@ -1842,7 +1936,7 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
     if len(done) != len(prompts) or not all(r.done for r in done):
         raise AssertionError(f"{len(done)}/{len(prompts)} requests finished")
     streams = {uids[r.uid]: r.generated for r in done}
-    if any(len(s) != MAX_NEW for s in streams.values()):
+    if any(len(s) != max_new for s in streams.values()):
         raise AssertionError("a request stopped short of max_new_tokens")
     waits = sum(st.waits for st in eng._stages.values())
     if no_sync and waits:
@@ -3634,6 +3728,9 @@ def check_mla(dev, g) -> dict:
 # the bucketed scheduler
 # ---------------------------------------------------------------------------
 VLM = "phi-3-vision-4.2b"
+# phase 15a-b's depth: 8 of its 32 layers (cut when phase 16 joined, to
+# keep the run well inside its limit; every gate a layer carries stays)
+VLM_LAYERS = 8
 VLM_ENGINE = dict(max_batch=8, max_len=1024, block_size=16, chunk=16)
 # text tokens after the 576 patch positions: prompts of 592-992 tokens
 VLM_TEXT = (16, 73, 130, 187, 244, 301, 358, 416)
@@ -3643,6 +3740,12 @@ VLM_TEXT = (16, 73, 130, 187, 244, 301, 358, 416)
 VLM_START = (560, 565, 568, 570, 572, 575, 576, 580)
 VLM_N_LIVE = (16, 16, 16, 16, 16, 16, 9, 1)
 VLM_PREFILL = (True,) * 7 + (False,)
+def vlm_cut() -> ArchConfig:
+    """phi-3-vision-4.2b at its published widths and ``VLM_LAYERS``
+    layers."""
+    return dataclasses.replace(get_config(VLM), num_layers=VLM_LAYERS)
+
+
 # phase 15b/15c's engines: (label, policy, layout)
 BUCKETED_ENGINES = (("paged + chunked", "chunked", "paged"),
                     ("dense + bucketed", "bucketed", "dense"),
@@ -3652,10 +3755,11 @@ BUCKETED_ENGINES = (("paged + chunked", "chunked", "paged"),
 def vlm_spec(policy: str, layout: str, compute: str = "bf16",
              arch: ArchConfig | None = None,
              engine: dict = VLM_ENGINE) -> RuntimeSpec:
-    """Phase 15's spec on the kernel path: phi-3-vision-4.2b (or ``arch``)
-    at ``engine``'s geometry on ``policy`` over ``layout``."""
+    """Phase 15's spec on the kernel path: phi-3-vision-4.2b at
+    ``VLM_LAYERS`` layers (or ``arch``) at ``engine``'s geometry on
+    ``policy`` over ``layout``."""
     return RuntimeSpec(
-        arch=arch or get_config(VLM),
+        arch=arch or vlm_cut(),
         execution=ExecutionSpec(matmul_backend="pallas",
                                 paged_attn_impl="pallas",
                                 compute_dtype=compute),
@@ -3756,13 +3860,13 @@ def bucketed_launches(cfg: ArchConfig, policy: str, layout: str,
 
 def bucketed_engine_line(label: str, cfg: ArchConfig, policy: str,
                          layout: str, runs: dict, n_req: int,
-                         kernels) -> None:
-    """Phase 15b/15c's gates and lines on one engine: graphed (first and
-    warm drain) = eager streams, the warm drain captured nothing, one
-    capture per fused program and per bucket, and the launches of every
-    drain equal ``bucketed_launches``."""
+                         kernels, max_new: int = MAX_NEW) -> None:
+    """Phase 15b/15c's (and 16b's) gates and lines on one engine: graphed
+    (first and warm drain) = eager streams, the warm drain captured
+    nothing, one capture per fused program and per bucket, and the
+    launches of every drain equal ``bucketed_launches``."""
     g, e, warm = runs["graphed"], runs["eager"], runs["graphed"]["warm"]
-    n_tok = n_req * MAX_NEW
+    n_tok = n_req * max_new
     for mode, r in (("graphed, first drain", g), ("graphed, warm", warm),
                     ("eager", e)):
         st = r["stats"]
@@ -3852,7 +3956,7 @@ def vlm_serving(params, dev, g) -> dict:
     then a traced warm drain) and eager, one engine resident beside its
     eager twin; then a short f32 mix on all three.  Returns each graphed
     first drain's launches."""
-    cfg = get_config(VLM)
+    cfg = vlm_cut()
     rs = np.random.default_rng(15)
     prompts = [rs.integers(0, cfg.vocab_size, cfg.frontend.num_tokens + n)
                .tolist() for n in VLM_TEXT]
@@ -3907,16 +4011,18 @@ def vlm_serving(params, dev, g) -> dict:
 
 def check_vlm(dev, g) -> dict:
     """Phase 15a and 15b on phi-3-vision-4.2b at its published widths and
-    all 32 layers (``vlm_steps``, ``vlm_serving``), then 15b's f32 gate on
-    a short mix: the three engines' greedy streams identical."""
+    ``VLM_LAYERS`` of its 32 layers (``vlm_steps``, ``vlm_serving``), then
+    15b's f32 gate on a short mix: the three engines' greedy streams
+    identical."""
     t_start = time.perf_counter()
-    cfg = get_config(VLM)
+    cfg = vlm_cut()
     model32 = Model(cfg, compute_dtype=torch.float32, device=dev,
                     matmul_backend="pallas", paged_attn_impl="pallas")
     init_in_place(model32, g)
     n_params = sum(t.numel() for t in model32.parameters())
-    print(f"\n== phase 15: {VLM}, {n_params / 1e9:.3f} G parameters "
-          f"({n_params * 2 / 1e9:.2f} GB in bf16)")
+    print(f"\n== phase 15: {VLM} at {cfg.num_layers} of its 32 layers, "
+          f"{n_params / 1e9:.3f} G parameters ({n_params * 2 / 1e9:.2f} GB "
+          "in bf16)")
     vlm_steps(model32, dev, g)
     params = model32.state_dict()
     print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
@@ -3980,6 +4086,201 @@ def check_bucketed_qwen(dev, g) -> dict:
     print(f"  phase 15c took {time.perf_counter() - t_start:.1f} s")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the hybrid family (recurrentgemma-2b) on dense + bucketed
+# ---------------------------------------------------------------------------
+HYBRID = "recurrentgemma-2b"
+# 16a: a prefill past the 2048-token window, then decode steps
+HYBRID_PREFILL, HYBRID_DECODE = 2300, 4
+# 16b: the serving geometry and mix (buckets 32-3072; the prompts fill six
+# of them: 64, 256, 512, 1024, 2048 and 3072)
+HYBRID_ENGINE = dict(max_batch=8, max_len=3072)
+HYBRID_PROMPTS = (40, 200, 512, 1000, 1500, 2047, 2300, 3000)
+HYBRID_NEW = 32
+
+
+def hybrid_spec(compute: str = "bf16", policy: str = "bucketed"
+                ) -> RuntimeSpec:
+    """Phase 16's spec on the kernel path: recurrentgemma-2b on the dense
+    layout and the bucketed scheduler (the only path the reference allows
+    the family)."""
+    return RuntimeSpec(
+        arch=get_config(HYBRID),
+        execution=ExecutionSpec(matmul_backend="pallas",
+                                paged_attn_impl="pallas",
+                                compute_dtype=compute),
+        memory=MemorySpec(cache_layout="dense", **HYBRID_ENGINE),
+        scheduler=SchedulerSpec(policy=policy))
+
+
+def hybrid_steps(model: Model, dev, g) -> None:
+    """Phase 16a on the f32 model: ``Model.prefill`` of a
+    ``HYBRID_PREFILL``-token prompt (past the window: the local attention
+    runs banded and the rolling buffers wrap) and ``HYBRID_DECODE`` decode
+    steps over its state, along the kernels and their plain versions
+    (``STEP_PATHS``; the plain loop in place of ``rglru_scan``), each
+    within phase 4's gate, 2e-2 x max|logits| (the perturbed path is the
+    plain one here: no paged walk runs); the kernel path's launches
+    against ``program_launches``.  Then the chunked step has no way in:
+    an explicit chunked spec and ``mixed_step`` raise, "auto" resolves to
+    the bucketed scheduler."""
+    cfg = model.cfg
+    P, D = HYBRID_PREFILL, HYBRID_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, P + D), generator=g,
+                         device=dev, dtype=torch.int32)
+    print(f"\n== {HYBRID} at its published widths ({cfg.num_layers} layers "
+          f"{''.join(cfg.hybrid.pattern)}..., d_model {cfg.d_model}, "
+          f"lru_width {cfg.hybrid.lru_width}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, window "
+          f"{cfg.hybrid.attention_window}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), f32 compute: a {P}-token prefill + {D} "
+          "decode steps, |kernels - plain versions| (gated)")
+    out = {}
+    for path in ("kernels", "plain versions"):
+        _, ctx = STEP_PATHS[path]
+        zero_counts()
+        with ctx():
+            logits, cache = model.prefill(toks[:, :P], P + D)
+            res = [logits[0]]
+            made = launch_counts()
+            for t in range(P, P + D):
+                res.append(model.decode_step(
+                    cache, toks[:, t:t + 1],
+                    torch.tensor([t], dtype=torch.int32, device=dev))[0, 0])
+        out[path] = res
+        del cache, logits
+        if path == "kernels":
+            want = program_launches(cfg, "prefill", layout="dense")
+            have = {n: made[n] for n in want}
+            print(f"  the kernel path's prefill launched {have} "
+                  f"(kernels/counts.py: {want})")
+            if have != want:
+                raise AssertionError(f"{HYBRID} prefill: launches {have} != "
+                                     f"{want}")
+    cases = [f"prefill of {P} tokens"] + [f"decode step at {t}"
+                                          for t in range(P, P + D)]
+    for i, case in enumerate(cases):
+        ref = out["plain versions"][i]
+        tol = LOGIT_TOL * float(ref.abs().max())
+        err = max_err(out["kernels"][i], ref)
+        print(f"  {case}: kernels {err:.4g}, tol {LOGIT_TOL} x max|logits| "
+              f"= {tol:.4g}")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{HYBRID} {case}: kernels {err} > {tol}")
+    try:
+        hybrid_spec(policy="chunked")
+    except ValueError as exc:
+        print(f"  an explicit chunked spec is refused: {exc}")
+    else:
+        raise AssertionError(f"{HYBRID}: a chunked spec was accepted")
+    try:
+        model.mixed_step(None, toks[:, :1], toks[0, :1], toks[0, :1])
+    except ValueError as exc:
+        print(f"  mixed_step is refused: {exc}")
+    else:
+        raise AssertionError(f"{HYBRID}: mixed_step ran")
+    if hybrid_spec(policy="auto").resolved_policy != "bucketed":
+        raise AssertionError(f"{HYBRID}: 'auto' did not resolve to bucketed")
+
+
+def hybrid_serving(params, dev, g) -> dict:
+    """Phase 16b: recurrentgemma-2b in bf16 (seeded random weights) on
+    dense + bucketed, ``HYBRID_ENGINE``'s geometry, 8 greedy requests of
+    ``HYBRID_PROMPTS`` tokens x ``HYBRID_NEW`` new, graphed (first, warm,
+    then a traced warm drain) and eager, both engines resident:
+    ``bucketed_engine_line``'s gates (graphed = eager, one capture per
+    bucket used and one of the decode program, launches =
+    ``program_launches``), no mixed program; tok/s, device ms by kernel,
+    idle share and the peak memory printed."""
+    cfg = get_config(HYBRID)
+    rs = np.random.default_rng(16)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in HYBRID_PROMPTS]
+    buckets = engine_mod._buckets(HYBRID_ENGINE["max_len"])
+    used = sorted({next(b for b in buckets if b >= n)
+                   for n in HYBRID_PROMPTS})
+    print(f"\n== serving {HYBRID} in bf16 on dense + bucketed: "
+          f"{len(prompts)} greedy requests of {HYBRID_PROMPTS} tokens x "
+          f"{HYBRID_NEW} new, max_batch {HYBRID_ENGINE['max_batch']}, "
+          f"max_len {HYBRID_ENGINE['max_len']}, buckets {buckets} "
+          f"({used} used), the kernel path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = hybrid_spec()
+    eng = ServingEngine(spec, device="cuda", graphs=True)
+    eng.load(params)
+    first = drain(eng, prompts, max_new=HYBRID_NEW)
+    first["warm"] = drain(eng, prompts, max_new=HYBRID_NEW)
+    traced = drain(eng, prompts, measure="profile", max_new=HYBRID_NEW)
+    eager = ServingEngine(spec, device="cuda", graphs=False)
+    eager.load(params)
+    runs = {"graphed": first, "eager": drain(eager, prompts,
+                                             max_new=HYBRID_NEW)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    programs = dict(eng._programs)
+    del eng, eager
+    label = f"{HYBRID} dense + bucketed"
+    bucketed_engine_line(label, cfg, "bucketed", "dense", runs, len(prompts),
+                         PATH_KERNELS["hybrid"], max_new=HYBRID_NEW)
+    if first["compilations"]["prefill_buckets"] != len(used) \
+            or programs.get("mixed"):
+        raise AssertionError(f"{label}: programs {programs}; want one "
+                             f"capture per bucket of {used} and no mixed "
+                             "program")
+    warm = first["warm"]
+    n_tok = len(prompts) * HYBRID_NEW
+    print(f"  {label}: tok/s graphed first {n_tok / first['dt']:.1f}, warm "
+          f"{n_tok / warm['dt']:.1f}, eager "
+          f"{n_tok / runs['eager']['dt']:.1f}; {sum(HYBRID_PROMPTS)} prompt "
+          f"tokens in {len(prompts)} prefills, {warm['steps']} decode steps")
+    dev_s = traced["device_s"]
+    if dev_s is None:
+        print("  the profiler traced no device activity: device time and "
+              "idle share not measured")
+    else:
+        idle = 1 - dev_s / warm["dt"]
+        print(f"  {label}, warm drain traced: {dev_s * 1e3:.1f} ms of device "
+              f"time; idle {idle:.3f} of the untraced warm drain's "
+              f"{warm['dt']:.3f} s ({1 - dev_s / traced['dt']:.3f} of the "
+              f"traced drain's {traced['dt']:.3f} s); the 10 longest "
+              "kernels:")
+        for key, calls_n, ms in traced["top"][:10]:
+            print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                  f"{ms / (dev_s * 1e3):6.1%}")
+        scan = [(k, c, ms) for k, c, ms in traced["kernels"]
+                if "rglru_scan" in k]
+        print(f"  rglru_scan in the traced drain: {scan}")
+    print(f"  {label}: max_memory_allocated {peak:.2f} GB (graphed and eager "
+          f"engines resident; a {buckets[-1]}-token bucket's prefill returns "
+          f"[1, {buckets[-1]}, {cfg.vocab_size}] float32 logits, "
+          f"{buckets[-1] * cfg.vocab_size * 4 / 1e9:.2f} GB)")
+    return {"hybrid": first["launches"]}
+
+
+def check_hybrid(dev, g) -> dict:
+    """Phase 16 on recurrentgemma-2b at its published widths and all 26
+    layers: 16a's f32 steps (``hybrid_steps``), then 16b's bf16 serving
+    (``hybrid_serving``) from the same weights."""
+    t_start = time.perf_counter()
+    cfg = get_config(HYBRID)
+    model32 = Model(cfg, compute_dtype=torch.float32, device=dev,
+                    matmul_backend="pallas").init(g)
+    n_params = sum(t.numel() for t in model32.parameters())
+    layer_params = n_params - cfg.vocab_size * cfg.d_model
+    print(f"\n== phase 16: {HYBRID}, {n_params / 1e9:.3f} G parameters "
+          f"({layer_params / 1e9:.3f} G in the layers, "
+          f"{layer_params * 2 / 1e9:.2f} GB in bf16)")
+    hybrid_steps(model32, dev, g)
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    params = model32.state_dict()
+    del model32
+    launches = hybrid_serving(params, dev, g)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 16 took {time.perf_counter() - t_start:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4346,6 +4647,7 @@ def main() -> int:
     entries.update(check_attention(timer, dev, g))
     entries.update(check_norms(timer, dev, g))
     entries.update(check_library(timer, dev, g))
+    entries.update(check_scan(timer, dev, g))
     lap("phase 2")
     launches = {"ops": check_ops(dev, g)}
     lap("phase 3")
@@ -4492,10 +4794,12 @@ def main() -> int:
     launches.update(check_vlm(dev, g))
     launches.update(check_bucketed_qwen(dev, g))
     lap("phase 15")
+    launches.update(check_hybrid(dev, g))
+    lap("phase 16")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
-                 "bucketed_dense", "bucketed_paged"):
+                 "bucketed_dense", "bucketed_paged", "hybrid"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

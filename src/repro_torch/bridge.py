@@ -11,7 +11,9 @@ of an MoE model's main stack).  An MoE model's dense prefix is a list of
 unstacked layers in the reference; its ``j``-th entry becomes
 ``dense_prefix.<j>.``.  An MLA model's attention leaves (``attn.{q_down,
 q_norm, q_up, kv_down, kv_norm, k_up, v_up, wo}``) carry over by the same
-rule.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
+rule.  A hybrid model's layers are a list in the reference too (each a
+dict of its kind's leaves: ``rglru.*`` or ``attn.*`` beside ``ln1``,
+``ln2`` and ``ffn``), so they map leaf for leaf onto ``layers.<i>.``.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
 training-only module (ROADMAP.md Queue 1 item 16) that the port's serving
 ``Model`` does not hold, so it is left out.
 
@@ -79,7 +81,7 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
     out: dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         t = _tensor(arr, name, dtype)
-        if name.startswith("layers."):
+        if name.startswith("layers.") and cfg.hybrid is None:
             if t.shape[0] != stacked:
                 raise ValueError(f"{name}: leading axis {t.shape[0]} != "
                                  f"the {stacked} stacked layers of "

@@ -6,7 +6,9 @@ phi3-mini-3.8b; and adaptor-bert-shaped, a fleet member at the paper's
 BERT widths on qwen's template (``--fleet
 qwen1.5-0.5b,adaptor-bert-shaped``); of the MoE family granite-moe-1b-a400m and deepseek-v3-671b
 (MLA, ``--arch deepseek-v3-671b``); of the vlm family phi-3-vision-4.2b
-(``--arch phi-3-vision-4.2b``, its stub frontend zeros in serving); and
+(``--arch phi-3-vision-4.2b``, its stub frontend zeros in serving); of
+the hybrid family recurrentgemma-2b (``--arch recurrentgemma-2b``, RG-LRU
+and local attention); and
 the paper's three evaluation networks, which the register-driven engine
 runs (``core/adaptive.py``): adaptor-bert, shallow-transformer and
 custom-encoder, of the encoder family.
@@ -18,9 +20,10 @@ from repro_torch.configs import (adaptor_bert, adaptor_bert_shaped,
                                  deepseek_v3_671b, granite_moe_1b_a400m,
                                  phi3_mini_3_8b, phi_3_vision_4_2b,
                                  qwen1_5_0_5b, qwen2_72b,
-                                 shallow_transformer)
+                                 recurrentgemma_2b, shallow_transformer)
 from repro_torch.configs.base import (ArchConfig, EncDecConfig,
-                                      FrontendConfig, MLAConfig, reduced)
+                                      FrontendConfig, HybridConfig,
+                                      MLAConfig, reduced)
 
 # The paper's own evaluation networks (ADAPTOR §6, Table 1, Fig. 11).
 PAPER_NETWORKS: tuple[ArchConfig, ...] = (
@@ -35,7 +38,7 @@ REGISTRY: dict[str, ArchConfig] = {
                         adaptor_bert_shaped.CONFIG,
                         granite_moe_1b_a400m.CONFIG,
                         deepseek_v3_671b.CONFIG, phi_3_vision_4_2b.CONFIG,
-                        *PAPER_NETWORKS)}
+                        recurrentgemma_2b.CONFIG, *PAPER_NETWORKS)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -47,4 +50,5 @@ def get_config(name: str) -> ArchConfig:
 
 
 __all__ = ["PAPER_NETWORKS", "REGISTRY", "ArchConfig", "EncDecConfig",
-           "FrontendConfig", "MLAConfig", "get_config", "reduced"]
+           "FrontendConfig", "HybridConfig", "MLAConfig", "get_config",
+           "reduced"]

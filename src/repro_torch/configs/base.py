@@ -2,9 +2,11 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense, vlm, MoE (with MLA) and encoder families
-need (the SSM / hybrid sub-configs are ported with their families,
-ROADMAP.md Queue 1 items 12c-12d).  ``FrontendConfig`` is the vlm
+restricted to what the dense, vlm, MoE (with MLA), hybrid and encoder
+families need (the SSM sub-config is ported with its family, ROADMAP.md
+Queue 1 item 12d).  ``HybridConfig`` is the hybrid family's block
+pattern and widths (RG-LRU and local attention, RecurrentGemma).
+``FrontendConfig`` is the vlm
 family's stub vision frontend.  ``EncDecConfig`` is here for the
 register-driven engine's encoder/decoder rule (``core/registers.py``
 ``registers_for``, ``core/spec.py`` ``maxima_for``).  Dtype defaults are
@@ -54,6 +56,16 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma-style hybrid (RG-LRU + local attention) configuration."""
+
+    # Block pattern, repeated over depth: 'r' = RG-LRU block, 'a' = local attn.
+    pattern: tuple[str, ...] = ("r", "r", "a")
+    lru_width: int = 0  # 0 -> d_model
+    attention_window: int = 2048
+
+
+@dataclass(frozen=True)
 class EncDecConfig:
     """Encoder/decoder (Whisper) configuration."""
 
@@ -75,9 +87,9 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """A single architecture (the dense-, vlm-, MoE- and encoder-family
-    fields of the reference, its MLA, enc-dec and frontend sub-configs and
-    the MTP depth)."""
+    """A single architecture (the dense-, vlm-, MoE-, hybrid- and
+    encoder-family fields of the reference, its MLA, hybrid, enc-dec and
+    frontend sub-configs and the MTP depth)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -98,6 +110,7 @@ class ArchConfig:
     source: str = ""
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    hybrid: HybridConfig | None = None
     encdec: EncDecConfig | None = None
     frontend: FrontendConfig | None = None
     # Multi-token prediction depth (DeepSeek-V3 MTP); 0 disables.  A
@@ -140,8 +153,9 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     """A tiny same-family config for CPU tests: the reference's shrink rule
     (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept; an MoE
     block shrunk to 4 experts of width 32, top-min(2, k); MLA to ranks
-    32 / 16 with head dims 16 + 8 and 16; a frontend to 8 tokens of 64;
-    an MTP depth to 1)."""
+    32 / 16 with head dims 16 + 8 and 16; a hybrid pattern kept, with the
+    RG-LRU at d_model (lru_width 0), a window of 32 and one pattern period
+    of layers; a frontend to 8 tokens of 64; an MTP depth to 1)."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     small: dict[str, Any] = dict(
@@ -172,6 +186,10 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
             qk_rope_head_dim=8,
             v_head_dim=16,
         )
+    if cfg.hybrid is not None:
+        small["hybrid"] = HybridConfig(
+            pattern=cfg.hybrid.pattern, lru_width=0, attention_window=32)
+        small["num_layers"] = len(cfg.hybrid.pattern)  # one pattern period
     if cfg.frontend is not None:
         small["frontend"] = FrontendConfig(
             kind=cfg.frontend.kind, num_tokens=8, feature_dim=64)

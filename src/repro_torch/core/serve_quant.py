@@ -14,7 +14,9 @@ reference keeps one ``[L, K, N]`` array per projection, the port one
 ``[K, N]`` module per layer, so a ``layers.<i>.`` kernel is compared with
 ``quant_min_size`` at ``L * K * N`` elements, L the number of
 ``layers.<i>.`` modules (an MoE model's main stack; its ``dense_prefix``
-layers are unstacked leaves in the reference and are measured alone).
+layers are unstacked leaves in the reference and are measured alone, as
+is every layer of a hybrid model, which the reference keeps as a list:
+its RG-LRU's ``in_x``, ``in_gate`` and ``out`` kernels included).
 Per-column scales of a stacked leaf are per-layer, so quantizing layer by
 layer gives the same numbers.  The expert and router leaves are not
 named ``kernel``, so they stay float.
@@ -110,12 +112,15 @@ def quantize_leaf(w: torch.Tensor, kind: str) -> QTensor:
 
 
 def quantize_params(params: Mapping[str, torch.Tensor],
-                    min_size: int = DEFAULT_QUANT_MIN_SIZE
-                    ) -> dict[str, torch.Tensor]:
+                    min_size: int = DEFAULT_QUANT_MIN_SIZE,
+                    layers: int | None = None) -> dict[str, torch.Tensor]:
     """A state dict with every eligible float leaf replaced by int8 values
     and its ``<name>_scale``.  Leaves that are already int8 (with their
-    scales) pass through, so the call is idempotent."""
-    layers = stacked_layers(params)
+    scales) pass through, so the call is idempotent.  ``layers``: what a
+    ``layers.<i>.`` leaf's size is multiplied by (None: the stacked layers
+    the dict names; 1 for a hybrid model, whose layers the reference keeps
+    unstacked)."""
+    layers = stacked_layers(params) if layers is None else layers
     out: dict[str, torch.Tensor] = {}
     for name, t in params.items():
         kind = eligible(name, t.shape, layers, min_size)

@@ -13,7 +13,9 @@ both packages:
   string names (``"bf16"``, ``"fp32"``, ...).
 
 What the port serves so far is the dense, vlm and moe families (GQA or
-MLA attention; MLA on one model's engine, never in a fleet) through the
+MLA attention; MLA on one model's engine, never in a fleet) and the
+hybrid family (RG-LRU and local attention: the dense layout, the bucketed
+scheduler and a float cache only, the reference's rules) through the
 dense per-slot cache or the paged pool (``MemorySpec.cache_layout``) and
 the chunked or the bucketed scheduler (``SchedulerSpec.policy``, "auto"
 resolving as the reference's engine does: ``RuntimeSpec.resolved_policy``),
@@ -59,7 +61,7 @@ _DTYPE_ALIASES = {
 }
 
 # Families the port serves so far.
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 # Families whose decode state is a genuine KV/latent cache (the reference's
 # KV_QUANTIZABLE_FAMILIES) and whose prefill can be replayed through the
 # fused chunked step (its CHUNKABLE_FAMILIES): attention caches are
@@ -67,8 +69,7 @@ PORTED_FAMILIES = ("dense", "vlm", "moe")
 KV_QUANTIZABLE_FAMILIES = ("dense", "vlm", "moe")
 CHUNKABLE_FAMILIES = ("dense", "vlm", "moe")
 # the ROADMAP.md Queue 1 sub-item that ports each family still refused
-FAMILY_ITEMS = {"hybrid": "item 12c", "ssm": "item 12d", "audio": "item 12e",
-                "encoder": "item 12f"}
+FAMILY_ITEMS = {"ssm": "item 12d", "audio": "item 12e", "encoder": "item 12f"}
 
 
 def _normalize_dtype(field_name: str, value):
@@ -356,6 +357,8 @@ class RuntimeSpec:
             raise ValueError(
                 f"{cfg.name}: multi-topology serving covers the dense GQA "
                 f"family; family {cfg.family!r} needs its own engine")
+        if decodes:
+            self._validate_cache_family()
         if self.speculation is not None:
             # the reference's messages: the verify pass rides the fused
             # chunked step
@@ -367,6 +370,10 @@ class RuntimeSpec:
                     "multi-position attend); use policy='auto' or "
                     "'chunked'")
             bad = self.scheduler.chunk_violations(mem)
+            if self.maxima is None and cfg.family not in CHUNKABLE_FAMILIES:
+                bad.append(
+                    f"family {cfg.family!r} has sequential prefill state "
+                    "(the verify pass needs the fused chunked step)")
             if bad:
                 raise ValueError(
                     "speculation requires a satisfiable chunked scheduler: "
@@ -420,6 +427,26 @@ class RuntimeSpec:
                 "rolling-window / enc-dec decode state keeps the compute "
                 "dtype — use kv_dtype='compute'")
 
+    def _validate_cache_family(self) -> None:
+        """The reference's refusals of a paged or int8 KV cache for a
+        decoding family whose state is not an attention cache (the hybrid
+        family's RG-LRU state and rolling buffers)."""
+        cfg, mem = self.arch, self.memory
+        if mem.cache_layout == "paged" and \
+                cfg.family not in ("dense", "vlm", "moe"):
+            raise ValueError(
+                f"cache_layout='paged' is unsupported for family "
+                f"{cfg.family!r} (SSM / rolling-window / enc-dec decode "
+                "state is not paged); use cache_layout='dense'")
+        if mem.kv_dtype == "int8" and \
+                cfg.family not in KV_QUANTIZABLE_FAMILIES:
+            raise ValueError(
+                f"kv_dtype='int8' is unsupported for family {cfg.family!r}: "
+                "only KV/latent attention caches are quantized "
+                f"(families {KV_QUANTIZABLE_FAMILIES}); recurrent / "
+                "rolling-window / enc-dec decode state keeps the compute "
+                "dtype — use kv_dtype='compute'")
+
     def _validate_decode_state(self) -> None:
         """The cache layout and the scheduler of a decoding family, with
         the reference's checks and messages: an explicit ``"chunked"``
@@ -437,6 +464,11 @@ class RuntimeSpec:
             # "auto" falls back to bucketed on these; an explicit chunked
             # request fails loudly at construction instead
             bad = sched.chunk_violations(mem)
+            if self.maxima is None and \
+                    self.arch.family not in CHUNKABLE_FAMILIES:
+                bad.append(
+                    f"family {self.arch.family!r} has sequential prefill "
+                    "state (chunked prefill needs an attention KV cache)")
             if bad:
                 raise ValueError(
                     "scheduler policy 'chunked' is not satisfiable: "

@@ -22,6 +22,7 @@ from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import qkv_proj as _qkv
+from repro_torch.kernels import rglru_scan as _scan
 from repro_torch.kernels import tiled_matmul as _tm
 
 # the wrappers carrying a ``live_kv_launches`` count beside ``launches``
@@ -39,7 +40,8 @@ def wrappers() -> dict:
             "ffn1": _ffn.ffn1, "ffn1_gated": _ffn.ffn1_gated,
             "qkv_proj": _qkv.qkv_proj, "layernorm": _ln.layernorm,
             "rmsnorm": _ln.rmsnorm,
-            "flash_attention": _fa.flash_attention}
+            "flash_attention": _fa.flash_attention,
+            "rglru_scan": _scan.rglru_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,12 +74,30 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     decode step over the paged pool one ``paged_decode_attention``, its
     mixed step one ``chunked_prefill_attention``; none over the dense
     layout, in a prefill (plain attention, as the reference's XLA) or with
-    MLA (the gather view, as the reference)."""
+    MLA (the gather view, as the reference).
+
+    A hybrid model (``cfg.hybrid``, dense layout and prefill or decode
+    only) has two kinds of layer: an RG-LRU layer's in_x, in_gate and out
+    and its FFN's products, a local-attention layer's wq, wk, wv, wo and
+    its FFN's, each layer's ln1 and ln2, and a prefill's one
+    ``rglru_scan`` per RG-LRU layer (decode updates h elementwise, as the
+    reference); its local attention is plain PyTorch, as the reference's
+    is XLA."""
     if program not in PROGRAMS:
         raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
     L = cfg.num_layers
     gated = cfg.activation in ("swiglu", "geglu")
     ffn = 3 if gated else 2
+    if cfg.hybrid is not None:
+        pat = cfg.hybrid.pattern
+        rec = sum(pat[i % len(pat)] == "r" for i in range(L))
+        mm = (3 + ffn) * rec + (4 + ffn) * (L - rec)
+        return {"tiled_matmul": 0 if quant else mm,
+                "int8_matmul": mm if quant else 0,
+                "rmsnorm": 2 * L + 1,
+                "paged_decode_attention": 0,
+                "chunked_prefill_attention": 0,
+                "rglru_scan": rec if program == "prefill" else 0}
     k = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if cfg.mla is not None:
         attn = 4 + (2 if program == "prefill" else 0)
@@ -95,4 +115,5 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
             "int8_matmul": mm if quant else 0,
             "rmsnorm": norms,
             "paged_decode_attention": walk if program == "decode" else 0,
-            "chunked_prefill_attention": walk if program == "mixed" else 0}
+            "chunked_prefill_attention": walk if program == "mixed" else 0,
+            "rglru_scan": 0}

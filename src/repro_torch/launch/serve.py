@@ -20,8 +20,10 @@ reference serves reduced configs in this driver; ``--full-width`` serves
 the architecture at its published widths.  ``--arch`` takes any id of the
 port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
 phi3-mini-3.8b, adaptor-bert-shaped, granite-moe-1b-a400m,
-deepseek-v3-671b and phi-3-vision-4.2b (its stub frontend's patch
-positions take zeros, as in the reference).  ``--prefix-cache`` shares
+deepseek-v3-671b, phi-3-vision-4.2b (its stub frontend's patch
+positions take zeros, as in the reference) and recurrentgemma-2b (the
+hybrid family: the dense layout and the bucketed scheduler only, the
+reference's rule).  ``--prefix-cache`` shares
 prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
 reports its hits, skipped tokens, copy-on-write forks and evictions.
 

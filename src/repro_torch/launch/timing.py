@@ -37,6 +37,8 @@ NORM_SHAPES = (
     ("rmsnorm", 128, 512, "deepseek-v3 mixed step kv_norm", 0),
     ("rmsnorm", 8, 3072, "phi-3-vision-4.2b decode step", 0),
     ("rmsnorm", 1024, 3072, "phi-3-vision-4.2b 1024-token prefill", 0),
+    ("rmsnorm", 8, 2560, "recurrentgemma-2b decode step", 0),
+    ("rmsnorm", 3072, 2560, "recurrentgemma-2b 3072-token prefill", 0),
     ("layernorm", 512, 768, "adaptor_bert 8 x 64 tokens", 0),
     ("layernorm", 12000, 1024, "whisper-medium encoder 8 x 1500", 0),
     *((k, r, d, label, off) for k in ("rmsnorm", "layernorm")

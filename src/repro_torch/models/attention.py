@@ -20,9 +20,13 @@ kernels take the scales; the dense cache is read through ``codec.load``
 (as stored in compute mode, dequantized to x's dtype under int8).
 
 The full-sequence attention of ``forward`` and of the prefill is plain
-PyTorch, as the reference's is XLA: ``full_attention`` below
-``BLOCKWISE_THRESHOLD`` positions, ``blockwise_attention`` (query blocks
-of ``QUERY_BLOCK``, exact) at or above it.
+PyTorch, as the reference's is XLA: with a window (the hybrid family's
+local attention) ``local_attention`` where the sequence is longer than
+the window, else ``full_attention`` below ``BLOCKWISE_THRESHOLD``
+positions and ``blockwise_attention`` (query blocks of ``QUERY_BLOCK``,
+exact) at or above it.  A windowed layer's decode cache is a rolling
+buffer of ``w = min(window, max_len)`` bf16 rows (no spare row, never
+quantized): row ``p % w`` holds position ``p``.
 
 MLA (DeepSeek-V3) caches one compressed latent ``c_kv`` [rank] and one
 shared rope key ``k_rope`` per position (``MLACache``), paged through the
@@ -147,10 +151,48 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(out, dim=1)[:, :sq]
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, *, scale: float | None = None
+                    ) -> torch.Tensor:
+    """Causal banded attention: position i attends to (i - window, i].
+
+    Block-wise with blocks of ``window`` queries, as the reference: each
+    query block attends to its own and the previous key block (block -1
+    is zeros and fully masked), so the scores take B x h x S x 2w, never
+    S^2.  q: [B, S, h, hd], k/v: [B, S, h, hd] (kv already repeated)."""
+    b, s, h, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    w = min(window, s)
+    nb = -(-s // w)
+    pad = nb * w - s
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    qb, kb, vb = (t.reshape(b, nb, w, h, t.shape[-1]) for t in (q, k, v))
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1),
+                    kb], dim=2)                       # [b, nb, 2w, h, hd]
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1),
+                    vb], dim=2)
+    sc = torch.einsum("bnqhd,bnkhd->bnhqk", *_promote(qb, k2)).float() \
+        * scale
+    q_pos = torch.arange(w, device=q.device)[:, None] + w
+    kv_pos = torch.arange(2 * w, device=q.device)[None, :]
+    m = (kv_pos <= q_pos) & (kv_pos > q_pos - w)        # (i - w, i]
+    first = (torch.arange(nb, device=q.device) == 0)[:, None, None]
+    m = m[None] & (~first | (kv_pos[None] >= w))        # block -1 invalid
+    p = torch.softmax(torch.where(m[:, None], sc, NEG_INF), dim=-1)
+    ob = torch.einsum("bnhqk,bnkhd->bnqhd", p.to(v2.dtype), v2)
+    return ob.reshape(b, nb * w, h, v.shape[-1])[:, :s]
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               scale: float | None = None) -> torch.Tensor:
-    """Causal full-sequence attention, blockwise at ``BLOCKWISE_THRESHOLD``
-    positions and past (the reference's choice)."""
+               scale: float | None = None,
+               window: int | None = None) -> torch.Tensor:
+    """Causal full-sequence attention (the reference's choice): banded
+    where a ``window`` is shorter than the sequence, else blockwise at
+    ``BLOCKWISE_THRESHOLD`` positions and past, else direct."""
+    if window is not None and q.shape[1] > window:
+        return local_attention(q, k, v, window, scale=scale)
     if q.shape[1] >= BLOCKWISE_THRESHOLD:
         return blockwise_attention(q, k, v, causal=True, scale=scale)
     return full_attention(q, k, v, causal=True, scale=scale)
@@ -169,18 +211,21 @@ def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
     return q, k, v
 
 
-def gqa_attention(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str
-                  ) -> torch.Tensor:
-    """Full-sequence causal GQA attention (the forward pass)."""
-    return _gqa_full(x, p, cfg, positions, mm)[0]
+def gqa_attention(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str,
+                  window: int | None = None) -> torch.Tensor:
+    """Full-sequence causal GQA attention (the forward pass); ``window``:
+    the hybrid family's local attention."""
+    return _gqa_full(x, p, cfg, positions, mm, window)[0]
 
 
-def _gqa_full(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str):
+def _gqa_full(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str,
+              window: int | None = None):
     """(output, k, v) of full-sequence causal GQA attention."""
     b_, s, _ = x.shape
     q, k, v = gqa_qkv(x, p, cfg, positions, mm)
     n_rep = cfg.num_heads // cfg.num_kv_heads
-    o = _attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    o = _attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                   window=window)
     return apply_dense(o.reshape(b_, s, -1), p.wo, mm), k, v
 
 
@@ -196,14 +241,42 @@ def padded_store(codec: CacheCodec, x: torch.Tensor, max_len: int
     return q, sc
 
 
+def rolling_rows(x: torch.Tensor, lengths: torch.Tensor | None,
+                 w: int) -> torch.Tensor:
+    """The rolling buffer [B, w, ...] (bf16) of x [B, S, ...]: row r holds
+    the last position p < length with p % w == r, zeros where there is
+    none (``lengths`` [B], or S for every row).  Static shapes: one graph
+    serves every length of a bucket."""
+    b_, s = x.shape[:2]
+    last = (torch.full((b_,), s, device=x.device) if lengths is None
+            else lengths).long()[:, None] - 1
+    pos = last - (last - torch.arange(w, device=x.device)[None, :]) % w
+    idx = pos.clamp(min=0).reshape(b_, w, *(1,) * (x.dim() - 2))
+    rows = x.gather(1, idx.expand(b_, w, *x.shape[2:]))
+    live = (pos >= 0).reshape(idx.shape)
+    return torch.where(live, rows, 0).to(torch.bfloat16)
+
+
 def gqa_prefill(x: torch.Tensor, p, cfg: ArchConfig, positions, *,
-                max_len: int, mm: str, codec: CacheCodec = FLOAT_CODEC
+                max_len: int, mm: str, codec: CacheCodec = FLOAT_CODEC,
+                window: int | None = None,
+                lengths: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence attention that also emits this layer's dense cache
     ``[B, max_len, kv, hd]`` through the codec (rows past the sequence are
-    zeros).  The reference's non-window branch; its rolling-window branch
-    is the hybrid family's (ROADMAP.md Queue 1 item 12c)."""
-    o, k, v = _gqa_full(x, p, cfg, positions, mm)
+    zeros).  With a ``window`` (the hybrid family) the cache is the
+    rolling buffer ``[B, min(window, max_len), kv, hd]`` in bf16 (never
+    quantized, the reference's rule): row ``p % w`` holds position ``p``
+    for ``p`` in ``[max(0, len - w), len)``, ``len`` each row's entry of
+    ``lengths`` (real positions of a right-padded prompt; S by default)."""
+    o, k, v = _gqa_full(x, p, cfg, positions, mm, window)
+    if window is not None:
+        if codec.quantized:
+            raise ValueError("kv_dtype='int8' is unsupported for "
+                             "rolling-window attention caches")
+        w = min(window, max_len)
+        return o, KVCache(rolling_rows(k, lengths, w),
+                          rolling_rows(v, lengths, w))
     kq, ks = padded_store(codec, k, max_len)
     vq, vs = padded_store(codec, v, max_len)
     return o, KVCache(kq, vq, ks, vs)
@@ -305,12 +378,24 @@ def _dense_view(t: torch.Tensor, scale: torch.Tensor | None,
 
 def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                idx: torch.Tensor, *, mm: str,
-               codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+               codec: CacheCodec = FLOAT_CODEC,
+               window: int | None = None) -> torch.Tensor:
     """One-token decode against one layer's dense cache ``[B, max_len + 1,
     kv, hd]``: write the new K/V rows at ``idx`` [B] (the spare row from
-    ``max_len`` on) in place, attend over positions ``<= idx``.  The
-    reference's non-window branch (its rolling buffer is item 12c's)."""
+    ``max_len`` on) in place, attend over positions ``<= idx``.  With a
+    ``window`` the cache is the rolling buffer ``[B, w, kv, hd]``: the new
+    row goes to ``idx % w``, and a row is live where it is at most that
+    slot or the buffer has wrapped (``idx >= w``)."""
     q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm)
+    if window is not None:
+        w = cache.k.shape[1]
+        slot = (idx % w).long()
+        _write(cache, codec, (torch.arange(idx.shape[0], device=x.device),
+                              slot), k_new[:, 0], v_new[:, 0])
+        live = (torch.arange(w, device=x.device)[None, :] <= slot[:, None]) \
+            | (idx[:, None] >= w)
+        o = _gqa_attend(q, cache.k, cache.v, live, cfg)
+        return apply_dense(o, p.wo, mm)
     s_max = cache.k.shape[1] - 1
     every = torch.ones_like(idx, dtype=torch.bool)
     _write(cache, codec, dense_write_slot(idx, every, s_max), k_new[:, 0],

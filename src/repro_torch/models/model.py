@@ -1,7 +1,7 @@
 """The decoder LM of the port (the reference's ``Model`` for the families
-``dense``, ``vlm`` and ``moe``, with GQA or MLA attention): parameters, the
-paged KV pool and the dense per-slot cache, ``forward``, ``prefill``,
-``decode_step`` and ``mixed_step``.
+``dense``, ``vlm``, ``moe`` and ``hybrid``, with GQA or MLA attention):
+parameters, the paged KV pool and the dense per-slot cache, ``forward``,
+``prefill``, ``decode_step`` and ``mixed_step``.
 
 The vlm family is the dense family's parameters and compute with a stub
 vision frontend (``cfg.frontend``): the first ``num_tokens`` positions of
@@ -21,7 +21,21 @@ shared experts) in place of ``ffn``, after a dense prefix of
 cache layer ``first_k_dense + i``.  An MLA model (``cfg.mla``, DeepSeek-V3)
 holds ``attn.{q_down, q_norm, q_up, kv_down, kv_norm, k_up, v_up, wo}``,
 the reference's ``build_mla`` leaves, and caches latents (``MLACache``)
-in place of K/V, paged or dense alike.  Dense kernels (``[d_in, d_out]``,
+in place of K/V, paged or dense alike.
+
+The hybrid family (``cfg.hybrid``, RecurrentGemma) repeats its block
+pattern over depth: an ``"r"`` layer holds the RG-LRU block
+``layers.<i>.rglru.{in_x, in_gate, conv_w, conv_b, gate_in_w, gate_in_b,
+gate_a_w, gate_a_b, a_param, out}`` (``models/rglru.py``), an ``"a"``
+layer local attention ``layers.<i>.attn.{wq,wk,wv,wo}`` over a window;
+both have ``ln1``, ``ln2`` and the FFN.  The reference keeps these layers
+as a list, not stacked, so the size rule of int8 weights measures each
+leaf alone.  Its decode state (``HybridCache``) stacks each kind's leaves:
+the conv windows and h of the RG-LRU layers and the rolling K/V buffers
+of the attention layers, dense only (the reference never pages it) and
+never quantized; the bucketed prefill takes each prompt's real length
+(``lengths``), so the pad up to its bucket leaves every state as the
+unpadded prompt would.  Dense kernels (``[d_in, d_out]``,
 as the reference stores them), their biases and the expert weights are
 kept in the compute dtype, cast once from the parameter dtype (the
 reference casts them to x's dtype on every call: the same numbers);
@@ -42,6 +56,7 @@ weights, and the reference cannot serve that configuration.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -52,11 +67,16 @@ from repro_torch.core import serve_quant
 from repro_torch.core.kv_quant import FLOAT_CODEC, CacheCodec
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
-from repro_torch.core.spec import FAMILY_ITEMS
+from repro_torch.core.spec import CHUNKABLE_FAMILIES, FAMILY_ITEMS
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, rglru
 from repro_torch.models.attention import KVCache, MLACache
+from repro_torch.models.rglru import LRUState
+
+# RG-LRU leaves the init draws as the reference's ParamBuilder does:
+# biases zero, the decay parameter uniform in [-1, 1)
+_ZERO_LEAVES = ("bias", "conv_b", "gate_in_b", "gate_a_b")
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -132,6 +152,49 @@ class MLAttention(nn.Module):
         self.wo = Dense(h * m.v_head_dim, d, False, dtype, device)
 
 
+class RGLRU(nn.Module):
+    """The RG-LRU block's weights (the reference's ``build_rglru``): the
+    value and gate branches and the output as ``Dense`` projections (no
+    biases), the conv taps ``[4, w]`` and bias, the block-diagonal gates
+    ``[heads, w / heads, w / heads]`` and biases, in the compute dtype, as
+    the reference casts them to x's dtype; ``a_param`` ``[w]`` in the
+    parameter dtype, read in float32."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
+        super().__init__()
+        d, w = cfg.d_model, rglru.width(cfg)
+        nh = max(cfg.num_heads, 1)
+        self.in_x = Dense(d, w, False, dtype, device)
+        self.in_gate = Dense(d, w, False, dtype, device)
+        self.conv_w = _frozen((rglru.CONV_K, w), dtype, device)
+        self.conv_b = _frozen((w,), dtype, device)
+        self.gate_in_w = _frozen((nh, w // nh, w // nh), dtype, device)
+        self.gate_in_b = _frozen((w,), dtype, device)
+        self.gate_a_w = _frozen((nh, w // nh, w // nh), dtype, device)
+        self.gate_a_b = _frozen((w,), dtype, device)
+        self.a_param = _frozen((w,), param_dtype, device)
+        self.out = Dense(w, d, False, dtype, device)
+
+
+class HybridCache(NamedTuple):
+    """The hybrid family's decode state, each kind's leaves stacked: the
+    RG-LRU layers' conv windows ``[n_r, B, 3, w]`` (bf16) and states ``h``
+    ``[n_r, B, w]`` (float32), the local-attention layers' rolling K and V
+    ``[n_a, B, min(window, max_len), kv, hd]`` (bf16).  ``lru(j)`` and
+    ``attn(j)`` are the j-th layer of a kind, as views."""
+
+    conv: torch.Tensor
+    h: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def lru(self, j: int) -> LRUState:
+        return LRUState(self.conv[j], self.h[j])
+
+    def attn(self, j: int) -> KVCache:
+        return KVCache(self.k[j], self.v[j])
+
+
 class FFN(nn.Module):
     def __init__(self, cfg: ArchConfig, d_ff: int, bias: bool, dtype,
                  device):
@@ -164,14 +227,20 @@ class MoE(nn.Module):
 class Block(nn.Module):
     """A decoder layer: the dense FFN of width ``d_ff`` (with biases in a
     layernorm model, as the paper's FFN) or, with ``moe``, the MoE
-    block."""
+    block; a hybrid model's ``"r"`` layer mixes with the RG-LRU block
+    in place of attention."""
 
     def __init__(self, cfg: ArchConfig, param_dtype, compute_dtype, device,
-                 d_ff: int | None = None, moe_block: bool = False):
+                 d_ff: int | None = None, moe_block: bool = False,
+                 kind: str = "a"):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
-        self.attn = MLAttention(cfg, param_dtype, compute_dtype, device) \
-            if cfg.mla is not None else Attention(cfg, compute_dtype, device)
+        if kind == "r":
+            self.rglru = RGLRU(cfg, param_dtype, compute_dtype, device)
+        elif cfg.mla is not None:
+            self.attn = MLAttention(cfg, param_dtype, compute_dtype, device)
+        else:
+            self.attn = Attention(cfg, compute_dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
         if moe_block:
             self.moe = MoE(cfg, param_dtype, compute_dtype, device)
@@ -187,7 +256,7 @@ class Embedding(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense-, vlm- or MoE-family causal LM.
+    """A dense-, vlm-, MoE- or hybrid-family causal LM.
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -203,13 +272,15 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe") \
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
+                or (cfg.family == "hybrid") != (cfg.hybrid is not None) \
                 or cfg.positional not in ("rope", "none"):
             raise ValueError(
-                f"{cfg.name}: the port's Model serves the dense, vlm and moe "
-                "families (an moe config with its MoEConfig) with rope (or "
-                "no) positions (ROADMAP.md Queue 1 "
+                f"{cfg.name}: the port's Model serves the dense, vlm, moe "
+                "and hybrid families (an moe config with its MoEConfig, a "
+                "hybrid one with its HybridConfig) with rope (or no) "
+                "positions (ROADMAP.md Queue 1 "
                 f"{FAMILY_ITEMS.get(cfg.family, 'items 11-12')})")
         cfg.validate()
         if quant not in ("none", "int8"):
@@ -232,10 +303,20 @@ class Model(nn.Module):
         self.dense_prefix = nn.ModuleList(
             Block(cfg, param_dtype, compute_dtype, dev,
                   d_ff=cfg.moe.dense_d_ff) for _ in range(k)) if k else None
+        # a hybrid model's layers: (kind, index among that kind's layers)
+        self.kinds: list[tuple[str, int]] = []
+        if cfg.hybrid is not None:
+            pat = cfg.hybrid.pattern
+            for i in range(cfg.num_layers):
+                kind = pat[i % len(pat)]
+                self.kinds.append((kind, sum(kd == kind
+                                             for kd, _ in self.kinds)))
+        self.window = cfg.hybrid.attention_window if cfg.hybrid else None
         self.layers = nn.ModuleList(
             Block(cfg, param_dtype, compute_dtype, dev,
-                  moe_block=cfg.moe is not None)
-            for _ in range(cfg.num_layers - k))
+                  moe_block=cfg.moe is not None,
+                  kind=self.kinds[i][0] if self.kinds else "a")
+            for i in range(cfg.num_layers - k))
         self.final_norm = Norm(cfg.d_model, cfg.norm, param_dtype, dev)
         # the untied unembedding [vocab, d_model] (the reference's
         # ``params["lm_head"]["table"]``); tied models unembed with the
@@ -247,10 +328,17 @@ class Model(nn.Module):
             # float, as in the reference
             for name, prm in list(self.named_parameters()):
                 leaf = serve_quant.eligible(name, prm.shape,
-                                            len(self.layers), quant_min_size)
+                                            self._stacked_layers(),
+                                            quant_min_size)
                 if leaf is not None:
                     _to_int8(self.get_submodule(name.rpartition(".")[0]),
                              leaf)
+
+    def _stacked_layers(self) -> int:
+        """What the int8 size rule multiplies a ``layers.<i>.`` leaf by:
+        the layers the reference stacks into one leaf, or 1 for a hybrid
+        model, whose layers it keeps as a list of unstacked leaves."""
+        return 1 if self.cfg.hybrid is not None else len(self.layers)
 
     @classmethod
     def from_spec(cls, spec, device=None) -> "Model":
@@ -270,17 +358,23 @@ class Model(nn.Module):
         fan_in = ``shape[-2]`` (d for an expert leaf ``[E, d, f]``), the
         embedding normal * 0.02, the untied ``lm_head`` table normal /
         sqrt(vocab) (the reference builds it with no scale, so its fan-in
-        rule reads the table's first dim), biases zero, norm scales one.
+        rule reads the table's first dim), biases zero, norm scales one;
+        the RG-LRU's conv taps normal / 2 and its gates by the fan-in rule
+        (their contraction dim), ``a_param`` uniform in [-1, 1).
         Draws come from ``generator`` on its own device, in the order of
         ``named_parameters``, rounded to the parameter dtype before any
         cast to the storage dtype (or before quantization, for an int8
         leaf)."""
         for name, prm in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias":
+            if leaf in _ZERO_LEAVES:
                 prm.zero_()
             elif leaf == "scale":
                 prm.fill_(1.0)
+            elif leaf == "a_param":
+                x = torch.rand(prm.shape, generator=generator,
+                               device=generator.device) * 2 - 1
+                prm.copy_(x.to(self.param_dtype))
             else:
                 std = 0.02 if name == "embed.table" \
                     else 1.0 / math.sqrt(max(prm.shape[-2], 1))
@@ -305,8 +399,8 @@ class Model(nn.Module):
         (``core.serve_quant.quantize_params``; int8 leaves with their
         scales pass through)."""
         if self.quant == "int8":
-            state_dict = serve_quant.quantize_params(state_dict,
-                                                     self.quant_min_size)
+            state_dict = serve_quant.quantize_params(
+                state_dict, self.quant_min_size, self._stacked_layers())
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 
@@ -320,10 +414,15 @@ class Model(nn.Module):
         block_size, kv, hd]`` (pool row 0 is the null block); an MLA
         model's is the latent pool ``[layers, num_blocks + 1, block_size,
         rank]`` and ``[..., rope]``.  Without it the dense per-slot layout
-        ``[layers, batch, max_len + 1, ...]`` (``init_dense_cache``)."""
+        ``[layers, batch, max_len + 1, ...]`` (``init_dense_cache``; a
+        hybrid model's ``HybridCache``, which has no paged layout)."""
         if paging is None:
             return self.init_dense_cache(batch, max_len, self.codec)
         cfg = self.cfg
+        if cfg.hybrid is not None:
+            raise ValueError(
+                f"paged KV cache unsupported for family {cfg.family!r} "
+                "(SSM / rolling-window / enc-dec state is not paged)")
         lead = (cfg.num_layers, paging.pool_blocks, paging.block_size)
         if cfg.mla is not None:
             return MLACache(*self._latents(self.codec, lead))
@@ -352,11 +451,33 @@ class Model(nn.Module):
         storage, as a speculation draft's cache always is.  Row ``max_len``
         is a spare that takes the writes of dead lanes and of positions
         past the end (the reference drops them as out-of-bounds
-        scatters); no mask admits it."""
+        scatters); no mask admits it.  A hybrid model's is its
+        ``HybridCache`` (rolling buffers of ``min(window, max_len)`` rows,
+        no spare row), which no codec quantizes."""
+        if self.cfg.hybrid is not None:
+            return self._hybrid_cache(batch, max_len, codec)
         lead = (self.cfg.num_layers, batch, max_len + 1)
         if self.cfg.mla is not None:
             return MLACache(*self._latents(codec, lead))
         return self._kv(codec, lead)
+
+    def _hybrid_cache(self, batch: int, max_len: int,
+                      codec: CacheCodec) -> HybridCache:
+        cfg = self.cfg
+        if codec.quantized:
+            raise ValueError(
+                f"kv_dtype='int8' is unsupported for family {cfg.family!r} "
+                "(only KV/latent attention caches are quantized); use "
+                "kv_dtype='compute'")
+        n_r = sum(kind == "r" for kind, _ in self.kinds)
+        conv, h = rglru.rglru_init_state(cfg, batch, self.device, (n_r,))
+        shape = (len(self.kinds) - n_r, batch,
+                 min(cfg.hybrid.attention_window, max_len),
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        return HybridCache(conv, h, torch.zeros(shape, dtype=torch.bfloat16,
+                                                device=self.device),
+                           torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=self.device))
 
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor,
@@ -401,30 +522,45 @@ class Model(nn.Module):
         x = self._embed(tokens, frontend)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
+        mm = self.matmul_backend
         for blk in self.blocks():
-            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
-                                   self.matmul_backend)
-            fn = attn.gqa_attention if self.cfg.mla is None \
-                else attn.mla_attention
-            x = x + fn(hn, blk.attn, self.cfg, positions, self.matmul_backend)
-            x = self._ffn_half(x, blk)
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+            if hasattr(blk, "rglru"):
+                o = rglru.rglru_forward(hn, blk.rglru, self.cfg, mm)
+            elif self.cfg.mla is not None:
+                o = attn.mla_attention(hn, blk.attn, self.cfg, positions, mm)
+            else:
+                o = attn.gqa_attention(hn, blk.attn, self.cfg, positions, mm,
+                                       window=self.window)
+            x = self._ffn_half(x + o, blk)
         return self._unembed(x)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,
-                frontend: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, KVCache | MLACache]:
+                frontend: torch.Tensor | None = None,
+                lengths: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, KVCache | MLACache | HybridCache]:
         """Prompt -> (logits [B, S, V] float32, the dense cache ready at
         index S): ``forward``'s math, with every layer's K/V (an MLA
         model's latents) stored through the codec into a fresh dense cache
         ``[layers, B, max_len + 1, ...]`` (rows from S on zeros; row
-        ``max_len`` the spare of ``init_dense_cache``).  The dense, vlm and
-        moe branches of the reference's ``prefill``, with the MoE dense
-        prefix's layers first."""
+        ``max_len`` the spare of ``init_dense_cache``).  The dense, vlm,
+        moe and hybrid branches of the reference's ``prefill``, with the
+        MoE dense prefix's layers first.
+
+        ``lengths`` ([B] int32 on the device, or None for S each) are the
+        real positions of prompts right-padded up to S (a bucket).  A
+        hybrid model's state is then the unpadded prompt's, ready at index
+        ``lengths``: the RG-LRU keeps h and takes its conv window from the
+        last real rows, the rolling buffers hold the last real positions.
+        An attention cache needs nothing of it: its rows past a prompt's
+        length stay behind every mask until decode writes them."""
         b_, s = tokens.shape
         x = self._embed(tokens, frontend)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
+        if self.cfg.hybrid is not None:
+            return self._hybrid_prefill(x, positions, max_len, lengths)
         fn = attn.gqa_prefill if self.cfg.mla is None else attn.mla_prefill
         per_layer = []
         for blk in self.blocks():
@@ -439,6 +575,28 @@ class Model(nn.Module):
             for t in zip(*per_layer)))
         return self._unembed(x), cache
 
+    def _hybrid_prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                        max_len: int, lengths: torch.Tensor | None
+                        ) -> tuple[torch.Tensor, HybridCache]:
+        """The reference's hybrid branch of ``prefill``: each layer's
+        RG-LRU state or rolling buffer, stacked by kind."""
+        mm, states = self.matmul_backend, {"r": [], "a": []}
+        for blk, (kind, _) in zip(self.layers, self.kinds):
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+            if kind == "r":
+                o, st = rglru.rglru_prefill(hn, blk.rglru, self.cfg, mm,
+                                            lengths)
+            else:
+                o, st = attn.gqa_prefill(
+                    hn, blk.attn, self.cfg, positions, max_len=max_len,
+                    mm=mm, window=self.window, lengths=lengths)
+            x = self._ffn_half(x + o, blk)
+            states[kind].append(st)
+        conv, h = (torch.stack(t) for t in zip(*states["r"]))
+        k = torch.stack([c.k for c in states["a"]])
+        v = torch.stack([c.v for c in states["a"]])
+        return self._unembed(x), HybridCache(conv, h, k, v)
+
     @torch.no_grad()
     def decode_step(self, cache: KVCache | MLACache, tokens: torch.Tensor,
                     cache_index: torch.Tensor,
@@ -447,8 +605,15 @@ class Model(nn.Module):
         """tokens [B, 1] at per-slot positions ``cache_index`` [B] ->
         logits [B, 1, V]; the new K/V rows are written into ``cache`` in
         place: the paged pool through ``block_tables``, or with
-        ``block_tables=None`` the dense cache of ``init_cache``."""
+        ``block_tables=None`` the dense cache of ``init_cache`` (a hybrid
+        model's ``HybridCache``: h and the conv windows advance, the
+        rolling buffers take the new rows)."""
         x = self._embed(tokens)
+        if self.cfg.hybrid is not None:
+            if block_tables is not None:
+                raise ValueError(f"paged decode unsupported for family "
+                                 f"{self.cfg.family!r}")
+            return self._hybrid_decode(cache, x, cache_index)
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
@@ -472,6 +637,20 @@ class Model(nn.Module):
             x = self._ffn_half(x, blk)
         return self._unembed(x)
 
+    def _hybrid_decode(self, cache: HybridCache, x: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+        mm = self.matmul_backend
+        for blk, (kind, j) in zip(self.layers, self.kinds):
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+            if kind == "r":
+                o = rglru.rglru_decode(hn, blk.rglru, self.cfg, cache.lru(j),
+                                       mm)
+            else:
+                o = attn.gqa_decode(hn, blk.attn, self.cfg, cache.attn(j),
+                                    idx, mm=mm, window=self.window)
+            x = self._ffn_half(x + o, blk)
+        return self._unembed(x)
+
     @torch.no_grad()
     def mixed_step(self, cache: KVCache | MLACache, tokens: torch.Tensor,
                    start: torch.Tensor, n_live: torch.Tensor,
@@ -487,7 +666,13 @@ class Model(nn.Module):
         ``init_cache`` / ``init_dense_cache``.  ``prefill_lanes`` ([B]
         bool) marks the slots whose lanes are prompt tokens: for a model
         with a stub frontend their positions below ``num_tokens`` take the
-        (zero) patch embeddings, as in the bucketed prefill."""
+        (zero) patch embeddings, as in the bucketed prefill.  A family
+        whose prefill state is sequential (the hybrid) is refused, with the
+        reference's message."""
+        if self.cfg.family not in CHUNKABLE_FAMILIES:
+            raise ValueError(
+                f"mixed_step unsupported for family {self.cfg.family!r} "
+                "(sequential prefill state); use the bucketed scheduler")
         x = self._embed(tokens)
         if self.cfg.frontend is not None and prefill_lanes is not None:
             w = tokens.shape[1]

@@ -16,7 +16,11 @@ single-topology and fleet paths.  The scheduler is ``spec.resolved_policy``
   a staging cache, which is copied into the slot's rows of the dense cache
   or, in whole blocks, into the slot's pool blocks; its first token is
   sampled on the device from the prefill's logits (``_admit_slot``).
-  Every fused step is the one-lane decode.
+  Every fused step is the one-lane decode.  The prompt's length goes up
+  beside it as the prefill's device input ``lengths``, so one graph per
+  bucket serves every length: a hybrid model's recurrent state and
+  rolling buffers are the unpadded prompt's (the reference scans the pad
+  and rolls it into the window; the port does not copy that).
 
 Cache layouts (``spec.memory.cache_layout``): ``"paged"``, the pooled
 ``[num_blocks + 1, block_size]`` blocks of ``core.paging`` with block-budget
@@ -357,9 +361,12 @@ class ServingEngine:
         self._grants = torch.zeros(self.max_batch, dtype=torch.int32,
                                    device=self.device)
         # the bucketed admission's device inputs: each bucket's padded
-        # prompt [1, bucket], the admitted member's topology registers and
-        # the slot's block-table row (paged), the stub frontend's zeros
+        # prompt [1, bucket] and the prompt's length [1], the admitted
+        # member's topology registers and the slot's block-table row
+        # (paged), the stub frontend's zeros
         self._bucket_tokens: dict[int, torch.Tensor] = {}
+        self._admit_len = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
         self._admit_topo = torch.zeros(N_REGS, dtype=torch.int32,
                                        device=self.device)
         self._admit_row = torch.zeros(self.blocks_per_slot, dtype=torch.int32,
@@ -372,8 +379,10 @@ class ServingEngine:
         self._stages = {
             "grants": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
             "rows": HostStage(self.max_batch, self.device, _STAGE_DEPTH),
-            # one admitted prompt, its topology row and block-table row
-            "admit": HostStage(self.max_len + N_REGS + self.blocks_per_slot,
+            # one admitted prompt, its length, its topology row and
+            # block-table row
+            "admit": HostStage(self.max_len + 1 + N_REGS
+                               + self.blocks_per_slot,
                                self.device, 2 * self.max_batch)}
         if self.paging is not None:
             self._stages["tables"] = HostStage(self.block_tables.numel(),
@@ -805,8 +814,9 @@ class ServingEngine:
         at B = 1 (``_prefill``), copy the staging cache into the slot's
         rows of the dense cache or, in whole blocks, into the slot's pool
         blocks (``_insert``), and sample the first token on the device from
-        the prefill's logits (``_admit_slot``).  The prompt, the topology
-        registers and the block-table row go up through ``HostStage``."""
+        the prefill's logits (``_admit_slot``).  The prompt, its length,
+        the topology registers and the block-table row go up through
+        ``HostStage``."""
         for slot in range(self.max_batch):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
@@ -832,6 +842,7 @@ class ServingEngine:
                     (1, bucket), dtype=torch.int32, device=self.device)
             pairs = [(self._bucket_tokens[bucket],
                       prompt + [0] * (bucket - plen)),
+                     (self._admit_len, [plen]),
                      (self._admit_topo, self._topo(req))]
             if blocks is not None:
                 self._set_table(slot, blocks)
@@ -894,7 +905,8 @@ class ServingEngine:
         """The B = 1 prefill of the staged prompt of ``bucket`` tokens ->
         (float32 logits [1, bucket, V], its staging cache with ``cache_len``
         rows + the spare: the bucket over the paged pool, ``max_len`` over
-        the dense layout), one CUDA graph per bucket on a graphed engine."""
+        the dense layout), one CUDA graph per bucket on a graphed engine;
+        the prompt's staged length is the model's ``lengths``."""
         cache_len = bucket if self.paging is not None else self.max_len
         tokens = self._bucket_tokens[bucket]
         if self.fabric is not None:
@@ -904,8 +916,9 @@ class ServingEngine:
             inputs = (tokens, self._admit_topo, *tree_leaves(self.table))
         else:
             def impl():
-                return self.model.prefill(tokens, cache_len, self._frontend)
-            inputs = (tokens,)
+                return self.model.prefill(tokens, cache_len, self._frontend,
+                                          lengths=self._admit_len)
+            inputs = (tokens, self._admit_len)
         return self._run(f"prefill:{bucket}", impl, inputs=inputs)
 
     @torch.no_grad()

@@ -1,7 +1,7 @@
 """Every kernel launch on its operands' device (ROADMAP Queue 3 fault G),
 and the kernels at granite-moe-1b-a400m's serving shapes.
 
-* On the host: each of the ten wrappers reaches its C entry point only
+* On the host: each of the eleven wrappers reaches its C entry point only
   through ``kernels.runtime.launch``, the one guard that makes the
   operands' device current for the launch.  The wrappers run on ``meta``
   tensors with the CUDA-only checks patched out, ``runtime.bind`` hands
@@ -40,13 +40,14 @@ from repro_torch.kernels import int8_matmul as i8
 from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import qkv_proj as qkv
+from repro_torch.kernels import rglru_scan as scan
 from repro_torch.kernels import runtime
 from repro_torch.kernels import tiled_matmul as tm
 from repro_torch.kernels.counts import LIVE_KV, launch_counts, wrappers
 
 # the bound entry points, cached per module
 ENTRY_CACHES = (tm._kernel, i8._kernel, pa._kernel, cp._kernel, fa._kernel,
-                ffn_mod._kernels, qkv._kernel, ln._kernels)
+                ffn_mod._kernels, qkv._kernel, ln._kernels, scan._kernel)
 
 
 class _Entry:
@@ -90,6 +91,9 @@ def _calls() -> dict:
         "rmsnorm": lambda: ln.rmsnorm(_meta(8, 64), _meta(64)),
         "flash_attention": lambda: fa.flash_attention(
             _meta(1, 32, 2, 64), _meta(1, 32, 2, 64), _meta(1, 32, 2, 64)),
+        "rglru_scan": lambda: scan.rglru_scan(
+            _meta(B, 8, 64, dtype=torch.float32),
+            _meta(B, 8, 64, dtype=torch.float32), _meta(B, **i32)),
     }
 
 
@@ -261,6 +265,12 @@ def test_cuda_kernels_launch_on_their_device_with_another_current():
         qf = torch.randn(1, 256, 4, 64, generator=g, device=dev).bfloat16()
         _bf16_close(fa.flash_attention(qf, qf, qf),
                     fa.flash_attention_plain(qf, qf, qf))
+        sa = torch.rand(2, 64, 256, generator=g, device=dev)
+        sg = torch.randn(2, 64, 256, generator=g, device=dev)
+        sn = torch.tensor([64, 20], dtype=torch.int32, device=dev)
+        for got, want in zip(scan.rglru_scan(sa, sg, sn),
+                             scan.rglru_scan_plain(sa, sg, sn), strict=True):
+            assert torch.equal(got, want)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 1
     finally:

@@ -1,6 +1,6 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-A fleet (``maxima=``) refuses a family still unported (items 12c-12f) and
+A fleet (``maxima=``) refuses a family still unported (items 12d-12f) and
 a mesh (item 13), and its engine refuses the matmul kernels as the
 reference's does; it serves the dense layout and the bucketed scheduler
 (tests/test_torch_bucketed.py), the prefix cache
@@ -67,7 +67,7 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
 
 @pytest.mark.parametrize("change,item", [
     (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="hybrid")), "item 12c"),
+    (dict(arch=dataclasses.replace(CFG, family="ssm")), "item 12d"),
 ])
 def test_fleet_refusals_name_their_items(change, item):
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))

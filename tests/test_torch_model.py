@@ -257,7 +257,8 @@ def test_entry_points_need_a_device_choice():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(arch=dataclasses.replace(CFG, family="ssm")), "item 12d"),
-    (dict(arch=dataclasses.replace(CFG, family="hybrid")), "item 12c"),
+    (dict(arch=dataclasses.replace(CFG, family="ssm"),
+          memory=MemorySpec(cache_layout="dense")), "item 12d"),
     (dict(mesh=object()), "item 13"),
     (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
 ])
