@@ -163,9 +163,9 @@ Phases (any failure raises and the script exits non-zero):
    printed, cache on and off.  Inside phase 6, one graphed fleet engine
    with the prefix cache serves both members the same prompts: each hits
    only its own member's chain.
-9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 8 of its
-   24 layers (random weights; cut since phases 11 and 12 joined, for run
-   time),
+9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 6 of its
+   24 layers (random weights; cut since phases 11, 12 and 17 joined, for
+   run time),
    the kernel path, graphed, phase 5's engine and request mix.
    (a) A self-draft (the target's own weights) against speculation off:
    f32 streams (float32 pools) equal, or diverging only where the two
@@ -312,15 +312,16 @@ Phases (any failure raises and the script exits non-zero):
    x 3072.
 
 16. The hybrid family (ROADMAP Queue 1 item 12c): recurrentgemma-2b at
-   its published widths and all 26 layers (pattern r, r, a: 18 RG-LRU
-   and 8 local-attention layers, d_model and lru_width 2560, 10 heads
+   its published widths and 13 of its 26 layers (cut since phase 17
+   joined, for run time; pattern r, r, a: 9 RG-LRU and 4
+   local-attention layers, d_model and lru_width 2560, 10 heads
    over 1 kv head of 256, window 2048, GeGLU d_ff 7680, vocab 256000),
    seeded random weights.  (a) At f32 compute, the kernels against their
    plain versions (the plain loop in place of ``rglru_scan``) within
    phase 4's gate: ``Model.prefill`` of a 2300-token prompt (past the
    window: banded attention, wrapped rolling buffers) and 4 decode steps
    over its state; the prefill's launches equal ``program_launches``
-   (164 ``tiled_matmul``, 53 ``rmsnorm``, 18 ``rglru_scan``); an explicit
+   (82 ``tiled_matmul``, 27 ``rmsnorm``, 9 ``rglru_scan``); an explicit
    chunked spec and ``mixed_step`` refused, "auto" bucketed.  (b) bf16
    on dense + bucketed, max_batch 8, max_len 3072 (buckets 32-3072), 8
    greedy requests of 40-3000 tokens x 32 new, graphed (first, warm,
@@ -388,6 +389,8 @@ from repro_torch.kernels.qkv_proj import qkv_proj, qkv_proj_plain  # noqa: E402
 from repro_torch.kernels import rglru_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_plain)
+from repro_torch.kernels import ssm_scan as sscan_mod  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
@@ -451,6 +454,13 @@ QWEN_BUCKET_ROWS = 512
 RGEMMA_MATMULS = {(2560, 2560): "in_x/in_gate/out/wq/wo", (2560, 256): "wk/wv",
                   (2560, 7680): "w1/wg", (7680, 2560): "w2"}
 RGEMMA_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
+# falcon-mamba-7b (configs/falcon_mamba_7b.py): a layer's bf16 products,
+# (K, N) -> name (d_model 4096, d_inner 8192, dt_rank 256, state 16: x_proj
+# N = 256 + 2 x 16 = 288 leaves a ragged 64-wide tile), at a decode step's
+# 8 rows and the 3072-token bucket's prefill (phase 17)
+FALCON_MATMULS = {(4096, 16384): "in_proj", (8192, 288): "x_proj",
+                  (256, 8192): "dt_proj", (8192, 4096): "out_proj"}
+FALCON_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
 
 
 def prefill_rows() -> dict[tuple[int, int, int], str]:
@@ -464,6 +474,13 @@ def prefill_rows() -> dict[tuple[int, int, int], str]:
     rows.update({(QWEN_BUCKET_ROWS, k, n): "qwen1.5-0.5b 512-bucket prefill"
                  for k, n in LAYER_MATMULS})
     return rows
+
+
+def falcon_rows() -> dict[tuple[int, int, int], str]:
+    """Phase 2's ``tiled_matmul`` rows at phase 17's shapes."""
+    return {(m, k, n): f"falcon-mamba-7b {step} {name}"
+            for m, step in FALCON_ROWS.items()
+            for (k, n), name in FALCON_MATMULS.items()}
 
 
 KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
@@ -528,7 +545,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 # phase 16: recurrentgemma-2b on dense + bucketed (its
                 # local attention is plain torch, as the reference's XLA;
                 # every prefill runs the RG-LRU recurrence's kernel)
-                "hybrid": ("tiled_matmul", "rmsnorm", "rglru_scan")}
+                "hybrid": ("tiled_matmul", "rmsnorm", "rglru_scan"),
+                # phase 17: falcon-mamba-7b on dense + bucketed (no
+                # attention; every prefill runs the selective scan's
+                # kernel)
+                "ssm": ("tiled_matmul", "rmsnorm", "ssm_scan")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -556,6 +577,9 @@ SOURCES = {
     # no Pallas kernel: the reference's lax.scan in rglru_prefill
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "src/repro/models/rglru.py:124"),
+    # no Pallas kernel: the reference's lax.scan in ssm_prefill
+    "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/models/ssm.py:133"),
 }
 # full widths of the kernel library's shapes, from the JAX package's
 # config files (kept here as constants; nothing of it is imported):
@@ -679,8 +703,9 @@ def check_matmul(timer, dev, g) -> dict:
     # phase 14's deepseek-v3 steps
     shapes += [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
                for k, n in DEEPSEEK_MATMULS]
-    # phase 15's phi-3-vision steps and prefills, qwen's 512 bucket
-    extra = prefill_rows()
+    # phase 15's phi-3-vision steps and prefills, qwen's 512 bucket, phase
+    # 16's recurrentgemma and phase 17's falcon-mamba
+    extra = {**prefill_rows(), **falcon_rows()}
     shapes += [(*mkn, torch.bfloat16) for mkn in extra]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
                (5, 1000, 67, torch.float32)]
@@ -1345,6 +1370,65 @@ def check_scan(timer, dev, g) -> dict:
     return {"rglru_scan": dict(rows[0], other_shapes=rows[1:])}
 
 
+# ssm_scan's rows: (B, S, Di, N, lengths or None).  falcon-mamba-7b's
+# 3072-token bucket holding a 2300-token prompt; two rows of a 300-token
+# bucket; eight one-position rows, two of them past their length; the
+# reduced config's width (d_inner 128, state 8)
+SSM_SCAN_SHAPES = ((1, 3072, 8192, 16, (2300,)), (2, 300, 8192, 16, (300, 123)),
+                   (8, 1, 8192, 16, (1, 0, 1, 1, 0, 1, 1, 1)),
+                   (2, 64, 128, 8, (64, 20)))
+
+
+def check_ssm_scan(timer, dev, g) -> dict:
+    """``ssm_scan`` against its plain loop, bit for bit (the same float32
+    operators a position, in the same order, the readout's sums
+    included), y and the last h, at ``SSM_SCAN_SHAPES``: dt = softplus of
+    a normal, x bf16 (the serving path's compute dtype), b and c normal,
+    a = -exp(U(-1, 1)), ragged lengths.  Timed beside the bound: dt (4
+    bytes) and x (2) read and y (4) written a position and channel, b and
+    c a position, a, lengths and the last h once; 8 float32 operations a
+    live (position, channel, state) (exp counted once) and the readout's 2
+    past a row's length, at the float32 rate.  No single PyTorch call
+    computes a selective scan, so no library time."""
+    print("\n== ssm_scan vs its plain loop (a_bar = exp(dt a), h = a_bar h + "
+          "(dt b) x, y = h . c; float32, x bf16; the reference's lax.scan, "
+          "no Pallas kernel)")
+    print(f"{'B':>3} {'S':>5} {'Di':>5} {'N':>3} {'lengths':>26} {'err':>6} "
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'bound_ms':>9}")
+    rows = []
+    for B, S, Di, N, lens in SSM_SCAN_SHAPES:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, Di, generator=g, device=dev))
+        x = torch.randn(B, S, Di, generator=g, device=dev).bfloat16()
+        b = torch.randn(B, S, N, generator=g, device=dev)
+        c = torch.randn(B, S, N, generator=g, device=dev)
+        a = -torch.exp(torch.rand(Di, N, generator=g, device=dev) * 2 - 1)
+        n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                   device=dev)
+        run = lambda: ssm_scan(dt, x, b, c, a, n)  # noqa: E731
+        plain = lambda: ssm_scan_plain(dt, x, b, c, a, n)  # noqa: E731
+        (y, h), (py, ph) = run(), plain()
+        err = max(max_err(y, py), max_err(h, ph))
+        if not (torch.equal(y, py) and torch.equal(h, ph)):
+            raise AssertionError(f"ssm_scan [{B}, {S}, {Di}, {N}] lengths "
+                                 f"{lens}: not bit for bit its plain loop "
+                                 f"(max err {err})")
+        live = B * S if lens is None else sum(min(v, S) for v in lens)
+        nbytes = B * S * Di * (4 + 2 + 4) + 2 * B * S * N * 4 \
+            + Di * N * 4 + B * Di * N * 4 + B * 4
+        bms, by = bound_ms(nbytes, (6 * live + 2 * B * S) * Di * N,
+                           torch.float32)
+        ms, pms = timer(run), timer(plain, reps=3, warm=1)
+        print(f"{B:>3} {S:>5} {Di:>5} {N:>3} {str(lens):>26} {err:>6.3g} "
+              f"{ms:>10.4f} {pms:>9.4f} {bms:>9.4f}")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         shape=f"[{B}, {S}, {Di}, {N}] float32, x bf16, "
+                               f"lengths {lens}"))
+        del dt, x, b, c, y, py
+    return {"ssm_scan": dict(rows[0], other_shapes=rows[1:])}
+
+
 def check_library(timer, dev, g) -> dict:
     """The other four kernels of the library entry point against their
     plain versions at full model widths, in bf16 and f32.  Gates: f32 at
@@ -1654,6 +1738,7 @@ def plain_versions(perturb: float = 0.0):
     with mock.patch.object(tm_mod, "tiled_matmul", tiled_matmul_plain), \
             mock.patch.object(i8_mod, "int8_matmul", int8_matmul_plain), \
             mock.patch.object(scan_mod, "rglru_scan", rglru_scan_plain), \
+            mock.patch.object(sscan_mod, "ssm_scan", ssm_scan_plain), \
             mock.patch.object(ln_mod, "rmsnorm", rmsnorm_plain), \
             mock.patch.object(ln_mod, "layernorm", layernorm_plain), \
             mock.patch.object(attn_mod, "paged_decode_attention",
@@ -1877,13 +1962,6 @@ def made_launches(eng, captured: dict, replayed: dict) -> dict[str, int]:
             + (eng.replayed_launches[n] - replayed[n]) for n in counts}
 
 
-def device_seconds(prof) -> float | None:
-    """Device time of the kernels, copies and fills a ``torch.profiler``
-    run traced, in seconds (None: it traced no device activity)."""
-    us = sum(e.self_device_time_total for e in device_events(prof))
-    return us / 1e6 if us else None
-
-
 def device_events(prof) -> list:
     """The traced device activities (kernels, copies, fills), each name
     with its summed device time, longest first."""
@@ -1946,9 +2024,12 @@ def drain(eng, prompts, models=None, sync_every: int = 1,
                stats=stats, compilations=dict(eng.compilations),
                launches=made_launches(eng, *tallies))
     if measure == "profile":
-        out["device_s"] = device_seconds(meter)
+        # one pass over the trace (a 64-layer drain holds ~10^5 events)
+        events = device_events(meter)
+        us = sum(e.self_device_time_total for e in events)
+        out["device_s"] = us / 1e6 if us else None
         out["kernels"] = [(e.key, e.count, e.self_device_time_total / 1e3)
-                          for e in device_events(meter)]
+                          for e in events]
         out["top"] = out["kernels"][:12]
     elif measure == "ops":
         out["ops"] = meter.n
@@ -2929,10 +3010,10 @@ def check_prefix_fleet(members) -> None:
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding
 # ---------------------------------------------------------------------------
-# phase 9's target: qwen1.5-0.5b at 8 of its 24 layers (cut to 12 when
-# phase 11 joined and to 8 when phase 12 did: the run stays near its time;
-# every gate a layer carries stays)
-SPEC_TARGET_LAYERS = 8
+# phase 9's target: qwen1.5-0.5b at 6 of its 24 layers (cut to 12 when
+# phase 11 joined, to 8 when phase 12 did and to 6 when phase 17 did: the
+# run stays near its time; every gate a layer carries stays)
+SPEC_TARGET_LAYERS = 6
 SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 layers
 
 
@@ -4092,6 +4173,9 @@ def check_bucketed_qwen(dev, g) -> dict:
 # phase 16: the hybrid family (recurrentgemma-2b) on dense + bucketed
 # ---------------------------------------------------------------------------
 HYBRID = "recurrentgemma-2b"
+# phase 16's depth: 13 of its 26 layers (cut when phase 17 joined, for run
+# time; every kind of layer and gate stays)
+HYBRID_LAYERS = 13
 # 16a: a prefill past the 2048-token window, then decode steps
 HYBRID_PREFILL, HYBRID_DECODE = 2300, 4
 # 16b: the serving geometry and mix (buckets 32-3072; the prompts fill six
@@ -4101,13 +4185,17 @@ HYBRID_PROMPTS = (40, 200, 512, 1000, 1500, 2047, 2300, 3000)
 HYBRID_NEW = 32
 
 
+def hybrid_cut() -> ArchConfig:
+    return dataclasses.replace(get_config(HYBRID), num_layers=HYBRID_LAYERS)
+
+
 def hybrid_spec(compute: str = "bf16", policy: str = "bucketed"
                 ) -> RuntimeSpec:
     """Phase 16's spec on the kernel path: recurrentgemma-2b on the dense
     layout and the bucketed scheduler (the only path the reference allows
     the family)."""
     return RuntimeSpec(
-        arch=get_config(HYBRID),
+        arch=hybrid_cut(),
         execution=ExecutionSpec(matmul_backend="pallas",
                                 paged_attn_impl="pallas",
                                 compute_dtype=compute),
@@ -4194,7 +4282,7 @@ def hybrid_serving(params, dev, g) -> dict:
     bucket used and one of the decode program, launches =
     ``program_launches``), no mixed program; tok/s, device ms by kernel,
     idle share and the peak memory printed."""
-    cfg = get_config(HYBRID)
+    cfg = hybrid_cut()
     rs = np.random.default_rng(16)
     prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
                for n in HYBRID_PROMPTS]
@@ -4260,11 +4348,12 @@ def hybrid_serving(params, dev, g) -> dict:
 
 
 def check_hybrid(dev, g) -> dict:
-    """Phase 16 on recurrentgemma-2b at its published widths and all 26
-    layers: 16a's f32 steps (``hybrid_steps``), then 16b's bf16 serving
-    (``hybrid_serving``) from the same weights."""
+    """Phase 16 on recurrentgemma-2b at its published widths and
+    ``HYBRID_LAYERS`` of its 26 layers: 16a's f32 steps
+    (``hybrid_steps``), then 16b's bf16 serving (``hybrid_serving``) from
+    the same weights."""
     t_start = time.perf_counter()
-    cfg = get_config(HYBRID)
+    cfg = hybrid_cut()
     model32 = Model(cfg, compute_dtype=torch.float32, device=dev,
                     matmul_backend="pallas").init(g)
     n_params = sum(t.numel() for t in model32.parameters())
@@ -4280,6 +4369,265 @@ def check_hybrid(dev, g) -> dict:
     del params
     torch.cuda.empty_cache()
     print(f"  phase 16 took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+SSM = "falcon-mamba-7b"
+# 17a: an f32 prefill of a prompt past a bucket boundary (1100 real tokens
+# in the 2048-token bucket, its length the prefill's ``lengths``), then
+# decode steps, at full width and SSM_STEP_LAYERS of the 64 layers (the
+# plain scan loop dispatches ~15 operators a position and layer)
+SSM_PREFILL, SSM_BUCKET, SSM_DECODE = 1100, 2048, 4
+SSM_STEP_LAYERS = 8
+# 17b: every layer, phase 16's geometry and mix (buckets 32-3072)
+SSM_LAYERS = 64
+SSM_ENGINE = HYBRID_ENGINE
+SSM_PROMPTS = HYBRID_PROMPTS
+SSM_NEW = 32
+
+
+def ssm_cut(layers: int) -> ArchConfig:
+    return dataclasses.replace(get_config(SSM), num_layers=layers)
+
+
+def ssm_spec(cfg: ArchConfig, compute: str = "bf16",
+             policy: str = "bucketed", layout: str = "dense") -> RuntimeSpec:
+    """Phase 17's spec on the kernel path: falcon-mamba-7b on the dense
+    layout and the bucketed scheduler (the only path the reference allows
+    the family)."""
+    return RuntimeSpec(
+        arch=cfg,
+        execution=ExecutionSpec(matmul_backend="pallas",
+                                paged_attn_impl="pallas",
+                                compute_dtype=compute),
+        memory=MemorySpec(cache_layout=layout, **SSM_ENGINE),
+        scheduler=SchedulerSpec(policy=policy))
+
+
+def ssm_steps(model: Model, dev, g) -> None:
+    """Phase 17a on the f32 model: ``Model.prefill`` of ``SSM_PREFILL``
+    real tokens right-padded to the ``SSM_BUCKET`` bucket (``lengths``, as
+    the engine's bucketed admission stages it) and ``SSM_DECODE`` decode
+    steps over its state, along the kernels and their plain versions
+    (``STEP_PATHS``; the plain loop in place of ``ssm_scan``), each within
+    phase 4's gate, 2e-2 x max|logits| (the real positions' logits); the
+    kernel path's launches against ``program_launches``.  Then the spec
+    refuses the paged layout and the chunked scheduler, ``mixed_step``
+    raises, and "auto" resolves to the bucketed scheduler."""
+    cfg = model.cfg
+    P, S, D = SSM_PREFILL, SSM_BUCKET, SSM_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, P + D), generator=g,
+                         device=dev, dtype=torch.int32)
+    padded = torch.zeros(1, S, dtype=torch.int32, device=dev)
+    padded[:, :P] = toks[:, :P]
+    lengths = torch.tensor([P], dtype=torch.int32, device=dev)
+    print(f"\n== {SSM} at its published widths ({cfg.num_layers} of 64 "
+          f"layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.state_dim}, conv "
+          f"{cfg.ssm.conv_kernel}, dt_rank {cfg.ssm.dt_rank}, vocab "
+          f"{cfg.vocab_size}), f32 compute: a prefill of {P} tokens in the "
+          f"{S}-token bucket + {D} decode steps, |kernels - plain versions| "
+          "(gated)")
+    out = {}
+    for path in ("kernels", "plain versions"):
+        _, ctx = STEP_PATHS[path]
+        zero_counts()
+        with ctx():
+            logits, cache = model.prefill(padded, S, lengths=lengths)
+            res = [logits[0, :P]]
+            made = launch_counts()
+            for t in range(P, P + D):
+                res.append(model.decode_step(
+                    cache, toks[:, t:t + 1],
+                    torch.tensor([t], dtype=torch.int32, device=dev))[0, 0])
+        out[path] = res
+        del cache, logits
+        if path == "kernels":
+            want = program_launches(cfg, "prefill", layout="dense")
+            have = {n: made[n] for n in want}
+            print(f"  the kernel path's prefill launched {have} "
+                  f"(kernels/counts.py: {want})")
+            if have != want:
+                raise AssertionError(f"{SSM} prefill: launches {have} != "
+                                     f"{want}")
+    cases = [f"prefill of {P} in {S}"] + [f"decode step at {t}"
+                                          for t in range(P, P + D)]
+    for i, case in enumerate(cases):
+        ref = out["plain versions"][i]
+        tol = LOGIT_TOL * float(ref.abs().max())
+        err = max_err(out["kernels"][i], ref)
+        print(f"  {case}: kernels {err:.4g}, tol {LOGIT_TOL} x max|logits| "
+              f"= {tol:.4g}")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{SSM} {case}: kernels {err} > {tol}")
+    for kw in (dict(policy="chunked"), dict(layout="paged")):
+        try:
+            ssm_spec(cfg, **kw)
+        except ValueError as exc:
+            print(f"  {kw} is refused: {exc}")
+        else:
+            raise AssertionError(f"{SSM}: a spec with {kw} was accepted")
+    try:
+        model.mixed_step(None, toks[:, :1], toks[0, :1], toks[0, :1])
+    except ValueError as exc:
+        print(f"  mixed_step is refused: {exc}")
+    else:
+        raise AssertionError(f"{SSM}: mixed_step ran")
+    if ssm_spec(cfg, policy="auto").resolved_policy != "bucketed":
+        raise AssertionError(f"{SSM}: 'auto' did not resolve to bucketed")
+
+
+def ssm_serving(params, cfg: ArchConfig) -> dict:
+    """Phase 17b: falcon-mamba-7b in bf16 (seeded random weights) on dense
+    + bucketed, ``SSM_ENGINE``'s geometry, 8 greedy requests of
+    ``SSM_PROMPTS`` tokens x ``SSM_NEW`` new, graphed (first, warm, then a
+    traced warm drain) and eager, both engines resident:
+    ``bucketed_engine_line``'s gates (graphed = eager, one capture per
+    bucket used and one of the decode program, launches =
+    ``program_launches``), no mixed program; tok/s, device ms by kernel,
+    idle share and the peak memory printed."""
+    rs = np.random.default_rng(17)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in SSM_PROMPTS]
+    buckets = engine_mod._buckets(SSM_ENGINE["max_len"])
+    used = sorted({next(b for b in buckets if b >= n) for n in SSM_PROMPTS})
+    print(f"\n== serving {SSM} in bf16 on dense + bucketed, "
+          f"{cfg.num_layers} layers: {len(prompts)} greedy requests of "
+          f"{SSM_PROMPTS} tokens x {SSM_NEW} new, max_batch "
+          f"{SSM_ENGINE['max_batch']}, max_len {SSM_ENGINE['max_len']}, "
+          f"buckets {buckets} ({used} used), the kernel path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = ssm_spec(cfg)
+    eng = ServingEngine(spec, device="cuda", graphs=True)
+    eng.load(params)
+    eager = ServingEngine(spec, device="cuda", graphs=False)
+    eager.load(params)
+    t0 = time.perf_counter()
+    first = drain(eng, prompts, max_new=SSM_NEW)
+    first["warm"] = drain(eng, prompts, max_new=SSM_NEW)
+    traced = drain(eng, prompts, measure="profile", max_new=SSM_NEW)
+    runs = {"graphed": first, "eager": drain(eager, prompts,
+                                             max_new=SSM_NEW)}
+    print(f"  four drains took {time.perf_counter() - t0:.1f} s")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    programs = dict(eng._programs)
+    del eng, eager
+    label = f"{SSM} dense + bucketed"
+    bucketed_engine_line(label, cfg, "bucketed", "dense", runs, len(prompts),
+                         PATH_KERNELS["ssm"], max_new=SSM_NEW)
+    if first["compilations"]["prefill_buckets"] != len(used) \
+            or programs.get("mixed"):
+        raise AssertionError(f"{label}: programs {programs}; want one "
+                             f"capture per bucket of {used} and no mixed "
+                             "program")
+    warm = first["warm"]
+    n_tok = len(prompts) * SSM_NEW
+    print(f"  {label}: tok/s graphed first {n_tok / first['dt']:.1f}, warm "
+          f"{n_tok / warm['dt']:.1f}, eager "
+          f"{n_tok / runs['eager']['dt']:.1f}; {sum(SSM_PROMPTS)} prompt "
+          f"tokens in {len(prompts)} prefills, {warm['steps']} decode steps")
+    dev_s = traced["device_s"]
+    if dev_s is None:
+        print("  the profiler traced no device activity: device time and "
+              "idle share not measured")
+    else:
+        idle = 1 - dev_s / warm["dt"]
+        print(f"  {label}, warm drain traced: {dev_s * 1e3:.1f} ms of device "
+              f"time; idle {idle:.3f} of the untraced warm drain's "
+              f"{warm['dt']:.3f} s ({1 - dev_s / traced['dt']:.3f} of the "
+              f"traced drain's {traced['dt']:.3f} s); the 12 longest "
+              "kernels:")
+        for key, calls_n, ms in traced["top"][:12]:
+            print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                  f"{ms / (dev_s * 1e3):6.1%}")
+        scan = [(k, c, ms) for k, c, ms in traced["kernels"]
+                if "ssm_scan" in k]
+        print(f"  ssm_scan in the traced drain: {scan}")
+    print(f"  {label}: max_memory_allocated {peak:.2f} GB (graphed and eager "
+          f"engines resident with the source weights; a {buckets[-1]}-token "
+          f"bucket's prefill returns [1, {buckets[-1]}, {cfg.vocab_size}] "
+          f"float32 logits, {buckets[-1] * cfg.vocab_size * 4 / 1e9:.2f} GB)")
+    return {"ssm": first["launches"]}
+
+
+def ssm_step_times(model: Model, dev, g) -> None:
+    """Phase 17c on the bf16 model at every layer: one decode step of
+    ``SSM_ENGINE``'s 8 slots, captured as a CUDA graph and replayed, and
+    one prefill of a 3072-token prompt (eager: it is device-bound), each
+    timed by ``Timer`` (median, L2 flushed) beside its bound: the decode
+    step's bytes (the bf16 layers, the f32 ``lm_head`` and the f32 states
+    read and written once) at 3.35 TB/s; the prefill's products at 989
+    TFLOP/s plus its f32 unembed of every lane at 67."""
+    cfg, timer = model.cfg, Timer(dev)
+    B, S = SSM_ENGINE["max_batch"], SSM_ENGINE["max_len"]
+    d_inner = cfg.ssm.expand * cfg.d_model
+    cache = model.init_cache(batch=B, max_len=S)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    idx = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            model.decode_step(cache, toks, idx)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        model.decode_step(cache, toks, idx)
+    dec_ms = timer(graph.replay)
+    layer_bytes = sum(t.numel() * t.element_size() for n, t in
+                      model.named_parameters() if n.startswith("layers."))
+    state_bytes = sum(t.numel() * t.element_size() for t in cache)
+    dec_bound, _ = bound_ms(layer_bytes + cfg.vocab_size * cfg.d_model * 4
+                            + 2 * state_bytes, 0, torch.bfloat16)
+    del graph, cache
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                           device=dev, dtype=torch.int32)
+    pre_ms = timer(lambda: model.prefill(prompt, S), reps=3, warm=1)
+    flops = 2 * S * cfg.num_layers * (
+        cfg.d_model * 2 * d_inner + d_inner * (cfg.ssm.dt_rank
+                                               + 2 * cfg.ssm.state_dim)
+        + cfg.ssm.dt_rank * d_inner + d_inner * cfg.d_model)
+    unembed = 2 * S * cfg.vocab_size * cfg.d_model
+    pre_bound = bound_ms(0, flops, torch.bfloat16)[0] \
+        + bound_ms(0, unembed, torch.float32)[0]
+    print(f"  decode step, {B} slots, graphed: {dec_ms:.3f} ms; bound "
+          f"{dec_bound:.3f} ms ({layer_bytes / 1e9:.2f} GB of layers, the "
+          f"{cfg.vocab_size * cfg.d_model * 4 / 1e9:.2f} GB f32 lm_head, "
+          f"{state_bytes / 1e9:.3f} GB of states read and written)")
+    print(f"  {S}-token prefill, eager: {pre_ms:.3f} ms; bound "
+          f"{pre_bound:.3f} ms ({flops / 1e12:.2f} TFLOP of layer products "
+          f"at 989 TFLOP/s, {unembed / 1e12:.2f} TFLOP of f32 unembed at "
+          f"67)")
+
+
+def check_ssm(dev, g) -> dict:
+    """Phase 17 on falcon-mamba-7b at its published widths: 17a's f32 steps
+    at ``SSM_STEP_LAYERS`` layers (``ssm_steps``), then 17b's bf16 serving
+    at ``SSM_LAYERS`` (``ssm_serving``), each from its own seeded weights,
+    and 17c's decode step and prefill times (``ssm_step_times``)."""
+    t_start = time.perf_counter()
+    model32 = Model(ssm_cut(SSM_STEP_LAYERS), compute_dtype=torch.float32,
+                    device=dev, matmul_backend="pallas").init(g)
+    ssm_steps(model32, dev, g)
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    cfg = ssm_cut(SSM_LAYERS)
+    model = Model(cfg, device=dev, matmul_backend="pallas").init(g)
+    n_params = sum(t.numel() for t in model.parameters())
+    tables = 2 * cfg.vocab_size * cfg.d_model
+    print(f"\n== phase 17: {SSM} at depth {cfg.num_layers} of 64, "
+          f"{n_params / 1e9:.3f} G parameters ({(n_params - tables) / 1e9:.3f}"
+          f" G in the layers, {(n_params - tables) * 2 / 1e9:.2f} GB in "
+          f"bf16; the untied f32 tables {tables * 4 / 1e9:.2f} GB)")
+    params = model.state_dict()
+    launches = ssm_serving(params, cfg)
+    ssm_step_times(model, dev, g)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"  phase 17 took {time.perf_counter() - t_start:.1f} s")
     return launches
 
 
@@ -4624,7 +4972,8 @@ def main() -> int:
     for src, kern in (("flash_attention.cu", "flash_"),
                       ("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
                       ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_"),
-                      ("layernorm.cu", "norm_")):
+                      ("layernorm.cu", "norm_"),
+                      ("ssm_scan.cu", "ssm_scan_kernel")):
         spills = {k: v for k, v in
                   print_ptxas(lib.parent / "build.log", src).items()
                   if kern in k and v[2]}
@@ -4648,6 +4997,7 @@ def main() -> int:
     entries.update(check_norms(timer, dev, g))
     entries.update(check_library(timer, dev, g))
     entries.update(check_scan(timer, dev, g))
+    entries.update(check_ssm_scan(timer, dev, g))
     lap("phase 2")
     launches = {"ops": check_ops(dev, g)}
     lap("phase 3")
@@ -4796,10 +5146,12 @@ def main() -> int:
     lap("phase 15")
     launches.update(check_hybrid(dev, g))
     lap("phase 16")
+    launches.update(check_ssm(dev, g))
+    lap("phase 17")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
-                 "bucketed_dense", "bucketed_paged", "hybrid"):
+                 "bucketed_dense", "bucketed_paged", "hybrid", "ssm"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

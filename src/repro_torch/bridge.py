@@ -13,7 +13,10 @@ unstacked layers in the reference; its ``j``-th entry becomes
 q_norm, q_up, kv_down, kv_norm, k_up, v_up, wo}``) carry over by the same
 rule.  A hybrid model's layers are a list in the reference too (each a
 dict of its kind's leaves: ``rglru.*`` or ``attn.*`` beside ``ln1``,
-``ln2`` and ``ffn``), so they map leaf for leaf onto ``layers.<i>.``.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
+``ln2`` and ``ffn``), so they map leaf for leaf onto ``layers.<i>.``.  An
+ssm model's layers are stacked like the dense family's: ``layers.ln`` and
+``layers.ssm.{in_proj, conv_w, conv_b, x_proj, dt_proj (kernel and
+bias), a_log, d_skip, out_proj}`` split on their leading axis.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
 training-only module (ROADMAP.md Queue 1 item 16) that the port's serving
 ``Model`` does not hold, so it is left out.
 

@@ -7,7 +7,8 @@ BERT widths on qwen's template (``--fleet
 qwen1.5-0.5b,adaptor-bert-shaped``); of the MoE family granite-moe-1b-a400m and deepseek-v3-671b
 (MLA, ``--arch deepseek-v3-671b``); of the vlm family phi-3-vision-4.2b
 (``--arch phi-3-vision-4.2b``, its stub frontend zeros in serving); of
-the hybrid family recurrentgemma-2b (``--arch recurrentgemma-2b``, RG-LRU
+the ssm family falcon-mamba-7b (``--arch falcon-mamba-7b``, Mamba-1's
+selective scan, attention-free); of the hybrid family recurrentgemma-2b (``--arch recurrentgemma-2b``, RG-LRU
 and local attention); and
 the paper's three evaluation networks, which the register-driven engine
 runs (``core/adaptive.py``): adaptor-bert, shallow-transformer and
@@ -17,13 +18,14 @@ from __future__ import annotations
 
 from repro_torch.configs import (adaptor_bert, adaptor_bert_shaped,
                                  codeqwen1_5_7b, custom_encoder,
-                                 deepseek_v3_671b, granite_moe_1b_a400m,
+                                 deepseek_v3_671b, falcon_mamba_7b,
+                                 granite_moe_1b_a400m,
                                  phi3_mini_3_8b, phi_3_vision_4_2b,
                                  qwen1_5_0_5b, qwen2_72b,
                                  recurrentgemma_2b, shallow_transformer)
 from repro_torch.configs.base import (ArchConfig, EncDecConfig,
                                       FrontendConfig, HybridConfig,
-                                      MLAConfig, reduced)
+                                      MLAConfig, SSMConfig, reduced)
 
 # The paper's own evaluation networks (ADAPTOR §6, Table 1, Fig. 11).
 PAPER_NETWORKS: tuple[ArchConfig, ...] = (
@@ -38,7 +40,8 @@ REGISTRY: dict[str, ArchConfig] = {
                         adaptor_bert_shaped.CONFIG,
                         granite_moe_1b_a400m.CONFIG,
                         deepseek_v3_671b.CONFIG, phi_3_vision_4_2b.CONFIG,
-                        recurrentgemma_2b.CONFIG, *PAPER_NETWORKS)}
+                        recurrentgemma_2b.CONFIG, falcon_mamba_7b.CONFIG,
+                        *PAPER_NETWORKS)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -50,5 +53,5 @@ def get_config(name: str) -> ArchConfig:
 
 
 __all__ = ["PAPER_NETWORKS", "REGISTRY", "ArchConfig", "EncDecConfig",
-           "FrontendConfig", "HybridConfig", "MLAConfig", "get_config",
-           "reduced"]
+           "FrontendConfig", "HybridConfig", "MLAConfig", "SSMConfig",
+           "get_config", "reduced"]

@@ -2,10 +2,11 @@
 
 The port's own copy of ``repro.configs.base``: the same frozen
 ``ArchConfig`` fields, validation messages and ``reduced`` shrink rule,
-restricted to what the dense, vlm, MoE (with MLA), hybrid and encoder
-families need (the SSM sub-config is ported with its family, ROADMAP.md
-Queue 1 item 12d).  ``HybridConfig`` is the hybrid family's block
-pattern and widths (RG-LRU and local attention, RecurrentGemma).
+restricted to what the dense, vlm, MoE (with MLA), ssm, hybrid and
+encoder families need.  ``SSMConfig`` is the ssm family's selective scan
+(Mamba-1: state size, conv width, expansion, dt rank).  ``HybridConfig``
+is the hybrid family's block pattern and widths (RG-LRU and local
+attention, RecurrentGemma).
 ``FrontendConfig`` is the vlm
 family's stub vision frontend.  ``EncDecConfig`` is here for the
 register-driven engine's encoder/decoder rule (``core/registers.py``
@@ -56,6 +57,16 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective-SSM configuration."""
+
+    state_dim: int = 16
+    conv_kernel: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
 class HybridConfig:
     """RecurrentGemma-style hybrid (RG-LRU + local attention) configuration."""
 
@@ -87,9 +98,9 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """A single architecture (the dense-, vlm-, MoE-, hybrid- and
-    encoder-family fields of the reference, its MLA, hybrid, enc-dec and
-    frontend sub-configs and the MTP depth)."""
+    """A single architecture (the dense-, vlm-, MoE-, ssm-, hybrid- and
+    encoder-family fields of the reference, its MLA, SSM, hybrid, enc-dec
+    and frontend sub-configs and the MTP depth)."""
 
     name: str
     family: str  # dense | moe | vlm | ssm | hybrid | audio | encoder
@@ -110,6 +121,7 @@ class ArchConfig:
     source: str = ""
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
     hybrid: HybridConfig | None = None
     encdec: EncDecConfig | None = None
     frontend: FrontendConfig | None = None
@@ -153,7 +165,8 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     """A tiny same-family config for CPU tests: the reference's shrink rule
     (2 layers, d_model 64, 4 heads of 16, the GQA ratio kept; an MoE
     block shrunk to 4 experts of width 32, top-min(2, k); MLA to ranks
-    32 / 16 with head dims 16 + 8 and 16; a hybrid pattern kept, with the
+    32 / 16 with head dims 16 + 8 and 16; an SSM to state 8, conv 4,
+    expand 2 and dt rank 8; a hybrid pattern kept, with the
     RG-LRU at d_model (lru_width 0), a window of 32 and one pattern period
     of layers; a frontend to 8 tokens of 64; an MTP depth to 1)."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
@@ -186,6 +199,9 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
             qk_rope_head_dim=8,
             v_head_dim=16,
         )
+    if cfg.ssm is not None:
+        small["ssm"] = SSMConfig(state_dim=8, conv_kernel=4, expand=2,
+                                 dt_rank=8)
     if cfg.hybrid is not None:
         small["hybrid"] = HybridConfig(
             pattern=cfg.hybrid.pattern, lru_width=0, attention_window=32)

@@ -13,9 +13,10 @@ both packages:
   string names (``"bf16"``, ``"fp32"``, ...).
 
 What the port serves so far is the dense, vlm and moe families (GQA or
-MLA attention; MLA on one model's engine, never in a fleet) and the
-hybrid family (RG-LRU and local attention: the dense layout, the bucketed
-scheduler and a float cache only, the reference's rules) through the
+MLA attention; MLA on one model's engine, never in a fleet), the ssm
+family (Mamba-1's selective scan) and the hybrid family (RG-LRU and
+local attention), these two on the dense layout, the bucketed scheduler
+and a float cache only (the reference's rules), through the
 dense per-slot cache or the paged pool (``MemorySpec.cache_layout``) and
 the chunked or the bucketed scheduler (``SchedulerSpec.policy``, "auto"
 resolving as the reference's engine does: ``RuntimeSpec.resolved_policy``),
@@ -61,7 +62,7 @@ _DTYPE_ALIASES = {
 }
 
 # Families the port serves so far.
-PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 # Families whose decode state is a genuine KV/latent cache (the reference's
 # KV_QUANTIZABLE_FAMILIES) and whose prefill can be replayed through the
 # fused chunked step (its CHUNKABLE_FAMILIES): attention caches are
@@ -69,7 +70,7 @@ PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 KV_QUANTIZABLE_FAMILIES = ("dense", "vlm", "moe")
 CHUNKABLE_FAMILIES = ("dense", "vlm", "moe")
 # the ROADMAP.md Queue 1 sub-item that ports each family still refused
-FAMILY_ITEMS = {"ssm": "item 12d", "audio": "item 12e", "encoder": "item 12f"}
+FAMILY_ITEMS = {"audio": "item 12e", "encoder": "item 12f"}
 
 
 def _normalize_dtype(field_name: str, value):
@@ -429,8 +430,9 @@ class RuntimeSpec:
 
     def _validate_cache_family(self) -> None:
         """The reference's refusals of a paged or int8 KV cache for a
-        decoding family whose state is not an attention cache (the hybrid
-        family's RG-LRU state and rolling buffers)."""
+        decoding family whose state is not an attention cache (the ssm
+        family's scan state, the hybrid family's RG-LRU state and rolling
+        buffers)."""
         cfg, mem = self.arch, self.memory
         if mem.cache_layout == "paged" and \
                 cfg.family not in ("dense", "vlm", "moe"):

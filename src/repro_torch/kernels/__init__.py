@@ -6,9 +6,10 @@ other device raises), the plain version itself, and the wrapper's launch
 count:
 
 * serving path: ``tiled_matmul``, ``int8_matmul``, ``paged_attention``
-  (``paged_decode_attention``), ``chunked_prefill``, and ``rglru_scan``
-  (the hybrid family's recurrence, which replaces the reference's
-  ``lax.scan`` and no Pallas kernel);
+  (``paged_decode_attention``), ``chunked_prefill``, ``rglru_scan`` (the
+  hybrid family's recurrence) and ``ssm_scan`` (the ssm family's selective
+  scan), the last two in place of the reference's ``lax.scan``s and no
+  Pallas kernel;
 * the kernel library: ``layernorm`` (``layernorm``, ``rmsnorm``), ``ffn``
   (``ffn1``, ``ffn1_gated``), ``qkv_proj``, ``flash_attention``.
 

@@ -23,6 +23,7 @@ from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import qkv_proj as _qkv
 from repro_torch.kernels import rglru_scan as _scan
+from repro_torch.kernels import ssm_scan as _sscan
 from repro_torch.kernels import tiled_matmul as _tm
 
 # the wrappers carrying a ``live_kv_launches`` count beside ``launches``
@@ -41,7 +42,8 @@ def wrappers() -> dict:
             "qkv_proj": _qkv.qkv_proj, "layernorm": _ln.layernorm,
             "rmsnorm": _ln.rmsnorm,
             "flash_attention": _fa.flash_attention,
-            "rglru_scan": _scan.rglru_scan}
+            "rglru_scan": _scan.rglru_scan,
+            "ssm_scan": _sscan.ssm_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -82,22 +84,32 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     its FFN's, each layer's ln1 and ln2, and a prefill's one
     ``rglru_scan`` per RG-LRU layer (decode updates h elementwise, as the
     reference); its local attention is plain PyTorch, as the reference's
-    is XLA."""
+    is XLA.
+
+    An ssm model (``cfg.ssm``, dense layout and prefill or decode only)
+    has no attention and no FFN: a layer's in_proj, x_proj, dt_proj and
+    out_proj, its one norm, and a prefill's one ``ssm_scan`` (decode
+    updates h elementwise, as the reference); plus the final norm."""
     if program not in PROGRAMS:
         raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
     L = cfg.num_layers
     gated = cfg.activation in ("swiglu", "geglu")
     ffn = 3 if gated else 2
+    none = {"paged_decode_attention": 0, "chunked_prefill_attention": 0}
+    if cfg.ssm is not None:
+        return {"tiled_matmul": 0 if quant else 4 * L,
+                "int8_matmul": 4 * L if quant else 0,
+                "rmsnorm": L + 1, **none, "rglru_scan": 0,
+                "ssm_scan": L if program == "prefill" else 0}
     if cfg.hybrid is not None:
         pat = cfg.hybrid.pattern
         rec = sum(pat[i % len(pat)] == "r" for i in range(L))
         mm = (3 + ffn) * rec + (4 + ffn) * (L - rec)
         return {"tiled_matmul": 0 if quant else mm,
                 "int8_matmul": mm if quant else 0,
-                "rmsnorm": 2 * L + 1,
-                "paged_decode_attention": 0,
-                "chunked_prefill_attention": 0,
-                "rglru_scan": rec if program == "prefill" else 0}
+                "rmsnorm": 2 * L + 1, **none,
+                "rglru_scan": rec if program == "prefill" else 0,
+                "ssm_scan": 0}
     k = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if cfg.mla is not None:
         attn = 4 + (2 if program == "prefill" else 0)
@@ -116,4 +128,4 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
             "rmsnorm": norms,
             "paged_decode_attention": walk if program == "decode" else 0,
             "chunked_prefill_attention": walk if program == "mixed" else 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "ssm_scan": 0}

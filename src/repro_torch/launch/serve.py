@@ -21,9 +21,10 @@ the architecture at its published widths.  ``--arch`` takes any id of the
 port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
 phi3-mini-3.8b, adaptor-bert-shaped, granite-moe-1b-a400m,
 deepseek-v3-671b, phi-3-vision-4.2b (its stub frontend's patch
-positions take zeros, as in the reference) and recurrentgemma-2b (the
-hybrid family: the dense layout and the bucketed scheduler only, the
-reference's rule).  ``--prefix-cache`` shares
+positions take zeros, as in the reference), recurrentgemma-2b (the
+hybrid family) and falcon-mamba-7b (the ssm family; ``--model`` is the
+same option): these two on the dense layout and the bucketed scheduler
+only, the reference's rule.  ``--prefix-cache`` shares
 prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
 reports its hits, skipped tokens, copy-on-write forks and evictions.
 
@@ -68,7 +69,7 @@ import time
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", "--model", default="qwen1.5-0.5b")
     ap.add_argument("--fleet", default=None,
                     help="comma-separated architectures served together "
                          "by one multi-topology engine")

@@ -1,5 +1,6 @@
 """The decoder LM of the port (the reference's ``Model`` for the families
-``dense``, ``vlm``, ``moe`` and ``hybrid``, with GQA or MLA attention):
+``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``, with GQA or MLA
+attention, or none):
 parameters, the paged KV pool and the dense per-slot cache, ``forward``,
 ``prefill``, ``decode_step`` and ``mixed_step``.
 
@@ -35,7 +36,16 @@ the conv windows and h of the RG-LRU layers and the rolling K/V buffers
 of the attention layers, dense only (the reference never pages it) and
 never quantized; the bucketed prefill takes each prompt's real length
 (``lengths``), so the pad up to its bucket leaves every state as the
-unpadded prompt would.  Dense kernels (``[d_in, d_out]``,
+unpadded prompt would.
+
+The ssm family (``cfg.ssm``, falcon-mamba) has no attention and no FFN:
+each layer is ``layers.<i>.ln`` and the Mamba-1 block
+``layers.<i>.ssm.{in_proj, conv_w, conv_b, x_proj, dt_proj, a_log,
+d_skip, out_proj}`` (``models/ssm.py``), stacked in the reference as the
+dense family's are.  Its decode state is an ``SSMState`` with a leading
+layer axis, dense only and never quantized; the bucketed prefill takes
+each prompt's real length (``lengths``), as the hybrid's does.  Dense
+kernels (``[d_in, d_out]``,
 as the reference stores them), their biases and the expert weights are
 kept in the compute dtype, cast once from the parameter dtype (the
 reference casts them to x's dtype on every call: the same numbers);
@@ -70,13 +80,16 @@ from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 from repro_torch.core.spec import CHUNKABLE_FAMILIES, FAMILY_ITEMS
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, rglru
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.rglru import LRUState
+from repro_torch.models.ssm import SSMState
 
-# RG-LRU leaves the init draws as the reference's ParamBuilder does:
-# biases zero, the decay parameter uniform in [-1, 1)
+# RG-LRU and SSM leaves the init draws as the reference's ParamBuilder
+# does: biases zero, the SSM's a_log and D skip ones, the RG-LRU's decay
+# parameter uniform in [-1, 1)
 _ZERO_LEAVES = ("bias", "conv_b", "gate_in_b", "gate_a_b")
+_ONE_LEAVES = ("scale", "a_log", "d_skip")
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -176,6 +189,36 @@ class RGLRU(nn.Module):
         self.out = Dense(w, d, False, dtype, device)
 
 
+class SSM(nn.Module):
+    """The Mamba-1 block's weights (the reference's ``build_ssm``): the
+    four projections as ``Dense`` ones (``dt_proj`` with its bias), the
+    conv taps ``[K, d_inner]`` and bias in the compute dtype, as the
+    reference casts them to x's dtype; ``a_log`` ``[d_inner, state]`` and
+    the D skip ``[d_inner]`` in the parameter dtype, read in float32."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        d_inner, dt_rank, n = ssm.dims(cfg)
+        self.in_proj = Dense(d, 2 * d_inner, False, dtype, device)
+        self.conv_w = _frozen((cfg.ssm.conv_kernel, d_inner), dtype, device)
+        self.conv_b = _frozen((d_inner,), dtype, device)
+        self.x_proj = Dense(d_inner, dt_rank + 2 * n, False, dtype, device)
+        self.dt_proj = Dense(dt_rank, d_inner, True, dtype, device)
+        self.a_log = _frozen((d_inner, n), param_dtype, device)
+        self.d_skip = _frozen((d_inner,), param_dtype, device)
+        self.out_proj = Dense(d_inner, d, False, dtype, device)
+
+
+class SSMBlock(nn.Module):
+    """An ssm-family layer: the norm ``ln`` and the Mamba-1 block."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, compute_dtype, device):
+        super().__init__()
+        self.ln = Norm(cfg.d_model, cfg.norm, param_dtype, device)
+        self.ssm = SSM(cfg, param_dtype, compute_dtype, device)
+
+
 class HybridCache(NamedTuple):
     """The hybrid family's decode state, each kind's leaves stacked: the
     RG-LRU layers' conv windows ``[n_r, B, 3, w]`` (bf16) and states ``h``
@@ -256,7 +299,7 @@ class Embedding(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense-, vlm-, MoE- or hybrid-family causal LM.
+    """A dense-, vlm-, MoE-, ssm- or hybrid-family causal LM.
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -272,15 +315,17 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
+                or (cfg.family == "ssm") != (cfg.ssm is not None) \
                 or (cfg.family == "hybrid") != (cfg.hybrid is not None) \
                 or cfg.positional not in ("rope", "none"):
             raise ValueError(
-                f"{cfg.name}: the port's Model serves the dense, vlm, moe "
-                "and hybrid families (an moe config with its MoEConfig, a "
-                "hybrid one with its HybridConfig) with rope (or no) "
-                "positions (ROADMAP.md Queue 1 "
+                f"{cfg.name}: the port's Model serves the dense, vlm, moe, "
+                "ssm and hybrid families (an moe config with its MoEConfig, "
+                "an ssm one with its SSMConfig, a hybrid one with its "
+                "HybridConfig) with rope (or no) positions (ROADMAP.md "
+                "Queue 1 "
                 f"{FAMILY_ITEMS.get(cfg.family, 'items 11-12')})")
         cfg.validate()
         if quant not in ("none", "int8"):
@@ -313,6 +358,8 @@ class Model(nn.Module):
                                              for kd, _ in self.kinds)))
         self.window = cfg.hybrid.attention_window if cfg.hybrid else None
         self.layers = nn.ModuleList(
+            SSMBlock(cfg, param_dtype, compute_dtype, dev)
+            if cfg.ssm is not None else
             Block(cfg, param_dtype, compute_dtype, dev,
                   moe_block=cfg.moe is not None,
                   kind=self.kinds[i][0] if self.kinds else "a")
@@ -359,8 +406,10 @@ class Model(nn.Module):
         embedding normal * 0.02, the untied ``lm_head`` table normal /
         sqrt(vocab) (the reference builds it with no scale, so its fan-in
         rule reads the table's first dim), biases zero, norm scales one;
-        the RG-LRU's conv taps normal / 2 and its gates by the fan-in rule
-        (their contraction dim), ``a_param`` uniform in [-1, 1).
+        the RG-LRU's and the SSM's conv taps normal / sqrt(K) and the
+        RG-LRU's gates by the fan-in rule (their contraction dim),
+        ``a_param`` uniform in [-1, 1), the SSM's ``a_log`` and D skip
+        one.
         Draws come from ``generator`` on its own device, in the order of
         ``named_parameters``, rounded to the parameter dtype before any
         cast to the storage dtype (or before quantization, for an int8
@@ -369,7 +418,7 @@ class Model(nn.Module):
             leaf = name.rsplit(".", 1)[-1]
             if leaf in _ZERO_LEAVES:
                 prm.zero_()
-            elif leaf == "scale":
+            elif leaf in _ONE_LEAVES:
                 prm.fill_(1.0)
             elif leaf == "a_param":
                 x = torch.rand(prm.shape, generator=generator,
@@ -405,7 +454,8 @@ class Model(nn.Module):
                                        assign=assign)
 
     def init_cache(self, paging: PagingConfig | None = None, *,
-                   batch: int = 0, max_len: int = 0) -> KVCache | MLACache:
+                   batch: int = 0, max_len: int = 0
+                   ) -> KVCache | MLACache | HybridCache | SSMState:
         """The decode cache through the model's codec: bf16 values as the
         reference's float codec stores them, or int8 values with float32
         scales (the values' shape without the last dim).
@@ -415,11 +465,12 @@ class Model(nn.Module):
         model's is the latent pool ``[layers, num_blocks + 1, block_size,
         rank]`` and ``[..., rope]``.  Without it the dense per-slot layout
         ``[layers, batch, max_len + 1, ...]`` (``init_dense_cache``; a
-        hybrid model's ``HybridCache``, which has no paged layout)."""
+        hybrid model's ``HybridCache`` or an ssm model's ``SSMState``, which
+        have no paged layout)."""
         if paging is None:
             return self.init_dense_cache(batch, max_len, self.codec)
         cfg = self.cfg
-        if cfg.hybrid is not None:
+        if cfg.family not in ("dense", "vlm", "moe"):
             raise ValueError(
                 f"paged KV cache unsupported for family {cfg.family!r} "
                 "(SSM / rolling-window / enc-dec state is not paged)")
@@ -444,7 +495,7 @@ class Model(nn.Module):
 
     def init_dense_cache(self, batch: int, max_len: int,
                          codec: CacheCodec = FLOAT_CODEC
-                         ) -> KVCache | MLACache:
+                         ) -> KVCache | MLACache | HybridCache | SSMState:
         """The dense per-slot cache ``[layers, batch, max_len + 1, kv, hd]``
         (an MLA model's: the latents ``[layers, batch, max_len + 1, rank |
         rope]``) through ``codec``; by default the float codec's bf16
@@ -453,22 +504,26 @@ class Model(nn.Module):
         past the end (the reference drops them as out-of-bounds
         scatters); no mask admits it.  A hybrid model's is its
         ``HybridCache`` (rolling buffers of ``min(window, max_len)`` rows,
-        no spare row), which no codec quantizes."""
+        no spare row), an ssm model's its ``SSMState`` ``[layers, batch,
+        ...]`` (no positions at all); no codec quantizes either."""
+        if self.cfg.family in ("ssm", "hybrid") and codec.quantized:
+            # the reference's refusal of an int8 cache for recurrent state
+            raise ValueError(
+                f"kv_dtype='int8' is unsupported for family "
+                f"{self.cfg.family!r} (only KV/latent attention caches are "
+                "quantized); use kv_dtype='compute'")
+        if self.cfg.ssm is not None:
+            return ssm.ssm_init_state(self.cfg, batch, self.device,
+                                      (self.cfg.num_layers,))
         if self.cfg.hybrid is not None:
-            return self._hybrid_cache(batch, max_len, codec)
+            return self._hybrid_cache(batch, max_len)
         lead = (self.cfg.num_layers, batch, max_len + 1)
         if self.cfg.mla is not None:
             return MLACache(*self._latents(codec, lead))
         return self._kv(codec, lead)
 
-    def _hybrid_cache(self, batch: int, max_len: int,
-                      codec: CacheCodec) -> HybridCache:
+    def _hybrid_cache(self, batch: int, max_len: int) -> HybridCache:
         cfg = self.cfg
-        if codec.quantized:
-            raise ValueError(
-                f"kv_dtype='int8' is unsupported for family {cfg.family!r} "
-                "(only KV/latent attention caches are quantized); use "
-                "kv_dtype='compute'")
         n_r = sum(kind == "r" for kind, _ in self.kinds)
         conv, h = rglru.rglru_init_state(cfg, batch, self.device, (n_r,))
         shape = (len(self.kinds) - n_r, batch,
@@ -524,6 +579,11 @@ class Model(nn.Module):
             .expand(b_, s)
         mm = self.matmul_backend
         for blk in self.blocks():
+            if self.cfg.ssm is not None:
+                x = x + ssm.ssm_forward(
+                    layers.apply_norm(x, blk.ln, self.cfg.norm, mm), blk.ssm,
+                    self.cfg, mm)
+                continue
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
             if hasattr(blk, "rglru"):
                 o = rglru.rglru_forward(hn, blk.rglru, self.cfg, mm)
@@ -539,7 +599,8 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor, max_len: int,
                 frontend: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, KVCache | MLACache | HybridCache]:
+                ) -> tuple[torch.Tensor,
+                           KVCache | MLACache | HybridCache | SSMState]:
         """Prompt -> (logits [B, S, V] float32, the dense cache ready at
         index S): ``forward``'s math, with every layer's K/V (an MLA
         model's latents) stored through the codec into a fresh dense cache
@@ -550,9 +611,10 @@ class Model(nn.Module):
 
         ``lengths`` ([B] int32 on the device, or None for S each) are the
         real positions of prompts right-padded up to S (a bucket).  A
-        hybrid model's state is then the unpadded prompt's, ready at index
-        ``lengths``: the RG-LRU keeps h and takes its conv window from the
-        last real rows, the rolling buffers hold the last real positions.
+        hybrid or ssm model's state is then the unpadded prompt's, ready at
+        index ``lengths``: the RG-LRU and the selective scan keep h and
+        take their conv windows from the last real rows, the rolling
+        buffers hold the last real positions.
         An attention cache needs nothing of it: its rows past a prompt's
         length stay behind every mask until decode writes them."""
         b_, s = tokens.shape
@@ -561,6 +623,8 @@ class Model(nn.Module):
             .expand(b_, s)
         if self.cfg.hybrid is not None:
             return self._hybrid_prefill(x, positions, max_len, lengths)
+        if self.cfg.ssm is not None:
+            return self._ssm_prefill(x, lengths)
         fn = attn.gqa_prefill if self.cfg.mla is None else attn.mla_prefill
         per_layer = []
         for blk in self.blocks():
@@ -597,8 +661,23 @@ class Model(nn.Module):
         v = torch.stack([c.v for c in states["a"]])
         return self._unembed(x), HybridCache(conv, h, k, v)
 
+    def _ssm_prefill(self, x: torch.Tensor, lengths: torch.Tensor | None
+                     ) -> tuple[torch.Tensor, SSMState]:
+        """The reference's ssm branch of ``prefill``: each layer's state,
+        stacked on a leading layer axis."""
+        mm, states = self.matmul_backend, []
+        for blk in self.layers:
+            o, st = ssm.ssm_prefill(
+                layers.apply_norm(x, blk.ln, self.cfg.norm, mm), blk.ssm,
+                self.cfg, mm, lengths)
+            x = x + o
+            states.append(st)
+        conv, h = (torch.stack(t) for t in zip(*states))
+        return self._unembed(x), SSMState(conv, h)
+
     @torch.no_grad()
-    def decode_step(self, cache: KVCache | MLACache, tokens: torch.Tensor,
+    def decode_step(self, cache: KVCache | MLACache | HybridCache | SSMState,
+                    tokens: torch.Tensor,
                     cache_index: torch.Tensor,
                     block_tables: torch.Tensor | None = None
                     ) -> torch.Tensor:
@@ -607,13 +686,21 @@ class Model(nn.Module):
         place: the paged pool through ``block_tables``, or with
         ``block_tables=None`` the dense cache of ``init_cache`` (a hybrid
         model's ``HybridCache``: h and the conv windows advance, the
-        rolling buffers take the new rows)."""
+        rolling buffers take the new rows; an ssm model's ``SSMState``:
+        each layer's h and conv window advance)."""
         x = self._embed(tokens)
+        if self.cfg.family in ("ssm", "hybrid") and block_tables is not None:
+            raise ValueError(f"paged decode unsupported for family "
+                             f"{self.cfg.family!r}")
         if self.cfg.hybrid is not None:
-            if block_tables is not None:
-                raise ValueError(f"paged decode unsupported for family "
-                                 f"{self.cfg.family!r}")
             return self._hybrid_decode(cache, x, cache_index)
+        if self.cfg.ssm is not None:
+            mm = self.matmul_backend
+            for i, blk in enumerate(self.layers):
+                x = x + ssm.ssm_decode(
+                    layers.apply_norm(x, blk.ln, self.cfg.norm, mm), blk.ssm,
+                    self.cfg, SSMState(cache.conv[i], cache.h[i]), mm)
+            return self._unembed(x)
         for i, blk in enumerate(self.blocks()):
             hn = layers.apply_norm(x, blk.ln1, self.cfg.norm,
                                    self.matmul_backend)
@@ -667,8 +754,8 @@ class Model(nn.Module):
         bool) marks the slots whose lanes are prompt tokens: for a model
         with a stub frontend their positions below ``num_tokens`` take the
         (zero) patch embeddings, as in the bucketed prefill.  A family
-        whose prefill state is sequential (the hybrid) is refused, with the
-        reference's message."""
+        whose prefill state is sequential (ssm, hybrid) is refused, with
+        the reference's message."""
         if self.cfg.family not in CHUNKABLE_FAMILIES:
             raise ValueError(
                 f"mixed_step unsupported for family {self.cfg.family!r} "

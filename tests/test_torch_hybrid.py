@@ -550,7 +550,7 @@ def test_program_launches_count_the_wrappers(ref, quant):
         assert counts.program_launches(full, program, layout="dense") == {
             "tiled_matmul": 164, "int8_matmul": 0, "rmsnorm": 53,
             "paged_decode_attention": 0, "chunked_prefill_attention": 0,
-            "rglru_scan": scans}
+            "rglru_scan": scans, "ssm_scan": 0}
 
 
 def test_launch_serve_recurrentgemma_on_cpu(capsys):

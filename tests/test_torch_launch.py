@@ -1,7 +1,7 @@
 """Every kernel launch on its operands' device (ROADMAP Queue 3 fault G),
 and the kernels at granite-moe-1b-a400m's serving shapes.
 
-* On the host: each of the eleven wrappers reaches its C entry point only
+* On the host: each of the twelve wrappers reaches its C entry point only
   through ``kernels.runtime.launch``, the one guard that makes the
   operands' device current for the launch.  The wrappers run on ``meta``
   tensors with the CUDA-only checks patched out, ``runtime.bind`` hands
@@ -42,12 +42,14 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import qkv_proj as qkv
 from repro_torch.kernels import rglru_scan as scan
 from repro_torch.kernels import runtime
+from repro_torch.kernels import ssm_scan as sscan
 from repro_torch.kernels import tiled_matmul as tm
 from repro_torch.kernels.counts import LIVE_KV, launch_counts, wrappers
 
 # the bound entry points, cached per module
 ENTRY_CACHES = (tm._kernel, i8._kernel, pa._kernel, cp._kernel, fa._kernel,
-                ffn_mod._kernels, qkv._kernel, ln._kernels, scan._kernel)
+                ffn_mod._kernels, qkv._kernel, ln._kernels, scan._kernel,
+                sscan._kernel)
 
 
 class _Entry:
@@ -94,6 +96,11 @@ def _calls() -> dict:
         "rglru_scan": lambda: scan.rglru_scan(
             _meta(B, 8, 64, dtype=torch.float32),
             _meta(B, 8, 64, dtype=torch.float32), _meta(B, **i32)),
+        "ssm_scan": lambda: sscan.ssm_scan(
+            _meta(B, 8, 64, dtype=torch.float32), _meta(B, 8, 64),
+            _meta(B, 8, 16, dtype=torch.float32),
+            _meta(B, 8, 16, dtype=torch.float32),
+            _meta(64, 16, dtype=torch.float32), _meta(B, **i32)),
     }
 
 
@@ -270,6 +277,15 @@ def test_cuda_kernels_launch_on_their_device_with_another_current():
         sn = torch.tensor([64, 20], dtype=torch.int32, device=dev)
         for got, want in zip(scan.rglru_scan(sa, sg, sn),
                              scan.rglru_scan_plain(sa, sg, sn), strict=True):
+            assert torch.equal(got, want)
+        sdt = torch.rand(2, 40, 256, generator=g, device=dev)
+        sb = torch.randn(2, 40, 16, generator=g, device=dev)
+        sx = torch.randn(2, 40, 256, generator=g, device=dev).bfloat16()
+        sa2 = -torch.rand(256, 16, generator=g, device=dev) * 3
+        sn2 = torch.tensor([40, 17], dtype=torch.int32, device=dev)
+        for got, want in zip(sscan.ssm_scan(sdt, sx, sb, sb, sa2, sn2),
+                             sscan.ssm_scan_plain(sdt, sx, sb, sb, sa2, sn2),
+                             strict=True):
             assert torch.equal(got, want)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 1

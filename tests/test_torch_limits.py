@@ -1,6 +1,6 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-A fleet (``maxima=``) refuses a family still unported (items 12d-12f) and
+A fleet (``maxima=``) refuses a family still unported (items 12e-12f) and
 a mesh (item 13), and its engine refuses the matmul kernels as the
 reference's does; it serves the dense layout and the bucketed scheduler
 (tests/test_torch_bucketed.py), the prefix cache
@@ -30,14 +30,15 @@ PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
 
 
 def test_model_names_items_11_12_for_other_families():
-    """The vlm family is served now (tests/test_torch_vlm.py); the ssm
-    family's refusal names its own sub-item, 12d."""
+    """The vlm family is served now (tests/test_torch_vlm.py), and so is
+    the ssm family (tests/test_torch_ssm.py); the audio family's refusal
+    names its own sub-item, 12e."""
     Model(dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=1,
                               d_model=64, num_heads=4, num_kv_heads=4,
                               head_dim=16, d_ff=128, vocab_size=128),
           device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 12d"):
-        Model(dataclasses.replace(CFG, family="ssm"), device="cpu")
+    with pytest.raises(ValueError, match="Queue 1 item 12e"):
+        Model(dataclasses.replace(CFG, family="audio"), device="cpu")
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
@@ -67,7 +68,7 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
 
 @pytest.mark.parametrize("change,item", [
     (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="ssm")), "item 12d"),
+    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
 ])
 def test_fleet_refusals_name_their_items(change, item):
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))

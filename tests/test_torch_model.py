@@ -256,9 +256,9 @@ def test_entry_points_need_a_device_choice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(arch=dataclasses.replace(CFG, family="ssm")), "item 12d"),
-    (dict(arch=dataclasses.replace(CFG, family="ssm"),
-          memory=MemorySpec(cache_layout="dense")), "item 12d"),
+    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
+    (dict(arch=dataclasses.replace(CFG, family="audio"),
+          memory=MemorySpec(cache_layout="dense")), "item 12e"),
     (dict(mesh=object()), "item 13"),
     (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
 ])
