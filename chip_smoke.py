@@ -335,6 +335,29 @@ Phases (any failure raises and the script exits non-zero):
    real positions, and all), [8, 1, 2560] and [2, 300, 2560] with ragged
    lengths, timed beside its bound (no library call computes it).
 
+17. The ssm family (ROADMAP Queue 1 item 12d): falcon-mamba-7b at its
+   published widths (``check_ssm``): f32 steps at 8 of 64 layers, bf16
+   serving at all 64 on dense + bucketed, a decode step and a prefill
+   timed against their bounds; phase 2 holds ``ssm_scan`` bit for bit.
+
+18. The audio family (ROADMAP Queue 1 item 12e): whisper-medium at its
+   published widths (``check_audio``), seeded random weights.  (a) At f32
+   compute and 4 + 4 of its 24 + 24 layers, the kernel path against the
+   plain route (``"xla"``, the same weights) within phase 4's gate:
+   ``forward`` over 1500 seeded frames, a 40-token prefill in its
+   64-token bucket with the stub's zero frames and 4 decode steps; the
+   prefill's and a step's launches equal ``program_launches``; the paged
+   layout, the chunked scheduler and ``mixed_step`` refused.  (b) bf16 at
+   all 24 + 24 layers on dense + bucketed, 8 slots of 512, 8 greedy
+   requests of 4-224 decoder tokens (four buckets) x 32 new, graphed
+   (first, warm, traced) and eager: graphed = eager, one capture per
+   bucket and one of the decode program, launches = ``program_launches``;
+   tok/s, device ms by kernel, idle share, peak memory.  (d) A graphed
+   8-slot decode step and an eager 256-token prefill against their
+   bounds.  Phase 2 holds ``tiled_matmul`` at whisper's products (M 8
+   and 1500) and ``layernorm`` at 8 and 1500 x 1024, the latter the
+   layernorm row of the JSON table, whose launches are phase 18's.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -461,6 +484,13 @@ RGEMMA_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
 FALCON_MATMULS = {(4096, 16384): "in_proj", (8192, 288): "x_proj",
                   (256, 8192): "dt_proj", (8192, 4096): "out_proj"}
 FALCON_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
+# whisper-medium (configs/whisper_medium.py): a layer's bf16 products, (K,
+# N) -> name (16 heads of 64, d_ff 4096), at a decode step's 8 rows and
+# the encoder's 1500 frames (its layers and every decoder layer's cross
+# K/V; phase 18)
+WHISPER_MATMULS = {(1024, 1024): "wq/wk/wv/wo, cross", (1024, 4096): "w1",
+                   (4096, 1024): "w2"}
+WHISPER_ROWS = {8: "decode-step", 1500: "1500-frame encoder / cross K/V"}
 
 
 def prefill_rows() -> dict[tuple[int, int, int], str]:
@@ -477,10 +507,14 @@ def prefill_rows() -> dict[tuple[int, int, int], str]:
 
 
 def falcon_rows() -> dict[tuple[int, int, int], str]:
-    """Phase 2's ``tiled_matmul`` rows at phase 17's shapes."""
-    return {(m, k, n): f"falcon-mamba-7b {step} {name}"
+    """Phase 2's ``tiled_matmul`` rows at phase 17's and 18's shapes."""
+    rows = {(m, k, n): f"falcon-mamba-7b {step} {name}"
             for m, step in FALCON_ROWS.items()
             for (k, n), name in FALCON_MATMULS.items()}
+    rows.update({(m, k, n): f"whisper-medium {step} {name}"
+                 for m, step in WHISPER_ROWS.items()
+                 for (k, n), name in WHISPER_MATMULS.items()})
+    return rows
 
 
 KERNELS = wrappers()        # {kernel name: its wrapper}, the JSON's order
@@ -492,6 +526,11 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                           "chunked_prefill_attention", "rmsnorm"),
                 "int8": ("int8_matmul", "paged_decode_attention",
                          "chunked_prefill_attention", "rmsnorm"),
+                # phase 18: whisper-medium on dense + bucketed (its
+                # attends are plain torch, as the reference's XLA); listed
+                # before "ops" so that layernorm's JSON launches are the
+                # serving path's
+                "audio": ("tiled_matmul", "layernorm"),
                 "ops": ("ffn1", "ffn1_gated", "qkv_proj", "layernorm",
                         "rmsnorm", "flash_attention"),
                 # the multi-topology fleet: both with live_kv, float and
@@ -592,8 +631,9 @@ SOURCES = {
 #   length 64, here at batch 8 (512 rows)
 # whisper-medium (configs/whisper_medium.py): 16 heads of 64 over the
 #   encoder's 1500 frames (cross attention)
-# each norm's JSON row: a qwen1.5-0.5b mixed step, an adaptor_bert batch
-MAIN_NORM = {"rmsnorm": (128, 1024), "layernorm": (512, 768)}
+# each norm's JSON row: a qwen1.5-0.5b mixed step, whisper-medium's
+# encoder over its 1500 frames (phase 18's serving path)
+MAIN_NORM = {"rmsnorm": (128, 1024), "layernorm": (1500, 1024)}
 QWEN = dict(rows=128, d=1024, ff=2816, heads=16, hd=64, prompt=512)
 QWEN72 = dict(d=8192, kv_width=1024, heads=64, hd=128)
 BERT = dict(batch=8, seq=64, d=768, ff=3072, heads=12, hd=64)
@@ -704,7 +744,7 @@ def check_matmul(timer, dev, g) -> dict:
     shapes += [(m, k, n, torch.bfloat16) for m in STEP_ROWS.values()
                for k, n in DEEPSEEK_MATMULS]
     # phase 15's phi-3-vision steps and prefills, qwen's 512 bucket, phase
-    # 16's recurrentgemma and phase 17's falcon-mamba
+    # 16's recurrentgemma, phase 17's falcon-mamba and phase 18's whisper
     extra = {**prefill_rows(), **falcon_rows()}
     shapes += [(*mkn, torch.bfloat16) for mkn in extra]
     shapes += [(128, 1024, 2816, torch.float32), (77, 300, 199, torch.bfloat16),
@@ -4632,6 +4672,304 @@ def check_ssm(dev, g) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the audio family (whisper-medium)
+# ---------------------------------------------------------------------------
+AUDIO = "whisper-medium"
+# 18a: f32 at 4 of the 24 encoder and 4 of the 24 decoder layers
+AUDIO_STEP_LAYERS = 4
+AUDIO_DECODE = 4
+# 18b: every layer, dense + bucketed at 8 slots of 512 positions (buckets
+# 32-512); decoder prompts of 4-224 tokens (whisper's prompt limit is half
+# its 448-token decoder context) over four buckets, 32 new tokens each
+AUDIO_ENGINE = dict(max_batch=8, max_len=512)
+AUDIO_PROMPTS = (4, 17, 33, 60, 100, 150, 200, 224)
+AUDIO_NEW = 32
+
+
+def audio_cut(layers: int) -> ArchConfig:
+    full = get_config(AUDIO)
+    return dataclasses.replace(full, num_layers=layers, encdec=dataclasses
+                               .replace(full.encdec,
+                                        num_encoder_layers=layers))
+
+
+def audio_spec(cfg: ArchConfig, policy: str = "bucketed",
+               layout: str = "dense") -> RuntimeSpec:
+    """Phase 18's spec on the kernel path: whisper-medium in bf16 on the
+    dense layout and the bucketed scheduler (the only path the reference
+    gives the family)."""
+    return RuntimeSpec(
+        arch=cfg, execution=ExecutionSpec(matmul_backend="pallas"),
+        memory=MemorySpec(cache_layout=layout, **AUDIO_ENGINE),
+        scheduler=SchedulerSpec(policy=policy))
+
+
+def audio_steps(dev, g) -> None:
+    """Phase 18a at f32 compute and ``AUDIO_STEP_LAYERS`` + as many
+    encoder layers, seeded weights: the kernel path (``tiled_matmul``,
+    ``layernorm``) against the plain route (``"xla"``, the same weights):
+    ``forward`` of 64 tokens over 1500 seeded frames, then ``prefill`` of
+    a 40-token prompt right-padded to its 64-token bucket with the zero
+    frames (as the engine stages it) and ``AUDIO_DECODE`` decode steps,
+    each within phase 4's gate, 2e-2 x max|logits| (the real positions'
+    logits); the prefill's and a step's launches against
+    ``program_launches``.  Then the spec refuses the paged layout and the
+    chunked scheduler, ``mixed_step`` raises, "auto" resolves to the
+    bucketed scheduler."""
+    cfg = audio_cut(AUDIO_STEP_LAYERS)
+    frames = cfg.encdec.encoder_seq_len
+    kern = Model(cfg, compute_dtype=torch.float32, device=dev,
+                 matmul_backend="pallas").init(g)
+    plain = Model(cfg, compute_dtype=torch.float32, device=dev)
+    plain.load_state_dict(kern.state_dict())
+    P, S, D = 40, 64, AUDIO_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev,
+                         dtype=torch.int32)
+    fe = torch.randn(1, frames, cfg.d_model, generator=g, device=dev)
+    zeros = torch.zeros(1, frames, cfg.d_model, dtype=torch.bfloat16,
+                        device=dev)
+    padded = torch.zeros(1, S, dtype=torch.int32, device=dev)
+    padded[:, :P] = toks[:, :P]
+    lengths = torch.tensor([P], dtype=torch.int32, device=dev)
+    print(f"\n== {AUDIO} at its published widths ({cfg.num_layers} + "
+          f"{cfg.encdec.num_encoder_layers} of 24 + 24 layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim},"
+          f" d_ff {cfg.d_ff}, {frames} frames, vocab {cfg.vocab_size}), f32 "
+          f"compute: forward of {S} tokens over seeded frames, a prefill of "
+          f"{P} tokens in the {S}-token bucket + {D} decode steps, |kernels "
+          "- plain route| (gated)")
+    out = {}
+    for path, model in (("kernels", kern), ("plain route", plain)):
+        zero_counts()
+        res = [model.forward(toks, fe)[0]]
+        fwd = launch_counts()
+        zero_counts()
+        logits, cache = model.prefill(padded, AUDIO_ENGINE["max_len"], zeros,
+                                      lengths=lengths)
+        res.append(logits[0, :P])
+        made = launch_counts()
+        for t in range(P, P + D):
+            zero_counts()
+            res.append(model.decode_step(cache, toks[:, t:t + 1], torch.tensor(
+                [t], dtype=torch.int32, device=dev))[0, 0])
+        step = launch_counts()
+        out[path] = res
+        del cache, logits
+        if path == "kernels":
+            for program, have_all in (("prefill", made), ("decode", step)):
+                want = program_launches(cfg, program, layout="dense")
+                have = {n: have_all[n] for n in want}
+                print(f"  the kernel path's {program} launched {have} "
+                      f"(kernels/counts.py: {want})")
+                if have != want:
+                    raise AssertionError(f"{AUDIO} {program}: launches "
+                                         f"{have} != {want}")
+            print(f"  forward launched tiled_matmul {fwd['tiled_matmul']}, "
+                  f"layernorm {fwd['layernorm']}")
+        elif any(made[n] or step[n] or fwd[n] for n in made):
+            raise AssertionError(f"{AUDIO}: the plain route launched a "
+                                 "kernel")
+    cases = [f"forward of {S}", f"prefill of {P} in {S}"] + [
+        f"decode step at {t}" for t in range(P, P + D)]
+    for i, case in enumerate(cases):
+        ref = out["plain route"][i]
+        tol = LOGIT_TOL * float(ref.abs().max())
+        err = max_err(out["kernels"][i], ref)
+        print(f"  {case}: kernels {err:.4g}, tol {LOGIT_TOL} x max|logits| "
+              f"= {tol:.4g}")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{AUDIO} {case}: kernels {err} > {tol}")
+    for kw in (dict(policy="chunked"), dict(layout="paged")):
+        try:
+            audio_spec(cfg, **kw)
+        except ValueError as exc:
+            print(f"  {kw} is refused: {exc}")
+        else:
+            raise AssertionError(f"{AUDIO}: a spec with {kw} was accepted")
+    try:
+        kern.mixed_step(None, toks[:, :1], toks[0, :1], toks[0, :1])
+    except ValueError as exc:
+        print(f"  mixed_step is refused: {exc}")
+    else:
+        raise AssertionError(f"{AUDIO}: mixed_step ran")
+    if audio_spec(cfg, policy="auto").resolved_policy != "bucketed":
+        raise AssertionError(f"{AUDIO}: 'auto' did not resolve to bucketed")
+
+
+def audio_serving(params, cfg: ArchConfig) -> dict:
+    """Phase 18b: whisper-medium in bf16 (seeded random weights) at every
+    layer on dense + bucketed, ``AUDIO_ENGINE``'s geometry, 8 greedy
+    requests of ``AUDIO_PROMPTS`` decoder tokens x ``AUDIO_NEW`` new (the
+    frames the stub's zeros), graphed (first, warm, then a traced warm
+    drain) and eager, both engines resident: ``bucketed_engine_line``'s
+    gates (graphed = eager, one capture per bucket used and one of the
+    decode program, launches = ``program_launches``), no mixed program;
+    tok/s, device ms by kernel, idle share and the peak memory printed."""
+    rs = np.random.default_rng(18)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in AUDIO_PROMPTS]
+    buckets = engine_mod._buckets(AUDIO_ENGINE["max_len"])
+    used = sorted({next(b for b in buckets if b >= n) for n in AUDIO_PROMPTS})
+    print(f"\n== serving {AUDIO} in bf16 on dense + bucketed, "
+          f"{cfg.num_layers} + {cfg.encdec.num_encoder_layers} layers: "
+          f"{len(prompts)} greedy requests of {AUDIO_PROMPTS} decoder tokens "
+          f"x {AUDIO_NEW} new over the stub's zero frames, max_batch "
+          f"{AUDIO_ENGINE['max_batch']}, max_len {AUDIO_ENGINE['max_len']}, "
+          f"buckets {buckets} ({used} used), the kernel path")
+    if len(used) < 4:
+        raise AssertionError(f"{AUDIO}: the mix uses buckets {used}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = audio_spec(cfg)
+    eng = ServingEngine(spec, device="cuda", graphs=True)
+    eng.load(params)
+    eager = ServingEngine(spec, device="cuda", graphs=False)
+    eager.load(params)
+    t0 = time.perf_counter()
+    first = drain(eng, prompts, max_new=AUDIO_NEW)
+    first["warm"] = drain(eng, prompts, max_new=AUDIO_NEW)
+    traced = drain(eng, prompts, measure="profile", max_new=AUDIO_NEW)
+    runs = {"graphed": first, "eager": drain(eager, prompts,
+                                             max_new=AUDIO_NEW)}
+    print(f"  four drains took {time.perf_counter() - t0:.1f} s")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    programs = dict(eng._programs)
+    cross = sum(t.numel() * t.element_size()
+                for t in (eng.cache.cross_k, eng.cache.cross_v))
+    del eng, eager
+    label = f"{AUDIO} dense + bucketed"
+    bucketed_engine_line(label, cfg, "bucketed", "dense", runs, len(prompts),
+                         PATH_KERNELS["audio"], max_new=AUDIO_NEW)
+    if first["compilations"]["prefill_buckets"] != len(used) \
+            or programs.get("mixed"):
+        raise AssertionError(f"{label}: programs {programs}; want one "
+                             f"capture per bucket of {used} and no mixed "
+                             "program")
+    warm = first["warm"]
+    n_tok = len(prompts) * AUDIO_NEW
+    print(f"  {label}: tok/s graphed first {n_tok / first['dt']:.1f}, warm "
+          f"{n_tok / warm['dt']:.1f}, eager "
+          f"{n_tok / runs['eager']['dt']:.1f}; {len(prompts)} prefills "
+          f"({sum(AUDIO_PROMPTS)} decoder prompt tokens, "
+          f"{len(prompts)} x {cfg.encdec.encoder_seq_len} frames), "
+          f"{warm['steps']} decode steps")
+    dev_s = traced["device_s"]
+    if dev_s is None:
+        print("  the profiler traced no device activity: device time and "
+              "idle share not measured")
+    else:
+        idle = 1 - dev_s / warm["dt"]
+        print(f"  {label}, warm drain traced: {dev_s * 1e3:.1f} ms of device "
+              f"time; idle {idle:.3f} of the untraced warm drain's "
+              f"{warm['dt']:.3f} s ({1 - dev_s / traced['dt']:.3f} of the "
+              f"traced drain's {traced['dt']:.3f} s); the 12 longest "
+              "kernels:")
+        for key, calls_n, ms in traced["top"][:12]:
+            print(f"    {key[:90]:<90} {calls_n:>6} {ms:9.3f} "
+                  f"{ms / (dev_s * 1e3):6.1%}")
+        for name in ("mma_", "norm_"):
+            rows = [(k, c, ms) for k, c, ms in traced["kernels"] if name in k]
+            print(f"  {name}* in the traced drain: {len(rows)} kernels, "
+                  f"{sum(c for _, c, _ in rows)} calls, "
+                  f"{sum(ms for _, _, ms in rows):.3f} ms")
+    print(f"  {label}: max_memory_allocated {peak:.2f} GB (graphed and eager "
+          f"engines resident with the source weights; each engine's cross "
+          f"rows {cross / 1e9:.3f} GB, {cross / 8e6:.1f} MB a slot)")
+    return {"audio": first["launches"]}
+
+
+def audio_step_times(model: Model, dev, g) -> None:
+    """Phase 18d on the bf16 model at every layer: one decode step of
+    ``AUDIO_ENGINE``'s 8 slots at position 100, captured as a CUDA graph
+    and replayed, and one prefill of a 256-token bucket with the zero
+    frames (eager: it is device-bound), each timed by ``Timer`` (median,
+    L2 flushed) beside its bound.  The decode step is bounded by bytes:
+    the decoder's layers, the f32 ``lm_head`` table, the 8 slots' cross
+    rows and their self rows up to the position read once, the new self
+    rows written, at 3.35 TB/s.  The prefill by operations: the encoder's
+    products and attention over the frames, the cross K/V, the decoder's
+    products, self- and cross-attention at 989 TFLOP/s, its f32 unembed of
+    every lane at 67."""
+    cfg, timer = model.cfg, Timer(dev)
+    B, M = AUDIO_ENGINE["max_batch"], AUDIO_ENGINE["max_len"]
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    Le, F = cfg.encdec.num_encoder_layers, cfg.encdec.encoder_seq_len
+    cache = model.init_cache(batch=B, max_len=M)
+    pos = 100
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    idx = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            model.decode_step(cache, toks, idx)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        model.decode_step(cache, toks, idx)
+    dec_ms = timer(graph.replay)
+    layer_bytes = sum(t.numel() * t.element_size() for n, t in
+                      model.named_parameters() if n.startswith("layers."))
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for t in (cache.cross_k, cache.cross_v))
+    row = cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    self_bytes = 2 * L * B * (pos + 2) * row
+    head = cfg.vocab_size * d * 4
+    dec_bound, _ = bound_ms(layer_bytes + head + cross_bytes + self_bytes,
+                            0, torch.bfloat16)
+    del graph, cache
+    S = 256
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                           device=dev, dtype=torch.int32)
+    zeros = torch.zeros(1, F, d, dtype=torch.bfloat16, device=dev)
+    pre_ms = timer(lambda: model.prefill(prompt, M, zeros), reps=3, warm=1)
+    enc = 2 * F * Le * (4 * d * d + 2 * d * ff) + 4 * F * F * d * Le
+    cross_kv = 2 * F * L * 2 * d * d
+    dec = 2 * S * L * (6 * d * d + 2 * d * ff) + 2 * S * S * d * L \
+        + 4 * S * F * d * L
+    unembed = 2 * S * cfg.vocab_size * d
+    pre_bound = bound_ms(0, enc + cross_kv + dec, torch.bfloat16)[0] \
+        + bound_ms(0, unembed, torch.float32)[0]
+    print(f"  decode step, {B} slots at position {pos}, graphed: "
+          f"{dec_ms:.3f} ms; bound {dec_bound:.3f} ms "
+          f"({layer_bytes / 1e9:.3f} GB of decoder layers, the "
+          f"{head / 1e9:.3f} GB f32 lm_head, {cross_bytes / 1e9:.3f} GB of "
+          f"cross rows, {self_bytes / 1e9:.4f} GB of self rows)")
+    print(f"  {S}-token prefill (encoder over {F} frames included), eager: "
+          f"{pre_ms:.3f} ms; bound {pre_bound:.3f} ms "
+          f"({enc / 1e12:.3f} TFLOP encoder, {cross_kv / 1e12:.3f} cross "
+          f"K/V, {dec / 1e12:.3f} decoder at 989 TFLOP/s, "
+          f"{unembed / 1e12:.3f} TFLOP of f32 unembed at 67)")
+
+
+def check_audio(dev, g) -> dict:
+    """Phase 18 on whisper-medium at its published widths: 18a's f32
+    steps at ``AUDIO_STEP_LAYERS`` + as many encoder layers
+    (``audio_steps``), then 18b's bf16 serving at all 24 + 24 layers
+    (``audio_serving``) and 18d's decode step and prefill times
+    (``audio_step_times``), each from its own seeded weights.  (Phase 2
+    holds 18c's kernels at whisper's shapes.)"""
+    t_start = time.perf_counter()
+    audio_steps(dev, g)
+    torch.cuda.empty_cache()
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    cfg = get_config(AUDIO)
+    model = Model(cfg, device=dev, matmul_backend="pallas").init(g)
+    n_params = sum(t.numel() for t in model.parameters())
+    print(f"\n== phase 18: {AUDIO} at depth {cfg.num_layers} + "
+          f"{cfg.encdec.num_encoder_layers}, {n_params / 1e9:.3f} G "
+          "parameters")
+    params = model.state_dict()
+    launches = audio_serving(params, cfg)
+    audio_step_times(model, dev, g)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the register-driven engine (the paper's claim C1)
 # ---------------------------------------------------------------------------
 # the paper's three evaluation networks (configs/adaptor_bert.py,
@@ -5148,10 +5486,13 @@ def main() -> int:
     lap("phase 16")
     launches.update(check_ssm(dev, g))
     lap("phase 17")
+    launches.update(check_audio(dev, g))
+    lap("phase 18")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
-                 "bucketed_dense", "bucketed_paged", "hybrid", "ssm"):
+                 "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
+                 "audio"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

@@ -16,7 +16,13 @@ dict of its kind's leaves: ``rglru.*`` or ``attn.*`` beside ``ln1``,
 ``ln2`` and ``ffn``), so they map leaf for leaf onto ``layers.<i>.``.  An
 ssm model's layers are stacked like the dense family's: ``layers.ln`` and
 ``layers.ssm.{in_proj, conv_w, conv_b, x_proj, dt_proj (kernel and
-bias), a_log, d_skip, out_proj}`` split on their leading axis.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
+bias), a_log, d_skip, out_proj}`` split on their leading axis.  An
+enc-dec (audio) model stacks its encoder on a leading axis of
+``encdec.num_encoder_layers``: ``enc_layers.*`` becomes
+``enc_layers.<i>.`` (the dense layer's leaves), while its decoder layers
+(``ln_cross`` and ``cross.{wq,wk,wv,wo}`` among them) unstack as
+``layers.*`` do; ``enc_final_norm``, ``enc_pos_embed.table`` and the
+decoder's ``pos_embed.table`` carry over by name.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
 training-only module (ROADMAP.md Queue 1 item 16) that the port's serving
 ``Model`` does not hold, so it is left out.
 
@@ -81,17 +87,23 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
     """
     flat = _flatten({k: v for k, v in np_tree.items() if k != "mtp"})
     stacked = cfg.num_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
+    stacks = {"layers.": (stacked, "num_layers", cfg.num_layers)}
+    if cfg.encdec is not None:
+        n_enc = cfg.encdec.num_encoder_layers
+        stacks["enc_layers."] = (n_enc, "num_encoder_layers", n_enc)
     out: dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         t = _tensor(arr, name, dtype)
-        if name.startswith("layers.") and cfg.hybrid is None:
-            if t.shape[0] != stacked:
+        prefix = next((p for p in stacks if name.startswith(p)), None)
+        if prefix is not None and cfg.hybrid is None:
+            n, field, depth = stacks[prefix]
+            if t.shape[0] != n:
                 raise ValueError(f"{name}: leading axis {t.shape[0]} != "
-                                 f"the {stacked} stacked layers of "
-                                 f"num_layers={cfg.num_layers}")
-            rest = name[len("layers."):]
-            for i in range(stacked):
-                out[f"layers.{i}.{rest}"] = t[i].to(device).contiguous()
+                                 f"the {n} stacked layers of "
+                                 f"{field}={depth}")
+            rest = name[len(prefix):]
+            for i in range(n):
+                out[f"{prefix}{i}.{rest}"] = t[i].to(device).contiguous()
         else:
             out[name] = t.to(device)
     return out

@@ -9,7 +9,9 @@ qwen1.5-0.5b,adaptor-bert-shaped``); of the MoE family granite-moe-1b-a400m and 
 (``--arch phi-3-vision-4.2b``, its stub frontend zeros in serving); of
 the ssm family falcon-mamba-7b (``--arch falcon-mamba-7b``, Mamba-1's
 selective scan, attention-free); of the hybrid family recurrentgemma-2b (``--arch recurrentgemma-2b``, RG-LRU
-and local attention); and
+and local attention); of the audio family whisper-medium (``--arch
+whisper-medium``, an encoder over the stub frontend's frames and a decoder
+with cross-attention, its frames zeros in serving); and
 the paper's three evaluation networks, which the register-driven engine
 runs (``core/adaptive.py``): adaptor-bert, shallow-transformer and
 custom-encoder, of the encoder family.
@@ -22,7 +24,8 @@ from repro_torch.configs import (adaptor_bert, adaptor_bert_shaped,
                                  granite_moe_1b_a400m,
                                  phi3_mini_3_8b, phi_3_vision_4_2b,
                                  qwen1_5_0_5b, qwen2_72b,
-                                 recurrentgemma_2b, shallow_transformer)
+                                 recurrentgemma_2b, shallow_transformer,
+                                 whisper_medium)
 from repro_torch.configs.base import (ArchConfig, EncDecConfig,
                                       FrontendConfig, HybridConfig,
                                       MLAConfig, SSMConfig, reduced)
@@ -41,7 +44,7 @@ REGISTRY: dict[str, ArchConfig] = {
                         granite_moe_1b_a400m.CONFIG,
                         deepseek_v3_671b.CONFIG, phi_3_vision_4_2b.CONFIG,
                         recurrentgemma_2b.CONFIG, falcon_mamba_7b.CONFIG,
-                        *PAPER_NETWORKS)}
+                        whisper_medium.CONFIG, *PAPER_NETWORKS)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -168,7 +168,12 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
     32 / 16 with head dims 16 + 8 and 16; an SSM to state 8, conv 4,
     expand 2 and dt rank 8; a hybrid pattern kept, with the
     RG-LRU at d_model (lru_width 0), a window of 32 and one pattern period
-    of layers; a frontend to 8 tokens of 64; an MTP depth to 1)."""
+    of layers; an encoder-decoder to 2 encoder layers over 16 frames; a
+    frontend to 8 tokens of 64; an MTP depth to 1).  The rule is copied as
+    it is: a reduced audio config's frontend (8 frames) does not fill its
+    encoder's 16 positions, so it cannot be served until a caller sets
+    ``frontend.num_tokens`` to ``encoder_seq_len`` (the reference's engine
+    fails there; ROADMAP.md Queue 3)."""
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     small: dict[str, Any] = dict(
@@ -206,6 +211,9 @@ def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:
         small["hybrid"] = HybridConfig(
             pattern=cfg.hybrid.pattern, lru_width=0, attention_window=32)
         small["num_layers"] = len(cfg.hybrid.pattern)  # one pattern period
+    if cfg.encdec is not None:
+        small["encdec"] = EncDecConfig(num_encoder_layers=2,
+                                       encoder_seq_len=16)
     if cfg.frontend is not None:
         small["frontend"] = FrontendConfig(
             kind=cfg.frontend.kind, num_tokens=8, feature_dim=64)

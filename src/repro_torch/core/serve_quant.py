@@ -13,7 +13,8 @@ Eligibility is the reference's, which measures the *stacked* leaf: the
 reference keeps one ``[L, K, N]`` array per projection, the port one
 ``[K, N]`` module per layer, so a ``layers.<i>.`` kernel is compared with
 ``quant_min_size`` at ``L * K * N`` elements, L the number of
-``layers.<i>.`` modules (an MoE model's main stack; its ``dense_prefix``
+``layers.<i>.`` modules (an enc-dec model's ``enc_layers.<i>.`` kernels
+at the encoder's depth; an MoE model's main stack; its ``dense_prefix``
 layers are unstacked leaves in the reference and are measured alone, as
 is every layer of a hybrid model, which the reference keeps as a list:
 its RG-LRU's ``in_x``, ``in_gate`` and ``out`` kernels included).
@@ -27,6 +28,10 @@ reference's ``_mla_attend`` reshapes the leaf and raises
 ``AttributeError`` on its ``QTensor`` (``src/repro/models/attention.py``
 ``_mla_attend``).  ``check_mla_quant`` refuses such a configuration with
 a ``ValueError`` rather than serve something the reference cannot.
+So does ``check_position_quant`` for a learned position table (the
+decoder's ``pos_embed`` and an encoder's ``enc_pos_embed``): the size rule
+quantizes it as a ``table``, and the reference's embedding calls
+``.astype`` on the ``QTensor`` and raises ``AttributeError``.
 """
 from __future__ import annotations
 
@@ -39,17 +44,19 @@ from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
 SCALE_SUFFIX = "_scale"
 
 
-def stacked_layers(names) -> int:
-    """Number of ``layers.<i>.`` modules named in a state dict."""
-    idx = [int(n.split(".")[1]) for n in names if n.startswith("layers.")]
+def stacked_layers(names, prefix: str = "layers.") -> int:
+    """Number of ``<prefix><i>.`` modules named in a state dict."""
+    idx = [int(n.split(".")[1]) for n in names if n.startswith(prefix)]
     return max(idx) + 1 if idx else 0
 
 
 def eligible(name: str, shape, num_layers: int,
-             min_size: int = DEFAULT_QUANT_MIN_SIZE) -> str | None:
+             min_size: int = DEFAULT_QUANT_MIN_SIZE,
+             enc_layers: int = 0) -> str | None:
     """'kernel' / 'table' when the leaf ``name`` of ``shape`` is quantized
     (the reference's ``_eligible`` on the stacked leaf); ``num_layers``
-    is the count of ``layers.<i>.`` modules (``stacked_layers``)."""
+    is the count of ``layers.<i>.`` modules (``stacked_layers``),
+    ``enc_layers`` that of an encoder's ``enc_layers.<i>.``."""
     kind = name.rsplit(".", 1)[-1]
     if kind not in ("kernel", "table") or len(shape) < 2:
         return None
@@ -58,6 +65,8 @@ def eligible(name: str, shape, num_layers: int,
         n *= d
     if name.startswith("layers."):
         n *= num_layers
+    elif name.startswith("enc_layers."):
+        n *= enc_layers
     return kind if n >= min_size else None
 
 
@@ -98,6 +107,38 @@ def check_mla_quant(cfg, min_size: int = DEFAULT_QUANT_MIN_SIZE) -> None:
             f"{max(c for _, c in bad)} or serve float weights")
 
 
+def position_tables(cfg) -> list[tuple[str, int]]:
+    """The learned position tables of ``cfg`` with their element counts:
+    the decoder's ``pos_embed.table`` and an encoder's
+    ``enc_pos_embed.table``."""
+    if cfg.positional != "learned":
+        return []
+    out = [("pos_embed.table", cfg.max_position_embeddings * cfg.d_model)]
+    if cfg.encdec is not None:
+        out.append(("enc_pos_embed.table",
+                    cfg.encdec.encoder_seq_len * cfg.d_model))
+    return out
+
+
+def check_position_quant(cfg, min_size: int = DEFAULT_QUANT_MIN_SIZE
+                         ) -> None:
+    """Refuse int8 weights where the size rule would quantize a learned
+    position table (``position_tables``)."""
+    bad = [(n, c) for n, c in position_tables(cfg)
+           if eligible(n, (c, 1), 0, min_size)]
+    if bad:
+        names = ", ".join(f"{n} ({c} elements)" for n, c in bad)
+        raise ValueError(
+            f"{cfg.name}: quant='int8' at quant_min_size={min_size} would "
+            f"quantize the learned position tables {names}, which the "
+            "embedding adds as float rows; the reference cannot serve this "
+            "configuration (its _embed_inputs and decode_step call .astype "
+            "on the QTensor and raise AttributeError, "
+            "src/repro/models/model.py:392 and :709), so the port refuses "
+            f"it: set quant_min_size above {max(c for _, c in bad)} or "
+            "serve float weights")
+
+
 def quantize_leaf(w: torch.Tensor, kind: str) -> QTensor:
     """Kernels ``[..., K, N]``: per-(stack, column) scales ``[..., 1, N]``
     reduced over the contraction dim only (``[1, N]`` for one layer's
@@ -119,11 +160,13 @@ def quantize_params(params: Mapping[str, torch.Tensor],
     scales) pass through, so the call is idempotent.  ``layers``: what a
     ``layers.<i>.`` leaf's size is multiplied by (None: the stacked layers
     the dict names; 1 for a hybrid model, whose layers the reference keeps
-    unstacked)."""
+    unstacked); an ``enc_layers.<i>.`` leaf's by the encoder layers the
+    dict names."""
     layers = stacked_layers(params) if layers is None else layers
+    enc = stacked_layers(params, "enc_layers.")
     out: dict[str, torch.Tensor] = {}
     for name, t in params.items():
-        kind = eligible(name, t.shape, layers, min_size)
+        kind = eligible(name, t.shape, layers, min_size, enc)
         if kind is None or not t.is_floating_point():
             out[name] = t
             continue

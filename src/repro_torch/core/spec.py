@@ -14,13 +14,17 @@ both packages:
 
 What the port serves so far is the dense, vlm and moe families (GQA or
 MLA attention; MLA on one model's engine, never in a fleet), the ssm
-family (Mamba-1's selective scan) and the hybrid family (RG-LRU and
-local attention), these two on the dense layout, the bucketed scheduler
-and a float cache only (the reference's rules), through the
+family (Mamba-1's selective scan), the hybrid family (RG-LRU and local
+attention) and the audio family (an encoder over the stub frontend's
+frames and a decoder with cross-attention), these three on the dense
+layout, the bucketed scheduler and a float cache only (the reference's
+rules), through the
 dense per-slot cache or the paged pool (``MemorySpec.cache_layout``) and
 the chunked or the bucketed scheduler (``SchedulerSpec.policy``, "auto"
 resolving as the reference's engine does: ``RuntimeSpec.resolved_policy``),
-with float or int8 weights (``quant``) and a float or int8 KV cache
+with float or int8 weights (``quant``; refused where the size rule would
+quantize an MLA up-projection or a learned position table, which the
+reference cannot serve) and a float or int8 KV cache
 (``MemorySpec.kv_dtype``), one model or a fleet of dense models within
 ``maxima`` (``maxima_for``; a fleet's int8 weights are its own int8
 weight table), with or without the prefix cache (``MemorySpec.prefix_cache``,
@@ -45,7 +49,8 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
 from repro_torch.core.kv_quant import KV_DTYPES
 from repro_torch.core.paging import PagingConfig, blocks_for_tokens
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
-from repro_torch.core.serve_quant import check_mla_quant
+from repro_torch.core.serve_quant import (check_mla_quant,
+                                          check_position_quant)
 from repro_torch.core.registers import Maxima, TopologyRegisters, \
     registers_for
 
@@ -62,7 +67,7 @@ _DTYPE_ALIASES = {
 }
 
 # Families the port serves so far.
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 # Families whose decode state is a genuine KV/latent cache (the reference's
 # KV_QUANTIZABLE_FAMILIES) and whose prefill can be replayed through the
 # fused chunked step (its CHUNKABLE_FAMILIES): attention caches are
@@ -70,7 +75,20 @@ PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 KV_QUANTIZABLE_FAMILIES = ("dense", "vlm", "moe")
 CHUNKABLE_FAMILIES = ("dense", "vlm", "moe")
 # the ROADMAP.md Queue 1 sub-item that ports each family still refused
-FAMILY_ITEMS = {"audio": "item 12e", "encoder": "item 12f"}
+FAMILY_ITEMS = {"encoder": "item 12f"}
+
+
+def check_encdec(cfg: ArchConfig) -> None:
+    """A decoding config is of the audio family exactly when it has an
+    ``EncDecConfig``: the encoder-decoder model is that family's, and no
+    other decoding family builds an encoder."""
+    if cfg.family != "encoder" and \
+            (cfg.family == "audio") != (cfg.encdec is not None):
+        has = "an" if cfg.encdec is not None else "no"
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} with {has} EncDecConfig: "
+            "the audio family is the encoder-decoder one and needs its "
+            "encdec, and no other decoding family takes one")
 
 
 def _normalize_dtype(field_name: str, value):
@@ -347,6 +365,8 @@ class RuntimeSpec:
                               FAMILY_ITEMS.get(cfg.family, "items 11-12"),
                               f"; the port serves the families "
                               f"{PORTED_FAMILIES}")
+        else:
+            check_encdec(cfg)
         if self.maxima is not None and cfg.mla is not None:
             raise ValueError(
                 f"{cfg.name}: multi-topology serving covers the dense GQA "
@@ -385,10 +405,12 @@ class RuntimeSpec:
             self._validate_speculation()
         if self.execution.quant == "int8":
             # the reference's _mla_attend cannot contract a quantized
-            # k_up / v_up; a draft is quantized by the same rule
+            # k_up / v_up, nor its embedding add a quantized position
+            # table; a draft is quantized by the same rule
             for arch in (cfg, *((self.speculation.draft_model,)
                                 if self.speculation is not None else ())):
                 check_mla_quant(arch, self.execution.quant_min_size)
+                check_position_quant(arch, self.execution.quant_min_size)
         if self.mesh is not None:
             raise _not_ported("mesh serving (mesh=...)", "item 13")
         if self.maxima is not None:
@@ -430,9 +452,9 @@ class RuntimeSpec:
 
     def _validate_cache_family(self) -> None:
         """The reference's refusals of a paged or int8 KV cache for a
-        decoding family whose state is not an attention cache (the ssm
+        decoding family whose state is not a paged attention cache (the ssm
         family's scan state, the hybrid family's RG-LRU state and rolling
-        buffers)."""
+        buffers, the audio family's self and cross rows)."""
         cfg, mem = self.arch, self.memory
         if mem.cache_layout == "paged" and \
                 cfg.family not in ("dense", "vlm", "moe"):

@@ -89,7 +89,18 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     An ssm model (``cfg.ssm``, dense layout and prefill or decode only)
     has no attention and no FFN: a layer's in_proj, x_proj, dt_proj and
     out_proj, its one norm, and a prefill's one ``ssm_scan`` (decode
-    updates h elementwise, as the reference); plus the final norm."""
+    updates h elementwise, as the reference); plus the final norm.
+
+    An audio model (``cfg.encdec``, dense layout and prefill or decode
+    only) counts ``layernorm`` in place of ``rmsnorm``.  Its prefill runs
+    the encoder (a layer's wq, wk, wv, wo, w1 and w2, its ln1 and ln2,
+    then the final norm) and every decoder layer's self-attention
+    projections, the cross-attention's wq and wo and its wk and wv over
+    the encoder's rows, w1 and w2, and its ln1, ln_cross and ln2, then the
+    final norm: 384 products and 122 norms at 24 + 24 layers.  A decode
+    step reads the cross K/V from the cache: 8 products and 3 norms a
+    decoder layer, plus the final norm (192 and 73).  The attends are
+    plain PyTorch, as the reference's are XLA."""
     if program not in PROGRAMS:
         raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
     L = cfg.num_layers
@@ -110,6 +121,13 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
                 "rmsnorm": 2 * L + 1, **none,
                 "rglru_scan": rec if program == "prefill" else 0,
                 "ssm_scan": 0}
+    if cfg.encdec is not None:
+        enc = cfg.encdec.num_encoder_layers if program == "prefill" else 0
+        mm = (4 + ffn) * enc + (10 if program == "prefill" else 8) * L
+        return {"tiled_matmul": 0 if quant else mm,
+                "int8_matmul": mm if quant else 0, "rmsnorm": 0,
+                "layernorm": (2 * enc + 1 if enc else 0) + 3 * L + 1,
+                **none, "rglru_scan": 0, "ssm_scan": 0}
     k = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if cfg.mla is not None:
         attn = 4 + (2 if program == "prefill" else 0)

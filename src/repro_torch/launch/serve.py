@@ -22,9 +22,14 @@ port's registry: qwen1.5-0.5b, the untied qwen2-72b, codeqwen1.5-7b and
 phi3-mini-3.8b, adaptor-bert-shaped, granite-moe-1b-a400m,
 deepseek-v3-671b, phi-3-vision-4.2b (its stub frontend's patch
 positions take zeros, as in the reference), recurrentgemma-2b (the
-hybrid family) and falcon-mamba-7b (the ssm family; ``--model`` is the
-same option): these two on the dense layout and the bucketed scheduler
-only, the reference's rule.  ``--prefix-cache`` shares
+hybrid family), falcon-mamba-7b (the ssm family; ``--model`` is the
+same option) and whisper-medium (the audio family): these three on the
+dense layout and the bucketed scheduler only, the reference's rule.
+whisper-medium's stub frontend feeds zero frames to its encoder (no
+request carries audio, as in the reference); the reduced config's stub
+of 8 frames is raised to the encoder's 16 positions, which the reference's
+reduced rule leaves unfilled (ROADMAP.md Queue 3), and the launcher prints
+that note.  ``--prefix-cache`` shares
 prompt-prefix KV blocks across requests (``core.paging.PrefixCache``) and
 reports its hits, skipped tokens, copy-on-write forks and evictions.
 
@@ -64,6 +69,7 @@ autotuner) is refused until ROADMAP.md Queue 1 item 15.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -164,6 +170,20 @@ def main(argv: list[str] | None = None) -> None:
     cfgs = [get_config(n) for n in names]
     if not args.full_width:
         cfgs = [reduced(c) for c in cfgs]
+    notes = []
+    for i, c in enumerate(cfgs):
+        if c.encdec is not None:
+            frames = c.encdec.encoder_seq_len
+            if c.frontend.num_tokens != frames:
+                notes.append(f"{c.name}: the reduced stub's "
+                             f"{c.frontend.num_tokens} frames raised to the "
+                             f"encoder's {frames} positions")
+                cfgs[i] = dataclasses.replace(c, frontend=dataclasses.replace(
+                    c.frontend, num_tokens=frames))
+            notes.append(f"{c.name}: the stub audio frontend feeds {frames} "
+                         "zero frames to the encoder (no request carries "
+                         "audio); each prefill computes the request's cross "
+                         "K/V once")
     cfg = cfgs[0]
     maxima = maxima_for(*cfgs, seq_max=args.max_len) if args.fleet else None
     speculation = draft_cfg = None
@@ -299,6 +319,8 @@ def main(argv: list[str] | None = None) -> None:
               "decoding slot)")
     if args.fleet:
         print(f"fleet: {names} served by one fused step")
+    for note in notes:
+        print(note)
     for r in done[:3]:
         print(f"  req {r.uid} (model {r.model}): prompt[:6]={r.prompt[:6]} "
               f"-> {r.generated[:10]}...")

@@ -41,6 +41,8 @@ NORM_SHAPES = (
     ("rmsnorm", 3072, 2560, "recurrentgemma-2b 3072-token prefill", 0),
     ("layernorm", 512, 768, "adaptor_bert 8 x 64 tokens", 0),
     ("layernorm", 12000, 1024, "whisper-medium encoder 8 x 1500", 0),
+    ("layernorm", 1500, 1024, "whisper-medium encoder 1500 frames", 0),
+    ("layernorm", 8, 1024, "whisper-medium decode step", 0),
     *((k, r, d, label, off) for k in ("rmsnorm", "layernorm")
       for r, d, label, off in ((4096, 65, "ragged D 65", 0),
                                (128, 3000, "D 3000", 0),

@@ -186,16 +186,17 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               scale: float | None = None,
-               window: int | None = None) -> torch.Tensor:
-    """Causal full-sequence attention (the reference's choice): banded
-    where a ``window`` is shorter than the sequence, else blockwise at
-    ``BLOCKWISE_THRESHOLD`` positions and past, else direct."""
+               scale: float | None = None, window: int | None = None,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (the reference's choice), causal unless
+    told otherwise (an encoder's): banded where a ``window`` is shorter
+    than the sequence, else blockwise at ``BLOCKWISE_THRESHOLD`` positions
+    and past, else direct."""
     if window is not None and q.shape[1] > window:
         return local_attention(q, k, v, window, scale=scale)
     if q.shape[1] >= BLOCKWISE_THRESHOLD:
-        return blockwise_attention(q, k, v, causal=True, scale=scale)
-    return full_attention(q, k, v, causal=True, scale=scale)
+        return blockwise_attention(q, k, v, causal=causal, scale=scale)
+    return full_attention(q, k, v, causal=causal, scale=scale)
 
 
 def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
@@ -212,20 +213,21 @@ def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
 
 
 def gqa_attention(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str,
-                  window: int | None = None) -> torch.Tensor:
-    """Full-sequence causal GQA attention (the forward pass); ``window``:
-    the hybrid family's local attention."""
-    return _gqa_full(x, p, cfg, positions, mm, window)[0]
+                  window: int | None = None,
+                  causal: bool = True) -> torch.Tensor:
+    """Full-sequence GQA attention (the forward pass), causal but in an
+    encoder; ``window``: the hybrid family's local attention."""
+    return _gqa_full(x, p, cfg, positions, mm, window, causal)[0]
 
 
 def _gqa_full(x: torch.Tensor, p, cfg: ArchConfig, positions, mm: str,
-              window: int | None = None):
-    """(output, k, v) of full-sequence causal GQA attention."""
+              window: int | None = None, causal: bool = True):
+    """(output, k, v) of full-sequence GQA attention."""
     b_, s, _ = x.shape
     q, k, v = gqa_qkv(x, p, cfg, positions, mm)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     o = _attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                   window=window)
+                   window=window, causal=causal)
     return apply_dense(o.reshape(b_, s, -1), p.wo, mm), k, v
 
 

@@ -1,8 +1,11 @@
 """The decoder LM of the port (the reference's ``Model`` for the families
-``dense``, ``vlm``, ``moe``, ``ssm`` and ``hybrid``, with GQA or MLA
-attention, or none):
+``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid`` and ``audio``, with GQA
+or MLA attention, or none):
 parameters, the paged KV pool and the dense per-slot cache, ``forward``,
-``prefill``, ``decode_step`` and ``mixed_step``.
+``prefill``, ``decode_step`` and ``mixed_step``.  A model with learned
+positions (``positional="learned"``) holds ``pos_embed.table``
+``[max_position_embeddings, d_model]`` and adds row ``min(p,
+max_position_embeddings - 1)`` to the embedding of position ``p``.
 
 The vlm family is the dense family's parameters and compute with a stub
 vision frontend (``cfg.frontend``): the first ``num_tokens`` positions of
@@ -44,7 +47,18 @@ each layer is ``layers.<i>.ln`` and the Mamba-1 block
 d_skip, out_proj}`` (``models/ssm.py``), stacked in the reference as the
 dense family's are.  Its decode state is an ``SSMState`` with a leading
 layer axis, dense only and never quantized; the bucketed prefill takes
-each prompt's real length (``lengths``), as the hybrid's does.  Dense
+each prompt's real length (``lengths``), as the hybrid's does.
+
+The audio family (``cfg.encdec``, Whisper) is an encoder-decoder over the
+stub frontend's frames (``frontend`` [B, encoder_seq_len, d_model]; zeros
+in serving): the encoder adds ``enc_pos_embed.table`` to the frames and
+runs ``enc_layers.<i>.`` (the dense layer, its attention non-causal),
+then ``enc_final_norm``; each decoder layer ``layers.<i>.`` holds
+``ln_cross`` and ``cross.{wq,wk,wv,wo}`` between its self-attention and
+its FFN, and attends from its queries over K/V projected from the
+encoder's output.  Its decode state is an ``EncDecCache``, dense only and
+never quantized: the decoder's self K/V and the cross K/V of the
+request's frames, computed once in the prefill.  Dense
 kernels (``[d_in, d_out]``,
 as the reference stores them), their biases and the expert weights are
 kept in the compute dtype, cast once from the parameter dtype (the
@@ -77,7 +91,8 @@ from repro_torch.core import serve_quant
 from repro_torch.core.kv_quant import FLOAT_CODEC, CacheCodec
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
-from repro_torch.core.spec import CHUNKABLE_FAMILIES, FAMILY_ITEMS
+from repro_torch.core.spec import (CHUNKABLE_FAMILIES, FAMILY_ITEMS,
+                                   KV_QUANTIZABLE_FAMILIES, check_encdec)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
@@ -238,6 +253,26 @@ class HybridCache(NamedTuple):
         return KVCache(self.k[j], self.v[j])
 
 
+class EncDecCache(NamedTuple):
+    """The audio family's decode state, bf16 at any compute dtype (the
+    reference's rule): each decoder layer's self K and V ``[L, B, max_len
+    + 1, kv, hd]`` (row ``max_len`` the dense layout's spare) and its
+    cross K and V ``[L, B, encoder_seq_len, kv, hd]``, projected from the
+    encoder's output once per request.  ``self_attn(i)`` and ``cross(i)``
+    are layer i's as views."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+    def self_attn(self, i: int) -> KVCache:
+        return KVCache(self.self_k[i], self.self_v[i])
+
+    def cross(self, i: int) -> KVCache:
+        return KVCache(self.cross_k[i], self.cross_v[i])
+
+
 class FFN(nn.Module):
     def __init__(self, cfg: ArchConfig, d_ff: int, bias: bool, dtype,
                  device):
@@ -268,14 +303,16 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    """A decoder layer: the dense FFN of width ``d_ff`` (with biases in a
-    layernorm model, as the paper's FFN) or, with ``moe``, the MoE
-    block; a hybrid model's ``"r"`` layer mixes with the RG-LRU block
-    in place of attention."""
+    """A decoder (or encoder) layer: the dense FFN of width ``d_ff`` (with
+    biases in a layernorm model, as the paper's FFN) or, with ``moe``,
+    the MoE block; a hybrid model's ``"r"`` layer mixes with the RG-LRU
+    block in place of attention; an enc-dec decoder's layer (``cross``)
+    has ``ln_cross`` and the cross-attention's projections between its
+    attention and its FFN."""
 
     def __init__(self, cfg: ArchConfig, param_dtype, compute_dtype, device,
                  d_ff: int | None = None, moe_block: bool = False,
-                 kind: str = "a"):
+                 kind: str = "a", cross: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
         if kind == "r":
@@ -284,6 +321,9 @@ class Block(nn.Module):
             self.attn = MLAttention(cfg, param_dtype, compute_dtype, device)
         else:
             self.attn = Attention(cfg, compute_dtype, device)
+        if cross:
+            self.ln_cross = Norm(cfg.d_model, cfg.norm, param_dtype, device)
+            self.cross = Attention(cfg, compute_dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, param_dtype, device)
         if moe_block:
             self.moe = MoE(cfg, param_dtype, compute_dtype, device)
@@ -299,7 +339,8 @@ class Embedding(nn.Module):
 
 
 class Model(nn.Module):
-    """A dense-, vlm-, MoE-, ssm- or hybrid-family causal LM.
+    """A dense-, vlm-, MoE-, ssm-, hybrid- or audio-family causal LM (the
+    audio family's decoder over its encoder's output).
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -315,23 +356,24 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid") \
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                              "audio") \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
                 or (cfg.family == "ssm") != (cfg.ssm is not None) \
-                or (cfg.family == "hybrid") != (cfg.hybrid is not None) \
-                or cfg.positional not in ("rope", "none"):
+                or (cfg.family == "hybrid") != (cfg.hybrid is not None):
             raise ValueError(
                 f"{cfg.name}: the port's Model serves the dense, vlm, moe, "
-                "ssm and hybrid families (an moe config with its MoEConfig, "
-                "an ssm one with its SSMConfig, a hybrid one with its "
-                "HybridConfig) with rope (or no) positions (ROADMAP.md "
-                "Queue 1 "
+                "ssm, hybrid and audio families (an moe config with its "
+                "MoEConfig, an ssm one with its SSMConfig, a hybrid one "
+                "with its HybridConfig) (ROADMAP.md Queue 1 "
                 f"{FAMILY_ITEMS.get(cfg.family, 'items 11-12')})")
+        check_encdec(cfg)
         cfg.validate()
         if quant not in ("none", "int8"):
             raise ValueError(f"quant={quant!r} is not one of ('none', 'int8')")
         if quant == "int8":
             serve_quant.check_mla_quant(cfg, quant_min_size)
+            serve_quant.check_position_quant(cfg, quant_min_size)
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
@@ -343,6 +385,10 @@ class Model(nn.Module):
         self.quant_min_size = quant_min_size
         self.codec = CacheCodec(kv_dtype)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, param_dtype, dev)
+        # learned positions: the decoder's table (and an encoder's below)
+        self.pos_embed = Embedding(cfg.max_position_embeddings, cfg.d_model,
+                                   param_dtype, dev) \
+            if cfg.positional == "learned" else None
         # an MoE model: the dense prefix, then the MoE blocks
         k = cfg.moe.first_k_dense if cfg.moe is not None else 0
         self.dense_prefix = nn.ModuleList(
@@ -362,9 +408,21 @@ class Model(nn.Module):
             if cfg.ssm is not None else
             Block(cfg, param_dtype, compute_dtype, dev,
                   moe_block=cfg.moe is not None,
-                  kind=self.kinds[i][0] if self.kinds else "a")
+                  kind=self.kinds[i][0] if self.kinds else "a",
+                  cross=cfg.encdec is not None)
             for i in range(cfg.num_layers - k))
         self.final_norm = Norm(cfg.d_model, cfg.norm, param_dtype, dev)
+        # an enc-dec model's encoder: its layers (non-causal attention),
+        # final norm and frame position table
+        self.enc_layers = self.enc_final_norm = self.enc_pos_embed = None
+        if cfg.encdec is not None:
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, param_dtype, compute_dtype, dev)
+                for _ in range(cfg.encdec.num_encoder_layers))
+            self.enc_final_norm = Norm(cfg.d_model, cfg.norm, param_dtype,
+                                       dev)
+            self.enc_pos_embed = Embedding(cfg.encdec.encoder_seq_len,
+                                           cfg.d_model, param_dtype, dev)
         # the untied unembedding [vocab, d_model] (the reference's
         # ``params["lm_head"]["table"]``); tied models unembed with the
         # embedding table
@@ -374,9 +432,9 @@ class Model(nn.Module):
             # expert and router leaves are not named kernel: they stay
             # float, as in the reference
             for name, prm in list(self.named_parameters()):
-                leaf = serve_quant.eligible(name, prm.shape,
-                                            self._stacked_layers(),
-                                            quant_min_size)
+                leaf = serve_quant.eligible(
+                    name, prm.shape, self._stacked_layers(), quant_min_size,
+                    len(self.enc_layers or ()))
                 if leaf is not None:
                     _to_int8(self.get_submodule(name.rpartition(".")[0]),
                              leaf)
@@ -505,8 +563,11 @@ class Model(nn.Module):
         scatters); no mask admits it.  A hybrid model's is its
         ``HybridCache`` (rolling buffers of ``min(window, max_len)`` rows,
         no spare row), an ssm model's its ``SSMState`` ``[layers, batch,
-        ...]`` (no positions at all); no codec quantizes either."""
-        if self.cfg.family in ("ssm", "hybrid") and codec.quantized:
+        ...]`` (no positions at all), an audio model's its ``EncDecCache``
+        (self rows as above, ``encoder_seq_len`` cross rows); no codec
+        quantizes these."""
+        if self.cfg.family not in KV_QUANTIZABLE_FAMILIES \
+                and codec.quantized:
             # the reference's refusal of an int8 cache for recurrent state
             raise ValueError(
                 f"kv_dtype='int8' is unsupported for family "
@@ -517,6 +578,14 @@ class Model(nn.Module):
                                       (self.cfg.num_layers,))
         if self.cfg.hybrid is not None:
             return self._hybrid_cache(batch, max_len)
+        if self.cfg.encdec is not None:
+            return EncDecCache(*(torch.zeros(
+                (self.cfg.num_layers, batch, rows, self.cfg.num_kv_heads,
+                 self.cfg.resolved_head_dim), dtype=torch.bfloat16,
+                device=self.device) for rows in (
+                    max_len + 1, max_len + 1,
+                    self.cfg.encdec.encoder_seq_len,
+                    self.cfg.encdec.encoder_seq_len)))
         lead = (self.cfg.num_layers, batch, max_len + 1)
         if self.cfg.mla is not None:
             return MLACache(*self._latents(codec, lead))
@@ -536,13 +605,20 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor,
-               frontend: torch.Tensor | None = None) -> torch.Tensor:
-        """Token embeddings in the compute dtype; for a model with a stub
+               frontend: torch.Tensor | None = None,
+               positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings in the compute dtype, plus a learned position
+        table's rows at ``positions`` (broadcastable to tokens' shape;
+        clamped to the table); for a decoder-only model with a stub
         frontend, positions below ``frontend.shape[1]`` take its rows
         (cast to the compute dtype) instead."""
         x = layers.embed(tokens, _weight(self.embed, "table"),
                          self.compute_dtype)
-        if frontend is not None and self.cfg.frontend is not None:
+        if self.pos_embed is not None:
+            idx = positions.clamp(max=self.cfg.max_position_embeddings - 1)
+            x = x + self.pos_embed.table[idx.long()].to(x.dtype)
+        if frontend is not None and self.cfg.frontend is not None \
+                and self.cfg.encdec is None:
             n = min(frontend.shape[1], x.shape[1])
             x[:, :n] = frontend[:, :n].to(x.dtype)
         return x
@@ -562,6 +638,55 @@ class Model(nn.Module):
         return h + moe.apply_ffn(hn, blk.ffn, self.cfg.activation,
                                  self.matmul_backend)
 
+    def _encode(self, frontend: torch.Tensor | None) -> torch.Tensor:
+        """The encoder over the stub frontend's frames [B, encoder_seq_len,
+        d_model]: frames in the compute dtype plus the frame position
+        table, the layers (non-causal attention), the final norm (the
+        reference's ``_encode``).  Raises where the frames do not fill the
+        table (the reference fails there with a broadcast error)."""
+        cfg, mm = self.cfg, self.matmul_backend
+        want = cfg.encdec.encoder_seq_len
+        if frontend is None or frontend.shape[1] != want:
+            got = "none" if frontend is None else frontend.shape[1]
+            raise ValueError(
+                f"{cfg.name}: the encoder takes encoder_seq_len={want} "
+                f"frames (its position table's rows) and was given {got}; "
+                "pass frontend [B, encoder_seq_len, d_model] (a stub "
+                "frontend of cfg.frontend.num_tokens frames must equal it)")
+        x = frontend.to(self.compute_dtype) \
+            + self.enc_pos_embed.table.to(self.compute_dtype)[None]
+        positions = torch.arange(want, device=x.device)[None, :]
+        for blk in self.enc_layers:
+            hn = layers.apply_norm(x, blk.ln1, cfg.norm, mm)
+            x = self._ffn_half(x + attn.gqa_attention(
+                hn, blk.attn, cfg, positions, mm, causal=False), blk)
+        return layers.apply_norm(x, self.enc_final_norm, cfg.norm, mm)
+
+    def _cross_kv(self, blk: Block, enc: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A decoder layer's cross K and V [B, encoder_seq_len, kv, hd]
+        from the encoder's output, in the compute dtype."""
+        b_, se, _ = enc.shape
+        shape = (b_, se, self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+        mm = self.matmul_backend
+        return (layers.apply_dense(enc, blk.cross.wk, mm).reshape(shape),
+                layers.apply_dense(enc, blk.cross.wv, mm).reshape(shape))
+
+    def _cross_half(self, x: torch.Tensor, blk: Block, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+        """x plus the cross-attention of its ``ln_cross`` norm over the
+        cross K/V [B, encoder_seq_len, kv, hd] (the reference's
+        ``_cross_attend``: every frame visible, plain attention)."""
+        cfg, mm = self.cfg, self.matmul_backend
+        hn = layers.apply_norm(x, blk.ln_cross, cfg.norm, mm)
+        b_, s, _ = hn.shape
+        q = layers.apply_dense(hn, blk.cross.wq, mm).reshape(
+            b_, s, cfg.num_heads, cfg.resolved_head_dim)
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        o = attn.full_attention(q, attn.repeat_kv(k, n_rep),
+                                attn.repeat_kv(v, n_rep), causal=False)
+        return x + layers.apply_dense(o.reshape(b_, s, -1), blk.cross.wo, mm)
+
     def blocks(self) -> list[Block]:
         """Every layer in cache order: the dense prefix, then the main
         stack."""
@@ -571,13 +696,23 @@ class Model(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 frontend: torch.Tensor | None = None) -> torch.Tensor:
         """Full-sequence causal forward: tokens [B, S] (and, for the vlm
-        family, the stub frontend's [B, n, d_model]) -> logits [B, S, V]
-        (float32)."""
+        family, the stub frontend's [B, n, d_model]; for the audio family
+        the encoder's frames [B, encoder_seq_len, d_model]) -> logits [B,
+        S, V] (float32)."""
         b_, s = tokens.shape
-        x = self._embed(tokens, frontend)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
+        x = self._embed(tokens, frontend, positions)
         mm = self.matmul_backend
+        if self.cfg.encdec is not None:
+            enc = self._encode(frontend)
+            for blk in self.layers:
+                hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+                x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
+                                           mm)
+                x = self._ffn_half(self._cross_half(
+                    x, blk, *self._cross_kv(blk, enc)), blk)
+            return self._unembed(x)
         for blk in self.blocks():
             if self.cfg.ssm is not None:
                 x = x + ssm.ssm_forward(
@@ -616,11 +751,17 @@ class Model(nn.Module):
         take their conv windows from the last real rows, the rolling
         buffers hold the last real positions.
         An attention cache needs nothing of it: its rows past a prompt's
-        length stay behind every mask until decode writes them."""
+        length stay behind every mask until decode writes them.
+
+        An audio model encodes ``frontend`` first and returns an
+        ``EncDecCache``: each layer's cross K/V in bf16, while its own
+        cross-attend reads them unrounded, as the reference's prefill."""
         b_, s = tokens.shape
-        x = self._embed(tokens, frontend)
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
+        x = self._embed(tokens, frontend, positions)
+        if self.cfg.encdec is not None:
+            return self._encdec_prefill(x, positions, max_len, frontend)
         if self.cfg.hybrid is not None:
             return self._hybrid_prefill(x, positions, max_len, lengths)
         if self.cfg.ssm is not None:
@@ -661,6 +802,25 @@ class Model(nn.Module):
         v = torch.stack([c.v for c in states["a"]])
         return self._unembed(x), HybridCache(conv, h, k, v)
 
+    def _encdec_prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                        max_len: int, frontend: torch.Tensor | None
+                        ) -> tuple[torch.Tensor, EncDecCache]:
+        """The reference's enc-dec branch of ``prefill``: the encoder, then
+        per decoder layer its self-attention (the self K/V stored in bf16),
+        the cross K/V (the attend reads them as computed, the cache takes
+        their bf16 rounding) and the FFN."""
+        mm, enc, rows = self.matmul_backend, self._encode(frontend), []
+        for blk in self.layers:
+            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+            o, c = attn.gqa_prefill(hn, blk.attn, self.cfg, positions,
+                                    max_len=max_len + 1, mm=mm)
+            k, v = self._cross_kv(blk, enc)
+            x = self._ffn_half(self._cross_half(x + o, blk, k, v), blk)
+            rows.append((c.k, c.v, k.to(torch.bfloat16),
+                         v.to(torch.bfloat16)))
+        return self._unembed(x), EncDecCache(*(torch.stack(t)
+                                               for t in zip(*rows)))
+
     def _ssm_prefill(self, x: torch.Tensor, lengths: torch.Tensor | None
                      ) -> tuple[torch.Tensor, SSMState]:
         """The reference's ssm branch of ``prefill``: each layer's state,
@@ -676,7 +836,8 @@ class Model(nn.Module):
         return self._unembed(x), SSMState(conv, h)
 
     @torch.no_grad()
-    def decode_step(self, cache: KVCache | MLACache | HybridCache | SSMState,
+    def decode_step(self, cache: KVCache | MLACache | HybridCache | SSMState
+                    | EncDecCache,
                     tokens: torch.Tensor,
                     cache_index: torch.Tensor,
                     block_tables: torch.Tensor | None = None
@@ -687,13 +848,26 @@ class Model(nn.Module):
         ``block_tables=None`` the dense cache of ``init_cache`` (a hybrid
         model's ``HybridCache``: h and the conv windows advance, the
         rolling buffers take the new rows; an ssm model's ``SSMState``:
-        each layer's h and conv window advance)."""
-        x = self._embed(tokens)
-        if self.cfg.family in ("ssm", "hybrid") and block_tables is not None:
+        each layer's h and conv window advance; an audio model's
+        ``EncDecCache``: the self rows take the new K/V, the cross rows
+        are read as the prefill stored them)."""
+        x = self._embed(tokens, positions=cache_index[:, None])
+        if self.cfg.family not in ("dense", "vlm", "moe") \
+                and block_tables is not None:
             raise ValueError(f"paged decode unsupported for family "
                              f"{self.cfg.family!r}")
         if self.cfg.hybrid is not None:
             return self._hybrid_decode(cache, x, cache_index)
+        if self.cfg.encdec is not None:
+            mm = self.matmul_backend
+            for i, blk in enumerate(self.layers):
+                hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
+                x = x + attn.gqa_decode(hn, blk.attn, self.cfg,
+                                        cache.self_attn(i), cache_index,
+                                        mm=mm)
+                c = cache.cross(i)
+                x = self._ffn_half(self._cross_half(x, blk, c.k, c.v), blk)
+            return self._unembed(x)
         if self.cfg.ssm is not None:
             mm = self.matmul_backend
             for i, blk in enumerate(self.layers):
@@ -760,11 +934,10 @@ class Model(nn.Module):
             raise ValueError(
                 f"mixed_step unsupported for family {self.cfg.family!r} "
                 "(sequential prefill state); use the bucketed scheduler")
-        x = self._embed(tokens)
+        positions = start[:, None] + torch.arange(
+            tokens.shape[1], device=tokens.device, dtype=start.dtype)[None, :]
+        x = self._embed(tokens, positions=positions)
         if self.cfg.frontend is not None and prefill_lanes is not None:
-            w = tokens.shape[1]
-            positions = start[:, None] + torch.arange(
-                w, device=tokens.device, dtype=start.dtype)[None, :]
             fm = prefill_lanes[:, None, None] \
                 & (positions < self.cfg.frontend.num_tokens)[..., None]
             x = x.masked_fill(fm, 0)

@@ -20,7 +20,11 @@ single-topology and fleet paths.  The scheduler is ``spec.resolved_policy``
   beside it as the prefill's device input ``lengths``, so one graph per
   bucket serves every length: a hybrid model's recurrent state and
   rolling buffers are the unpadded prompt's (the reference scans the pad
-  and rolls it into the window; the port does not copy that).
+  and rolls it into the window; the port does not copy that).  An audio
+  model's prefill also runs its encoder over the stub frontend's zero
+  frames (the graph's constant input) and stores each layer's cross K/V
+  in the slot's rows of its ``EncDecCache``, which every decode step then
+  reads in place.
 
 Cache layouts (``spec.memory.cache_layout``): ``"paged"``, the pooled
 ``[num_blocks + 1, block_size]`` blocks of ``core.paging`` with block-budget

@@ -46,7 +46,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.bridge import from_jax_adaptive
 from repro_torch.configs import PAPER_NETWORKS, get_config
-from repro_torch.configs.base import ArchConfig, EncDecConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine_ref, masking
 from repro_torch.core.adaptive import (AdaptiveEngine, EngineOptions, flatten,
                                        pack)
@@ -257,13 +257,10 @@ def test_encoder_exemption_is_the_references():
 
 def _whisper_pair(ref):
     """The reference's whisper-medium (an enc-dec config) and the port's
-    copy of the fields the port has, with its ``EncDecConfig``."""
-    j = ref.registry["whisper-medium"]
-    fields = {f.name for f in dataclasses.fields(ArchConfig)}
-    kw = {k: v for k, v in dataclasses.asdict(j).items()
-          if k in fields and k not in ("moe", "encdec")}
-    return j, ArchConfig(**kw, encdec=EncDecConfig(
-        **dataclasses.asdict(j.encdec)))
+    own, equal field for field."""
+    j, port = ref.registry["whisper-medium"], get_config("whisper-medium")
+    assert dataclasses.asdict(port) == dataclasses.asdict(j)
+    return j, port
 
 
 def _values(regs):

@@ -1,8 +1,8 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
-A fleet (``maxima=``) refuses a family still unported (items 12e-12f) and
-a mesh (item 13), and its engine refuses the matmul kernels as the
-reference's does; it serves the dense layout and the bucketed scheduler
+A fleet (``maxima=``) refuses a member of a family other than the dense
+one with the reference's message and a mesh (item 13), and its engine
+refuses the matmul kernels as the reference's does; it serves the dense layout and the bucketed scheduler
 (tests/test_torch_bucketed.py), the prefix cache
 (tests/test_torch_prefix.py), its own int8 weight table
 (tests/test_torch_fleet_quant.py) and speculation
@@ -30,15 +30,17 @@ PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
 
 
 def test_model_names_items_11_12_for_other_families():
-    """The vlm family is served now (tests/test_torch_vlm.py), and so is
-    the ssm family (tests/test_torch_ssm.py); the audio family's refusal
-    names its own sub-item, 12e."""
+    """The vlm family is served now (tests/test_torch_vlm.py), and so are
+    the ssm family (tests/test_torch_ssm.py) and the audio family
+    (tests/test_torch_audio.py); the encoder family's refusal names its
+    own sub-item, 12f (the register-driven engine runs it)."""
     Model(dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=1,
                               d_model=64, num_heads=4, num_kv_heads=4,
                               head_dim=16, d_ff=128, vocab_size=128),
           device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 12e"):
-        Model(dataclasses.replace(CFG, family="audio"), device="cpu")
+    Model(reduced(get_config("whisper-medium")), device="cpu")
+    with pytest.raises(ValueError, match="Queue 1 item 12f"):
+        Model(reduced(get_config("adaptor-bert")), device="cpu")
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
@@ -66,13 +68,16 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
         fa.check_grid(B, H, Sq, hd)
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
+@pytest.mark.parametrize("change,match", [
+    (dict(mesh=object()), "ROADMAP.md Queue 1 item 13"),
+    (dict(arch=reduced(get_config("whisper-medium"))),
+     "family 'audio' needs its own engine"),
 ])
-def test_fleet_refusals_name_their_items(change, item):
+def test_fleet_refusals_name_their_items(change, match):
+    """A mesh names its ROADMAP item; an audio member is refused with the
+    reference fabric's message (its ``check_member``)."""
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+    with pytest.raises(ValueError, match=match):
         RuntimeSpec(**{**kw, **change})
 
 

@@ -255,17 +255,23 @@ def test_entry_points_need_a_device_choice():
         Model(CFG)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
+@pytest.mark.parametrize("kw,match", [
+    (dict(arch=reduced(get_config("whisper-medium"))),
+     "cache_layout='paged' is unsupported for family 'audio'"),
     (dict(arch=dataclasses.replace(CFG, family="audio"),
-          memory=MemorySpec(cache_layout="dense")), "item 12e"),
-    (dict(mesh=object()), "item 13"),
-    (dict(arch=dataclasses.replace(CFG, family="audio")), "item 12e"),
+          memory=MemorySpec(cache_layout="dense")),
+     "family 'audio' with no EncDecConfig"),
+    (dict(mesh=object()), "ROADMAP.md Queue 1 item 13"),
+    (dict(arch=dataclasses.replace(CFG, family="audio")),
+     "family 'audio' with no EncDecConfig"),
 ])
-def test_spec_rejects_what_is_not_ported(kw, item):
+def test_spec_rejects_what_is_not_ported(kw, match):
+    """A mesh is not ported (item 13); the audio family is (its paged
+    layout refused with the reference's message, tests/test_torch_audio.py),
+    and an audio config without its EncDecConfig is refused."""
     base = dict(arch=CFG, memory=MemorySpec(cache_layout="paged"))
     base.update(kw)
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+    with pytest.raises(ValueError, match=match):
         RuntimeSpec(**base)
 
 
