@@ -358,6 +358,30 @@ Phases (any failure raises and the script exits non-zero):
    and 1500) and ``layernorm`` at 8 and 1500 x 1024, the latter the
    layernorm row of the JSON table, whose launches are phase 18's.
 
+19. The paper's encoders as models, the cost model, the tile planner and
+   the autotuner (ROADMAP Queue 1 items 12f and 15's modules;
+   ``check_encoder``).  (a) adaptor-bert (12 x 768, vocab 30522),
+   shallow-transformer (2 x 512) and custom-encoder (2 x 200, 3 heads of
+   66: 198-wide q/k/v, ragged products) at their published widths and
+   depths, seeded weights: ``Model.forward`` of 8 x 64 tokens (adaptor-bert
+   also 1 x 512) through the kernels against the plain route on the same
+   weights at f32 compute within phase 4's gate, launches =
+   ``program_launches(cfg, "forward")`` (6L ``tiled_matmul``, 2L + 1
+   ``layernorm``), the bf16 distance printed, each bf16 forward eager and
+   graphed beside its bound.  (b) ``core/analytical.py`` on the H100
+   profile against graphed bf16 forwards: Table 1's points (64 tokens,
+   batch 1 and 128) and Table 2's rows, measured beside predicted, the
+   dominant term, the ratio, GFLOP/s and GFLOP/s/W at the printed power
+   limit; gate: four qwen1.5-0.5b forwards (1-4 layers, 64-2048 tokens,
+   predictions >= 2x apart) ranked as measured, Spearman rho >= 0.8; the
+   tile planner's plans under 227, 100 and 48 KB for the Fig. 5 and
+   Fig. 11 workloads beside ``tiled_matmul``'s measured ms.  (c)
+   ``RuntimeSpec.tuned`` for full-width qwen1.5-0.5b on the card's
+   ``DeviceProfile`` and phase 13's bursty trace, replayed on the tuned
+   spec's graphed engine and on ``naive_default``'s: each summary,
+   predicted against measured TTFT / ITL, tok/s; gates: the budget, every
+   request finished, one capture per program.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -386,7 +410,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.configs.base import ArchConfig, ShapeSpec  # noqa: E402
+from repro_torch.core import analytical, tiling  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
                                    RuntimeSpec, SchedulerSpec,
                                    SpeculationSpec, maxima_for)
@@ -419,8 +444,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul, tiled_matmul_plain)
 from repro_torch.launch.timing import (  # noqa: E402
-    LAYER_MATMULS, NORM_SHAPES, NORM_TOL, STEP_ROWS, Timer, bound_ms,
-    norm_calls, norm_cost, norm_err, norm_operands)
+    HBM_BYTES_S, LAYER_MATMULS, NORM_SHAPES, NORM_TOL, PEAK_FLOPS, STEP_ROWS,
+    Timer, bound_ms, norm_calls, norm_cost, norm_err, norm_operands)
 from repro_torch.core import engine_ref, masking  # noqa: E402
 from repro_torch.core.adaptive import (AdaptiveEngine,  # noqa: E402
                                        EngineOptions, pack)
@@ -433,6 +458,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.core.kv_quant import fork_block  # noqa: E402
 from repro_torch import harness  # noqa: E402
+from repro_torch.harness.tune import cache_bytes, score  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
@@ -491,6 +517,20 @@ FALCON_ROWS = {8: "decode-step", 3072: "3072-bucket prefill"}
 WHISPER_MATMULS = {(1024, 1024): "wq/wk/wv/wo, cross", (1024, 4096): "w1",
                    (4096, 1024): "w2"}
 WHISPER_ROWS = {8: "decode-step", 1500: "1500-frame encoder / cross K/V"}
+# phase 19's encoder forwards (K, N): adaptor-bert, shallow-transformer and
+# custom-encoder (3 heads of 66: wq/wk/wv 200 -> 198 and wo 198 -> 200, the
+# loop's one-element load path) at one and at 8 sequences of 64 tokens
+ENCODER_MATMULS = {(768, 768): "adaptor-bert wq/wk/wv/wo",
+                   (768, 3072): "adaptor-bert w1",
+                   (3072, 768): "adaptor-bert w2",
+                   (512, 512): "shallow-transformer wq/wk/wv/wo",
+                   (512, 2048): "shallow-transformer w1",
+                   (2048, 512): "shallow-transformer w2",
+                   (200, 198): "custom-encoder wq/wk/wv",
+                   (198, 200): "custom-encoder wo",
+                   (200, 800): "custom-encoder w1",
+                   (800, 200): "custom-encoder w2"}
+ENCODER_ROWS = {64: "1 x 64 forward", 512: "8 x 64 forward"}
 
 
 def prefill_rows() -> dict[tuple[int, int, int], str]:
@@ -507,13 +547,17 @@ def prefill_rows() -> dict[tuple[int, int, int], str]:
 
 
 def falcon_rows() -> dict[tuple[int, int, int], str]:
-    """Phase 2's ``tiled_matmul`` rows at phase 17's and 18's shapes."""
+    """Phase 2's ``tiled_matmul`` rows at phase 17's, 18's and 19's
+    shapes."""
     rows = {(m, k, n): f"falcon-mamba-7b {step} {name}"
             for m, step in FALCON_ROWS.items()
             for (k, n), name in FALCON_MATMULS.items()}
     rows.update({(m, k, n): f"whisper-medium {step} {name}"
                  for m, step in WHISPER_ROWS.items()
                  for (k, n), name in WHISPER_MATMULS.items()})
+    rows.update({(m, k, n): f"{name}, {step}"
+                 for m, step in ENCODER_ROWS.items()
+                 for (k, n), name in ENCODER_MATMULS.items()})
     return rows
 
 
@@ -588,7 +632,10 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 # phase 17: falcon-mamba-7b on dense + bucketed (no
                 # attention; every prefill runs the selective scan's
                 # kernel)
-                "ssm": ("tiled_matmul", "rmsnorm", "ssm_scan")}
+                "ssm": ("tiled_matmul", "rmsnorm", "ssm_scan"),
+                # phase 19a: the paper's encoders' forwards (their attends
+                # plain torch, as the reference's XLA)
+                "encoder": ("tiled_matmul", "layernorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -4970,6 +5017,350 @@ def check_audio(dev, g) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the paper's encoders as models, the cost model, the tile planner
+# and the autotuner on the card
+# ---------------------------------------------------------------------------
+# 19a: 8 sequences of 64 tokens (the paper's sequence length) on each
+# network; adaptor-bert also one sequence of its 512 positions
+ENC_RUNS = {"adaptor-bert": ((8, 64), (1, 512)),
+            "shallow-transformer": ((8, 64),),
+            "custom-encoder": ((8, 64),)}
+# 19b: Table 1 (sequence 64, batch 1 and 128), Table 2's rows (network,
+# sequence, d_model; d_ff 4 x d_model and head_dim d_model // heads where
+# d_model moves: benchmarks/table2_analytical.py ROWS), the calibration's
+# qwen1.5-0.5b points (layers, tokens), the planner's budgets and
+# workloads (benchmarks/fig5_tilesize.py: BERT's MHA projection and FFN1
+# at 4096 tokens; fig11_portability.py: custom-encoder at 64 tokens, and
+# 64 sequences of them)
+TABLE1_BATCHES = (1, 128)
+TABLE2_ROWS = (("adaptor-bert", 64, 768), ("adaptor-bert", 128, 768),
+               ("adaptor-bert", 64, 512), ("shallow-transformer", 64, 512),
+               ("custom-encoder", 64, 200))
+CAL_POINTS = ((1, 64), (3, 512), (3, 1024), (4, 2048))
+CAL_RHO = 0.8
+PLAN_BUDGETS = (227 * 1024, 100 * 1024, 48 * 1024)
+PLAN_WORKLOADS = (("fig5 mha_proj", 4096, 768, 768),
+                  ("fig5 ffn1", 4096, 768, 3072),
+                  ("fig11 mha_proj", 64, 200, 198),
+                  ("fig11 ffn1", 64, 200, 800),
+                  ("fig11 ffn1_batched", 4096, 200, 800))
+
+
+def capture_graph(fn):
+    """``fn`` warmed on a side stream, then captured as a CUDA graph;
+    returns the graph and the output tensors it writes on replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def forward_bound(model: Model, B: int, S: int) -> tuple[float, str]:
+    """The least time a forward of B x S tokens could take: the products
+    and the attends at 989 TFLOP/s (bf16), the float32 unembed at 67;
+    against the bytes: every layer weight and the unembedding table read
+    once, the tokens' embedding and position rows, the logits written
+    (float32), at 3.35 TB/s."""
+    cfg, T = model.cfg, B * S
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    qw = cfg.num_heads * cfg.resolved_head_dim
+    kvw = cfg.num_kv_heads * cfg.resolved_head_dim
+    ffn = (3 if layers_mod.is_gated(cfg.activation) else 2) * d * cfg.d_ff
+    prods = 2 * T * L * (d * (qw + 2 * kvw) + qw * d + ffn)
+    attend = 4 * B * S * S * qw * L
+    unembed = 2 * T * d * V
+    head = model.embed if model.lm_head is None else model.lm_head
+    nbytes = sum(t.numel() * t.element_size() for n, t in
+                 model.named_parameters() if n.startswith("layers.")) \
+        + head.table.numel() * head.table.element_size() \
+        + 2 * T * d * 4 + T * V * 4
+    t_ops = (prods + attend) / PEAK_FLOPS[torch.bfloat16] \
+        + unembed / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def encoder_forwards(timer, dev, g) -> dict:
+    """Phase 19a: adaptor-bert, shallow-transformer and custom-encoder at
+    their published widths and depths (``configs/*``; custom-encoder's 3
+    heads of 200 // 3 = 66, so q/k/v 198 wide, ragged products), seeded
+    weights.  ``Model.forward`` of ``ENC_RUNS``'s batches through the
+    kernels (``matmul_backend="pallas"``) against the plain route on the
+    same weights at float32 compute, gated at phase 4's 2e-2 x
+    max|logits|; the launches against ``program_launches(cfg,
+    "forward")`` (6L ``tiled_matmul``, 2L + 1 ``layernorm``; counts zeroed
+    just before); then in bf16 the distance to the plain route printed,
+    and the kernel route's forward timed eager and graphed (``Timer``,
+    median, L2 flushed) beside its bound."""
+    print("\n== phase 19a: the paper's encoders as models (published widths "
+          "and depths, seeded weights): forward, kernels vs the plain route")
+    launches = collections.Counter()    # every kernel's, over the forwards
+    for name, runs in ENC_RUNS.items():
+        cfg = get_config(name)
+        kern = Model(cfg, compute_dtype=torch.float32, device=dev,
+                     matmul_backend="pallas").init(g)
+        sd = kern.state_dict()
+        plain = Model(cfg, compute_dtype=torch.float32, device=dev)
+        plain.load_state_dict(sd)
+        k16 = Model(cfg, device=dev, matmul_backend="pallas")
+        k16.load_state_dict(sd)
+        p16 = Model(cfg, device=dev)
+        p16.load_state_dict(sd)
+        print(f"  {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads of {cfg.resolved_head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, "
+              f"{sum(t.numel() for t in kern.parameters()) / 1e6:.1f} M "
+              "parameters")
+        for B, S in runs:
+            toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                 device=dev, dtype=torch.int32)
+            zero_counts()
+            got = kern.forward(toks)
+            made = launch_counts()
+            want = program_launches(cfg, "forward", layout="dense")
+            have = {n: made[n] for n in want}
+            if have != want or not made["tiled_matmul"] \
+                    or not made["layernorm"]:
+                raise AssertionError(f"{name} {B}x{S} forward: launches "
+                                     f"{have} != {want}")
+            launches.update(made)
+            ref = plain.forward(toks)
+            tol = LOGIT_TOL * float(ref.abs().max())
+            err = max_err(got, ref)
+            if not math.isfinite(err) or err > tol:
+                raise AssertionError(f"{name} {B}x{S} f32 forward: kernels "
+                                     f"{err} > {tol}")
+            g16 = k16.forward(toks)
+            err16 = max_err(g16, p16.forward(toks))
+            err16_32 = max_err(g16, ref)
+            eager = timer(lambda: k16.forward(toks), reps=7, warm=2)
+            graph, _ = capture_graph(lambda: k16.forward(toks))
+            graphed = timer(graph.replay)
+            bms, by = forward_bound(k16, B, S)
+            print(f"  {name} {B} x {S}: f32 kernels vs plain {err:.4g} (tol "
+                  f"{tol:.4g}); bf16 kernels vs bf16 plain {err16:.4g}, vs "
+                  f"f32 plain {err16_32:.4g} (max|logits| "
+                  f"{float(ref.abs().max()):.4g}); launches {have}; bf16 "
+                  f"forward eager {eager:.4f} ms, graphed {graphed:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})")
+            del graph, got, ref, g16
+        del kern, plain, k16, p16, sd
+        torch.cuda.empty_cache()
+    return {"encoder": {n: launches[n] for n in made}}
+
+
+def power_watts(smi: str) -> float:
+    """The power limit of ``nvidia-smi``'s "name, limit W" line."""
+    return float(smi.rsplit(",", 1)[1].split()[0])
+
+
+def graphed_forward_ms(timer, model: Model, B: int, S: int, g) -> float:
+    """Median device ms of a graphed forward of B x S seeded tokens."""
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S), generator=g,
+                         device=model.device, dtype=torch.int32)
+    graph, _ = capture_graph(lambda: model.forward(toks))
+    ms = timer(graph.replay, reps=9, warm=2)
+    del graph
+    return ms
+
+
+def spearman(xs: list, ys: list) -> float:
+    """Spearman's rank correlation (tests/test_analytical.py's)."""
+    def ranks(vs):
+        order = sorted(range(len(vs)), key=lambda i: vs[i])
+        r = [0] * len(vs)
+        for rank, i in enumerate(order):
+            r[i] = rank
+        return r
+    rx, ry = ranks(xs), ranks(ys)
+    n = len(xs)
+    d2 = sum((a - b) ** 2 for a, b in zip(rx, ry))
+    return 1.0 - 6.0 * d2 / (n * (n * n - 1))
+
+
+def cost_model(timer, dev, g, watts: float) -> None:
+    """Phase 19b: ``core/analytical.py`` (``H100``) against the card.
+    Table 1's points (the three networks at 64 tokens, batch 1 and 128)
+    and Table 2's rows (batch 1): a graphed bf16 forward on the kernel
+    route (median of replays) beside ``analytical_step_seconds``, its
+    dominant term, measured over predicted, GFLOP/s (``step_flops``) and
+    GFLOP/s/W at the printed power limit.  Gate: the ranking of four
+    qwen1.5-0.5b forwards at its published widths (``CAL_POINTS``, whose
+    predictions are >= 2x apart) measured as predicted, Spearman rho >=
+    0.8 (the reference's calibration test, on the card the profile
+    describes).  Then the tile planner's plans and predicted us for the
+    Fig. 5 and Fig. 11 workloads under three shared-memory budgets, beside
+    the ``tiled_matmul`` kernel's measured ms at each shape."""
+    print(f"\n== phase 19b: the cost model (core/analytical.py, "
+          f"{analytical.H100.name} data sheet) against the card; bf16 "
+          "forwards on the kernel route, graphed")
+    print(f"  {'point':<42} {'measured_ms':>11} {'predicted_ms':>12} "
+          f"{'dominant':>8} {'ratio':>7} {'GFLOP/s':>10} {'GFLOP/s/W':>9}")
+
+    def row(label, model, B, S):
+        shape = ShapeSpec(label, S, B, "prefill")
+        pred = analytical.analytical_step_seconds(model.cfg, shape, 1,
+                                                  analytical.H100)
+        ms = graphed_forward_ms(timer, model, B, S, g)
+        gflops = analytical.step_flops(model.cfg, shape)["total"] / 1e9
+        rate = gflops / (ms / 1e3)
+        print(f"  {label:<42} {ms:>11.4f} {pred.t_total * 1e3:>12.4f} "
+              f"{pred.dominant:>8} {ms / (pred.t_total * 1e3):>7.2f} "
+              f"{rate:>10.1f} {rate / watts:>9.2f}")
+        return ms, pred.t_total * 1e3
+
+    for name in PAPER_NETS:
+        model = Model(get_config(name), device=dev,
+                      matmul_backend="pallas").init(g)
+        for B in TABLE1_BATCHES:
+            row(f"table1 {name} {B} x 64", model, B, 64)
+        del model
+        torch.cuda.empty_cache()
+    for name, S, dm in TABLE2_ROWS:
+        cfg = get_config(name)
+        if dm != cfg.d_model:
+            cfg = dataclasses.replace(cfg, d_model=dm, d_ff=4 * dm,
+                                      head_dim=dm // cfg.num_heads)
+        model = Model(cfg, device=dev, matmul_backend="pallas").init(g)
+        row(f"table2 {name} seq {S} d_model {dm}", model, 1, S)
+        del model
+    torch.cuda.empty_cache()
+    qwen = get_config("qwen1.5-0.5b")
+    predicted, measured = [], []
+    for layers, S in CAL_POINTS:
+        model = Model(dataclasses.replace(qwen, num_layers=layers),
+                      device=dev, matmul_backend="pallas").init(g)
+        ms, pred = row(f"calibration qwen {layers} layers x {S}", model, 1,
+                       S)
+        measured.append(ms)
+        predicted.append(pred)
+        del model
+        torch.cuda.empty_cache()
+    ps = sorted(predicted)
+    if not all(b / a >= 2.0 for a, b in zip(ps, ps[1:])):
+        raise AssertionError(f"calibration points not 2x apart: {predicted}")
+    rho = spearman(predicted, measured)
+    print(f"  calibration: Spearman rho of predicted vs measured {rho:.3f} "
+          f"(gate >= {CAL_RHO})")
+    if rho < CAL_RHO:
+        raise AssertionError(f"the cost model ranks the forwards otherwise "
+                             f"than the card: rho {rho} < {CAL_RHO}")
+    print(f"  tile planner (core/tiling.py) under {PLAN_BUDGETS} B of "
+          "shared memory: plan (bm, bk, bn, stages), smem B, predicted us; "
+          "tiled_matmul's measured ms and launch at the shape")
+    for label, M, K, N in PLAN_WORKLOADS:
+        plans = []
+        for budget in PLAN_BUDGETS:
+            p = tiling.plan_matmul(M, K, N, smem_budget=budget)
+            plans.append(f"{budget // 1024}K: ({p.bm}, {p.bk}, {p.bn}, "
+                         f"{p.stages}) {p.smem_bytes} B {p.t_total * 1e6:.3f}"
+                         " us")
+        a = torch.randn(M, K, generator=g, device=dev).bfloat16()
+        b = (torch.randn(K, N, generator=g, device=dev)
+             / math.sqrt(K)).bfloat16()
+        ms = timer(lambda: tiled_matmul(a, b))
+        print(f"  {label} {M}x{K}x{N}: " + "; ".join(plans)
+              + f" | tiled_matmul {ms:.4f} ms ({mma_grid({})})")
+
+
+def tuner_on_card(dev, g) -> None:
+    """Phase 19c: ``RuntimeSpec.tuned`` for qwen1.5-0.5b at full width on
+    ``DeviceProfile`` read from the card (``GPUSpec.from_card``), its
+    workload ``WorkloadProfile.from_trace`` of phase 13's bursty trace,
+    the kernel route; the trace replayed on the tuned spec's graphed
+    engine and on ``naive_default``'s (the dense layout at equal cache
+    bytes, "auto").  Printed: each spec's ``summary()`` (the naive one
+    scored as the tuner scores), predicted against measured TTFT and ITL,
+    tok/s, a first replay (it captures) and a warm one on the same engine.
+    Gates: the tuned spec within its budget, every replay finishes every
+    request with each lifecycle once, each program captured once on the
+    first replay (a bucketed engine's prefill buckets included) and none
+    on the warm one."""
+    trace = harness_traces()["bursty"]
+    cfg = get_config("qwen1.5-0.5b")
+    device = harness.DeviceProfile(gpu=analytical.GPUSpec.from_card(dev))
+    workload = harness.WorkloadProfile.from_trace(trace)
+    ex = ExecutionSpec(matmul_backend="pallas", paged_attn_impl="pallas",
+                       compute_dtype="bf16")
+    res = harness.tune(cfg, device, workload, execution=ex)
+    tuned = res.spec
+    if RuntimeSpec.tuned(cfg, device, workload, execution=ex) != tuned:
+        raise AssertionError("RuntimeSpec.tuned differs from tune().spec")
+    naive = harness.naive_default(cfg, tuned)
+    print(f"\n== phase 19c: the autotuner on the card ({device.gpu.name}, "
+          f"{device.gpu.hbm_bytes / 1e9:.2f} GB, {device.gpu.n_sms} SMs): "
+          f"qwen1.5-0.5b at full width, {len(res.ranked)} candidates under "
+          f"a {res.budget_bytes / 1e9:.3f} GB cache budget; workload from "
+          f"the bursty trace ({len(trace)} requests, mean prompt "
+          f"{workload.mean_prompt_len:.1f}, bursts of "
+          f"{workload.burst_size}, {workload.mean_new_tokens:.1f} new)")
+    if cache_bytes(tuned) > res.budget_bytes:
+        raise AssertionError(f"the tuned spec's cache "
+                             f"{cache_bytes(tuned)} B exceeds the "
+                             f"budget {res.budget_bytes} B")
+    model = Model(cfg, device=dev, matmul_backend="pallas").init(g)
+    params = model.state_dict()
+    del model
+    for label, spec in (("tuned", tuned), ("naive_default", naive)):
+        cand = score(spec, device, workload)
+        print(f"  {label}: {cand.summary()}")
+        eng = ServingEngine(spec, device="cuda", graphs=True)
+        eng.load(params)
+        runs = {}
+        for run in ("first", "warm"):
+            # a bucketed engine captures its prefills apart from its steps
+            before = eng.stats["graph_captures"] \
+                + eng.stats["prefill_captures"]
+            runs[run] = harness_replay(f"19c {label}, graphed, {run}", eng,
+                                       trace)
+            runs[run]["captures"] = eng.stats["graph_captures"] \
+                + eng.stats["prefill_captures"] - before
+        if not 1 <= runs["first"]["captures"] == runs["first"]["programs"] \
+                or runs["warm"]["captures"]:
+            raise AssertionError(
+                f"19c {label}: {runs['first']['captures']} captures for "
+                f"{runs['first']['programs']} programs run, then "
+                f"{runs['warm']['captures']} when warm (want one each, then "
+                "none)")
+
+        def ms(x):
+            return "n/a" if x is None else f"{x * 1e3:.3f}"
+        for run, r in runs.items():
+            m = r["res"].metrics
+            print(f"  {label}, {run}: predicted TTFT "
+                  f"{cand.predicted_ttft_s * 1e3:.4g} ms, ITL "
+                  f"{cand.predicted_itl_s * 1e3:.4g} ms; measured TTFT p50 "
+                  f"{ms(m.ttft_s_p50)} ms, ITL p50 {ms(m.itl_s_p50)} ms; "
+                  f"{m.tokens_per_s:.1f} tok/s ({eng.scheduler} scheduler, "
+                  f"{spec.memory.cache_layout} cache, {r['captures']} "
+                  "captures)")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+
+
+def check_encoder(timer, dev, g, smi: str) -> dict:
+    """Phase 19: 19a's forwards (``encoder_forwards``), 19b's cost model
+    and planner against the card (``cost_model``), 19c's tuner
+    (``tuner_on_card``)."""
+    t_start = time.perf_counter()
+    launches = encoder_forwards(timer, dev, g)
+    print(f"  (a) took {time.perf_counter() - t_start:.1f} s")
+    cost_model(timer, dev, g, power_watts(smi))
+    print(f"  (a) + (b) took {time.perf_counter() - t_start:.1f} s")
+    tuner_on_card(dev, g)
+    print(f"  phase 19 took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the register-driven engine (the paper's claim C1)
 # ---------------------------------------------------------------------------
 # the paper's three evaluation networks (configs/adaptor_bert.py,
@@ -5488,11 +5879,13 @@ def main() -> int:
     lap("phase 17")
     launches.update(check_audio(dev, g))
     lap("phase 18")
+    launches.update(check_encoder(timer, dev, g, smi))
+    lap("phase 19")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
                  "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
-                 "audio"):
+                 "audio", "encoder"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

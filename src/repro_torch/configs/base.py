@@ -6,7 +6,8 @@ restricted to what the dense, vlm, MoE (with MLA), ssm, hybrid and
 encoder families need.  ``SSMConfig`` is the ssm family's selective scan
 (Mamba-1: state size, conv width, expansion, dt rank).  ``HybridConfig``
 is the hybrid family's block pattern and widths (RG-LRU and local
-attention, RecurrentGemma).
+attention, RecurrentGemma).  ``ShapeSpec`` and ``ALL_SHAPES`` are the
+cost model's input cells (``core/analytical.py``).
 ``FrontendConfig`` is the vlm
 family's stub vision frontend.  ``EncDecConfig`` is here for the
 register-driven engine's encoder/decoder rule (``core/registers.py``
@@ -159,6 +160,44 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytical parameter count (embedding + per-layer), the cost
+        model's 6·N·D term (``core.analytical.arch_param_count``)."""
+        from repro_torch.core.analytical import arch_param_count
+
+        return arch_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.core.analytical import arch_param_count
+
+        return arch_param_count(self, active_only=True)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell (seq_len x global_batch) of the cost model."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The reference's four LM shapes.  ``decode_*`` / ``long_*`` are one new
+# token against a cache of seq_len, not a forward of seq_len.
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 def reduced(cfg: ArchConfig, **overrides: Any) -> ArchConfig:

@@ -12,7 +12,7 @@ both packages:
 * ``param_dtype`` / ``compute_dtype`` accept torch dtypes or the same
   string names (``"bf16"``, ``"fp32"``, ...).
 
-What the port serves so far is the dense, vlm and moe families (GQA or
+What the port serves: the dense, vlm and moe families (GQA or
 MLA attention; MLA on one model's engine, never in a fleet), the ssm
 family (Mamba-1's selective scan), the hybrid family (RG-LRU and local
 attention) and the audio family (an encoder over the stub frontend's
@@ -29,12 +29,15 @@ reference cannot serve) and a float or int8 KV cache
 ``maxima`` (``maxima_for``; a fleet's int8 weights are its own int8
 weight table), with or without the prefix cache (``MemorySpec.prefix_cache``,
 paged and chunked only), and with or without speculative decoding
-(``SpeculationSpec``, chunked only).  An encoder-family spec with
-``maxima`` describes one topology of the register-driven engine
+(``SpeculationSpec``, chunked only).  The encoder family (the paper's
+networks) validates as the reference's does, with or without ``maxima``:
+the paged layout and an int8 cache are refused, as for the other
+families whose state is not a paged attention cache.  It has no decode
+step, so ``ServingEngine`` refuses it with the reference's message; the
+model runs its ``forward`` (``models/model.py``), and a spec with
+``maxima`` is a topology of the register-driven engine
 (``core/adaptive.py`` ``AdaptiveEngine.from_spec``), which it lowers to
-the register file (``RuntimeSpec.registers``); it has no decode state, so
-the cache-layout and scheduler rules of the decoding families do not
-apply to it.  Every other option of the reference is rejected at
+the register file (``RuntimeSpec.registers``).  A mesh is rejected at
 construction with the ROADMAP.md queue item that ports it.
 """
 from __future__ import annotations
@@ -66,16 +69,15 @@ _DTYPE_ALIASES = {
     "fp16": torch.float16, "f16": torch.float16, "float16": torch.float16,
 }
 
-# Families the port serves so far.
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+# The reference's families, all ported.
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio",
+                   "encoder")
 # Families whose decode state is a genuine KV/latent cache (the reference's
 # KV_QUANTIZABLE_FAMILIES) and whose prefill can be replayed through the
 # fused chunked step (its CHUNKABLE_FAMILIES): attention caches are
 # write-then-attend.
 KV_QUANTIZABLE_FAMILIES = ("dense", "vlm", "moe")
 CHUNKABLE_FAMILIES = ("dense", "vlm", "moe")
-# the ROADMAP.md Queue 1 sub-item that ports each family still refused
-FAMILY_ITEMS = {"encoder": "item 12f"}
 
 
 def check_encdec(cfg: ArchConfig) -> None:
@@ -358,15 +360,11 @@ class RuntimeSpec:
         cfg, mem = self.arch, self.memory
         cfg.validate()
         decodes = cfg.family != "encoder"
-        if not decodes:
-            self._validate_encoder()
-        elif cfg.family not in PORTED_FAMILIES:
-            raise _not_ported(f"family {cfg.family!r}",
-                              FAMILY_ITEMS.get(cfg.family, "items 11-12"),
+        if cfg.family not in PORTED_FAMILIES:
+            raise _not_ported(f"family {cfg.family!r}", "items 11-12",
                               f"; the port serves the families "
                               f"{PORTED_FAMILIES}")
-        else:
-            check_encdec(cfg)
+        check_encdec(cfg)
         if self.maxima is not None and cfg.mla is not None:
             raise ValueError(
                 f"{cfg.name}: multi-topology serving covers the dense GQA "
@@ -378,8 +376,7 @@ class RuntimeSpec:
             raise ValueError(
                 f"{cfg.name}: multi-topology serving covers the dense GQA "
                 f"family; family {cfg.family!r} needs its own engine")
-        if decodes:
-            self._validate_cache_family()
+        self._validate_cache_family()
         if self.speculation is not None:
             # the reference's messages: the verify pass rides the fused
             # chunked step
@@ -399,8 +396,7 @@ class RuntimeSpec:
                 raise ValueError(
                     "speculation requires a satisfiable chunked scheduler: "
                     + "; ".join(bad))
-        if decodes:
-            self._validate_decode_state()
+        self._validate_decode_state()
         if self.speculation is not None:
             self._validate_speculation()
         if self.execution.quant == "int8":
@@ -426,35 +422,12 @@ class RuntimeSpec:
                     "required): " + "; ".join(bad) + hint)
         return self
 
-    def _validate_encoder(self) -> None:
-        """An encoder has no decode step: its spec is a topology of the
-        register-driven engine, which is built at ``maxima``.  The
-        reference's refusals of a paged or int8 KV cache for the family
-        hold as well."""
-        cfg, mem = self.arch, self.memory
-        if self.maxima is None:
-            raise _not_ported(
-                "family 'encoder' without maxima", FAMILY_ITEMS["encoder"],
-                "; an encoder runs on the register-driven engine "
-                "(core/adaptive.py), built at maxima= (maxima_for)")
-        if mem.cache_layout == "paged":
-            raise ValueError(
-                f"cache_layout='paged' is unsupported for family "
-                f"{cfg.family!r} (SSM / rolling-window / enc-dec decode "
-                "state is not paged); use cache_layout='dense'")
-        if mem.kv_dtype == "int8":
-            raise ValueError(
-                f"kv_dtype='int8' is unsupported for family {cfg.family!r}: "
-                "only KV/latent attention caches are quantized "
-                f"(families {KV_QUANTIZABLE_FAMILIES}); recurrent / "
-                "rolling-window / enc-dec decode state keeps the compute "
-                "dtype — use kv_dtype='compute'")
-
     def _validate_cache_family(self) -> None:
         """The reference's refusals of a paged or int8 KV cache for a
-        decoding family whose state is not a paged attention cache (the ssm
+        family whose state is not a paged attention cache (the ssm
         family's scan state, the hybrid family's RG-LRU state and rolling
-        buffers, the audio family's self and cross rows)."""
+        buffers, the audio family's self and cross rows, and the encoder
+        family, which has no decode state)."""
         cfg, mem = self.arch, self.memory
         if mem.cache_layout == "paged" and \
                 cfg.family not in ("dense", "vlm", "moe"):
@@ -590,6 +563,20 @@ class RuntimeSpec:
         """True iff every live dimension fits the synthesized fabric
         (exact equality is a fit: the maxima topology itself runs)."""
         return not self.violations(maxima)
+
+    @staticmethod
+    def tuned(arch: ArchConfig, device_profile=None, workload=None,
+              **kw) -> "RuntimeSpec":
+        """The predicted-best spec for ``arch`` on a card and workload,
+        ranked by the ``core.analytical`` roofline model under a
+        cache-memory budget.  Thin front door over
+        ``repro_torch.harness.tune.tune`` (which also exposes the full
+        ranking); see that module for the knobs ``**kw`` accepts
+        (``max_len``, ``execution``, ``allow_int8_kv``, ``maxima``,
+        ``draft``)."""
+        from repro_torch.harness.tune import tune  # core must not import harness
+        return tune(arch, device=device_profile, workload=workload,
+                    **kw).spec
 
 
 def maxima_for(*archs: ArchConfig, seq_max: int,

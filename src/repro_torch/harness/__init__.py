@@ -9,12 +9,10 @@
 * ``harness.metrics`` — reduce lifecycle events to SLO metrics: TTFT and
   ITL p50/p99, goodput under an SLO, peak concurrency, preemption and
   prefix-hit counts.  Step-based metrics are bit-reproducible.
-
-The reference's analytical autotuner (``harness.tune``: ``DeviceProfile``,
-``WorkloadProfile``, ``tune``) is not here: its candidate grid proposes
-the dense cache layout and the bucketed scheduler, which the port serves
-only from ROADMAP.md Queue 1 item 12b, and its device model is a TPU's;
-an H100 profile comes with item 15.
+* ``harness.tune``    — the analytical autotuner (``DeviceProfile``,
+  ``WorkloadProfile``, ``tune``, ``naive_default``): ranks runtime specs
+  on an H100's figures before any engine is built
+  (``RuntimeSpec.tuned``, ``serve --tuned``).
 """
 from repro_torch.harness.driver import ReplayResult, replay
 from repro_torch.harness.metrics import SLO, HarnessMetrics, reduce_events
@@ -22,10 +20,13 @@ from repro_torch.harness.trace import (Trace, TraceRequest, bursty_trace,
                                        fleet_trace, load_trace,
                                        poisson_trace, save_trace,
                                        scripted_trace, shared_prefix_trace)
+from repro_torch.harness.tune import (DeviceProfile, WorkloadProfile,
+                                      naive_default, tune)
 
 __all__ = [
-    "SLO", "HarnessMetrics", "ReplayResult", "Trace", "TraceRequest",
-    "bursty_trace", "fleet_trace", "load_trace", "poisson_trace",
+    "SLO", "DeviceProfile", "HarnessMetrics", "ReplayResult", "Trace",
+    "TraceRequest", "WorkloadProfile", "bursty_trace",
+    "fleet_trace", "load_trace", "naive_default", "poisson_trace",
     "reduce_events", "replay", "save_trace", "scripted_trace",
-    "shared_prefix_trace",
+    "shared_prefix_trace", "tune",
 ]

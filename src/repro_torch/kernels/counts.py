@@ -10,8 +10,8 @@ them up per replay (``ServingEngine.replayed_launches``).
 
 ``program_launches`` gives what one call of a model's program launches
 under the hand-written kernels: a fused step over the paged pool or the
-dense layout, or a bucketed B = 1 prefill, whose products take the
-bucket's rows.
+dense layout, a bucketed B = 1 prefill, whose products take the
+bucket's rows, or a full-sequence ``forward``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.kernels import tiled_matmul as _tm
 # the wrappers carrying a ``live_kv_launches`` count beside ``launches``
 LIVE_KV = ("paged_decode_attention", "chunked_prefill_attention")
 # the programs of ``program_launches``
-PROGRAMS = ("decode", "mixed", "prefill")
+PROGRAMS = ("decode", "mixed", "prefill", "forward")
 
 
 def wrappers() -> dict:
@@ -60,7 +60,8 @@ def launch_counts() -> dict[str, int]:
 def program_launches(cfg, program: str, *, layout: str = "paged",
                      quant: bool = False) -> dict[str, int]:
     """The hand-written kernels' launches per call of ``program`` ("decode"
-    | "mixed" | "prefill", one of ``PROGRAMS``) of a ``models.model.Model``
+    | "mixed" | "prefill" | "forward", one of ``PROGRAMS``) of a
+    ``models.model.Model``
     of ``cfg`` under ``matmul_backend="pallas"`` and
     ``paged_attn_impl="pallas"``.
 
@@ -100,9 +101,19 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     final norm: 384 products and 122 norms at 24 + 24 layers.  A decode
     step reads the cross K/V from the cache: 8 products and 3 norms a
     decoder layer, plus the final norm (192 and 73).  The attends are
-    plain PyTorch, as the reference's are XLA."""
+    plain PyTorch, as the reference's are XLA.
+
+    A ``forward`` launches what a prefill of the same tokens does (the
+    same products, norms and scans, no cache written).  An encoder (the
+    paper's networks, ``forward`` only) has the dense family's layers:
+    wq, wk, wv, wo, w1 and w2 a layer and its ln1 and ln2 through
+    ``layernorm``, then the final norm, 6L and 2L + 1; its attend is plain
+    PyTorch, and its unembed, as every model's, a float32
+    ``torch.matmul`` over the table (no kernel)."""
     if program not in PROGRAMS:
         raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
+    if program == "forward":
+        program = "prefill"
     L = cfg.num_layers
     gated = cfg.activation in ("swiglu", "geglu")
     ffn = 3 if gated else 2
@@ -141,9 +152,11 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     norms = (4 if cfg.mla is not None else 2) * L + 1
     walk = L if (layout == "paged" and cfg.mla is None
                  and program != "prefill") else 0
+    ln = cfg.norm == "layernorm"
     return {"tiled_matmul": 0 if quant else mm,
             "int8_matmul": mm if quant else 0,
-            "rmsnorm": norms,
+            "rmsnorm": 0 if ln else norms,
+            **({"layernorm": norms} if ln else {}),
             "paged_decode_attention": walk if program == "decode" else 0,
             "chunked_prefill_attention": walk if program == "mixed" else 0,
             "rglru_scan": 0, "ssm_scan": 0}

@@ -63,8 +63,18 @@ Harness mode: ``--trace t.jsonl`` replays an on-disk trace
 share) through the engine instead of the demo mix and prints the reduced
 TTFT / ITL / goodput metrics in engine steps and in wall milliseconds;
 ``--slo-ttft-steps N`` counts a request toward goodput only if its first
-token lands within N steps.  The reference's ``--tuned`` (its analytical
-autotuner) is refused until ROADMAP.md Queue 1 item 15.
+token lands within N steps.  ``--tuned`` discards the hand-picked memory
+and scheduler flags (``--cache-layout``, ``--max-batch``, ``--block-size``,
+``--num-blocks``, ``--chunk-size``, ``--prefix-cache``) and lets the
+analytical autotuner (``RuntimeSpec.tuned``, ``harness/tune.py``) choose
+them at ``--max-len`` on the card's figures (an H100's on the host), from
+the trace's own statistics when ``--trace`` is also given; ``--kv-dtype
+int8`` lets it trade the int8 cache codec for capacity.  It tunes one
+architecture (no ``--fleet``) and no draft (no ``--spec-k``), as the
+reference's ``serve`` does.
+
+An encoder-family model (the paper's networks, ``--model adaptor-bert``)
+has no decode step: the engine refuses it with the reference's message.
 """
 from __future__ import annotations
 
@@ -144,13 +154,15 @@ def main(argv: list[str] | None = None) -> None:
                     help="with --trace: count a request toward goodput only "
                          "if its first token lands within this many steps")
     ap.add_argument("--tuned", action="store_true",
-                    help="the reference's analytical autotuner (not ported)")
+                    help="ignore the memory/scheduler flags and let the "
+                         "analytical autotuner pick them (uses the trace's "
+                         "workload statistics when --trace is given)")
     args = ap.parse_args(argv)
-    if args.tuned:
-        ap.error("--tuned (the analytical autotuner, harness/tune.py and "
-                 "core/analytical.py) is not ported to repro_torch yet "
-                 "(ROADMAP.md Queue 1 item 15); set the memory and "
-                 "scheduler flags by hand")
+    if args.tuned and args.fleet:
+        ap.error("--tuned tunes a single architecture; drop --fleet")
+    if args.tuned and args.spec_k:
+        ap.error("--spec-k drives one hand-specified engine; drop "
+                 "--tuned")
     if args.slo_ttft_steps is not None and args.trace is None:
         ap.error("--slo-ttft-steps applies to a --trace replay")
 
@@ -202,20 +214,44 @@ def main(argv: list[str] | None = None) -> None:
         ex_kw["compute_dtype"] = args.compute_dtype
     if args.quant_min_size is not None:
         ex_kw["quant_min_size"] = args.quant_min_size
-    spec = RuntimeSpec(
-        arch=cfg, maxima=maxima,
-        execution=ExecutionSpec(matmul_backend=args.kernels,
-                                paged_attn_impl=args.attn, quant=args.quant,
-                                **ex_kw),
-        memory=MemorySpec(cache_layout=args.cache_layout,
-                          max_batch=args.max_batch, max_len=args.max_len,
-                          block_size=args.block_size,
-                          num_blocks=args.num_blocks,
-                          kv_dtype=args.kv_dtype,
-                          prefix_cache=args.prefix_cache),
-        scheduler=SchedulerSpec(chunk_size=args.chunk_size),
-        speculation=speculation)
+    execution = ExecutionSpec(matmul_backend=args.kernels,
+                              paged_attn_impl=args.attn, quant=args.quant,
+                              **ex_kw)
     device = resolve_device(args.device)
+    trace = None
+    if args.trace is not None:
+        from repro_torch.harness import load_trace
+        trace = load_trace(args.trace)
+    if args.tuned:
+        from repro_torch.core.analytical import GPUSpec
+        from repro_torch.harness import DeviceProfile, WorkloadProfile
+        profile = DeviceProfile(gpu=GPUSpec.from_card(device)) \
+            if device.type == "cuda" else DeviceProfile()
+        workload = (WorkloadProfile.from_trace(trace)
+                    if trace is not None else None)
+        spec = RuntimeSpec.tuned(cfg, profile, workload,
+                                 max_len=args.max_len, execution=execution,
+                                 allow_int8_kv=args.kv_dtype == "int8")
+        m = spec.memory
+        print(f"tuned spec ({profile.gpu.name}): {m.cache_layout} "
+              f"max_batch={m.max_batch} policy={spec.scheduler.policy} "
+              f"chunk={spec.scheduler.chunk_size} "
+              f"token_budget={spec.scheduler.resolved_token_budget} "
+              + (f"block_size={m.block_size} num_blocks="
+                 f"{m.resolved_num_blocks} " if m.cache_layout == "paged"
+                 else "")
+              + f"kv_dtype={m.kv_dtype} prefix_cache={m.prefix_cache}")
+    else:
+        spec = RuntimeSpec(
+            arch=cfg, maxima=maxima, execution=execution,
+            memory=MemorySpec(cache_layout=args.cache_layout,
+                              max_batch=args.max_batch, max_len=args.max_len,
+                              block_size=args.block_size,
+                              num_blocks=args.num_blocks,
+                              kv_dtype=args.kv_dtype,
+                              prefix_cache=args.prefix_cache),
+            scheduler=SchedulerSpec(chunk_size=args.chunk_size),
+            speculation=speculation)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
     eng = ServingEngine(spec, max_models=len(cfgs), device=device,
                         sampling=sampling, seed=args.seed,
@@ -250,9 +286,8 @@ def main(argv: list[str] | None = None) -> None:
         torch.cuda.synchronize(device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    if args.trace is not None:
-        from repro_torch.harness import SLO, load_trace, replay
-        trace = load_trace(args.trace)
+    if trace is not None:
+        from repro_torch.harness import SLO, replay
         slo = (SLO(ttft_steps=args.slo_ttft_steps)
                if args.slo_ttft_steps is not None else None)
         t0 = time.perf_counter()

@@ -1,6 +1,6 @@
-"""The decoder LM of the port (the reference's ``Model`` for the families
-``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid`` and ``audio``, with GQA
-or MLA attention, or none):
+"""The model of the port (the reference's ``Model`` for the families
+``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid``, ``audio`` and
+``encoder``, with GQA or MLA attention, or none):
 parameters, the paged KV pool and the dense per-slot cache, ``forward``,
 ``prefill``, ``decode_step`` and ``mixed_step``.  A model with learned
 positions (``positional="learned"``) holds ``pos_embed.table``
@@ -49,6 +49,15 @@ dense family's are.  Its decode state is an ``SSMState`` with a leading
 layer axis, dense only and never quantized; the bucketed prefill takes
 each prompt's real length (``lengths``), as the hybrid's does.
 
+The encoder family (the paper's networks: adaptor-bert,
+shallow-transformer, custom-encoder) has the dense family's layers, with
+biased FFNs under its ``layernorm`` and learned positions, and attends
+without a causal mask (the reference's ``_is_causal``).  Its q/k/v width
+is ``num_heads * resolved_head_dim`` (custom-encoder: 3 heads of 200 // 3
+= 66, so 198), not ``d_model``.  It runs ``forward`` only: ``prefill``,
+``decode_step`` and ``mixed_step`` raise the reference engine's refusal,
+"encoder-only archs have no decode step".
+
 The audio family (``cfg.encdec``, Whisper) is an encoder-decoder over the
 stub frontend's frames (``frontend`` [B, encoder_seq_len, d_model]; zeros
 in serving): the encoder adds ``enc_pos_embed.table`` to the frames and
@@ -91,8 +100,9 @@ from repro_torch.core import serve_quant
 from repro_torch.core.kv_quant import FLOAT_CODEC, CacheCodec
 from repro_torch.core.paging import PagingConfig
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE, QTensor
-from repro_torch.core.spec import (CHUNKABLE_FAMILIES, FAMILY_ITEMS,
-                                   KV_QUANTIZABLE_FAMILIES, check_encdec)
+from repro_torch.core.spec import (CHUNKABLE_FAMILIES,
+                                   KV_QUANTIZABLE_FAMILIES, PORTED_FAMILIES,
+                                   check_encdec)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
@@ -105,6 +115,9 @@ from repro_torch.models.ssm import SSMState
 # parameter uniform in [-1, 1)
 _ZERO_LEAVES = ("bias", "conv_b", "gate_in_b", "gate_a_b")
 _ONE_LEAVES = ("scale", "a_log", "d_skip")
+# the reference engine's refusal of the encoder family, which the
+# encoder's decode entry points give too
+NO_DECODE = "encoder-only archs have no decode step"
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -340,7 +353,8 @@ class Embedding(nn.Module):
 
 class Model(nn.Module):
     """A dense-, vlm-, MoE-, ssm-, hybrid- or audio-family causal LM (the
-    audio family's decoder over its encoder's output).
+    audio family's decoder over its encoder's output), or an
+    encoder-family network (non-causal, ``forward`` only).
 
     ``matmul_backend`` ("xla" | "pallas") and ``paged_attn_impl``
     ("gather" | "pallas") select the plain PyTorch paths or the
@@ -356,17 +370,15 @@ class Model(nn.Module):
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
                  kv_dtype: str = "compute", device=None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
-                              "audio") \
+        if cfg.family not in PORTED_FAMILIES \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
                 or (cfg.family == "ssm") != (cfg.ssm is not None) \
                 or (cfg.family == "hybrid") != (cfg.hybrid is not None):
             raise ValueError(
-                f"{cfg.name}: the port's Model serves the dense, vlm, moe, "
-                "ssm, hybrid and audio families (an moe config with its "
-                "MoEConfig, an ssm one with its SSMConfig, a hybrid one "
-                "with its HybridConfig) (ROADMAP.md Queue 1 "
-                f"{FAMILY_ITEMS.get(cfg.family, 'items 11-12')})")
+                f"{cfg.name}: the port's Model serves the families "
+                f"{PORTED_FAMILIES} (an moe config with its MoEConfig, an "
+                "ssm one with its SSMConfig, a hybrid one with its "
+                "HybridConfig) (ROADMAP.md Queue 1 items 11-12)")
         check_encdec(cfg)
         cfg.validate()
         if quant not in ("none", "int8"):
@@ -692,13 +704,19 @@ class Model(nn.Module):
         stack."""
         return [*(self.dense_prefix or ()), *self.layers]
 
+    def _no_decode(self) -> None:
+        """An encoder has no decode state: its decode entry points raise
+        the reference engine's refusal."""
+        if self.cfg.family == "encoder":
+            raise ValueError(f"{self.cfg.name}: {NO_DECODE}")
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 frontend: torch.Tensor | None = None) -> torch.Tensor:
-        """Full-sequence causal forward: tokens [B, S] (and, for the vlm
-        family, the stub frontend's [B, n, d_model]; for the audio family
-        the encoder's frames [B, encoder_seq_len, d_model]) -> logits [B,
-        S, V] (float32)."""
+        """Full-sequence forward, causal but in an encoder: tokens [B, S]
+        (and, for the vlm family, the stub frontend's [B, n, d_model]; for
+        the audio family the encoder's frames [B, encoder_seq_len,
+        d_model]) -> logits [B, S, V] (float32)."""
         b_, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
@@ -726,7 +744,8 @@ class Model(nn.Module):
                 o = attn.mla_attention(hn, blk.attn, self.cfg, positions, mm)
             else:
                 o = attn.gqa_attention(hn, blk.attn, self.cfg, positions, mm,
-                                       window=self.window)
+                                       window=self.window,
+                                       causal=self.cfg.family != "encoder")
             x = self._ffn_half(x + o, blk)
         return self._unembed(x)
 
@@ -756,6 +775,7 @@ class Model(nn.Module):
         An audio model encodes ``frontend`` first and returns an
         ``EncDecCache``: each layer's cross K/V in bf16, while its own
         cross-attend reads them unrounded, as the reference's prefill."""
+        self._no_decode()
         b_, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
@@ -851,6 +871,7 @@ class Model(nn.Module):
         each layer's h and conv window advance; an audio model's
         ``EncDecCache``: the self rows take the new K/V, the cross rows
         are read as the prefill stored them)."""
+        self._no_decode()
         x = self._embed(tokens, positions=cache_index[:, None])
         if self.cfg.family not in ("dense", "vlm", "moe") \
                 and block_tables is not None:
@@ -929,7 +950,8 @@ class Model(nn.Module):
         with a stub frontend their positions below ``num_tokens`` take the
         (zero) patch embeddings, as in the bucketed prefill.  A family
         whose prefill state is sequential (ssm, hybrid) is refused, with
-        the reference's message."""
+        the reference's message; an encoder with the engine's."""
+        self._no_decode()
         if self.cfg.family not in CHUNKABLE_FAMILIES:
             raise ValueError(
                 f"mixed_step unsupported for family {self.cfg.family!r} "

@@ -342,8 +342,13 @@ def test_spec_takes_the_paper_networks_with_maxima():
         with pytest.raises(ValueError,
                            match="encoder-only archs have no decode step"):
             ServingEngine(spec, device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 12f"):
-        RuntimeSpec(arch=paper[0], memory=MemorySpec(max_len=64))
+    # without maxima the spec validates, as the reference's does (the
+    # encoder as a model: tests/test_torch_encoder.py); the engine refuses
+    alone = RuntimeSpec(arch=paper[0], memory=MemorySpec(max_len=64))
+    assert alone.validate() is alone
+    with pytest.raises(ValueError,
+                       match="encoder-only archs have no decode step"):
+        ServingEngine(alone, device="cpu")
     with pytest.raises(ValueError, match="cache_layout='paged' is "
                                          "unsupported for family 'encoder'"):
         RuntimeSpec(arch=paper[0], maxima=mx,

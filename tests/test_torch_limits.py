@@ -30,17 +30,23 @@ PAGED = dict(cache_layout="paged", max_len=64, block_size=8)
 
 
 def test_model_names_items_11_12_for_other_families():
-    """The vlm family is served now (tests/test_torch_vlm.py), and so are
-    the ssm family (tests/test_torch_ssm.py) and the audio family
-    (tests/test_torch_audio.py); the encoder family's refusal names its
-    own sub-item, 12f (the register-driven engine runs it)."""
+    """Every family of the reference is a model of the port: the vlm
+    family (tests/test_torch_vlm.py), the ssm (tests/test_torch_ssm.py),
+    the audio (tests/test_torch_audio.py) and the encoder family
+    (tests/test_torch_encoder.py) build; a config whose family and
+    sub-config disagree, or a family the reference has not, is refused
+    naming items 11-12."""
     Model(dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=1,
                               d_model=64, num_heads=4, num_kv_heads=4,
                               head_dim=16, d_ff=128, vocab_size=128),
           device="cpu")
     Model(reduced(get_config("whisper-medium")), device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 12f"):
-        Model(reduced(get_config("adaptor-bert")), device="cpu")
+    enc = Model(reduced(get_config("adaptor-bert")), device="cpu")
+    assert enc.cfg.family == "encoder" and enc.pos_embed is not None
+    for cfg in (dataclasses.replace(CFG, family="ssm"),
+                dataclasses.replace(CFG, family="retnet")):
+        with pytest.raises(ValueError, match="Queue 1 items 11-12"):
+            Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("B,H,Sq,hd", [
