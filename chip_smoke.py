@@ -163,9 +163,9 @@ Phases (any failure raises and the script exits non-zero):
    printed, cache on and off.  Inside phase 6, one graphed fleet engine
    with the prefix cache serves both members the same prompts: each hits
    only its own member's chain.
-9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 6 of its
-   24 layers (random weights; cut since phases 11, 12 and 17 joined, for
-   run time),
+9. Speculative decoding (k = 3): full-width qwen1.5-0.5b at 5 of its
+   24 layers (random weights; cut since phases 11, 12, 17 and 20 joined,
+   for run time),
    the kernel path, graphed, phase 5's engine and request mix.
    (a) A self-draft (the target's own weights) against speculation off:
    f32 streams (float32 pools) equal, or diverging only where the two
@@ -219,9 +219,10 @@ Phases (any failure raises and the script exits non-zero):
    float drain traced (device ms, idle share, the bf16 gemm kernels of
    the expert products against the expert weights' bytes at 3.35 TB/s,
    0.72 ms a step), the expert products also timed alone; and the
-   self-draft speculating at k = 3 on granite cut to 8 of its 24 layers
-   (run time), graphed and eager: graphed = eager, the decode program's
-   capture one chunk walk a layer at W = 4 (8) and no decode walk.
+   self-draft speculating at k = 3 on granite cut to 4 of its 24 layers
+   (run time; 8 until phase 20 joined), graphed and eager: graphed =
+   eager, the decode program's capture one chunk walk a layer at W = 4
+   (4) and no decode walk.
    Phase 2 holds ``tiled_matmul`` and ``int8_matmul`` (bit-identical)
    at granite's K/V width (8 and 128 x 1024 x 512) and both walks at 16
    heads over 8 kv heads of 64 (decode and W 16, bf16 and int8 pools).
@@ -285,7 +286,8 @@ Phases (any failure raises and the script exits non-zero):
 
 15. The vlm family, the dense layout and the bucketed scheduler (ROADMAP
    Queue 1 items 12a-12b): phi-3-vision-4.2b at its published widths and
-   8 of its 32 layers (cut since phase 16 joined, for run time), seeded
+   4 of its 32 layers (cut to 8 when phase 16 joined and to 4 when phase
+   20 did, for run time), seeded
    random weights.  (a) At f32 compute, along the
    kernels, their plain versions and those perturbed (phase 4's gate): a
    mixed step whose prompt lanes straddle the 576 patch positions
@@ -312,16 +314,16 @@ Phases (any failure raises and the script exits non-zero):
    x 3072.
 
 16. The hybrid family (ROADMAP Queue 1 item 12c): recurrentgemma-2b at
-   its published widths and 13 of its 26 layers (cut since phase 17
-   joined, for run time; pattern r, r, a: 9 RG-LRU and 4
-   local-attention layers, d_model and lru_width 2560, 10 heads
+   its published widths and 7 of its 26 layers (cut to 13 when phase 17
+   joined and to 7 when phase 20 did, for run time; pattern r, r, a: 5
+   RG-LRU and 2 local-attention layers, d_model and lru_width 2560, 10 heads
    over 1 kv head of 256, window 2048, GeGLU d_ff 7680, vocab 256000),
    seeded random weights.  (a) At f32 compute, the kernels against their
    plain versions (the plain loop in place of ``rglru_scan``) within
    phase 4's gate: ``Model.prefill`` of a 2300-token prompt (past the
    window: banded attention, wrapped rolling buffers) and 4 decode steps
    over its state; the prefill's launches equal ``program_launches``
-   (82 ``tiled_matmul``, 27 ``rmsnorm``, 9 ``rglru_scan``); an explicit
+   (44 ``tiled_matmul``, 15 ``rmsnorm``, 5 ``rglru_scan``); an explicit
    chunked spec and ``mixed_step`` refused, "auto" bucketed.  (b) bf16
    on dense + bucketed, max_batch 8, max_len 3072 (buckets 32-3072), 8
    greedy requests of 40-3000 tokens x 32 new, graphed (first, warm,
@@ -337,8 +339,9 @@ Phases (any failure raises and the script exits non-zero):
 
 17. The ssm family (ROADMAP Queue 1 item 12d): falcon-mamba-7b at its
    published widths (``check_ssm``): f32 steps at 8 of 64 layers, bf16
-   serving at all 64 on dense + bucketed, a decode step and a prefill
-   timed against their bounds; phase 2 holds ``ssm_scan`` bit for bit.
+   serving at 32 of 64 (all 64 until phase 20 joined; cut for run time)
+   on dense + bucketed, a decode step and a prefill timed against their
+   bounds; phase 2 holds ``ssm_scan`` bit for bit.
 
 18. The audio family (ROADMAP Queue 1 item 12e): whisper-medium at its
    published widths (``check_audio``), seeded random weights.  (a) At f32
@@ -382,6 +385,30 @@ Phases (any failure raises and the script exits non-zero):
    predicted against measured TTFT / ITL, tok/s; gates: the budget, every
    request finished, one capture per program.
 
+20. Training on one card (ROADMAP Queue 1 item 16; ``check_train``),
+   through ``torch.matmul`` as the reference trains through XLA dots: no
+   hand-written kernel has a backward, and the training steps launch none
+   (checked).  (a) qwen1.5-0.5b at its widths and 2 of 24 layers, 2 x 32
+   tokens, f32 with TF32 off: loss, aux and every gradient leaf against
+   the same step on the host (1e-5 relative, 1e-4 x max|g|).  (b) All 24
+   layers, f32 masters and bf16 compute, the reference quickstart's
+   corpus (4 rows of 32) and AdamW (warmup 5, no decay) for 60 steps at
+   lr 2e-3 (the quickstart's 3e-3 can stall at full width; 2e-3 is the
+   largest ``launch/memorize_probe.py`` tried that memorizes every row): every loss finite, the last below half the first; step ms and
+   tok/s beside ``train_bound``; then the trained masters load into a
+   graphed engine of phase 5's spec on the kernel path, which greedily
+   continues each row's first 8 tokens: row 0 must give back at least 6
+   of its 8 (the "train" path's launches: ``tiled_matmul``, both walks,
+   ``rmsnorm``).  (d) An ``async_write`` checkpoint at step 10, restored
+   into a fresh state on the card: its next 3 losses equal the run's bit
+   for bit.  (c) 8 x 128 tokens: ``accum_steps`` 2 against 1 at the
+   reference's gates, the step's time, remat "full" and "dots" against
+   "none" (loss and grad norm within 2e-2) with each mode's peak memory,
+   "full" below "none".  (e) granite-moe-1b-a400m at its widths and
+   depth, 5 bf16 steps: finite, ``load_balance``, step ms, peak memory.
+   (f) Training with "pallas", int8 weights and the ssm and hybrid
+   families refused.  Every time prints the card's name and power limit.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -397,6 +424,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -462,6 +490,12 @@ from repro_torch.harness.tune import cache_bytes, score  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
+from repro_torch.data.pipeline import (MemorizationStream,  # noqa: E402
+                                       SyntheticLMStream)
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.training.train_step import (  # noqa: E402
+    TrainStepConfig, init_state, loss_and_grads, make_step_fn)
 
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # relative size of the attention kernels' float32 summation-order error
@@ -635,7 +669,12 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 "ssm": ("tiled_matmul", "rmsnorm", "ssm_scan"),
                 # phase 19a: the paper's encoders' forwards (their attends
                 # plain torch, as the reference's XLA)
-                "encoder": ("tiled_matmul", "layernorm")}
+                "encoder": ("tiled_matmul", "layernorm"),
+                # phase 20: the trained qwen1.5-0.5b's masters served on
+                # phase 5's kernel path (the training step itself runs
+                # "xla" and launches none: checked)
+                "train": ("tiled_matmul", "paged_decode_attention",
+                          "chunked_prefill_attention", "rmsnorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -3097,10 +3136,11 @@ def check_prefix_fleet(members) -> None:
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding
 # ---------------------------------------------------------------------------
-# phase 9's target: qwen1.5-0.5b at 6 of its 24 layers (cut to 12 when
-# phase 11 joined, to 8 when phase 12 did and to 6 when phase 17 did: the
-# run stays near its time; every gate a layer carries stays)
-SPEC_TARGET_LAYERS = 6
+# phase 9's target: qwen1.5-0.5b at 5 of its 24 layers (cut to 12 when
+# phase 11 joined, to 8 when phase 12 did, to 6 when phase 17 did and to 5
+# when phase 20 did: the run stays near its time; every gate a layer
+# carries stays)
+SPEC_TARGET_LAYERS = 5
 SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 layers
 
 
@@ -3443,10 +3483,11 @@ MOE = "granite-moe-1b-a400m"
 # router and experts are torch.matmul / torch.bmm, as XLA einsums are in
 # the reference)
 MOE_MATMULS = 4
-# the speculative drain's depth: granite's first 8 of 24 layers, target
-# and self-draft (at full depth its eager drain alone takes ~14 s on one
-# H100; the walks' and matmuls' counts a pass scale with L)
-MOE_SPEC_LAYERS = 8
+# the speculative drain's depth: granite's first 4 of 24 layers, target
+# and self-draft (8 until phase 20 joined; at full depth its eager drain
+# alone takes ~14 s on one H100; the walks' and matmuls' counts a pass
+# scale with L)
+MOE_SPEC_LAYERS = 4
 
 
 def route_flips(calls: list, layers: int) -> str:
@@ -3896,9 +3937,10 @@ def check_mla(dev, g) -> dict:
 # the bucketed scheduler
 # ---------------------------------------------------------------------------
 VLM = "phi-3-vision-4.2b"
-# phase 15a-b's depth: 8 of its 32 layers (cut when phase 16 joined, to
-# keep the run well inside its limit; every gate a layer carries stays)
-VLM_LAYERS = 8
+# phase 15a-b's depth: 4 of its 32 layers (cut to 8 when phase 16 joined
+# and to 4 when phase 20 did, to keep the run well inside its limit;
+# every gate a layer carries stays)
+VLM_LAYERS = 4
 VLM_ENGINE = dict(max_batch=8, max_len=1024, block_size=16, chunk=16)
 # text tokens after the 576 patch positions: prompts of 592-992 tokens
 VLM_TEXT = (16, 73, 130, 187, 244, 301, 358, 416)
@@ -4260,9 +4302,10 @@ def check_bucketed_qwen(dev, g) -> dict:
 # phase 16: the hybrid family (recurrentgemma-2b) on dense + bucketed
 # ---------------------------------------------------------------------------
 HYBRID = "recurrentgemma-2b"
-# phase 16's depth: 13 of its 26 layers (cut when phase 17 joined, for run
-# time; every kind of layer and gate stays)
-HYBRID_LAYERS = 13
+# phase 16's depth: 7 of its 26 layers (cut to 13 when phase 17 joined and
+# to 7 when phase 20 did, for run time; every kind of layer and gate
+# stays: 5 RG-LRU and 2 local-attention layers)
+HYBRID_LAYERS = 7
 # 16a: a prefill past the 2048-token window, then decode steps
 HYBRID_PREFILL, HYBRID_DECODE = 2300, 4
 # 16b: the serving geometry and mix (buckets 32-3072; the prompts fill six
@@ -4466,8 +4509,9 @@ SSM = "falcon-mamba-7b"
 # plain scan loop dispatches ~15 operators a position and layer)
 SSM_PREFILL, SSM_BUCKET, SSM_DECODE = 1100, 2048, 4
 SSM_STEP_LAYERS = 8
-# 17b: every layer, phase 16's geometry and mix (buckets 32-3072)
-SSM_LAYERS = 64
+# 17b: 32 of the 64 layers (all 64 until phase 20 joined; cut for run
+# time), phase 16's geometry and mix (buckets 32-3072)
+SSM_LAYERS = 32
 SSM_ENGINE = HYBRID_ENGINE
 SSM_PROMPTS = HYBRID_PROMPTS
 SSM_NEW = 32
@@ -5677,6 +5721,343 @@ def check_adaptive(timer, dev, g) -> dict:
     return {"adaptive": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training on one card (ROADMAP Queue 1 item 16)
+# ---------------------------------------------------------------------------
+TRAIN = "qwen1.5-0.5b"
+TRAIN_SEED = 20
+TRAIN_GRAD_LAYERS = 2                 # (a): 2 of 24 layers at full width
+TRAIN_GRAD_BATCH = (2, 32)
+# (b): the reference quickstart's corpus, optimizer and 60 steps, but lr
+# 2e-3: at full width the quickstart's 3e-3 can stall on a plateau (seed 22
+# of launch/memorize_probe.py: loss 0.47 after 60 steps, row 0 4 of 8),
+# where 2e-3, the largest it tried that does, memorizes every row of
+# seeds 20-22
+MEMORIZE = dict(n_rows=4, seq_len=32, batch=4)
+MEMORIZE_OPT = dict(lr=2e-3, warmup_steps=5, total_steps=60,
+                    weight_decay=0.0)
+MEMORIZE_STEPS = 60
+PROMPT_TOKENS = 8                     # greedy 8 from each row's first 8
+CKPT_AT = 10                          # (d): the save's step in (b)'s run
+TIMED_FROM = CKPT_AT + 4              # (b)'s step time: steps 15-60
+ACCUM_BATCH = (8, 128)                # (c)
+MOE_STEPS, MOE_BATCH = 5, (4, 128)    # (e)
+
+
+def train_bound(model: Model, tokens: int) -> tuple[float, str]:
+    """A train step's least time on the card: the larger of the
+    arithmetic, 6 x (the parameters a token multiplies outside the
+    embedding tables: an MoE layer's k of E experts) x tokens at the bf16
+    peak plus the f32 unembedding's 6 x V x d x tokens at the f32 peak,
+    and AdamW's bytes: each f32 parameter, m and v read and written and
+    its gradient read (28 bytes a parameter) at the HBM rate."""
+    cfg, n, n_mm = model.cfg, 0, 0
+    for name, p in model.named_parameters():
+        n += p.numel()
+        if name.endswith("table"):
+            continue
+        frac = cfg.moe.experts_per_token / cfg.moe.num_experts \
+            if ".moe.w" in name else 1.0
+        n_mm += p.numel() * frac
+    t_ops = 6 * n_mm * tokens / PEAK_FLOPS[torch.bfloat16] \
+        + 6 * cfg.vocab_size * cfg.d_model * tokens \
+        / PEAK_FLOPS[torch.float32]
+    t_bytes = 28 * n / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_grads(dev, g) -> None:
+    """(a) qwen1.5-0.5b at its widths and 2 of 24 layers, f32 compute with
+    TF32 off: the card's loss, aux and every gradient leaf against the
+    same step on the host, on the same weights and batch; the CPU tests'
+    gates (1e-5 relative, 1e-4 x max|g_host|)."""
+    cfg = dataclasses.replace(get_config(TRAIN), num_layers=TRAIN_GRAD_LAYERS)
+    card = Model(cfg, compute_dtype=torch.float32, device=dev,
+                 trainable=True).init(g)
+    host = Model(cfg, compute_dtype=torch.float32, device="cpu",
+                 trainable=True)
+    host.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    B, S = TRAIN_GRAD_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss, aux, grads = loss_and_grads(card, dict(card.named_parameters()),
+                                          batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    h_loss, h_aux, h_grads = loss_and_grads(
+        host, dict(host.named_parameters()),
+        {k: v.cpu() for k, v in batch.items()})
+    rel = {k: abs(float(aux[k]) - float(h_aux[k])) / abs(float(h_aux[k]))
+           for k in h_aux}
+    scale = max(float(t.abs().max()) for t in h_grads.values())
+    errs = {n: float((grads[n].cpu() - t).abs().max())
+            for n, t in h_grads.items()}
+    worst = max(errs, key=errs.get)
+    print(f"  (a) {TRAIN} at its widths, {TRAIN_GRAD_LAYERS} of "
+          f"{get_config(TRAIN).num_layers} layers, "
+          f"{B} x {S} tokens, f32, TF32 off, card vs host: loss "
+          f"{float(loss):.6f} / {float(h_loss):.6f}, relative "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (gate 1e-5); grads: worst {worst} {errs[worst]:.3e} = "
+          f"{errs[worst] / scale:.2e} x max|g| {scale:.4f} (gate 1e-4), "
+          f"{len(errs)} leaves")
+    if max(rel.values()) > 1e-5 or errs[worst] > 1e-4 * scale:
+        raise AssertionError("training gradients on the card disagree with "
+                             "the host's")
+
+
+def memorize(dev, g, smi: str, tmp: str) -> dict:
+    """(b) and (d): all 24 layers, f32 masters, bf16 compute, AdamW at the
+    quickstart's settings over ``MemorizationStream``; an async checkpoint
+    at step ``CKPT_AT``, restored into a fresh state on the card whose
+    next 3 steps must repeat the run's losses bit for bit.  Then the
+    trained masters are served by a graphed engine on the kernel path
+    (phase 5's spec): greedy 8 from each row's first 8 tokens.  Returns
+    the drain (its launches are the path's)."""
+    cfg = get_config(TRAIN)
+    model = Model(cfg, device=dev, trainable=True)
+    oc = AdamWConfig(**MEMORIZE_OPT)
+    state = init_state(model, g, oc)
+    step = make_step_fn(model, TrainStepConfig(optimizer=oc))
+    data = dict(vocab_size=cfg.vocab_size, device=dev, **MEMORIZE)
+    stream = MemorizationStream(**data)
+    zero_counts()
+    losses, lb = [], []
+    for i in range(MEMORIZE_STEPS):
+        if i == TIMED_FROM:
+            writer.join(timeout=600)
+            if writer.is_alive():
+                raise AssertionError("the checkpoint writer did not finish")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        state, m = step(state, stream.next())
+        losses.append(m["loss"])
+        if i + 1 == CKPT_AT:
+            writer = ckpt.save(tmp, CKPT_AT, state, async_write=True,
+                               meta={"data_state": stream.state()})
+    torch.cuda.synchronize()
+    n_timed = MEMORIZE_STEPS - TIMED_FROM
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    peak = peak_gb()
+    ran = {n: c for n, c in launch_counts().items() if c}
+    if ran:
+        raise AssertionError(f"the training step launched kernels: {ran}")
+    losses = [float(x) for x in losses]
+    tokens = MEMORIZE["batch"] * MEMORIZE["seq_len"]
+    bound, by = train_bound(model, tokens)
+    print(f"  (b) {TRAIN} at its widths and {cfg.num_layers} layers, f32 "
+          f"masters, bf16 "
+          f"compute, lr {oc.lr} warmup {oc.warmup_steps}, {MEMORIZE['n_rows']}"
+          f" rows x {MEMORIZE['seq_len']}: losses "
+          + " ".join(f"{x:.3f}" for x in losses[::6])
+          + f" ... {losses[-1]:.4f}"
+          f"; step {step_ms:.3f} ms ({tokens} tokens, steps {TIMED_FROM + 1}-"
+          f"{MEMORIZE_STEPS}), {tokens / step_ms * 1e3:.0f} tok/s, bound "
+          f"{bound:.3f} ms ({by}), {step_ms / bound:.1f}x; peak "
+          f"{peak:.2f} GB; no hand-written kernel launched; {smi}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"memorization failed: {losses[0]} -> "
+                             f"{losses[-1]}")
+    # (d): restore the step-CKPT_AT checkpoint into a fresh state
+    fresh = Model(cfg, device=dev, trainable=True)
+    like = init_state(fresh, g, oc)
+    got, meta = ckpt.restore_latest(tmp, like)
+    del like
+    step2 = make_step_fn(fresh, TrainStepConfig(optimizer=oc))
+    stream2 = MemorizationStream.restore(meta["data_state"], **data)
+    resumed = []
+    for _ in range(3):
+        got, m = step2(got, stream2.next())
+        resumed.append(float(m["loss"]))
+    want = losses[CKPT_AT:CKPT_AT + 3]
+    print(f"  (d) async save at step {meta['step']}, restored into a fresh "
+          f"state on the card, 3 more steps: {resumed} against the run's "
+          f"{want}: {'bit for bit' if resumed == want else 'DIFFER'}")
+    if resumed != want:
+        raise AssertionError("the resumed run's losses differ from the "
+                             "uninterrupted run's")
+    del got, fresh, step2
+    # serve the trained masters through the kernels
+    rows = stream.corpus.tolist()
+    prompts = [r[:PROMPT_TOKENS] for r in rows]
+    served = serve(state.params, prompts, max_new=PROMPT_TOKENS)
+    hits = [sum(a == b for a, b in zip(served["streams"][i],
+                                       r[PROMPT_TOKENS:2 * PROMPT_TOKENS]))
+            for i, r in enumerate(rows)]
+    print(f"  (b) the trained masters served by a graphed engine on the "
+          f"kernel path: memorized tokens " + ", ".join(
+              f"row {i} {h}/{PROMPT_TOKENS}" for i, h in enumerate(hits))
+          + f" (gate: row 0 >= 6); launches {served['launches']}")
+    if hits[0] < 6:
+        raise AssertionError(f"row 0 reproduced {hits[0]} of 8 tokens")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return served
+
+
+def accum_and_remat(dev, g, smi: str) -> None:
+    """(c) 8 x 128 tokens, all 24 layers, bf16: ``accum_steps`` 2 against 1
+    from one state at the reference's gates (loss within 0.05,
+    parameters within 5e-2); the step's time at 1024 tokens; remat "full"
+    and "dots" against "none" (loss and grad norm within 2e-2, bf16),
+    each mode's peak memory, "full" below "none"."""
+    cfg = get_config(TRAIN)
+    B, S = ACCUM_BATCH
+    model = Model(cfg, device=dev, trainable=True)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    s0 = init_state(model, g, oc)
+    batch = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=S,
+                              global_batch=B, seed=1, device=dev).next()
+    s1, m1 = make_step_fn(model, TrainStepConfig(optimizer=oc,
+                                                 donate=False))(s0, batch)
+    s2, m2 = make_step_fn(model, TrainStepConfig(
+        optimizer=oc, accum_steps=2, donate=False))(s0, batch)
+    dl = abs(float(m1["loss"]) - float(m2["loss"]))
+    dp = max(float((s1.params[n] - s2.params[n]).detach().abs().max())
+             for n in s1.params)
+    print(f"  (c) accum_steps 2 vs 1 at {B} x {S}: loss "
+          f"{float(m2['loss']):.4f}"
+          f" / {float(m1['loss']):.4f} (|d| {dl:.2e}, gate 0.05), params "
+          f"max |d| {dp:.2e} (gate 5e-2)")
+    if not dl < 0.05 or not dp < 5e-2:
+        raise AssertionError("accumulation moved the step")
+    del s2
+    # the step's time at 1024 tokens (donated, on s1)
+    step = make_step_fn(model, TrainStepConfig(optimizer=oc))
+    s1, _ = step(s1, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        s1, _ = step(s1, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    bound, by = train_bound(model, B * S)
+    print(f"  (c) step at {B} x {S} = {B * S} tokens: {step_ms:.3f} ms, "
+          f"{B * S / step_ms * 1e3:.0f} tok/s, bound {bound:.3f} ms ({by}), "
+          f"{step_ms / bound:.1f}x; {smi}")
+    del s1
+    res = {}
+    for mode in ("none", "full", "dots"):
+        model.remat = mode
+        # a first call pays the checkpoint machinery's one-time set-up
+        loss_and_grads(model, s0.params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, s0.params, batch)
+        norm = float(global_norm(grads))
+        ms = (time.perf_counter() - t0) * 1e3     # includes the norm's read
+        res[mode] = (float(loss), norm, peak_gb() - base, peak_gb(), ms)
+        del grads
+    model.remat = "none"
+    print(f"  (c) remat at {B} x {S}: " + "; ".join(
+        f"{k} loss {v[0]:.5f} grad norm {v[1]:.5f} peak {v[3]:.2f} GB "
+        f"(+{v[2]:.2f} over the state) loss + grads {v[4]:.1f} ms"
+        for k, v in res.items()) + f"; {smi}")
+    l0, n0 = res["none"][:2]
+    for mode in ("full", "dots"):
+        if abs(res[mode][0] - l0) > 2e-2 * abs(l0) \
+                or abs(res[mode][1] - n0) > 2e-2 * n0:
+            raise AssertionError(f"remat {mode!r} moved the loss or grads")
+    if not res["full"][3] < res["none"][3]:
+        raise AssertionError("remat 'full' did not lower the peak memory")
+    del s0, model
+    torch.cuda.empty_cache()
+
+
+def train_moe(dev, g, smi: str) -> None:
+    """(e) granite-moe-1b-a400m at its published widths and depth (f32
+    masters, m and v: ~21 GB of state), bf16 compute, ``MOE_STEPS`` steps:
+    finite losses, the balance term, peak memory, the step's time."""
+    cfg = get_config(MOE)
+    model = Model(cfg, device=dev, trainable=True)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, g, oc)
+    step = make_step_fn(model, TrainStepConfig(optimizer=oc))
+    B, S = MOE_BATCH
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=2, device=dev)
+    losses, lbs = [], []
+    for i in range(MOE_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, stream.next())
+        losses.append(m["loss"])
+        lbs.append(m["load_balance"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (MOE_STEPS - 1) * 1e3
+    losses, lbs = [float(x) for x in losses], [float(x) for x in lbs]
+    bound, by = train_bound(model, B * S)
+    n = sum(p.numel() for p in state.params.values())
+    print(f"  (e) {MOE} at its widths and {cfg.num_layers} layers "
+          f"({n / 1e9:.2f}"
+          f" B parameters), bf16, {B} x {S}: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + ", load_balance "
+          + " ".join(f"{x:.4f}" for x in lbs) + f"; step {step_ms:.3f} ms, "
+          f"bound {bound:.3f} ms ({by}), {step_ms / bound:.1f}x; peak "
+          f"{peak_gb():.2f} GB; {smi}")
+    if not all(math.isfinite(x) for x in losses + lbs):
+        raise AssertionError("granite-moe training went non-finite")
+    del state, model, step
+    torch.cuda.empty_cache()
+
+
+def train_refusals(dev) -> None:
+    """(f) What a trainable model refuses, before it allocates."""
+    qwen = get_config(TRAIN)
+    cases = (("matmul_backend='pallas'", qwen, dict(matmul_backend="pallas")),
+             ("int8 weights", qwen, dict(quant="int8")),
+             ("the ssm family", get_config(SSM), {}),
+             ("the hybrid family", get_config(HYBRID), {}))
+    for label, cfg, kw in cases:
+        try:
+            Model(cfg, device=dev, trainable=True, **kw)
+        except ValueError as e:
+            print(f"  (f) {label} refused: {e}")
+        else:
+            raise AssertionError(f"training with {label} was not refused")
+
+
+def check_train(dev, smi: str) -> dict:
+    """Phase 20: training on one card (``train_grads``, ``memorize``,
+    ``accum_and_remat``, ``train_moe``, ``train_refusals``); the serving
+    of the trained weights is the path whose launches are returned.  Each
+    part draws from a generator of its own seeded with ``TRAIN_SEED``, so
+    its weights, and the memorization run they start, move neither when
+    an earlier phase's depth does nor when another part changes."""
+    t_start = time.perf_counter()
+
+    def seeded() -> torch.Generator:
+        g = torch.Generator(device=dev)
+        g.manual_seed(TRAIN_SEED)
+        return g
+
+    print(f"\n== training: {TRAIN} and {MOE} on one card; {smi}")
+    train_grads(dev, seeded())
+    with tempfile.TemporaryDirectory() as tmp:
+        served = memorize(dev, seeded(), smi, tmp)
+    accum_and_remat(dev, seeded(), smi)
+    train_moe(dev, seeded(), smi)
+    train_refusals(dev)
+    print(f"  phase 20 took {time.perf_counter() - t_start:.1f} s")
+    return {"train": served["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5881,11 +6262,13 @@ def main() -> int:
     lap("phase 18")
     launches.update(check_encoder(timer, dev, g, smi))
     lap("phase 19")
+    launches.update(check_train(dev, smi))
+    lap("phase 20")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
                  "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
-                 "audio", "encoder"):
+                 "audio", "encoder", "train"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

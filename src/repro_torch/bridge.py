@@ -22,9 +22,17 @@ enc-dec (audio) model stacks its encoder on a leading axis of
 ``enc_layers.<i>.`` (the dense layer's leaves), while its decoder layers
 (``ln_cross`` and ``cross.{wq,wk,wv,wo}`` among them) unstack as
 ``layers.*`` do; ``enc_final_norm``, ``enc_pos_embed.table`` and the
-decoder's ``pos_embed.table`` carry over by name.  The multi-token-prediction head (``mtp``, DeepSeek-V3) is a
-training-only module (ROADMAP.md Queue 1 item 16) that the port's serving
-``Model`` does not hold, so it is left out.
+decoder's ``pos_embed.table`` carry over by name.  The multi-token-prediction
+head (``mtp``, DeepSeek-V3; the reference builds it unstacked) carries over
+by name as ``mtp.{proj, norm_h, norm_e, layer.*}``: a trainable ``Model``
+holds it, and a serving one, which never reads it, drops those leaves as
+it loads.
+
+``from_jax_train_state(np_state, cfg, device)`` maps the reference's
+``TrainState`` (params, and ``opt`` with its ``step``, ``m`` and ``v``,
+every leaf as numpy) onto the port's: the parameters as above, as f32
+masters with ``requires_grad``, and the moments unstacked by the same
+rule, in their dtype (bfloat16 moments stay bfloat16).
 
 A tree the reference has quantized (its ``serve_quant.quantize_params``)
 holds ``QTensor`` leaves; after the numpy conversion each is a
@@ -48,6 +56,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.adaptive import unflatten
 from repro_torch.core.serve_quant import SCALE_SUFFIX
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_step import TrainState
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -85,7 +95,7 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
     dtype); ``Model.load_state_dict`` casts dense kernels to the compute
     dtype.
     """
-    flat = _flatten({k: v for k, v in np_tree.items() if k != "mtp"})
+    flat = _flatten(np_tree)
     stacked = cfg.num_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
     stacks = {"layers.": (stacked, "num_layers", cfg.num_layers)}
     if cfg.encdec is not None:
@@ -107,6 +117,24 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
         else:
             out[name] = t.to(device)
     return out
+
+
+def from_jax_train_state(np_state, cfg: ArchConfig, device) -> TrainState:
+    """The port's ``TrainState`` from the reference's (numpy leaves):
+    ``np_state.params`` as trainable f32 masters, ``np_state.opt``'s
+    moments by the same names in their own dtype and its step as an int32
+    scalar, all on ``device``."""
+    params, opt = np_state
+    moment = torch.bfloat16 if str(np.asarray(
+        next(iter(_flatten(opt.m).values()))).dtype) == "bfloat16" \
+        else torch.float32
+    return TrainState(
+        {n: t.requires_grad_(True) for n, t in from_jax_params(
+            params, cfg, device).items()},
+        AdamWState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                                device=device),
+                   from_jax_params(opt.m, cfg, device, moment),
+                   from_jax_params(opt.v, cfg, device, moment)))
 
 
 def from_jax_adaptive(np_tree: Mapping, engine) -> dict:

@@ -2,8 +2,9 @@
 ``dense``, ``vlm``, ``moe``, ``ssm``, ``hybrid``, ``audio`` and
 ``encoder``, with GQA or MLA attention, or none):
 parameters, the paged KV pool and the dense per-slot cache, ``forward``,
-``prefill``, ``decode_step`` and ``mixed_step``.  A model with learned
-positions (``positional="learned"``) holds ``pos_embed.table``
+``prefill``, ``decode_step`` and ``mixed_step``, and the training
+``loss`` (``Model(..., trainable=True)``; ``training/``).  A model with
+learned positions (``positional="learned"``) holds ``pos_embed.table``
 ``[max_position_embeddings, d_model]`` and adds row ``min(p,
 max_position_embeddings - 1)`` to the embedding of position ``p``.
 
@@ -67,14 +68,15 @@ then ``enc_final_norm``; each decoder layer ``layers.<i>.`` holds
 its FFN, and attends from its queries over K/V projected from the
 encoder's output.  Its decode state is an ``EncDecCache``, dense only and
 never quantized: the decoder's self K/V and the cross K/V of the
-request's frames, computed once in the prefill.  Dense
+request's frames, computed once in the prefill.  In a serving model dense
 kernels (``[d_in, d_out]``,
 as the reference stores them), their biases and the expert weights are
 kept in the compute dtype, cast once from the parameter dtype (the
 reference casts them to x's dtype on every call: the same numbers);
 norm scales, the router, the embedding table and MLA's ``k_up`` stay in
 the parameter dtype, since the norms, the router, ``unembed`` and the
-absorbed MLA query read them in float32.
+absorbed MLA query read them in float32.  A trainable model keeps every
+leaf in the parameter dtype and casts on every call, as the reference.
 
 With ``quant="int8"`` every eligible dense kernel and the embedding and
 ``lm_head`` tables (``core.serve_quant``) is held as int8 values with a float32 buffer beside
@@ -88,11 +90,14 @@ weights, and the reference cannot serve that configuration.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
                                       DEFAULT_PARAM_DTYPE, ArchConfig)
@@ -118,6 +123,38 @@ _ONE_LEAVES = ("scale", "a_log", "d_skip")
 # the reference engine's refusal of the encoder family, which the
 # encoder's decode entry points give too
 NO_DECODE = "encoder-only archs have no decode step"
+# the training loss's extra terms at the reference's ModelOptions defaults
+MTP_LOSS_WEIGHT = 0.3
+MOE_AUX_WEIGHT = 0.01
+REMAT_MODES = ("none", "full", "dots")
+# what "dots" saves: the outputs of the matrix products (the counterpart
+# of jax's dots_with_no_batch_dims_saveable); the rest is recomputed
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _check_trainable(cfg: ArchConfig, matmul_backend: str,
+                     quant: str) -> None:
+    """What a trainable model refuses, each with its reason."""
+    if quant != "none":
+        raise ValueError(f"{cfg.name}: training takes float weights, not "
+                         f"quant={quant!r} (int8 weights are a serving "
+                         "format)")
+    if matmul_backend != "xla":
+        raise ValueError(
+            f"{cfg.name}: training runs matmul_backend='xla' only: no "
+            "hand-written kernel of the port has a backward, and no Pallas "
+            "kernel of the reference has a VJP")
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family does not train yet: its "
+            "recurrence runs a hand-written scan with no backward on the "
+            "card (ROADMAP.md Queue 1 item 16b)")
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -351,6 +388,22 @@ class Embedding(nn.Module):
         self.table = _frozen((vocab, d), dtype, device)
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head, depth 1 (the reference's
+    ``_build_mtp``): ``proj`` ``[2 d, d]`` over the normed hidden state
+    (``norm_h``) beside the normed embedding of the next token
+    (``norm_e``), then one MoE ``layer``.  Training only: serving never
+    reads it."""
+
+    def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = Dense(2 * d, d, False, dtype, device)
+        self.norm_h = Norm(d, cfg.norm, param_dtype, device)
+        self.norm_e = Norm(d, cfg.norm, param_dtype, device)
+        self.layer = Block(cfg, param_dtype, dtype, device, moe_block=True)
+
+
 class Model(nn.Module):
     """A dense-, vlm-, MoE-, ssm-, hybrid- or audio-family causal LM (the
     audio family's decoder over its encoder's output), or an
@@ -362,14 +415,35 @@ class Model(nn.Module):
     and ``kv_dtype`` ("compute" | "int8") the KV pool's codec.
     ``device=None`` resolves to the CUDA device and raises without one;
     pass ``device="cpu"`` for the host.
+
+    ``trainable=True`` builds the model ``loss`` trains: every float leaf
+    an f32 master (``param_dtype``) with ``requires_grad``, cast to the
+    compute dtype on every call as the reference casts it, and, for an
+    MoE model with ``num_mtp_modules``, the multi-token-prediction head
+    ``mtp.{proj, norm_h, norm_e, layer}`` (the reference's
+    ``_build_mtp``; its parameters come last, so ``init`` draws every
+    other leaf as for serving).  It refuses int8 weights, the
+    ``"pallas"`` backend (no hand-written kernel has a backward) and the
+    ssm and hybrid families (their scans have none either: ROADMAP.md
+    Queue 1 item 16b).  ``remat`` ("none" | "full" | "dots") recomputes
+    each layer in the backward: all of it, or all but its matrix
+    products (the reference's ``dots_with_no_batch_dims_saveable``).
     """
 
     def __init__(self, cfg: ArchConfig, *, param_dtype=DEFAULT_PARAM_DTYPE,
                  compute_dtype=DEFAULT_COMPUTE_DTYPE, matmul_backend: str = "xla",
                  paged_attn_impl: str = "gather", quant: str = "none",
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
-                 kv_dtype: str = "compute", device=None):
+                 kv_dtype: str = "compute", device=None,
+                 trainable: bool = False, remat: str = "none"):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat={remat!r} is not one of {REMAT_MODES}")
+        if trainable:
+            _check_trainable(cfg, matmul_backend, quant)
+        # a serving model stores its dense kernels in the compute dtype,
+        # a trainable one its f32 masters
+        store = param_dtype if trainable else compute_dtype
         if cfg.family not in PORTED_FAMILIES \
                 or (cfg.family == "moe") != (cfg.moe is not None) \
                 or (cfg.family == "ssm") != (cfg.ssm is not None) \
@@ -404,7 +478,7 @@ class Model(nn.Module):
         # an MoE model: the dense prefix, then the MoE blocks
         k = cfg.moe.first_k_dense if cfg.moe is not None else 0
         self.dense_prefix = nn.ModuleList(
-            Block(cfg, param_dtype, compute_dtype, dev,
+            Block(cfg, param_dtype, store, dev,
                   d_ff=cfg.moe.dense_d_ff) for _ in range(k)) if k else None
         # a hybrid model's layers: (kind, index among that kind's layers)
         self.kinds: list[tuple[str, int]] = []
@@ -416,9 +490,9 @@ class Model(nn.Module):
                                              for kd, _ in self.kinds)))
         self.window = cfg.hybrid.attention_window if cfg.hybrid else None
         self.layers = nn.ModuleList(
-            SSMBlock(cfg, param_dtype, compute_dtype, dev)
+            SSMBlock(cfg, param_dtype, store, dev)
             if cfg.ssm is not None else
-            Block(cfg, param_dtype, compute_dtype, dev,
+            Block(cfg, param_dtype, store, dev,
                   moe_block=cfg.moe is not None,
                   kind=self.kinds[i][0] if self.kinds else "a",
                   cross=cfg.encdec is not None)
@@ -429,7 +503,7 @@ class Model(nn.Module):
         self.enc_layers = self.enc_final_norm = self.enc_pos_embed = None
         if cfg.encdec is not None:
             self.enc_layers = nn.ModuleList(
-                Block(cfg, param_dtype, compute_dtype, dev)
+                Block(cfg, param_dtype, store, dev)
                 for _ in range(cfg.encdec.num_encoder_layers))
             self.enc_final_norm = Norm(cfg.d_model, cfg.norm, param_dtype,
                                        dev)
@@ -440,6 +514,12 @@ class Model(nn.Module):
         # embedding table
         self.lm_head = None if cfg.tie_embeddings else Embedding(
             cfg.vocab_size, cfg.d_model, param_dtype, dev)
+        self.trainable, self.remat = trainable, remat
+        self.mtp = MTP(cfg, param_dtype, store, dev) \
+            if trainable and cfg.moe is not None and cfg.num_mtp_modules \
+            else None
+        if trainable:
+            self.requires_grad_(True)
         if quant == "int8":
             # expert and router leaves are not named kernel: they stay
             # float, as in the reference
@@ -516,7 +596,11 @@ class Model(nn.Module):
         """``nn.Module.load_state_dict``; a model serving int8 weights
         quantizes the float leaves it holds as int8 first
         (``core.serve_quant.quantize_params``; int8 leaves with their
-        scales pass through)."""
+        scales pass through).  A model without the MTP head drops the
+        ``mtp.*`` leaves a trained model or the bridge carries."""
+        if self.mtp is None and any(k.startswith("mtp.") for k in state_dict):
+            state_dict = {k: v for k, v in state_dict.items()
+                          if not k.startswith("mtp.")}
         if self.quant == "int8":
             state_dict = serve_quant.quantize_params(
                 state_dict, self.quant_min_size, self._stacked_layers())
@@ -669,10 +753,15 @@ class Model(nn.Module):
             + self.enc_pos_embed.table.to(self.compute_dtype)[None]
         positions = torch.arange(want, device=x.device)[None, :]
         for blk in self.enc_layers:
-            hn = layers.apply_norm(x, blk.ln1, cfg.norm, mm)
-            x = self._ffn_half(x + attn.gqa_attention(
-                hn, blk.attn, cfg, positions, mm, causal=False), blk)
+            x = self._remat(self._enc_layer, x, blk, positions)
         return layers.apply_norm(x, self.enc_final_norm, cfg.norm, mm)
+
+    def _enc_layer(self, x: torch.Tensor, blk: Block,
+                   positions: torch.Tensor) -> torch.Tensor:
+        hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, self.matmul_backend)
+        return self._ffn_half(x + attn.gqa_attention(
+            hn, blk.attn, self.cfg, positions, self.matmul_backend,
+            causal=False), blk)
 
     def _cross_kv(self, blk: Block, enc: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -717,37 +806,115 @@ class Model(nn.Module):
         (and, for the vlm family, the stub frontend's [B, n, d_model]; for
         the audio family the encoder's frames [B, encoder_seq_len,
         d_model]) -> logits [B, S, V] (float32)."""
+        return self._unembed(self._backbone(tokens, frontend))
+
+    def _backbone(self, tokens: torch.Tensor,
+                  frontend: torch.Tensor | None) -> torch.Tensor:
+        """Embed + every layer -> the hidden states before the final norm
+        [B, S, d] (the reference's ``_backbone``), each layer through
+        ``_remat``; ``forward`` reads it without grad, ``loss`` with."""
         b_, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :] \
             .expand(b_, s)
         x = self._embed(tokens, frontend, positions)
-        mm = self.matmul_backend
         if self.cfg.encdec is not None:
             enc = self._encode(frontend)
             for blk in self.layers:
-                hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
-                x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
-                                           mm)
-                x = self._ffn_half(self._cross_half(
-                    x, blk, *self._cross_kv(blk, enc)), blk)
-            return self._unembed(x)
+                x = self._remat(self._cross_layer, x, blk, positions, enc)
+            return x
         for blk in self.blocks():
-            if self.cfg.ssm is not None:
-                x = x + ssm.ssm_forward(
-                    layers.apply_norm(x, blk.ln, self.cfg.norm, mm), blk.ssm,
-                    self.cfg, mm)
-                continue
-            hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, mm)
-            if hasattr(blk, "rglru"):
-                o = rglru.rglru_forward(hn, blk.rglru, self.cfg, mm)
-            elif self.cfg.mla is not None:
-                o = attn.mla_attention(hn, blk.attn, self.cfg, positions, mm)
-            else:
-                o = attn.gqa_attention(hn, blk.attn, self.cfg, positions, mm,
-                                       window=self.window,
-                                       causal=self.cfg.family != "encoder")
-            x = self._ffn_half(x + o, blk)
-        return self._unembed(x)
+            x = self._remat(self._layer, x, blk, positions)
+        return x
+
+    def _remat(self, fn, x: torch.Tensor, *args) -> torch.Tensor:
+        """``fn(x, *args)``, one layer; with grad on and ``remat`` set,
+        under ``torch.utils.checkpoint`` (non-reentrant): "full" keeps
+        only the layer's input, "dots" also its matrix products."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(x, *args)
+        kw = {} if self.remat == "full" else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+        return checkpoint(fn, x, *args, use_reentrant=False, **kw)
+
+    def _layer(self, x: torch.Tensor, blk, positions: torch.Tensor
+               ) -> torch.Tensor:
+        """One layer of the full-sequence pass: an ssm layer's Mamba-1
+        block, or the mixer (RG-LRU, MLA or GQA attention, causal but in
+        an encoder, banded over a hybrid's window) and the FFN half."""
+        cfg, mm = self.cfg, self.matmul_backend
+        if cfg.ssm is not None:
+            return x + ssm.ssm_forward(
+                layers.apply_norm(x, blk.ln, cfg.norm, mm), blk.ssm, cfg, mm)
+        hn = layers.apply_norm(x, blk.ln1, cfg.norm, mm)
+        if hasattr(blk, "rglru"):
+            o = rglru.rglru_forward(hn, blk.rglru, cfg, mm)
+        elif cfg.mla is not None:
+            o = attn.mla_attention(hn, blk.attn, cfg, positions, mm)
+        else:
+            o = attn.gqa_attention(hn, blk.attn, cfg, positions, mm,
+                                   window=self.window,
+                                   causal=cfg.family != "encoder")
+        return self._ffn_half(x + o, blk)
+
+    def _cross_layer(self, x: torch.Tensor, blk: Block,
+                     positions: torch.Tensor, enc: torch.Tensor
+                     ) -> torch.Tensor:
+        """An enc-dec decoder layer: self-attention, the cross-attention
+        over K/V projected from the encoder's output ``enc``, the FFN."""
+        hn = layers.apply_norm(x, blk.ln1, self.cfg.norm, self.matmul_backend)
+        x = x + attn.gqa_attention(hn, blk.attn, self.cfg, positions,
+                                   self.matmul_backend)
+        return self._ffn_half(self._cross_half(
+            x, blk, *self._cross_kv(blk, enc)), blk)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss (the reference's ``Model.loss``) of ``batch``:
+        ``tokens`` and ``targets`` [B, S] (and ``frontend`` for the vlm
+        and audio families, as ``forward`` takes it) -> (total, aux).  The
+        cross-entropy of the logits, plus for the MoE family
+        ``MOE_AUX_WEIGHT`` x the router balance term of the main stack's
+        first layer over the embeddings, plus with the MTP head
+        ``MTP_LOSS_WEIGHT`` x its cross-entropy.  ``aux`` holds
+        ``xent``, ``load_balance``, ``mtp`` (where they apply) and
+        ``total``, as float32 scalars on the model's device."""
+        tokens, targets = batch["tokens"], batch["targets"]
+        frontend = batch.get("frontend")
+        x = self._backbone(tokens, frontend)
+        total = xent = _xent(self._unembed(x), targets)
+        aux = {"xent": xent}
+        if self.cfg.family == "moe" and MOE_AUX_WEIGHT:
+            b_, s = tokens.shape
+            positions = torch.arange(s, device=tokens.device)[None, :] \
+                .expand(b_, s)
+            lb = moe.load_balance_loss(self._embed(tokens, frontend,
+                                                   positions),
+                                       self.layers[0].moe.router,
+                                       self.cfg.moe)
+            aux["load_balance"] = lb
+            total = total + MOE_AUX_WEIGHT * lb
+        if self.mtp is not None:
+            aux["mtp"] = self._mtp_loss(x, targets)
+            total = total + MTP_LOSS_WEIGHT * aux["mtp"]
+        aux["total"] = total
+        return total, aux
+
+    def _mtp_loss(self, x: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+        """Multi-token prediction, depth 1, over the backbone's hidden
+        states ``x``: h_t beside the embedding of token t + 1, the
+        projection, one MoE layer, the shared unembedding, the
+        cross-entropy against token t + 2 (the reference's
+        ``roll(targets, -1)``: the last position wraps to the first)."""
+        cfg, mm, mp = self.cfg, self.matmul_backend, self.mtp
+        b_, s = targets.shape
+        positions = torch.arange(s, device=targets.device)[None, :] \
+            .expand(b_, s)
+        e = layers.embed(targets, self.embed.table, self.compute_dtype)
+        h = torch.cat([layers.apply_norm(x, mp.norm_h, cfg.norm, mm),
+                       layers.apply_norm(e, mp.norm_e, cfg.norm, mm)], dim=-1)
+        h = self._layer(layers.apply_dense(h, mp.proj, mm), mp.layer,
+                        positions)
+        return _xent(self._unembed(h), torch.roll(targets, -1, dims=1))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int,
@@ -984,3 +1151,11 @@ class Model(nn.Module):
             x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32: logsumexp minus the gold logit (the
+    reference's ``_xent``)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - gold).mean()

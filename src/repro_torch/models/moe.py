@@ -106,3 +106,20 @@ def apply_moe(x: torch.Tensor, p, cfg: ArchConfig, mm: str) -> torch.Tensor:
     if p.shared is not None:
         routed = routed + apply_ffn(x, p.shared, cfg.activation, mm)
     return routed
+
+
+def load_balance_loss(x: torch.Tensor, router_w: torch.Tensor,
+                      m: MoEConfig) -> torch.Tensor:
+    """The auxiliary router balance term (Switch / GShard form, the
+    reference's ``load_balance_loss``): E x sum_e f_e x p_e in float32,
+    f_e the share of the top-k picks that expert e takes (over the
+    probabilities, lower id first among ties, as ``route``) and p_e its
+    mean softmax probability.  Only p carries a gradient."""
+    e, k = m.num_experts, m.experts_per_token
+    probs = torch.softmax(torch.matmul(x.float(), router_w.float()), dim=-1)
+    top_i = torch.sort(probs, dim=-1, descending=True,
+                       stable=True).indices[..., :k]
+    chosen = torch.zeros_like(probs).scatter_(-1, top_i, 1.0)
+    f = chosen.reshape(-1, e).mean(dim=0) / k
+    pbar = probs.reshape(-1, e).mean(dim=0)
+    return e * torch.sum(f * pbar)
