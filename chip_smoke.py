@@ -387,27 +387,45 @@ Phases (any failure raises and the script exits non-zero):
 
 20. Training on one card (ROADMAP Queue 1 item 16; ``check_train``),
    through ``torch.matmul`` as the reference trains through XLA dots: no
-   hand-written kernel has a backward, and the training steps launch none
-   (checked).  (a) qwen1.5-0.5b at its widths and 2 of 24 layers, 2 x 32
-   tokens, f32 with TF32 off: loss, aux and every gradient leaf against
-   the same step on the host (1e-5 relative, 1e-4 x max|g|).  (b) All 24
-   layers, f32 masters and bf16 compute, the reference quickstart's
-   corpus (4 rows of 32) and AdamW (warmup 5, no decay) for 60 steps at
-   lr 2e-3 (the quickstart's 3e-3 can stall at full width; 2e-3 is the
-   largest ``launch/memorize_probe.py`` tried that memorizes every row): every loss finite, the last below half the first; step ms and
-   tok/s beside ``train_bound``; then the trained masters load into a
-   graphed engine of phase 5's spec on the kernel path, which greedily
-   continues each row's first 8 tokens: row 0 must give back at least 6
-   of its 8 (the "train" path's launches: ``tiled_matmul``, both walks,
-   ``rmsnorm``).  (d) An ``async_write`` checkpoint at step 10, restored
-   into a fresh state on the card: its next 3 losses equal the run's bit
-   for bit.  (c) 8 x 128 tokens: ``accum_steps`` 2 against 1 at the
-   reference's gates, the step's time, remat "full" and "dots" against
-   "none" (loss and grad norm within 2e-2) with each mode's peak memory,
-   "full" below "none".  (e) granite-moe-1b-a400m at its widths and
-   depth, 5 bf16 steps: finite, ``load_balance``, step ms, peak memory.
-   (f) Training with "pallas", int8 weights and the ssm and hybrid
-   families refused.  Every time prints the card's name and power limit.
+   product or norm kernel has a backward, and qwen's training steps launch
+   no kernel (checked). (a) qwen1.5-0.5b at its widths and 2 of 24 layers,
+   2 x 32 tokens, f32 with TF32 off: loss, aux and every gradient leaf
+   against the same step on the host (1e-5 relative, 1e-4 x max|g|). (b)
+   All 24 layers, f32 masters and bf16 compute, the reference quickstart's
+   corpus (4 rows of 32) and AdamW (warmup 5, no decay) for 60 steps at lr
+   2e-3 (the quickstart's 3e-3 can stall at full width; 2e-3 is the largest
+   ``launch/memorize_probe.py`` tried that memorizes every row): every loss
+   finite, the last below half the first; step ms and tok/s beside
+   ``train_bound``; then the trained masters load into a graphed engine of
+   phase 5's spec on the kernel path, which greedily continues each row's
+   first 8 tokens: row 0 must give back at least 6 of its 8 (the "train"
+   path's launches: ``tiled_matmul``, both walks, ``rmsnorm``). (d) An
+   ``async_write`` checkpoint at step 10, restored into a fresh state on
+   the card: its next 3 losses equal the run's bit for bit. (c) 8 x 128
+   tokens: ``accum_steps`` 2 against 1 at the reference's gates, the step's
+   time, remat "full" and "dots" against "none" (loss and grad norm within
+   2e-2) with each mode's peak memory, "full" below "none". (e)
+   granite-moe-1b-a400m at its widths and depth, 5 bf16 steps: finite,
+   ``load_balance``, step ms, peak memory. (f) Training with "pallas" and
+   int8 weights refused. Every time prints the card's name and power limit.
+
+21. The scans' backwards (ROADMAP Queue 1 item 16b; ``check_train_scans``):
+   (a) ``rglru_scan_bwd`` at [4, 512, 2560] and [1, 3072, 2560] and
+   ``ssm_scan_bwd`` at [4, 512, 8192, 16] (x bf16) and the reduced [2, 64,
+   128, 8], each bit for bit its plain loop, timed beside its bound.
+   Then recurrentgemma-2b at its widths and 13 of its 26 layers (the
+   pattern r, r, a kept) and falcon-mamba-7b at its widths and 8 of its 64
+   (its full depth's f32 state needs the sharded step, item 13): (b) at 2
+   layers, f32 with TF32 off, loss and every gradient leaf against the
+   same step on the host (phase 20a's gates); (c) 6 bf16 steps (f32
+   masters, AdamW) on one fixed 4 x 128 batch of distinct tokens: the
+   loss falls, each scan's forward and backward kernel launched as
+   ``program_launches(cfg, "train")`` says and no other kernel, step ms
+   and peak memory beside ``train_bound``; (d) a second run from the same
+   seed repeats the losses, grad norms and the masters' checksum bit for
+   bit; (e) the trained masters served by an eager dense + bucketed
+   engine on the kernel path (``rglru_scan`` / ``ssm_scan``,
+   ``tiled_matmul``, ``rmsnorm`` launched as ``program_launches`` says).
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -674,7 +692,15 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 # phase 5's kernel path (the training step itself runs
                 # "xla" and launches none: checked)
                 "train": ("tiled_matmul", "paged_decode_attention",
-                          "chunked_prefill_attention", "rmsnorm")}
+                          "chunked_prefill_attention", "rmsnorm"),
+                # phase 21: recurrentgemma-2b and falcon-mamba-7b trained
+                # (the products and norms "xla"; each scan's forward and
+                # backward kernel), then their masters served on dense +
+                # bucketed through the kernels
+                "train_scans": ("rglru_scan", "rglru_scan_bwd", "ssm_scan",
+                                "ssm_scan_bwd"),
+                "scans_served": ("tiled_matmul", "rmsnorm", "rglru_scan",
+                                 "ssm_scan")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -705,6 +731,12 @@ SOURCES = {
     # no Pallas kernel: the reference's lax.scan in ssm_prefill
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/models/ssm.py:133"),
+    # no Pallas kernel: jax.grad of the reference's lax.scans in
+    # rglru_forward and ssm_forward (training)
+    "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan.cu",
+                       "src/repro/models/rglru.py:104"),
+    "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/models/ssm.py:101"),
 }
 # full widths of the kernel library's shapes, from the JAX package's
 # config files (kept here as constants; nothing of it is imported):
@@ -5771,18 +5803,18 @@ def peak_gb() -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def train_grads(dev, g) -> None:
-    """(a) qwen1.5-0.5b at its widths and 2 of 24 layers, f32 compute with
-    TF32 off: the card's loss, aux and every gradient leaf against the
-    same step on the host, on the same weights and batch; the CPU tests'
-    gates (1e-5 relative, 1e-4 x max|g_host|)."""
-    cfg = dataclasses.replace(get_config(TRAIN), num_layers=TRAIN_GRAD_LAYERS)
+def card_vs_host_grads(cfg: ArchConfig, batch_shape: tuple[int, int], g,
+                       dev, label: str) -> None:
+    """``cfg`` at f32 compute with TF32 off: the card's loss, aux and every
+    gradient leaf against the same step on the host, on the same weights
+    and batch; the CPU tests' gates (1e-5 relative, 1e-4 x
+    max|g_host|)."""
     card = Model(cfg, compute_dtype=torch.float32, device=dev,
                  trainable=True).init(g)
     host = Model(cfg, compute_dtype=torch.float32, device="cpu",
                  trainable=True)
     host.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
-    B, S = TRAIN_GRAD_BATCH
+    B, S = batch_shape
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
                          device=dev)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
@@ -5802,17 +5834,27 @@ def train_grads(dev, g) -> None:
     errs = {n: float((grads[n].cpu() - t).abs().max())
             for n, t in h_grads.items()}
     worst = max(errs, key=errs.get)
-    print(f"  (a) {TRAIN} at its widths, {TRAIN_GRAD_LAYERS} of "
-          f"{get_config(TRAIN).num_layers} layers, "
-          f"{B} x {S} tokens, f32, TF32 off, card vs host: loss "
+    print(f"  {label}, {B} x {S} tokens, f32, TF32 off, card vs host: loss "
           f"{float(loss):.6f} / {float(h_loss):.6f}, relative "
           + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
           + f" (gate 1e-5); grads: worst {worst} {errs[worst]:.3e} = "
           f"{errs[worst] / scale:.2e} x max|g| {scale:.4f} (gate 1e-4), "
           f"{len(errs)} leaves")
     if max(rel.values()) > 1e-5 or errs[worst] > 1e-4 * scale:
-        raise AssertionError("training gradients on the card disagree with "
-                             "the host's")
+        raise AssertionError(f"{label}: training gradients on the card "
+                             "disagree with the host's")
+    del card, host, grads, h_grads
+    torch.cuda.empty_cache()
+
+
+def train_grads(dev, g) -> None:
+    """(a) qwen1.5-0.5b at its widths and 2 of 24 layers, f32 compute with
+    TF32 off: the card's loss, aux and every gradient leaf against the
+    same step on the host (``card_vs_host_grads``)."""
+    cfg = dataclasses.replace(get_config(TRAIN), num_layers=TRAIN_GRAD_LAYERS)
+    card_vs_host_grads(cfg, TRAIN_GRAD_BATCH, g, dev,
+                       f"(a) {TRAIN} at its widths, {TRAIN_GRAD_LAYERS} of "
+                       f"{get_config(TRAIN).num_layers} layers")
 
 
 def memorize(dev, g, smi: str, tmp: str) -> dict:
@@ -6021,9 +6063,7 @@ def train_refusals(dev) -> None:
     """(f) What a trainable model refuses, before it allocates."""
     qwen = get_config(TRAIN)
     cases = (("matmul_backend='pallas'", qwen, dict(matmul_backend="pallas")),
-             ("int8 weights", qwen, dict(quant="int8")),
-             ("the ssm family", get_config(SSM), {}),
-             ("the hybrid family", get_config(HYBRID), {}))
+             ("int8 weights", qwen, dict(quant="int8")))
     for label, cfg, kw in cases:
         try:
             Model(cfg, device=dev, trainable=True, **kw)
@@ -6058,6 +6098,245 @@ def check_train(dev, smi: str) -> dict:
     return {"train": served["launches"]}
 
 
+# phase 21: the scans' backwards.  The kernels against their plain
+# versions at a training batch and a prefill's length of recurrentgemma's
+# width, falcon-mamba's at a training batch, and the reduced config's
+RGLRU_BWD_SHAPES = ((4, 512, 2560), (1, 3072, 2560))
+SSM_BWD_SHAPES = ((4, 512, 8192, 16), (2, 64, 128, 8))
+SCAN_TRAIN_SEED = 21
+# training at full width: recurrentgemma-2b at 13 of 26 layers (pattern r,
+# r, a kept: 4 x 3 + 1; all 26 take ~64 GB with AdamW's temporaries),
+# falcon-mamba-7b at 8 of 64 (its 116 GB of f32 state at full depth need
+# the sharded step, item 13)
+SCAN_TRAIN = ((HYBRID, 13), (SSM, 8))
+SCAN_GRAD_LAYERS = 2                   # card vs host gradients, f32
+SCAN_GRAD_BATCH = (2, 32)
+SCAN_BATCH = (4, 128)                  # one fixed batch of distinct tokens
+SCAN_STEPS = 6
+SCAN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=20, weight_decay=0.0)
+SCAN_SERVE = dict(max_batch=4, max_len=256)
+SCAN_SERVE_PROMPTS = (16, 40, 100, 129)
+SCAN_SERVE_NEW = 8
+
+
+def check_scan_bwd(timer, dev, g) -> dict:
+    """Both backward kernels against their plain versions, bit for bit
+    (the plain versions repeat the kernels' float32 operators and, for the
+    ssm's sums over channels, rows and positions, their orders), timed
+    beside the bound: each input read once and each output written once
+    at 3.35 TB/s against the float32 operations at 67 TFLOP/s.  The RG-LRU
+    adjoint: a, hs, dhs read, da, dg written; 3 operations an element.
+    The selective scan's: dt, x (bf16), dy read and ddt, dx written a
+    position and channel, b, c, db, dc a position, a, dh, da once; 6
+    operations a state for the forward h it needs and 21 for the adjoint.
+    No single PyTorch call computes either, so no library time."""
+    print("\n== phase 21 (a): the scans' backwards vs their plain loops "
+          "(training; the reference's jax.grad of its lax.scans)")
+    out = {}
+    rows = []
+    for B, S, W in RGLRU_BWD_SHAPES:
+        a = torch.rand(B, S, W, generator=g, device=dev)
+        hs = torch.randn(B, S, W, generator=g, device=dev)
+        dhs = torch.randn(B, S, W, generator=g, device=dev)
+        dh = torch.randn(B, W, generator=g, device=dev)
+        run = lambda: scan_mod.rglru_scan_bwd(a, hs, dhs, dh)  # noqa: E731
+        plain = lambda: scan_mod.rglru_scan_bwd_plain(  # noqa: E731
+            a, hs, dhs, dh)
+        got, want = run(), plain()
+        err = max(max_err(x, y) for x, y in zip(got, want))
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"rglru_scan_bwd [{B}, {S}, {W}]: not bit "
+                                 f"for bit its plain loop (max err {err})")
+        bms, by = bound_ms(5 * B * S * W * 4 + B * W * 4, 3 * B * S * W,
+                           torch.float32)
+        ms, pms = timer(run), timer(plain, reps=3, warm=1)
+        print(f"  rglru_scan_bwd [{B}, {S}, {W}] f32: bit for bit; kernel "
+              f"{ms:.4f} ms, plain {pms:.4f}, bound {bms:.4f} ({by}), "
+              f"{ms / bms:.1f}x")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None,
+                         shape=f"[{B}, {S}, {W}] float32"))
+        del a, hs, dhs, dh, got, want
+    out["rglru_scan_bwd"] = dict(rows[0], other_shapes=rows[1:])
+    rows = []
+    for B, S, Di, N in SSM_BWD_SHAPES:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, Di, generator=g, device=dev))
+        x = torch.randn(B, S, Di, generator=g, device=dev).bfloat16()
+        b = torch.randn(B, S, N, generator=g, device=dev)
+        c = torch.randn(B, S, N, generator=g, device=dev)
+        a = -torch.exp(torch.rand(Di, N, generator=g, device=dev) * 2 - 1)
+        dy = torch.randn(B, S, Di, generator=g, device=dev)
+        dh = torch.randn(B, Di, N, generator=g, device=dev)
+        ops_ = (dt, x, b, c, a, dy, dh)
+        run = lambda: sscan_mod.ssm_scan_bwd(*ops_)  # noqa: E731
+        plain = lambda: sscan_mod.ssm_scan_bwd_plain(*ops_)  # noqa: E731
+        got, want = run(), plain()
+        err = max(max_err(u.float(), v.float()) for u, v in zip(got, want))
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            raise AssertionError(f"ssm_scan_bwd [{B}, {S}, {Di}, {N}]: not "
+                                 f"bit for bit its plain loop (max err "
+                                 f"{err})")
+        nbytes = B * S * Di * (4 + 2 + 4 + 4 + 2) + 4 * B * S * N * 4 \
+            + 2 * Di * N * 4 + B * Di * N * 4
+        bms, by = bound_ms(nbytes, 27 * B * S * Di * N, torch.float32)
+        ms, pms = timer(run), timer(plain, reps=1, warm=0)
+        print(f"  ssm_scan_bwd [{B}, {S}, {Di}, {N}] f32, x bf16: bit for "
+              f"bit; kernel {ms:.4f} ms, plain {pms:.4f}, bound {bms:.4f} "
+              f"({by}), {ms / bms:.1f}x")
+        rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None,
+                         shape=f"[{B}, {S}, {Di}, {N}] float32, x bf16"))
+        del ops_, dt, x, b, c, a, dy, dh, got, want
+    out["ssm_scan_bwd"] = dict(rows[0], other_shapes=rows[1:])
+    return out
+
+
+def scan_family_steps(model: Model, batch: dict, g) -> tuple:
+    """``SCAN_STEPS`` steps from the weights ``g`` draws (in place) on the
+    one fixed batch: (losses, grad norms, a checksum of the final masters,
+    step ms over steps 2 on, peak GB, the launches of the run)."""
+    oc = AdamWConfig(**SCAN_OPT)
+    state = init_state(model, g, oc)
+    step = make_step_fn(model, TrainStepConfig(optimizer=oc))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, norms = [], []
+    for i in range(SCAN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (SCAN_STEPS - 1) * 1e3
+    made = launch_counts()
+    with torch.no_grad():
+        check = float(sum(p.double().sum() for p in state.params.values()))
+    return ([float(x) for x in losses], [float(x) for x in norms], check,
+            step_ms, peak_gb(), made, state)
+
+
+def serve_trained(params, cfg: ArchConfig) -> dict:
+    """The trained masters served by an eager dense + bucketed engine on
+    the kernel path (bf16): every request finishes, and the launches equal
+    ``program_launches``' prefill per request and decode per step."""
+    spec = RuntimeSpec(
+        arch=cfg, execution=ExecutionSpec(matmul_backend="pallas",
+                                          paged_attn_impl="pallas",
+                                          compute_dtype="bf16"),
+        memory=MemorySpec(cache_layout="dense", **SCAN_SERVE),
+        scheduler=SchedulerSpec(policy="bucketed"))
+    eng = ServingEngine(spec, device="cuda", graphs=False)
+    eng.load(params)
+    rs = np.random.default_rng(21)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in SCAN_SERVE_PROMPTS]
+    r = drain(eng, prompts, max_new=SCAN_SERVE_NEW)
+    del eng
+    want = bucketed_launches(cfg, "bucketed", "dense", r, len(prompts))
+    have = {n: r["launches"][n] for n in want}
+    print(f"  the trained masters served (eager dense + bucketed, bf16, "
+          f"{len(prompts)} requests of {SCAN_SERVE_PROMPTS} tokens x "
+          f"{SCAN_SERVE_NEW} new): {r['steps']} decode steps, launches "
+          f"{ {n: c for n, c in have.items() if c} } (kernels/counts.py: "
+          f"{ {n: c for n, c in want.items() if c} })")
+    if have != want:
+        raise AssertionError(f"{cfg.name} served: launches {have} != {want}")
+    return r["launches"]
+
+
+def train_scan_family(name: str, layers: int, dev, smi: str,
+                      seeded) -> tuple[dict, dict]:
+    """(b)-(e) for one family at its widths and ``layers`` layers:
+    card vs host gradients at ``SCAN_GRAD_LAYERS``; ``SCAN_STEPS`` bf16
+    steps (f32 masters) on one fixed batch of distinct tokens (no two
+    embedding rows collide in the backward's index_add, so a run repeats
+    bit for bit), the loss falling, the scans' launches =
+    ``program_launches(cfg, "train")`` x steps and no other kernel, step
+    ms and peak memory beside ``train_bound``; a second run from the same
+    seed: losses, grad norms and the masters' checksum bit for bit; then
+    the masters served back through the kernels.  Returns (the training
+    run's launches, the serving drain's)."""
+    full = get_config(name)
+    card_vs_host_grads(dataclasses.replace(full, num_layers=SCAN_GRAD_LAYERS),
+                       SCAN_GRAD_BATCH, seeded(), dev,
+                       f"(b) {name} at its widths, {SCAN_GRAD_LAYERS} of "
+                       f"{full.num_layers} layers")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    model = Model(cfg, device=dev, trainable=True)
+    n = sum(p.numel() for p in model.parameters())
+    B, S = SCAN_BATCH
+    perm = torch.randperm(cfg.vocab_size, generator=seeded(), device=dev)
+    rows = perm[:B * (S + 1)].reshape(B, S + 1)
+    batch = {"tokens": rows[:, :-1], "targets": rows[:, 1:]}
+    runs, state = [], None
+    for _ in range(2):
+        del state                     # the first run's moments
+        *run, state = scan_family_steps(model, batch, seeded())
+        runs.append(run)
+    bound, by = train_bound(model, B * S)
+    losses, norms, check, step_ms, peak, made = runs[0]
+    want = program_launches(cfg, "train")
+    want = {k: v * SCAN_STEPS for k, v in want.items()}
+    have = {k: made[k] for k in want}
+    print(f"  (c) {name} at its widths and {layers} of {full.num_layers} "
+          f"layers ({n / 1e9:.3f} B parameters), f32 masters, bf16, "
+          f"{B} x {S} distinct tokens, lr {SCAN_OPT['lr']}: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {step_ms:.3f} ms, {B * S / step_ms * 1e3:.0f} tok/s, "
+          f"bound {bound:.3f} ms ({by}), {step_ms / bound:.1f}x; peak "
+          f"{peak:.2f} GB; launches {({k: v for k, v in have.items() if v})} "
+          f"(kernels/counts.py x {SCAN_STEPS}: "
+          f"{({k: v for k, v in want.items() if v})}); {smi}")
+    if have != want:
+        raise AssertionError(f"{name} training: launches {have} != {want}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} training: the loss did not fall "
+                             f"({losses})")
+    same = runs[1][:3] == runs[0][:3]
+    print(f"  (d) a second run from the same seed: losses, grad norms and "
+          f"the masters' checksum {check!r}: "
+          f"{'bit for bit' if same else 'DIFFER'} (second run step "
+          f"{runs[1][3]:.3f} ms)")
+    if not same:
+        raise AssertionError(f"{name}: two identical training runs differ: "
+                             f"{runs[0][:3]} vs {runs[1][:3]}")
+    served = serve_trained(state.params, cfg)
+    del state, model
+    torch.cuda.empty_cache()
+    return made, served
+
+
+def check_train_scans(timer, dev, smi: str) -> tuple[dict, dict]:
+    """Phase 21: the scans' backwards (``check_scan_bwd``), then
+    recurrentgemma-2b and falcon-mamba-7b trained at full width
+    (``train_scan_family``).  Returns (the kernel table's entries, the
+    launches of the paths "train_scans" and "scans_served")."""
+    t_start = time.perf_counter()
+
+    def seeded() -> torch.Generator:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SCAN_TRAIN_SEED)
+        return g
+
+    entries = check_scan_bwd(timer, dev, seeded())
+    print(f"\n== phase 21 (b)-(e): training the scan families on one card; "
+          f"{smi}")
+    trained, served = collections.Counter(), collections.Counter()
+    for name, layers in SCAN_TRAIN:
+        made, srv = train_scan_family(name, layers, dev, smi, seeded)
+        trained.update({k: v for k, v in made.items() if "." not in k})
+        served.update({k: v for k, v in srv.items() if "." not in k})
+    print(f"  phase 21 took {time.perf_counter() - t_start:.1f} s")
+    full = dict.fromkeys(KERNELS, 0)
+    return entries, {"train_scans": {**full, **trained},
+                     "scans_served": {**full, **served}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6083,7 +6362,9 @@ def main() -> int:
                       ("tiled_matmul.cu", "mma_"), ("ffn.cu", "mma_"),
                       ("qkv_proj.cu", "mma_"), ("int8_matmul.cu", "int8_"),
                       ("layernorm.cu", "norm_"),
-                      ("ssm_scan.cu", "ssm_scan_kernel")):
+                      ("ssm_scan.cu", "ssm_scan_kernel"),
+                      ("ssm_scan.cu", "ssm_scan_bwd"),
+                      ("rglru_scan.cu", "rglru_scan")):
         spills = {k: v for k, v in
                   print_ptxas(lib.parent / "build.log", src).items()
                   if kern in k and v[2]}
@@ -6264,11 +6545,16 @@ def main() -> int:
     lap("phase 19")
     launches.update(check_train(dev, smi))
     lap("phase 20")
+    scan_entries, scan_launches = check_train_scans(timer, dev, smi)
+    entries.update(scan_entries)
+    launches.update(scan_launches)
+    lap("phase 21")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
                  "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
-                 "audio", "encoder", "train"):
+                 "audio", "encoder", "train", "train_scans",
+                 "scans_served"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

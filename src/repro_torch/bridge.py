@@ -32,7 +32,9 @@ it loads.
 ``TrainState`` (params, and ``opt`` with its ``step``, ``m`` and ``v``,
 every leaf as numpy) onto the port's: the parameters as above, as f32
 masters with ``requires_grad``, and the moments unstacked by the same
-rule, in their dtype (bfloat16 moments stay bfloat16).
+rule, in their dtype (bfloat16 moments stay bfloat16).  Every family's
+state maps so, the hybrid's list of layers and the ssm's stacked ones
+included.
 
 A tree the reference has quantized (its ``serve_quant.quantize_params``)
 holds ``QTensor`` leaves; after the numpy conversion each is a

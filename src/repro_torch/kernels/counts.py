@@ -11,7 +11,7 @@ them up per replay (``ServingEngine.replayed_launches``).
 ``program_launches`` gives what one call of a model's program launches
 under the hand-written kernels: a fused step over the paged pool or the
 dense layout, a bucketed B = 1 prefill, whose products take the
-bucket's rows, or a full-sequence ``forward``.
+bucket's rows, a full-sequence ``forward``, or a training step.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.kernels import tiled_matmul as _tm
 # the wrappers carrying a ``live_kv_launches`` count beside ``launches``
 LIVE_KV = ("paged_decode_attention", "chunked_prefill_attention")
 # the programs of ``program_launches``
-PROGRAMS = ("decode", "mixed", "prefill", "forward")
+PROGRAMS = ("decode", "mixed", "prefill", "forward", "train")
 
 
 def wrappers() -> dict:
@@ -43,7 +43,9 @@ def wrappers() -> dict:
             "rmsnorm": _ln.rmsnorm,
             "flash_attention": _fa.flash_attention,
             "rglru_scan": _scan.rglru_scan,
-            "ssm_scan": _sscan.ssm_scan}
+            "ssm_scan": _sscan.ssm_scan,
+            "rglru_scan_bwd": _scan.rglru_scan_bwd,
+            "ssm_scan_bwd": _sscan.ssm_scan_bwd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -58,12 +60,22 @@ def launch_counts() -> dict[str, int]:
 
 
 def program_launches(cfg, program: str, *, layout: str = "paged",
-                     quant: bool = False) -> dict[str, int]:
+                     quant: bool = False, remat: str = "none",
+                     accum_steps: int = 1) -> dict[str, int]:
     """The hand-written kernels' launches per call of ``program`` ("decode"
-    | "mixed" | "prefill" | "forward", one of ``PROGRAMS``) of a
+    | "mixed" | "prefill" | "forward" | "train", one of ``PROGRAMS``) of a
     ``models.model.Model``
     of ``cfg`` under ``matmul_backend="pallas"`` and
     ``paged_attn_impl="pallas"``.
+
+    A training step (``training.train_step.make_step_fn``; the model
+    trainable, so ``matmul_backend="xla"``: no product, norm or walk
+    kernel) launches only the scans, every kernel's count given: per
+    microbatch (``accum_steps`` of them) one ``rglru_scan`` and one
+    ``rglru_scan_bwd`` per RG-LRU layer of a hybrid model, or one
+    ``ssm_scan`` and one ``ssm_scan_bwd`` per layer of an ssm model, and
+    under ``remat`` "full" or "dots" one more forward each (the backward
+    recomputes the layer; "dots" saves only the matrix products).
 
     Every layer's projections go through one matmul launch each (the
     ``int8_matmul`` under ``quant``, which assumes every projection's leaf
@@ -112,6 +124,8 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
     ``torch.matmul`` over the table (no kernel)."""
     if program not in PROGRAMS:
         raise ValueError(f"program={program!r} is not one of {PROGRAMS}")
+    if program == "train":
+        return _train_launches(cfg, remat, accum_steps)
     if program == "forward":
         program = "prefill"
     L = cfg.num_layers
@@ -160,3 +174,20 @@ def program_launches(cfg, program: str, *, layout: str = "paged",
             "paged_decode_attention": walk if program == "decode" else 0,
             "chunked_prefill_attention": walk if program == "mixed" else 0,
             "rglru_scan": 0, "ssm_scan": 0}
+
+
+def _train_launches(cfg, remat: str, accum_steps: int) -> dict[str, int]:
+    """``program_launches(cfg, "train")``: the scans of a training step."""
+    out = dict.fromkeys(wrappers(), 0)
+    L = cfg.num_layers
+    if cfg.hybrid is not None:
+        pat = cfg.hybrid.pattern
+        layers = sum(pat[i % len(pat)] == "r" for i in range(L))
+        name = "rglru_scan"
+    elif cfg.ssm is not None:
+        layers, name = L, "ssm_scan"
+    else:
+        return out
+    out[name] = layers * accum_steps * (1 if remat == "none" else 2)
+    out[name + "_bwd"] = layers * accum_steps
+    return out

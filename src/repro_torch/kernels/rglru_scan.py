@@ -14,6 +14,15 @@ the hand-written kernel of ``csrc/rglru_scan.cu``, one launch in place of
 ~3 x S operators; a CPU tensor runs ``rglru_scan_plain``, the same loop in
 PyTorch, whose two float32 operators a step the kernel repeats bit for
 bit.
+
+With grad enabled and ``a`` or ``g`` requiring it, the call goes through
+``RGLRUScanFn``, whose backward is ``rglru_scan_bwd``: the recurrence's
+adjoint in reverse time over the saved ``a`` and ``hs``, the kernel of
+``csrc/rglru_scan.cu`` on a CUDA tensor (there is no fallback: it launches
+or raises) and ``rglru_scan_bwd_plain`` on a CPU one.  Training passes no
+``lengths``; a call with both ``lengths`` and a gradient is refused.
+Otherwise (serving, ``torch.no_grad``) the call is the kernel's launch
+alone, as it was.
 """
 from __future__ import annotations
 
@@ -57,10 +66,50 @@ def _check(a: torch.Tensor, g: torch.Tensor,
                          f"{lengths.dtype}")
 
 
+def rglru_scan_bwd_plain(a: torch.Tensor, hs: torch.Tensor,
+                         dhs: torch.Tensor, dh: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in plain PyTorch: ``(da, dg)``
+    ``[B, S, W]`` from the gradients of every h (``dhs`` [B, S, W]) and of
+    the last (``dh`` [B, W]), in reverse time: gh = dhs_t + carry (carry
+    = dh at S - 1, then a_{t+1} * gh_{t+1}), dg_t = gh, da_t = gh *
+    h_{t-1} (h_{-1} = 0); one float32 operator each."""
+    s = a.shape[1]
+    da, dg = torch.empty_like(a), torch.empty_like(a)
+    carry = dh
+    for t in reversed(range(s)):
+        gh = dhs[:, t] + carry
+        dg[:, t] = gh
+        da[:, t] = gh * (hs[:, t - 1] if t else torch.zeros_like(gh))
+        carry = a[:, t] * gh
+    return da, dg
+
+
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return runtime.bind("rglru_scan", [p, p, p, p, p, i, i, i, p])
+
+
+@functools.cache
+def _bwd_kernel():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return runtime.bind("rglru_scan_bwd", [p, p, p, p, p, p, i, i, i, p])
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """``rglru_scan`` with its backward: saves ``a`` and ``hs``."""
+
+    @staticmethod
+    def forward(ctx, a, g):
+        hs, h = _forward(a, g, None)
+        ctx.save_for_backward(a, hs)
+        return hs, h
+
+    @staticmethod
+    def backward(ctx, dhs, dh):
+        a, hs = ctx.saved_tensors
+        return rglru_scan_bwd(a, hs, dhs.contiguous(), dh.contiguous())
 
 
 def rglru_scan(a: torch.Tensor, g: torch.Tensor,
@@ -68,8 +117,21 @@ def rglru_scan(a: torch.Tensor, g: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(hs [B, S, W], h [B, W])`` of the recurrence over ``a``, ``g``
     ``[B, S, W]`` float32, each row's positions from ``lengths`` on
-    keeping h."""
+    keeping h; differentiable in ``a`` and ``g`` (``RGLRUScanFn``) where
+    grad is on and either requires it."""
     _check(a, g, lengths)
+    if torch.is_grad_enabled() and (a.requires_grad or g.requires_grad):
+        if lengths is not None:
+            raise ValueError("rglru_scan: lengths with a gradient: training "
+                             "scans every position (the reference's "
+                             "rglru_forward takes no lengths)")
+        return RGLRUScanFn.apply(a, g)
+    return _forward(a, g, lengths)
+
+
+def _forward(a: torch.Tensor, g: torch.Tensor,
+             lengths: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     extra = () if lengths is None else (lengths,)
     if all(t.device.type == "cpu" for t in (a, g, *extra)):
         return rglru_scan_plain(a, g, lengths)
@@ -89,3 +151,34 @@ def rglru_scan(a: torch.Tensor, g: torch.Tensor,
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor,
+                   dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(da, dg)`` ``[B, S, W]`` of the recurrence (the saved ``a`` and
+    ``hs``, the gradients ``dhs`` [B, S, W] and ``dh`` [B, W], float32):
+    the kernel on CUDA tensors, ``rglru_scan_bwd_plain`` on CPU ones."""
+    if a.dim() != 3 or not a.shape == hs.shape == dhs.shape \
+            or dh.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"rglru_scan_bwd: a, hs, dhs must be one [B, S, W] "
+                         f"shape and dh [B, W], got {tuple(a.shape)}, "
+                         f"{tuple(hs.shape)}, {tuple(dhs.shape)}, "
+                         f"{tuple(dh.shape)}")
+    if any(t.dtype != torch.float32 for t in (a, hs, dhs, dh)):
+        raise ValueError("rglru_scan_bwd: a, hs, dhs and dh must be float32")
+    if all(t.device.type == "cpu" for t in (a, hs, dhs, dh)):
+        return rglru_scan_bwd_plain(a, hs, dhs, dh)
+    runtime.require_cuda("rglru_scan_bwd", a, hs, dhs, dh)
+    runtime.require_contiguous("rglru_scan_bwd", a=a, hs=hs, dhs=dhs, dh=dh)
+    B, S, W = a.shape
+    da, dg = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, dg
+    runtime.launch("rglru_scan_bwd", _bwd_kernel(), a, a.data_ptr(),
+                   hs.data_ptr(), dhs.data_ptr(), dh.data_ptr(),
+                   da.data_ptr(), dg.data_ptr(), B, S, W)
+    rglru_scan_bwd.launches += 1
+    return da, dg
+
+
+rglru_scan_bwd.launches = 0

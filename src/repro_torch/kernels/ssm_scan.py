@@ -23,6 +23,21 @@ hand-written kernel of ``csrc/ssm_scan.cu``, which discretizes in
 registers and writes neither; a CPU tensor runs ``ssm_scan_plain``, the
 same loop in PyTorch, whose float32 operators a step (and the readout's
 order of sums) the kernel repeats bit for bit.
+
+With grad enabled and any float operand requiring it, the call goes
+through ``SSMScanFn``, whose backward is ``ssm_scan_bwd`` (``ddt, dx, db,
+dc, da`` from ``dy`` and the last h's ``dh``): the kernel of
+``csrc/ssm_scan.cu`` on CUDA tensors (it launches or raises; there is no
+fallback) and ``ssm_scan_bwd_plain`` on CPU ones.  Neither stores h at
+every position: both re-run the forward, keep h at the start of every
+``CHUNK`` positions, and recompute a chunk's h from it as they walk it in
+reverse.  The plain version sums in the kernel's orders (a channel's
+states as the readout does; the channels of ``db`` and ``dc`` as the
+kernel's warps, CTAs and reduce do, ``_channel_sum``; ``da`` over
+positions in reverse, then over rows), so the two agree bit for bit.
+Training passes no ``lengths``; a call with both ``lengths`` and a
+gradient is refused.  Otherwise (serving, ``torch.no_grad``) the call is
+the kernel's launch alone, as it was.
 """
 from __future__ import annotations
 
@@ -37,13 +52,21 @@ from repro_torch.kernels import runtime
 # runs' partials pairwise, neighbours first (the kernel: a thread's states,
 # then a butterfly of shuffles over the N / GROUP threads of a channel)
 GROUP = 4
+# the backward's checkpoint stride (``kChunk`` in csrc/ssm_scan.cu) and a
+# CTA's threads and warps, which fix its channel sums' order
+CHUNK = 16
+CTA_THREADS, CTA_WARPS = 128, 4
 
 
 def readout(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``sum_n h[..., n] * c[..., n]`` over the last axis in the scan's
     order: each run of ``GROUP`` states summed in order, then the runs'
     partials pairwise, neighbours first."""
-    prod = h * c
+    return _state_sum(h * c)
+
+
+def _state_sum(prod: torch.Tensor) -> torch.Tensor:
+    """The readout's sum over the last axis (the states)."""
     prod = prod.reshape(*prod.shape[:-1], -1, GROUP)
     part = prod[..., 0]
     for g in range(1, GROUP):
@@ -73,6 +96,80 @@ def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
             (t < lengths)[:, None, None], step, h)
         y[:, t] = readout(h, c[:, t, None, :])
     return y, h
+
+
+def _channel_sum(v: torch.Tensor) -> torch.Tensor:
+    """``v`` [B, Di, N] summed over the channels in the backward kernel's
+    order: a warp's channels pairwise, neighbours first (its butterfly),
+    then the CTA's warps in order, then the CTAs in order (the reduce
+    kernel); channels past Di are zeros, as the kernel's idle threads
+    give."""
+    bsz, di, n = v.shape
+    per_cta = CTA_THREADS // (n // GROUP)
+    ctas = -(-di // per_cta)
+    v = torch.nn.functional.pad(v, (0, 0, 0, ctas * per_cta - di))
+    v = v.reshape(bsz, ctas, CTA_WARPS, per_cta // CTA_WARPS, n)
+    while v.shape[3] > 1:
+        v = v[:, :, :, 0::2] + v[:, :, :, 1::2]
+    v = v[:, :, :, 0]
+    warps = v[:, :, 0]
+    for w in range(1, CTA_WARPS):
+        warps = warps + v[:, :, w]
+    out = warps[:, 0]
+    for k in range(1, ctas):
+        out = out + warps[:, k]
+    return out
+
+
+def ssm_scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, dy: torch.Tensor,
+                       dh: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's function in plain PyTorch: ``(ddt, dx, db,
+    dc, da)`` of the scan from ``dy`` [B, S, Di] and ``dh`` [B, Di, N],
+    float32 (``dx`` in x's dtype).  It keeps h at the start of every
+    ``CHUNK`` positions only, recomputes a chunk's h from there, and runs
+    the chunk's positions downward with the kernel's float32 operators
+    and orders of sums."""
+    bsz, s, di = dt.shape
+    xf = x.float()
+
+    def advance(h, t):
+        d = dt[:, t, :, None]
+        a_bar = torch.exp(d * a)
+        return a_bar * h + (d * b[:, t, None, :]) * xf[:, t, :, None]
+
+    starts, h = [], torch.zeros_like(dh)
+    for t in range(s):
+        if t % CHUNK == 0:
+            starts.append(h)
+        h = advance(h, t)
+    ddt = torch.empty_like(dt)
+    dx = torch.empty(bsz, s, di, dtype=torch.float32, device=dt.device)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    carry, da = dh, torch.zeros_like(dh)
+    for k in reversed(range(len(starts))):
+        t0 = k * CHUNK
+        hist = [starts[k]]
+        for t in range(t0, min(t0 + CHUNK, s)):
+            hist.append(advance(hist[-1], t))
+        for t in reversed(range(t0, min(t0 + CHUNK, s))):
+            h_t, hp = hist[t - t0 + 1], hist[t - t0]
+            d = dt[:, t, :, None]
+            a_bar = torch.exp(d * a)
+            xv, dyv = xf[:, t, :, None], dy[:, t, :, None]
+            bv, cv = b[:, t, None, :], c[:, t, None, :]
+            gh = dyv * cv + carry
+            carry = a_bar * gh
+            u = gh * d
+            dx[:, t] = _state_sum(u * bv)
+            ddt[:, t] = _state_sum(gh * ((a * a_bar) * hp + bv * xv))
+            da = da + (u * a_bar) * hp
+            db[:, t] = _channel_sum(u * xv)
+            dc[:, t] = _channel_sum(h_t * dyv)
+    da_sum = da[0]
+    for r in range(1, bsz):
+        da_sum = da_sum + da[r]
+    return ddt, dx.to(x.dtype), db, dc, da_sum
 
 
 def _check(dt, x, b, c, a, lengths) -> None:
@@ -111,13 +208,50 @@ def _kernel():
                         [p, p, p, p, p, p, p, p, i, i, i, i, i, p])
 
 
+@functools.cache
+def _bwd_kernel():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return runtime.bind("ssm_scan_bwd", [p] * 15 + [i] * 5 + [p])
+
+
+class SSMScanFn(torch.autograd.Function):
+    """``ssm_scan`` with its backward: saves its five operands (h is
+    recomputed, never stored)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b, c, a):
+        y, h = _forward(dt, x, b, c, a, None)
+        ctx.save_for_backward(dt, x, b, c, a)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        return ssm_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                            dh.contiguous())
+
+
 def ssm_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, a: torch.Tensor,
              lengths: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(y [B, S, Di], h [B, Di, N])`` of the selective scan, float32,
-    each row's positions from ``lengths`` on keeping h."""
+    each row's positions from ``lengths`` on keeping h; differentiable
+    (``SSMScanFn``) where grad is on and an operand requires it."""
     _check(dt, x, b, c, a, lengths)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, x, b, c, a)):
+        if lengths is not None:
+            raise ValueError("ssm_scan: lengths with a gradient: training "
+                             "scans every position (the reference's "
+                             "ssm_forward takes no lengths)")
+        return SSMScanFn.apply(dt, x, b, c, a)
+    return _forward(dt, x, b, c, a, lengths)
+
+
+def _forward(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a: torch.Tensor,
+             lengths: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     extra = () if lengths is None else (lengths,)
     if all(t.device.type == "cpu" for t in (dt, x, b, c, a, *extra)):
         return ssm_scan_plain(dt, x, b, c, a, lengths)
@@ -140,3 +274,47 @@ def ssm_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 
 ssm_scan.launches = 0
+
+
+def ssm_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, a: torch.Tensor, dy: torch.Tensor,
+                 dh: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``(ddt, dx, db, dc, da)`` of the selective scan from ``dy`` [B, S,
+    Di] and ``dh`` [B, Di, N] (float32; ``dx`` in x's dtype): the kernel
+    and its ordered reduce on CUDA tensors, ``ssm_scan_bwd_plain`` on CPU
+    ones."""
+    _check(dt, x, b, c, a, None)
+    bsz, s, di = dt.shape
+    n = a.shape[1]
+    if dy.shape != dt.shape or dh.shape != (bsz, di, n) \
+            or dy.dtype != torch.float32 or dh.dtype != torch.float32:
+        raise ValueError(f"ssm_scan_bwd: dy must be [{bsz}, {s}, {di}] and "
+                         f"dh [{bsz}, {di}, {n}], float32; got "
+                         f"{tuple(dy.shape)} {dy.dtype}, {tuple(dh.shape)} "
+                         f"{dh.dtype}")
+    ops = (dt, x, b, c, a, dy, dh)
+    if all(t.device.type == "cpu" for t in ops):
+        return ssm_scan_bwd_plain(*ops)
+    runtime.require_cuda("ssm_scan_bwd", *ops)
+    runtime.require_contiguous("ssm_scan_bwd", dt=dt, x=x, b=b, c=c, a=a,
+                               dy=dy, dh=dh)
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty(di, n, **f32)
+    if dt.numel() == 0:
+        return ddt, dx, db, dc, da.zero_()
+    ctas = -(-di // (CTA_THREADS // (n // GROUP)))
+    ckpt = torch.empty(bsz, -(-s // CHUNK), di, n, **f32)
+    part_bc = torch.empty(bsz, s, ctas, 2 * n, **f32)
+    part_a = torch.empty(bsz, di, n, **f32)
+    runtime.launch("ssm_scan_bwd", _bwd_kernel(), dt,
+                   *(t.data_ptr() for t in (
+                       dt, x, b, c, a, dy, dh, ckpt, part_bc, part_a, ddt, dx,
+                       db, dc, da)),
+                   runtime.DTYPE_CODES[x.dtype], bsz, s, di, n)
+    ssm_scan_bwd.launches += 1
+    return ddt, dx, db, dc, da
+
+
+ssm_scan_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""Training driver: ``python -m repro_torch.launch.train --arch <id>``.
+"""Training driver: ``python -m repro_torch.launch.train --arch <id>``
+(``--model`` is the same flag).
 
 The reference's ``launch/train.py`` on one device: the synthetic data
 stream -> the train step -> checkpoints -> a resumable restart.  The
@@ -7,7 +8,9 @@ device unless ``--device cpu`` is given (without a card the default
 raises, as every entry point of the port does).  f32 master weights,
 bf16 compute, AdamW with the reference's schedule (warmup over a
 twentieth of ``--steps``); ``--remat`` recomputes each layer in the
-backward.  The synthetic stream carries tokens only, so an audio
+backward.  Every family trains, the hybrid (recurrentgemma-2b) and ssm
+(falcon-mamba-7b) ones through their scans' backward kernels on the card.
+The synthetic stream carries tokens only, so an audio
 model, whose encoder needs frames, is refused by its loss, as the
 reference's driver fails on it.
 
@@ -35,7 +38,7 @@ from repro_torch.training.train_step import (TrainStepConfig, init_state,
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", "--model", default="qwen1.5-0.5b")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

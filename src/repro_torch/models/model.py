@@ -148,13 +148,8 @@ def _check_trainable(cfg: ArchConfig, matmul_backend: str,
     if matmul_backend != "xla":
         raise ValueError(
             f"{cfg.name}: training runs matmul_backend='xla' only: no "
-            "hand-written kernel of the port has a backward, and no Pallas "
-            "kernel of the reference has a VJP")
-    if cfg.family in ("ssm", "hybrid"):
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family does not train yet: its "
-            "recurrence runs a hand-written scan with no backward on the "
-            "card (ROADMAP.md Queue 1 item 16b)")
+            "hand-written kernel of the products or the norms has a "
+            "backward, and no Pallas kernel of the reference has a VJP")
 
 
 def _frozen(shape, dtype, device) -> nn.Parameter:
@@ -422,12 +417,14 @@ class Model(nn.Module):
     MoE model with ``num_mtp_modules``, the multi-token-prediction head
     ``mtp.{proj, norm_h, norm_e, layer}`` (the reference's
     ``_build_mtp``; its parameters come last, so ``init`` draws every
-    other leaf as for serving).  It refuses int8 weights, the
-    ``"pallas"`` backend (no hand-written kernel has a backward) and the
-    ssm and hybrid families (their scans have none either: ROADMAP.md
-    Queue 1 item 16b).  ``remat`` ("none" | "full" | "dots") recomputes
-    each layer in the backward: all of it, or all but its matrix
-    products (the reference's ``dots_with_no_batch_dims_saveable``).
+    other leaf as for serving).  It refuses int8 weights and the
+    ``"pallas"`` backend (no matmul or norm kernel has a backward).  The
+    ssm and hybrid families train through their scans' backward kernels
+    (``kernels/ssm_scan.py``, ``kernels/rglru_scan.py``), which run on
+    any CUDA tensor whatever the backend.  ``remat`` ("none" | "full" |
+    "dots") recomputes each layer in the backward: all of it, or all but
+    its matrix products (the reference's
+    ``dots_with_no_batch_dims_saveable``).
     """
 
     def __init__(self, cfg: ArchConfig, *, param_dtype=DEFAULT_PARAM_DTYPE,

@@ -54,6 +54,7 @@ from repro_torch.core.registers import (REGISTERS, Maxima, make_registers,
                                         registers_for)
 from repro_torch.core.spec import MemorySpec, RuntimeSpec, maxima_for
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 # tests/test_adaptive.py's fabric and topologies
 MX = Maxima(seq_max=32, heads_max=8, layers_enc_max=4, layers_dec_max=2,

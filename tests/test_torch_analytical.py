@@ -29,6 +29,7 @@ from repro_torch.configs import REGISTRY, get_config
 from repro_torch.configs.base import ALL_SHAPES, ShapeSpec
 from repro_torch.core import analytical as an
 from repro_torch.core import tiling
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 # the reference device's constants, as the port's spec type
 REF_GPU = an.GPUSpec(name=ref_an.V5E.name, peak_flops=ref_an.V5E.peak_flops,

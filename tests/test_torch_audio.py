@@ -56,6 +56,7 @@ from repro_torch.kernels import layernorm as ln_mod
 from repro_torch.kernels import tiled_matmul as tm_mod
 from repro_torch.models.model import EncDecCache, Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "whisper-medium"
 FRAMES = 16             # the reduced encoder_seq_len

@@ -53,6 +53,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine, _buckets
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 QWEN = "qwen1.5-0.5b"
 FAMILIES = [QWEN, "granite-moe-1b-a400m", "deepseek-v3-671b",

@@ -35,7 +35,7 @@ from repro_torch.training import fault_tolerance as ft
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (TrainStepConfig, init_state,
                                              make_step_fn)
-from test_torch_train_families import one_thread  # noqa: F401 (autouse)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _fixed_batch(cfg, b=4, s=32, seed=7):

@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels import chunked_prefill as cp
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import runtime
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 2e-6
 SMS = 132                       # the H100 SXM's SM count

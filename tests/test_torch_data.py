@@ -9,6 +9,7 @@ properties are its."""
 import torch
 
 from repro_torch.data.pipeline import MemorizationStream, SyntheticLMStream
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _lm(**kw) -> SyntheticLMStream:

@@ -49,6 +49,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.serving import fabric as fab_mod
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCHS = ["qwen2-72b", "codeqwen1.5-7b", "phi3-mini-3.8b"]
 STEP_TOL = 1e-4                      # x max|logits|, f32 compute and pool

@@ -42,6 +42,7 @@ from repro_torch.kernels import layernorm as ln_mod
 from repro_torch.kernels import tiled_matmul as tm_mod
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 PAPER = ("adaptor-bert", "shallow-transformer", "custom-encoder")
 # custom-encoder keeps its 200-wide model over 3 heads of 66

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 SMS = 132                       # the H100 SXM's SM count
 NEG_INF = fa.NEG_INF

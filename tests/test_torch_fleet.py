@@ -48,6 +48,7 @@ from repro_torch.kernels import runtime
 from repro_torch.models.attention import KVCache
 from repro_torch.serving import fabric as fab_mod
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG_A = reduced(get_config("qwen1.5-0.5b"))
 CFG_B = dataclasses.replace(

@@ -50,6 +50,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.serving import fabric as fab_mod
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG_A = reduced(get_config("qwen1.5-0.5b"))
 CFG_B = dataclasses.replace(

@@ -30,6 +30,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.sampling import SamplingParams
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
 PROMPTS = [[1, 2, 3], list(range(1, 9)), [4], list(range(2, 40, 3)),

@@ -41,6 +41,7 @@ from repro_torch.harness.metrics import percentile
 from repro_torch.harness.trace import dumps_trace, loads_trace
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.events import EngineEvent, EventLog
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 GENERATORS = {
     "poisson": ("poisson_trace", (12,), dict(rate=0.5, max_len=32,

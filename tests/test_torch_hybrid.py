@@ -51,6 +51,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru
 from repro_torch.models.model import HybridCache, Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "recurrentgemma-2b"
 CFG = reduced(get_config(NAME))
@@ -615,4 +616,39 @@ def test_scan_kernel_is_its_plain_loop_on_the_card():
         assert scan_mod.rglru_scan.launches == before + 1
         for x, y in zip(got, scan_mod.rglru_scan_plain(a, gg, n),
                         strict=True):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
+    """``rglru_scan_bwd`` bit for bit ``rglru_scan_bwd_plain`` (the same
+    two float32 operators a position, in the same order), and the
+    autograd path through ``rglru_scan`` launching the forward and the
+    backward kernel once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for B, S, W in ((1, 300, 2560), (3, 17, 300), (2, 64, 256)):
+        a = torch.rand(B, S, W, generator=g, device="cuda")
+        gg = torch.randn(B, S, W, generator=g, device="cuda")
+        dhs = torch.randn(B, S, W, generator=g, device="cuda")
+        dh = torch.randn(B, W, generator=g, device="cuda")
+        hs, _ = scan_mod.rglru_scan_plain(a, gg)
+        want = scan_mod.rglru_scan_bwd_plain(a, hs, dhs, dh)
+        before = scan_mod.rglru_scan_bwd.launches
+        for x, y in zip(scan_mod.rglru_scan_bwd(a, hs, dhs, dh), want,
+                        strict=True):
+            assert torch.equal(x, y)
+        assert scan_mod.rglru_scan_bwd.launches == before + 1
+        ar, gr = a.clone().requires_grad_(), gg.clone().requires_grad_()
+        seen = (scan_mod.rglru_scan.launches,
+                  scan_mod.rglru_scan_bwd.launches)
+        hs2, h2 = scan_mod.rglru_scan(ar, gr)
+        got = torch.autograd.grad((hs2 * dhs).sum() + (h2 * dh).sum(),
+                                  [ar, gr])
+        assert (scan_mod.rglru_scan.launches,
+                scan_mod.rglru_scan_bwd.launches) == (seen[0] + 1,
+                                                      seen[1] + 1)
+        for x, y in zip(got, want, strict=True):
             assert torch.equal(x, y)

@@ -29,6 +29,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.qkv_proj import qkv_proj
 from repro_torch.kernels.tiled_matmul import (
     matmul, tiled_matmul, tiled_matmul_plain)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 2e-6
 

@@ -1,7 +1,7 @@
 """Every kernel launch on its operands' device (ROADMAP Queue 3 fault G),
 and the kernels at granite-moe-1b-a400m's serving shapes.
 
-* On the host: each of the twelve wrappers reaches its C entry point only
+* On the host: each of the fourteen wrappers reaches its C entry point only
   through ``kernels.runtime.launch``, the one guard that makes the
   operands' device current for the launch.  The wrappers run on ``meta``
   tensors with the CUDA-only checks patched out, ``runtime.bind`` hands
@@ -13,7 +13,7 @@ and the kernels at granite-moe-1b-a400m's serving shapes.
   inside it, and passes that device's current stream last.
 * On the card (``cuda`` marker): with another device current
   (``torch.cuda.set_device``), each kernel on device 0 tensors equals its
-  plain version.  It needs two devices and skips on one card.
+  plain version (the scans' backwards among them).  It needs two devices and skips on one card.
 * On the card: ``tiled_matmul`` and ``int8_matmul`` at granite's K/V
   width (M x 1024 x 512 for the decode and mixed steps), ``int8_matmul``
   bit-identical to its plain version; both paged walks at granite's 16
@@ -45,11 +45,12 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels import ssm_scan as sscan
 from repro_torch.kernels import tiled_matmul as tm
 from repro_torch.kernels.counts import LIVE_KV, launch_counts, wrappers
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 # the bound entry points, cached per module
 ENTRY_CACHES = (tm._kernel, i8._kernel, pa._kernel, cp._kernel, fa._kernel,
                 ffn_mod._kernels, qkv._kernel, ln._kernels, scan._kernel,
-                sscan._kernel)
+                sscan._kernel, scan._bwd_kernel, sscan._bwd_kernel)
 
 
 class _Entry:
@@ -101,6 +102,16 @@ def _calls() -> dict:
             _meta(B, 8, 16, dtype=torch.float32),
             _meta(B, 8, 16, dtype=torch.float32),
             _meta(64, 16, dtype=torch.float32), _meta(B, **i32)),
+        "rglru_scan_bwd": lambda: scan.rglru_scan_bwd(
+            *(_meta(B, 8, 64, dtype=torch.float32) for _ in range(3)),
+            _meta(B, 64, dtype=torch.float32)),
+        "ssm_scan_bwd": lambda: sscan.ssm_scan_bwd(
+            _meta(B, 8, 64, dtype=torch.float32), _meta(B, 8, 64),
+            _meta(B, 8, 16, dtype=torch.float32),
+            _meta(B, 8, 16, dtype=torch.float32),
+            _meta(64, 16, dtype=torch.float32),
+            _meta(B, 8, 64, dtype=torch.float32),
+            _meta(B, 64, 16, dtype=torch.float32)),
     }
 
 
@@ -286,6 +297,19 @@ def test_cuda_kernels_launch_on_their_device_with_another_current():
         for got, want in zip(sscan.ssm_scan(sdt, sx, sb, sb, sa2, sn2),
                              sscan.ssm_scan_plain(sdt, sx, sb, sb, sa2, sn2),
                              strict=True):
+            assert torch.equal(got, want)
+        hs, _ = scan.rglru_scan_plain(sa, sg)
+        dh = torch.randn(2, 256, generator=g, device=dev)
+        for got, want in zip(scan.rglru_scan_bwd(sa, hs, sg, dh),
+                             scan.rglru_scan_bwd_plain(sa, hs, sg, dh),
+                             strict=True):
+            assert torch.equal(got, want)
+        sdy = torch.randn(2, 40, 256, generator=g, device=dev)
+        sdh = torch.randn(2, 256, 16, generator=g, device=dev)
+        for got, want in zip(
+                sscan.ssm_scan_bwd(sdt, sx, sb, sb, sa2, sdy, sdh),
+                sscan.ssm_scan_bwd_plain(sdt, sx, sb, sb, sa2, sdy, sdh),
+                strict=True):
             assert torch.equal(got, want)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 1

@@ -23,6 +23,7 @@ from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
 MAXIMA = maxima_for(CFG, seq_max=64)

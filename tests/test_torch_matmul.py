@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import ffn as ffn_mod
 from repro_torch.kernels import qkv_proj as qkv_mod
 from repro_torch.kernels import tiled_matmul as tm
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 2e-6
 

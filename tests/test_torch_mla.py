@@ -50,6 +50,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import MLACache
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "deepseek-v3-671b"
 FULL = get_config(NAME)

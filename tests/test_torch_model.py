@@ -36,6 +36,7 @@ from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
                                    SchedulerSpec)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 J_CFG = reduced_cfg("qwen1.5-0.5b")
 CFG = reduced(get_config("qwen1.5-0.5b"))

@@ -58,6 +58,7 @@ from repro_torch.models import moe
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "granite-moe-1b-a400m"
 FULL = get_config(NAME)

@@ -40,6 +40,7 @@ from repro_torch.kernels import layernorm as ln_mod
 from repro_torch.kernels import ops, runtime
 from repro_torch.models import layers
 from repro_torch.models.model import Model
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 SMS = 132                               # an H100 SXM
 CFG = reduced(get_config("qwen1.5-0.5b"))

@@ -33,6 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import qkv_proj as qkv_mod
 from repro_torch.kernels import runtime
 from repro_torch.kernels.tiled_matmul import tiled_matmul
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-5
 NEW_KERNELS = (ffn_mod.ffn1, ffn_mod.ffn1_gated, qkv_mod.qkv_proj,

@@ -38,7 +38,7 @@ from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update,
                                             clip_by_global_norm, cosine_lr,
                                             is_decayed)
-from test_torch_train_families import one_thread  # noqa: F401 (autouse)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_cosine_schedule_and_clip():

@@ -56,6 +56,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.models.attention import paged_write_slot
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
 F32_TOL = 2e-6

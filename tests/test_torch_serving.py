@@ -31,6 +31,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.sampling import SamplingParams, filtered_probs
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = reduced(get_config("qwen1.5-0.5b"))

@@ -65,6 +65,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.sampling import (propose_per_slot,
                                           speculative_accept)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG = reduced(get_config("qwen1.5-0.5b"))
 DRAFT1 = dataclasses.replace(CFG, num_layers=1)

@@ -37,6 +37,7 @@ from test_torch_speculative import (CFG, FLEET_MAXIMA, MEMBER,  # noqa: F401
                                     MEMBER_REQS, QUANT_REQS, REQS,
                                     _drain, _engines, _specs, _truncations,
                                     ref)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_spec_composes_with_prefix_sharing(ref):

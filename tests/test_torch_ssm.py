@@ -53,6 +53,7 @@ from repro_torch.models import ssm
 from repro_torch.models.model import Model
 from repro_torch.models.ssm import SSMState
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "falcon-mamba-7b"
 CFG = reduced(get_config(NAME))
@@ -689,3 +690,45 @@ def test_one_graph_per_bucket_and_graphed_equals_eager_on_the_card():
         == _drain(eager, prompts, 6)[0]
     assert graphed.stats["prefill_captures"] == 3
     assert graphed.stats["graph_captures"] == 1
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
+    """``ssm_scan_bwd`` (the reverse walk over recomputed chunks and its
+    ordered reduce) bit for bit ``ssm_scan_bwd_plain``, which sums in the
+    kernel's orders, at N 4 to 128, a ragged last chunk and channels past
+    a CTA's; then the autograd path through ``ssm_scan`` launching the
+    forward and the backward once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    for B, S, Di, N, dt_x in ((1, 300, 8192, 16, torch.bfloat16),
+                              (3, 17, 300, 16, torch.float32),
+                              (2, 64, 128, 8, torch.float32),
+                              (2, 33, 96, 32, torch.bfloat16),
+                              (1, 20, 70, 4, torch.float32),
+                              (2, 9, 12, 128, torch.float32)):
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, Di, generator=g, device="cuda"))
+        x = torch.randn(B, S, Di, generator=g, device="cuda").to(dt_x)
+        b = torch.randn(B, S, N, generator=g, device="cuda")
+        c = torch.randn(B, S, N, generator=g, device="cuda")
+        a = -torch.exp(torch.rand(Di, N, generator=g, device="cuda") * 2 - 1)
+        dy = torch.randn(B, S, Di, generator=g, device="cuda")
+        dh = torch.randn(B, Di, N, generator=g, device="cuda")
+        want = scan_mod.ssm_scan_bwd_plain(dt, x, b, c, a, dy, dh)
+        before = scan_mod.ssm_scan_bwd.launches
+        for u, v in zip(scan_mod.ssm_scan_bwd(dt, x, b, c, a, dy, dh), want,
+                        strict=True):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+        assert scan_mod.ssm_scan_bwd.launches == before + 1
+        ins = [t.clone().requires_grad_() for t in (dt, x, b, c, a)]
+        seen = (scan_mod.ssm_scan.launches, scan_mod.ssm_scan_bwd.launches)
+        y, h = scan_mod.ssm_scan(*ins)
+        got = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), ins)
+        assert (scan_mod.ssm_scan.launches,
+                scan_mod.ssm_scan_bwd.launches) == (seen[0] + 1,
+                                                    seen[1] + 1)
+        for u, v in zip(got, want, strict=True):
+            assert torch.equal(u, v)

@@ -57,7 +57,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (TrainStepConfig, init_state,
                                              loss_and_grads, make_step_fn)
-from test_torch_train_families import one_thread  # noqa: F401 (autouse)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 NAME = "qwen1.5-0.5b"

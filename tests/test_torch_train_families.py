@@ -12,9 +12,10 @@ max|g_ref|, mapped by name through the bridge.  deepseek-v3's (MLA + MoE
 For qwen2-72b, codeqwen1.5-7b, phi3-mini-3.8b, shallow-transformer and
 custom-encoder, one port-only step (the reference's
 ``test_train_step_finite``): finite loss and gradient norm, parameters
-moved.  What a trainable model refuses: the ssm and hybrid families
-(their scans have no backward: ROADMAP.md Queue 1 item 16b), int8
-weights, the "pallas" backend; and the sharded step (item 13).
+moved.  What a trainable model refuses: int8 weights, the "pallas"
+backend; and the sharded step (item 13).  The ssm and hybrid families
+train through their scans' backwards: ``test_torch_train_scans.py``, which
+imports ``check_loss`` too.
 """
 import jax
 import jax.numpy as jnp
@@ -32,17 +33,7 @@ from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import (TrainStepConfig, init_state,
                                              loss_and_grads, make_step_fn,
                                              make_train_step)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while this file runs: its autograd steps are
-    many small operators, which run faster on one thread than on a pool
-    whose cores the suite's other workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def batch_for(cfg, b: int = 2, s: int = 16, seed: int = 0) -> dict:
@@ -115,12 +106,6 @@ def test_train_step_finite(name):
         state, {k: torch.from_numpy(v) for k, v in batch_for(cfg).items()})
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     assert any(not torch.equal(state.params[n], before[n]) for n in before)
-
-
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "recurrentgemma-2b"])
-def test_scan_families_are_refused(name):
-    with pytest.raises(ValueError, match="item 16b"):
-        Model(reduced(get_config(name)), device="cpu", trainable=True)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -13,8 +13,8 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.models.model import Model
-from test_torch_train_families import (check_loss,  # noqa: F401
-                                       one_thread)
+from test_torch_train_families import check_loss
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "deepseek-v3-671b"
 

@@ -30,6 +30,7 @@ from repro_torch.core.spec import ExecutionSpec, RuntimeSpec, maxima_for
 from repro_torch.harness import (DeviceProfile, WorkloadProfile,
                                  naive_default, shared_prefix_trace, tune)
 from repro_torch.harness.tune import Candidate, _per_token_bytes, cache_bytes
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 # the modules (``repro.harness`` exports the function ``tune``)
 ref_tune = importlib.import_module("repro.harness.tune")

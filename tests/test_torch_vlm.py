@@ -39,6 +39,7 @@ from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_threads import one_thread  # noqa: F401 (autouse)
 
 NAME = "phi-3-vision-4.2b"
 FULL = get_config(NAME)
