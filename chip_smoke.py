@@ -341,7 +341,9 @@ Phases (any failure raises and the script exits non-zero):
    published widths (``check_ssm``): f32 steps at 8 of 64 layers, bf16
    serving at 32 of 64 (all 64 until phase 20 joined; cut for run time)
    on dense + bucketed, a decode step and a prefill timed against their
-   bounds; phase 2 holds ``ssm_scan`` bit for bit.
+   bounds; phase 2 holds ``ssm_scan`` bit for bit (``SSM_SCAN_SHAPES``,
+   with a Di past a CTA's channels and an S off the tile and the
+   checkpoint stride), timed beside its bound and issue floor.
 
 18. The audio family (ROADMAP Queue 1 item 12e): whisper-medium at its
    published widths (``check_audio``), seeded random weights.  (a) At f32
@@ -411,8 +413,12 @@ Phases (any failure raises and the script exits non-zero):
 
 21. The scans' backwards (ROADMAP Queue 1 item 16b; ``check_train_scans``):
    (a) ``rglru_scan_bwd`` at [4, 512, 2560] and [1, 3072, 2560] and
-   ``ssm_scan_bwd`` at [4, 512, 8192, 16] (x bf16) and the reduced [2, 64,
-   128, 8], each bit for bit its plain loop, timed beside its bound.
+   ``ssm_scan_bwd`` at [4, 512, 8192, 16] (x bf16), the reduced [2, 64,
+   128, 8] and a ragged [2, 83, 1000, 16], each bit for bit its plain
+   loop (the ssm's from the forward kernel's checkpoints, themselves the
+   plain loop's h, and as the call that launches the forward for them),
+   timed beside its bound and issue floor, the ssm's training forward
+   (with the checkpoints) and the pair as one call too.
    Then recurrentgemma-2b at its widths and 13 of its 26 layers (the
    pattern r, r, a kept) and falcon-mamba-7b at its widths and 8 of its 64
    (its full depth's f32 state needs the sharded step, item 13): (b) at 2
@@ -490,8 +496,10 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul, tiled_matmul_plain)
 from repro_torch.launch.timing import (  # noqa: E402
-    HBM_BYTES_S, LAYER_MATMULS, NORM_SHAPES, NORM_TOL, PEAK_FLOPS, STEP_ROWS,
-    Timer, bound_ms, norm_calls, norm_cost, norm_err, norm_operands)
+    HBM_BYTES_S, LAYER_MATMULS, NORM_SHAPES, NORM_TOL, PEAK_FLOPS,
+    SSM_BWD_SHAPES, SSM_SCAN_SHAPES, STEP_ROWS, Timer, bound_ms,
+    issue_floor_ms, norm_calls, norm_cost, norm_err, norm_operands,
+    ssm_bwd_cost, ssm_operands, ssm_scan_cost)
 from repro_torch.core import engine_ref, masking  # noqa: E402
 from repro_torch.core.adaptive import (AdaptiveEngine,  # noqa: E402
                                        EngineOptions, pack)
@@ -1528,39 +1536,32 @@ def check_scan(timer, dev, g) -> dict:
     return {"rglru_scan": dict(rows[0], other_shapes=rows[1:])}
 
 
-# ssm_scan's rows: (B, S, Di, N, lengths or None).  falcon-mamba-7b's
-# 3072-token bucket holding a 2300-token prompt; two rows of a 300-token
-# bucket; eight one-position rows, two of them past their length; the
-# reduced config's width (d_inner 128, state 8)
-SSM_SCAN_SHAPES = ((1, 3072, 8192, 16, (2300,)), (2, 300, 8192, 16, (300, 123)),
-                   (8, 1, 8192, 16, (1, 0, 1, 1, 0, 1, 1, 1)),
-                   (2, 64, 128, 8, (64, 20)))
-
-
 def check_ssm_scan(timer, dev, g) -> dict:
     """``ssm_scan`` against its plain loop, bit for bit (the same float32
-    operators a position, in the same order, the readout's sums
-    included), y and the last h, at ``SSM_SCAN_SHAPES``: dt = softplus of
-    a normal, x bf16 (the serving path's compute dtype), b and c normal,
-    a = -exp(U(-1, 1)), ragged lengths.  Timed beside the bound: dt (4
-    bytes) and x (2) read and y (4) written a position and channel, b and
-    c a position, a, lengths and the last h once; 8 float32 operations a
-    live (position, channel, state) (exp counted once) and the readout's 2
-    past a row's length, at the float32 rate.  No single PyTorch call
-    computes a selective scan, so no library time."""
+    operators a position, in the same order, the readout's tree of sums
+    included), y and the last h, at ``SSM_SCAN_SHAPES`` (the last, a
+    ragged Di and S, from a generator of its own so the others draw from
+    ``g`` as before): dt = softplus of a normal, x bf16 (the serving
+    path's compute dtype), b and c normal, a = -exp(U(-1, 1)), ragged
+    lengths.  Timed beside the bound (``ssm_scan_cost``: dt, x read and y
+    written a position and channel, b and c a position, a, lengths and
+    the last h once; 8 float32 operations a live (position, channel,
+    state), exp counted once, and the readout's 2 past a row's length, at
+    the float32 rate) and the issue floor (the kernel's float32 lane
+    instructions at every lane's rate).  No single PyTorch call computes a
+    selective scan, so no library time."""
     print("\n== ssm_scan vs its plain loop (a_bar = exp(dt a), h = a_bar h + "
           "(dt b) x, y = h . c; float32, x bf16; the reference's lax.scan, "
           "no Pallas kernel)")
     print(f"{'B':>3} {'S':>5} {'Di':>5} {'N':>3} {'lengths':>26} {'err':>6} "
-          f"{'kernel_ms':>10} {'plain_ms':>9} {'bound_ms':>9}")
+          f"{'kernel_ms':>10} {'plain_ms':>9} {'bound_ms':>9} "
+          f"{'issue_ms':>9}")
     rows = []
-    for B, S, Di, N, lens in SSM_SCAN_SHAPES:
-        dt = torch.nn.functional.softplus(
-            torch.randn(B, S, Di, generator=g, device=dev))
-        x = torch.randn(B, S, Di, generator=g, device=dev).bfloat16()
-        b = torch.randn(B, S, N, generator=g, device=dev)
-        c = torch.randn(B, S, N, generator=g, device=dev)
-        a = -torch.exp(torch.rand(Di, N, generator=g, device=dev) * 2 - 1)
+    own = torch.Generator(device=dev)
+    own.manual_seed(2)
+    for k, (B, S, Di, N, lens) in enumerate(SSM_SCAN_SHAPES):
+        gen = g if k < 4 else own
+        dt, x, b, c, a = ssm_operands(gen, dev, B, S, Di, N)
         n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                    device=dev)
         run = lambda: ssm_scan(dt, x, b, c, a, n)  # noqa: E731
@@ -1571,16 +1572,15 @@ def check_ssm_scan(timer, dev, g) -> dict:
             raise AssertionError(f"ssm_scan [{B}, {S}, {Di}, {N}] lengths "
                                  f"{lens}: not bit for bit its plain loop "
                                  f"(max err {err})")
-        live = B * S if lens is None else sum(min(v, S) for v in lens)
-        nbytes = B * S * Di * (4 + 2 + 4) + 2 * B * S * N * 4 \
-            + Di * N * 4 + B * Di * N * 4 + B * 4
-        bms, by = bound_ms(nbytes, (6 * live + 2 * B * S) * Di * N,
-                           torch.float32)
+        nbytes, flops, lanes = ssm_scan_cost(B, S, Di, N, lens)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        ims = issue_floor_ms(lanes)
         ms, pms = timer(run), timer(plain, reps=3, warm=1)
         print(f"{B:>3} {S:>5} {Di:>5} {N:>3} {str(lens):>26} {err:>6.3g} "
-              f"{ms:>10.4f} {pms:>9.4f} {bms:>9.4f}")
+              f"{ms:>10.4f} {pms:>9.4f} {bms:>9.4f} {ims:>9.4f}")
         rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms,
                          bound_ms=bms, bound_by=by, library_ms=None,
+                         issue_floor_ms=ims,
                          shape=f"[{B}, {S}, {Di}, {N}] float32, x bf16, "
                                f"lengths {lens}"))
         del dt, x, b, c, y, py
@@ -6102,7 +6102,6 @@ def check_train(dev, smi: str) -> dict:
 # versions at a training batch and a prefill's length of recurrentgemma's
 # width, falcon-mamba's at a training batch, and the reduced config's
 RGLRU_BWD_SHAPES = ((4, 512, 2560), (1, 3072, 2560))
-SSM_BWD_SHAPES = ((4, 512, 8192, 16), (2, 64, 128, 8))
 SCAN_TRAIN_SEED = 21
 # training at full width: recurrentgemma-2b at 13 of 26 layers (pattern r,
 # r, a kept: 4 x 3 + 1; all 26 take ~64 GB with AdamW's temporaries),
@@ -6126,10 +6125,17 @@ def check_scan_bwd(timer, dev, g) -> dict:
     beside the bound: each input read once and each output written once
     at 3.35 TB/s against the float32 operations at 67 TFLOP/s.  The RG-LRU
     adjoint: a, hs, dhs read, da, dg written; 3 operations an element.
-    The selective scan's: dt, x (bf16), dy read and ddt, dx written a
-    position and channel, b, c, db, dc a position, a, dh, da once; 6
-    operations a state for the forward h it needs and 21 for the adjoint.
-    No single PyTorch call computes either, so no library time."""
+    The selective scan's (``ssm_bwd_cost``): dt, x (bf16), dy read and
+    ddt, dx written a position and channel, b, c, db, dc a position, a,
+    dh, da and the checkpoints once; 6 operations a state for the forward
+    h it needs and 21 for the adjoint; beside it the issue floor.  Its
+    ``ms`` is the backward kernel's call from the forward kernel's
+    checkpoints (held bit for bit against the plain loop's h), the
+    training path's; ``forward_ms`` times that forward (``SSMScanFn``'s,
+    writing the checkpoints) and ``with_forward_ms`` the backward called
+    without them, which launches that forward first: a training layer's
+    two scans.  No single PyTorch call computes either, so no library
+    time."""
     print("\n== phase 21 (a): the scans' backwards vs their plain loops "
           "(training; the reference's jax.grad of its lax.scans)")
     out = {}
@@ -6160,34 +6166,50 @@ def check_scan_bwd(timer, dev, g) -> dict:
     out["rglru_scan_bwd"] = dict(rows[0], other_shapes=rows[1:])
     rows = []
     for B, S, Di, N in SSM_BWD_SHAPES:
-        dt = torch.nn.functional.softplus(
-            torch.randn(B, S, Di, generator=g, device=dev))
-        x = torch.randn(B, S, Di, generator=g, device=dev).bfloat16()
-        b = torch.randn(B, S, N, generator=g, device=dev)
-        c = torch.randn(B, S, N, generator=g, device=dev)
-        a = -torch.exp(torch.rand(Di, N, generator=g, device=dev) * 2 - 1)
+        dt, x, b, c, a = ssm_operands(g, dev, B, S, Di, N)
         dy = torch.randn(B, S, Di, generator=g, device=dev)
         dh = torch.randn(B, Di, N, generator=g, device=dev)
         ops_ = (dt, x, b, c, a, dy, dh)
-        run = lambda: sscan_mod.ssm_scan_bwd(*ops_)  # noqa: E731
+        # the training path: the forward kernel's checkpoints (h every
+        # CHUNK positions) handed to the backward, both against the plain
+        # versions
+        ckpt = sscan_mod._forward(dt, x, b, c, a, None, True)[2]
+        if not torch.equal(ckpt, ssm_scan_plain(dt, x, b, c, a,
+                                                checkpoints=True)[2]):
+            raise AssertionError(f"ssm_scan [{B}, {S}, {Di}, {N}]: the "
+                                 "checkpoints are not the plain loop's h")
+        fwd = lambda: sscan_mod._forward(  # noqa: E731
+            dt, x, b, c, a, None, True)
+        run = lambda: sscan_mod.ssm_scan_bwd(*ops_, ckpt)  # noqa: E731
+        both = lambda: sscan_mod.ssm_scan_bwd(*ops_)  # noqa: E731
         plain = lambda: sscan_mod.ssm_scan_bwd_plain(*ops_)  # noqa: E731
-        got, want = run(), plain()
-        err = max(max_err(u.float(), v.float()) for u, v in zip(got, want))
-        if not all(torch.equal(u, v) for u, v in zip(got, want)):
-            raise AssertionError(f"ssm_scan_bwd [{B}, {S}, {Di}, {N}]: not "
-                                 f"bit for bit its plain loop (max err "
-                                 f"{err})")
-        nbytes = B * S * Di * (4 + 2 + 4 + 4 + 2) + 4 * B * S * N * 4 \
-            + 2 * Di * N * 4 + B * Di * N * 4
-        bms, by = bound_ms(nbytes, 27 * B * S * Di * N, torch.float32)
-        ms, pms = timer(run), timer(plain, reps=1, warm=0)
+        want = plain()
+        err = 0.0
+        for how, got in (("from the checkpoints", run()),
+                         ("launching the forward", both())):
+            err = max([err] + [max_err(u.float(), v.float())
+                               for u, v in zip(got, want)])
+            if not all(torch.equal(u, v) for u, v in zip(got, want)):
+                raise AssertionError(f"ssm_scan_bwd [{B}, {S}, {Di}, {N}] "
+                                     f"{how}: not bit for bit its plain "
+                                     f"loop (max err {err})")
+        nbytes, flops, lanes = ssm_bwd_cost(B, S, Di, N)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        ims = issue_floor_ms(lanes)
+        ms, fms, wms = timer(run), timer(fwd), timer(both)
+        pms = timer(plain, reps=1, warm=0)
         print(f"  ssm_scan_bwd [{B}, {S}, {Di}, {N}] f32, x bf16: bit for "
-              f"bit; kernel {ms:.4f} ms, plain {pms:.4f}, bound {bms:.4f} "
-              f"({by}), {ms / bms:.1f}x")
+              f"bit, from the forward's checkpoints and launching the "
+              f"forward; kernel {ms:.4f} ms (training forward {fms:.4f}, "
+              f"both {wms:.4f}), plain {pms:.4f}, bound {bms:.4f} ({by}), "
+              f"{ms / bms:.1f}x, issue floor {ims:.4f}")
         rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, library_ms=None,
-                         shape=f"[{B}, {S}, {Di}, {N}] float32, x bf16"))
-        del ops_, dt, x, b, c, a, dy, dh, got, want
+                         bound_by=by, library_ms=None, issue_floor_ms=ims,
+                         forward_ms=fms, with_forward_ms=wms,
+                         shape=f"[{B}, {S}, {Di}, {N}] float32, x bf16; "
+                               f"ms: the backward alone, from the "
+                               f"forward's checkpoints"))
+        del ops_, dt, x, b, c, a, dy, dh, ckpt, want
     out["ssm_scan_bwd"] = dict(rows[0], other_shapes=rows[1:])
     return out
 

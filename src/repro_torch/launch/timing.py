@@ -8,7 +8,11 @@ H100 SXM's published rates.  Nothing here runs on the host's clock.
 shapes that ``chip_smoke.py`` and ``launch/matmul_probe.py`` both time,
 ``NORM_SHAPES`` the norm rows of ``chip_smoke.py`` and
 ``launch/norm_probe.py``, which both build them with ``norm_operands``,
-``norm_calls`` and ``norm_err``.
+``norm_calls`` and ``norm_err``; ``SSM_SCAN_SHAPES`` and
+``SSM_BWD_SHAPES`` the selective scan's rows of ``chip_smoke.py`` and
+``launch/scan_probe.py``, built with ``ssm_operands`` and costed with
+``ssm_scan_cost`` / ``ssm_bwd_cost`` (bytes, operations and the issue
+floor, ``issue_floor_ms``).
 """
 from __future__ import annotations
 
@@ -53,6 +57,30 @@ NORM_SHAPES = (
 # a norm's gate, x max|plain|: float32 the order of sums, bfloat16 one
 # rounding of the float32 result
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+# ssm_scan's rows: (B, S, Di, N, lengths or None).  falcon-mamba-7b's
+# 3072-token bucket holding a 2300-token prompt; two rows of a 300-token
+# bucket; eight one-position rows, two of them past their length; the
+# reduced config's width (d_inner 128, state 8); a Di past a CTA's
+# channels (8200) and an S a multiple of neither the tile (32) nor the
+# checkpoint stride (16)
+SSM_SCAN_SHAPES = ((1, 3072, 8192, 16, (2300,)),
+                   (2, 300, 8192, 16, (300, 123)),
+                   (8, 1, 8192, 16, (1, 0, 1, 1, 0, 1, 1, 1)),
+                   (2, 64, 128, 8, (64, 20)),
+                   (2, 301, 8200, 16, (301, 157)))
+# ssm_scan_bwd's rows (B, S, Di, N): falcon-mamba's width at a training
+# batch, the reduced config's, and a ragged Di and S
+SSM_BWD_SHAPES = ((4, 512, 8192, 16), (2, 64, 128, 8), (2, 83, 1000, 16))
+# float32 lane instructions of the scans' arithmetic (expf is 8: seven
+# FP32 / integer operations and one MUFU.EX2): a live forward (position,
+# state) takes the discretization (1 + 8 + 2), the update (2) and the
+# readout's product and its share of the tree's adds (2); one past its
+# row's length the readout only; the backward's chunk recompute (13) and
+# adjoint (15 products and sums, 4 tree adds)
+SSM_LIVE_OPS, SSM_DEAD_OPS, SSM_BWD_OPS = 16, 2, 32
+# H100 SXM: SMs, FP32 lanes an SM, boost clock (NVIDIA's data sheet)
+SMS, SM_LANES, CLOCK_HZ = 132, 128, 1.98e9
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM device memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
@@ -149,3 +177,53 @@ def norm_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     """max|out - ref| and its limit, ``NORM_TOL`` x max|ref|."""
     err = float((out.float() - ref.float()).abs().max())
     return err, NORM_TOL[ref.dtype] * float(ref.float().abs().max())
+
+
+def issue_floor_ms(lane_instr: float) -> float:
+    """The least time the card's FP32 lanes take to issue ``lane_instr``
+    instructions: every lane of every SM busy at the boost clock."""
+    return lane_instr / (SMS * SM_LANES * CLOCK_HZ) * 1e3
+
+
+def ssm_scan_cost(B: int, S: int, Di: int, N: int, lens, es: int = 2,
+                  ckpt: bool = False) -> tuple[float, float, float]:
+    """(bytes, float32 operations, lane instructions) of one ``ssm_scan``:
+    dt (4 bytes), x (``es``) read and y (4) written a position and channel,
+    b and c a position, a, the lengths and the last h once, and with
+    ``ckpt`` (training's forward) the checkpoints written; 8 operations a
+    live (position, channel, state) (exp counted once) and the readout's 2
+    past a row's length."""
+    live = B * S if lens is None else sum(min(v, S) for v in lens)
+    nbytes = B * S * Di * (4 + es + 4) + 2 * B * S * N * 4 \
+        + Di * N * 4 + B * Di * N * 4 + B * 4
+    if ckpt:
+        nbytes += B * -(-S // 16) * Di * N * 4
+    states = Di * N
+    return (nbytes, (6 * live + 2 * B * S) * states,
+            (SSM_LIVE_OPS * live + SSM_DEAD_OPS * (B * S - live)) * states)
+
+
+def ssm_bwd_cost(B: int, S: int, Di: int, N: int, es: int = 2
+                 ) -> tuple[float, float, float]:
+    """(bytes, float32 operations, lane instructions) of one
+    ``ssm_scan_bwd`` from the forward's checkpoints: dt, x (``es``), dy
+    read and ddt, dx written a position and channel, b, c, db, dc a
+    position, a, dh, da and the checkpoints once; 6 operations a state for
+    the forward h it needs and 21 for the adjoint."""
+    nbytes = B * S * Di * (4 + es + 4 + 4 + es) + 4 * B * S * N * 4 \
+        + 2 * Di * N * 4 + B * Di * N * 4 + B * -(-S // 16) * Di * N * 4
+    work = B * S * Di * N
+    return nbytes, 27 * work, SSM_BWD_OPS * work
+
+
+def ssm_operands(g, dev, B: int, S: int, Di: int, N: int,
+                 x_dtype=torch.bfloat16) -> tuple[torch.Tensor, ...]:
+    """dt = softplus of a normal, x in ``x_dtype``, b and c normal,
+    a = -exp(U(-1, 1)): the scan's operands at their ranges."""
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, Di, generator=g, device=dev))
+    x = torch.randn(B, S, Di, generator=g, device=dev).to(x_dtype)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.rand(Di, N, generator=g, device=dev) * 2 - 1)
+    return dt, x, b, c, a

@@ -105,13 +105,15 @@ def _calls() -> dict:
         "rglru_scan_bwd": lambda: scan.rglru_scan_bwd(
             *(_meta(B, 8, 64, dtype=torch.float32) for _ in range(3)),
             _meta(B, 64, dtype=torch.float32)),
-        "ssm_scan_bwd": lambda: sscan.ssm_scan_bwd(
+        # with the forward's checkpoints, as ``SSMScanFn`` calls it
+        "ssm_scan_bwd": lambda ckpt=_meta(B, 1, 64, 16, dtype=torch.float32):
+        sscan.ssm_scan_bwd(
             _meta(B, 8, 64, dtype=torch.float32), _meta(B, 8, 64),
             _meta(B, 8, 16, dtype=torch.float32),
             _meta(B, 8, 16, dtype=torch.float32),
             _meta(64, 16, dtype=torch.float32),
             _meta(B, 8, 64, dtype=torch.float32),
-            _meta(B, 64, 16, dtype=torch.float32)),
+            _meta(B, 64, 16, dtype=torch.float32), ckpt),
     }
 
 
@@ -141,6 +143,12 @@ def test_every_wrapper_launches_through_the_device_guard():
                 call()
                 assert launched[n:] == [(name, name, "meta")], name
                 assert launch_counts()[name] == before + 1, name
+            # without the checkpoints the backward's wrapper launches the
+            # forward kernel for them first
+            n = len(launched)
+            calls["ssm_scan_bwd"](None)
+            assert launched[n:] == [("ssm_scan", "ssm_scan", "meta"),
+                                    ("ssm_scan_bwd", "ssm_scan_bwd", "meta")]
     finally:
         for cache in ENTRY_CACHES:
             cache.cache_clear()

@@ -224,17 +224,17 @@ def test_ssm_scan_plain_with_lengths(ref):
 
 
 def test_ssm_scan_readout_order_and_checks():
-    """The readout sums runs of 4 states in order, then the runs' partials
-    pairwise, neighbours first; the wrapper refuses what the kernel does
-    not take."""
+    """The readout sums the 16 states by one pairwise tree, neighbours
+    first (the kernel's order at any number of states a thread); the
+    wrapper refuses what the kernel does not take."""
     rs = np.random.RandomState(13)
     h = torch.from_numpy(rs.randn(3, 16).astype(np.float32))
     c = torch.from_numpy(rs.randn(3, 16).astype(np.float32))
     p = h * c
-    part = [((p[:, 4 * j] + p[:, 4 * j + 1]) + p[:, 4 * j + 2])
-            + p[:, 4 * j + 3] for j in range(4)]
+    pairs = [p[:, 2 * j] + p[:, 2 * j + 1] for j in range(8)]
+    quads = [pairs[2 * j] + pairs[2 * j + 1] for j in range(4)]
     assert torch.equal(scan_mod.readout(h, c),
-                       (part[0] + part[1]) + (part[2] + part[3]))
+                       (quads[0] + quads[1]) + (quads[2] + quads[3]))
     dt, x, bm, cm, a_log = (torch.from_numpy(v) for v in _scan_inputs(14))
     with pytest.raises(ValueError, match="float32"):
         scan_mod.ssm_scan(dt.double(), x, bm, cm, a_log)
@@ -245,6 +245,62 @@ def test_ssm_scan_readout_order_and_checks():
         scan_mod.ssm_scan(dt, x, bm[..., :6].repeat(1, 1, 2),
                           cm[..., :6].repeat(1, 1, 2),
                           a_log[:, :6].repeat(1, 2))
+
+
+def test_ssm_scan_plain_checkpoints_are_its_loops_h():
+    """With ``checkpoints`` the plain forward also returns h at the start
+    of every ``CHUNK`` positions (S = 37: a ragged last chunk), bit for bit
+    the loop's h there, and its y and h are those of the call without."""
+    dt, x, bm, cm, a_log = (torch.from_numpy(v)
+                            for v in _scan_inputs(15, b=2, s=37))
+    a = -torch.exp(a_log)
+    y, h, ckpt = scan_mod.ssm_scan_plain(dt, x, bm, cm, a, checkpoints=True)
+    assert ckpt.shape == (2, 3, dt.shape[2], a.shape[1])
+    y0, h0 = scan_mod.ssm_scan_plain(dt, x, bm, cm, a)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert torch.equal(ckpt[:, 0], torch.zeros_like(h))
+    for k in (1, 2):
+        t = k * scan_mod.CHUNK
+        _, h_t = scan_mod.ssm_scan_plain(dt[:, :t], x[:, :t], bm[:, :t],
+                                         cm[:, :t], a)
+        assert torch.equal(ckpt[:, k], h_t)
+
+
+@pytest.mark.parametrize("bsz, di, want", [(1, 8192, 2), (4, 8192, 4),
+                                            (2, 8192, 4), (2, 1000, 2)])
+def test_ssm_forward_split_follows_the_grid(bsz, di, want):
+    """At N 16 the forward holds 4 states a thread where that grid keeps
+    256 CTAs (a training batch, B x Di >= 256 x 64), else 2 (a prefill's
+    one row, a narrow Di); every split chosen is built, and the backward
+    keeps its one split whatever the call."""
+    got = scan_mod.states_per_thread(16, row_channels=bsz * di)
+    assert got == want and got in scan_mod.BUILT["forward"][16]
+    assert scan_mod.states_per_thread(16, backward=True) == 2
+    assert scan_mod.cta_channels(16) == 32
+
+
+@pytest.mark.parametrize("per_cta", [16, 4])
+def test_channel_sum_is_the_kernels_cta_tree(per_cta, monkeypatch):
+    """``_channel_sum`` at 16 and 4 channels a CTA, Di = 37 (the last CTA
+    ragged, zeros past Di): a pairwise tree over each CTA's channels,
+    neighbours first, then the CTAs in order, written out by hand."""
+    monkeypatch.setattr(scan_mod, "cta_channels", lambda n: per_cta)
+    rs = np.random.RandomState(16)
+    v = torch.from_numpy(rs.randn(2, 37, 8).astype(np.float32))
+
+    def tree(vals):
+        while len(vals) > 1:
+            vals = [vals[i] + vals[i + 1] for i in range(0, len(vals), 2)]
+        return vals[0]
+
+    zero = torch.zeros_like(v[:, 0])
+    ctas = [tree([v[:, d] if d < 37 else zero
+                  for d in range(k, k + per_cta)])
+            for k in range(0, 37 + per_cta - 1, per_cta)]
+    want = ctas[0]
+    for part in ctas[1:]:
+        want = want + part
+    assert torch.equal(scan_mod._channel_sum(v), want)
 
 
 # ---------------------------------------------------------------------------
@@ -636,7 +692,9 @@ def test_launch_serve_falcon_mamba_on_cpu(capsys):
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
-def test_scan_kernel_is_its_plain_loop_on_the_card():
+def test_scan_kernel_is_its_plain_loop_on_the_card(monkeypatch):
+    """y, the last h and the checkpoints bit for bit the plain loop's at
+    every split built for N, ragged lengths, Di past a CTA's channels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda")
@@ -644,8 +702,11 @@ def test_scan_kernel_is_its_plain_loop_on_the_card():
     for B, S, Di, N, lens, dt_x in (
             (1, 300, 8192, 16, [123], torch.bfloat16),
             (3, 17, 300, 16, [17, 0, 9], torch.float32),
+            (2, 45, 200, 16, None, torch.bfloat16),
             (2, 64, 128, 8, None, torch.float32),
-            (2, 33, 96, 32, [33, 1], torch.bfloat16)):
+            (2, 33, 96, 32, [33, 1], torch.bfloat16),
+            (1, 20, 70, 4, None, torch.float32),
+            (2, 9, 12, 128, [9, 4], torch.float32)):
         dt = torch.nn.functional.softplus(
             torch.randn(B, S, Di, generator=g, device="cuda"))
         x = torch.randn(B, S, Di, generator=g, device="cuda").to(dt_x)
@@ -654,12 +715,16 @@ def test_scan_kernel_is_its_plain_loop_on_the_card():
         a = -torch.exp(torch.rand(Di, N, generator=g, device="cuda") * 2 - 1)
         n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                    device="cuda")
-        before = scan_mod.ssm_scan.launches
-        got = scan_mod.ssm_scan(dt, x, b, c, a, n)
-        assert scan_mod.ssm_scan.launches == before + 1
-        for u, v in zip(got, scan_mod.ssm_scan_plain(dt, x, b, c, a, n),
-                        strict=True):
-            assert torch.equal(u, v)
+        want = scan_mod.ssm_scan_plain(dt, x, b, c, a, n, checkpoints=True)
+        for split in scan_mod.BUILT["forward"][N]:
+            monkeypatch.setattr(scan_mod, "states_per_thread",
+                                lambda *a_, s_=split, **k_: s_)
+            before = scan_mod.ssm_scan.launches
+            got = scan_mod.ssm_scan(dt, x, b, c, a, n)
+            assert scan_mod.ssm_scan.launches == before + 1
+            got += scan_mod._forward(dt, x, b, c, a, n, True)[2:]
+            for u, v in zip(got, want, strict=True):
+                assert torch.equal(u, v), (B, S, Di, N, split)
 
 
 @pytest.mark.cuda
@@ -697,8 +762,9 @@ def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
     """``ssm_scan_bwd`` (the reverse walk over recomputed chunks and its
     ordered reduce) bit for bit ``ssm_scan_bwd_plain``, which sums in the
     kernel's orders, at N 4 to 128, a ragged last chunk and channels past
-    a CTA's; then the autograd path through ``ssm_scan`` launching the
-    forward and the backward once each."""
+    a CTA's, given the forward's checkpoints and without them (the wrapper
+    then launches the forward for them); then the autograd path through
+    ``ssm_scan`` launching the forward and the backward once each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda")
@@ -717,12 +783,17 @@ def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
         a = -torch.exp(torch.rand(Di, N, generator=g, device="cuda") * 2 - 1)
         dy = torch.randn(B, S, Di, generator=g, device="cuda")
         dh = torch.randn(B, Di, N, generator=g, device="cuda")
+        ckpt = scan_mod._forward(dt, x, b, c, a, None, True)[2]
         want = scan_mod.ssm_scan_bwd_plain(dt, x, b, c, a, dy, dh)
-        before = scan_mod.ssm_scan_bwd.launches
-        for u, v in zip(scan_mod.ssm_scan_bwd(dt, x, b, c, a, dy, dh), want,
-                        strict=True):
-            assert u.dtype == v.dtype and torch.equal(u, v)
-        assert scan_mod.ssm_scan_bwd.launches == before + 1
+        for given in (None, ckpt):
+            before = (scan_mod.ssm_scan.launches,
+                      scan_mod.ssm_scan_bwd.launches)
+            for u, v in zip(scan_mod.ssm_scan_bwd(dt, x, b, c, a, dy, dh,
+                                                  given), want, strict=True):
+                assert u.dtype == v.dtype and torch.equal(u, v)
+            assert (scan_mod.ssm_scan.launches,
+                    scan_mod.ssm_scan_bwd.launches) == (
+                        before[0] + (given is None), before[1] + 1)
         ins = [t.clone().requires_grad_() for t in (dt, x, b, c, a)]
         seen = (scan_mod.ssm_scan.launches, scan_mod.ssm_scan_bwd.launches)
         y, h = scan_mod.ssm_scan(*ins)

@@ -132,6 +132,22 @@ def test_ssm_backward_is_autograd_of_the_plain_loop(x_dtype):
     assert all(torch.equal(p, q) for p, q in zip(got, fn))
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_ssm_backward_from_the_forwards_checkpoints(x_dtype):
+    """``ssm_scan_bwd_plain`` started from the plain forward's checkpoints
+    (S = 37: a ragged last chunk) is bit for bit the call that re-runs the
+    forward for them, and so is the wrapper given them."""
+    dt, x, b, c, a, dy, dh = map(torch.from_numpy, _ssm_inputs(seed=2))
+    x = x.to(x_dtype)
+    *_, ckpt = sm.ssm_scan_plain(dt, x, b, c, a, checkpoints=True)
+    assert ckpt.shape == (2, 3, 40, 8)
+    want = sm.ssm_scan_bwd_plain(dt, x, b, c, a, dy, dh)
+    for got in (sm.ssm_scan_bwd_plain(dt, x, b, c, a, dy, dh, ckpt),
+                sm.ssm_scan_bwd(dt, x, b, c, a, dy, dh, ckpt)):
+        for u, v in zip(got, want, strict=True):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
 def _jax_rglru_vjp(a, g, dhs, dh):
     """The reference's step, h = a_t h + g_t, under ``lax.scan``."""
     def scan(a, g):
