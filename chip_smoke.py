@@ -335,7 +335,10 @@ Phases (any failure raises and the script exits non-zero):
    7680->2560 at M 8 and 3072), ``rmsnorm`` at 8 and 3072 x 2560, and
    ``rglru_scan`` bit for bit its plain loop at [1, 3072, 2560] (2300
    real positions, and all), [8, 1, 2560] and [2, 300, 2560] with ragged
-   lengths, timed beside its bound (no library call computes it).
+   lengths (``timing.RGLRU_SCAN_SHAPES``) and at the 512-token bucket
+   three quarters full (its plain loop untimed), timed beside its bound
+   (no library call computes it), each call's plan, grid and dynamic
+   shared memory printed (``rglru_scan.describe``).
 
 17. The ssm family (ROADMAP Queue 1 item 12d): falcon-mamba-7b at its
    published widths (``check_ssm``): f32 steps at 8 of 64 layers, bf16
@@ -417,7 +420,8 @@ Phases (any failure raises and the script exits non-zero):
    128, 8] and a ragged [2, 83, 1000, 16], each bit for bit its plain
    loop (the ssm's from the forward kernel's checkpoints, themselves the
    plain loop's h, and as the call that launches the forward for them),
-   timed beside its bound and issue floor, the ssm's training forward
+   timed beside its bound and issue floor (the RG-LRU's with its plan,
+   grid and dynamic shared memory), the ssm's training forward
    (with the checkpoints) and the pair as one call too.
    Then recurrentgemma-2b at its widths and 13 of its 26 layers (the
    pattern r, r, a kept) and falcon-mamba-7b at its widths and 8 of its 64
@@ -497,9 +501,10 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul, tiled_matmul_plain)
 from repro_torch.launch.timing import (  # noqa: E402
     HBM_BYTES_S, LAYER_MATMULS, NORM_SHAPES, NORM_TOL, PEAK_FLOPS,
-    SSM_BWD_SHAPES, SSM_SCAN_SHAPES, STEP_ROWS, Timer, bound_ms,
-    issue_floor_ms, norm_calls, norm_cost, norm_err, norm_operands,
-    ssm_bwd_cost, ssm_operands, ssm_scan_cost)
+    RGLRU_BWD_SHAPES, RGLRU_SCAN_SHAPES, SSM_BWD_SHAPES, SSM_SCAN_SHAPES,
+    STEP_ROWS, Timer, bound_ms, issue_floor_ms, norm_calls, norm_cost,
+    norm_err, norm_operands, rglru_bwd_cost, rglru_scan_cost, ssm_bwd_cost,
+    ssm_operands, ssm_scan_cost)
 from repro_torch.core import engine_ref, masking  # noqa: E402
 from repro_torch.core.adaptive import (AdaptiveEngine,  # noqa: E402
                                        EngineOptions, pack)
@@ -1488,31 +1493,35 @@ def check_norms(timer, dev, g) -> dict:
             for k, es in rows.items()}
 
 
-# rglru_scan's rows: (B, S, W, lengths or None).  recurrentgemma-2b's
-# 3072-token bucket holding a 2300-token prompt (phase 16's longest
-# prefill, past the window) and the full bucket; eight one-position rows,
-# two of them past their length; two rows of a 300-token bucket
-SCAN_SHAPES = ((1, 3072, 2560, (2300,)), (1, 3072, 2560, None),
-               (8, 1, 2560, (1, 0, 1, 1, 0, 1, 1, 1)),
-               (2, 300, 2560, (300, 123)))
+# recurrentgemma-2b's 512-token prefill bucket, three quarters full: a
+# bucketed prefill's scan beside timing.RGLRU_SCAN_SHAPES (its plain loop
+# run once, untimed)
+SCAN_BUCKET = (1, 512, 2560, (384,))
 
 
 def check_scan(timer, dev, g) -> dict:
     """``rglru_scan`` against its plain loop, bit for bit (the same two
     float32 operators a position, in the same order), hs and the last h,
-    at ``SCAN_SHAPES``: a = U(0, 1) (the gates' range), g normal, ragged
-    lengths.  Timed beside the bound (a, g read and hs written once: 3 x
-    B x S x W x 4 bytes; 2 operations a live position and channel at the
-    float32 rate); no single PyTorch call computes a linear recurrence, so
-    no library time."""
+    at ``RGLRU_SCAN_SHAPES`` and ``SCAN_BUCKET``: a = U(0, 1) (the gates'
+    range), g normal, ragged lengths; each call's plan, grid and dynamic
+    shared memory printed.  Timed beside the bound (``rglru_scan_cost``:
+    a and g read at each live position and hs written at every one,
+    (2 x live + B x S) x W x 4 bytes; 2 operations a live position and
+    channel at the float32 rate); no single PyTorch call
+    computes a linear recurrence, so no library time."""
     print("\n== rglru_scan vs its plain loop (h_t = a_t h_{t-1} + g_t, "
           "float32; the reference's lax.scan, no Pallas kernel)")
     print(f"{'B':>3} {'S':>5} {'W':>5} {'lengths':>26} {'err':>6} "
           f"{'kernel_ms':>10} {'plain_ms':>9} {'bound_ms':>9}")
     rows = []
-    for B, S, W, lens in SCAN_SHAPES:
-        a = torch.rand(B, S, W, generator=g, device=dev)
-        gg = torch.randn(B, S, W, generator=g, device=dev)
+    own = torch.Generator(device=dev)
+    own.manual_seed(3)
+    for B, S, W, lens in RGLRU_SCAN_SHAPES + (SCAN_BUCKET,):
+        # the bucket row from a generator of its own, so the later phases
+        # draw from ``g`` as before
+        gen = own if (B, S, W, lens) == SCAN_BUCKET else g
+        a = torch.rand(B, S, W, generator=gen, device=dev)
+        gg = torch.randn(B, S, W, generator=gen, device=dev)
         n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                    device=dev)
         run = lambda: rglru_scan(a, gg, n)  # noqa: E731
@@ -1523,14 +1532,18 @@ def check_scan(timer, dev, g) -> dict:
             raise AssertionError(f"rglru_scan [{B}, {S}, {W}] lengths "
                                  f"{lens}: not bit for bit its plain loop "
                                  f"(max err {err})")
-        live = B * S if lens is None else sum(min(x, S) for x in lens)
-        bms, by = bound_ms(3 * B * S * W * 4 + B * W * 4 + B * 4,
-                           2 * live * W, torch.float32)
-        ms, pms = timer(run), timer(plain, reps=5, warm=1)
+        nbytes, flops, _ = rglru_scan_cost(B, S, W, lens)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        ms = timer(run)
+        pms = None if (B, S, W, lens) == SCAN_BUCKET \
+            else timer(plain, reps=5, warm=1)
+        launch = scan_mod.describe(scan_mod._plan(B, S, W, False), B, W)
         print(f"{B:>3} {S:>5} {W:>5} {str(lens):>26} {err:>6.3g} "
-              f"{ms:>10.4f} {pms:>9.4f} {bms:>9.4f}")
+              f"{ms:>10.4f} {'-' if pms is None else f'{pms:.4f}':>9} "
+              f"{bms:>9.4f}\n      {launch}")
         rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms,
                          bound_ms=bms, bound_by=by, library_ms=None,
+                         launch=launch,
                          shape=f"[{B}, {S}, {W}] float32, lengths {lens}"))
         del a, gg, hs, phs
     return {"rglru_scan": dict(rows[0], other_shapes=rows[1:])}
@@ -6098,10 +6111,8 @@ def check_train(dev, smi: str) -> dict:
     return {"train": served["launches"]}
 
 
-# phase 21: the scans' backwards.  The kernels against their plain
-# versions at a training batch and a prefill's length of recurrentgemma's
-# width, falcon-mamba's at a training batch, and the reduced config's
-RGLRU_BWD_SHAPES = ((4, 512, 2560), (1, 3072, 2560))
+# phase 21: the scans' backwards, the kernels against their plain versions
+# at timing.RGLRU_BWD_SHAPES and timing.SSM_BWD_SHAPES
 SCAN_TRAIN_SEED = 21
 # training at full width: recurrentgemma-2b at 13 of 26 layers (pattern r,
 # r, a kept: 4 x 3 + 1; all 26 take ~64 GB with AdamW's temporaries),
@@ -6153,14 +6164,15 @@ def check_scan_bwd(timer, dev, g) -> dict:
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"rglru_scan_bwd [{B}, {S}, {W}]: not bit "
                                  f"for bit its plain loop (max err {err})")
-        bms, by = bound_ms(5 * B * S * W * 4 + B * W * 4, 3 * B * S * W,
-                           torch.float32)
+        nbytes, flops, _ = rglru_bwd_cost(B, S, W)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
         ms, pms = timer(run), timer(plain, reps=3, warm=1)
+        launch = scan_mod.describe(scan_mod._plan(B, S, W, True), B, W, True)
         print(f"  rglru_scan_bwd [{B}, {S}, {W}] f32: bit for bit; kernel "
               f"{ms:.4f} ms, plain {pms:.4f}, bound {bms:.4f} ({by}), "
-              f"{ms / bms:.1f}x")
+              f"{ms / bms:.1f}x; {launch}")
         rows.append(dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by, library_ms=None,
+                         bound_by=by, library_ms=None, launch=launch,
                          shape=f"[{B}, {S}, {W}] float32"))
         del a, hs, dhs, dh, got, want
     out["rglru_scan_bwd"] = dict(rows[0], other_shapes=rows[1:])

@@ -13,7 +13,9 @@ The reference has no Pallas kernel here: its recurrence is a ``lax.scan``
 the hand-written kernel of ``csrc/rglru_scan.cu``, one launch in place of
 ~3 x S operators; a CPU tensor runs ``rglru_scan_plain``, the same loop in
 PyTorch, whose two float32 operators a step the kernel repeats bit for
-bit.
+bit.  The launch's plan (``rglru_plan``: channels a CTA, positions a
+staged tile) changes how the kernel moves its bytes, never the order of
+its operators, so every plan gives the plain loop's bits.
 
 With grad enabled and ``a`` or ``g`` requiring it, the call goes through
 ``RGLRUScanFn``, whose backward is ``rglru_scan_bwd``: the recurrence's
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -85,16 +88,90 @@ def rglru_scan_bwd_plain(a: torch.Tensor, hs: torch.Tensor,
     return da, dg
 
 
+# a CTA's channels the kernels are built for (``REPRO_RGLRU_CHANNELS`` in
+# csrc/rglru_scan.cu), widest first; the H100's SMs; a CTA's shared memory
+CHANNELS = (128, 64, 32, 16, 8)
+SMS = 132
+SMEM_LIMIT = 232448
+# by direction (backward or not): the ring's depth in tiles
+# (``kFwdStages`` / ``kBwdStages`` in csrc/rglru_scan.cu), and the CTAs the
+# plan's grid should reach and the floats a tile of one operand holds (T =
+# floats / C), so two CTAs share an SM (launch/scan_probe.py --sweep)
+STAGES = {False: 3, True: 4}
+PLAN_TARGETS = {False: (SMS, 4096), True: (SMS // 2, 2048)}
+
+
+class RGLRUPlan(NamedTuple):
+    """A launch plan of both kernels: ``channels`` (C) a CTA of 4C threads,
+    tiles of ``positions`` (T) staged into the direction's ring."""
+    channels: int
+    positions: int
+
+    @property
+    def threads(self) -> int:
+        return 4 * self.channels
+
+    def grid(self, B: int, W: int) -> tuple[int, int]:
+        """CTAs along the channels and the rows."""
+        return -(-W // self.channels), B
+
+    def fit(self, S: int) -> "RGLRUPlan":
+        """The plan for rows of S positions: tiles no longer than S
+        rounded up to 8 (the same bits, less shared memory for short
+        rows)."""
+        return self._replace(positions=min(self.positions, -(-S // 8) * 8))
+
+
+def rglru_plan(B: int, W: int, backward: bool = False) -> RGLRUPlan:
+    """The plan at B rows of W channels, whatever S: the widest C whose
+    grid reaches ``PLAN_TARGETS``' CTAs (a CTA an SM forward, half the SMs
+    backward; else the narrowest C), tiles of its floats (T = 4096 / C
+    forward, 2048 / C backward, at most 256).  At recurrentgemma-2b's W
+    2560 the forward takes C 16 and T 256 at B = 1 (160 CTAs), C 128 at
+    B = 8; the backward C 128 and T 16 at a training batch of 4 (80 CTAs),
+    C 32 and T 64 at B = 1.  The sweep (PERF.md) found a tile's length
+    worth more than the forward ring's depth, a second wave of CTAs (a
+    ring past half an SM's shared memory) worst of all, and the training
+    batch's backward fastest in 128-channel CTAs."""
+    ctas, floats = PLAN_TARGETS[backward]
+    c = next((c for c in CHANNELS if -(-W // c) * B >= ctas), CHANNELS[-1])
+    return RGLRUPlan(c, min(256, floats // c))
+
+
+def smem_bytes(plan: RGLRUPlan, backward: bool = False) -> int:
+    """The kernel's dynamic shared memory under ``plan`` (``smem_floats``
+    in csrc/rglru_scan.cu): a ring of 2 operands a tile (backward 3)."""
+    return plan.positions * plan.channels * 4 * STAGES[backward] * (
+        3 if backward else 2)
+
+
+def describe(plan: RGLRUPlan, B: int, W: int, backward: bool = False) -> str:
+    """A launch under ``plan`` as text: the plan, grid and shared memory."""
+    gx, gy = plan.grid(B, W)
+    return (f"C {plan.channels}, T {plan.positions}, "
+            f"{STAGES[backward]} stages; "
+            f"grid {gx} x {gy} CTAs of {plan.threads} threads, "
+            f"{smem_bytes(plan, backward)} B dynamic smem")
+
+
+def _plan(B: int, S: int, W: int, backward: bool) -> RGLRUPlan:
+    plan = rglru_plan(B, W, backward).fit(S)
+    if plan.channels not in CHANNELS or not \
+            0 < smem_bytes(plan, backward) <= SMEM_LIMIT:
+        raise ValueError(f"rglru_scan: no kernel takes the plan {plan}")
+    return plan
+
+
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return runtime.bind("rglru_scan", [p, p, p, p, p, i, i, i, p])
+    return runtime.bind("rglru_scan", [p] * 5 + [i] * 5 + [p])
 
 
 @functools.cache
 def _bwd_kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return runtime.bind("rglru_scan_bwd", [p, p, p, p, p, p, i, i, i, p])
+    return runtime.bind("rglru_scan_bwd", [p] * 6 + [i] * 5 + [p])
 
 
 class RGLRUScanFn(torch.autograd.Function):
@@ -143,9 +220,10 @@ def _forward(a: torch.Tensor, g: torch.Tensor,
     h = torch.empty(B, W, dtype=torch.float32, device=a.device)
     if a.numel() == 0:
         return hs, h.zero_()
+    plan = _plan(B, S, W, backward=False)
     runtime.launch("rglru_scan", _kernel(), a, a.data_ptr(), g.data_ptr(),
                    None if lengths is None else lengths.data_ptr(),
-                   hs.data_ptr(), h.data_ptr(), B, S, W)
+                   hs.data_ptr(), h.data_ptr(), B, S, W, *plan)
     rglru_scan.launches += 1
     return hs, h
 
@@ -174,9 +252,10 @@ def rglru_scan_bwd(a: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor,
     da, dg = torch.empty_like(a), torch.empty_like(a)
     if a.numel() == 0:
         return da, dg
+    plan = _plan(B, S, W, backward=True)
     runtime.launch("rglru_scan_bwd", _bwd_kernel(), a, a.data_ptr(),
                    hs.data_ptr(), dhs.data_ptr(), dh.data_ptr(),
-                   da.data_ptr(), dg.data_ptr(), B, S, W)
+                   da.data_ptr(), dg.data_ptr(), B, S, W, *plan)
     rglru_scan_bwd.launches += 1
     return da, dg
 

@@ -1,4 +1,4 @@
-"""The selective scan's kernels timed against another tree, on a CUDA card.
+"""The scans' kernels timed against another tree, on a CUDA card.
 
 ``python src/repro_torch/launch/scan_probe.py --parent build/parent/src``
 times ``ssm_scan`` at every row of ``timing.SSM_SCAN_SHAPES`` (the rows of
@@ -23,12 +23,24 @@ with, for this tree, each kernel's dynamic shared memory
 are printed, and the runs are written as JSON to
 ``build/scan_probe.json``.
 
+It also times the RG-LRU recurrence's two kernels (``--only rglru``
+alone): ``rglru_scan`` at every row of ``timing.RGLRU_SCAN_SHAPES`` (phase
+2's) and at recurrentgemma-2b's 512-token prefill bucket three quarters
+full, and ``rglru_scan_bwd`` at every row of ``timing.RGLRU_BWD_SHAPES``
+(phase 21's), each bit for bit the tree's plain loop, beside its bound
+(``rglru_scan_cost`` / ``rglru_bwd_cost``) and issue floor, with each
+launch's plan, grid and dynamic shared memory (``rglru_scan.describe``)
+and the ptxas report of every ``rglru_scan*`` kernel.
+
 ``--sweep`` times, in this tree only, every states-a-thread split the
 forward kernel is built for at N 16 (``states_per_thread`` patched for the
-forward; ``kernels/ssm_scan.py`` ``BUILT``) at the same rows: the
-measurements ``states_per_thread`` is chosen from.  Run it as a script:
-the worker processes import ``timing`` and ``matmul_probe`` from this
-directory.
+forward; ``kernels/ssm_scan.py`` ``BUILT``) at the same rows, and every
+RG-LRU plan (``rglru_plan`` patched: every C of ``rglru_scan.CHANNELS``
+and tiles of 1024, 2048 and 4096 floats an operand, in each direction's
+ring; those past a CTA's shared memory skipped): the measurements
+``states_per_thread`` and ``rglru_plan`` are chosen from.
+Run it as a script: the worker processes import ``timing`` and
+``matmul_probe`` from this directory.
 """
 from __future__ import annotations
 
@@ -42,15 +54,21 @@ from pathlib import Path
 
 from matmul_probe import (CHANGE_SRC, ORDER, build_trees, kernel_us,
                           nvidia_smi, run_worker)
-from timing import (SSM_BWD_SHAPES, SSM_SCAN_SHAPES, bound_ms,
-                    issue_floor_ms, ssm_bwd_cost, ssm_operands,
-                    ssm_scan_cost)
+from timing import (RGLRU_BWD_SHAPES, RGLRU_SCAN_SHAPES, SSM_BWD_SHAPES,
+                    SSM_SCAN_SHAPES, bound_ms, issue_floor_ms,
+                    rglru_bwd_cost, rglru_scan_cost, ssm_bwd_cost,
+                    ssm_operands, ssm_scan_cost)
 
 REPS = 31
 OUT = Path("build/scan_probe.json")
 # falcon-mamba-7b's prefill buckets at B = 1, each three quarters full
 BUCKETS = tuple((1, s, 8192, 16, (3 * s // 4,)) for s in (64, 512, 1024))
 FWD_ROWS = SSM_SCAN_SHAPES + BUCKETS
+# recurrentgemma-2b's 512-token prefill bucket at B = 1, three quarters full
+RG_FWD_ROWS = RGLRU_SCAN_SHAPES + ((1, 512, 2560, (384,)),)
+# the RG-LRU sweep's tiles (floats an operand, T = floats / C), at every C
+# of ``rglru_scan.CHANNELS``
+RG_SWEEP_FLOATS = (1024, 2048, 4096)
 
 
 def fwd_label(B, S, Di, N, lens) -> str:
@@ -61,10 +79,18 @@ def train_label(B, S, Di, N) -> str:
     return f"training scan [{B}, {S}, {Di}, {N}]"
 
 
-def ptxas(log: Path) -> dict[str, list[int]]:
+def rg_fwd_label(B, S, W, lens) -> str:
+    return f"rglru_scan [{B}, {S}, {W}] lengths {list(lens or [])}"
+
+
+def rg_bwd_label(B, S, W) -> str:
+    return f"rglru_scan_bwd [{B}, {S}, {W}]"
+
+
+def ptxas(log: Path, source: str) -> dict[str, list[int]]:
     """{kernel: [registers, static smem bytes, spill bytes]} of every
-    ``ssm_scan*`` kernel in the build log's ptxas report."""
-    part = log.read_text().split("== ssm_scan.cu\n", 1)[1]
+    kernel of ``source`` in the build log's ptxas report."""
+    part = log.read_text().split(f"== {source}\n", 1)[1]
     part = part.split("\n== ", 1)[0]
     names = re.findall(r"Compiling entry function '(\w+)'", part)
     try:
@@ -90,18 +116,116 @@ def ptxas(log: Path) -> dict[str, list[int]]:
     return out
 
 
-def worker(sweep: bool) -> None:
+def worker(sweep: bool, only: str | None) -> None:
     import torch
-    from unittest import mock
 
     from repro_torch.kernels import runtime
-    from repro_torch.kernels import ssm_scan as sm
     from timing import Timer
 
     dev = torch.device("cuda")
     timer = Timer(dev)
+    log = runtime.build().parent / "build.log"
+    result = {"ptxas": {}}
+
+    def timed(run, want, label, profile=True) -> dict:
+        got = run()
+        if not all(torch.equal(u, v) for u, v in zip(got, want, strict=True)):
+            raise AssertionError(f"{label}: not bit for bit its plain loop")
+        out = dict(ms=timer(run, reps=REPS))
+        if profile:
+            out["kernels_us"] = kernel_us(run, timer.flush)
+        return out
+
+    def costed(*costs) -> dict:
+        """The bound and the issue floor of calls of these costs."""
+        return dict(bound_ms=sum(bound_ms(nb, fl, torch.float32)[0]
+                                 for nb, fl, _ in costs),
+                    issue_ms=sum(issue_floor_ms(ln) for *_, ln in costs))
+
+    for name, rows in (("ssm", ssm_rows), ("rglru", rglru_rows)):
+        if only in (None, name):
+            result["ptxas"].update(ptxas(log, f"{name}_scan.cu"))
+            rows(sweep, dev, timed, costed, result)
+    print(json.dumps(result))
+
+
+def rglru_rows(sweep: bool, dev, timed, costed, result: dict) -> None:
+    """``rglru_scan`` at ``RG_FWD_ROWS`` and ``rglru_scan_bwd`` at
+    ``RGLRU_BWD_SHAPES``: the tree's plan, or with ``sweep`` every plan."""
+    import torch
+    from unittest import mock
+
+    from repro_torch.kernels import rglru_scan as rg
+
+    new = hasattr(rg, "rglru_plan")
+
+    def plans(backward):
+        if not sweep:
+            return [("plan", None)]
+        out = []
+        for c in rg.CHANNELS:
+            for t in sorted({min(256, max(8, f // c))
+                             for f in RG_SWEEP_FLOATS}):
+                plan = rg.RGLRUPlan(c, t)
+                if rg.smem_bytes(plan, backward) <= rg.SMEM_LIMIT:
+                    out.append((f"C {c} T {t}", plan))
+        return out
+
+    def patched(plan):
+        if plan is None:
+            return contextlib.nullcontext()
+        return mock.patch.object(rg, "rglru_plan", lambda *a, **k: plan)
+
+    def launch(B, S, W, backward) -> str:
+        if not new:
+            return "a thread per (row, channel), 128 a CTA"
+        return rg.describe(rg._plan(B, S, W, backward), B, W, backward)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    for B, S, W, lens in RG_FWD_ROWS:
+        a = torch.rand(B, S, W, generator=g, device=dev)
+        gg = torch.randn(B, S, W, generator=g, device=dev)
+        n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                   device=dev)
+        label = rg_fwd_label(B, S, W, lens)
+        row = costed(rglru_scan_cost(B, S, W, lens))
+        row["launch"] = launch(B, S, W, False)
+        want = rg.rglru_scan_plain(a, gg, n)
+        for key, plan in plans(False):
+            with patched(plan):
+                row[key] = timed(lambda: rg.rglru_scan(a, gg, n), want,
+                                 f"{label} {key}", profile=not sweep)
+        result[label] = row
+        del a, gg, want
+    for B, S, W in RGLRU_BWD_SHAPES:
+        a, hs, dhs = (torch.rand(B, S, W, generator=g, device=dev),
+                      torch.randn(B, S, W, generator=g, device=dev),
+                      torch.randn(B, S, W, generator=g, device=dev))
+        dh = torch.randn(B, W, generator=g, device=dev)
+        label = rg_bwd_label(B, S, W)
+        row = costed(rglru_bwd_cost(B, S, W))
+        row["launch"] = launch(B, S, W, True)
+        want = rg.rglru_scan_bwd_plain(a, hs, dhs, dh)
+        for key, plan in plans(True):
+            with patched(plan):
+                row[key] = timed(lambda: rg.rglru_scan_bwd(a, hs, dhs, dh),
+                                 want, f"{label} {key}", profile=not sweep)
+        result[label] = row
+        del a, hs, dhs, dh, want
+        torch.cuda.empty_cache()
+
+
+def ssm_rows(sweep: bool, dev, timed, costed, result: dict) -> None:
+    """``ssm_scan`` at ``FWD_ROWS`` and a training layer's scans at
+    ``SSM_BWD_SHAPES``: the tree's split, or with ``sweep`` every forward
+    split built at N 16."""
+    import torch
+    from unittest import mock
+
+    from repro_torch.kernels import ssm_scan as sm
+
     new = hasattr(sm, "smem_bytes")
-    result = {"ptxas": ptxas(runtime.build().parent / "build.log")}
     if new:
         result["dynamic smem"] = {
             f"{'bwd' if bw else 'fwd'} N {n} G {g}": sm.smem_bytes()(n, g, bw)
@@ -124,19 +248,6 @@ def worker(sweep: bool) -> None:
             sm, "states_per_thread",
             lambda n, backward=False, row_channels=0: plan(n, True)
             if backward else g)
-
-    def timed(run, want, label) -> dict:
-        got = run()
-        if not all(torch.equal(u, v) for u, v in zip(got, want, strict=True)):
-            raise AssertionError(f"{label}: not bit for bit its plain loop")
-        return dict(ms=timer(run, reps=REPS),
-                    kernels_us=kernel_us(run, timer.flush))
-
-    def costed(*costs) -> dict:
-        """The bound and the issue floor of calls of these costs."""
-        return dict(bound_ms=sum(bound_ms(nb, fl, torch.float32)[0]
-                                 for nb, fl, _ in costs),
-                    issue_ms=sum(issue_floor_ms(ln) for *_, ln in costs))
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -188,7 +299,6 @@ def worker(sweep: bool) -> None:
         result.update(rows)
         del ops, dt, x, b, c, a, dy, dh, want_f, want_b
         torch.cuda.empty_cache()
-    print(json.dumps(result))
 
 
 def main() -> int:
@@ -196,11 +306,14 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=False,
                     help="the other tree's src directory")
     ap.add_argument("--sweep", action="store_true",
-                    help="time every forward split built at N 16 instead")
+                    help="time every forward split built at N 16 and every "
+                         "RG-LRU plan instead")
+    ap.add_argument("--only", choices=("ssm", "rglru"),
+                    help="one scan family's kernels alone")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.sweep)
+        worker(args.sweep, args.only)
         return 0
     smi = nvidia_smi()
     trees = {"change": CHANGE_SRC}
@@ -208,7 +321,8 @@ def main() -> int:
         trees["parent"] = args.parent.resolve()
     order = [t for t in ORDER if t in trees] if len(trees) > 1 else ["change"]
     build_trees(trees)
-    flags = ("--sweep",) if args.sweep else ()
+    flags = (("--sweep",) if args.sweep else ()) + (
+        ("--only", args.only) if args.only else ())
     runs = [(tree, run_worker(trees[tree], *flags, script=__file__))
             for tree in order]
     for tree, r in runs[:len(trees)]:
@@ -219,6 +333,10 @@ def main() -> int:
             print(f"dynamic smem ({tree}): " + ", ".join(
                 f"{k} {v} B" for k, v in r["dynamic smem"].items()))
     labels = [k for k in runs[0][1] if k not in ("ptxas", "dynamic smem")]
+    for label in labels:
+        for tree, r in runs[:len(trees)]:
+            if "launch" in r[label]:
+                print(f"launch ({tree}) {label}: {r[label]['launch']}")
     print(f"{'row':<52} {'time':<28} " + " ".join(
         f"{t:>9}" for t, _ in runs) + f" {'bound':>8} {'issue':>8}")
     for label in labels:
@@ -235,7 +353,7 @@ def main() -> int:
     for label in labels:
         for tree, r in runs:
             for key, v in r[label].items():
-                if isinstance(v, dict):
+                if isinstance(v, dict) and "kernels_us" in v:
                     print(f"  {label} {key} ({tree}): {v['kernels_us']}")
     OUT.parent.mkdir(parents=True, exist_ok=True)
     out = OUT.with_name("scan_sweep.json") if args.sweep else OUT

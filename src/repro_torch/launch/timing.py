@@ -12,7 +12,9 @@ shapes that ``chip_smoke.py`` and ``launch/matmul_probe.py`` both time,
 ``SSM_BWD_SHAPES`` the selective scan's rows of ``chip_smoke.py`` and
 ``launch/scan_probe.py``, built with ``ssm_operands`` and costed with
 ``ssm_scan_cost`` / ``ssm_bwd_cost`` (bytes, operations and the issue
-floor, ``issue_floor_ms``).
+floor, ``issue_floor_ms``); ``RGLRU_SCAN_SHAPES`` and ``RGLRU_BWD_SHAPES``
+the RG-LRU recurrence's rows of both, costed with ``rglru_scan_cost`` /
+``rglru_bwd_cost``.
 """
 from __future__ import annotations
 
@@ -72,6 +74,16 @@ SSM_SCAN_SHAPES = ((1, 3072, 8192, 16, (2300,)),
 # ssm_scan_bwd's rows (B, S, Di, N): falcon-mamba's width at a training
 # batch, the reduced config's, and a ragged Di and S
 SSM_BWD_SHAPES = ((4, 512, 8192, 16), (2, 64, 128, 8), (2, 83, 1000, 16))
+# rglru_scan's rows: (B, S, W, lengths or None).  recurrentgemma-2b's
+# 3072-token bucket holding a 2300-token prompt (phase 16's longest
+# prefill, past the window) and the full bucket; eight one-position rows,
+# two of them past their length; two rows of a 300-token bucket
+RGLRU_SCAN_SHAPES = ((1, 3072, 2560, (2300,)), (1, 3072, 2560, None),
+                     (8, 1, 2560, (1, 0, 1, 1, 0, 1, 1, 1)),
+                     (2, 300, 2560, (300, 123)))
+# rglru_scan_bwd's rows (B, S, W): recurrentgemma-2b's width at a training
+# batch and at a prefill's length
+RGLRU_BWD_SHAPES = ((4, 512, 2560), (1, 3072, 2560))
 # float32 lane instructions of the scans' arithmetic (expf is 8: seven
 # FP32 / integer operations and one MUFU.EX2): a live forward (position,
 # state) takes the discretization (1 + 8 + 2), the update (2) and the
@@ -183,6 +195,25 @@ def issue_floor_ms(lane_instr: float) -> float:
     """The least time the card's FP32 lanes take to issue ``lane_instr``
     instructions: every lane of every SM busy at the boost clock."""
     return lane_instr / (SMS * SM_LANES * CLOCK_HZ) * 1e3
+
+
+def rglru_scan_cost(B: int, S: int, W: int, lens
+                    ) -> tuple[float, float, float]:
+    """(bytes, float32 operations, lane instructions) of one
+    ``rglru_scan``: a and g read once at each live position (one before
+    its row's length: the function needs no other), hs written at every
+    position, the last h and the lengths; a multiply and an add a live
+    (position, channel)."""
+    live = B * S if lens is None else sum(max(0, min(v, S)) for v in lens)
+    return ((2 * live + B * S) * W * 4 + B * W * 4 + B * 4, 2 * live * W,
+            2 * live * W)
+
+
+def rglru_bwd_cost(B: int, S: int, W: int) -> tuple[float, float, float]:
+    """(bytes, float32 operations, lane instructions) of one
+    ``rglru_scan_bwd``: a, hs, dhs read and da, dg written once, dh once;
+    an add and two multiplies an element."""
+    return 5 * B * S * W * 4 + B * W * 4, 3 * B * S * W, 3 * B * S * W
 
 
 def ssm_scan_cost(B: int, S: int, Di: int, N: int, lens, es: int = 2,

@@ -25,8 +25,13 @@ keep the rolling buffers in bf16 (the reference's rule).  Checked:
   versions;
 * the refusals, with the reference's messages; ``program_launches``
   against the wrappers' calls; ``serve --arch recurrentgemma-2b``;
+* ``rglru_plan``: every channel in one CTA, C dividing the CTA's threads,
+  a grid of at least a CTA an SM where B x W allows, shared memory within
+  a CTA's, the refusal of a plan no kernel takes;
 * on the card (``cuda``-marked): one CUDA graph per bucket with graphed =
-  eager, and the scan kernel bit for bit its plain loop.
+  eager, and both scan kernels bit for bit their plain loops under every
+  plan the wrapper can choose, at ragged shapes and lengths, with an
+  operand at storage offset 1, and without a host sync.
 """
 import dataclasses
 import types
@@ -215,6 +220,57 @@ def test_rglru_scan_plain_keeps_h_past_each_length():
         scan_mod.rglru_scan(a.double(), g.double())
     with pytest.raises(ValueError, match="lengths must be"):
         scan_mod.rglru_scan(a, g, n.long())
+
+
+@pytest.mark.parametrize("B, W, fwd_c, bwd_c", [
+    (1, 2560, 16, 32), (2, 2560, 32, 64), (4, 2560, 64, 128),
+    (8, 2560, 128, 128), (1, 2561, 16, 32), (3, 300, 8, 8), (2, 256, 8, 8),
+    (1, 8, 8, 8), (1, 1, 8, 8), (1, 8192, 32, 64), (16, 64, 8, 8)])
+def test_rglru_plan_covers_every_channel_once(B, W, fwd_c, bwd_c):
+    """``rglru_plan`` at the serving shapes (recurrentgemma-2b's W 2560 at
+    a prefill's one row, two rows and a training batch) and ragged ones: C
+    is a built width dividing the CTA's 4C threads (32-512), the grid holds
+    every channel in exactly one CTA, and it reaches the direction's
+    target (a CTA an SM forward, half the SMs backward) wherever some
+    built C can (the widest such C), else takes the narrowest; both
+    directions' plans, fitted to short and long rows, keep C and leave
+    room for two CTAs an SM."""
+    for backward, want_c in ((False, fwd_c), (True, bwd_c)):
+        plan = scan_mod.rglru_plan(B, W, backward)
+        c = plan.channels
+        assert c == want_c and c in scan_mod.CHANNELS
+        assert plan.threads % c == 0 and 32 <= plan.threads <= 512
+        gx, gy = plan.grid(B, W)
+        assert gy == B and gx * c >= W > (gx - 1) * c
+        ctas, floats = scan_mod.PLAN_TARGETS[backward]
+        fits = [k for k in scan_mod.CHANNELS if -(-W // k) * B >= ctas]
+        assert c == (fits[0] if fits else min(scan_mod.CHANNELS))
+        assert gx * gy >= ctas or not fits
+        assert plan.positions == min(256, floats // c)
+        for S in (1, 7, 8, 9, 64, 300, 3072):
+            fit = plan.fit(S)
+            assert fit.channels == c
+            assert fit.positions % 8 == 0 and 8 <= fit.positions <= 256
+            assert fit.positions <= max(8, -(-S // 8) * 8)
+            assert 0 < scan_mod.smem_bytes(fit, backward) \
+                <= scan_mod.SMEM_LIMIT // 2
+        assert plan.fit(3072) == plan
+
+
+def test_rglru_plan_refusals_and_launch_text():
+    """A plan no kernel takes is refused before any launch, with the plan
+    in the message; ``describe`` gives the plan, grid and shared memory."""
+    plan = scan_mod.rglru_plan(1, 2560)
+    text = scan_mod.describe(plan, 1, 2560)
+    assert f"C {plan.channels}, T {plan.positions}" in text
+    assert "grid 160 x 1 CTAs of 64 threads" in text
+    assert f"{scan_mod.smem_bytes(plan)} B dynamic smem" in text
+    for bad in (plan._replace(channels=12),
+                plan._replace(channels=128, positions=256)):
+        with mock.patch.object(scan_mod, "rglru_plan",
+                               lambda *a, bad=bad, **k: bad), \
+                pytest.raises(ValueError, match="no kernel takes the plan"):
+            scan_mod._plan(1, 3072, 2560, backward=True)
 
 
 @pytest.mark.parametrize("s", [20, 32, 45, 70])
@@ -599,48 +655,103 @@ def test_one_graph_per_bucket_and_graphed_equals_eager_on_the_card():
     assert graphed.stats["graph_captures"] == 1
 
 
+def _card_plans(backward: bool) -> list:
+    """Every plan ``rglru_plan`` can return, and two plans that stress the
+    ring: tiles of 8 positions (the ring wrapping every few tiles), and C 8
+    with tiles of 32."""
+    plans = {scan_mod.rglru_plan(b, w, backward) for b in (1, 2, 4, 8)
+             for w in (8, 300, 2560, 2561, 8192)}
+    plans |= {scan_mod.RGLRUPlan(16, 8), scan_mod.RGLRUPlan(8, 32)}
+    return sorted(plans)
+
+
+def _offset_one(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` at storage offset 1 (4 bytes past a
+    16-byte boundary): the kernels' element path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.storage_offset() == 1 and out.is_contiguous()
+    return out
+
+
+# (B, S, W, lengths): S a multiple of no tile, W of no C (300) or not of 4
+# (2561: the element path), S = 1 and 8 (rows of one tile) and 9, lengths
+# 0, at a tile edge (256, 128, 64, 32: every plan's T) and past S
+CARD_SCAN_ROWS = ((1, 300, 2560, [123]), (3, 17, 300, [17, 0, 9]),
+                  (2, 64, 256, None), (8, 1, 2560, [1, 0, 1, 1, 0, 1, 1, 1]),
+                  (2, 8, 2561, [8, 3]), (2, 9, 64, [9, 0]),
+                  (4, 300, 2561, [128, 0, 400, 256]),
+                  (2, 257, 300, [64, 32]))
+
+
 @pytest.mark.cuda
-def test_scan_kernel_is_its_plain_loop_on_the_card():
+def test_scan_kernel_is_its_plain_loop_on_the_card(monkeypatch):
+    """hs and the last h bit for bit the plain loop's under every plan the
+    wrapper can choose (``rglru_plan`` patched) at ragged S, W and
+    lengths, with an operand at storage offset 1, and a launch under
+    ``set_sync_debug_mode("error")`` (no host sync)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    for B, S, W, lens in ((1, 300, 2560, [123]), (3, 17, 300, [17, 0, 9]),
-                          (2, 64, 256, None)):
+    for B, S, W, lens in CARD_SCAN_ROWS:
         a = torch.rand(B, S, W, generator=g, device="cuda")
         gg = torch.randn(B, S, W, generator=g, device="cuda")
         n = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                    device="cuda")
-        before = scan_mod.rglru_scan.launches
+        want = scan_mod.rglru_scan_plain(a, gg, n)
+        for plan in _card_plans(backward=False):
+            monkeypatch.setattr(scan_mod, "rglru_plan",
+                                lambda *a_, p_=plan, **k_: p_)
+            for ops in ((a, gg), (_offset_one(a), gg), (a, _offset_one(gg))):
+                before = scan_mod.rglru_scan.launches
+                got = scan_mod.rglru_scan(*ops, n)
+                assert scan_mod.rglru_scan.launches == before + 1
+                for x, y in zip(got, want, strict=True):
+                    assert torch.equal(x, y), (B, S, W, lens, plan)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
         got = scan_mod.rglru_scan(a, gg, n)
-        assert scan_mod.rglru_scan.launches == before + 1
-        for x, y in zip(got, scan_mod.rglru_scan_plain(a, gg, n),
-                        strict=True):
-            assert torch.equal(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
-def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
+def test_scan_backward_kernel_is_its_plain_loop_on_the_card(monkeypatch):
     """``rglru_scan_bwd`` bit for bit ``rglru_scan_bwd_plain`` (the same
-    two float32 operators a position, in the same order), and the
+    float32 operators a position, in the same order) under every plan the
+    wrapper can choose, at ragged S and W, S = 1, with an operand at
+    storage offset 1, and once under ``set_sync_debug_mode("error")``; the
     autograd path through ``rglru_scan`` launching the forward and the
     backward kernel once each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
-    for B, S, W in ((1, 300, 2560), (3, 17, 300), (2, 64, 256)):
+    for B, S, W in ((1, 300, 2560), (3, 17, 300), (2, 64, 256),
+                    (2, 129, 2561), (4, 1, 2560)):
         a = torch.rand(B, S, W, generator=g, device="cuda")
         gg = torch.randn(B, S, W, generator=g, device="cuda")
         dhs = torch.randn(B, S, W, generator=g, device="cuda")
         dh = torch.randn(B, W, generator=g, device="cuda")
         hs, _ = scan_mod.rglru_scan_plain(a, gg)
         want = scan_mod.rglru_scan_bwd_plain(a, hs, dhs, dh)
-        before = scan_mod.rglru_scan_bwd.launches
-        for x, y in zip(scan_mod.rglru_scan_bwd(a, hs, dhs, dh), want,
-                        strict=True):
-            assert torch.equal(x, y)
-        assert scan_mod.rglru_scan_bwd.launches == before + 1
+        for plan in _card_plans(backward=True):
+            monkeypatch.setattr(scan_mod, "rglru_plan",
+                                lambda *a_, p_=plan, **k_: p_)
+            for ops in ((a, hs, dhs), (_offset_one(a), hs, dhs),
+                        (a, _offset_one(hs), dhs), (a, hs, _offset_one(dhs))):
+                before = scan_mod.rglru_scan_bwd.launches
+                for x, y in zip(scan_mod.rglru_scan_bwd(*ops, dh), want,
+                                strict=True):
+                    assert torch.equal(x, y), (B, S, W, plan)
+                assert scan_mod.rglru_scan_bwd.launches == before + 1
+        monkeypatch.undo()
         ar, gr = a.clone().requires_grad_(), gg.clone().requires_grad_()
         seen = (scan_mod.rglru_scan.launches,
                   scan_mod.rglru_scan_bwd.launches)
@@ -652,3 +763,11 @@ def test_scan_backward_kernel_is_its_plain_loop_on_the_card():
                                                       seen[1] + 1)
         for x, y in zip(got, want, strict=True):
             assert torch.equal(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = scan_mod.rglru_scan_bwd(a, hs, dhs, dh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
