@@ -425,7 +425,7 @@ Phases (any failure raises and the script exits non-zero):
    (with the checkpoints) and the pair as one call too.
    Then recurrentgemma-2b at its widths and 13 of its 26 layers (the
    pattern r, r, a kept) and falcon-mamba-7b at its widths and 8 of its 64
-   (its full depth's f32 state needs the sharded step, item 13): (b) at 2
+   (its full depth's f32 state needs the sharded step, item 16c): (b) at 2
    layers, f32 with TF32 off, loss and every gradient leaf against the
    same step on the host (phase 20a's gates); (c) 6 bf16 steps (f32
    masters, AdamW) on one fixed 4 x 128 batch of distinct tokens: the
@@ -436,6 +436,23 @@ Phases (any failure raises and the script exits non-zero):
    bit; (e) the trained masters served by an eager dense + bucketed
    engine on the kernel path (``rglru_scan`` / ``ssm_scan``,
    ``tiled_matmul``, ``rmsnorm`` launched as ``program_launches`` says).
+
+22. Mesh serving (ROADMAP Queue 1 item 13; ``check_mesh``): qwen1.5-0.5b
+   at its widths, f32 compute over float32 pools, phase 5's mix on weights
+   drawn once.  (c) One graphed engine on the plain route and one on the
+   kernels; (a) a tp = 2 engine whose two ranks share the card
+   (``launch.mesh.dev_devices(2, allow_repeat=True)``), graphed: each
+   program one CUDA graph over both ranks, on the plain route (the
+   reference's rule for tp > 1); (b) a dp = 2 ``EngineCluster`` of two
+   graphed kernel-route replicas on the card.  Gates: (a) streams (c)'s
+   plain tokens and (b) its kernel tokens (equal, or diverging only at a
+   near-tie within phase 4's f32 distance, recomputed as phase 8 does),
+   one capture per program per engine and replica, (a)'s warm drain no
+   capture and the same streams, no kernel launched by (a), every kernel
+   of phase 5's float path launched by (b) (counted from zero just before
+   its drain).  Each rank's pool shape and the phase's seconds are
+   printed with the card's name and power limit; no time is printed for
+   the ranks or replicas, which share one card.
 
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
@@ -469,7 +486,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig, ShapeSpec  # noqa: E402
 from repro_torch.core import analytical, tiling  # noqa: E402
 from repro_torch.core.spec import (ExecutionSpec, MemorySpec,  # noqa: E402
-                                   RuntimeSpec, SchedulerSpec,
+                                   MeshSpec, RuntimeSpec, SchedulerSpec,
                                    SpeculationSpec, maxima_for)
 from repro_torch.core.quant import QTensor, quantize  # noqa: E402
 from repro_torch.kernels import chunked_prefill as cp_mod  # noqa: E402
@@ -520,6 +537,9 @@ from repro_torch import harness  # noqa: E402
 from repro_torch.harness.tune import cache_bytes, score  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.cluster import EngineCluster  # noqa: E402
+from repro_torch.models.tensor_parallel import ShardedCache  # noqa: E402
+from repro_torch.launch.mesh import dev_devices  # noqa: E402
 from repro_torch.serving.fabric import REG_VOCAB, DecodeFabric  # noqa: E402
 from repro_torch.data.pipeline import (MemorizationStream,  # noqa: E402
                                        SyntheticLMStream)
@@ -713,7 +733,13 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 "train_scans": ("rglru_scan", "rglru_scan_bwd", "ssm_scan",
                                 "ssm_scan_bwd"),
                 "scans_served": ("tiled_matmul", "rmsnorm", "rglru_scan",
-                                 "ssm_scan")}
+                                 "ssm_scan"),
+                # phase 22: the mesh; tp = 2 runs the plain routes (the
+                # reference's rule: no kernel may launch there, checked),
+                # the dp = 2 cluster's replicas the kernels
+                "mesh_tp": (),
+                "mesh_dp": ("tiled_matmul", "paged_decode_attention",
+                            "chunked_prefill_attention", "rmsnorm")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -6117,7 +6143,7 @@ SCAN_TRAIN_SEED = 21
 # training at full width: recurrentgemma-2b at 13 of 26 layers (pattern r,
 # r, a kept: 4 x 3 + 1; all 26 take ~64 GB with AdamW's temporaries),
 # falcon-mamba-7b at 8 of 64 (its 116 GB of f32 state at full depth need
-# the sharded step, item 13)
+# the sharded step, item 16c)
 SCAN_TRAIN = ((HYBRID, 13), (SSM, 8))
 SCAN_GRAD_LAYERS = 2                   # card vs host gradients, f32
 SCAN_GRAD_BATCH = (2, 32)
@@ -6371,6 +6397,170 @@ def check_train_scans(timer, dev, smi: str) -> tuple[dict, dict]:
                      "scans_served": {**full, **served}}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: mesh serving (ROADMAP Queue 1 item 13)
+# ---------------------------------------------------------------------------
+MESH_TP = 2                 # (a): two ranks of one engine share the card
+MESH_DP = 2                 # (b): two replicas behind one queue
+
+
+def mesh_spec(kernels: bool, mesh: MeshSpec) -> RuntimeSpec:
+    """Phase 5's spec at f32 compute on ``mesh``: the plain routes, or
+    the kernels (a tp 1 replica's)."""
+    spec = full_width_spec(kernels)
+    return dataclasses.replace(
+        spec, execution=dataclasses.replace(spec.execution,
+                                            compute_dtype="fp32"),
+        mesh=mesh)
+
+
+def float_pools(eng) -> None:
+    """The engine's pool (every rank's) as float32 tensors, before its
+    first step: the f32 streams then differ only by the order of the
+    sums, not by the bf16 rounding of K and V that order can flip."""
+    def f32(c):
+        return type(c)(*(None if t is None else t.float() for t in c))
+    if isinstance(eng.cache, ShardedCache):
+        eng.cache = ShardedCache([f32(c) for c in eng.cache.ranks])
+    else:
+        eng.cache = f32(eng.cache)
+
+
+def cluster_drain(cl, prompts) -> dict:
+    """Submit ``prompts`` (greedy, ``MAX_NEW`` each) to a cluster and
+    drain it; the kernel counts are zeroed just before, and the launches
+    made are summed over the replicas as ``made_launches`` counts one
+    engine's."""
+    uids = {cl.submit(p, max_new_tokens=MAX_NEW): i
+            for i, p in enumerate(prompts)}
+    zero_counts()
+    tallies = [(collections.Counter(e.captured_launches),
+                collections.Counter(e.replayed_launches))
+               for e in cl.replicas]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = cl.run_to_completion()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if len(done) != len(prompts) or \
+            any(len(r.generated) != MAX_NEW for r in done):
+        raise AssertionError(f"the cluster finished {len(done)}/"
+                             f"{len(prompts)} requests, or short")
+    made = launch_counts()
+    for e, (cap, rep) in zip(cl.replicas, tallies):
+        for n in made:
+            made[n] += (e.replayed_launches[n] - rep[n]) \
+                - (e.captured_launches[n] - cap[n])
+    return dict(streams={uids[r.uid]: r.generated for r in done}, dt=dt,
+                launches=made, compilations=cl.compilations,
+                replica_steps=[s["decode_steps"]
+                               for s in cl.replica_stats()])
+
+
+def check_mesh(dev, g, f32_dist: float, smi: str) -> dict:
+    """Phase 22: qwen1.5-0.5b at full width, f32 compute over float32
+    pools, phase 5's mix and weights drawn once: (c) single graphed
+    engines on the plain route and on the kernels; (a) a tp = 2 engine
+    whose two ranks share the card (graphed: one CUDA graph per program
+    over both ranks; the plain route, the reference's rule for tp > 1);
+    (b) a dp = 2 ``EngineCluster`` of two graphed kernel-route replicas on
+    the card.  Gates: (a) streams (c)'s plain-route tokens and (b) its
+    kernel-route ones (equal, or diverging only at a near-tie within
+    phase 4's f32 distance, recomputed as phase 8 does), one capture per
+    program per engine and replica, (a)'s warm drain no capture and the
+    same streams, no kernel launched under tp > 1 and every kernel of the
+    path launched by (b).  Both ranks and both replicas share one card:
+    no speed is printed for them."""
+    t_start = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    params = Model(cfg, compute_dtype=torch.float32, device=dev).init(
+        g).state_dict()
+    rs = np.random.default_rng(0)
+    prompts = [rs.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    n_tok = len(prompts) * MAX_NEW
+    print(f"\n== phase 22: mesh serving, full-width {cfg.name} at f32 "
+          f"compute over float32 pools, phase 5's mix ({len(prompts)} "
+          f"requests x {MAX_NEW} new); tp={MESH_TP} ranks and "
+          f"dp={MESH_DP} replicas share one card ({smi})")
+    base = {}
+    for kernels in (False, True):
+        eng = ServingEngine(mesh_spec(kernels, MeshSpec()), device="cuda")
+        eng.load(params)
+        float_pools(eng)
+        r = drain(eng, prompts)
+        base[kernels] = r
+        print(f"  (c) one graphed engine, {'kernels' if kernels else 'plain'}"
+              f" route: {r['steps']} fused steps, compilations "
+              f"{r['compilations']}")
+        del eng
+    tp_devs = dev_devices(MESH_TP, allow_repeat=True)
+    eng = ServingEngine(mesh_spec(False, MeshSpec(tp=MESH_TP)),
+                        devices=tp_devs)
+    eng.load(params)
+    float_pools(eng)
+    shapes = [[tuple(t.shape) for t in c if t is not None]
+              for c in eng.cache.ranks]
+    print(f"  (a) tp={MESH_TP} on {tp_devs}: each rank's pool (K, V) "
+          f"{shapes}; heads split {eng.model.heads_split}, FFN split "
+          f"{eng.model.ffn_split}, vocabulary split "
+          f"{eng.model.vocab_split}")
+    tp_run = drain(eng, prompts)
+    warm = drain(eng, prompts)
+    comp = tp_run["compilations"]
+    print(f"  (a) {tp_run['steps']} fused steps, compilations {comp}, "
+          f"captures {tp_run['stats']['graph_captures']}, warm drain "
+          f"captures {warm['stats']['graph_captures']}, replays "
+          f"{warm['stats']['graph_replays']}")
+    if comp["decode"] != 1 or comp["prefill"] != 1 \
+            or tp_run["stats"]["eager_steps"] \
+            or warm["stats"]["graph_captures"] \
+            or warm["streams"] != tp_run["streams"]:
+        raise AssertionError(f"tp={MESH_TP}: compilations {comp}, stats "
+                             f"{tp_run['stats']}, warm {warm['stats']}; "
+                             "want one capture per program and a warm "
+                             "drain that repeats the streams")
+    if any(tp_run["launches"].values()):
+        raise AssertionError(f"tp={MESH_TP} launched hand-written kernels: "
+                             f"{tp_run['launches']}")
+    del eng
+    torch.cuda.empty_cache()
+    cl = EngineCluster(mesh_spec(True, MeshSpec(dp=MESH_DP)),
+                       devices=dev_devices(MESH_DP, allow_repeat=True))
+    cl.load(params)
+    for e in cl.replicas:
+        float_pools(e)
+    dp_run = cluster_drain(cl, prompts)
+    print(f"  (b) dp={MESH_DP} cluster, kernel route: rounds per replica "
+          f"{dp_run['replica_steps']}, compilations "
+          f"{dp_run['compilations']}, launches "
+          f"{ {n: c for n, c in dp_run['launches'].items() if c} }")
+    for c in dp_run["compilations"]:
+        if c["decode"] != 1 or c["prefill"] != 1:
+            raise AssertionError(f"dp={MESH_DP}: a replica's compilations "
+                                 f"{dp_run['compilations']}")
+    if not all(dp_run["replica_steps"]):
+        raise AssertionError("a replica of the cluster served nothing")
+    del cl
+    torch.cuda.empty_cache()
+    # (a) against (c)'s plain route, (b) against its kernels
+    for label, got, want in ((f"tp={MESH_TP}", tp_run, base[False]),
+                             (f"dp={MESH_DP}", dp_run, base[True])):
+        f32_streams_equal(params, (None, prompts), got, want, f32_dist,
+                          what=label)
+    for label, got, want in (("(a) vs (c) kernels", tp_run, base[True]),
+                             ("(b) vs (c) plain", dp_run, base[False])):
+        same, _ = same_tokens(got["streams"], want["streams"])
+        print(f"  {label}: identical tokens {same}/{n_tok} (reported: the "
+              "plain route and the kernels sum in other orders)")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase 22 took {time.perf_counter() - t_start:.1f} s ({smi})")
+    full = dict.fromkeys(KERNELS, 0)
+    return {"mesh_tp": {**full, **tp_run["launches"]},
+            "mesh_dp": {**full, **dp_run["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6583,12 +6773,14 @@ def main() -> int:
     entries.update(scan_entries)
     launches.update(scan_launches)
     lap("phase 21")
+    launches.update(check_mesh(dev, g, f32_dist, smi))
+    lap("phase 22")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
                  "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
                  "audio", "encoder", "train", "train_scans",
-                 "scans_served"):
+                 "scans_served", "mesh_dp"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

@@ -42,6 +42,13 @@ holds ``QTensor`` leaves; after the numpy conversion each is a
 its float32 scale under ``<name>_scale``, unstacked like the float leaves,
 so a test can hand both packages the same int8 weights.
 
+``from_jax_axes(axes_tree, cfg)`` maps the reference's
+``Model(cfg).axes()`` (its ``ParamBuilder`` "axes" mode: a tree of
+``PartitionSpec`` leaves, each a tuple of logical axis names) onto the
+port's names by the same rule: a stacked leaf's leading "layers" axis is
+dropped as it unstacks, so the result reads like the port's
+``Model.axes()``.
+
 ``from_jax_adaptive(np_tree, engine)`` takes the register-driven engine's
 padded weights from the reference (its ``pack(...)`` or
 ``AdaptiveEngine.init(...)`` output, numpy leaves) and returns the
@@ -118,6 +125,50 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig, device,
                 out[f"{prefix}{i}.{rest}"] = t[i].to(device).contiguous()
         else:
             out[name] = t.to(device)
+    return out
+
+
+def _stacks(cfg: ArchConfig) -> dict[str, int]:
+    """The prefixes the reference stacks on a leading axis, each with
+    its depth (none for a hybrid model, whose layers are a list)."""
+    if cfg.hybrid is not None:
+        return {}
+    out = {"layers.": cfg.num_layers - (cfg.moe.first_k_dense
+                                         if cfg.moe else 0)}
+    if cfg.encdec is not None:
+        out["enc_layers."] = cfg.encdec.num_encoder_layers
+    return out
+
+
+def from_jax_axes(axes_tree: Mapping, cfg: ArchConfig
+                  ) -> dict[str, tuple]:
+    """The port's ``Model.axes()`` from the reference's ``axes()`` tree
+    (leaves: tuples of axis names, a ``PartitionSpec`` is one)."""
+    flat: dict[str, tuple] = {}
+
+    def walk(node, prefix: str) -> None:
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            flat[prefix[:-1]] = tuple(node)
+
+    walk(axes_tree, "")
+    stacks = _stacks(cfg)
+    out: dict[str, tuple] = {}
+    for name, axes in flat.items():
+        prefix = next((p for p in stacks if name.startswith(p)), None)
+        if prefix is None:
+            out[name] = axes
+            continue
+        if axes[:1] != ("layers",):
+            raise ValueError(f"{name}: a stacked leaf's axes {axes} do not "
+                             "lead with 'layers'")
+        for i in range(stacks[prefix]):
+            out[f"{prefix}{i}.{name[len(prefix):]}"] = axes[1:]
     return out
 
 

@@ -106,7 +106,7 @@ class AdaptiveEngine(nn.Module):
         self.device = resolve_device(device)
         self._layout = self.build()
         self.has_decoder = "dec.ln1_g" in self._layout
-        for name, (shape, _, _) in self._layout.items():
+        for name, (shape, *_) in self._layout.items():
             *path, leaf = name.split(".")
             mod = self
             for p in path:
@@ -142,44 +142,58 @@ class AdaptiveEngine(nn.Module):
     # ------------------------------------------------------------------
     # Parameter structure (synthesis-time buffers)
     # ------------------------------------------------------------------
-    def build(self) -> dict[str, tuple[tuple[int, ...], str, float | None]]:
-        """Every buffer: dotted name -> (shape, init, scale), as the
+    def build(self) -> dict[str, tuple]:
+        """Every buffer: dotted name -> (shape, init, scale, axes), as the
         reference's ``build`` declares them (init "normal" draws at
         ``scale``, or 1 / sqrt(fan_in) with fan_in = ``shape[-2]`` of the
-        stacked shape when no scale is given)."""
+        stacked shape when no scale is given; ``axes`` the logical axis
+        names, a stacked leaf's led by "layers")."""
         mx = self.mx
         d, h, e = mx.d_model_max, mx.heads_max, mx.head_dim_max
+        proj, bias, emb = ("embed", "heads", None), ("heads", None), \
+            ("embed",)
 
         def attn_block() -> dict:
-            return {"wq": ((d, h, e), "normal"), "wk": ((d, h, e), "normal"),
-                    "wv": ((d, h, e), "normal"), "bq": ((h, e), "zeros"),
-                    "bk": ((h, e), "zeros"), "bv": ((h, e), "zeros"),
-                    "wo": ((h, e, d), "normal"), "bo": ((d,), "zeros")}
+            return {"wq": ((d, h, e), "normal", proj),
+                    "wk": ((d, h, e), "normal", proj),
+                    "wv": ((d, h, e), "normal", proj),
+                    "bq": ((h, e), "zeros", bias),
+                    "bk": ((h, e), "zeros", bias),
+                    "bv": ((h, e), "zeros", bias),
+                    "wo": ((h, e, d), "normal", ("heads", None, "embed")),
+                    "bo": ((d,), "zeros", emb)}
 
         def layer(cross: bool = False) -> dict:
             p = {"attn": attn_block(),
-                 "ln1_g": ((d,), "ones"), "ln1_b": ((d,), "zeros"),
-                 "w1": ((d, mx.d_ff_max), "normal"),
-                 "b1": ((mx.d_ff_max,), "zeros"),
-                 "w2": ((mx.d_ff_max, d), "normal"), "b2": ((d,), "zeros"),
-                 "ln2_g": ((d,), "ones"), "ln2_b": ((d,), "zeros")}
+                 "ln1_g": ((d,), "ones", emb), "ln1_b": ((d,), "zeros", emb),
+                 "w1": ((d, mx.d_ff_max), "normal", ("embed", "ffn")),
+                 "b1": ((mx.d_ff_max,), "zeros", ("ffn",)),
+                 "w2": ((mx.d_ff_max, d), "normal", ("ffn", "embed")),
+                 "b2": ((d,), "zeros", emb),
+                 "ln2_g": ((d,), "ones", emb), "ln2_b": ((d,), "zeros", emb)}
             if cross:
                 p["cross"] = attn_block()
-                p["ln3_g"] = ((d,), "ones")
-                p["ln3_b"] = ((d,), "zeros")
+                p["ln3_g"] = ((d,), "ones", emb)
+                p["ln3_b"] = ((d,), "zeros", emb)
             return p
 
-        out = {"embed": ((mx.vocab, d), "normal", 0.02),
-               "pos": ((mx.seq_max, d), "normal", 0.02),
-               "w_out": ((d, mx.out_max), "normal", None),
-               "b_out": ((mx.out_max,), "zeros", None)}
+        out = {"embed": ((mx.vocab, d), "normal", 0.02, ("vocab", "embed")),
+               "pos": ((mx.seq_max, d), "normal", 0.02, ("pos", "embed")),
+               "w_out": ((d, mx.out_max), "normal", None, ("embed", "vocab")),
+               "b_out": ((mx.out_max,), "zeros", None, ("vocab",))}
         stacks = {"enc": (mx.layers_enc_max, layer())}
         if self.opt.decoder and mx.layers_dec_max:
             stacks["dec"] = (mx.layers_dec_max, layer(cross=True))
         for stack, (n, tree) in stacks.items():
-            for name, (shape, init) in flatten(tree).items():
-                out[f"{stack}.{name}"] = ((n, *shape), init, None)
+            for name, (shape, init, axes) in flatten(tree).items():
+                out[f"{stack}.{name}"] = ((n, *shape), init, None,
+                                          ("layers", *axes))
         return out
+
+    def axes(self) -> dict[str, tuple]:
+        """The logical axis names of every buffer, by name (the
+        reference's ``AdaptiveEngine.axes()``)."""
+        return {name: axes for name, (*_, axes) in self._layout.items()}
 
     def params(self) -> dict:
         """The buffers as the reference's parameter tree (a nested dict of
@@ -191,7 +205,7 @@ class AdaptiveEngine(nn.Module):
         drawn from ``generator`` on its own device into the buffers in
         the order of ``build``; returns ``params()``."""
         bufs = dict(self.named_buffers())
-        for name, (shape, init, scale) in self._layout.items():
+        for name, (shape, init, scale, _) in self._layout.items():
             buf = bufs[name]
             if init == "zeros":
                 buf.zero_()
@@ -496,7 +510,7 @@ def pack(engine: AdaptiveEngine, net: dict) -> dict:
     (§3.1-3.3), with KV weights replicated across the head group for GQA
     topologies.  Lanes and layers past the topology are zero."""
     mx, dev, dt = engine.mx, engine.device, engine.opt.dtype
-    shapes = {n: s for n, (s, _, _) in engine.build().items()}
+    shapes = {n: s for n, (s, *_) in engine.build().items()}
     d, h, hd = net["d_model"], net["heads"], net["head_dim"]
     kv = net.get("kv_heads", h)
     rep = h // kv

@@ -139,6 +139,15 @@ def check_position_quant(cfg, min_size: int = DEFAULT_QUANT_MIN_SIZE
             "serve float weights")
 
 
+def scale_axes(axes: tuple, kind: str) -> tuple:
+    """The logical axes of an int8 leaf's scale, from its values' axes
+    (the reference's ``quantize_axes``): a kernel's ``[1, N]`` scale
+    co-shards with its columns, a table's ``[V, 1]`` with its rows."""
+    if kind == "kernel":
+        return (None, axes[-1])
+    return (axes[0], None)
+
+
 def quantize_leaf(w: torch.Tensor, kind: str) -> QTensor:
     """Kernels ``[..., K, N]``: per-(stack, column) scales ``[..., 1, N]``
     reduced over the contraction dim only (``[1, N]`` for one layer's

@@ -37,8 +37,20 @@ step, so ``ServingEngine`` refuses it with the reference's message; the
 model runs its ``forward`` (``models/model.py``), and a spec with
 ``maxima`` is a topology of the register-driven engine
 (``core/adaptive.py`` ``AdaptiveEngine.from_spec``), which it lowers to
-the register file (``RuntimeSpec.registers``).  A mesh is rejected at
-construction with the ROADMAP.md queue item that ports it.
+the register file (``RuntimeSpec.registers``).
+
+``mesh`` (``MeshSpec(tp, dp)``) maps one configuration onto devices, as
+the reference's does: ``tp`` ranks share one fused chunked step
+(``models/tensor_parallel.py``: q/k/v and FFN columns, ``wo`` / ``w2``
+rows, the vocabulary and the pool's kv heads split by the logical-axis
+rules of ``distributed/sharding.py``, each with its divisibility
+fallback), and ``dp`` engine replicas sit behind one admission queue
+(``serving/cluster.py`` ``EngineCluster``).  The tensor-parallel rules
+are the reference's: no fleet, the plain routes only
+(``matmul_backend="xla"``, ``paged_attn_impl="gather"``), the chunked
+scheduler and the chunkable families; the port also refuses the MoE
+family under ``tp > 1`` (ROADMAP.md Queue 1 item 13b).  ``violations``,
+``fits_within``, ``capacity`` and ``maxima_for`` plan per device.
 """
 from __future__ import annotations
 
@@ -333,6 +345,56 @@ class SpeculationSpec:
 
 
 @dataclass(frozen=True)
+class MeshSpec:
+    """How one runnable configuration maps onto devices (the reference's
+    ``MeshSpec``): ``tp`` ranks cooperate on one fused step (the q/k/v and
+    FFN columns, the ``wo`` and ``w2`` rows, the vocabulary and the pool's
+    kv-head axis split over them, block tables and slot state whole), and
+    ``dp`` engine replicas sit behind one admission queue
+    (``serving.cluster.EngineCluster``).  ``MeshSpec()`` is the
+    single-device engine.
+
+    Each leaf falls back to a whole copy per rank where its axis does not
+    divide ``tp`` (``distributed.sharding``): ``kv_shards`` reports how
+    many ways the pool's kv heads actually split."""
+
+    tp: int = 1   # tensor-parallel ranks of each replica's fused step
+    dp: int = 1   # data-parallel engine replicas behind one queue
+
+    def __post_init__(self) -> None:
+        if self.tp < 1 or self.dp < 1:
+            raise ValueError(
+                f"MeshSpec needs tp >= 1 and dp >= 1, got tp={self.tp} "
+                f"dp={self.dp}")
+
+    @property
+    def n_devices(self) -> int:
+        return self.tp * self.dp
+
+    def kv_shards(self, arch: ArchConfig) -> int:
+        """How many ways the cache's kv-head axis splits under ``tp``: the
+        divisor of the per-device KV bytes.  MLA latents carry no kv-head
+        axis and always replicate."""
+        if arch.mla is not None:
+            return 1
+        kv = arch.num_kv_heads or arch.num_heads
+        return self.tp if kv % self.tp == 0 else 1
+
+
+@dataclass(frozen=True)
+class MeshCapacity:
+    """The mesh-aware capacity plan (``RuntimeSpec.capacity()``): what
+    admission can hold, per device and across the replica set."""
+
+    n_devices: int           # tp * dp
+    max_concurrent: int      # dp * max_batch admission ceiling
+    pool_tokens: int         # total KV tokens across all replicas
+    kv_shards: int           # ways the kv-head axis splits (1 = replicated)
+    cache_bytes_per_replica: int   # one replica's pool, summed over its tp
+    per_device_cache_bytes: int    # cache_bytes_per_replica / kv_shards
+
+
+@dataclass(frozen=True)
 class RuntimeSpec:
     """One frozen description of a runnable configuration.
 
@@ -340,9 +402,10 @@ class RuntimeSpec:
     serving: one engine built at the maxima serves a fleet of models
     (``serving/fabric.py``), and the spec's own arch must fit them.
     ``speculation`` (a ``SpeculationSpec``) drafts and verifies inside the
-    fused step of one model or of the fleet.  ``mesh`` is the reference's
-    mesh axis; the port accepts only its default (None) until it is
-    ported.
+    fused step of one model or of the fleet.  ``mesh`` (a ``MeshSpec``;
+    None stands for its default, one device) is how many ranks share the
+    fused step (``tp``) and how many engine replicas serve behind one
+    queue (``dp``).
     """
 
     arch: ArchConfig
@@ -351,9 +414,11 @@ class RuntimeSpec:
     scheduler: SchedulerSpec = field(default_factory=SchedulerSpec)
     maxima: Maxima | None = None
     speculation: SpeculationSpec | None = None
-    mesh: Any = None
+    mesh: MeshSpec = field(default_factory=MeshSpec)
 
     def __post_init__(self) -> None:
+        if self.mesh is None:
+            object.__setattr__(self, "mesh", MeshSpec())
         self.validate()
 
     def validate(self) -> "RuntimeSpec":
@@ -407,8 +472,7 @@ class RuntimeSpec:
                                 if self.speculation is not None else ())):
                 check_mla_quant(arch, self.execution.quant_min_size)
                 check_position_quant(arch, self.execution.quant_min_size)
-        if self.mesh is not None:
-            raise _not_ported("mesh serving (mesh=...)", "item 13")
+        self._validate_mesh()
         if self.maxima is not None:
             bad = self.violations(self.maxima)
             if bad:
@@ -421,6 +485,45 @@ class RuntimeSpec:
                     "spec does not fit its own maxima (re-synthesis "
                     "required): " + "; ".join(bad) + hint)
         return self
+
+    def _validate_mesh(self) -> None:
+        """The reference's rules for ``mesh.tp > 1``, with its messages,
+        and the port's one more: the MoE family's experts on the tp axis
+        are not ported (ROADMAP.md Queue 1 item 13b)."""
+        if not isinstance(self.mesh, MeshSpec):
+            raise ValueError("RuntimeSpec.mesh must be a MeshSpec, got "
+                             f"{type(self.mesh).__name__}")
+        if self.mesh.tp == 1:
+            return
+        cfg = self.arch
+        if self.maxima is not None:
+            raise ValueError(
+                "mesh.tp > 1 is not supported in multi-topology (fleet) "
+                "mode: the fabric's per-slot weight-table gathers are "
+                "not sharded over the model axis; run fleet members as "
+                "data-parallel replicas instead (MeshSpec(dp=...))")
+        if self.execution.matmul_backend != "xla" or \
+                self.execution.paged_attn_impl != "gather":
+            raise ValueError(
+                "mesh.tp > 1 requires the XLA compute path "
+                "(matmul_backend='xla', paged_attn_impl='gather'): the "
+                "Pallas kernels are single-device programs GSPMD cannot "
+                "partition")
+        if self.scheduler.policy == "bucketed":
+            raise ValueError(
+                "mesh.tp > 1 requires the chunked scheduler: the "
+                "bucketed path stages B=1 prefill caches on the default "
+                "device, which cannot mix with a mesh-sharded pool; use "
+                "policy='auto' or 'chunked'")
+        if cfg.family not in CHUNKABLE_FAMILIES:
+            raise ValueError(
+                f"mesh.tp > 1 is unsupported for family {cfg.family!r}: "
+                "tensor parallelism requires the fused chunked step "
+                f"(families {CHUNKABLE_FAMILIES})")
+        if cfg.family == "moe":
+            raise _not_ported(
+                "the MoE family under tensor parallelism (mesh.tp > 1: "
+                "experts on the tp axis)", "item 13b")
 
     def _validate_cache_family(self) -> None:
         """The reference's refusals of a paged or int8 KV cache for a
@@ -543,9 +646,19 @@ class RuntimeSpec:
             "out": cfg.vocab_size,
         }
 
-    def violations(self, maxima: Maxima) -> list[str]:
-        """Every way this spec exceeds ``maxima`` (empty = fits)."""
+    def violations(self, maxima: Maxima,
+                   mesh: MeshSpec | None = None) -> list[str]:
+        """Every way this spec exceeds ``maxima`` (empty = fits).
+
+        Mesh-aware: under tensor parallelism each device holds only its
+        shard, so heads, hidden and out (the vocabulary) are checked
+        divided by ``tp`` where ``tp`` divides them (an indivisible one
+        stays whole on every rank and is checked whole).  ``mesh=None``
+        takes the spec's own."""
+        mesh = self.mesh if mesh is None else mesh
         regs = self.static_registers()
+        for k in ("heads", "hidden", "out"):
+            regs[k] = _shard(regs[k], mesh.tp)
         lim = {"sequence": maxima.seq_max, "heads": maxima.heads_max,
                "layers_enc": maxima.layers_enc_max,
                "layers_dec": maxima.layers_dec_max,
@@ -555,14 +668,38 @@ class RuntimeSpec:
         if self.arch.resolved_head_dim > maxima.head_dim_max:
             out.append(f"head_dim={self.arch.resolved_head_dim} > "
                        f"{maxima.head_dim_max}")
-        if self.arch.vocab_size > maxima.vocab:
-            out.append(f"vocab={self.arch.vocab_size} > {maxima.vocab}")
+        vocab = _shard(self.arch.vocab_size, mesh.tp)
+        if vocab > maxima.vocab:
+            out.append(f"vocab={vocab} > {maxima.vocab}")
         return out
 
-    def fits_within(self, maxima: Maxima) -> bool:
+    def fits_within(self, maxima: Maxima,
+                    mesh: MeshSpec | None = None) -> bool:
         """True iff every live dimension fits the synthesized fabric
-        (exact equality is a fit: the maxima topology itself runs)."""
-        return not self.violations(maxima)
+        (exact equality is a fit: the maxima topology itself runs); under
+        a tensor-parallel mesh the per-device shard is what must fit."""
+        return not self.violations(maxima, mesh)
+
+    def capacity(self, mesh: MeshSpec | None = None) -> MeshCapacity:
+        """What admission can hold on this spec's mesh (or ``mesh``): dp
+        independent pools and slot sets, and each pool's kv-head axis
+        split ``kv_shards`` ways over its tp ranks."""
+        from repro_torch.core.analytical import kv_bytes_per_token
+        mesh = self.mesh if mesh is None else mesh
+        mem = self.memory
+        per_replica_tokens = (
+            mem.resolved_num_blocks * mem.block_size
+            if mem.cache_layout == "paged" else mem.max_batch * mem.max_len)
+        replica_bytes = int(per_replica_tokens * kv_bytes_per_token(
+            self.arch, kv_dtype=mem.kv_dtype))
+        shards = mesh.kv_shards(self.arch)
+        return MeshCapacity(
+            n_devices=mesh.n_devices,
+            max_concurrent=mesh.dp * mem.max_batch,
+            pool_tokens=mesh.dp * per_replica_tokens,
+            kv_shards=shards,
+            cache_bytes_per_replica=replica_bytes,
+            per_device_cache_bytes=replica_bytes // shards)
 
     @staticmethod
     def tuned(arch: ArchConfig, device_profile=None, workload=None,
@@ -579,28 +716,39 @@ class RuntimeSpec:
                     **kw).spec
 
 
+def _shard(dim: int, tp: int) -> int:
+    """A tensor-parallel rank's share of a dimension: ``dim / tp`` where
+    ``tp`` divides it, else all of it (the divisibility fallback)."""
+    return dim // tp if tp > 1 and dim % tp == 0 else dim
+
+
 def maxima_for(*archs: ArchConfig, seq_max: int,
-               layers_dec_max: int | None = None) -> Maxima:
+               layers_dec_max: int | None = None,
+               mesh: MeshSpec | None = None) -> Maxima:
     """The smallest fabric covering every arch: elementwise maxima, the
     'synthesis planning' step of multi-topology serving and of the
-    register-driven engine (the reference's, without its mesh sharding,
-    which waits for ROADMAP.md Queue 1 item 13).  An enc-dec arch
-    contributes ``encdec.num_encoder_layers`` encoder and ``num_layers``
-    decoder layers; ``layers_dec_max`` overrides the decoder depth."""
+    register-driven engine.  An enc-dec arch contributes
+    ``encdec.num_encoder_layers`` encoder and ``num_layers`` decoder
+    layers; ``layers_dec_max`` overrides the decoder depth.  With
+    ``mesh.tp > 1`` the fabric is the per-device one: each arch
+    contributes its tp shard of heads, d_ff and the vocabulary (whole
+    where tp does not divide them), the check ``fits_within(maxima,
+    mesh)`` makes."""
     if not archs:
         raise ValueError("maxima_for needs at least one ArchConfig")
+    tp = mesh.tp if mesh is not None else 1
     enc = [a.encdec.num_encoder_layers if a.encdec else a.num_layers
            for a in archs]
     dec = [a.num_layers if a.encdec else 0 for a in archs]
     return Maxima(
         seq_max=seq_max,
-        heads_max=max(a.num_heads for a in archs),
+        heads_max=max(_shard(a.num_heads, tp) for a in archs),
         layers_enc_max=max(enc),
         layers_dec_max=(layers_dec_max if layers_dec_max is not None
                         else max(dec)),
         d_model_max=max(a.d_model for a in archs),
-        d_ff_max=max(a.d_ff for a in archs),
-        out_max=max(a.vocab_size for a in archs),
+        d_ff_max=max(_shard(a.d_ff, tp) for a in archs),
+        out_max=max(_shard(a.vocab_size, tp) for a in archs),
         head_dim_max=max(a.resolved_head_dim for a in archs),
-        vocab=max(a.vocab_size for a in archs),
+        vocab=max(_shard(a.vocab_size, tp) for a in archs),
     )

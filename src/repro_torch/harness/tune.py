@@ -18,10 +18,12 @@ the model's ranking of four forwards matches their measured times).
 Phase 19c replays a trace on the tuned spec's engine and on
 ``naive_default``'s.
 
-The grid is the reference's.  One card: ``DeviceProfile`` refuses more
-than one device and an interconnect rate (ROADMAP.md Queue 1 item 13),
-the port has no ``MeshSpec``, so every candidate carries ``mesh=None``
-and ``Candidate.summary()`` reports tp = dp = 1.
+The grid is the reference's, meshes included: ``DeviceProfile(n_devices=
+n)`` enumerates every (tp, dp) divisor pair of ``n`` (``meshes()``), each
+replica's geometry sized on its share of the budget, a tensor-parallel
+replica's steps priced with ``analytical_step_seconds``' all-reduce term
+at ``gpu.link_bw`` (NVLink's rate; ``interconnect_gbps`` overrides it),
+and a replica set scored by the requests its ``dp`` replicas hold.
 
 Like the reference, the tuner drops silently every candidate its
 ``RuntimeSpec`` rejects.  The port's spec rejects a few configurations
@@ -35,7 +37,9 @@ reference ranks them:
   Queue 3);
 * ``maxima`` (a fleet) with an MLA arch or an arch of another family
   than the dense one (the reference's fabric refuses these in its engine,
-  the port's spec at construction).
+  the port's spec at construction);
+* a mesh with ``tp > 1`` on an MoE arch (experts on the tp axis:
+  ROADMAP.md Queue 1 item 13b).
 
 Where that leaves no candidate, ``tune`` raises as the reference does on
 an empty grid.
@@ -49,6 +53,7 @@ Front doors::
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
@@ -56,8 +61,8 @@ from repro_torch.core.analytical import (H100, GPUSpec,
                                          analytical_step_seconds,
                                          kv_bytes_per_token, weight_bytes)
 from repro_torch.core.spec import (CHUNKABLE_FAMILIES, ExecutionSpec,
-                                   MemorySpec, RuntimeSpec, SchedulerSpec,
-                                   SpeculationSpec)
+                                   MemorySpec, MeshSpec, RuntimeSpec,
+                                   SchedulerSpec, SpeculationSpec)
 
 # Enumerated knob grids.  Small on purpose: the analytical model makes
 # each point ~free, but the run that *verifies* the winner is not.
@@ -86,10 +91,11 @@ class DeviceProfile:
     HBM left after weights.
 
     ``gpu`` is the card's figures (``H100``, or ``GPUSpec.from_card()``
-    for the present card's memory).  The reference's mesh surface
-    (``n_chips``, ``n_devices``, ``interconnect_gbps``) is kept at one
-    card: more than one, or an interconnect rate, is refused until the
-    mesh is ported (ROADMAP.md Queue 1 item 13)."""
+    for the present card's memory).  ``n_devices`` is the mesh surface:
+    the tuner ranks every ``(tp, dp)`` divisor pair of it (``n_chips``
+    keeps its meaning of cards per replica for the one-device ranking).
+    ``interconnect_gbps`` overrides ``gpu.link_bw`` for the TP all-reduce
+    term."""
 
     gpu: GPUSpec = H100
     n_chips: int = 1
@@ -98,20 +104,24 @@ class DeviceProfile:
     n_devices: int = 1
     interconnect_gbps: float | None = None
 
-    def __post_init__(self) -> None:
-        if self.n_chips != 1 or self.n_devices != 1 \
-                or self.interconnect_gbps is not None:
-            raise ValueError(
-                f"DeviceProfile(n_chips={self.n_chips}, n_devices="
-                f"{self.n_devices}, interconnect_gbps="
-                f"{self.interconnect_gbps}): the tuner ranks one card; a "
-                "mesh is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-                "item 13)")
+    @property
+    def effective_gpu(self) -> GPUSpec:
+        if self.interconnect_gbps is None:
+            return self.gpu
+        return dataclasses.replace(self.gpu,
+                                   link_bw=self.interconnect_gbps * 1e9)
+
+    def meshes(self) -> tuple[MeshSpec, ...]:
+        """Every (tp, dp) divisor pair of ``n_devices``, tp ascending."""
+        return tuple(MeshSpec(tp=tp, dp=self.n_devices // tp)
+                     for tp in range(1, self.n_devices + 1)
+                     if self.n_devices % tp == 0)
 
     def budget(self, arch: ArchConfig, dtype_bytes: int = 2) -> int:
         if self.cache_budget_bytes is not None:
             return self.cache_budget_bytes
-        free = self.gpu.hbm_bytes - weight_bytes(arch, dtype_bytes)
+        free = max(self.n_chips, self.n_devices) * self.gpu.hbm_bytes \
+            - weight_bytes(arch, dtype_bytes)
         return max(int(self.cache_fraction * free), 0)
 
 
@@ -168,9 +178,8 @@ class Candidate:
     max_batch: int
 
     def summary(self) -> dict:
-        """The reference's summary; one card: tp = dp = 1."""
         m, s = self.spec.memory, self.spec.scheduler
-        return {"tp": 1, "dp": 1,
+        return {"tp": self.spec.mesh.tp, "dp": self.spec.mesh.dp,
                 "cache_layout": m.cache_layout, "max_batch": m.max_batch,
                 "block_size": m.block_size if m.cache_layout == "paged" else None,
                 "num_blocks": m.resolved_num_blocks if m.cache_layout == "paged" else None,
@@ -232,7 +241,10 @@ def _predict(arch: ArchConfig, cand: RuntimeSpec, device: DeviceProfile,
     prompts in fewer steps but each step costs more; prefix caching
     shrinks the prompt work) — which is all a *ranking* objective needs.
     """
-    gpu, tp, chips = device.gpu, 1, device.n_chips
+    gpu, tp = device.effective_gpu, cand.mesh.tp
+    # one TP replica spans tp cards; n_chips keeps its meaning of cards
+    # per replica for the one-device ranking
+    chips = tp if tp > 1 else device.n_chips
     B = cand.memory.max_batch
     eff_prompt = workload.effective_prompt_len if cand.memory.prefix_cache \
         else workload.mean_prompt_len
@@ -289,20 +301,23 @@ def score(spec: RuntimeSpec, device: DeviceProfile,
           workload: WorkloadProfile) -> Candidate:
     """One spec scored as ``tune`` scores its candidates: the queueing
     sketch's predictions (``_predict``) and requests per predicted second
-    (a spec ``tune`` did not propose too, such as ``naive_default``'s)."""
+    (a spec ``tune`` did not propose too, such as ``naive_default``'s).
+    The ``dp`` replicas drain ``dp`` queues at once: the replica set's
+    throughput and cache scale with it, a request's latency does not."""
     dtype_bytes = 1 if spec.execution.quant == "int8" else 2
     ttft, itl, latency = _predict(spec.arch, spec, device, workload,
                                   dtype_bytes)
-    return Candidate(spec=spec, score=spec.memory.max_batch / latency,
+    dp = spec.mesh.dp
+    return Candidate(spec=spec, score=dp * spec.memory.max_batch / latency,
                      predicted_latency_s=latency, predicted_ttft_s=ttft,
-                     predicted_itl_s=itl, cache_bytes=cache_bytes(spec),
-                     max_batch=spec.memory.max_batch)
+                     predicted_itl_s=itl, cache_bytes=dp * cache_bytes(spec),
+                     max_batch=dp * spec.memory.max_batch)
 
 
 def _candidates(arch: ArchConfig, workload: WorkloadProfile, max_len: int, budget: int,
                 execution: ExecutionSpec, kv_dtypes: tuple[str, ...],
-                maxima, draft: ArchConfig | None = None
-                ) -> list[RuntimeSpec]:
+                maxima, mesh: MeshSpec = MeshSpec(),
+                draft: ArchConfig | None = None) -> list[RuntimeSpec]:
     chunkable = arch.family in CHUNKABLE_FAMILIES
     pageable = arch.family in ("dense", "vlm", "moe")
     live_tokens = workload.effective_prompt_len + workload.mean_new_tokens
@@ -322,7 +337,8 @@ def _candidates(arch: ArchConfig, workload: WorkloadProfile, max_len: int, budge
             try:
                 out.append(RuntimeSpec(arch=arch, maxima=maxima,
                                        execution=execution, memory=memory,
-                                       scheduler=scheduler, speculation=sp))
+                                       scheduler=scheduler, mesh=mesh,
+                                       speculation=sp))
             except ValueError:
                 pass  # geometry the spec itself rejects is not a candidate
 
@@ -410,8 +426,13 @@ def tune(arch: ArchConfig, device: DeviceProfile | None = None,
     kv_dtypes = ("compute", "int8") if (
         allow_int8_kv and arch.family in ("dense", "vlm", "moe")) \
         else ("compute",)
-    cands = _candidates(arch, workload, max_len, budget, execution,
-                        kv_dtypes, maxima, draft=draft)
+    cands: list[RuntimeSpec] = []
+    for mesh in device.meshes():
+        # the whole budget splits evenly across the dp replicas; each
+        # candidate's geometry is one replica's
+        cands += _candidates(arch, workload, max_len, budget // mesh.dp,
+                             execution, kv_dtypes, maxima, mesh=mesh,
+                             draft=draft)
     if not cands:
         raise ValueError(
             f"no feasible configuration for {arch.family!r} arch under a "

@@ -73,6 +73,18 @@ int8`` lets it trade the int8 cache codec for capacity.  It tunes one
 architecture (no ``--fleet``) and no draft (no ``--spec-k``), as the
 reference's ``serve`` does.
 
+Mesh mode (the reference's flags): ``--tp N`` splits one engine's fused
+step over N tensor-parallel ranks (``models/tensor_parallel.py``; the
+plain routes only, ``--kernels xla --attn gather``, on the chunked
+scheduler), ``--dp M`` serves M engine replicas behind one queue
+(``serving.cluster.EngineCluster``; each replica with tp 1 runs the
+flags' kernel route).  The ranks take one device each: the first N x M
+CUDA devices, or with ``--device cpu`` the host repeated.  ``--devices
+K`` runs them on K devices, repeated in order (``--devices 1`` puts every
+rank on the one card; ranks that share a card share its time, so no
+speed is claimed for it).  The report adds the mesh's capacity plan
+(``RuntimeSpec.capacity()``) and each replica's compile counts.
+
 An encoder-family model (the paper's networks, ``--model adaptor-bert``)
 has no decode step: the engine refuses it with the reference's message.
 """
@@ -94,6 +106,16 @@ def main(argv: list[str] | None = None) -> None:
                          "(default: the reduced test config)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks of the fused step (its "
+                         "weights and KV pool split over them)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas behind one admission "
+                         "queue (serving.cluster.EngineCluster)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="run the mesh's tp x dp ranks on this many "
+                         "devices, repeated in order (default: one device "
+                         "per rank; the host repeats)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -160,9 +182,13 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.tuned and args.fleet:
         ap.error("--tuned tunes a single architecture; drop --fleet")
-    if args.tuned and args.spec_k:
-        ap.error("--spec-k drives one hand-specified engine; drop "
-                 "--tuned")
+    if args.spec_k and (args.tuned or args.dp > 1):
+        ap.error("--spec-k drives one hand-specified engine in this "
+                 "driver; drop --tuned/--dp")
+    if args.dp > 1 and args.fleet:
+        ap.error("--dp replicates one architecture; drop --fleet")
+    if args.tp < 1 or args.dp < 1:
+        ap.error("--tp and --dp must be >= 1")
     if args.slo_ttft_steps is not None and args.trace is None:
         ap.error("--slo-ttft-steps applies to a --trace replay")
 
@@ -170,11 +196,13 @@ def main(argv: list[str] | None = None) -> None:
     import torch
 
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core.spec import (ExecutionSpec, MemorySpec,
+    from repro_torch.core.spec import (ExecutionSpec, MemorySpec, MeshSpec,
                                        RuntimeSpec, SchedulerSpec,
                                        SpeculationSpec, maxima_for)
     from repro_torch.kernels.runtime import resolve_device
+    from repro_torch.launch.mesh import dev_devices
     from repro_torch.models.model import Model
+    from repro_torch.serving.cluster import EngineCluster
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.sampling import SamplingParams
 
@@ -253,9 +281,23 @@ def main(argv: list[str] | None = None) -> None:
             scheduler=SchedulerSpec(chunk_size=args.chunk_size),
             speculation=speculation)
     sampling = SamplingParams(temperature=args.temperature, top_k=40)
-    eng = ServingEngine(spec, max_models=len(cfgs), device=device,
-                        sampling=sampling, seed=args.seed,
-                        graphs=False if args.eager else None)
+    graphs = False if args.eager else None
+    mesh = MeshSpec(tp=args.tp, dp=args.dp)
+    if mesh.n_devices > 1:
+        spec = dataclasses.replace(spec, mesh=mesh)
+        on = dev_devices(args.devices or mesh.n_devices,
+                         device="cpu" if device.type == "cpu" else None,
+                         allow_repeat=device.type == "cpu")
+        devs = [on[i % len(on)] for i in range(mesh.n_devices)]
+        if mesh.dp > 1:
+            eng = EngineCluster(spec, devices=devs, sampling=sampling,
+                                seed=args.seed, graphs=graphs)
+        else:
+            eng = ServingEngine(spec, devices=devs, sampling=sampling,
+                                seed=args.seed, graphs=graphs)
+    else:
+        eng = ServingEngine(spec, max_models=len(cfgs), device=device,
+                            sampling=sampling, seed=args.seed, graphs=graphs)
     ex = spec.execution
     model_ids = []
     for i, c in enumerate(cfgs):
@@ -320,7 +362,8 @@ def main(argv: list[str] | None = None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        done = eng.run_to_completion(sync_every=args.sync_every)
+        done = eng.run_to_completion() if mesh.dp > 1 \
+            else eng.run_to_completion(sync_every=args.sync_every)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -328,6 +371,22 @@ def main(argv: list[str] | None = None) -> None:
         print(f"{'+'.join(names)} on {name}: {len(done)} requests, "
               f"{total_new} tokens in {dt:.2f}s ({total_new / dt:,.1f} "
               "tok/s)")
+    if mesh.n_devices > 1:
+        cap = spec.capacity()
+        print(f"mesh: tp={mesh.tp} x dp={mesh.dp} on {cap.n_devices} "
+              f"ranks ({len(set(devs))} distinct devices) — KV pool "
+              f"{cap.kv_shards}-way sharded, "
+              f"{cap.per_device_cache_bytes / 2**20:.2f} MiB cache/rank, "
+              f"up to {cap.max_concurrent} concurrent")
+    if mesh.dp > 1:
+        print("compile accounting per replica:", eng.compilations)
+        gets = sum(s["device_gets"] for s in eng.replica_stats())
+        print(f"host traffic: {gets} bulk transfers over "
+              f"{eng.stats['decode_steps']} cluster rounds")
+        for r in done[:3]:
+            print(f"  req {r.uid}: prompt[:6]={r.prompt[:6]} -> "
+                  f"{r.generated[:10]}...")
+        return
     st = eng.stats
     print(f"host traffic: {st['device_gets']} bulk transfers over "
           f"{st['decode_steps']} fused steps")

@@ -39,6 +39,12 @@ reference has no Pallas kernel there, so neither has the port.  The
 projections go through ``apply_dense`` (the matmul kernels under
 ``"pallas"``) and ``q_norm`` / ``kv_norm`` through ``apply_norm`` (the
 ``rmsnorm`` kernel under ``"pallas"``).
+
+Under tensor parallelism (``models/tensor_parallel.py``) each rank runs
+the GQA decode and chunk steps over its own heads: ``heads`` (a
+``HeadShard``) gives the rank's query and kv head counts, and where the
+kv heads are whole on every rank while the query heads split, the kv
+head of each of its query heads.
 """
 from __future__ import annotations
 
@@ -79,6 +85,23 @@ class KVCache(NamedTuple):
     def layer(self, i: int) -> "KVCache":
         """Layer ``i``'s views ``[pool_blocks, block_size, ...]``."""
         return KVCache(*(None if t is None else t[i] for t in self))
+
+
+class HeadShard(NamedTuple):
+    """One tensor-parallel rank's share of a GQA layer: its query heads,
+    the kv heads it holds, and, where those do not take the query heads
+    in equal groups (every kv head on every rank, the query heads split),
+    the index of each query head's kv head among them ([heads] int64 on
+    the rank's device; None for the plain grouping)."""
+
+    heads: int
+    kv_heads: int
+    kv_map: torch.Tensor | None = None
+
+
+def _heads(cfg: ArchConfig, heads: HeadShard | None) -> HeadShard:
+    return HeadShard(cfg.num_heads, cfg.num_kv_heads) if heads is None \
+        else heads
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -200,9 +223,10 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_qkv(x: torch.Tensor, p, cfg: ArchConfig, positions: torch.Tensor,
-            mm: str):
+            mm: str, heads: HeadShard | None = None):
     b_, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    h, kv, _ = _heads(cfg, heads)
+    hd = cfg.resolved_head_dim
     q = apply_dense(x, p.wq, mm).reshape(b_, s, h, hd)
     k = apply_dense(x, p.wk, mm).reshape(b_, s, kv, hd)
     v = apply_dense(x, p.wv, mm).reshape(b_, s, kv, hd)
@@ -285,13 +309,17 @@ def gqa_prefill(x: torch.Tensor, p, cfg: ArchConfig, positions, *,
 
 
 def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                live: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+                live: torch.Tensor, cfg: ArchConfig,
+                heads: HeadShard | None = None) -> torch.Tensor:
     """Masked attention over a sequence-major [B, S, kv, hd] view."""
     b_, nq = q.shape[:2]
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    o = full_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                       causal=False, kv_len_mask=live)
-    return o.reshape(b_, nq, cfg.num_heads * cfg.resolved_head_dim)
+    h, kv, kv_map = _heads(cfg, heads)
+    if kv_map is None:
+        k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
+    else:
+        k, v = k.index_select(2, kv_map), v.index_select(2, kv_map)
+    o = full_attention(q, k, v, causal=False, kv_len_mask=live)
+    return o.reshape(b_, nq, h * cfg.resolved_head_dim)
 
 
 def paged_write_slot(idx: torch.Tensor, block_tables: torch.Tensor,
@@ -323,24 +351,25 @@ def _write(cache: KVCache, codec: CacheCodec, where: tuple,
 
 
 def _gather_attend(q, cache: KVCache, codec: CacheCodec, block_tables,
-                   live, cfg: ArchConfig) -> torch.Tensor:
+                   live, cfg: ArchConfig,
+                   heads: HeadShard | None = None) -> torch.Tensor:
     return _gqa_attend(
         q, gather_view(codec, cache.k, cache.k_scale, block_tables, q.dtype),
         gather_view(codec, cache.v, cache.v_scale, block_tables, q.dtype),
-        live, cfg)
+        live, cfg, heads)
 
 
 def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                      idx: torch.Tensor, block_tables: torch.Tensor, *,
-                     impl: str, mm: str,
-                     codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+                     impl: str, mm: str, codec: CacheCodec = FLOAT_CODEC,
+                     heads: HeadShard | None = None) -> torch.Tensor:
     """One-token decode against one layer's pool ``cache``: write the new
     K/V rows into it in place, attend over the slot's blocks.  ``idx`` [B]
     is each slot's write position; ``impl`` is "gather" or "pallas" (the
     hand-written kernel)."""
     b_ = x.shape[0]
     bs = cache.k.shape[1]
-    q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm)
+    q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm, heads)
     _write(cache, codec, paged_write_slot(idx, block_tables, bs),
            k_new[:, 0], v_new[:, 0])
     t_max = block_tables.shape[1] * bs
@@ -353,7 +382,7 @@ def gqa_decode_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
         o = o.reshape(b_, 1, -1)
     elif impl == "gather":
         live = torch.arange(t_max, device=x.device)[None, :] <= idx[:, None]
-        o = _gather_attend(q, cache, codec, block_tables, live, cfg)
+        o = _gather_attend(q, cache, codec, block_tables, live, cfg, heads)
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
     return apply_dense(o, p.wo, mm)
@@ -381,14 +410,15 @@ def _dense_view(t: torch.Tensor, scale: torch.Tensor | None,
 def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                idx: torch.Tensor, *, mm: str,
                codec: CacheCodec = FLOAT_CODEC,
-               window: int | None = None) -> torch.Tensor:
+               window: int | None = None,
+               heads: HeadShard | None = None) -> torch.Tensor:
     """One-token decode against one layer's dense cache ``[B, max_len + 1,
     kv, hd]``: write the new K/V rows at ``idx`` [B] (the spare row from
     ``max_len`` on) in place, attend over positions ``<= idx``.  With a
     ``window`` the cache is the rolling buffer ``[B, w, kv, hd]``: the new
     row goes to ``idx % w``, and a row is live where it is at most that
     slot or the buffer has wrapped (``idx >= w``)."""
-    q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm)
+    q, k_new, v_new = gqa_qkv(x, p, cfg, idx[:, None], mm, heads)
     if window is not None:
         w = cache.k.shape[1]
         slot = (idx % w).long()
@@ -396,7 +426,7 @@ def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                               slot), k_new[:, 0], v_new[:, 0])
         live = (torch.arange(w, device=x.device)[None, :] <= slot[:, None]) \
             | (idx[:, None] >= w)
-        o = _gqa_attend(q, cache.k, cache.v, live, cfg)
+        o = _gqa_attend(q, cache.k, cache.v, live, cfg, heads)
         return apply_dense(o, p.wo, mm)
     s_max = cache.k.shape[1] - 1
     every = torch.ones_like(idx, dtype=torch.bool)
@@ -406,13 +436,14 @@ def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     o = _gqa_attend(q, _dense_view(cache.k, cache.k_scale, codec, s_max,
                                    x.dtype),
                     _dense_view(cache.v, cache.v_scale, codec, s_max,
-                                x.dtype), live, cfg)
+                                x.dtype), live, cfg, heads)
     return apply_dense(o, p.wo, mm)
 
 
 def gqa_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
               start: torch.Tensor, n_live: torch.Tensor, *,
-              mm: str, codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+              mm: str, codec: CacheCodec = FLOAT_CODEC,
+              heads: HeadShard | None = None) -> torch.Tensor:
     """W-lane chunk/decode attention against one layer's dense cache
     ``[B, max_len + 1, kv, hd]`` (``Model.init_cache`` without paging, or a
     draft's ``init_dense_cache``): lane ``l`` of slot ``b`` sits at
@@ -425,7 +456,7 @@ def gqa_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     b_, w, _ = x.shape
     positions = start[:, None] + torch.arange(w, device=x.device,
                                               dtype=start.dtype)[None, :]
-    q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm)
+    q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm, heads)
     s_max = cache.k.shape[1] - 1
     _write(cache, codec, dense_write_slot(
         positions, masking.lane_mask(w, n_live), s_max), k_new, v_new)
@@ -433,14 +464,15 @@ def gqa_mixed(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     o = _gqa_attend(q, _dense_view(cache.k, cache.k_scale, codec, s_max,
                                    x.dtype),
                     _dense_view(cache.v, cache.v_scale, codec, s_max,
-                                x.dtype), live, cfg)
+                                x.dtype), live, cfg, heads)
     return apply_dense(o, p.wo, mm)
 
 
 def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
                     start: torch.Tensor, n_live: torch.Tensor,
                     block_tables: torch.Tensor, *, impl: str, mm: str,
-                    codec: CacheCodec = FLOAT_CODEC) -> torch.Tensor:
+                    codec: CacheCodec = FLOAT_CODEC,
+                    heads: HeadShard | None = None) -> torch.Tensor:
     """W-lane chunk/decode attention against one layer's pool ``cache``:
     lane ``l`` of slot ``b`` sits at position ``start[b] + l``; only its
     first ``n_live[b]`` lanes are real.  The chunk's K/V are written before
@@ -449,7 +481,7 @@ def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
     bs = cache.k.shape[1]
     positions = start[:, None] + torch.arange(w, device=x.device,
                                               dtype=start.dtype)[None, :]
-    q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm)
+    q, k_new, v_new = gqa_qkv(x, p, cfg, positions, mm, heads)
     t_max = block_tables.shape[1] * bs
     idx_w = torch.where(masking.lane_mask(w, n_live), positions, t_max)
     _write(cache, codec, paged_write_slot(idx_w, block_tables, bs),
@@ -462,7 +494,7 @@ def gqa_mixed_paged(x: torch.Tensor, p, cfg: ArchConfig, cache: KVCache,
         o = o.reshape(b_, w, -1)
     elif impl == "gather":
         live = masking.chunk_causal_mask(t_max, start, w)
-        o = _gather_attend(q, cache, codec, block_tables, live, cfg)
+        o = _gather_attend(q, cache, codec, block_tables, live, cfg, heads)
     else:
         raise ValueError(f"unknown paged_attn_impl {impl!r}")
     return apply_dense(o, p.wo, mm)

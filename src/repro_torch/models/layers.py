@@ -66,17 +66,20 @@ def dense(x: torch.Tensor, w: torch.Tensor | QTensor,
     return y
 
 
-def apply_dense(x: torch.Tensor, p, mm: str) -> torch.Tensor:
+def apply_dense(x: torch.Tensor, p, mm: str,
+                bias: bool = True) -> torch.Tensor:
     """A ``Dense`` projection in x's dtype.  The reference casts the float32
     kernel to x's dtype on every call; the port stores it in the compute
     dtype once at load (the same numbers) and casts again only where x is
-    in another dtype.  An int8 kernel is passed on with its scales."""
+    in another dtype.  An int8 kernel is passed on with its scales.
+    ``bias=False`` leaves the bias out (a row-parallel rank's partial
+    product, whose sum takes the bias once)."""
     k = p.kernel
     if k.dtype == torch.int8:
         k = QTensor(k, p.kernel_scale)
     elif k.dtype != x.dtype:
         k = k.to(x.dtype)
-    return dense(x, k, p.bias, mm)
+    return dense(x, k, p.bias if bias else None, mm)
 
 
 def rope_frequencies(head_dim: int, theta: float,

@@ -177,18 +177,26 @@ def _weight(module: nn.Module, leaf: str) -> torch.Tensor | QTensor:
 
 
 class Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device):
+    """``kernel`` [d_in, d_out] and its optional ``bias``; ``axes`` are the
+    kernel's logical axis names (the reference's ``build_dense``), the
+    bias taking the output's."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, dtype, device,
+                 axes: tuple):
         super().__init__()
         self.kernel = _frozen((d_in, d_out), dtype, device)
         self.bias = _frozen((d_out,), dtype, device) if bias else None
+        self.axes = {"kernel": axes, "bias": axes[1:]}
 
 
 class Norm(nn.Module):
-    def __init__(self, d: int, kind: str, dtype, device):
+    def __init__(self, d: int, kind: str, dtype, device,
+                 axis: str = "embed"):
         super().__init__()
         self.scale = _frozen((d,), dtype, device)
         self.bias = _frozen((d,), dtype, device) if kind == "layernorm" \
             else None
+        self.axes = {"scale": (axis,), "bias": (axis,)}
 
 
 class Attention(nn.Module):
@@ -196,10 +204,13 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim
-        self.wq = Dense(d, h * hd, cfg.qkv_bias, dtype, device)
-        self.wk = Dense(d, kv * hd, cfg.qkv_bias, dtype, device)
-        self.wv = Dense(d, kv * hd, cfg.qkv_bias, dtype, device)
-        self.wo = Dense(h * hd, d, False, dtype, device)
+        self.wq = Dense(d, h * hd, cfg.qkv_bias, dtype, device,
+                        ("embed", "heads"))
+        self.wk = Dense(d, kv * hd, cfg.qkv_bias, dtype, device,
+                        ("embed", "kv_heads"))
+        self.wv = Dense(d, kv * hd, cfg.qkv_bias, dtype, device,
+                        ("embed", "kv_heads"))
+        self.wo = Dense(h * hd, d, False, dtype, device, ("heads", "embed"))
 
 
 class MLAttention(nn.Module):
@@ -211,18 +222,22 @@ class MLAttention(nn.Module):
     def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
         super().__init__()
         m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
-        self.q_down = Dense(d, m.q_lora_rank, False, dtype, device)
-        self.q_norm = Norm(m.q_lora_rank, "rmsnorm", param_dtype, device)
+        self.q_down = Dense(d, m.q_lora_rank, False, dtype, device,
+                            ("embed", "q_lora"))
+        self.q_norm = Norm(m.q_lora_rank, "rmsnorm", param_dtype, device,
+                           "q_lora")
         self.q_up = Dense(m.q_lora_rank, h * m.qk_head_dim, False, dtype,
-                          device)
+                          device, ("q_lora", "heads"))
         self.kv_down = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, False,
-                             dtype, device)
-        self.kv_norm = Norm(m.kv_lora_rank, "rmsnorm", param_dtype, device)
+                             dtype, device, ("embed", "kv_lora"))
+        self.kv_norm = Norm(m.kv_lora_rank, "rmsnorm", param_dtype, device,
+                            "kv_lora")
         self.k_up = Dense(m.kv_lora_rank, h * m.qk_nope_head_dim, False,
-                          param_dtype, device)
+                          param_dtype, device, ("kv_lora", "heads"))
         self.v_up = Dense(m.kv_lora_rank, h * m.v_head_dim, False, dtype,
-                          device)
-        self.wo = Dense(h * m.v_head_dim, d, False, dtype, device)
+                          device, ("kv_lora", "heads"))
+        self.wo = Dense(h * m.v_head_dim, d, False, dtype, device,
+                        ("heads", "embed"))
 
 
 class RGLRU(nn.Module):
@@ -237,8 +252,8 @@ class RGLRU(nn.Module):
         super().__init__()
         d, w = cfg.d_model, rglru.width(cfg)
         nh = max(cfg.num_heads, 1)
-        self.in_x = Dense(d, w, False, dtype, device)
-        self.in_gate = Dense(d, w, False, dtype, device)
+        self.in_x = Dense(d, w, False, dtype, device, ("embed", "lru"))
+        self.in_gate = Dense(d, w, False, dtype, device, ("embed", "lru"))
         self.conv_w = _frozen((rglru.CONV_K, w), dtype, device)
         self.conv_b = _frozen((w,), dtype, device)
         self.gate_in_w = _frozen((nh, w // nh, w // nh), dtype, device)
@@ -246,7 +261,12 @@ class RGLRU(nn.Module):
         self.gate_a_w = _frozen((nh, w // nh, w // nh), dtype, device)
         self.gate_a_b = _frozen((w,), dtype, device)
         self.a_param = _frozen((w,), param_dtype, device)
-        self.out = Dense(w, d, False, dtype, device)
+        self.out = Dense(w, d, False, dtype, device, ("lru", "embed"))
+        gate = ("heads", None, "lru")
+        self.axes = {"conv_w": (None, "lru"), "conv_b": ("lru",),
+                     "gate_in_w": gate, "gate_in_b": ("lru",),
+                     "gate_a_w": gate, "gate_a_b": ("lru",),
+                     "a_param": ("lru",)}
 
 
 class SSM(nn.Module):
@@ -260,14 +280,20 @@ class SSM(nn.Module):
         super().__init__()
         d = cfg.d_model
         d_inner, dt_rank, n = ssm.dims(cfg)
-        self.in_proj = Dense(d, 2 * d_inner, False, dtype, device)
+        self.in_proj = Dense(d, 2 * d_inner, False, dtype, device,
+                             ("embed", "dinner"))
         self.conv_w = _frozen((cfg.ssm.conv_kernel, d_inner), dtype, device)
         self.conv_b = _frozen((d_inner,), dtype, device)
-        self.x_proj = Dense(d_inner, dt_rank + 2 * n, False, dtype, device)
-        self.dt_proj = Dense(dt_rank, d_inner, True, dtype, device)
+        self.x_proj = Dense(d_inner, dt_rank + 2 * n, False, dtype, device,
+                            ("dinner", None))
+        self.dt_proj = Dense(dt_rank, d_inner, True, dtype, device,
+                             (None, "dinner"))
         self.a_log = _frozen((d_inner, n), param_dtype, device)
         self.d_skip = _frozen((d_inner,), param_dtype, device)
-        self.out_proj = Dense(d_inner, d, False, dtype, device)
+        self.out_proj = Dense(d_inner, d, False, dtype, device,
+                              ("dinner", "embed"))
+        self.axes = {"conv_w": (None, "dinner"), "conv_b": ("dinner",),
+                     "a_log": ("dinner", "state"), "d_skip": ("dinner",)}
 
 
 class SSMBlock(nn.Module):
@@ -322,10 +348,13 @@ class FFN(nn.Module):
     def __init__(self, cfg: ArchConfig, d_ff: int, bias: bool, dtype,
                  device):
         super().__init__()
-        self.w1 = Dense(cfg.d_model, d_ff, bias, dtype, device)
-        self.wg = Dense(cfg.d_model, d_ff, bias, dtype, device) \
+        self.w1 = Dense(cfg.d_model, d_ff, bias, dtype, device,
+                        ("embed", "ffn"))
+        self.wg = Dense(cfg.d_model, d_ff, bias, dtype, device,
+                        ("embed", "ffn")) \
             if layers.is_gated(cfg.activation) else None
-        self.w2 = Dense(d_ff, cfg.d_model, bias, dtype, device)
+        self.w2 = Dense(d_ff, cfg.d_model, bias, dtype, device,
+                        ("ffn", "embed"))
 
 
 class MoE(nn.Module):
@@ -345,6 +374,10 @@ class MoE(nn.Module):
         self.shared = FFN(cfg, m.num_shared_experts * m.shared_expert_d_ff,
                           False, dtype, device) \
             if m.num_shared_experts else None
+        self.axes = {"router": ("embed", "experts"),
+                     "w1": ("experts", "embed", "ffn"),
+                     "wg": ("experts", "embed", "ffn"),
+                     "w2": ("experts", "ffn", "embed")}
 
 
 class Block(nn.Module):
@@ -378,9 +411,11 @@ class Block(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, vocab: int, d: int, dtype, device):
+    def __init__(self, vocab: int, d: int, dtype, device,
+                 axes: tuple = ("vocab", "embed")):
         super().__init__()
         self.table = _frozen((vocab, d), dtype, device)
+        self.axes = {"table": axes}
 
 
 class MTP(nn.Module):
@@ -393,7 +428,7 @@ class MTP(nn.Module):
     def __init__(self, cfg: ArchConfig, param_dtype, dtype, device):
         super().__init__()
         d = cfg.d_model
-        self.proj = Dense(2 * d, d, False, dtype, device)
+        self.proj = Dense(2 * d, d, False, dtype, device, ("embed", "embed"))
         self.norm_h = Norm(d, cfg.norm, param_dtype, device)
         self.norm_e = Norm(d, cfg.norm, param_dtype, device)
         self.layer = Block(cfg, param_dtype, dtype, device, moe_block=True)
@@ -470,7 +505,7 @@ class Model(nn.Module):
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, param_dtype, dev)
         # learned positions: the decoder's table (and an encoder's below)
         self.pos_embed = Embedding(cfg.max_position_embeddings, cfg.d_model,
-                                   param_dtype, dev) \
+                                   param_dtype, dev, ("pos", "embed")) \
             if cfg.positional == "learned" else None
         # an MoE model: the dense prefix, then the MoE blocks
         k = cfg.moe.first_k_dense if cfg.moe is not None else 0
@@ -505,7 +540,8 @@ class Model(nn.Module):
             self.enc_final_norm = Norm(cfg.d_model, cfg.norm, param_dtype,
                                        dev)
             self.enc_pos_embed = Embedding(cfg.encdec.encoder_seq_len,
-                                           cfg.d_model, param_dtype, dev)
+                                           cfg.d_model, param_dtype, dev,
+                                           ("pos", "embed"))
         # the untied unembedding [vocab, d_model] (the reference's
         # ``params["lm_head"]["table"]``); tied models unembed with the
         # embedding table
@@ -527,6 +563,18 @@ class Model(nn.Module):
                 if leaf is not None:
                     _to_int8(self.get_submodule(name.rpartition(".")[0]),
                              leaf)
+
+    def axes(self) -> dict[str, tuple]:
+        """The logical axis names of every parameter leaf, by its name in
+        the state dict (the reference's ``ParamBuilder`` "axes" mode under
+        the port's names: one module per layer, so no leading "layers"
+        axis).  ``distributed.sharding.resolve_spec`` maps them to a mesh;
+        an int8 leaf's scale takes ``serve_quant.scale_axes``."""
+        out = {}
+        for name, _ in self.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            out[name] = self.get_submodule(owner).axes[leaf]
+        return out
 
     def _stacked_layers(self) -> int:
         """What the int8 size rule multiplies a ``layers.<i>.`` leaf by:

@@ -114,6 +114,18 @@ model does: the draft (one ``Model`` at the maxima's vocab) proposes for
 every slot and the fabric's ``mixed_step`` verifies, so a proposal
 outside a small member's vocab meets a NEG_INF logit and is rejected.
 
+Tensor parallelism (``spec.mesh.tp > 1``, the reference's mesh inside one
+engine): ``devices=`` lists one torch device per rank, and ranks may share
+a device (the one card runs tp = 2 so, and the host tests run ``["cpu"] *
+2``); without it the engine takes the first ``tp`` CUDA devices, never the
+host, and raises where there are fewer.  The model is then
+``models.tensor_parallel.TPModel``: one process drives every rank, the
+fused programs stay one capture each (on one shared card, one CUDA graph
+over all ranks), and the slot state, the block tables and the host's
+staging live on the first rank's device.  Ranks on distinct devices run
+eagerly.  Data parallelism (``mesh.dp > 1``) is ``serving.cluster``'s
+``EngineCluster``: one engine is one replica.
+
 ``ServingEngine(spec, device=None)`` runs on the CUDA device and raises
 without one; pass ``device="cpu"`` for the host.  ``seed`` seeds the
 per-request generators of stochastic sampling (a request's stream is a
@@ -136,6 +148,7 @@ from repro_torch.core.spec import RuntimeSpec
 from repro_torch.kernels.counts import launch_counts
 from repro_torch.kernels.runtime import HostStage, resolve_device
 from repro_torch.models.model import Model
+from repro_torch.models.tensor_parallel import TPModel
 from repro_torch.serving.events import EngineEvent, EventBus
 from repro_torch.serving.fabric import N_REGS, DecodeFabric, tree_leaves
 from repro_torch.serving.events import now as _now
@@ -250,11 +263,43 @@ class SlotState:
                    spec_steps=z(batch))
 
 
+def rank_devices(tp: int, devices=None, device=None) -> list[torch.device]:
+    """The device of each of ``tp`` ranks: ``devices`` (one per rank,
+    repeats allowed), else ``device`` for one rank, else the first ``tp``
+    CUDA devices (never the host; fewer raise)."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device= (one rank) or devices= (one per "
+                             "rank), not both")
+        devs = [torch.device(d) for d in devices]
+        if len(devs) < tp:
+            raise ValueError(
+                f"mesh.tp={tp} needs {tp} devices but only {len(devs)} "
+                "were given; pass devices= with one device per rank "
+                "(launch.mesh.dev_devices repeats one card)")
+        return devs[:tp]
+    if tp == 1:
+        return [resolve_device(device)]
+    if device is not None:
+        raise ValueError(
+            f"mesh.tp={tp} runs one rank per device: pass devices= (e.g. "
+            f"['cpu'] * {tp} on the host, or launch.mesh.dev_devices({tp}, "
+            f"allow_repeat=True) on one card), not device={device!r}")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < tp:
+        raise ValueError(
+            f"mesh.tp={tp} needs {tp} devices but only {n} are visible; "
+            "pass devices= with one device per rank "
+            f"(launch.mesh.dev_devices({tp}, allow_repeat=True) repeats "
+            "one card)")
+    return [torch.device("cuda", i) for i in range(tp)]
+
+
 class ServingEngine:
     _STEPS = ("mixed", "decode")        # the fused programs
 
     def __init__(self, spec: RuntimeSpec, *, maxima=None,
-                 max_models: int = 4, device=None,
+                 max_models: int = 4, device=None, devices=None,
                  sampling: SamplingParams = SamplingParams(), seed: int = 0,
                  graphs: bool | None = None):
         if not isinstance(spec, RuntimeSpec):
@@ -264,13 +309,25 @@ class ServingEngine:
             spec = dataclasses.replace(spec, maxima=maxima)
         if spec.arch.family == "encoder":
             raise ValueError("encoder-only archs have no decode step")
-        self.device = resolve_device(device)
+        if spec.mesh.dp > 1:
+            raise ValueError(
+                f"spec.mesh.dp={spec.mesh.dp}: data parallelism is replica-"
+                "level — construct serving.cluster.EngineCluster(spec) (one "
+                "ServingEngine is a single replica; EngineCluster passes "
+                "each replica its device slice via devices=)")
+        self.devices = rank_devices(spec.mesh.tp, devices, device)
+        self.device = self.devices[0]
+        one_device = len(set(self.devices)) == 1
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and one_device
         if graphs and self.device.type != "cuda":
             raise ValueError(
                 f"graphs=True needs a CUDA device (got {self.device}); the "
                 "fused steps run eagerly on the host")
+        if graphs and not one_device:
+            raise ValueError(
+                f"graphs=True captures one device's work; the ranks sit on "
+                f"{self.devices} (pass graphs=False)")
         self.graphs = graphs
         self.spec = spec
         self.cfg: ArchConfig = spec.arch
@@ -279,6 +336,12 @@ class ServingEngine:
         self.sampling = sampling
         self.seed = seed
         self.scheduler = spec.resolved_policy     # "chunked" | "bucketed"
+        if spec.mesh.tp > 1 and self.scheduler != "chunked":
+            raise ValueError(
+                "mesh.tp > 1 requires the chunked scheduler, but policy "
+                "'auto' resolved to 'bucketed' for this spec (the "
+                "bucketed path stages B=1 prefill caches off-mesh); fix "
+                "the chunk geometry so chunked is satisfiable")
         self.buckets = _buckets(self.max_len)
         self.chunk_size = min(spec.scheduler.chunk_size, self.max_len)
         self.token_budget = spec.scheduler.resolved_token_budget
@@ -304,6 +367,8 @@ class ServingEngine:
             self.fabric.check_member(self.cfg)
             self.fleet: list[ArchConfig | None] = [None] * max_models
             self._fleet_rows: list[list[int] | None] = [None] * max_models
+        elif spec.mesh.tp > 1:
+            self.model = TPModel.from_spec(spec, self.devices)
         else:
             self.model = Model.from_spec(spec, device=self.device)
         # speculation: the draft decodes from its own dense cache inside
@@ -531,6 +596,8 @@ class ServingEngine:
         else:
             vocab = self.cfg.vocab_size
             if not all(0 <= t < vocab for t in prompt):
+                # an out-of-range id would index past the table, or, with
+                # the vocabulary split over tp ranks, match no rank's rows
                 raise ValueError(
                     f"prompt contains token ids outside vocab [0, {vocab})")
         self._uid += 1

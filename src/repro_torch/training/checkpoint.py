@@ -134,7 +134,7 @@ def restore(directory: str, step: int, like: Any,
     device and ``requires_grad``.  ``shardings`` (an elastic restore onto
     another mesh) is refused."""
     if shardings is not None:
-        raise _not_ported("a sharded restore (shardings=...)", "item 13")
+        raise _not_ported("a sharded restore (shardings=...)", "item 16c")
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)

@@ -8,7 +8,7 @@ one process; on a real cluster the inputs come from the coordination
 service and the output plan drives the re-initialization of
 ``torch.distributed`` and a restore onto the new mesh (the port restores
 onto one device only so far: ``training.checkpoint.restore`` refuses
-``shardings``, ROADMAP.md Queue 1 item 13).
+``shardings``, ROADMAP.md Queue 1 item 16c).
 
 Policy:
 * hard failure  -> shrink the data axis to the largest feasible size,

@@ -17,8 +17,9 @@ names: ``init_state`` hands out the model's own parameters, and the
 step binds whatever tensors the state holds (a restored checkpoint's, a
 ``donate=False`` step's) to the model for the loss and its backward, so
 the remat recomputation reads them too.  The sharded step
-(``make_train_step(..., mesh=...)``), ``abstract_state`` and the
-sharding helpers wait for ROADMAP.md Queue 1 items 13 and 17b.
+(``make_train_step(..., mesh=...)``, ROADMAP.md Queue 1 item 16c),
+``abstract_state`` and the sharding helpers (items 16c and 17b) are not
+ported.
 """
 from __future__ import annotations
 
@@ -137,5 +138,5 @@ def make_train_step(model: Model, cfg: TrainStepConfig, mesh=None):
     """The step on one device; a mesh (the reference's sharded step) is
     refused."""
     if mesh is not None:
-        raise _not_ported("the sharded train step (mesh=...)", "item 13")
+        raise _not_ported("the sharded train step (mesh=...)", "item 16c")
     return make_step_fn(model, cfg)

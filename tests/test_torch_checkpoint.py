@@ -9,7 +9,7 @@ CLI of the port, on the CPU.
   leaf of the final state), k steps, a save, a restore into a fresh
   state and 3 more, the data stream restored from the checkpoint's meta.
 * An ``async_write`` save is complete once its writer is joined;
-  ``restore(shardings=...)`` is refused (ROADMAP.md Queue 1 item 13).
+  ``restore(shardings=...)`` is refused (ROADMAP.md Queue 1 item 16c).
 * The reference's three fault-tolerance tests on the port's controller,
   with every plan equal to the reference's on the same inputs.
 * ``python -m repro_torch.launch.train --device cpu`` (reduced) for 6
@@ -144,7 +144,7 @@ def test_async_save_is_complete_after_join(tmp_path):
 
 def test_restore_refuses_shardings_and_checks_shapes(tmp_path):
     ckpt.save(str(tmp_path), 1, {"x": torch.ones(4)})
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(ValueError, match="item 16c"):
         ckpt.restore(str(tmp_path), 1, {"x": torch.ones(4)}, shardings={})
     with pytest.raises(ValueError, match="shape mismatch at x"):
         ckpt.restore(str(tmp_path), 1, {"x": torch.ones(5)})

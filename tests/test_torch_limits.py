@@ -1,7 +1,8 @@
 """What the port refuses, and the ROADMAP item each refusal names.
 
 A fleet (``maxima=``) refuses a member of a family other than the dense
-one with the reference's message and a mesh (item 13), and its engine
+one with the reference's message and tensor parallelism with the
+reference's (item 13 ported the mesh), and its engine
 refuses the matmul kernels as the reference's does; it serves the dense layout and the bucketed scheduler
 (tests/test_torch_bucketed.py), the prefix cache
 (tests/test_torch_prefix.py), its own int8 weight table
@@ -18,8 +19,8 @@ import dataclasses
 import pytest
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
-                                   SchedulerSpec, maxima_for)
+from repro_torch.core.spec import (ExecutionSpec, MemorySpec, MeshSpec,
+                                   RuntimeSpec, SchedulerSpec, maxima_for)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServingEngine
@@ -76,13 +77,17 @@ def test_flash_grid_refuses_what_it_cannot_hold(B, H, Sq, hd):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mesh=object()), "ROADMAP.md Queue 1 item 13"),
+    # the case keeps the id it had while the mesh was refused (item 13)
+    pytest.param(dict(mesh=MeshSpec(tp=2)),
+                 "mesh.tp > 1 is not supported in multi-topology",
+                 id="change0-ROADMAP.md Queue 1 item 13"),
     (dict(arch=reduced(get_config("whisper-medium"))),
      "family 'audio' needs its own engine"),
 ])
 def test_fleet_refusals_name_their_items(change, match):
-    """A mesh names its ROADMAP item; an audio member is refused with the
-    reference fabric's message (its ``check_member``)."""
+    """Tensor parallelism is refused with the reference's message (the
+    fabric's weight-table gathers are not sharded); an audio member with
+    the reference fabric's (its ``check_member``)."""
     kw = dict(arch=CFG, maxima=MAXIMA, memory=MemorySpec(**PAGED))
     with pytest.raises(ValueError, match=match):
         RuntimeSpec(**{**kw, **change})

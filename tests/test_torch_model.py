@@ -32,8 +32,8 @@ from repro.models.model import ModelOptions
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.paging import PagingConfig
-from repro_torch.core.spec import (ExecutionSpec, MemorySpec, RuntimeSpec,
-                                   SchedulerSpec)
+from repro_torch.core.spec import (ExecutionSpec, MemorySpec, MeshSpec,
+                                   RuntimeSpec, SchedulerSpec)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import Model
 from test_torch_threads import one_thread  # noqa: F401 (autouse)
@@ -262,12 +262,14 @@ def test_entry_points_need_a_device_choice():
     (dict(arch=dataclasses.replace(CFG, family="audio"),
           memory=MemorySpec(cache_layout="dense")),
      "family 'audio' with no EncDecConfig"),
-    (dict(mesh=object()), "ROADMAP.md Queue 1 item 13"),
+    (dict(arch=reduced(get_config("granite-moe-1b-a400m")),
+          mesh=MeshSpec(tp=2)), "ROADMAP.md Queue 1 item 13"),
     (dict(arch=dataclasses.replace(CFG, family="audio")),
      "family 'audio' with no EncDecConfig"),
 ])
 def test_spec_rejects_what_is_not_ported(kw, match):
-    """A mesh is not ported (item 13); the audio family is (its paged
+    """MoE under tensor parallelism is not ported (item 13b); the audio
+    family is (its paged
     layout refused with the reference's message, tests/test_torch_audio.py),
     and an audio config without its EncDecConfig is refused."""
     base = dict(arch=CFG, memory=MemorySpec(cache_layout="paged"))

@@ -10,9 +10,10 @@ and the winners' specs field for field; except the points the port's
 spec drops (the tune docstring's list), checked as drops.  Also:
 ``RuntimeSpec.tuned == tune(...).spec``, ``naive_default`` at equal
 memory, the int8 KV opt-in, speculation candidates with a draft, the
-fleet's per-token bytes against ``DecodeFabric``, the refusal of more
-than one device naming ROADMAP.md Queue 1 item 13, and ``serve --device
-cpu --tuned`` on reduced qwen1.5-0.5b.
+fleet's per-token bytes against ``DecodeFabric``, the mesh profiles
+(more devices, cards per replica, an interconnect rate) ranked as the
+reference ranks them, and ``serve --device cpu --tuned`` on reduced
+qwen1.5-0.5b.
 """
 import dataclasses
 import importlib
@@ -26,7 +27,8 @@ from repro.core import analytical as ref_an
 from repro.core import spec as ref_spec
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.analytical import H100, GPUSpec
-from repro_torch.core.spec import ExecutionSpec, RuntimeSpec, maxima_for
+from repro_torch.core.spec import (ExecutionSpec, MeshSpec, RuntimeSpec,
+                                   maxima_for)
 from repro_torch.harness import (DeviceProfile, WorkloadProfile,
                                  naive_default, shared_prefix_trace, tune)
 from repro_torch.harness.tune import Candidate, _per_token_bytes, cache_bytes
@@ -101,7 +103,7 @@ def test_tune_ranks_as_the_reference(budget, work):
                          max_len=64)
     _same(mine, want)
     assert _spec_fields(mine.spec) == _spec_fields(want.spec)
-    assert mine.spec.validate() is mine.spec and mine.spec.mesh is None
+    assert mine.spec.validate() is mine.spec and mine.spec.mesh == MeshSpec()
     assert cache_bytes(mine.spec) <= mine_dev.budget(cfg)
     scores = [c.score for c in mine.ranked]
     assert scores == sorted(scores, reverse=True)
@@ -238,8 +240,17 @@ def test_dropped_points_are_the_listed_ones():
 @pytest.mark.parametrize("kw", [dict(n_devices=2), dict(n_chips=4),
                                 dict(interconnect_gbps=25.0)])
 def test_device_profile_refuses_a_mesh(kw):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 13"):
-        DeviceProfile(**kw)
+    """What this profile was refused for until the mesh was ported (item
+    13): more devices, more cards per replica and an interconnect rate
+    now rank as the reference ranks them."""
+    cfg, rcfg = _pair(QWEN)
+    mine_dev, ref_dev = _devices(cache_budget_bytes=1 << 20, **kw)
+    w = WORKLOADS["bursty"]
+    _same(tune(cfg, mine_dev, WorkloadProfile(**w), max_len=64),
+          ref_tune.tune(rcfg, ref_dev, ref_tune.WorkloadProfile(**w),
+                        max_len=64))
+    assert mine_dev.meshes() == tuple(
+        MeshSpec(tp=m.tp, dp=m.dp) for m in ref_dev.meshes())
 
 
 def test_default_profile_is_the_h100():
