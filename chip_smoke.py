@@ -454,6 +454,28 @@ Phases (any failure raises and the script exits non-zero):
    printed with the card's name and power limit; no time is printed for
    the ranks or replicas, which share one card.
 
+23. Distributed training (ROADMAP Queue 1 item 16c; ``check_distributed``),
+   every rank on the one card, f32 with TF32 off.  (a) On 4 ranks: the
+   ring reduce-scatter and all-reduce, ``psum_scatter``, ``all_gather``
+   (a 4 MB gradient a rank and a ragged one) and three chained rounds of
+   the int8 error-feedback all-reduce, each bit for bit the same schedule
+   run on the host; the GPipe pipeline (4 stages, D 1024, 16 microbatches
+   of 8) against the sequential apply, forward within 1e-5 and gradient
+   within 1e-3 (the reference's bounds).  (b) qwen1.5-0.5b at its widths
+   and 4 of its 24 layers on (data 2, model 2): the loss and the
+   assembled gradient of the sharded step against the one-device step
+   (1e-5 relative, 1e-4 x max|g|), two steps' losses (1e-5) and params
+   (the reference's 5e-3; elements past 1e-4 counted), the step's ms
+   beside the one device's and ``train_bound``.  (c) falcon-mamba-7b at
+   its widths and 2 of its 64 layers on (data 2, model 1): the same
+   gradient gates, and one step whose ``ssm_scan`` / ``ssm_scan_bwd``
+   launches are ``program_launches(cfg, "train")`` on every replica (the
+   "train_sharded" path).  (d) (b)'s state saved at (2, 2), restored at
+   (4, 1), one step there against the uninterrupted (2, 2) run.  The
+   phase's seconds and peak memory are printed with the card's name and
+   power limit; ranks that share one card share its time, so no speed
+   is claimed.
+
 The second line from the end is the JSON kernel table, the last line the
 device summary.  Exits non-zero when no CUDA device is visible.
 """
@@ -546,7 +568,12 @@ from repro_torch.data.pipeline import (MemorizationStream,  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig, global_norm  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
-    TrainStepConfig, init_state, loss_and_grads, make_step_fn)
+    TrainStepConfig, init_state, loss_and_grads, make_step_fn,
+    make_train_step)
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed import compression as comp  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.distributed.pipeline import make_pipelined_apply  # noqa: E402
 
 LOGIT_TOL = 2e-2                       # x max|logits|, bf16 reference tolerance
 # relative size of the attention kernels' float32 summation-order error
@@ -739,7 +766,10 @@ PATH_KERNELS = {"float": ("tiled_matmul", "paged_decode_attention",
                 # the dp = 2 cluster's replicas the kernels
                 "mesh_tp": (),
                 "mesh_dp": ("tiled_matmul", "paged_decode_attention",
-                            "chunked_prefill_attention", "rmsnorm")}
+                            "chunked_prefill_attention", "rmsnorm"),
+                # phase 23: the sharded train step of falcon-mamba-7b on
+                # (data 2, model 1), each replica's scans on the card
+                "train_sharded": ("ssm_scan", "ssm_scan_bwd")}
 PREFIX_STATS = ("prefix_hits", "prefix_hit_tokens", "cow_forks",
                 "prefix_evictions")
 SOURCES = {
@@ -3207,12 +3237,12 @@ def check_prefix_fleet(members) -> None:
 # ---------------------------------------------------------------------------
 # phase 9: speculative decoding
 # ---------------------------------------------------------------------------
-# phase 9's target: qwen1.5-0.5b at 5 of its 24 layers (cut to 12 when
-# phase 11 joined, to 8 when phase 12 did, to 6 when phase 17 did and to 5
-# when phase 20 did: the run stays near its time; every gate a layer
-# carries stays)
-SPEC_TARGET_LAYERS = 5
-SPEC_DRAFT_LAYERS = 4     # (b)'s draft: the target's first 4 layers
+# phase 9's target: qwen1.5-0.5b at 4 of its 24 layers (cut to 12 when
+# phase 11 joined, to 8 when phase 12 did, to 6 when phase 17 did, to 5
+# when phase 20 did and to 4 when phase 23 did: the run stays near its
+# time; every gate a layer carries stays)
+SPEC_TARGET_LAYERS = 4
+SPEC_DRAFT_LAYERS = 3     # (b)'s draft: the target's first 3 layers
 
 
 def spec_spec(draft: ArchConfig | None, quant: bool = False,
@@ -3487,8 +3517,8 @@ def check_speculation(dev, g, f32_dist: float) -> dict:
           "blocks in the first drain; (a) and (b) graphed and eager took "
           f"{time.perf_counter() - t_start:.1f} s")
     if four["truncated"] <= 0:
-        raise AssertionError("the 4-layer draft's rollback handed back no "
-                             "block")
+        raise AssertionError(f"the {Ld}-layer draft's rollback handed back "
+                             "no block")
     # f32 streams: speculation on and off over float32 pools
     f32_off = drain9(params, prompts, compute="fp32", f32_pool=True)
     for label, d in (("self-draft", selfd), (f"{Ld}-layer draft", small)):
@@ -6561,6 +6591,261 @@ def check_mesh(dev, g, f32_dist: float, smi: str) -> dict:
             "mesh_dp": {**full, **dp_run["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: distributed training (ROADMAP Queue 1 item 16c)
+# ---------------------------------------------------------------------------
+DIST_SEED = 23
+DIST_RANKS = 4                         # (a): four ranks share the card
+DIST_BUFFERS = (1 << 20, 1_000_003)    # (a): f32 elements a rank
+DIST_PP = dict(S=4, D=1024, NM=16, MB=8)
+DIST_QWEN_LAYERS = 4                   # (b), (d)
+DIST_SSM_LAYERS = 2                    # (c)
+DIST_BATCH = (4, 64)
+DIST_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# the sharded step against one device at f32: the loss as the CPU tests
+# gate it; the gradient at phase 20a / 21b's card gate, 1e-4 x max|g|
+# (each replica's weight gradients sum over its own rows, then the
+# replicas' sums are added: another order of the same sum, 1.4e-5 x
+# max|g| at falcon-mamba's x_proj); the params at the reference's bound
+DIST_TOL = dict(loss=1e-5, grad=1e-4, params=5e-3)
+
+
+def dist_mesh(data: int, model: int) -> sharding.Mesh:
+    return sharding.Mesh((("data", data), ("model", model)),
+                         tuple(dev_devices(data * model, allow_repeat=True)))
+
+
+def dist_collectives(dev, g) -> None:
+    """(a) The collectives and the compressed all-reduce on 4 ranks of the
+    card, bit for bit the same schedule on the host; the pipeline against
+    the sequential apply on the card."""
+    for n in DIST_BUFFERS:
+        card = [torch.randn(n, generator=g, device=dev)
+                for _ in range(DIST_RANKS)]
+        host = [t.cpu() for t in card]
+        fns = {"ring_reduce_scatter": coll.ring_reduce_scatter,
+               "ring_allreduce": coll.ring_allreduce,
+               "all_gather": coll.all_gather}
+        if n % DIST_RANKS == 0:
+            fns["psum_scatter"] = coll.psum_scatter
+        same = {}
+        for name, fn in fns.items():
+            a, b = fn(card), fn(host)
+            same[name] = all(x.device == t.device and torch.equal(x.cpu(), y)
+                             for x, y, t in zip(a, b, card))
+        shard = (n + (-n) % DIST_RANKS) // DIST_RANKS
+        ef_c = [comp.init_ef_state((shard,), dev) for _ in card]
+        ef_h = [comp.init_ef_state((shard,)) for _ in host]
+        rounds = []
+        for _ in range(3):
+            out_c, ef_c = comp.compressed_allreduce(card, ef_c)
+            out_h, ef_h = comp.compressed_allreduce(host, ef_h)
+            rounds.append(all(torch.equal(x.cpu(), y)
+                              for x, y in zip(out_c, out_h))
+                          and all(torch.equal(x.residual.cpu(), y.residual)
+                                  for x, y in zip(ef_c, ef_h)))
+        mean = torch.stack(host).mean(0)
+        err = float((out_h[0] - mean).abs().max())
+        same["compressed_allreduce x3"] = all(rounds)
+        print(f"  (a) {DIST_RANKS} ranks x {n} f32 on the card vs the host: "
+              + ", ".join(f"{k} {'bit for bit' if v else 'DIFFER'}"
+                          for k, v in same.items())
+              + f"; the compressed mean within {err:.2e} of the mean")
+        if not all(same.values()):
+            raise AssertionError(f"collectives on the card differ from the "
+                                 f"host's: {same}")
+    S, D, NM, MB = (DIST_PP[k] for k in ("S", "D", "NM", "MB"))
+    ws = (torch.randn(S, D, D, generator=g, device=dev) / math.sqrt(D)) \
+        .requires_grad_(True)
+    bs = (torch.randn(S, D, generator=g, device=dev) * 0.1) \
+        .requires_grad_(True)
+    x = torch.randn(NM, MB, D, generator=g, device=dev)
+    mesh = sharding.Mesh((("stage", S),), tuple(dev_devices(
+        S, allow_repeat=True)))
+    apply = make_pipelined_apply(lambda p, h: torch.tanh(h @ p[0] + p[1]),
+                                 mesh)
+
+    def seq(h):
+        for i in range(S):
+            h = torch.tanh(h @ ws[i] + bs[i])
+        return h
+
+    out, want = apply((ws, bs), x), seq(x)
+    got_g = torch.autograd.grad((out ** 2).sum(), (ws, bs))
+    want_g = torch.autograd.grad((want ** 2).sum(), (ws, bs))
+    fwd = float((out - want).detach().abs().max())
+    grad = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+    print(f"  (a) GPipe, {S} stages on the card, D {D}, {NM} microbatches "
+          f"of {MB} (bubble {(S - 1) / (NM + S - 1):.3f}): forward within "
+          f"{fwd:.2e} of the sequential apply (gate 1e-5), gradient "
+          f"{grad:.2e} (gate 1e-3)")
+    if fwd > 1e-5 or grad > 1e-3:
+        raise AssertionError("the pipeline disagrees with the sequential "
+                             "apply")
+
+
+def dist_batch(cfg: ArchConfig, g, dev) -> dict:
+    B, S = DIST_BATCH
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=dev)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def dist_grads(label: str, model: Model, state, step, placed,
+               batch) -> None:
+    """The sharded step's loss, aux and assembled gradient against the one
+    device's at ``DIST_TOL``."""
+    loss, aux, grads = loss_and_grads(model, state.params, batch)
+    s_loss, s_aux, s_grads = step.loss_and_grads(placed, batch)
+    s_grads = sharding.assemble(s_grads)
+    rel = max(abs(float(s_aux[k]) - float(aux[k])) / abs(float(aux[k]))
+              for k in aux)
+    scale = max(float(t.abs().max()) for t in grads.values())
+    errs = {n: float((s_grads[n] - t).abs().max()) for n, t in grads.items()}
+    worst = max(errs, key=errs.get)
+    print(f"  {label}: loss {float(s_loss):.6f} / {float(loss):.6f} one "
+          f"device, aux within {rel:.2e} relative (gate "
+          f"{DIST_TOL['loss']}); gradient: worst {worst} "
+          f"{errs[worst] / scale:.2e} x max|g| {scale:.4f} (gate "
+          f"{DIST_TOL['grad']}), {len(errs)} leaves")
+    if rel > DIST_TOL["loss"] or errs[worst] > DIST_TOL["grad"] * scale:
+        raise AssertionError(f"{label}: the sharded gradient disagrees")
+    del grads, s_grads
+
+
+def timed_step(step, state, batch) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, m, (time.perf_counter() - t0) * 1e3
+
+
+def dist_qwen(dev, g, smi: str, tmp: str) -> None:
+    """(b) qwen1.5-0.5b at 4 of 24 layers on (data 2, model 2) against one
+    device; (d) saved there, restored at (4, 1)."""
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=DIST_QWEN_LAYERS)
+    oc = AdamWConfig(**DIST_OPT)
+    model = Model(cfg, compute_dtype=torch.float32, device=dev,
+                  trainable=True)
+    s0 = init_state(model, g, oc)
+    batches = [dist_batch(cfg, g, dev) for _ in range(3)]
+    mesh = dist_mesh(2, 2)
+    step, st_sh, _ = make_train_step(model, TrainStepConfig(
+        optimizer=oc, donate=False), mesh=mesh)
+    single = make_step_fn(model, TrainStepConfig(optimizer=oc,
+                                                 donate=False))
+    placed = sharding.place(s0, st_sh)
+    shapes = {n: tuple(placed.params[n].shards[3].shape)
+              for n in ("embed.table", "layers.0.attn.wq.kernel",
+                        "layers.0.ffn.w2.kernel", "final_norm.scale")}
+    print(f"  (b) {cfg.name} at its widths, {DIST_QWEN_LAYERS} of 24 "
+          f"layers, on (data 2, model 2) = {mesh.devices}; rank 3's "
+          f"shards {shapes}")
+    dist_grads("(b) the gradient", model, s0, step, placed, batches[0])
+    want, got, ms = s0, placed, []
+    for i in range(2):
+        want, wm, w_ms = timed_step(single, want, batches[i])
+        got, gm, g_ms = timed_step(step, got, batches[i])
+        ms.append((g_ms, w_ms))
+        rel = abs(float(gm["loss"]) - float(wm["loss"])) \
+            / abs(float(wm["loss"]))
+        if rel > DIST_TOL["loss"]:
+            raise AssertionError(f"(b) step {i + 1}: loss {gm['loss']} vs "
+                                 f"{wm['loss']}")
+    params = sharding.assemble(got.params)
+    errs = {n: float((params[n] - w.detach()).abs().max())
+            for n, w in want.params.items()}
+    past = sum(int(((params[n] - w.detach()).abs() > 1e-4).sum())
+               for n, w in want.params.items())
+    total = sum(w.numel() for w in want.params.values())
+    bound, by = train_bound(model, DIST_BATCH[0] * DIST_BATCH[1])
+    print(f"  (b) two steps: losses {float(gm['loss']):.6f} (one device "
+          f"{float(wm['loss']):.6f}); params within "
+          f"{max(errs.values()):.2e} (gate {DIST_TOL['params']}), "
+          f"{past} of {total} elements past 1e-4; second step "
+          f"{ms[1][0]:.1f} ms sharded, {ms[1][1]:.1f} ms on one device, "
+          f"bound {bound:.3f} ms ({by}); {smi}")
+    if max(errs.values()) > DIST_TOL["params"]:
+        raise AssertionError("(b) the sharded params after two steps "
+                             "disagree")
+    del params, placed
+    # (d) save at (2, 2), restore at (4, 1), one step against (2, 2)'s
+    t0 = time.perf_counter()
+    ckpt.save(tmp, 2, got)
+    straight, sm = step(got, batches[2])
+    step41, sh41, _ = make_train_step(model, TrainStepConfig(
+        optimizer=oc), mesh=dist_mesh(4, 1))
+    restored, meta = ckpt.restore(tmp, 2, want, shardings=sh41)
+    restored, rm = step41(restored, batches[2])
+    a, b = sharding.assemble(restored.params), sharding.assemble(
+        straight.params)
+    err = max(float((a[n] - b[n]).abs().max()) for n in a)
+    rel = abs(float(rm["loss"]) - float(sm["loss"])) / abs(float(sm["loss"]))
+    print(f"  (d) saved at (2, 2) after step {meta['step']}, restored at "
+          f"(4, 1): the next step's loss within {rel:.2e} relative, params "
+          f"within {err:.2e} of the uninterrupted run; save, step and "
+          f"restore took {time.perf_counter() - t0:.1f} s")
+    if rel > DIST_TOL["loss"] or err > DIST_TOL["params"]:
+        raise AssertionError("(d) the restored run disagrees")
+
+
+def dist_ssm(dev, g, smi: str) -> dict:
+    """(c) falcon-mamba-7b at 2 of 64 layers on (data 2, model 1): the
+    gradient against one device's, then one step's scan launches."""
+    cfg = dataclasses.replace(get_config(SSM), num_layers=DIST_SSM_LAYERS)
+    oc = AdamWConfig(**DIST_OPT)
+    model = Model(cfg, compute_dtype=torch.float32, device=dev,
+                  trainable=True)
+    s0 = init_state(model, g, oc)
+    batch = dist_batch(cfg, g, dev)
+    step, st_sh, _ = make_train_step(model, TrainStepConfig(optimizer=oc),
+                                     mesh=dist_mesh(2, 1))
+    placed = sharding.place(s0, st_sh)
+    dist_grads(f"(c) {cfg.name} at its widths, {DIST_SSM_LAYERS} of 64 "
+               "layers, (data 2, model 1)", model, s0, step, placed, batch)
+    zero_counts()
+    _, m, ms = timed_step(step, placed, batch)
+    made = launch_counts()
+    want = {k: 2 * v for k, v in program_launches(cfg, "train").items()}
+    have = {k: made[k] for k in want}
+    print(f"  (c) one sharded step, loss {float(m['loss']):.6f}: launches "
+          f"{ {k: v for k, v in have.items() if v} } (kernels/counts.py, "
+          f"2 replicas: { {k: v for k, v in want.items() if v} }), "
+          f"{ms:.1f} ms; {smi}")
+    if have != want:
+        raise AssertionError(f"(c) the sharded step's launches {have} != "
+                             f"{want}")
+    return made
+
+
+def check_distributed(dev, smi: str) -> dict:
+    """Phase 23: the collectives and the pipeline (a), the sharded train
+    step of a dense (b) and an ssm (c) model, an elastic restore (d).
+    Every rank shares the one card: no speed is claimed."""
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev)
+    g.manual_seed(DIST_SEED)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"\n== phase 23: distributed training, every rank on the one "
+          f"card, f32 with TF32 off; {smi}")
+    try:
+        dist_collectives(dev, g)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_qwen(dev, g, smi, tmp)
+        torch.cuda.empty_cache()
+        made = dist_ssm(dev, g, smi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    print(f"  phase 23 took {time.perf_counter() - t_start:.1f} s, peak "
+          f"{peak_gb():.2f} GB ({smi})")
+    return {"train_sharded": {**dict.fromkeys(KERNELS, 0), **made}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6775,12 +7060,14 @@ def main() -> int:
     lap("phase 21")
     launches.update(check_mesh(dev, g, f32_dist, smi))
     lap("phase 22")
+    launches.update(check_distributed(dev, smi))
+    lap("phase 23")
     for path in ("prefix", "spec", "spec_int8", "moe", "moe_int8",
                  "moe_spec", "mla", "mla_int8_pool", "vlm_chunked_paged",
                  "vlm_bucketed_dense", "vlm_bucketed_paged",
                  "bucketed_dense", "bucketed_paged", "hybrid", "ssm",
                  "audio", "encoder", "train", "train_scans",
-                 "scans_served", "mesh_dp"):
+                 "scans_served", "mesh_dp", "train_sharded"):
         for name in PATH_KERNELS[path]:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the "

@@ -14,19 +14,26 @@ kv-head axis of K and V, the trailing kv-head axis of an int8 pool's
 scale rows).
 
 The reference hands these specs to GSPMD, which partitions the jitted
-step and inserts its collectives.  The port's tensor-parallel step
-(``models/tensor_parallel.py``) is explicit: one process holds every
-rank's shard (``local_shard``) and runs the ranks' programs, so the
-reference's ``active`` / ``constrain`` (GSPMD's in-graph activation
-hints) and ``tree_param_shardings`` (a NamedSharding per leaf for
-``device_put``) have no counterpart here; ``activation_rules`` stays as
-the table of where the activations live.
+step and inserts its collectives.  The port is explicit and driven from
+one process, as the reference's single controller drives its mesh: a
+sharded tensor is a ``Sharded`` leaf, every rank's block of one logical
+tensor (``local_shard``) on that rank's device.  ``tree_param_shardings``
+gives each parameter its ``NamedSharding`` (a heads dimension counted in
+whole heads, so a rank never holds part of a head), ``place`` cuts a
+tree onto a mesh (``jax.device_put`` with NamedShardings) and
+``assemble`` joins it back (``jax.device_get``); ``axis_groups`` lists
+the ranks a collective over some mesh axes runs across.  The reference's
+``active`` / ``constrain`` (GSPMD's in-graph activation hints) have no
+counterpart: ``activation_rules`` stays as the table of where the
+activations live.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
 from typing import Any
+
+import torch
 
 Spec = tuple
 
@@ -277,3 +284,156 @@ def shard_shape(shape: tuple[int, ...], spec: Spec,
         if axes is not None:
             out[dim] //= _axis_size(mesh, axes)
     return tuple(out)
+
+
+def whole_heads(names: tuple, shape: tuple[int, ...],
+                head_dim: int | None) -> tuple[int, ...]:
+    """``shape`` with a "heads" / "kv_heads" dimension counted in heads of
+    ``head_dim`` (unchanged without one): what ``resolve_spec`` divides
+    so that a rank holds whole heads."""
+    if head_dim is None:
+        return tuple(shape)
+    return tuple(d // head_dim if n in ("heads", "kv_heads") else d
+                 for d, n in zip(shape, tuple(names)
+                                 + (None,) * (len(shape) - len(names))))
+
+
+def tree_param_shardings(mesh: Mesh, axes_tree: Mapping,
+                         abstract_tree: Mapping,
+                         strategy: ShardingStrategy,
+                         head_dim: int | None = None
+                         ) -> dict[str, NamedSharding]:
+    """A ``NamedSharding`` per parameter (name -> its logical axes, name ->
+    anything with a ``shape``) under ``param_rules``; with ``head_dim`` a
+    heads dimension is divided in whole heads (the tensor-parallel
+    step's rule, ``models.tensor_parallel``)."""
+    rules = param_rules(strategy)
+    return {name: NamedSharding(mesh, resolve_spec(
+        axes_tree[name], whole_heads(axes_tree[name], tuple(leaf.shape),
+                                     head_dim), rules, mesh))
+        for name, leaf in abstract_tree.items()}
+
+
+def axis_groups(mesh: Mesh, axes) -> list[list[int]]:
+    """The ranks a collective over ``axes`` (a name or a tuple of names)
+    runs across: one group for each coordinate of the other axes, each
+    group and the groups in rank order."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    groups: dict[tuple, list[int]] = {}
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        key = tuple(c[a] for a in mesh.axis_names if a not in names)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
+
+
+def _names(axes) -> tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def dim_of(spec: Spec, axes) -> int | None:
+    """The dimension ``spec`` splits over any of ``axes`` (a mesh axis
+    serves one dimension at most), or None."""
+    want = set(_names(axes))
+    return next((d for d, a in enumerate(spec) if want & set(_names(a))),
+                None)
+
+
+def owners(mesh: Mesh, spec: Spec) -> list[int]:
+    """The ranks whose blocks under ``spec`` tile the whole tensor once:
+    coordinate 0 on every axis the spec does not use."""
+    used = {a for entry in spec for a in _names(entry)}
+    return [r for r in range(mesh.size)
+            if all(v == 0 for a, v in mesh.coords(r).items()
+                   if a not in used)]
+
+
+class Sharded:
+    """One logical tensor on a mesh: ``shards[r]`` is rank r's block under
+    ``sharding`` (``local_shard``), on the rank's device, its own storage
+    (a whole copy on every rank where the spec does not split it)."""
+
+    def __init__(self, shards: list[torch.Tensor], sharding: NamedSharding,
+                 shape: tuple[int, ...]):
+        self.shards = list(shards)
+        self.sharding = sharding
+        self.shape = tuple(shape)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> Spec:
+        return self.sharding.spec
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.shards[0].requires_grad
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.spec}, mesh={dict(self.mesh.axes)})")
+
+
+def place_leaf(t: torch.Tensor, sh: NamedSharding,
+               dtype: torch.dtype | None = None,
+               requires_grad: bool | None = None) -> Sharded:
+    """``t`` cut onto ``sh``'s mesh: each rank's block copied to its
+    device (in ``dtype``, t's by default), ``requires_grad`` as t's
+    unless given."""
+    mesh = sh.mesh
+    if not mesh.devices:
+        raise ValueError("placing a tensor needs a mesh with devices")
+    grad = t.requires_grad if requires_grad is None else requires_grad
+    shards = []
+    with torch.no_grad():
+        for r, dev in enumerate(mesh.devices):
+            block = local_shard(t, sh.spec, mesh, r)
+            out = torch.empty(block.shape, dtype=dtype or t.dtype,
+                              device=dev)
+            shards.append(out.copy_(block).requires_grad_(grad))
+    return Sharded(shards, sh, tuple(t.shape))
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """Every tensor of ``tree`` (a dict or NamedTuple of those, nested, or
+    a tensor) placed under its ``NamedSharding`` in ``shardings`` (the
+    same structure): the counterpart of ``jax.device_put(tree,
+    shardings)``."""
+    if isinstance(tree, torch.Tensor):
+        return place_leaf(tree, shardings)
+    if isinstance(tree, Sharded):
+        return place_leaf(assemble_leaf(tree), shardings)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place(a, b) for a, b in zip(tree, shardings)))
+    return {k: place(v, shardings[k]) for k, v in tree.items()}
+
+
+def assemble_leaf(x: Sharded, device=None) -> torch.Tensor:
+    """The whole tensor from the blocks of the ranks in ``owners`` (on
+    ``device``, the first rank's by default), detached."""
+    device = x.shards[0].device if device is None else device
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    with torch.no_grad():
+        for r in owners(x.mesh, x.spec):
+            local_shard(out, x.spec, x.mesh, r).copy_(x.shards[r])
+    return out
+
+
+def assemble(tree: Any, device=None) -> Any:
+    """Every ``Sharded`` leaf of ``tree`` joined into its whole tensor
+    (``jax.device_get``); tensors pass through."""
+    if isinstance(tree, Sharded):
+        return assemble_leaf(tree, device)
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(assemble(v, device) for v in tree))
+    return {k: assemble(v, device) for k, v in tree.items()}

@@ -8,15 +8,19 @@ time, so a caller asks for that), or the host's CPU where the caller
 names it (``device="cpu"``).  ``mesh_device_count`` counts a mesh's
 devices.
 
-The reference's ``ensure_host_devices`` asks XLA for forced host-platform
-devices before JAX starts; the port has no counterpart, since a torch
-device list may name the host (or a card) any number of times.  Its
-``make_production_mesh`` / ``make_dev_mesh`` build JAX meshes for the
-dry-run (ROADMAP.md Queue 1 item 17b).
+``make_dev_mesh`` is the reference's: a (data = the visible devices,
+model = 1) ``distributed.sharding.Mesh``, what the training launcher
+trains on.  The reference's ``ensure_host_devices`` asks XLA for forced
+host-platform devices before JAX starts; the port has no counterpart,
+since a torch device list may name the host (or a card) any number of
+times.  Its ``make_production_mesh`` builds the dry-run's meshes and
+comes with the dry-run (ROADMAP.md Queue 1 item 17b).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.sharding import Mesh
 
 
 def dev_devices(n: int, *, device: str | torch.device | None = None,
@@ -40,6 +44,15 @@ def dev_devices(n: int, *, device: str | torch.device | None = None,
             f"a mesh of {n} devices on {len(have)} visible ({have}): pass "
             "allow_repeat=True to run several ranks on one device")
     return [have[i % len(have)] for i in range(n)]
+
+
+def make_dev_mesh(*, device: str | torch.device | None = None) -> Mesh:
+    """Whatever this process has: a (data = n, model = 1) mesh over the
+    visible CUDA devices, or over the one ``device`` named (the host);
+    raises where no CUDA device is visible and none is named."""
+    n = 1 if device is not None else torch.cuda.device_count()
+    return Mesh((("data", max(n, 1)), ("model", 1)),
+                tuple(dev_devices(max(n, 1), device=device)))
 
 
 def mesh_device_count(mesh) -> int:

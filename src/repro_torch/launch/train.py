@@ -1,8 +1,11 @@
 """Training driver: ``python -m repro_torch.launch.train --arch <id>``
 (``--model`` is the same flag).
 
-The reference's ``launch/train.py`` on one device: the synthetic data
-stream -> the train step -> checkpoints -> a resumable restart.  The
+The reference's ``launch/train.py``: the synthetic data stream -> the
+sharded train step on ``make_dev_mesh()`` (data = the visible cards,
+model = 1; a (1, 1) mesh on one card or with ``--device cpu``, which
+steps bit for bit as the one-device step) -> checkpoints -> a resumable
+restart.  The
 reduced config by default (``--full``: the published one), on the CUDA
 device unless ``--device cpu`` is given (without a card the default
 raises, as every entry point of the port does).  f32 master weights,
@@ -28,7 +31,8 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import SyntheticLMStream
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.models.model import REMAT_MODES, Model
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import AdamWConfig
@@ -58,18 +62,20 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced(cfg)
-    device = resolve_device(args.device)
+    mesh = make_dev_mesh(device=args.device)
+    device = mesh.devices[0]
     model = Model(cfg, device=device, trainable=True, remat=args.remat)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                           total_steps=args.steps)
-    step_fn = make_train_step(model, TrainStepConfig(optimizer=opt_cfg,
-                                                     accum_steps=args.accum))
+    step_fn, st_sh, _ = make_train_step(
+        model, TrainStepConfig(optimizer=opt_cfg, accum_steps=args.accum),
+        mesh=mesh)
     data = dict(vocab_size=cfg.vocab_size, seq_len=args.seq,
                 global_batch=args.batch, device=device)
     stream = SyntheticLMStream(**data)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    state = init_state(model, gen, opt_cfg)
+    state = sharding.place(init_state(model, gen, opt_cfg), st_sh)
     start_step = 0
     if args.resume and args.ckpt_dir:
         got = ckpt.restore_latest(args.ckpt_dir, state)

@@ -922,26 +922,27 @@ class Model(nn.Module):
         ``MTP_LOSS_WEIGHT`` x its cross-entropy.  ``aux`` holds
         ``xent``, ``load_balance``, ``mtp`` (where they apply) and
         ``total``, as float32 scalars on the model's device."""
+        return combine_loss(self.loss_terms(batch), self.cfg)
+
+    def loss_terms(self, batch: dict) -> dict:
+        """The parts ``combine_loss`` makes the loss of: ``xent``; for the
+        MoE family ``balance``, the balance term's (f, p)
+        (``moe.balance_stats``), which data-parallel replicas average
+        before the product; with the MTP head ``mtp``."""
         tokens, targets = batch["tokens"], batch["targets"]
         frontend = batch.get("frontend")
         x = self._backbone(tokens, frontend)
-        total = xent = _xent(self._unembed(x), targets)
-        aux = {"xent": xent}
+        terms = {"xent": _xent(self._unembed(x), targets)}
         if self.cfg.family == "moe" and MOE_AUX_WEIGHT:
             b_, s = tokens.shape
             positions = torch.arange(s, device=tokens.device)[None, :] \
                 .expand(b_, s)
-            lb = moe.load_balance_loss(self._embed(tokens, frontend,
-                                                   positions),
-                                       self.layers[0].moe.router,
-                                       self.cfg.moe)
-            aux["load_balance"] = lb
-            total = total + MOE_AUX_WEIGHT * lb
+            terms["balance"] = moe.balance_stats(
+                self._embed(tokens, frontend, positions),
+                self.layers[0].moe.router, self.cfg.moe)
         if self.mtp is not None:
-            aux["mtp"] = self._mtp_loss(x, targets)
-            total = total + MTP_LOSS_WEIGHT * aux["mtp"]
-        aux["total"] = total
-        return total, aux
+            terms["mtp"] = self._mtp_loss(x, targets)
+        return terms
 
     def _mtp_loss(self, x: torch.Tensor, targets: torch.Tensor
                   ) -> torch.Tensor:
@@ -1196,6 +1197,22 @@ class Model(nn.Module):
             x = x + o
             x = self._ffn_half(x, blk)
         return self._unembed(x)
+
+
+def combine_loss(terms: dict, cfg: ArchConfig
+                 ) -> tuple[torch.Tensor, dict]:
+    """(total, aux) of ``Model.loss`` from its ``loss_terms``."""
+    total = xent = terms["xent"]
+    aux = {"xent": xent}
+    if "balance" in terms:
+        lb = moe.balance_term(*terms["balance"], cfg.moe)
+        aux["load_balance"] = lb
+        total = total + MOE_AUX_WEIGHT * lb
+    if "mtp" in terms:
+        aux["mtp"] = terms["mtp"]
+        total = total + MTP_LOSS_WEIGHT * aux["mtp"]
+    aux["total"] = total
+    return total, aux
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

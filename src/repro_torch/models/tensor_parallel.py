@@ -51,12 +51,14 @@ from repro_torch.configs.base import (DEFAULT_COMPUTE_DTYPE,
                                       DEFAULT_PARAM_DTYPE, ArchConfig)
 from repro_torch.core import serve_quant
 from repro_torch.core.paging import PagingConfig
+from repro_torch.core.spec import _not_ported
 from repro_torch.core.quant import DEFAULT_QUANT_MIN_SIZE
 from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.attention import HeadShard, KVCache
-from repro_torch.models.model import Model, _frozen, _weight
+from repro_torch.models.model import (Model, _frozen, _weight, _xent,
+                                      combine_loss)
 
 TP_FAMILIES = ("dense", "vlm")
 _MM = "xla"
@@ -93,7 +95,10 @@ class TPModel:
                  matmul_backend: str = "xla",
                  paged_attn_impl: str = "gather", quant: str = "none",
                  quant_min_size: int = DEFAULT_QUANT_MIN_SIZE,
-                 kv_dtype: str = "compute"):
+                 kv_dtype: str = "compute", trainable: bool = False):
+        if trainable and cfg.family != "dense":
+            raise _not_ported(f"{cfg.name}: tensor parallelism in training "
+                              f"for the {cfg.family} family", "item 16e")
         if cfg.family not in TP_FAMILIES:
             raise ValueError(
                 f"{cfg.name}: the tensor-parallel step serves the families "
@@ -108,11 +113,12 @@ class TPModel:
         self.tp = len(self.devices)
         self.compute_dtype = compute_dtype
         self.quant, self.quant_min_size = quant, quant_min_size
+        self.trainable = trainable
         self.mesh = sharding.tp_mesh(self.devices)
         self.strategy = sharding.strategy_for_mesh(self.mesh)
         kw = dict(param_dtype=param_dtype, compute_dtype=compute_dtype,
                   quant=quant, quant_min_size=quant_min_size,
-                  kv_dtype=kv_dtype)
+                  kv_dtype=kv_dtype, trainable=trainable)
         # the whole model's structure and shapes, allocating nothing
         self._template = Model(cfg, device="meta", **kw)
         self.codec = self._template.codec
@@ -161,9 +167,9 @@ class TPModel:
         axes = self._template.axes()
 
         def one(names: tuple, shape) -> tuple:
-            whole = tuple(d // hd if n in ("heads", "kv_heads") else d
-                          for d, n in zip(shape, names))
-            return sharding.resolve_spec(names, whole, rules, self.mesh)
+            return sharding.resolve_spec(
+                names, sharding.whole_heads(names, shape, hd), rules,
+                self.mesh)
 
         specs = {n: one(axes[n], p.shape)
                  for n, p in self._template.named_parameters()}
@@ -176,8 +182,13 @@ class TPModel:
     def _rank(self, model: Model, r: int) -> Model:
         """``model`` (built on the meta device) with every leaf replaced by
         rank r's shard-shaped tensor on its device: a container of the
-        rank's weights, read leaf by leaf by the step below."""
+        rank's weights, read leaf by leaf by the step below.  A trainable
+        model's ranks keep their meta leaves: the train step binds each
+        rank's shards of the state to them (``training.train_step.bound``)."""
         dev = self.devices[r]
+        model.device = dev
+        if self.trainable:
+            return model
         for name, t in [*model.named_parameters(), *model.named_buffers()]:
             owner, _, leaf = name.rpartition(".")
             mod = model.get_submodule(owner)
@@ -187,7 +198,6 @@ class TPModel:
             else:
                 mod.register_buffer(leaf, torch.zeros(shape, dtype=t.dtype,
                                                       device=dev))
-        model.device = dev
         return model
 
     @torch.no_grad()
@@ -363,3 +373,49 @@ class TPModel:
                                          heads=self.heads[r])
 
         return self._unembed(self._layers(x, attend))
+
+    # ------------------------------------------------------------------
+    # training (the dense family)
+    # ------------------------------------------------------------------
+    def _attend_full(self, r: int, i: int, hn: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """Rank r's partial output of layer i's full-sequence causal
+        attention: its query heads over its kv heads (``HeadShard``),
+        then its rows of ``wo``."""
+        cfg, (h, kv, kv_map) = self.cfg, self.heads[r]
+        p = self.ranks[r].layers[i].attn
+        b_, s, _ = hn.shape
+        q, k, v = attn.gqa_qkv(hn, p, cfg, positions, _MM, heads=self.heads[r])
+        if kv_map is None:
+            k, v = attn.repeat_kv(k, h // kv), attn.repeat_kv(v, h // kv)
+        else:
+            k, v = k.index_select(2, kv_map), v.index_select(2, kv_map)
+        o = attn._attention(q, k, v)
+        return layers.apply_dense(o.reshape(b_, s, -1), p.wo, _MM,
+                                  bias=False)
+
+    def loss_terms(self, batch: dict) -> dict:
+        """``Model.loss_terms`` over the ranks (the dense family): the
+        ranks' embedding lookups summed, each layer's attention and FFN
+        as the fused step computes them but over the full causal
+        sequence, the cross-entropy of the ranks' vocabulary slices
+        concatenated, on the first rank's device."""
+        tokens, targets = batch["tokens"], batch["targets"]
+        b_, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :] \
+            .expand(b_, s)
+        per = [positions.to(d) for d in self.devices]
+        x = self._embed(tokens, positions)
+        logits = self._unembed(self._layers(
+            x, lambda r, i, hn: self._attend_full(r, i, hn, per[r])))
+        return {"xent": _xent(logits, targets.to(logits.device))}
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """``Model.loss`` over the ranks: (total, aux) of ``loss_terms``.
+        The ranks' leaves are those bound to their containers.  A leaf
+        whole on every rank is mostly read from rank 0's copy alone (the
+        norms, ``w2``'s bias, a part no rank splits), but whole kv heads
+        under split query heads are read by every rank: a whole leaf's
+        gradient is the rank-order sum of its copies' gradients (the
+        train step's rule), exact where one copy alone was read."""
+        return combine_loss(self.loss_terms(batch), self.cfg)

@@ -1,5 +1,5 @@
-"""Checkpoints: atomic, resumable, async (the reference's
-``training/checkpoint.py`` on one device).
+"""Checkpoints: atomic, resumable, async, elastic (the reference's
+``training/checkpoint.py``).
 
 Layout (one directory per step):
     <dir>/step_00000123/
@@ -16,6 +16,13 @@ copy is taken in the call, so the snapshot is the state at the call;
 with ``async_write`` the files are then written by a thread (join it)
 while training goes on.  bfloat16 leaves are stored as float32 (exact)
 and cast back on restore.
+
+A state on a mesh (``distributed.sharding.Sharded`` leaves) is saved
+whole: the same keys and bytes as its assembled state, so a checkpoint
+moves freely between meshes and one device.  ``restore(...,
+shardings=...)`` places every leaf on the given mesh, the elastic
+restart onto another mesh (the reference's ``shardings`` argument); a
+``Sharded`` leaf of ``like`` restores onto its own mesh.
 """
 from __future__ import annotations
 
@@ -30,13 +37,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.spec import _not_ported
+from repro_torch.distributed.sharding import Sharded, assemble_leaf, \
+    place_leaf
 
 
 def _leaves(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
-    """{path: tensor} of a tensor, a dict or a NamedTuple (its fields by
-    name) of those, nested."""
-    if isinstance(tree, torch.Tensor):
+    """{path: tensor or Sharded} of a tensor, a ``Sharded`` leaf, a dict
+    or a NamedTuple (its fields by name) of those, nested."""
+    if isinstance(tree, (torch.Tensor, Sharded)):
         return {prefix.rstrip("/"): tree}
     if isinstance(tree, tuple) and hasattr(tree, "_asdict"):
         tree = tree._asdict()
@@ -49,9 +57,11 @@ def _leaves(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
     return out
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def _host(t) -> np.ndarray:
     """A host copy of ``t`` (never a view of it, so later in-place
-    updates do not reach the snapshot)."""
+    updates do not reach the snapshot); a ``Sharded`` leaf whole."""
+    if isinstance(t, Sharded):
+        return _host(assemble_leaf(t, "cpu"))
     t = t.detach()
     t = t.float() if t.dtype == torch.bfloat16 else t
     return t.to("cpu", copy=True).numpy()
@@ -119,7 +129,7 @@ def latest_step(directory: str) -> int | None:
 
 
 def _rebuild(like: Any, leaves: dict[str, torch.Tensor], prefix: str = ""):
-    if isinstance(like, torch.Tensor):
+    if isinstance(like, (torch.Tensor, Sharded)):
         return leaves[prefix.rstrip("/")]
     if isinstance(like, tuple) and hasattr(like, "_asdict"):
         return type(like)(**{k: _rebuild(v, leaves, f"{prefix}{k}/")
@@ -131,13 +141,14 @@ def restore(directory: str, step: int, like: Any,
             shardings: Any | None = None) -> tuple[Any, dict]:
     """(state, meta) of step ``step``, in the structure of ``like``: every
     leaf a new tensor of its ``like`` leaf's shape (checked), dtype,
-    device and ``requires_grad``.  ``shardings`` (an elastic restore onto
-    another mesh) is refused."""
-    if shardings is not None:
-        raise _not_ported("a sharded restore (shardings=...)", "item 16c")
+    device and ``requires_grad``.  With ``shardings`` (``like``'s
+    structure of ``NamedSharding``, e.g. ``train_step.state_shardings``
+    on a new mesh) every leaf is placed on that mesh instead; a
+    ``Sharded`` leaf of ``like`` is placed as it is sharded."""
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
+    target = {} if shardings is None else _leaves_of(shardings)
     leaves = {}
     with np.load(os.path.join(d, "arrays.npz")) as data:
         for path, leaf in _leaves(like).items():
@@ -145,10 +156,29 @@ def restore(directory: str, step: int, like: Any,
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint/param shape mismatch at {path}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
-            leaves[path] = torch.from_numpy(arr).to(
-                device=leaf.device, dtype=leaf.dtype).requires_grad_(
+            t = torch.from_numpy(arr)
+            sh = target.get(path, leaf.sharding if isinstance(leaf, Sharded)
+                            else None)
+            if sh is not None:
+                leaves[path] = place_leaf(t, sh, dtype=leaf.dtype,
+                                          requires_grad=leaf.requires_grad)
+            else:
+                leaves[path] = t.to(device=leaf.device,
+                                    dtype=leaf.dtype).requires_grad_(
                     leaf.requires_grad)
     return _rebuild(like, leaves), meta
+
+
+def _leaves_of(shardings: Any, prefix: str = "") -> dict:
+    """{path: NamedSharding} of a shardings tree (``_leaves``' paths)."""
+    if isinstance(shardings, tuple) and hasattr(shardings, "_asdict"):
+        shardings = shardings._asdict()
+    if isinstance(shardings, Mapping):
+        out = {}
+        for key, val in shardings.items():
+            out.update(_leaves_of(val, f"{prefix}{key}/"))
+        return out
+    return {prefix.rstrip("/"): shardings}
 
 
 def restore_latest(directory: str, like: Any,

@@ -5,10 +5,9 @@ At 1000+ nodes the failure model is: hosts stop heartbeating (hard fail),
 or keep heartbeating but fall behind (straggler).  The controller below is
 deterministic and host-agnostic so the whole policy is unit-testable in
 one process; on a real cluster the inputs come from the coordination
-service and the output plan drives the re-initialization of
-``torch.distributed`` and a restore onto the new mesh (the port restores
-onto one device only so far: ``training.checkpoint.restore`` refuses
-``shardings``, ROADMAP.md Queue 1 item 16c).
+service and the output plan drives a new mesh and a restore onto it:
+``training.checkpoint.restore(..., shardings=state_shardings(new mesh))``
+(``training.train_step.state_shardings``).
 
 Policy:
 * hard failure  -> shrink the data axis to the largest feasible size,

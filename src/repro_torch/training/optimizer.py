@@ -99,7 +99,7 @@ def is_decayed(name: str) -> bool:
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: AdamWState,
-                 cfg: AdamWConfig
+                 cfg: AdamWConfig, grad_norm: torch.Tensor | None = None
                  ) -> tuple[dict[str, torch.Tensor], AdamWState, dict]:
     """One AdamW step, in place: the gradients clipped to ``clip_norm``
     (scaled in place), the step advanced, the moments and parameters
@@ -108,9 +108,15 @@ def adamw_update(params: dict[str, torch.Tensor],
     reference's, leaf by leaf in float32, as multi-tensor (``_foreach``)
     operators over all leaves at once: a few dozen launches a step rather
     than ~14 for each of hundreds of leaves, with two parameter-sized
-    float32 temporaries (and float32 copies of bfloat16 moments)."""
+    float32 temporaries (and float32 copies of bfloat16 moments).
+
+    ``grad_norm`` (on the parameters' device) replaces ``global_norm(
+    grads)`` where the leaves are one rank's shards: the sharded step
+    passes the norm of the whole logical gradient, so every shard clips
+    by the one scale."""
     names = list(params)
-    grad_norm = global_norm(grads)
+    if grad_norm is None:
+        grad_norm = global_norm(grads)
     g = [grads[n].float() for n in names]
     torch._foreach_mul_(g, _clip_scale(grad_norm, cfg.clip_norm))
     state.step.add_(1)

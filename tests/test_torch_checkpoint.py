@@ -9,7 +9,8 @@ CLI of the port, on the CPU.
   leaf of the final state), k steps, a save, a restore into a fresh
   state and 3 more, the data stream restored from the checkpoint's meta.
 * An ``async_write`` save is complete once its writer is joined;
-  ``restore(shardings=...)`` is refused (ROADMAP.md Queue 1 item 16c).
+  ``restore(shardings=...)`` places the leaves on the given mesh, and a
+  shape mismatch is refused.
 * The reference's three fault-tolerance tests on the port's controller,
   with every plan equal to the reference's on the same inputs.
 * ``python -m repro_torch.launch.train --device cpu`` (reduced) for 6
@@ -28,6 +29,7 @@ import torch
 from repro.training import fault_tolerance as jft
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import SyntheticLMStream
+from repro_torch.distributed import sharding
 from repro_torch.launch.train import main as train_main
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
@@ -143,9 +145,23 @@ def test_async_save_is_complete_after_join(tmp_path):
 
 
 def test_restore_refuses_shardings_and_checks_shapes(tmp_path):
-    ckpt.save(str(tmp_path), 1, {"x": torch.ones(4)})
-    with pytest.raises(ValueError, match="item 16c"):
-        ckpt.restore(str(tmp_path), 1, {"x": torch.ones(4)}, shardings={})
+    """The sharded restore (the name is the one the test had while the
+    port refused ``shardings``): every leaf placed on the given mesh,
+    each rank's block its own copy; a shape mismatch still refused."""
+    x = torch.arange(8.0).reshape(4, 2)
+    ckpt.save(str(tmp_path), 1, {"x": x})
+    mesh = sharding.Mesh((("data", 2), ("model", 1)), ("cpu", "cpu"))
+    sh = {"x": sharding.NamedSharding(mesh, ("data",))}
+    got, meta = ckpt.restore(str(tmp_path), 1, {"x": torch.zeros(4, 2)},
+                             shardings=sh)
+    assert meta["step"] == 1 and got["x"].spec == ("data",)
+    assert [s.tolist() for s in got["x"].shards] == [x[:2].tolist(),
+                                                     x[2:].tolist()]
+    assert torch.equal(sharding.assemble(got)["x"], x)
+    # a Sharded ``like`` restores onto its own mesh
+    again, _ = ckpt.restore(str(tmp_path), 1, got)
+    assert again["x"].shards[1] is not got["x"].shards[1]
+    assert torch.equal(again["x"].shards[1], x[2:])
     with pytest.raises(ValueError, match="shape mismatch at x"):
         ckpt.restore(str(tmp_path), 1, {"x": torch.ones(5)})
 

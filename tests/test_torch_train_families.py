@@ -13,7 +13,7 @@ For qwen2-72b, codeqwen1.5-7b, phi3-mini-3.8b, shallow-transformer and
 custom-encoder, one port-only step (the reference's
 ``test_train_step_finite``): finite loss and gradient norm, parameters
 moved.  What a trainable model refuses: int8 weights, the "pallas"
-backend; and the sharded step (item 16c).  The ssm and hybrid families
+backend; and the sharded step refuses a mesh without devices.  The ssm and hybrid families
 train through their scans' backwards: ``test_torch_train_scans.py``, which
 imports ``check_loss`` too.
 """
@@ -123,6 +123,8 @@ def test_serving_model_does_not_train_and_mesh_is_refused():
     with pytest.raises(ValueError, match="trainable=True"):
         init_state(Model(cfg, device="cpu"), torch.Generator(),
                    AdamWConfig())
-    with pytest.raises(ValueError, match="item 16c"):
+    # the sharded step (tests/test_torch_distributed.py) takes a
+    # distributed.sharding.Mesh with its devices
+    with pytest.raises(ValueError, match="sharding.Mesh with its devices"):
         make_train_step(Model(cfg, device="cpu", trainable=True),
                         TrainStepConfig(), mesh=object())
